@@ -1,0 +1,194 @@
+"""CUDA Gram kernel for the GP forecaster: build, bind and launch.
+
+Counterpart of ``repro/kernels/gp_gram.py:gp_gram``, the Pallas TPU
+kernel.  The kernels themselves, their bound on the card and their
+design are described in ``csrc/gp_gram.cu``.
+
+The source is compiled with ``nvcc`` for ``sm_90a`` into a shared
+library with a plain C interface and loaded with ``ctypes`` — no
+PyTorch headers, so a build takes seconds.  Nothing is built when this
+module is imported: the first launch builds (or reuses) the library
+under ``build/`` beside this file, keyed by a hash of the source and
+the flags.
+
+Each wrapper checks its tensors, allocates its outputs with
+``torch.empty``, launches on the current CUDA stream, raises if the
+launch returned an error, and counts its launches in a plain integer
+attribute (``gram_fwd.launches``, ``gram_bwd.launches``).
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import hashlib
+import os
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels.ref import KINDS
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "gp_gram.cu"
+BUILD_DIR = Path(__file__).resolve().parent / "build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+@dataclasses.dataclass(frozen=True)
+class Build:
+    path: Path      # the shared library
+    seconds: float  # nvcc wall time; 0.0 when an earlier build was reused
+    log: str        # nvcc's output, with -Xptxas -v's registers and spills
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME is None:
+        raise RuntimeError("no CUDA toolkit found (set CUDA_HOME or put nvcc "
+                           "on PATH) to build the gp_gram kernel")
+    return str(Path(CUDA_HOME) / "bin" / "nvcc")
+
+
+def build() -> Build:
+    """Compile ``csrc/gp_gram.cu`` unless a library of the same source and
+    flags exists.  Safe under concurrent callers: each compiles to its own
+    temporary file and renames it into place."""
+    tag = hashlib.sha256(SOURCE.read_bytes()
+                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    lib = BUILD_DIR / f"libgp_gram_{tag}.so"
+    log = BUILD_DIR / f"libgp_gram_{tag}.log"
+    if lib.exists() and log.exists():
+        return Build(lib, 0.0, log.read_text())
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = BUILD_DIR / f".{lib.name}.{os.getpid()}.tmp"
+    t0 = time.perf_counter()
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+                          capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    out = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n{out}")
+    log_tmp = tmp.with_suffix(".log")
+    log_tmp.write_text(out)
+    os.replace(log_tmp, log)
+    os.replace(tmp, lib)
+    return Build(lib, seconds, out)
+
+
+_LIB: ctypes.CDLL | None = None
+
+
+def _library() -> ctypes.CDLL:
+    global _LIB
+    if _LIB is None:
+        lib = ctypes.CDLL(str(build().path))
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.gp_gram_fwd.argtypes = [ptr] * 5 + [i32] * 5 + [ptr]
+        lib.gp_gram_fwd.restype = i32
+        lib.gp_gram_bwd.argtypes = [ptr] * 7 + [i32] * 5 + [ptr]
+        lib.gp_gram_bwd.restype = i32
+        _LIB = lib
+    return _LIB
+
+
+def _check(xa, xb, ell, sf, kind):
+    """Validate the kernels' inputs; return (B, M, N, D, kind code)."""
+    if kind not in KINDS:
+        raise ValueError(f"unknown kernel kind: {kind!r} (expected one of {KINDS})")
+    ts = {"xa": xa, "xb": xb, "ell": ell, "sf": sf}
+    for name, t in ts.items():
+        if t.device.type != "cuda" or t.device != xa.device:
+            raise ValueError(f"{name} is on {t.device}; all inputs must be on "
+                             f"one CUDA device ({xa.device})")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} is {t.dtype}; the kernel takes float32")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if xa.dim() != 3 or xb.dim() != 3 or ell.dim() != 1 or sf.dim() != 1:
+        raise ValueError("expected xa (B,M,D), xb (B,N,D), ell (B,), sf (B,); "
+                         f"got {tuple(xa.shape)}, {tuple(xb.shape)}, "
+                         f"{tuple(ell.shape)}, {tuple(sf.shape)}")
+    B, M, D = xa.shape
+    N = xb.shape[1]
+    if xb.shape[0] != B or xb.shape[2] != D or ell.shape[0] != B or sf.shape[0] != B:
+        raise ValueError("batch or feature sizes disagree: "
+                         f"xa {tuple(xa.shape)}, xb {tuple(xb.shape)}, "
+                         f"ell {tuple(ell.shape)}, sf {tuple(sf.shape)}")
+    if min(B, M, N, D) < 1 or max(B * M * N, B * M * D, B * N * D) >= 2**31:
+        raise ValueError(f"sizes B={B} M={M} N={N} D={D} out of the kernel's range")
+    return B, M, N, D, KINDS.index(kind)
+
+
+def gram_fwd(xa: torch.Tensor, xb: torch.Tensor, ell: torch.Tensor,
+             sf: torch.Tensor, kind: str = "exp") -> torch.Tensor:
+    """Launch the forward kernel: ``(B,M,D) x (B,N,D) -> (B,M,N)``."""
+    B, M, N, D, code = _check(xa, xb, ell, sf, kind)
+    lib = _library()
+    out = torch.empty((B, M, N), dtype=torch.float32, device=xa.device)
+    with torch.cuda.device(xa.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.gp_gram_fwd(xa.data_ptr(), xb.data_ptr(), ell.data_ptr(),
+                             sf.data_ptr(), out.data_ptr(), B, M, N, D, code,
+                             stream)
+    if rc != 0:
+        raise RuntimeError(f"gp_gram_fwd launch failed: CUDA error {rc}")
+    gram_fwd.launches += 1
+    return out
+
+
+def gram_bwd(grad: torch.Tensor, xa: torch.Tensor, xb: torch.Tensor,
+             ell: torch.Tensor, sf: torch.Tensor,
+             kind: str = "exp") -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the backward kernel: ``(d_ell, d_sf)``, each ``(B,)``."""
+    B, M, N, D, code = _check(xa, xb, ell, sf, kind)
+    if (grad.device != xa.device or grad.dtype != torch.float32
+            or not grad.is_contiguous() or tuple(grad.shape) != (B, M, N)):
+        raise ValueError(f"grad must be a contiguous float32 ({B}, {M}, {N}) "
+                         f"tensor on {xa.device}")
+    lib = _library()
+    d_ell = torch.empty((B,), dtype=torch.float32, device=xa.device)
+    d_sf = torch.empty((B,), dtype=torch.float32, device=xa.device)
+    with torch.cuda.device(xa.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.gp_gram_bwd(grad.data_ptr(), xa.data_ptr(), xb.data_ptr(),
+                             ell.data_ptr(), sf.data_ptr(), d_ell.data_ptr(),
+                             d_sf.data_ptr(), B, M, N, D, code, stream)
+    if rc != 0:
+        raise RuntimeError(f"gp_gram_bwd launch failed: CUDA error {rc}")
+    gram_bwd.launches += 1
+    return d_ell, d_sf
+
+
+gram_fwd.launches = 0
+gram_bwd.launches = 0
+
+
+def reset_launch_counts() -> None:
+    gram_fwd.launches = 0
+    gram_bwd.launches = 0
+
+
+class Gram(torch.autograd.Function):
+    """The CUDA Gram matrix, differentiable in ``(ell, sf)`` only.
+
+    The GP's evidence loop differentiates the Gram matrix with respect to
+    its hyper-parameters alone (``core/forecast/gp.py``); the pattern
+    sets ``xa``, ``xb`` get no gradient, and asking for one raises."""
+
+    @staticmethod
+    def forward(ctx, xa, xb, ell, sf, kind):
+        ctx.save_for_backward(xa, xb, ell, sf)
+        ctx.kind = kind
+        return gram_fwd(xa, xb, ell, sf, kind)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
+            raise NotImplementedError(
+                "the gp_gram kernel has no gradient with respect to the patterns")
+        xa, xb, ell, sf = ctx.saved_tensors
+        d_ell, d_sf = gram_bwd(grad.contiguous(), xa, xb, ell, sf, ctx.kind)
+        return None, None, d_ell, d_sf, None

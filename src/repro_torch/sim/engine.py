@@ -1,0 +1,385 @@
+"""Simulation engine (paper §4): FIFO scheduler + monitor + forecast +
+resource shaper, advanced in 60 s monitoring ticks.
+
+Counterpart of the reference's vectorized host engine
+(``repro/sim/engine.py``).  Per tick:
+
+  1. arrivals enter the FIFO queue (priority = ORIGINAL submit time);
+  2. running apps progress (elastic rate model), completions recorded;
+  3. the monitor samples per-component CPU/memory usage;
+  4. past the grace period, the forecaster predicts each component's
+     future peak utilization and its variance, the safeguard (Eq. 9)
+     turns it into a shaped demand, and the shaping policy (baseline /
+     optimistic / pessimistic Algorithm 1) computes allocations and
+     preemptions;
+  5. the OS OOM handler fires for any host whose true usage exceeds
+     capacity (the uncontrolled-failure channel);
+  6. the scheduler admits queued apps into freed capacity and re-places
+     missing elastic components.
+
+The cluster, monitor and queue stay numpy on the host, as in the
+reference.  The forecast, the safeguard and the shaping policy run on
+the engine's ``device`` — the CUDA card unless the caller asks for the
+CPU.  Given the same forecasts, every decision equals the reference's.
+
+Not ported in this slice, and refused by :func:`run_sim`: the ARIMA
+forecaster, conformal calibration (``calibration.enabled``) and the
+multi-tenant control plane (``control.enabled``).  ``obs``, ``leap``
+and ``forecast_bucket`` configure the reference's device engine; the
+host engine ignores them, as the reference's does.
+"""
+from __future__ import annotations
+
+import bisect
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.core.forecast import GPConfig, GPForecaster, peak_over_horizon
+from repro_torch.core.monitor import Monitor
+from repro_torch.core.shaper import (POLICIES, SafeguardConfig, ShapeProblem,
+                                     shaped_demand)
+from repro_torch.core.uncertainty import bucket_pow2
+from repro_torch.device import resolve_device
+from repro_torch.sim.cluster import CPU, MEM, Cluster, ClusterConfig
+from repro_torch.sim.metrics import SimResults
+from repro_torch.sim.scenarios.registry import build_trace
+from repro_torch.sim.workload import Workload, WorkloadConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class Switch:
+    """A block of the reference's ``SimConfig`` whose feature is not ported
+    yet: only its on/off switch is kept, and ``run_sim`` refuses "on"."""
+    enabled: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class SimConfig:
+    cluster: ClusterConfig = ClusterConfig()
+    workload: WorkloadConfig = WorkloadConfig()
+    policy: str = "pessimistic"          # baseline | optimistic | pessimistic
+    forecaster: str = "gp"               # oracle | gp | persist (arima: not ported)
+    safeguard: SafeguardConfig = SafeguardConfig()
+    calibration: Switch = Switch()       # conformal safeguard (not ported)
+    control: Switch = Switch()           # multi-tenant control plane (not ported)
+    obs: Switch = Switch()               # device telemetry rings (device engine only)
+    window: int = 24                     # monitor window (ticks)
+    grace: int = 10                      # grace period (paper §5: 10 min)
+    horizon: int = 3                     # forecast look-ahead (ticks)
+    gp: GPConfig = GPConfig(history=10, max_patterns=10, opt_steps=10)
+    arima: tuple = ()                    # ARIMA settings (not ported)
+    max_ticks: int = 100_000
+    work_lost_on_kill: bool = True       # kill primitive loses all work
+    leap: bool = False                   # device engine only
+    forecast_bucket: bool = True         # device engine only
+
+
+def _check_ported(cfg: SimConfig) -> None:
+    if cfg.forecaster == "arima":
+        raise NotImplementedError("the ARIMA forecaster is not ported yet")
+    if cfg.calibration.enabled:
+        raise NotImplementedError("conformal calibration is not ported yet")
+    if cfg.control.enabled:
+        raise NotImplementedError("the multi-tenant control plane is not ported yet")
+    if cfg.forecaster not in ("gp", "persist", "oracle"):
+        raise ValueError(f"unknown forecaster {cfg.forecaster!r} "
+                         "(expected oracle | gp | persist)")
+    if cfg.policy not in POLICIES:
+        raise ValueError(f"unknown policy {cfg.policy!r} "
+                         f"(expected one of {tuple(POLICIES)})")
+
+
+def forecast_peaks(model, horizon: int, windows: np.ndarray, valid: np.ndarray,
+                   device: torch.device):
+    """Pad (n, W) windows to a power-of-two bucket, forecast them on
+    ``device`` and return each row's (peak mean, its variance) as numpy.
+    Row i's result depends only on row i, so the padding changes no real
+    row; it keeps the kernels at the few batch shapes of the reference."""
+    n, width = windows.shape
+    b = bucket_pow2(n)
+    wpad = np.zeros((b, width), np.float32)
+    vpad = np.zeros((b, width), bool)
+    wpad[:n], vpad[:n] = windows, valid
+    peak, pvar = peak_over_horizon(
+        model.forecast_batch(wpad, horizon, valid=vpad, device=device))
+    return peak[:n].cpu().numpy(), pvar[:n].cpu().numpy()
+
+
+class _BatchedForecaster:
+    """The engine's default forecast client: ``(windows, valid) -> (mean,
+    var)`` over ``(n, W)`` numpy windows."""
+
+    def __init__(self, cfg: SimConfig, device: torch.device):
+        self.cfg = cfg
+        self.device = device
+        self._model = GPForecaster(cfg.gp) if cfg.forecaster == "gp" else None
+
+    def __call__(self, windows: np.ndarray, valid: np.ndarray):
+        if self.cfg.forecaster == "persist":
+            mean = windows[:, -1]
+            var = windows.var(axis=1, where=valid) + 1e-6
+            return mean, var
+        return forecast_peaks(self._model, self.cfg.horizon, windows, valid,
+                              self.device)
+
+
+def _oracle_peaks(cluster: Cluster, wl: Workload, horizon: int,
+                  tick: float) -> np.ndarray:
+    """(A, C, 2) true future peak usage over the horizon (variance 0)."""
+    A, C = cluster.A, cluster.C
+    out = np.zeros((A, C, 2), np.float32)
+    run = cluster.running_slots()
+    if run.size == 0:
+        return out
+    gids = cluster.slot_gid[run]
+    rate = cluster.progress_rate(wl)[run]
+    peaks = np.zeros((run.size, C, 2), np.float32)
+    for k in range(1, horizon + 1):
+        prog = np.clip((cluster.work_done[run] + rate * tick * k)
+                       / wl.runtime[gids], 0.0, 1.0)
+        u = wl.usage(gids, prog) * cluster.comp_running[run][:, :, None]
+        peaks = np.maximum(peaks, u)
+    out[run] = peaks
+    return out
+
+
+def _shaped_demand(peak, req, var, sg: SafeguardConfig,
+                   device: torch.device) -> np.ndarray:
+    """Eq. 9 on ``device`` over numpy inputs (float32, as the reference's
+    ``jnp.asarray`` with x64 off makes them)."""
+    def t(x):
+        return torch.as_tensor(np.array(x, dtype=np.float32), device=device)
+    return shaped_demand(t(peak), t(req), t(var), sg).cpu().numpy()
+
+
+class _PhaseClock:
+    """Wall seconds per engine phase.  On a CUDA device it synchronises at
+    each split, so a phase's time includes the device work it queued."""
+
+    def __init__(self, device: torch.device):
+        self.sync = (torch.cuda.synchronize if device.type == "cuda"
+                     else (lambda: None))
+        self.seconds = {"forecast": 0.0, "policy": 0.0}
+
+    def timed(self, phase: str, fn):
+        def run(*args):
+            self.sync()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            self.sync()
+            self.seconds[phase] += time.perf_counter() - t0
+            return out
+        return run
+
+
+def _shape_decisions(cfg: SimConfig, cl: Cluster, wl: Workload, mon: Monitor,
+                     fc, policy_fn, submit0: np.ndarray, run: np.ndarray,
+                     t: float, tick: float, device: torch.device):
+    """Forecast -> safeguard -> Algorithm 1 for one tick.  Returns numpy
+    (kill_app, kill_comp, alloc_cpu, alloc_mem)."""
+    A, C = cl.A, cl.C
+    gids = cl.slot_gid[run]
+    req = np.stack([wl.cpu_req[gids], wl.mem_req[gids]], -1)  # (n,C,2)
+    running = cl.comp_running[run]
+    demand = np.where(running[:, :, None], req, 0.0).astype(np.float32)
+
+    if cfg.forecaster == "oracle":
+        # perfect information needs no training history: the grace
+        # period (paper §5) exists only for statistical models
+        peaks = _oracle_peaks(cl, wl, cfg.horizon, tick)[run]
+        var = np.zeros_like(peaks)
+        shaped = _shaped_demand(peaks, req, var, cfg.safeguard, device)
+        demand = np.where(running[:, :, None], shaped, demand)
+    else:
+        rc = np.nonzero(running)
+        mslots = run[rc[0]] * C + rc[1]
+        ready = mon.ready(mslots, cfg.grace)
+        if ready.any():
+            sel = np.nonzero(ready)[0]
+            wins, vmask = mon.windows(mslots[sel])
+            n = sel.size
+            wflat = np.concatenate([wins[:, :, CPU], wins[:, :, MEM]])
+            vflat = np.concatenate([vmask, vmask])
+            mean, var = fc(wflat, vflat)
+            reqs = req[rc[0][sel], rc[1][sel]]     # (n, 2)
+            for r, off in ((CPU, 0), (MEM, n)):
+                demand[rc[0][sel], rc[1][sel], r] = _shaped_demand(
+                    mean[off:off + n], reqs[:, r], var[off:off + n],
+                    cfg.safeguard, device)
+
+    # build the fixed-size ShapeProblem over ALL slots
+    dem_full = np.zeros((A, C, 2), np.float32)
+    dem_full[run] = demand
+    app_exists = cl.slot_gid >= 0
+    order = np.full((A,), -1, np.int64)
+    fifo = np.argsort(submit0[np.maximum(cl.slot_gid, 0)]
+                      + np.where(app_exists, 0, 1e18))
+    order[:run.size] = fifo[:run.size]
+
+    def t_(x, dtype):
+        return torch.as_tensor(x, dtype=dtype, device=device)
+
+    prob = ShapeProblem(
+        host_cpu=t_(cl.host_cap[:, CPU], torch.float32),
+        host_mem=t_(cl.host_cap[:, MEM], torch.float32),
+        app_exists=t_(app_exists, torch.bool),
+        app_order=t_(order, torch.int64),
+        comp_exists=t_(cl.comp_running, torch.bool),
+        comp_core=t_(wl.is_core[np.maximum(cl.slot_gid, 0)]
+                     & app_exists[:, None], torch.bool),
+        comp_host=t_(cl.comp_host, torch.int64),
+        comp_cpu=t_(dem_full[:, :, CPU], torch.float32),
+        comp_mem=t_(dem_full[:, :, MEM], torch.float32),
+        comp_alive=t_(t - cl.alive_since, torch.float32),
+    )
+    dec = policy_fn(prob)
+    return (dec.kill_app.cpu().numpy(), dec.kill_comp.cpu().numpy(),
+            dec.alloc_cpu.cpu().numpy(), dec.alloc_mem.cpu().numpy())
+
+
+def run_sim(cfg: SimConfig, wl: Workload | None = None, *, forecast_fn=None,
+            device: str | torch.device = "cuda") -> SimResults:
+    """Run one simulation to completion (or ``cfg.max_ticks``).
+
+    ``forecast_fn(windows, valid) -> (mean, var)`` overrides the default
+    forecast client (numpy in, numpy out).  ``wl`` overrides the trace
+    that ``cfg.workload`` would build.  ``device`` is where forecasts,
+    the safeguard and the policy run: CUDA unless the caller asks for
+    the CPU, and asking for CUDA without a card raises.
+
+    ``SimResults.timings`` holds the wall seconds spent in the forecast
+    and in the policy, the whole run's seconds and the tick count.
+    """
+    dev = resolve_device(device)
+    _check_ported(cfg)
+    wl = wl if wl is not None else build_trace(cfg.workload)
+    N, C = wl.n_apps, wl.max_components
+    cl = Cluster(cfg.cluster, C)
+    A = cl.A
+    mon = Monitor(slots=A * C, window=cfg.window)
+    clock = _PhaseClock(dev)
+    fc = clock.timed("forecast", forecast_fn if forecast_fn is not None
+                     else _BatchedForecaster(cfg, dev))
+    policy_fn = clock.timed("policy", POLICIES[cfg.policy])
+    res = SimResults(n_apps=N)
+    tick = cfg.cluster.tick
+    all_comps = np.arange(C)[None, :]     # broadcast helper for mon resets
+
+    queue: list[tuple[float, int]] = []   # (original submit, gid) sorted
+    arrived = 0
+    done = np.zeros((N,), bool)
+    submit0 = wl.submit.copy()            # original submit (priority key)
+    # preempt-to-checkpoint mode (work_lost_on_kill=False): a preempted
+    # app resumes from its last saved progress instead of restarting
+    saved_work: dict[int, float] = {}
+
+    def requeue(gid: int):
+        bisect.insort(queue, (float(submit0[gid]), gid))
+
+    t0 = time.perf_counter()
+    t = 0.0
+    ticks = 0
+    for step in range(cfg.max_ticks):
+        if done.all():
+            break
+        t += tick
+        ticks += 1
+
+        # 1. arrivals ---------------------------------------------------
+        while arrived < N and wl.submit[arrived] <= t:
+            requeue(arrived)
+            arrived += 1
+
+        # 2. progress + completions (array scan over the slot table) ------
+        rate = cl.progress_rate(wl)
+        cl.work_done += rate * tick
+        run = cl.running_slots()
+        fin = run[cl.work_done[run] >= wl.runtime[cl.slot_gid[run]]]
+        if fin.size:
+            mon.reset_slot((fin[:, None] * C + all_comps).ravel())
+            fin_gids = cl.evict_apps(fin)
+            done[fin_gids] = True
+            for gid in fin_gids:
+                res.record_completion(int(gid), submit0[gid], t)
+
+        # 3. monitor sampling --------------------------------------------
+        usage = cl.usage_now(wl)
+        run = cl.running_slots()
+        if run.size:
+            rc = np.nonzero(cl.comp_running[run])  # (slot_i, c)
+            mslots = run[rc[0]] * C + rc[1]
+            mon.record(mslots, usage[run][rc][:, CPU], usage[run][rc][:, MEM])
+
+        # 4. shaping ------------------------------------------------------
+        # two kill channels (paper §4.2): controlled preemptions
+        # (Algorithm 1) vs uncontrolled OS OOM kills (the "application
+        # failures" of Figs. 3-4)
+        preempted_this_tick: list[int] = []
+        oom_failed_this_tick: list[int] = []
+        if cfg.policy != "baseline" and run.size:
+            kill_app, kill_comp, alloc_cpu, alloc_mem = _shape_decisions(
+                cfg, cl, wl, mon, fc, policy_fn, submit0, run, t, tick, dev)
+
+            kills = np.nonzero(kill_app & (cl.slot_gid >= 0))[0]
+            if kills.size:
+                if not cfg.work_lost_on_kill:
+                    for gid0, wd in zip(cl.slot_gid[kills],
+                                        cl.work_done[kills]):
+                        saved_work[int(gid0)] = float(wd)
+                kgids = cl.evict_apps(kills)
+                usage[kills] = 0.0
+                mon.reset_slot((kills[:, None] * C + all_comps).ravel())
+                if cfg.policy == "optimistic":
+                    # optimistic-concurrency conflict: an UNCONTROLLED failure
+                    oom_failed_this_tick.extend(int(g) for g in kgids)
+                else:
+                    preempted_this_tick.extend(int(g) for g in kgids)
+                    res.full_preemptions += kills.size
+            ks, kc = np.nonzero(kill_comp & (cl.slot_gid >= 0)[:, None]
+                                & cl.comp_running)
+            if ks.size:
+                cl.kill_components(ks, kc)
+                usage[ks, kc] = 0.0
+                mon.reset_slot(ks * C + kc)
+                res.partial_preemptions += ks.size
+            live = cl.comp_running
+            cl.alloc[:, :, CPU] = np.where(live, alloc_cpu, 0.0)
+            cl.alloc[:, :, MEM] = np.where(live, alloc_mem, 0.0)
+
+        # 5. OOM (uncontrolled failures) -----------------------------------
+        oom_gids, oom_partial = cl.resolve_oom(wl, usage)
+        for gid in oom_gids:
+            oom_failed_this_tick.append(gid)
+            res.oom_kills += 1
+        res.partial_preemptions += len(oom_partial)
+        if oom_partial:
+            parr = np.asarray(oom_partial, np.int64)
+            mon.reset_slot(parr[:, 0] * C + parr[:, 1])
+
+        for gid in oom_failed_this_tick:
+            res.record_failure(gid)
+        for gid in oom_failed_this_tick + preempted_this_tick:
+            requeue(gid)
+
+        # 6. scheduler: FIFO admission + elastic re-placement --------------
+        while queue:
+            _, gid = queue[0]
+            slot = cl.admit(gid, wl, t)
+            if slot < 0:
+                break
+            queue.pop(0)
+            if not cfg.work_lost_on_kill and gid in saved_work:
+                cl.work_done[slot] = saved_work.pop(gid)  # resume from ckpt
+            mon.reset_slot(slot * C + np.arange(C))
+        cl.place_missing_elastic(wl, t)
+
+        # 7. metrics -------------------------------------------------------
+        res.record_tick(t, cl, usage)
+
+    res.finalize(t)
+    res.timings = dict(clock.seconds, total=time.perf_counter() - t0,
+                       ticks=ticks)
+    return res

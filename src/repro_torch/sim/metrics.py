@@ -1,0 +1,80 @@
+"""Simulation metrics (paper §4.1): turnaround, resource slack, failures.
+
+A copy of ``SimResults`` from ``repro/sim/metrics.py`` (numpy only),
+without the telemetry blocks of features not ported yet, plus the
+engine's per-phase wall times.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+CPU, MEM = 0, 1
+
+
+@dataclasses.dataclass
+class SimResults:
+    n_apps: int
+    turnaround: dict = dataclasses.field(default_factory=dict)   # gid -> s
+    failed_apps: set = dataclasses.field(default_factory=set)
+    failure_events: int = 0          # uncontrolled (OS OOM) kills
+    oom_kills: int = 0
+    full_preemptions: int = 0        # controlled (Algorithm 1) app preemptions
+    partial_preemptions: int = 0     # elastic-component preemptions
+    # per-tick series
+    slack_cpu: list = dataclasses.field(default_factory=list)
+    slack_mem: list = dataclasses.field(default_factory=list)
+    util_cpu: list = dataclasses.field(default_factory=list)
+    util_mem: list = dataclasses.field(default_factory=list)
+    n_running: list = dataclasses.field(default_factory=list)
+    sim_time: float = 0.0
+    # wall seconds per engine phase ("forecast", "policy", "total") and the
+    # tick count; NOT part of summary(), which the parity tests compare
+    timings: dict = dataclasses.field(default_factory=dict)
+
+    def record_completion(self, gid: int, submit: float, t: float) -> None:
+        self.turnaround[int(gid)] = float(t - submit)
+
+    def record_failure(self, gid: int) -> None:
+        self.failed_apps.add(int(gid))
+        self.failure_events += 1
+
+    def record_tick(self, t: float, cluster, usage: np.ndarray) -> None:
+        run = cluster.running_slots()
+        self.n_running.append(len(run))
+        cap = cluster.host_cap.sum(0)
+        used = usage.sum((0, 1))
+        alloc = cluster.alloc.sum((0, 1))
+        self.util_cpu.append(used[CPU] / cap[CPU])
+        self.util_mem.append(used[MEM] / cap[MEM])
+        # slack: (allocated - used) / allocated, cluster-aggregate (paper
+        # §4.1: % allocated vs % actually used)
+        self.slack_cpu.append(
+            float((alloc[CPU] - used[CPU]) / alloc[CPU]) if alloc[CPU] > 0 else 0.0)
+        self.slack_mem.append(
+            float((alloc[MEM] - used[MEM]) / alloc[MEM]) if alloc[MEM] > 0 else 0.0)
+
+    def finalize(self, t: float) -> None:
+        self.sim_time = float(t)
+
+    # ------------------------------------------------------------------
+    def summary(self) -> dict:
+        ta = np.asarray(list(self.turnaround.values()), np.float64)
+        return {
+            "completed": len(self.turnaround),
+            "n_apps": self.n_apps,
+            "sim_hours": self.sim_time / 3600.0,
+            "turnaround_mean": float(ta.mean()) if ta.size else float("nan"),
+            "turnaround_median": float(np.median(ta)) if ta.size else float("nan"),
+            "turnaround_p95": float(np.percentile(ta, 95)) if ta.size else float("nan"),
+            "slack_cpu_mean": float(np.mean(self.slack_cpu)) if self.slack_cpu else float("nan"),
+            "slack_mem_mean": float(np.mean(self.slack_mem)) if self.slack_mem else float("nan"),
+            "util_cpu_mean": float(np.mean(self.util_cpu)) if self.util_cpu else float("nan"),
+            "util_mem_mean": float(np.mean(self.util_mem)) if self.util_mem else float("nan"),
+            "failed_frac": len(self.failed_apps) / max(self.n_apps, 1),
+            "failure_events": self.failure_events,
+            "oom_kills": self.oom_kills,
+            "full_preemptions": self.full_preemptions,
+            "partial_preemptions": self.partial_preemptions,
+        }

@@ -1,0 +1,118 @@
+"""The port's host engine end to end against the reference's
+(``repro.sim.engine.run_sim``), and the conversion of config and trace."""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro.sim import ClusterConfig, SimConfig, WorkloadConfig
+from repro.sim import engine as reng
+from repro.sim import workload as rworkload
+from repro.sim.scenarios.registry import build_trace
+from repro.sim.sweep import quick_base_config
+from repro_torch import convert
+from repro_torch.sim import engine as tengine
+from repro_torch.sim import workload as tworkload
+
+# README.md's quickstart config
+README_CFG = SimConfig(
+    cluster=ClusterConfig(n_hosts=2, max_running_apps=8),
+    workload=WorkloadConfig(n_apps=12, max_components=4, max_runtime=900.0,
+                            mean_burst_gap=4.0, mean_long_gap=60.0, seed=0),
+    policy="pessimistic", forecaster="persist", max_ticks=2000)
+CONFIGS = {"readme": README_CFG, "quick": quick_base_config()}
+
+
+def _columns(tr):
+    return {f.name: getattr(tr, f.name)
+            for f in dataclasses.fields(tr) if f.name != "cfg"}
+
+
+def _port_inputs(cfg):
+    tr = build_trace(cfg.workload)
+    return (convert.sim_config_from_dict(dataclasses.asdict(cfg)),
+            convert.trace_from_arrays(**_columns(tr)), tr)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 7])
+def test_google_trace_bit_identical(seed):
+    rcfg = rworkload.WorkloadConfig(n_apps=200, seed=seed, n_tenants=1 + seed % 3)
+    want = rworkload.generate(rcfg)
+    got = tworkload.generate(tworkload.WorkloadConfig(**dataclasses.asdict(rcfg)))
+    conv = convert.trace_from_arrays(**_columns(want))
+    for name, col in _columns(want).items():
+        for tr in (got, conv):
+            a = getattr(tr, name)
+            assert a.dtype == col.dtype and np.array_equal(a, col), name
+    assert not np.shares_memory(conv.levels, want.levels)
+
+
+@pytest.mark.parametrize("policy", ["pessimistic", "optimistic", "baseline"])
+@pytest.mark.parametrize("forecaster", ["persist", "oracle"])
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_summary_equals_reference(name, forecaster, policy):
+    cfg = dataclasses.replace(CONFIGS[name], forecaster=forecaster, policy=policy)
+    pcfg, ptr, tr = _port_inputs(cfg)
+    want = reng.run_sim(cfg, tr).summary()
+    got = tengine.run_sim(pcfg, ptr, device="cpu").summary()
+    assert got == want
+
+
+def test_gp_with_shared_forecasts_equals_reference():
+    """With one forecast client for both engines, everything downstream
+    of the forecast — safeguard, Algorithm 1, OOM, admission — must
+    reproduce the reference's run exactly."""
+    cfg = dataclasses.replace(quick_base_config(), forecaster="gp")
+    pcfg, ptr, tr = _port_inputs(cfg)
+    model = reng._make_model(cfg)
+
+    def shared(windows, valid):
+        return reng.forecast_peaks(model, cfg.horizon, windows, valid)
+
+    want = reng.run_sim(cfg, tr, forecast_fn=shared).summary()
+    got = tengine.run_sim(pcfg, ptr, forecast_fn=shared, device="cpu").summary()
+    assert got == want
+    assert want["full_preemptions"] > 0 and want["partial_preemptions"] > 0
+
+
+def test_gp_end_to_end_close_to_reference():
+    """The port's own GP.  Not exact: the two GPs agree only to fp32
+    conditioning (a window's first forecast, with h+1 valid points,
+    rests on a single pattern row; and the reference's Gram diagonal
+    carries rounding noise the port's does not — see
+    test_torch_forecast.py), so a shaping decision can flip.  A flip is
+    recorded in ROADMAP queue 3, not absorbed by a wider tolerance."""
+    cfg = dataclasses.replace(quick_base_config(), forecaster="gp")
+    pcfg, ptr, tr = _port_inputs(cfg)
+    want = reng.run_sim(cfg, tr).summary()
+    res = tengine.run_sim(pcfg, ptr, device="cpu")
+    got = res.summary()
+    assert got["completed"] == want["completed"]
+    np.testing.assert_allclose(got["turnaround_mean"], want["turnaround_mean"],
+                               rtol=1e-2)
+    assert res.timings["ticks"] > 0 and res.timings["forecast"] > 0
+
+
+def test_unported_features_are_refused():
+    d = dataclasses.asdict(quick_base_config())
+    for block in ("calibration", "control"):
+        bad = dataclasses.replace(quick_base_config(), **{block: dataclasses.replace(
+            getattr(quick_base_config(), block), enabled=True)})
+        with pytest.raises(NotImplementedError, match=block):
+            convert.sim_config_from_dict(dataclasses.asdict(bad))
+    pcfg = convert.sim_config_from_dict(d)
+    assert pcfg.gp == tengine.GPConfig(history=10, max_patterns=10, opt_steps=10)
+    with pytest.raises(NotImplementedError, match="ARIMA"):
+        tengine.run_sim(dataclasses.replace(pcfg, forecaster="arima"), device="cpu")
+    with pytest.raises(NotImplementedError, match="calibration"):
+        tengine.run_sim(dataclasses.replace(pcfg, calibration=tengine.Switch(True)),
+                        device="cpu")
+    with pytest.raises(TypeError, match="unknown trace columns"):
+        convert.trace_from_arrays(bogus=np.zeros(3))
+
+
+def test_run_sim_defaults_to_cuda_and_raises_without_it(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tengine.run_sim(tengine.SimConfig(forecaster="persist", max_ticks=1))

@@ -1,0 +1,65 @@
+"""The port stands alone: it imports neither JAX nor the reference
+package, builds nothing at import, and its entry points default to CUDA."""
+import ast
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import jax  # noqa: F401  (every port test file imports both frameworks)
+import pytest
+import torch
+
+import repro_torch
+
+PKG = Path(repro_torch.__file__).resolve().parent
+MODULES = sorted(
+    ".".join(p.relative_to(PKG.parent).with_suffix("").parts).removesuffix(".__init__")
+    for p in PKG.rglob("*.py"))
+
+
+def _run(code: str) -> dict:
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, check=True, cwd=PKG.parent,
+                         env={"PATH": "", "PYTHONPATH": str(PKG.parent)})
+    return json.loads(out.stdout.splitlines()[-1])
+
+
+def test_every_module_imports_without_jax_or_reference():
+    got = _run(
+        "import importlib, json, sys\n"
+        f"for m in {MODULES!r}: importlib.import_module(m)\n"
+        "print(json.dumps(sorted(m for m in sys.modules\n"
+        "      if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))))")
+    assert len(MODULES) > 20
+    assert got == []
+
+
+def test_no_source_file_imports_jax_or_reference():
+    bad = []
+    for path in PKG.rglob("*.py"):
+        for node in ast.walk(ast.parse(path.read_text())):
+            names = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                     else [node.module or ""] if isinstance(node, ast.ImportFrom)
+                     else [])
+            bad += [f"{path.name}: {n}" for n in names
+                    if n.split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert not bad
+
+
+def test_importing_the_kernel_module_builds_nothing():
+    got = _run(
+        "import json, subprocess\n"
+        "calls = []\n"
+        "subprocess.run = lambda *a, **k: calls.append(a)\n"
+        "from repro_torch.kernels import gp_gram, ops\n"
+        "print(json.dumps([len(calls), gp_gram._LIB is None,\n"
+        "                  gp_gram.gram_fwd.launches, gp_gram.gram_bwd.launches]))")
+    assert got == [0, True, 0, 0]
+
+
+def test_run_sim_without_device_raises_on_a_cpu_only_machine(monkeypatch):
+    from repro_torch.sim import SimConfig, run_sim
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_sim(SimConfig())

@@ -1,0 +1,175 @@
+"""The port's Gram matrix against the JAX reference (CPU), and the CUDA
+kernels against their plain PyTorch versions (card only, ``-m gpu``).
+
+Inputs are made with numpy from a seed and handed to both frameworks.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.kernels import gp_gram, ops, ref
+
+# the shapes of tests/test_kernels.py::test_gram_matches_ref
+SHAPES = [(1, 1, 1), (7, 5, 3), (10, 10, 11), (40, 40, 41), (128, 128, 128),
+          (130, 60, 17)]
+# the main path's shapes: B series of (10 x 11) patterns against
+# themselves (fit) and one (1 x 11) query against them (horizon steps)
+MAIN_PATH = [(b, m) for b in (128, 256, 512) for m in (10, 1)]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _pair(m, n, d, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((m, d)).astype(np.float32),
+            rng.standard_normal((n, d)).astype(np.float32))
+
+
+def _t(x):
+    return torch.as_tensor(x)[None]
+
+
+def _hyper(b, seed=1):
+    rng = np.random.default_rng(seed)
+    return (rng.uniform(0.3, 3.0, b).astype(np.float32),
+            rng.uniform(0.3, 3.0, b).astype(np.float32))
+
+
+@pytest.mark.parametrize("kind", ["exp", "rbf"])
+@pytest.mark.parametrize("m,n,d", SHAPES)
+def test_gram_matches_reference(kind, m, n, d):
+    xa, xb = _pair(m, n, d)
+    got = ref.gram(_t(xa), _t(xb), torch.tensor([0.7]), torch.tensor([1.3]),
+                   kind=kind)[0].numpy()
+    want = np.asarray(jref.gram(jnp.asarray(xa), jnp.asarray(xb), 0.7, 1.3,
+                                kind=kind))
+    pallas = np.asarray(jops.gram(jnp.asarray(xa), jnp.asarray(xb), 0.7, 1.3,
+                                  kind=kind, impl="pallas"))
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-6)
+    np.testing.assert_allclose(got, pallas, rtol=2e-5, atol=2e-6)
+
+
+@pytest.mark.parametrize("kind", ["exp", "rbf"])
+def test_gram_properties(kind):
+    x, _ = _pair(12, 1, 5)
+    K = ops.gram(_t(x), _t(x), torch.tensor([1.0]), torch.tensor([2.0]),
+                 kind=kind)[0].numpy()
+    np.testing.assert_allclose(K, K.T, atol=1e-5)          # symmetry
+    # diag = sf^2 within the reference's own tolerance for the identity
+    np.testing.assert_allclose(np.diag(K), 4.0, rtol=3e-3)
+    assert (K > 0).all() and (K <= 4.0 + 1e-4).all()
+
+
+@pytest.mark.parametrize("kind", ["exp", "rbf"])
+def test_gram_batched_equals_per_series(kind):
+    rng = np.random.default_rng(3)
+    xa = torch.as_tensor(rng.standard_normal((6, 10, 11)).astype(np.float32))
+    xb = torch.as_tensor(rng.standard_normal((6, 9, 11)).astype(np.float32))
+    ell, sf = map(torch.as_tensor, _hyper(6))
+    K = ops.gram(xa, xb, ell, sf, kind=kind)
+    for b in range(6):
+        Kb = ops.gram(xa[b:b + 1], xb[b:b + 1], ell[b:b + 1], sf[b:b + 1],
+                      kind=kind)
+        assert torch.equal(K[b], Kb[0])
+
+
+@pytest.mark.parametrize("kind", ["exp", "rbf"])
+@pytest.mark.parametrize("m,n,d", [(10, 10, 11), (1, 10, 11), (7, 5, 3)])
+def test_gram_grad_matches_jax(kind, m, n, d):
+    """Autograd (d_ell, d_sf) of the CPU path, and the analytic form the
+    backward kernel computes, against jax.grad of the reference."""
+    xa, xb = _pair(m, n, d, seed=4)
+    G = np.random.default_rng(5).standard_normal((m, n)).astype(np.float32)
+
+    def loss(ell, sf):
+        return jnp.sum(jnp.asarray(G) * jref.gram(jnp.asarray(xa), jnp.asarray(xb),
+                                                  ell, sf, kind=kind))
+
+    want = np.asarray(jax.grad(loss, argnums=(0, 1))(jnp.float32(0.8),
+                                                    jnp.float32(1.4)))
+    ell = torch.tensor([0.8], requires_grad=True)
+    sf = torch.tensor([1.4], requires_grad=True)
+    (ops.gram(_t(xa), _t(xb), ell, sf, kind=kind) * _t(G)).sum().backward()
+    got = np.array([ell.grad[0].item(), sf.grad[0].item()])
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+    d_ell, d_sf = ref.gram_bwd(_t(G), _t(xa), _t(xb), torch.tensor([0.8]),
+                               torch.tensor([1.4]), kind=kind)
+    np.testing.assert_allclose([d_ell[0].item(), d_sf[0].item()], got,
+                               rtol=1e-5, atol=1e-6)
+
+
+def test_wrappers_refuse_cpu_tensors_and_bad_kinds():
+    x = torch.zeros((1, 2, 3))
+    p = torch.ones((1,))
+    with pytest.raises(ValueError, match="CUDA"):
+        gp_gram.gram_fwd(x, x, p, p)
+    with pytest.raises(ValueError, match="kind"):
+        ref.gram(x, x, p, p, kind="matern")
+    with pytest.raises(ValueError, match="device"):
+        ops.gram(x.to("meta"), x.to("meta"), p, p)
+
+
+# ----------------------------------------------------------------------
+# on the card
+# ----------------------------------------------------------------------
+
+def _cuda_inputs(b, m, n, d, dev, same=False, seed=0):
+    rng = np.random.default_rng(seed)
+    xb = rng.standard_normal((b, n, d)).astype(np.float32)
+    xa = xb[:, :m] if same else rng.standard_normal((b, m, d)).astype(np.float32)
+    ell, sf = _hyper(b, seed + 1)
+    G = rng.standard_normal((b, m, n)).astype(np.float32)
+    return [torch.as_tensor(np.ascontiguousarray(a), device=dev)
+            for a in (xa, xb, ell, sf, G)]
+
+
+def _check_on_card(xa, xb, ell, sf, G, kind):
+    n0, n1 = gp_gram.gram_fwd.launches, gp_gram.gram_bwd.launches
+    K = gp_gram.gram_fwd(xa, xb, ell, sf, kind)
+    d_ell, d_sf = gp_gram.gram_bwd(G, xa, xb, ell, sf, kind)
+    torch.cuda.synchronize()
+    assert (gp_gram.gram_fwd.launches, gp_gram.gram_bwd.launches) == (n0 + 1, n1 + 1)
+    torch.testing.assert_close(K, ref.gram(xa, xb, ell, sf, kind),
+                               rtol=2e-5, atol=2e-6)
+    w_ell, w_sf = ref.gram_bwd(G, xa, xb, ell, sf, kind)
+    # per-series sums: block reduction vs PyTorch's reduction order
+    torch.testing.assert_close(d_ell, w_ell, rtol=2e-5, atol=2e-6 * G[0].numel())
+    torch.testing.assert_close(d_sf, w_sf, rtol=2e-5, atol=2e-6 * G[0].numel())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["exp", "rbf"])
+@pytest.mark.parametrize("b,m", MAIN_PATH)
+def test_cuda_kernels_match_plain_on_main_path_shapes(cuda, kind, b, m):
+    _check_on_card(*_cuda_inputs(b, m, 10, 11, cuda, same=True), kind)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["exp", "rbf"])
+@pytest.mark.parametrize("m,n,d", SHAPES)
+def test_cuda_kernels_match_plain_on_reference_shapes(cuda, kind, m, n, d):
+    _check_on_card(*_cuda_inputs(3, m, n, d, cuda), kind)
+
+
+@pytest.mark.gpu
+def test_cuda_autograd_goes_through_kernels(cuda):
+    xa, xb, ell, sf, G = _cuda_inputs(64, 10, 10, 11, cuda, same=True)
+    ell.requires_grad_(True)
+    sf.requires_grad_(True)
+    n0, n1 = gp_gram.gram_fwd.launches, gp_gram.gram_bwd.launches
+    (ops.gram(xa, xb, ell, sf) * G).sum().backward()
+    assert (gp_gram.gram_fwd.launches, gp_gram.gram_bwd.launches) == (n0 + 1, n1 + 1)
+    w_ell, w_sf = ref.gram_bwd(G, xa, xb, ell.detach(), sf.detach())
+    torch.testing.assert_close(ell.grad, w_ell, rtol=2e-5, atol=2e-4)
+    torch.testing.assert_close(sf.grad, w_sf, rtol=2e-5, atol=2e-4)
