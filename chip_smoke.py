@@ -1,25 +1,36 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port on one CUDA card.
 
-Builds the port's CUDA kernels from the sources in this checkout, checks
-each against its plain PyTorch version on the card, checks the GP
-forecaster on the card against the same forecaster on the CPU, drives
-the default simulation (``run_sim(SimConfig())``: GP forecaster,
-pessimistic policy, 500 apps, 50 hosts) through the port's public entry
-point with a cap on its ticks, and times each kernel against its plain
-version and its bound.  Every phase raises on failure.
+Builds the port's CUDA kernels from the sources in this checkout (one
+``nvcc`` per source, all at once), checks each against its plain PyTorch
+version on the card, and drives the port's two main paths through their
+public entry points:
+
+  * the default simulation (``run_sim(SimConfig())``: GP forecaster,
+    pessimistic policy, 500 apps, 50 hosts) with a cap on its ticks,
+    after checking the GP and small runs on the card against the CPU;
+  * Whisper-large-v3 serving at full width (random weights from a seeded
+    generator on the card): 8 requests of 1,500 frames prefilled with 448
+    teacher-forced tokens through the flash kernel, then 16 greedy cached
+    decode steps, after checking a smoke-width Whisper on the card
+    against the same parameters on the CPU.
+
+It then times each kernel against its plain version, its bound and,
+where one PyTorch call computes the same function, that call.  Every
+phase raises on failure.
 
 Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
 The last line of standard output is ``{"ok": true, "device": ...}``; the
-line before it lists each kernel's launches on the main path, error,
+line before it lists each kernel's launches on its main path, error,
 times and bound.  Without a CUDA device, or without the repository's
 ``src/`` beside it, the script fails and prints no result.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import json
 import re
@@ -31,9 +42,37 @@ from pathlib import Path
 import numpy as np
 
 MAIN_PATH_TICKS = 240      # cap on the default simulation's ticks
-RTOL, ATOL = 2e-5, 2e-6    # kernel vs plain version
+RTOL, ATOL = 2e-5, 2e-6    # Gram kernels vs plain version
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_FLOP_PER_S = 67e12    # H100 SXM, fp32 outside the tensor cores
+BF16_FLOP_PER_S = 989e12   # H100 SXM, bf16 on the tensor cores, dense
+
+# flash kernel vs plain version: fp32 to rounding (the sums run in another
+# order), bf16 to a few ulp of the output (both round one fp32 result)
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# (b, hq, hkv, s, t, d, causal): GQA groups 1/2/4/8, S < 8, a decode
+# prefix S < T, S and T off the kernel's 32/64 tiles, D of 16, 24, 64
+# and 128, non-causal (also S > T), and the Whisper decoder's shape
+FLASH_SHAPES = [
+    (1, 1, 1, 32, 32, 16, True), (2, 4, 2, 64, 64, 32, True),
+    (1, 8, 1, 128, 128, 64, True), (2, 8, 8, 100, 100, 64, True),
+    (2, 8, 4, 100, 100, 64, True), (2, 8, 2, 100, 100, 64, True),
+    (2, 4, 2, 3, 3, 64, True), (2, 4, 2, 1, 77, 64, True),
+    (1, 4, 2, 32, 128, 32, True), (2, 4, 4, 100, 300, 64, True),
+    (2, 4, 4, 48, 48, 24, True), (1, 4, 2, 70, 70, 16, True),
+    (1, 4, 2, 70, 70, 128, True), (1, 2, 2, 33, 65, 16, False),
+    (1, 2, 2, 64, 100, 32, False), (1, 2, 1, 100, 50, 64, False),
+    (8, 20, 20, 448, 448, 64, True),
+]
+FLASH_PATH_SHAPE = (8, 20, 20, 448, 448, 64, True)
+
+WHISPER = "whisper-large-v3"
+REQUESTS = 8               # requests per prefill batch
+FRAMES = 1500              # Whisper's 30 s audio context (see PERF.md)
+DECODE_STEPS = 16          # greedy cached steps after the prefill
+SMOKE_GREEDY_STEPS = 8     # greedy steps of the card-vs-CPU check
+# smoke Whisper, fp32, card vs CPU: cuBLAS and the CPU sum in other orders
+WHISPER_RTOL, WHISPER_ATOL = 1e-4, 1e-5
 
 
 def log(*a):
@@ -205,6 +244,202 @@ def time_kernels(gp_gram, ref, dev) -> dict:
     return out
 
 
+def flash_inputs(b, hq, hkv, s, t, d, dtype, dev, seed):
+    """Seeded q (b,hq,s,d), k and v (b,hkv,t,d) on the card."""
+    import torch
+    rng = np.random.default_rng(seed)
+    return [torch.as_tensor(rng.standard_normal(shape).astype(np.float32),
+                            device=dev).to(getattr(torch, dtype))
+            for shape in ((b, hq, s, d), (b, hkv, t, d), (b, hkv, t, d))]
+
+
+def check_flash(flash_attention, ref, dev) -> float:
+    """The flash kernel against the plain version on every shape of
+    FLASH_SHAPES in fp32 and bf16; returns the largest absolute error."""
+    import torch
+    worst = 0.0
+    for dtype, tol in FLASH_TOL.items():
+        for i, (b, hq, hkv, s, t, d, causal) in enumerate(FLASH_SHAPES):
+            q, k, v = flash_inputs(b, hq, hkv, s, t, d, dtype, dev, seed=i)
+            got = flash_attention.flash_attention(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            want = ref.attention(q, k, v, causal=causal)
+            assert got.dtype == q.dtype and got.shape == q.shape
+            torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+            e = (got.float() - want.float()).abs().max().item()
+            worst = max(worst, e)
+            log(f"  flash {dtype} q{(b, hq, s, d)} kv{(hkv, t)} "
+                f"{'causal' if causal else 'full'}: max abs err {e:.3g} ok")
+    return worst
+
+
+def check_whisper_smoke(flash_attention) -> None:
+    """Smoke-width Whisper (fp32, "flash"): the same parameters and inputs
+    on the card and on the CPU give teacher-forced logits within
+    tolerance, one kernel launch per decoder layer on the card, and equal
+    greedy cached tokens."""
+    import torch
+    from repro_torch.models import get_config
+    from repro_torch.models import whisper as W
+    from repro_torch.serve import whisper_decode_step_fn
+    cfg = dataclasses.replace(get_config(WHISPER, smoke=True), attn_impl="flash")
+    cpu = W.init_whisper(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    gpu = tree_to(cpu, "cuda")
+    rng = np.random.default_rng(0)
+    frames = rng.standard_normal((2, 24, cfg.d_model)).astype(np.float32)
+    toks = rng.integers(0, cfg.vocab, (2, cfg.dec_len))
+    out = {}
+    for name, params, dev in (("cpu", cpu, "cpu"), ("cuda", gpu, "cuda")):
+        enc = W.encode(params, torch.as_tensor(frames, device=dev), cfg)
+        n0 = flash_attention.flash_attention.launches
+        logits, _ = W.decode(params, torch.as_tensor(toks, device=dev), enc, cfg)
+        launched = flash_attention.flash_attention.launches - n0
+        assert launched == (cfg.dec_layers if dev == "cuda" else 0), launched
+        caches = W.init_dec_caches(cfg, 2, cfg.dec_len, device=dev)
+        tok = torch.zeros((2, 1), dtype=torch.long, device=dev)
+        greedy = []
+        for _ in range(SMOKE_GREEDY_STEPS):
+            step_logits, caches = whisper_decode_step_fn(params, cfg, tok, enc, caches)
+            tok = step_logits.argmax(-1)[:, None]
+            greedy.append(tok[:, 0].tolist())
+        out[name] = (logits.cpu(), greedy)
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0],
+                               rtol=WHISPER_RTOL, atol=WHISPER_ATOL)
+    assert out["cuda"][1] == out["cpu"][1], (out["cuda"][1], out["cpu"][1])
+    e = (out["cuda"][0] - out["cpu"][0]).abs().max().item()
+    log(f"  teacher-forced logits {tuple(out['cpu'][0].shape)}: max abs err {e:.3g} "
+        f"(rtol {WHISPER_RTOL}, atol {WHISPER_ATOL}); {cfg.dec_layers} kernel launches; "
+        f"{SMOKE_GREEDY_STEPS} greedy cached tokens equal: {out['cpu'][1]}")
+
+
+def tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: tree_to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_to(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+def run_whisper(flash_attention) -> int:
+    """Whisper-large-v3 at full width on the card: REQUESTS requests of
+    FRAMES frames through whisper_prefill_fn ("flash"), then DECODE_STEPS
+    greedy cached steps.  Counts are set to 0 just before the prefill and
+    read after the decode; returns the flash kernel's launches."""
+    import torch
+    from repro_torch.kernels import gp_gram
+    from repro_torch.models import get_config
+    from repro_torch.models import whisper as W
+    from repro_torch.serve import whisper_decode_step_fn, whisper_prefill_fn
+    cfg = dataclasses.replace(get_config(WHISPER), attn_impl="flash")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = W.init_whisper(cfg, generator=gen, device="cuda")
+    frames = torch.randn((REQUESTS, FRAMES, cfg.d_model), generator=gen,
+                         device="cuda").to(cfg.dtype)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    log(f"  {n_params} parameters ({cfg.dtype}) drawn on the card in "
+        f"{time.perf_counter() - t0:.2f} s; {REQUESTS} requests x {FRAMES} frames, "
+        f"dec_len {cfg.dec_len}, {DECODE_STEPS} greedy steps")
+
+    def prefill():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        enc, last = whisper_prefill_fn(params, cfg, frames)
+        torch.cuda.synchronize()
+        return enc, last, time.perf_counter() - t
+
+    prefill()   # warm-up: cuBLAS handles, allocator
+    flash_attention.reset_launch_counts()
+    gp_gram.reset_launch_counts()
+    enc, last, t_prefill = prefill()
+    n_prefill = flash_attention.flash_attention.launches
+    caches = W.init_dec_caches(cfg, REQUESTS, cfg.dec_len, device="cuda")
+    tok = last.argmax(-1)[:, None]
+    tokens = []
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(DECODE_STEPS):
+        logits, caches = whisper_decode_step_fn(params, cfg, tok, enc, caches)
+        tok = logits.argmax(-1)[:, None]
+        tokens.append(tok)
+    torch.cuda.synchronize()
+    t_decode = time.perf_counter() - t
+    launches = flash_attention.flash_attention.launches
+    assert (gp_gram.gram_fwd.launches, gp_gram.gram_bwd.launches) == (0, 0)
+    assert n_prefill == launches == cfg.dec_layers, (n_prefill, launches)
+    assert last.shape == (REQUESTS, cfg.vocab) and torch.isfinite(last).all()
+    assert torch.isfinite(logits).all() and caches.length.tolist() == [DECODE_STEPS] * cfg.dec_layers
+    peak = torch.cuda.max_memory_allocated()
+    again = [prefill()[2] for _ in range(2)]
+    log(f"  prefill: {t_prefill * 1e3:.3f} ms ({REQUESTS / t_prefill:.3f} requests/s); "
+        f"two more: {again[0] * 1e3:.3f}, {again[1] * 1e3:.3f} ms; "
+        f"{n_prefill} flash launches")
+    log(f"  decode: {DECODE_STEPS} steps in {t_decode * 1e3:.3f} ms "
+        f"({t_decode / DECODE_STEPS * 1e3:.3f} ms/step, "
+        f"{REQUESTS * DECODE_STEPS / t_decode:.3f} tokens/s); 0 flash launches")
+    log(f"  greedy tokens of request 0: {[int(x[0]) for x in tokens]}")
+    log(f"  max memory allocated {peak} B")
+
+    # the same prefill with the plain masked attention in the decoder: the
+    # two differ by bf16 rounding (the plain path rounds the softmax
+    # weights to bf16 before P.V), which 32 bf16 layers carry on, so the
+    # bf16 tolerance is held against the logits' scale
+    _, last_ref = whisper_prefill_fn(params, dataclasses.replace(cfg, attn_impl="ref"),
+                                     frames)
+    a, b = last.float(), last_ref.float()
+    diff = (a - b).abs()
+    rel = (diff.norm() / b.norm()).item()
+    log(f"  prefill logits flash vs ref: max abs {diff.max().item():.4g}, "
+        f"max |logit| {b.abs().max().item():.4g}, relative L2 {rel:.4g}, "
+        f"argmax equal {(a.argmax(-1) == b.argmax(-1)).float().mean().item():.4g}")
+    tol = FLASH_TOL["bfloat16"]
+    assert rel <= tol and diff.max().item() <= tol * b.abs().max().item(), (rel, diff.max())
+    return launches
+
+
+def tree_leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, list):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+def time_flash(flash_attention, ref, dev) -> dict:
+    """Kernel, plain version and F.scaled_dot_product_attention (the
+    library yardstick, timed here only) at the Whisper decoder's shape,
+    with the bound: q, k, v read once and o written once over 3.35 TB/s,
+    against 4 * B * H * D flops per causal (query, key) pair over bf16's
+    tensor-core peak."""
+    import torch
+    import torch.nn.functional as F
+    b, hq, hkv, s, t, d, causal = FLASH_PATH_SHAPE
+    q, k, v = flash_inputs(b, hq, hkv, s, t, d, "bfloat16", dev, seed=7)
+    pairs = sum(min(t, t - s + i + 1) for i in range(s)) if causal else s * t
+    flops = 4 * b * hq * d * pairs
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOP_PER_S * 1e3
+    kern = lambda: flash_attention.flash_attention(q, k, v, causal=causal)  # noqa: E731
+    plain = lambda: ref.attention(q, k, v, causal=causal)  # noqa: E731
+    lib = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal)  # noqa: E731
+    p1, k1, k2, p2 = (cuda_time_ms(f, iters=50, warmup=5)
+                      for f in (plain, kern, kern, plain))
+    l1 = cuda_time_ms(lib, iters=50, warmup=5)
+    lib_err = (lib().float() - plain().float()).abs().max().item()
+    log(f"  flash_attention {FLASH_PATH_SHAPE} bf16: kernel {k1:.5f}/{k2:.5f} ms, "
+        f"plain {p1:.5f}/{p2:.5f} ms, sdpa {l1:.5f} ms (max abs err vs plain "
+        f"{lib_err:.3g}), bound {max(t_bytes, t_ops) * 1e3:.3f} us "
+        f"({nbytes} B -> {t_bytes * 1e3:.3f} us, {flops} flop -> {t_ops * 1e3:.3f} us)")
+    return dict(ms=min(k1, k2), plain_ms=min(p1, p2), library_ms=l1,
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=nbytes, flops=flops)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -212,12 +447,14 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.core.forecast import GPConfig, GPForecaster
-    from repro_torch.kernels import gp_gram, ref
+    from repro_torch.kernels import flash_attention, gp_gram, nvcc, ref
     from repro_torch.sim import ClusterConfig, SimConfig, WorkloadConfig, run_sim
 
-    # full fp32 everywhere: the GP's numbers must not go through TF32
+    # full fp32 everywhere: the GP's numbers must not go through TF32; bf16
+    # GEMMs keep every partial sum in fp32, as the reference's dots do
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     dev = torch.device("cuda")
     t_start = time.perf_counter()
 
@@ -228,15 +465,19 @@ def main() -> int:
     log(f"device {kind} x{count}, torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}; tf32 off; nvidia-smi: {smi}")
 
-    log("== 2. build")
-    b = gp_gram.build()
-    log(f"built {b.path.name} in {b.seconds:.2f} s")
-    for line in b.log.splitlines():
-        if re.search(r"registers|spill|Compiling entry", line):
-            log("  ptxas: " + line.strip())
+    log("== 2. build (one nvcc per source, all at once)")
+    sources = (gp_gram.SOURCE, flash_attention.SOURCE)
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+        builds = list(pool.map(nvcc.build, sources))
+    for b in builds:
+        log(f"built {b.path.name} in {b.seconds:.2f} s")
+        for line in b.log.splitlines():
+            if re.search(r"registers|spill|Compiling entry", line):
+                log("  ptxas: " + line.strip())
 
     log("== 3. kernel checks (kernel vs plain on the card)")
     err = check_kernels(gp_gram, ref, dev)
+    err["flash_attention"] = check_flash(flash_attention, ref, dev)
     log(f"  max abs error: {err}")
 
     log("== 4. GP check (card vs CPU)")
@@ -251,6 +492,7 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     gp_gram.reset_launch_counts()
+    flash_attention.reset_launch_counts()
     res = run_sim(cfg, device="cuda")
     torch.cuda.synchronize()
     launches = {"gp_gram_fwd": gp_gram.gram_fwd.launches,
@@ -267,28 +509,43 @@ def main() -> int:
     log(f"  kernel launches {launches}")
     assert ticks == MAIN_PATH_TICKS, ticks
     assert all(n > 0 for n in launches.values()), launches
+    assert flash_attention.flash_attention.launches == 0
     assert launches["gp_gram_fwd"] == 14 * launches["gp_gram_bwd"] // 10, launches
     assert max(res.n_running) <= cfg.cluster.max_running_apps
     for k in ("util_cpu_mean", "util_mem_mean", "slack_cpu_mean", "slack_mem_mean"):
         assert np.isfinite(summary[k]), (k, summary[k])
     assert 0 < summary["util_mem_mean"] <= 1, summary
 
-    log("== 6. kernel timings (CUDA events, B=512, exp)")
+    log("== 6. Whisper, smoke widths, fp32: the card against the CPU")
+    check_whisper_smoke(flash_attention)
+
+    log(f"== 7. main path: {WHISPER} serving at full width on the card")
+    whisper_launches = run_whisper(flash_attention)
+
+    log("== 8. kernel timings (CUDA events; Gram at B=512, exp; flash at the "
+        "Whisper decoder's shape)")
     times = time_kernels(gp_gram, ref, dev)
-    log(f"  library_ms: null - no single PyTorch call computes the Gram matrix "
-        f"(torch.cdist gives distances only) or its (ell, sf) gradient")
+    times["flash_attention"] = time_flash(flash_attention, ref, dev)
+    log(f"  gp_gram library_ms: null - no single PyTorch call computes the Gram "
+        f"matrix (torch.cdist gives distances only) or its (ell, sf) gradient")
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
-    src = "src/repro_torch/kernels/csrc/gp_gram.cu"
+    launches["flash_attention"] = whisper_launches
+    replaces = {"gp_gram_fwd": "src/repro/kernels/gp_gram.py:75",
+                "gp_gram_bwd": "src/repro/kernels/gp_gram.py:75",
+                "flash_attention": "src/repro/kernels/flash_attention.py:110"}
+    sources = {"gp_gram_fwd": "src/repro_torch/kernels/csrc/gp_gram.cu",
+               "gp_gram_bwd": "src/repro_torch/kernels/csrc/gp_gram.cu",
+               "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu"}
     log(smi)   # the card's name and power limit, as nvidia-smi prints them
     log(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": src,
-         "replaces": "src/repro/kernels/gp_gram.py:75",
+        {"name": name, "route": "cuda", "source": sources[name],
+         "replaces": replaces[name],
          "launches": launches[name], "max_abs_err": err[name],
          "ms": times[name]["ms"], "plain_ms": times[name]["plain_ms"],
          "bound_ms": times[name]["bound_ms"], "bound_by": times[name]["bound_by"],
-         "library_ms": None}
-        for name in ("gp_gram_fwd", "gp_gram_bwd")]}))
+         "library_ms": times[name].get("library_ms")}
+        for name in ("gp_gram_fwd", "gp_gram_bwd", "flash_attention")]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": count}}))
     return 0

@@ -1,19 +1,28 @@
 #!/usr/bin/env python3
-"""Where the PyTorch port's main path spends its time on one CUDA card.
+"""Where the PyTorch port's main paths spend their time on one CUDA card.
 
-Runs the default simulation (``run_sim(SimConfig())``, GP + pessimistic,
-full width) for a capped number of ticks under ``torch.profiler`` and
-prints the device's busy share (summed kernel time over wall time), the
-operators that take the most device time and the most host time, and
-the Gram kernels' device time per launch at the main path's largest
-batch.  Run from the repository root:
+``--path sim`` (the default) runs the default simulation
+(``run_sim(SimConfig())``, GP + pessimistic, full width) for a capped
+number of ticks under ``torch.profiler`` and prints the device's busy
+share (summed kernel time over wall time), the operators that take the
+most device time and the most host time, and the Gram kernels' device
+time per launch at the main path's largest batch.
 
-    python3 profile_port.py
+``--path whisper`` does the same for Whisper-large-v3 serving at full
+width (random weights): one prefill of 8 requests x 1,500 frames with
+``attn_impl="flash"``, then 4 greedy cached decode steps, each profiled
+on its own, with the device time summed by kind of kernel.
+
+Run from the repository root:
+
+    python3 profile_port.py [--path sim|whisper]
 
 Without a CUDA device it exits with an error and prints nothing else.
 """
 from __future__ import annotations
 
+import argparse
+import dataclasses
 import sys
 import time
 from pathlib import Path
@@ -25,9 +34,85 @@ def _dev_us(e) -> float:
     return e.self_device_time_total
 
 
+# device-time groups of the Whisper profile, by kernel name
+KINDS = (("flash kernel", ("flash_fwd_kernel",)),
+         ("GEMM", ("gemm", "xmma", "cutlass", "sm90_", "ampere_")),
+         ("softmax", ("softmax",)),
+         ("copy / cast", ("copy", "cast", "Copy", "Memcpy")),
+         ("elementwise / masked_fill", ("elementwise", "vectorized", "masked_fill",
+                                        "where", "unrolled")),
+         ("reduction (LayerNorm, argmax)", ("reduce", "Reduce", "norm")))
+
+
+def _kind(name: str) -> str:
+    for kind, keys in KINDS:
+        if any(k in name for k in keys):
+            return kind
+    return "other"
+
+
+def _report(prof, wall: float, title: str, top: int = 12) -> None:
+    from torch.autograd import DeviceType
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and _dev_us(e) > 0]
+    dev = sum(_dev_us(e) for e in kernels) / 1e6
+    print(f"{title}: wall {wall * 1e3:.3f} ms, device busy {dev * 1e3:.3f} ms "
+          f"= {dev / wall:.2%} of wall")
+    by_kind: dict[str, float] = {}
+    for e in kernels:
+        by_kind[_kind(e.key)] = by_kind.get(_kind(e.key), 0.0) + _dev_us(e) / 1e3
+    for kind, ms in sorted(by_kind.items(), key=lambda kv: -kv[1]):
+        print(f"  {ms:10.3f} ms  {ms / (dev * 1e3):7.2%}  {kind}")
+    print("  top kernels by device time:")
+    for e in sorted(kernels, key=_dev_us, reverse=True)[:top]:
+        print(f"  {_dev_us(e) / 1e3:10.3f} ms  {e.count:6d} launches  {e.key[:100]}")
+
+
+def profile_whisper() -> int:
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import get_config
+    from repro_torch.models import whisper as W
+    from repro_torch.serve import whisper_decode_step_fn, whisper_prefill_fn
+
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    cfg = dataclasses.replace(get_config("whisper-large-v3"), attn_impl="flash")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = W.init_whisper(cfg, generator=gen, device="cuda")
+    frames = torch.randn((8, 1500, cfg.d_model), generator=gen, device="cuda")
+    whisper_prefill_fn(params, cfg, frames)                  # build + warm-up
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        enc, last = whisper_prefill_fn(params, cfg, frames)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    _report(prof, wall, "prefill, 8 x 1,500 frames + 448 tokens", top=15)
+    caches = W.init_dec_caches(cfg, 8, cfg.dec_len, device="cuda")
+    tok = last.argmax(-1)[:, None]
+    _, caches = whisper_decode_step_fn(params, cfg, tok, enc, caches)  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(4):
+            logits, caches = whisper_decode_step_fn(params, cfg, tok, enc, caches)
+            tok = logits.argmax(-1)[:, None]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    _report(prof, wall, "4 greedy cached decode steps, 8 requests")
+    n_launch = sum(e.count for e in prof.key_averages()
+                   if e.key in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"))
+    print(f"  host kernel launches in the 4 steps: {n_launch}")
+    return 0
+
+
 def main() -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--path", choices=("sim", "whisper"), default="sim")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_port: torch sees no CUDA device", file=sys.stderr)
         return 2
@@ -38,6 +123,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(torch.cuda.get_device_name(0), torch.__version__, torch.version.cuda)
+    if args.path == "whisper":
+        return profile_whisper()
     run_sim(SimConfig(max_ticks=20), device="cuda")          # build + warm-up
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]

@@ -9,5 +9,7 @@ points run on the CUDA device unless the caller passes
 Ported so far: the default simulation's main path — trace generation,
 the monitor, the batched GP forecaster with its hand-written CUDA Gram
 kernel, the Eq. 9 safeguard, the three shaping policies and the host
-engine ``repro_torch.sim.engine.run_sim``.
+engine ``repro_torch.sim.engine.run_sim`` — and Whisper-large-v3 serving
+(``repro_torch.models``, ``repro_torch.serve``), whose teacher-forced
+decoder runs the hand-written CUDA flash-attention kernel.
 """

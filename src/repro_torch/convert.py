@@ -1,4 +1,5 @@
-"""Carry a simulation's state from the reference into the port.
+"""Carry a simulation's state, or a model's parameters, from the
+reference into the port.
 
 The GP has no pretrained weights — its hyper-parameters are fitted at
 every tick — so a run's whole state is its configuration and its trace:
@@ -8,7 +9,12 @@ every tick — so a run's whole state is its configuration and its trace:
   * :func:`trace_from_arrays` takes the numpy columns of a reference
     ``Trace``.
 
-Both take plain Python and numpy values only, so this module needs
+A Whisper model's state is its parameters:
+
+  * :func:`whisper_params_from_arrays` takes the reference's
+    ``init_whisper`` pytree as nested dicts of numpy arrays.
+
+All take plain Python and numpy values only, so this module needs
 nothing of the reference package.
 """
 from __future__ import annotations
@@ -16,9 +22,11 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from repro_torch.core.forecast import GPConfig
 from repro_torch.core.shaper import SafeguardConfig
+from repro_torch.device import resolve_device
 from repro_torch.sim.cluster import ClusterConfig
 from repro_torch.sim.engine import SimConfig, Switch
 from repro_torch.sim.scenarios.schema import Trace
@@ -58,3 +66,72 @@ def trace_from_arrays(**cols: np.ndarray) -> Trace:
     if unknown:
         raise TypeError(f"unknown trace columns: {sorted(unknown)}")
     return Trace(**{k: np.array(v, copy=True) for k, v in cols.items()}).validate()
+
+
+_LN = ("scale", "bias")
+_ATTN = ("wq", "wk", "wv", "wo")
+_MLP = ("up", "down")
+_ENC_BLOCK = {"ln1": _LN, "attn": _ATTN, "ln2": _LN, "mlp": _MLP}
+_DEC_BLOCK = {"ln1": _LN, "self_attn": _ATTN, "ln_x": _LN, "cross_attn": _ATTN,
+              "ln2": _LN, "mlp": _MLP}
+_WHISPER = {"enc_blocks": _ENC_BLOCK, "enc_ln": _LN, "tok_embed": None,
+            "dec_blocks": _DEC_BLOCK, "dec_ln": _LN, "lm_head": None}
+
+
+def _leaf_paths(schema, prefix=()):
+    if schema is None:
+        return [prefix]
+    if isinstance(schema, tuple):
+        return [prefix + (k,) for k in schema]
+    return [p for k, sub in schema.items() for p in _leaf_paths(sub, prefix + (k,))]
+
+
+def _tree_paths(tree, prefix=()):
+    if not isinstance(tree, dict):
+        return {prefix: tree}
+    out = {}
+    for k, sub in tree.items():
+        out.update(_tree_paths(sub, prefix + (k,)))
+    return out
+
+
+def _to_tensor(a, device) -> torch.Tensor:
+    """A numpy array as a tensor of the same dtype; bfloat16 arrays (numpy
+    has no bfloat16 of its own) go through their 16-bit pattern."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        bits = torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy())
+        return bits.view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def whisper_params_from_arrays(tree: dict, *, device="cuda") -> dict:
+    """The port's Whisper parameters for the reference's ``init_whisper``
+    pytree given as nested dicts of numpy arrays (``jax.tree.map(
+    np.asarray, params)``).
+
+    Block leaves carry a leading layer axis, which is unstacked into a
+    list of per-layer dicts.  Dtypes are kept.  Raises on a leaf that is
+    missing or left over."""
+    dev = resolve_device(device)
+    got = _tree_paths(tree)
+    want = _leaf_paths(_WHISPER)
+    missing = [".".join(p) for p in want if p not in got]
+    extra = [".".join(p) for p in got if p not in set(want)]
+    if missing or extra:
+        raise KeyError(f"Whisper parameters: missing {missing}, left over {extra}")
+    out: dict = {}
+    for path in want:
+        t = _to_tensor(got[path], dev)
+        if path[0] in ("enc_blocks", "dec_blocks"):
+            blocks = out.setdefault(path[0], [{} for _ in range(t.shape[0])])
+            if len(blocks) != t.shape[0]:
+                raise ValueError(f"{'.'.join(path)} has {t.shape[0]} layers, "
+                                 f"other {path[0]} leaves {len(blocks)}")
+            for layer, d in zip(t.unbind(0), blocks):
+                d.setdefault(path[1], {})[path[2]] = layer.contiguous()
+        elif len(path) == 1:
+            out[path[0]] = t
+        else:
+            out.setdefault(path[0], {})[path[1]] = t
+    return out

@@ -4,12 +4,10 @@ Counterpart of ``repro/kernels/gp_gram.py:gp_gram``, the Pallas TPU
 kernel.  The kernels themselves, their bound on the card and their
 design are described in ``csrc/gp_gram.cu``.
 
-The source is compiled with ``nvcc`` for ``sm_90a`` into a shared
-library with a plain C interface and loaded with ``ctypes`` — no
-PyTorch headers, so a build takes seconds.  Nothing is built when this
-module is imported: the first launch builds (or reuses) the library
-under ``build/`` beside this file, keyed by a hash of the source and
-the flags.
+The source is compiled by :func:`repro_torch.kernels.nvcc.build` into a
+shared library with a plain C interface and loaded with ``ctypes``.
+Nothing is built when this module is imported: the first launch builds
+(or reuses) the library.
 
 Each wrapper checks its tensors, allocates its outputs with
 ``torch.empty``, launches on the current CUDA stream, raises if the
@@ -19,64 +17,14 @@ attribute (``gram_fwd.launches``, ``gram_bwd.launches``).
 from __future__ import annotations
 
 import ctypes
-import dataclasses
-import hashlib
-import os
-import subprocess
-import time
 from pathlib import Path
 
 import torch
 
+from repro_torch.kernels import nvcc
 from repro_torch.kernels.ref import KINDS
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "gp_gram.cu"
-BUILD_DIR = Path(__file__).resolve().parent / "build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-
-
-@dataclasses.dataclass(frozen=True)
-class Build:
-    path: Path      # the shared library
-    seconds: float  # nvcc wall time; 0.0 when an earlier build was reused
-    log: str        # nvcc's output, with -Xptxas -v's registers and spills
-
-
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-    if CUDA_HOME is None:
-        raise RuntimeError("no CUDA toolkit found (set CUDA_HOME or put nvcc "
-                           "on PATH) to build the gp_gram kernel")
-    return str(Path(CUDA_HOME) / "bin" / "nvcc")
-
-
-def build() -> Build:
-    """Compile ``csrc/gp_gram.cu`` unless a library of the same source and
-    flags exists.  Safe under concurrent callers: each compiles to its own
-    temporary file and renames it into place."""
-    tag = hashlib.sha256(SOURCE.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"libgp_gram_{tag}.so"
-    log = BUILD_DIR / f"libgp_gram_{tag}.log"
-    if lib.exists() and log.exists():
-        return Build(lib, 0.0, log.read_text())
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f".{lib.name}.{os.getpid()}.tmp"
-    t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    out = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n{out}")
-    log_tmp = tmp.with_suffix(".log")
-    log_tmp.write_text(out)
-    os.replace(log_tmp, log)
-    os.replace(tmp, lib)
-    return Build(lib, seconds, out)
-
 
 _LIB: ctypes.CDLL | None = None
 
@@ -84,7 +32,7 @@ _LIB: ctypes.CDLL | None = None
 def _library() -> ctypes.CDLL:
     global _LIB
     if _LIB is None:
-        lib = ctypes.CDLL(str(build().path))
+        lib = ctypes.CDLL(str(nvcc.build(SOURCE).path))
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.gp_gram_fwd.argtypes = [ptr] * 5 + [i32] * 5 + [ptr]
         lib.gp_gram_fwd.restype = i32

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import gp_gram as _gg
 from repro_torch.kernels import ref
 
@@ -26,3 +27,23 @@ def gram(xa: torch.Tensor, xb: torch.Tensor, lengthscale: torch.Tensor,
     if xa.device.type == "cpu":
         return ref.gram(xa, xb, lengthscale, sigma_f, kind=kind)
     raise ValueError(f"no gram implementation for device {xa.device}")
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, sm_scale: float | None = None) -> torch.Tensor:
+    """Multi-head (GQA) attention. q: (B,Hq,S,D), k/v: (B,Hkv,T,D).
+
+    Queries are aligned to the END of the key sequence (decode semantics:
+    q_offset = T - S), which also covers self-attention (T == S).  The
+    CUDA kernel masks any S, T and D itself, so it takes every shape the
+    TPU wrapper padded or sent to the reference."""
+    D = q.shape[3]
+    if sm_scale is None:
+        sm_scale = 1.0 / (D ** 0.5)
+    if q.device.type == "cuda":
+        return _fa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                                   causal=causal, sm_scale=sm_scale,
+                                   q_offset=k.shape[2] - q.shape[2])
+    if q.device.type == "cpu":
+        return ref.attention(q, k, v, causal=causal, sm_scale=sm_scale)
+    raise ValueError(f"no attention implementation for device {q.device}")

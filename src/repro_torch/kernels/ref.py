@@ -2,10 +2,11 @@
 ``repro.kernels.ref``).
 
 They define what each kernel computes: the CPU path runs them, and the
-kernel checks compare the CUDA kernels with them on the card.  Shapes
-carry an explicit batch of series where the reference used ``vmap``:
-``xa (B, M, D)``, ``xb (B, N, D)`` and per-series ``lengthscale`` and
-``sigma_f`` of shape ``(B,)``.
+kernel checks compare the CUDA kernels with them on the card.  The Gram
+functions carry an explicit batch of series where the reference used
+``vmap``: ``xa (B, M, D)``, ``xb (B, N, D)`` and per-series
+``lengthscale`` and ``sigma_f`` of shape ``(B,)``.  Attention keeps the
+reference's ``(B, H, S, D)`` layout.
 """
 from __future__ import annotations
 
@@ -71,3 +72,31 @@ def gram_bwd(grad: torch.Tensor, xa: torch.Tensor, xb: torch.Tensor,
     d_ell = (gk * (sf * sf) * t).sum((1, 2)) / denom
     d_sf = 2.0 * sigma_f * gk.sum((1, 2))
     return d_ell, d_sf
+
+
+# ----------------------------------------------------------------------
+# flash_attention — causal/full multi-head attention with GQA
+# ----------------------------------------------------------------------
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, sm_scale: float | None = None) -> torch.Tensor:
+    """Reference attention.  q: (B,Hq,S,D), k/v: (B,Hkv,T,D) with
+    Hq % Hkv == 0 (GQA).  fp32 throughout, ``-inf`` mask, query i at key
+    position T-S+i.  Returns (B,Hq,S,D) in q.dtype."""
+    B, Hq, S, D = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
+    if Hq % Hkv:
+        raise ValueError(f"Hq={Hq} is not a multiple of Hkv={Hkv}")
+    group = Hq // Hkv
+    if sm_scale is None:
+        sm_scale = 1.0 / (D ** 0.5)
+    qf = q.float()
+    kf = k.float().repeat_interleave(group, dim=1)
+    vf = v.float().repeat_interleave(group, dim=1)
+    logits = torch.matmul(qf, kf.transpose(-1, -2)) * sm_scale
+    if causal:
+        qpos = torch.arange(S, device=q.device)[:, None] + (T - S)
+        kpos = torch.arange(T, device=q.device)[None, :]
+        logits = logits.masked_fill(kpos > qpos, float("-inf"))
+    w = torch.softmax(logits, dim=-1)
+    return torch.matmul(w, vf).to(q.dtype)

@@ -52,10 +52,12 @@ def test_importing_the_kernel_module_builds_nothing():
         "import json, subprocess\n"
         "calls = []\n"
         "subprocess.run = lambda *a, **k: calls.append(a)\n"
-        "from repro_torch.kernels import gp_gram, ops\n"
+        "from repro_torch.kernels import flash_attention, gp_gram, ops\n"
         "print(json.dumps([len(calls), gp_gram._LIB is None,\n"
-        "                  gp_gram.gram_fwd.launches, gp_gram.gram_bwd.launches]))")
-    assert got == [0, True, 0, 0]
+        "                  gp_gram.gram_fwd.launches, gp_gram.gram_bwd.launches,\n"
+        "                  flash_attention._LIB is None,\n"
+        "                  flash_attention.flash_attention.launches]))")
+    assert got == [0, True, 0, 0, True, 0]
 
 
 def test_run_sim_without_device_raises_on_a_cpu_only_machine(monkeypatch):
@@ -63,3 +65,14 @@ def test_run_sim_without_device_raises_on_a_cpu_only_machine(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run_sim(SimConfig())
+
+
+def test_whisper_entry_points_without_device_raise_on_a_cpu_only_machine(monkeypatch):
+    from repro_torch.models import get_config
+    from repro_torch.models import whisper as W
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("whisper-large-v3", smoke=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        W.init_whisper(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        W.init_dec_caches(cfg, 1, 4)

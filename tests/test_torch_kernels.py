@@ -1,5 +1,7 @@
 """The port's Gram matrix against the JAX reference (CPU), and the CUDA
-kernels against their plain PyTorch versions (card only, ``-m gpu``).
+kernels (Gram, flash attention) against their plain PyTorch versions
+(card only, ``-m gpu``; the flash kernel's CPU parity tests are in
+``test_torch_attention.py``).
 
 Inputs are made with numpy from a seed and handed to both frameworks.
 """
@@ -11,7 +13,7 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
-from repro_torch.kernels import gp_gram, ops, ref
+from repro_torch.kernels import flash_attention, gp_gram, ops, ref
 
 # the shapes of tests/test_kernels.py::test_gram_matches_ref
 SHAPES = [(1, 1, 1), (7, 5, 3), (10, 10, 11), (40, 40, 41), (128, 128, 128),
@@ -173,3 +175,49 @@ def test_cuda_autograd_goes_through_kernels(cuda):
     w_ell, w_sf = ref.gram_bwd(G, xa, xb, ell.detach(), sf.detach())
     torch.testing.assert_close(ell.grad, w_ell, rtol=2e-5, atol=2e-4)
     torch.testing.assert_close(sf.grad, w_sf, rtol=2e-5, atol=2e-4)
+
+
+# (b, hq, hkv, s, t, d, causal): GQA groups 1/2/4/8, S < 8, a decode
+# prefix S < T, S and T off the 32/64 tiles, D of 16, 24, 64 and 128,
+# non-causal (also S > T), and the Whisper decoder's (8, 20, 448, 64)
+FLASH_SHAPES = [
+    (1, 1, 1, 32, 32, 16, True), (2, 4, 2, 64, 64, 32, True),
+    (1, 8, 1, 128, 128, 64, True), (2, 8, 8, 100, 100, 64, True),
+    (2, 8, 4, 100, 100, 64, True), (2, 8, 2, 100, 100, 64, True),
+    (2, 4, 2, 3, 3, 64, True), (2, 4, 2, 1, 77, 64, True),
+    (1, 4, 2, 32, 128, 32, True), (2, 4, 4, 100, 300, 64, True),
+    (2, 4, 4, 48, 48, 24, True), (1, 4, 2, 70, 70, 16, True),
+    (1, 4, 2, 70, 70, 128, True), (1, 2, 2, 33, 65, 16, False),
+    (1, 2, 2, 64, 100, 32, False), (1, 2, 1, 100, 50, 64, False),
+    (8, 20, 20, 448, 448, 64, True),
+]
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv,s,t,d,causal", FLASH_SHAPES)
+def test_cuda_flash_attention_matches_plain(cuda, dtype, b, hq, hkv, s, t, d, causal):
+    rng = np.random.default_rng(s * t + d)
+    q, k, v = (torch.as_tensor(rng.standard_normal(shape).astype(np.float32),
+                               device=cuda).to(dtype)
+               for shape in ((b, hq, s, d), (b, hkv, t, d), (b, hkv, t, d)))
+    n0 = flash_attention.flash_attention.launches
+    got = ops.attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.flash_attention.launches == n0 + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), ref.attention(q, k, v, causal=causal).float(),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+def test_cuda_flash_attention_refuses_what_it_cannot_compute(cuda):
+    q = torch.zeros((1, 2, 8, 16), device=cuda)
+    with pytest.raises(ValueError, match="q_offset"):
+        ops.attention(q, q[:, :, :4], q[:, :, :4], causal=True)   # S > T
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention.flash_attention(*(torch.zeros((1, 1, 8, 130), device=cuda),) * 3)
+    with pytest.raises(TypeError):
+        flash_attention.flash_attention(*(q.half(),) * 3)
