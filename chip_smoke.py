@@ -11,9 +11,11 @@ public entry points:
     after checking the GP and small runs on the card against the CPU;
   * Whisper-large-v3 serving at full width (random weights from a seeded
     generator on the card): 8 requests of 1,500 frames prefilled with 448
-    teacher-forced tokens through the flash kernel, then 16 greedy cached
-    decode steps, after checking a smoke-width Whisper on the card
-    against the same parameters on the CPU.
+    teacher-forced tokens through the tensor-core flash kernel (bf16,
+    route "sm90"), then 16 greedy cached decode steps, after checking a
+    smoke-width Whisper on the card against the same parameters on the
+    CPU; then the same prefill in fp32, whose decoder self-attention
+    takes the CUDA-core flash kernel (route "simt").
 
 It then times each kernel against its plain version, its bound and,
 where one PyTorch call computes the same function, that call.  Every
@@ -51,8 +53,10 @@ BF16_FLOP_PER_S = 989e12   # H100 SXM, bf16 on the tensor cores, dense
 # order), bf16 to a few ulp of the output (both round one fp32 result)
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # (b, hq, hkv, s, t, d, causal): GQA groups 1/2/4/8, S < 8, a decode
-# prefix S < T, S and T off the kernel's 32/64 tiles, D of 16, 24, 64
-# and 128, non-causal (also S > T), and the Whisper decoder's shape
+# prefixes S < T (q_offset > 0), S and T off the kernels' tiles (32/64
+# for simt, 64 for sm90), D of 16, 20, 24, 32, 64, 72 and 128 (D = 20
+# takes the simt route in bf16 too), non-causal (also S > T), and the
+# Whisper decoder's shape; the same list as tests/test_torch_kernels.py
 FLASH_SHAPES = [
     (1, 1, 1, 32, 32, 16, True), (2, 4, 2, 64, 64, 32, True),
     (1, 8, 1, 128, 128, 64, True), (2, 8, 8, 100, 100, 64, True),
@@ -62,6 +66,10 @@ FLASH_SHAPES = [
     (2, 4, 4, 48, 48, 24, True), (1, 4, 2, 70, 70, 16, True),
     (1, 4, 2, 70, 70, 128, True), (1, 2, 2, 33, 65, 16, False),
     (1, 2, 2, 64, 100, 32, False), (1, 2, 1, 100, 50, 64, False),
+    (1, 8, 1, 200, 200, 128, True), (2, 8, 2, 17, 300, 32, True),
+    (1, 4, 4, 129, 129, 64, True), (1, 4, 2, 65, 65, 32, True),
+    (1, 4, 2, 130, 130, 20, True), (1, 2, 2, 300, 140, 128, False),
+    (1, 4, 1, 96, 160, 72, True), (1, 8, 4, 64, 1000, 16, True),
     (8, 20, 20, 448, 448, 64, True),
 ]
 FLASH_PATH_SHAPE = (8, 20, 20, 448, 448, 64, True)
@@ -253,23 +261,29 @@ def flash_inputs(b, hq, hkv, s, t, d, dtype, dev, seed):
             for shape in ((b, hq, s, d), (b, hkv, t, d), (b, hkv, t, d))]
 
 
-def check_flash(flash_attention, ref, dev) -> float:
-    """The flash kernel against the plain version on every shape of
-    FLASH_SHAPES in fp32 and bf16; returns the largest absolute error."""
+def check_flash(flash_attention, ref, dev) -> dict:
+    """The flash kernels against the plain version on every shape of
+    FLASH_SHAPES in fp32 and bf16, each call on the route that
+    ``route`` names; returns the largest absolute error per route."""
     import torch
-    worst = 0.0
+    worst = dict.fromkeys(flash_attention.ROUTES, 0.0)
     for dtype, tol in FLASH_TOL.items():
         for i, (b, hq, hkv, s, t, d, causal) in enumerate(FLASH_SHAPES):
             q, k, v = flash_inputs(b, hq, hkv, s, t, d, dtype, dev, seed=i)
+            which = flash_attention.route(q.dtype, d)
+            before = dict(flash_attention.flash_attention.route_launches)
             got = flash_attention.flash_attention(q, k, v, causal=causal)
             torch.cuda.synchronize()
+            after = flash_attention.flash_attention.route_launches
+            assert {r: after[r] - before[r] for r in after} == {
+                r: int(r == which) for r in after}, (which, before, after)
             want = ref.attention(q, k, v, causal=causal)
             assert got.dtype == q.dtype and got.shape == q.shape
             torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
             e = (got.float() - want.float()).abs().max().item()
-            worst = max(worst, e)
+            worst[which] = max(worst[which], e)
             log(f"  flash {dtype} q{(b, hq, s, d)} kv{(hkv, t)} "
-                f"{'causal' if causal else 'full'}: max abs err {e:.3g} ok")
+                f"{'causal' if causal else 'full'} [{which}]: max abs err {e:.3g} ok")
     return worst
 
 
@@ -368,15 +382,17 @@ def run_whisper(flash_attention) -> int:
     torch.cuda.synchronize()
     t_decode = time.perf_counter() - t
     launches = flash_attention.flash_attention.launches
+    routes = flash_attention.flash_attention.route_launches
     assert (gp_gram.gram_fwd.launches, gp_gram.gram_bwd.launches) == (0, 0)
     assert n_prefill == launches == cfg.dec_layers, (n_prefill, launches)
+    assert routes == {"sm90": cfg.dec_layers, "simt": 0}, routes
     assert last.shape == (REQUESTS, cfg.vocab) and torch.isfinite(last).all()
     assert torch.isfinite(logits).all() and caches.length.tolist() == [DECODE_STEPS] * cfg.dec_layers
     peak = torch.cuda.max_memory_allocated()
     again = [prefill()[2] for _ in range(2)]
     log(f"  prefill: {t_prefill * 1e3:.3f} ms ({REQUESTS / t_prefill:.3f} requests/s); "
         f"two more: {again[0] * 1e3:.3f}, {again[1] * 1e3:.3f} ms; "
-        f"{n_prefill} flash launches")
+        f"{n_prefill} flash launches, all on the sm90 route")
     log(f"  decode: {DECODE_STEPS} steps in {t_decode * 1e3:.3f} ms "
         f"({t_decode / DECODE_STEPS * 1e3:.3f} ms/step, "
         f"{REQUESTS * DECODE_STEPS / t_decode:.3f} tokens/s); 0 flash launches")
@@ -400,6 +416,36 @@ def run_whisper(flash_attention) -> int:
     return launches
 
 
+def run_whisper_fp32(flash_attention) -> int:
+    """The same prefill at full width in fp32 (``dtype=torch.float32``),
+    the path of the simt route: the decoder's self-attention takes the
+    CUDA-core kernel, which keeps fp32 to 2e-5.  Counts are set to 0 just
+    before the prefill and read after; returns the simt launches."""
+    import torch
+    from repro_torch.models import get_config
+    from repro_torch.models import whisper as W
+    from repro_torch.serve import whisper_prefill_fn
+    cfg = dataclasses.replace(get_config(WHISPER), attn_impl="flash",
+                              dtype=torch.float32)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = W.init_whisper(cfg, generator=gen, device="cuda")
+    frames = torch.randn((REQUESTS, FRAMES, cfg.d_model), generator=gen,
+                         device="cuda")
+    whisper_prefill_fn(params, cfg, frames)   # warm-up
+    torch.cuda.synchronize()
+    flash_attention.reset_launch_counts()
+    t = time.perf_counter()
+    _, last = whisper_prefill_fn(params, cfg, frames)
+    torch.cuda.synchronize()
+    t = time.perf_counter() - t
+    routes = flash_attention.flash_attention.route_launches
+    assert routes == {"sm90": 0, "simt": cfg.dec_layers}, routes
+    assert last.shape == (REQUESTS, cfg.vocab) and torch.isfinite(last).all()
+    log(f"  fp32 prefill: {t * 1e3:.3f} ms; {routes['simt']} flash launches, all on "
+        f"the simt route")
+    return routes["simt"]
+
+
 def tree_leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in tree_leaves(v)]
@@ -408,36 +454,91 @@ def tree_leaves(tree):
     return [tree]
 
 
-def time_flash(flash_attention, ref, dev) -> dict:
-    """Kernel, plain version and F.scaled_dot_product_attention (the
-    library yardstick, timed here only) at the Whisper decoder's shape,
-    with the bound: q, k, v read once and o written once over 3.35 TB/s,
-    against 4 * B * H * D flops per causal (query, key) pair over bf16's
-    tensor-core peak."""
+def device_us_per_call(fn, kernel: str = "", n: int = 20):
+    """Device time per call of ``fn`` in the kernels whose names contain
+    ``kernel`` (all of them by default), from torch.profiler over n
+    calls; None if the trace shows no such kernel."""
     import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and kernel in e.key and e.count]
+    if not hits:
+        return None
+    return sum(e.self_device_time_total for e in hits) / n
+
+
+def host_us_per_call(fn, n: int = 200) -> float:
+    """Host time per call of ``fn`` (checks, ctypes, tensor maps, enqueue):
+    the host clock over n calls that the card has not yet finished."""
+    import torch
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return t / n * 1e6
+
+
+def time_flash(flash_attention, ref, dev) -> dict:
+    """Both flash kernels at the Whisper decoder's shape, each on its own
+    route: sm90 in bf16, simt in fp32; beside each, the plain version and
+    F.scaled_dot_product_attention (the library yardstick, timed here
+    only) in the same dtype, in turns, and in bf16 also the simt kernel
+    that the sm90 one replaces there.  The bound: q, k, v read once and o
+    written once over 3.35 TB/s, against 4 * B * H * D flops per causal
+    (query, key) pair over the peak of the arithmetic the kernel does
+    (bf16 tensor cores for sm90; fp32 CUDA cores for simt, no TF32)."""
     import torch.nn.functional as F
     b, hq, hkv, s, t, d, causal = FLASH_PATH_SHAPE
-    q, k, v = flash_inputs(b, hq, hkv, s, t, d, "bfloat16", dev, seed=7)
     pairs = sum(min(t, t - s + i + 1) for i in range(s)) if causal else s * t
     flops = 4 * b * hq * d * pairs
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOP_PER_S * 1e3
-    kern = lambda: flash_attention.flash_attention(q, k, v, causal=causal)  # noqa: E731
-    plain = lambda: ref.attention(q, k, v, causal=causal)  # noqa: E731
-    lib = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal)  # noqa: E731
-    p1, k1, k2, p2 = (cuda_time_ms(f, iters=50, warmup=5)
-                      for f in (plain, kern, kern, plain))
-    l1 = cuda_time_ms(lib, iters=50, warmup=5)
-    lib_err = (lib().float() - plain().float()).abs().max().item()
-    log(f"  flash_attention {FLASH_PATH_SHAPE} bf16: kernel {k1:.5f}/{k2:.5f} ms, "
-        f"plain {p1:.5f}/{p2:.5f} ms, sdpa {l1:.5f} ms (max abs err vs plain "
-        f"{lib_err:.3g}), bound {max(t_bytes, t_ops) * 1e3:.3f} us "
-        f"({nbytes} B -> {t_bytes * 1e3:.3f} us, {flops} flop -> {t_ops * 1e3:.3f} us)")
-    return dict(ms=min(k1, k2), plain_ms=min(p1, p2), library_ms=l1,
-                bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations",
-                bytes=nbytes, flops=flops)
+    out = {}
+    for name, which, dtype, peak, kernel in (
+            ("flash_attention", "sm90", "bfloat16", BF16_FLOP_PER_S,
+             "flash_fwd_sm90_kernel"),
+            ("flash_attention_simt", "simt", "float32", FP32_FLOP_PER_S,
+             "flash_fwd_kernel")):
+        q, k, v = flash_inputs(b, hq, hkv, s, t, d, dtype, dev, seed=7)
+        assert flash_attention.route(q.dtype, d) == which
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / peak * 1e3
+        kern = lambda: flash_attention.flash_attention(q, k, v, causal=causal)  # noqa: E731
+        plain = lambda: ref.attention(q, k, v, causal=causal)  # noqa: E731
+        lib = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal)  # noqa: E731
+        fns = {"plain": plain, "kernel": kern, "sdpa": lib}
+        if which == "sm90":   # the parent's kernel on the same bf16 call
+            shape = flash_attention._check(q, k, v, causal, t - s)
+            fns["simt bf16"] = lambda: flash_attention._launch(  # noqa: E731
+                "simt", q, k, v, shape, causal, None, t - s)
+        order = list(fns) + list(fns)[::-1]
+        ms = {key: [] for key in fns}
+        for key in order:
+            ms[key].append(cuda_time_ms(fns[key], iters=50, warmup=5))
+        host_us = host_us_per_call(kern)
+        dev_us = device_us_per_call(kern, kernel)
+        lib_dev_us = device_us_per_call(lib)
+        lib_err = (lib().float() - plain().float()).abs().max().item()
+        times = "; ".join(f"{key} {'/'.join(f'{x:.5f}' for x in v)} ms"
+                          for key, v in ms.items())
+        log(f"  {name} {FLASH_PATH_SHAPE} {dtype}: {times}; device "
+            f"{'not measured' if dev_us is None else f'{dev_us:.3f} us'} per launch, "
+            f"sdpa {'not measured' if lib_dev_us is None else f'{lib_dev_us:.3f} us'} "
+            f"per call (torch.profiler); host {host_us:.3f} us per call; sdpa max abs err vs "
+            f"plain {lib_err:.3g}; bound {max(t_bytes, t_ops) * 1e3:.3f} us "
+            f"({nbytes} B -> {t_bytes * 1e3:.3f} us, {flops} flop -> "
+            f"{t_ops * 1e3:.3f} us)")
+        out[name] = dict(ms=min(ms["kernel"]), plain_ms=min(ms["plain"]),
+                         library_ms=min(ms["sdpa"]), bound_ms=max(t_bytes, t_ops),
+                         bound_by="bytes" if t_bytes >= t_ops else "operations")
+    return out
 
 
 def main() -> int:
@@ -466,18 +567,25 @@ def main() -> int:
         f"python {sys.version.split()[0]}; tf32 off; nvidia-smi: {smi}")
 
     log("== 2. build (one nvcc per source, all at once)")
-    sources = (gp_gram.SOURCE, flash_attention.SOURCE)
+    sources = (gp_gram.SOURCE, flash_attention.SOURCE, flash_attention.SOURCE_SM90)
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         builds = list(pool.map(nvcc.build, sources))
     for b in builds:
         log(f"built {b.path.name} in {b.seconds:.2f} s")
         for line in b.log.splitlines():
-            if re.search(r"registers|spill|Compiling entry", line):
+            if re.search(r"registers|spill|Compiling entry|smem|arn", line):
                 log("  ptxas: " + line.strip())
+    # the tensor-core kernel must really issue wgmma and TMA loads
+    sass = nvcc.sass(builds[2].path)
+    counts = {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HGMMA", "UTMALDG")}
+    log(f"  {builds[2].path.name} SASS: {counts}")
+    assert all(n > 0 for n in counts.values()), counts
 
     log("== 3. kernel checks (kernel vs plain on the card)")
     err = check_kernels(gp_gram, ref, dev)
-    err["flash_attention"] = check_flash(flash_attention, ref, dev)
+    flash_err = check_flash(flash_attention, ref, dev)
+    err["flash_attention"] = flash_err["sm90"]
+    err["flash_attention_simt"] = flash_err["simt"]
     log(f"  max abs error: {err}")
 
     log("== 4. GP check (card vs CPU)")
@@ -521,22 +629,27 @@ def main() -> int:
 
     log(f"== 7. main path: {WHISPER} serving at full width on the card")
     whisper_launches = run_whisper(flash_attention)
+    log(f"== 7b. {WHISPER} prefill at full width in fp32 (the simt route's path)")
+    simt_launches = run_whisper_fp32(flash_attention)
 
     log("== 8. kernel timings (CUDA events; Gram at B=512, exp; flash at the "
         "Whisper decoder's shape)")
     times = time_kernels(gp_gram, ref, dev)
-    times["flash_attention"] = time_flash(flash_attention, ref, dev)
+    times.update(time_flash(flash_attention, ref, dev))
     log(f"  gp_gram library_ms: null - no single PyTorch call computes the Gram "
         f"matrix (torch.cdist gives distances only) or its (ell, sf) gradient")
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     launches["flash_attention"] = whisper_launches
+    launches["flash_attention_simt"] = simt_launches
     replaces = {"gp_gram_fwd": "src/repro/kernels/gp_gram.py:75",
                 "gp_gram_bwd": "src/repro/kernels/gp_gram.py:75",
-                "flash_attention": "src/repro/kernels/flash_attention.py:110"}
+                "flash_attention": "src/repro/kernels/flash_attention.py:110",
+                "flash_attention_simt": "src/repro/kernels/flash_attention.py:110"}
     sources = {"gp_gram_fwd": "src/repro_torch/kernels/csrc/gp_gram.cu",
                "gp_gram_bwd": "src/repro_torch/kernels/csrc/gp_gram.cu",
-               "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu"}
+               "flash_attention": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
+               "flash_attention_simt": "src/repro_torch/kernels/csrc/flash_attention.cu"}
     log(smi)   # the card's name and power limit, as nvidia-smi prints them
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": sources[name],
@@ -545,7 +658,8 @@ def main() -> int:
          "ms": times[name]["ms"], "plain_ms": times[name]["plain_ms"],
          "bound_ms": times[name]["bound_ms"], "bound_by": times[name]["bound_by"],
          "library_ms": times[name].get("library_ms")}
-        for name in ("gp_gram_fwd", "gp_gram_bwd", "flash_attention")]}))
+        for name in ("gp_gram_fwd", "gp_gram_bwd", "flash_attention",
+                     "flash_attention_simt")]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": count}}))
     return 0

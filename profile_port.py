@@ -35,7 +35,7 @@ def _dev_us(e) -> float:
 
 
 # device-time groups of the Whisper profile, by kernel name
-KINDS = (("flash kernel", ("flash_fwd_kernel",)),
+KINDS = (("flash kernel", ("flash_fwd_kernel", "flash_fwd_sm90_kernel")),
          ("GEMM", ("gemm", "xmma", "cutlass", "sm90_", "ampere_")),
          ("softmax", ("softmax",)),
          ("copy / cast", ("copy", "cast", "Copy", "Memcpy")),

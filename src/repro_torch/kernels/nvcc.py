@@ -63,3 +63,11 @@ def build(source: Path) -> Build:
     os.replace(log_tmp, log)
     os.replace(tmp, lib)
     return Build(lib, seconds, out)
+
+
+def sass(lib: Path) -> str:
+    """The library's machine code as ``cuobjdump -sass`` prints it, for
+    counting the instructions a kernel was compiled to."""
+    cuobjdump = Path(_nvcc()).parent / "cuobjdump"
+    return subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout

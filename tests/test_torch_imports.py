@@ -56,8 +56,10 @@ def test_importing_the_kernel_module_builds_nothing():
         "print(json.dumps([len(calls), gp_gram._LIB is None,\n"
         "                  gp_gram.gram_fwd.launches, gp_gram.gram_bwd.launches,\n"
         "                  flash_attention._LIB is None,\n"
-        "                  flash_attention.flash_attention.launches]))")
-    assert got == [0, True, 0, 0, True, 0]
+        "                  flash_attention._LIB_SM90 is None,\n"
+        "                  flash_attention.flash_attention.launches,\n"
+        "                  flash_attention.flash_attention.route_launches]))")
+    assert got == [0, True, 0, 0, True, True, 0, {"sm90": 0, "simt": 0}]
 
 
 def test_run_sim_without_device_raises_on_a_cpu_only_machine(monkeypatch):

@@ -177,9 +177,11 @@ def test_cuda_autograd_goes_through_kernels(cuda):
     torch.testing.assert_close(sf.grad, w_sf, rtol=2e-5, atol=2e-4)
 
 
-# (b, hq, hkv, s, t, d, causal): GQA groups 1/2/4/8, S < 8, a decode
-# prefix S < T, S and T off the 32/64 tiles, D of 16, 24, 64 and 128,
-# non-causal (also S > T), and the Whisper decoder's (8, 20, 448, 64)
+# (b, hq, hkv, s, t, d, causal): GQA groups 1/2/4/8, S < 8, decode
+# prefixes S < T (q_offset > 0), S and T off the kernels' tiles (32/64 for
+# simt, 64 for sm90), D of 16, 20, 24, 32, 64, 72 and 128 (D = 20 takes
+# the simt route in bf16 too), non-causal (also S > T), and the Whisper
+# decoder's (8, 20, 448, 64)
 FLASH_SHAPES = [
     (1, 1, 1, 32, 32, 16, True), (2, 4, 2, 64, 64, 32, True),
     (1, 8, 1, 128, 128, 64, True), (2, 8, 8, 100, 100, 64, True),
@@ -189,6 +191,10 @@ FLASH_SHAPES = [
     (2, 4, 4, 48, 48, 24, True), (1, 4, 2, 70, 70, 16, True),
     (1, 4, 2, 70, 70, 128, True), (1, 2, 2, 33, 65, 16, False),
     (1, 2, 2, 64, 100, 32, False), (1, 2, 1, 100, 50, 64, False),
+    (1, 8, 1, 200, 200, 128, True), (2, 8, 2, 17, 300, 32, True),
+    (1, 4, 4, 129, 129, 64, True), (1, 4, 2, 65, 65, 32, True),
+    (1, 4, 2, 130, 130, 20, True), (1, 2, 2, 300, 140, 128, False),
+    (1, 4, 1, 96, 160, 72, True), (1, 8, 4, 64, 1000, 16, True),
     (8, 20, 20, 448, 448, 64, True),
 ]
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -203,13 +209,37 @@ def test_cuda_flash_attention_matches_plain(cuda, dtype, b, hq, hkv, s, t, d, ca
                                device=cuda).to(dtype)
                for shape in ((b, hq, s, d), (b, hkv, t, d), (b, hkv, t, d)))
     n0 = flash_attention.flash_attention.launches
+    r0 = dict(flash_attention.flash_attention.route_launches)
     got = ops.attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
+    which = "sm90" if dtype == torch.bfloat16 and d % 8 == 0 else "simt"
     assert flash_attention.flash_attention.launches == n0 + 1
+    assert flash_attention.flash_attention.route_launches == {
+        r: r0[r] + (r == which) for r in r0}
     assert got.dtype == dtype and got.shape == q.shape
     tol = FLASH_TOL[dtype]
     torch.testing.assert_close(got.float(), ref.attention(q, k, v, causal=causal).float(),
                                rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+def test_cuda_flash_attention_misaligned_bf16_takes_simt(cuda):
+    """A bf16 view whose data starts off a 16-byte boundary cannot be
+    described to TMA: it takes the CUDA-core kernel, and agrees."""
+    rng = np.random.default_rng(11)
+    shape = (1, 4, 70, 64)
+    flat = torch.as_tensor(rng.standard_normal(3 * np.prod(shape) + 4).astype(np.float32),
+                           device=cuda).to(torch.bfloat16)
+    q, k, v = (flat[4 + i * int(np.prod(shape)):][:int(np.prod(shape))].view(shape)
+               for i in range(3))
+    assert q.data_ptr() % 16 == 8 and q.is_contiguous()
+    r0 = dict(flash_attention.flash_attention.route_launches)
+    got = flash_attention.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert flash_attention.flash_attention.route_launches == {
+        "sm90": r0["sm90"], "simt": r0["simt"] + 1}
+    torch.testing.assert_close(got.float(), ref.attention(q, k, v).float(),
+                               rtol=2e-2, atol=2e-2)
 
 
 @pytest.mark.gpu
