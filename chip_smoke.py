@@ -9,6 +9,8 @@ public entry points:
   * the default simulation (``run_sim(SimConfig())``: GP forecaster,
     pessimistic policy, 500 apps, 50 hosts) with a cap on its ticks,
     after checking the GP and small runs on the card against the CPU;
+    each forecasting tick launches the fused GP program (evidence loop,
+    fit and horizon in one kernel) once and the Gram kernels not at all;
   * Whisper-large-v3 serving at full width (random weights from a seeded
     generator on the card): 8 requests of 1,500 frames prefilled with 448
     teacher-forced tokens through the tensor-core flash kernel (bf16,
@@ -17,9 +19,12 @@ public entry points:
     CPU; then the same prefill in fp32, whose decoder self-attention
     takes the CUDA-core flash kernel (route "simt").
 
-It then times each kernel against its plain version, its bound and,
-where one PyTorch call computes the same function, that call.  Every
-phase raises on failure.
+Before the paths it checks every kernel against its plain version on the
+card: the Gram pair, the fused GP program (on 512 seeded windows with a
+row whose factor fails and padded all-invalid rows, "exp" and "rbf") and
+both flash routes on every shape of FLASH_SHAPES.  It then times each
+kernel against its plain version, its bound and, where one PyTorch call
+computes the same function, that call.  Every phase raises on failure.
 
 Run from the repository root with no arguments:
 
@@ -167,6 +172,28 @@ def seeded_windows(n=512, width=24, seed=0):
     return np.where(valid, w, 0).astype(np.float32), valid
 
 
+def assert_gp_close(mg, vg, mc, vc, w, cnt, what) -> None:
+    """The GP tolerances of tests/test_torch_forecast.py by a row's valid
+    count: >= 12 valid rtol 1e-3 on the mean and 5e-3 on the variance,
+    11 valid 5e-2, <= 10 valid (persistence) equal; a variance below the
+    square of one float32 ulp of the row's level is rounding noise.  A
+    NaN must be NaN in both."""
+    nan_g, nan_c = np.isnan(mg) | np.isnan(vg), np.isnan(mc) | np.isnan(vc)
+    if (nan_g != nan_c).any():
+        raise AssertionError(f"{what}: NaN in {np.flatnonzero((nan_g != nan_c).any(1))}")
+    atol_var = (np.finfo(np.float32).eps * np.abs(w).max(1, keepdims=True)) ** 2
+    for sel, rt_m, rt_v in ((cnt >= 12, 1e-3, 5e-3), (cnt == 11, 5e-2, 5e-2),
+                            (cnt <= 10, 0.0, 0.0)):
+        bad_m = np.abs(mg - mc) > rt_m * np.abs(mc)
+        bad_v = np.abs(vg - vc) > atol_var + rt_v * np.abs(vc)
+        bad = sel & (bad_m | bad_v).any(1)
+        if bad.any():
+            for i in np.flatnonzero(bad)[:8]:
+                log(f"  {what} row {i} ({cnt[i]} valid): mean {mg[i]} vs {mc[i]}, "
+                    f"var {vg[i]} vs {vc[i]}")
+            raise AssertionError(f"{what} disagrees on {bad.sum()} of {sel.sum()} rows")
+
+
 def check_gp(GPForecaster, GPConfig) -> None:
     """forecast_batch on the card against the port on the CPU, with the
     tolerances of tests/test_torch_forecast.py."""
@@ -177,21 +204,68 @@ def check_gp(GPForecaster, GPConfig) -> None:
     mg, vg = fc_gpu.mean.cpu().numpy(), fc_gpu.var.cpu().numpy()
     mc, vc = fc_cpu.mean.numpy(), fc_cpu.var.numpy()
     assert mg.shape == (512, 3) and np.isfinite(mg).all() and np.isfinite(vg).all()
-    cnt = v.sum(1)
-    atol_var = (np.finfo(np.float32).eps * np.abs(w).max(1, keepdims=True)) ** 2
-    for sel, rt_m, rt_v in ((cnt >= 12, 1e-3, 5e-3), (cnt == 11, 5e-2, 5e-2),
-                            (cnt <= 10, 0.0, 0.0)):
-        bad_m = np.abs(mg - mc) > rt_m * np.abs(mc)
-        bad_v = np.abs(vg - vc) > atol_var + rt_v * np.abs(vc)
-        bad = sel & (bad_m | bad_v).any(1)
-        if bad.any():
-            for i in np.flatnonzero(bad)[:8]:
-                log(f"  GP row {i} ({cnt[i]} valid): mean {mg[i]} vs {mc[i]}, "
-                    f"var {vg[i]} vs {vc[i]}")
-            raise AssertionError(f"GP on the card disagrees with the CPU on "
-                                 f"{bad.sum()} of {sel.sum()} rows")
+    assert_gp_close(mg, vg, mc, vc, w, v.sum(1), "GP on the card vs the CPU")
     log(f"  GP forecast_batch cuda vs cpu: 512 rows within tolerance "
         f"(max rel mean err {np.max(np.abs(mg - mc) / np.maximum(np.abs(mc), 1e-6)):.3g})")
+
+
+GP_CFG = dict(history=10, max_patterns=10, opt_steps=10)   # SimConfig().gp
+
+
+def gp_batch(GPConfig, dev, kind="exp", **over):
+    """The fused GP program's inputs as forecast_batch builds them: the
+    512 seeded windows, then one window whose patterns hold a NaN (its
+    factor is not positive definite) and 15 all-invalid padded rows, as
+    the engine pads a batch.  Returns (cfg, windows, valid, the kernel's
+    inputs, mu, sd)."""
+    import torch
+    from repro_torch.core.forecast import gp as G
+    cfg = GPConfig(kernel=kind, **{**GP_CFG, **over})
+    w, v = seeded_windows()
+    full = int(np.flatnonzero(v.all(1))[0])
+    w = np.concatenate([w, w[full:full + 1], np.zeros((15, w.shape[1]), np.float32)])
+    v = np.concatenate([v, v[full:full + 1], np.zeros((15, v.shape[1]), bool)])
+    wt, vt = torch.as_tensor(w, device=dev), torch.as_tensor(v, device=dev)
+    X, y, rv, hist, mu, sd = G.fit_inputs(wt, vt, cfg)
+    X = X.clone()
+    X[512, 4, 3] = float("nan")
+    args = [t.contiguous() for t in (X, y, rv, hist)] + [w.shape[1]]
+    return cfg, w, v, args, mu, sd
+
+
+def check_gp_kernel(gp_forecast, ref, GPConfig, dev) -> float:
+    """The fused GP program against ref.gp_fit_forecast on the card, for
+    both kinds, on gp_batch's rows, and on a batch where every factor with
+    a valid row is not positive definite (jitter -5); returns the largest
+    absolute error of the forecasts over rows both give finite."""
+    import torch
+    from repro_torch.core.forecast import gp as G
+    worst = 0.0
+    for kind, over in (("exp", {}), ("rbf", {}), ("exp", dict(jitter=-5.0, opt_steps=3))):
+        cfg, w, v, args, mu, sd = gp_batch(GPConfig, dev, kind, **over)
+        n0 = gp_forecast.gp_fit_forecast.launches
+        got = gp_forecast.gp_fit_forecast(*args, 3, cfg)
+        torch.cuda.synchronize()
+        assert gp_forecast.gp_fit_forecast.launches == n0 + 1
+        want = ref.gp_fit_forecast(*args, 3, cfg)
+        assert all(g.shape == r.shape for g, r in zip(got, want))
+        wt, vt = torch.as_tensor(w, device=dev), torch.as_tensor(v, device=dev)
+        fg = G.finish(got[0], got[1], wt, vt, mu, sd, cfg)
+        fc = G.finish(want[0], want[1], wt, vt, mu, sd, cfg)
+        mg, vg, mc, vc = (t.cpu().numpy() for t in (fg.mean, fg.var, fc.mean, fc.var))
+        what = f"gp_fit_forecast {kind}{' jitter -5' if over else ''}"
+        assert_gp_close(mg, vg, mc, vc, w, v.sum(1), what)
+        fin = np.isfinite(mc)
+        err = float(np.abs(mg - mc)[fin].max()) if fin.any() else 0.0
+        worst = max(worst, err)
+        pad = got[0][513:], got[1][513:]
+        assert all(torch.isfinite(t).all() for t in pad), pad
+        lp_err = (got[2] - want[2]).abs()
+        log(f"  {what}: {len(w)} rows within tolerance ({int(np.isnan(mc).any(1).sum())} "
+            f"NaN in both), max abs forecast err {err:.3g}; log-params max abs diff "
+            f"{lp_err.max().item():.3g}, median {lp_err.median().item():.3g}; padded rows "
+            f"finite (mean max abs diff {(got[0][513:] - want[0][513:]).abs().max().item():.3g})")
+    return worst
 
 
 def check_small_runs(run_sim, SimConfig, ClusterConfig, WorkloadConfig) -> None:
@@ -250,6 +324,75 @@ def time_kernels(gp_gram, ref, dev) -> dict:
         log(f"  {name}: kernel {k1:.5f}/{k2:.5f} ms, plain {p1:.5f}/{p2:.5f} ms, "
             f"bound {max(t_bytes, t_ops) * 1e3:.3f} us ({nbytes} B, {flops} flop)")
     return out
+
+
+def gp_flops(B, N, D, steps, H) -> int:
+    """Operations of the fused GP program for B series of N patterns of D
+    features, counted as its design needs them: the pair distances once;
+    per factor (steps + 1 of them) the kernel values and the Cholesky
+    factor; per Adam step the solve for alpha, L^-1, the gradient matrix
+    and its three sums; per horizon step the query's kernel row, the mean,
+    a solve and the variance."""
+    dist = 6 * N * N * D + 4 * N * N
+    fact = 4 * N * N + (2 * N ** 3) // 3 + 2 * N
+    grad = 2 * N * N + N ** 3 // 3 + (2 * N ** 3) // 3 + 6 * N * N + 12
+    horizon = 6 * N * D + 4 * N + 2 * N * N + 4 * N
+    return B * (dist + (steps + 1) * fact + steps * grad + H * horizon)
+
+
+def time_gp_kernel(gp_forecast, ref, GPConfig, dev) -> dict:
+    """The fused GP program at the main path's largest batch, B = 512
+    seeded windows (N = 10 patterns of D = 11, 10 Adam steps, horizon 3),
+    against its plain version on the card, in turns, with its device time
+    per launch and its bound: inputs read once and outputs written once
+    over 3.35 TB/s, against gp_flops over fp32's peak."""
+    cfg, w, v, args, _, _ = gp_batch(GPConfig, dev)
+    args = [a[:512] if hasattr(a, "shape") else a for a in args]
+    X, y, rv, hist, T = args
+    B, N, D = X.shape
+    H = 3
+    kern = lambda: gp_forecast.gp_fit_forecast(X, y, rv, hist, T, H, cfg)  # noqa: E731
+    plain = lambda: ref.gp_fit_forecast(X, y, rv, hist, T, H, cfg)  # noqa: E731
+    nbytes = 4 * (X.numel() + y.numel() + hist.numel() + 2 * B * H + 3 * B) + rv.numel()
+    flops = gp_flops(B, N, D, cfg.opt_steps, H)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    p1 = cuda_time_ms(plain, iters=10, warmup=2)
+    k1, k2 = (cuda_time_ms(kern, iters=200, warmup=10) for _ in range(2))
+    p2 = cuda_time_ms(plain, iters=10, warmup=2)
+    dev_us = device_us_per_call(kern, "gp_forecast_kernel")
+    host_us = host_us_per_call(kern)
+    log(f"  gp_fit_forecast B={B} N={N} D={D}: kernel {k1:.5f}/{k2:.5f} ms, plain "
+        f"{p1:.5f}/{p2:.5f} ms; device {'not measured' if dev_us is None else f'{dev_us:.3f} us'} "
+        f"per launch (torch.profiler), host {host_us:.3f} us per call; bound "
+        f"{max(t_bytes, t_ops) * 1e3:.3f} us ({nbytes} B -> {t_bytes * 1e3:.3f} us, "
+        f"{flops} flop -> {t_ops * 1e3:.3f} us)")
+    return {"gp_fit_forecast": dict(
+        ms=min(k1, k2), plain_ms=min(p1, p2), bound_ms=max(t_bytes, t_ops),
+        bound_by="bytes" if t_bytes >= t_ops else "operations")}
+
+
+def gp_launches_per_batch(GPForecaster, GPConfig, forecast_peaks) -> tuple[int, int]:
+    """Kernel launches of one forecast of the engine (forecast_peaks over
+    512 seeded windows: the GP, the peak over the horizon and the copies
+    back), counted by torch.profiler: (host launch calls, device kernels)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    gp = GPForecaster(GPConfig(**GP_CFG))
+    w, v = seeded_windows()
+    dev = torch.device("cuda")
+    forecast_peaks(gp, 3, w, v, dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        forecast_peaks(gp, 3, w, v, dev)
+        torch.cuda.synchronize()
+    ka = prof.key_averages()
+    host = sum(e.count for e in ka if e.key in (
+        "cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernelEx"))
+    kernels = sum(e.count for e in ka if e.device_type == DeviceType.CUDA
+                  and "Memcpy" not in e.key and "Memset" not in e.key)
+    return host, kernels
 
 
 def flash_inputs(b, hq, hkv, s, t, d, dtype, dev, seed):
@@ -446,6 +589,24 @@ def run_whisper_fp32(flash_attention) -> int:
     return routes["simt"]
 
 
+class count_calls:
+    """Count calls of ``cls.name`` until ``stop()``, which restores it and
+    returns the count."""
+
+    def __init__(self, cls, name):
+        self.cls, self.name, self.n = cls, name, 0
+        self.orig = getattr(cls, name)
+
+        def counted(*a, **k):
+            self.n += 1
+            return self.orig(*a, **k)
+        setattr(cls, name, counted)
+
+    def stop(self) -> int:
+        setattr(self.cls, self.name, self.orig)
+        return self.n
+
+
 def tree_leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in tree_leaves(v)]
@@ -548,8 +709,9 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.core.forecast import GPConfig, GPForecaster
-    from repro_torch.kernels import flash_attention, gp_gram, nvcc, ref
+    from repro_torch.kernels import flash_attention, gp_forecast, gp_gram, nvcc, ref
     from repro_torch.sim import ClusterConfig, SimConfig, WorkloadConfig, run_sim
+    from repro_torch.sim.engine import forecast_peaks
 
     # full fp32 everywhere: the GP's numbers must not go through TF32; bf16
     # GEMMs keep every partial sum in fp32, as the reference's dots do
@@ -567,7 +729,8 @@ def main() -> int:
         f"python {sys.version.split()[0]}; tf32 off; nvidia-smi: {smi}")
 
     log("== 2. build (one nvcc per source, all at once)")
-    sources = (gp_gram.SOURCE, flash_attention.SOURCE, flash_attention.SOURCE_SM90)
+    sources = (gp_gram.SOURCE, flash_attention.SOURCE, flash_attention.SOURCE_SM90,
+               gp_forecast.SOURCE)
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         builds = list(pool.map(nvcc.build, sources))
     for b in builds:
@@ -583,6 +746,7 @@ def main() -> int:
 
     log("== 3. kernel checks (kernel vs plain on the card)")
     err = check_kernels(gp_gram, ref, dev)
+    err["gp_fit_forecast"] = check_gp_kernel(gp_forecast, ref, GPConfig, dev)
     flash_err = check_flash(flash_attention, ref, dev)
     err["flash_attention"] = flash_err["sm90"]
     err["flash_attention_simt"] = flash_err["simt"]
@@ -599,12 +763,16 @@ def main() -> int:
         f"max_ticks capped at {MAIN_PATH_TICKS}")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    calls = count_calls(GPForecaster, "forecast_batch")
     gp_gram.reset_launch_counts()
+    gp_forecast.reset_launch_counts()
     flash_attention.reset_launch_counts()
     res = run_sim(cfg, device="cuda")
     torch.cuda.synchronize()
     launches = {"gp_gram_fwd": gp_gram.gram_fwd.launches,
-                "gp_gram_bwd": gp_gram.gram_bwd.launches}
+                "gp_gram_bwd": gp_gram.gram_bwd.launches,
+                "gp_fit_forecast": gp_forecast.gp_fit_forecast.launches}
+    fc_ticks = calls.stop()
     tm = res.timings
     summary = res.summary()
     ticks = tm["ticks"]
@@ -614,11 +782,15 @@ def main() -> int:
         f"policy {tm['policy'] / ticks * 1e3:.3f} ms, host {host / ticks * 1e3:.3f} ms")
     log(f"  summary {json.dumps(summary)}")
     log(f"  max memory allocated {torch.cuda.max_memory_allocated()} B")
-    log(f"  kernel launches {launches}")
+    host_launches, dev_kernels = gp_launches_per_batch(GPForecaster, GPConfig,
+                                                       forecast_peaks)
+    log(f"  kernel launches {launches} in {fc_ticks} forecasting ticks; one forecast "
+        f"of 512 windows under torch.profiler: {host_launches} host launch calls, "
+        f"{dev_kernels} device kernels")
     assert ticks == MAIN_PATH_TICKS, ticks
-    assert all(n > 0 for n in launches.values()), launches
+    assert fc_ticks > 0 and launches["gp_fit_forecast"] == fc_ticks, (launches, fc_ticks)
+    assert launches["gp_gram_fwd"] == launches["gp_gram_bwd"] == 0, launches
     assert flash_attention.flash_attention.launches == 0
-    assert launches["gp_gram_fwd"] == 14 * launches["gp_gram_bwd"] // 10, launches
     assert max(res.n_running) <= cfg.cluster.max_running_apps
     for k in ("util_cpu_mean", "util_mem_mean", "slack_cpu_mean", "slack_mem_mean"):
         assert np.isfinite(summary[k]), (k, summary[k])
@@ -635,6 +807,7 @@ def main() -> int:
     log("== 8. kernel timings (CUDA events; Gram at B=512, exp; flash at the "
         "Whisper decoder's shape)")
     times = time_kernels(gp_gram, ref, dev)
+    times.update(time_gp_kernel(gp_forecast, ref, GPConfig, dev))
     times.update(time_flash(flash_attention, ref, dev))
     log(f"  gp_gram library_ms: null - no single PyTorch call computes the Gram "
         f"matrix (torch.cdist gives distances only) or its (ell, sf) gradient")
@@ -644,10 +817,12 @@ def main() -> int:
     launches["flash_attention_simt"] = simt_launches
     replaces = {"gp_gram_fwd": "src/repro/kernels/gp_gram.py:75",
                 "gp_gram_bwd": "src/repro/kernels/gp_gram.py:75",
+                "gp_fit_forecast": "src/repro/kernels/gp_gram.py:75",
                 "flash_attention": "src/repro/kernels/flash_attention.py:110",
                 "flash_attention_simt": "src/repro/kernels/flash_attention.py:110"}
     sources = {"gp_gram_fwd": "src/repro_torch/kernels/csrc/gp_gram.cu",
                "gp_gram_bwd": "src/repro_torch/kernels/csrc/gp_gram.cu",
+               "gp_fit_forecast": "src/repro_torch/kernels/csrc/gp_forecast.cu",
                "flash_attention": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
                "flash_attention_simt": "src/repro_torch/kernels/csrc/flash_attention.cu"}
     log(smi)   # the card's name and power limit, as nvidia-smi prints them
@@ -658,8 +833,8 @@ def main() -> int:
          "ms": times[name]["ms"], "plain_ms": times[name]["plain_ms"],
          "bound_ms": times[name]["bound_ms"], "bound_by": times[name]["bound_by"],
          "library_ms": times[name].get("library_ms")}
-        for name in ("gp_gram_fwd", "gp_gram_bwd", "flash_attention",
-                     "flash_attention_simt")]}))
+        for name in ("gp_gram_fwd", "gp_gram_bwd", "gp_fit_forecast",
+                     "flash_attention", "flash_attention_simt")]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": count}}))
     return 0

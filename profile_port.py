@@ -4,9 +4,11 @@
 ``--path sim`` (the default) runs the default simulation
 (``run_sim(SimConfig())``, GP + pessimistic, full width) for a capped
 number of ticks under ``torch.profiler`` and prints the device's busy
-share (summed kernel time over wall time), the operators that take the
-most device time and the most host time, and the Gram kernels' device
-time per launch at the main path's largest batch.
+share (summed kernel time over wall time), the device time by kind (the
+fused GP program ``gp_forecast_kernel`` is the "GP program" group), the
+operators that take the most device time and the most host time, and
+the device time per launch of the GP program and of the Gram kernels at
+the main path's largest batch.
 
 ``--path whisper`` does the same for Whisper-large-v3 serving at full
 width (random weights): one prefill of 8 requests x 1,500 frames with
@@ -34,6 +36,13 @@ def _dev_us(e) -> float:
     return e.self_device_time_total
 
 
+# device-time groups of the simulation's profile, by kernel name
+SIM_KINDS = (("GP program", ("gp_forecast_kernel",)),
+             ("Gram kernels", ("gram_fwd_kernel", "gram_bwd_kernel")),
+             ("copy / cast", ("copy", "cast", "Copy", "Memcpy", "Memset")),
+             ("elementwise", ("elementwise", "vectorized", "where", "unrolled")),
+             ("reduction", ("reduce", "Reduce")))
+
 # device-time groups of the Whisper profile, by kernel name
 KINDS = (("flash kernel", ("flash_fwd_kernel", "flash_fwd_sm90_kernel")),
          ("GEMM", ("gemm", "xmma", "cutlass", "sm90_", "ampere_")),
@@ -44,14 +53,14 @@ KINDS = (("flash kernel", ("flash_fwd_kernel", "flash_fwd_sm90_kernel")),
          ("reduction (LayerNorm, argmax)", ("reduce", "Reduce", "norm")))
 
 
-def _kind(name: str) -> str:
-    for kind, keys in KINDS:
+def _kind(name: str, kinds=KINDS) -> str:
+    for kind, keys in kinds:
         if any(k in name for k in keys):
             return kind
     return "other"
 
 
-def _report(prof, wall: float, title: str, top: int = 12) -> None:
+def _report(prof, wall: float, title: str, top: int = 12, kinds=KINDS) -> None:
     from torch.autograd import DeviceType
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA and _dev_us(e) > 0]
@@ -60,7 +69,8 @@ def _report(prof, wall: float, title: str, top: int = 12) -> None:
           f"= {dev / wall:.2%} of wall")
     by_kind: dict[str, float] = {}
     for e in kernels:
-        by_kind[_kind(e.key)] = by_kind.get(_kind(e.key), 0.0) + _dev_us(e) / 1e3
+        kind = _kind(e.key, kinds)
+        by_kind[kind] = by_kind.get(kind, 0.0) + _dev_us(e) / 1e3
     for kind, ms in sorted(by_kind.items(), key=lambda kv: -kv[1]):
         print(f"  {ms:10.3f} ms  {ms / (dev * 1e3):7.2%}  {kind}")
     print("  top kernels by device time:")
@@ -117,7 +127,9 @@ def main() -> int:
         print("profile_port: torch sees no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
-    from repro_torch.kernels import gp_gram
+    from repro_torch.core.forecast import GPConfig
+    from repro_torch.core.forecast import gp as G
+    from repro_torch.kernels import gp_forecast, gp_gram
     from repro_torch.sim import SimConfig, run_sim
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -126,6 +138,7 @@ def main() -> int:
     if args.path == "whisper":
         return profile_whisper()
     run_sim(SimConfig(max_ticks=20), device="cuda")          # build + warm-up
+    gp_forecast.reset_launch_counts()
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=acts) as prof:
@@ -134,11 +147,14 @@ def main() -> int:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     ka = prof.key_averages()
-    dev = sum(_dev_us(e) for e in ka) / 1e6
     tm = res.timings
-    print(f"main path, {PROFILED_TICKS} ticks under the profiler: wall {wall:.3f} s, "
-          f"forecast {tm['forecast']:.3f} s, policy {tm['policy']:.3f} s; "
-          f"device busy {dev:.4f} s = {dev / wall:.2%} of wall")
+    print(f"main path, {PROFILED_TICKS} ticks under the profiler: forecast "
+          f"{tm['forecast']:.3f} s, policy {tm['policy']:.3f} s; "
+          f"{gp_forecast.gp_fit_forecast.launches} GP program launches")
+    _report(prof, wall, f"main path, {PROFILED_TICKS} ticks", kinds=SIM_KINDS)
+    n_launch = sum(e.count for e in ka if e.key in (
+        "cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernelEx"))
+    print(f"  host kernel launches: {n_launch} ({n_launch / PROFILED_TICKS:.1f} per tick)")
     print("top operators by device time (self):")
     for e in sorted(ka, key=_dev_us, reverse=True)[:12]:
         print(f"  {_dev_us(e) / 1e3:10.3f} ms  {e.count:8d} calls  {e.key[:90]}")
@@ -166,6 +182,25 @@ def main() -> int:
             print(f"{e.key[-40:]}: {_dev_us(e) / e.count:.3f} us device time per launch "
                   f"({e.count} launches)")
     print(f"wrapper calls: {wall / (2 * n) * 1e6:.3f} us per call on the host clock")
+
+    # the fused GP program alone at B = 512 windows of 24 samples
+    cfg = GPConfig(history=10, max_patterns=10, opt_steps=10)
+    w = (torch.rand((512, 24), device="cuda", generator=g) + 0.5).cumsum(1)
+    X, y, rv, hist, _, _ = G.fit_inputs(w, torch.ones_like(w, dtype=torch.bool), cfg)
+    X, y, rv, hist = (t.contiguous() for t in (X, y, rv, hist))
+    gp_forecast.gp_fit_forecast(X, y, rv, hist, 24, 3, cfg)
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            gp_forecast.gp_fit_forecast(X, y, rv, hist, 24, 3, cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    for e in prof.key_averages():
+        if "gp_forecast_kernel" in e.key:
+            print(f"gp_forecast_kernel (B=512, N=10, D=11): {_dev_us(e) / e.count:.3f} us "
+                  f"device time per launch ({e.count} launches)")
+    print(f"GP program calls: {wall / n * 1e6:.3f} us per call on the host clock")
     return 0
 
 

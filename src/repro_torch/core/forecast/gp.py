@@ -8,23 +8,25 @@ interact, so a row's result does not depend on the batch it rides in
 
 Series are modeled as ``y_t = f(y_{t-1}, ..., y_{t-h}) + eps`` (Eq. 4)
 and ``f`` is learned by GP regression over pattern inputs
-``[t, y_{t-h}, ..., y_{t-1}]`` (Eq. 5) with the Gram matrix of Eq. 6
-(``repro_torch.kernels.ops.gram``: the CUDA kernel on the card, the
-plain version on the CPU).  Hyper-parameters ``(ell, sf, sn)`` are
-fitted by a fixed number of Adam steps on the log marginal likelihood,
-and the forecast iterates the posterior mean (Eqs. 7-8) over the
-horizon.
+``[t, y_{t-h}, ..., y_{t-1}]`` (Eq. 5) with the Gram matrix of Eq. 6.
+Hyper-parameters ``(ell, sf, sn)`` are fitted by a fixed number of Adam
+steps on the log marginal likelihood, and the forecast iterates the
+posterior mean (Eqs. 7-8) over the horizon.  That work, after the
+patterns are built, is ``repro_torch.kernels.ops.gp_fit_forecast``: one
+CUDA kernel launch per batch on the card (``kernels/csrc/gp_forecast.cu``),
+the plain version (``kernels/ref.py``, autograd through the Gram matrix)
+on the CPU.
 """
 from __future__ import annotations
 
 import dataclasses
-import math
 
 import torch
 
 from repro_torch.core.forecast.base import Forecast
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
+
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,66 +66,36 @@ def _standardize(y: torch.Tensor, valid: torch.Tensor):
     return (y - mu[:, None]) / sd[:, None], mu, sd
 
 
-def _cholesky(K: torch.Tensor) -> torch.Tensor:
-    """Batched Cholesky factor; NaN where a matrix is not positive
-    definite, as ``jnp.linalg.cholesky`` returns (``torch.linalg.cholesky``
-    would raise for the whole batch)."""
-    L, info = torch.linalg.cholesky_ex(K)
-    return L.masked_fill((info > 0)[:, None, None], float("nan"))
+def fit_inputs(w: torch.Tensor, v: torch.Tensor, cfg: GPConfig):
+    """What ``gp_fit_forecast`` takes from ``(B, T)`` windows ``w`` with
+    valid samples ``v``: patterns X (B,N,D), targets y (B,N), row_valid
+    (B,N), the last h standardized values hist (B,h), and the
+    standardization's mu and sd (B,)."""
+    T = w.shape[1]
+    h = cfg.history
+    z, mu, sd = _standardize(w, v)
+    X, y = build_patterns(z, h, cfg.max_patterns)
+    n = X.shape[1]
+    # a pattern row is valid iff its whole history + target are observed
+    tgt = torch.arange(T - n, T, device=w.device)
+    row_valid = v[:, tgt[:, None] + torch.arange(-h, 1, device=w.device)].all(2)
+    return X, y, row_valid, z[:, -h:], mu, sd
 
 
-def _noisy_cholesky(X, row_valid, ell, sf, sn, cfg: GPConfig) -> torch.Tensor:
-    """Cholesky factor of ``K(X, X) + diag(noise)``; invalid pattern rows
-    are decoupled with noise 1e6 so they carry no information."""
-    K = kops.gram(X, X, ell, sf, kind=cfg.kernel)
-    noise = torch.where(row_valid, sn[:, None] ** 2 + cfg.jitter, 1e6)
-    return _cholesky(K + torch.diag_embed(noise))
-
-
-def _neg_log_marginal(log_params: torch.Tensor, X: torch.Tensor,
-                      y: torch.Tensor, row_valid: torch.Tensor,
-                      cfg: GPConfig) -> torch.Tensor:
-    """Per-series negative log marginal likelihood, ``(B,)``."""
-    ell, sf, sn = log_params.exp().unbind(1)
-    L = _noisy_cholesky(X, row_valid, ell, sf, sn, cfg)
-    alpha = torch.cholesky_solve(y[:, :, None], L)[:, :, 0]
-    n_eff = row_valid.sum(1).to(y.dtype)
-    logdet = torch.where(row_valid,
-                         torch.log(torch.diagonal(L, dim1=1, dim2=2)), 0.0)
-    return ((0.5 * y * alpha).sum(1) + logdet.sum(1)
-            + 0.5 * n_eff * math.log(2.0 * math.pi))
-
-
-def _optimize_evidence(X: torch.Tensor, y: torch.Tensor,
-                       row_valid: torch.Tensor, cfg: GPConfig) -> torch.Tensor:
-    """A fixed Adam loop on the log marginal likelihood, per series:
-    log-params ``(B, 3)`` for ``(ell, sf, sn)``.
-
-    As in the reference, a non-finite gradient entry (a non-PD step) is
-    zeroed and the log-params are clipped to [-6, 6] after each step.
-    The bias corrections ``1 - b**(i+1)`` are float32 powers, as the
-    reference computes them from its float32 step counter."""
-    B = X.shape[0]
-    b1, b2, eps = 0.9, 0.999, 1e-8
-    steps = torch.arange(1, cfg.opt_steps + 1, dtype=torch.float32)
-    bc1 = (1 - torch.tensor(b1, dtype=torch.float32) ** steps).tolist()
-    bc2 = (1 - torch.tensor(b2, dtype=torch.float32) ** steps).tolist()
-    init = torch.log(torch.tensor([1.0, 1.0, 0.3], dtype=torch.float32))
-    p = init.to(X.device).expand(B, 3).clone()
-    m = torch.zeros_like(p)
-    v = torch.zeros_like(p)
-    for i in range(cfg.opt_steps):
-        lp = p.detach().requires_grad_(True)
-        with torch.enable_grad():
-            loss = _neg_log_marginal(lp, X, y, row_valid, cfg).sum()
-            (g,) = torch.autograd.grad(loss, lp)
-        g = torch.where(torch.isfinite(g), g, 0.0)
-        m = b1 * m + (1 - b1) * g
-        v = b2 * v + (1 - b2) * g * g
-        mh = m / bc1[i]
-        vh = v / bc2[i]
-        p = torch.clamp(p - cfg.opt_lr * mh / (torch.sqrt(vh) + eps), -6.0, 6.0)
-    return p
+def finish(mean_z: torch.Tensor, var_z: torch.Tensor, w: torch.Tensor,
+           v: torch.Tensor, mu: torch.Tensor, sd: torch.Tensor,
+           cfg: GPConfig) -> Forecast:
+    """Standardized ``(B, horizon)`` forecasts back to the windows' units,
+    with persistence where a window is too short for the GP."""
+    mean = mean_z * sd[:, None] + mu[:, None]
+    var = var_z * (sd ** 2)[:, None]
+    # degenerate window (fewer than h+1 valid points): persistence with
+    # an inflated variance rather than NaN
+    enough = (v.sum(1) >= cfg.history + 1)[:, None]
+    last = w[:, -1:]
+    mean = torch.where(enough, mean, last)
+    var = torch.where(enough, var, (0.5 * torch.abs(last) + 1.0) ** 2)
+    return Forecast(mean=mean, var=var)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -144,40 +116,8 @@ class GPForecaster:
         B, T = w.shape
         v = (torch.ones((B, T), dtype=torch.bool, device=dev) if valid is None
              else torch.as_tensor(valid, dtype=torch.bool, device=dev))
-        h = cfg.history
-        z, mu, sd = _standardize(w, v)
-        X, y = build_patterns(z, h, cfg.max_patterns)
-        n = X.shape[1]
-        # a pattern row is valid iff its whole history + target are observed
-        tgt = torch.arange(T - n, T, device=dev)
-        row_valid = v[:, tgt[:, None] + torch.arange(-h, 1, device=dev)].all(2)
-
-        ell, sf, sn = _optimize_evidence(X, y, row_valid, cfg).exp().unbind(1)
-        L = _noisy_cholesky(X, row_valid, ell, sf, sn, cfg)
-        alpha = torch.cholesky_solve(y[:, :, None], L)[:, :, 0]
-
-        # iterated k-step-ahead: the predictive mean is fed back into the
-        # history; the predictive variance at each step is Eq. 8's
-        hist = z[:, -h:]
-        means, variances = [], []
-        for k in range(horizon):
-            t_next = torch.full((B, 1), (T + k) / max(T - 1, 1),
-                                dtype=torch.float32, device=dev)
-            xs = torch.cat([t_next, hist], dim=1)[:, None, :]
-            ks = kops.gram(xs, X, ell, sf, kind=cfg.kernel)[:, 0]
-            mean_k = (ks * alpha).sum(1)
-            kv = torch.cholesky_solve(ks[:, :, None], L)[:, :, 0]
-            var_k = torch.clamp_min(sf ** 2 + sn ** 2 - (ks * kv).sum(1), 1e-9)
-            means.append(mean_k)
-            variances.append(var_k)
-            hist = torch.cat([hist[:, 1:], mean_k[:, None]], dim=1)
-
-        mean = torch.stack(means, 1) * sd[:, None] + mu[:, None]
-        var = torch.stack(variances, 1) * (sd ** 2)[:, None]
-        # degenerate window (fewer than h+1 valid points): persistence with
-        # an inflated variance rather than NaN
-        enough = (v.sum(1) >= h + 1)[:, None]
-        last = w[:, -1:]
-        mean = torch.where(enough, mean, last)
-        var = torch.where(enough, var, (0.5 * torch.abs(last) + 1.0) ** 2)
-        return Forecast(mean=mean, var=var)
+        X, y, row_valid, hist, mu, sd = fit_inputs(w, v, cfg)
+        # evidence loop, fit and horizon: one CUDA kernel on the card
+        mean_z, var_z, _ = kops.gp_fit_forecast(X, y, row_valid, hist, T,
+                                                horizon, cfg)
+        return finish(mean_z, var_z, w, v, mu, sd, cfg)

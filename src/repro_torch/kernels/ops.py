@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import gp_forecast as _gf
 from repro_torch.kernels import gp_gram as _gg
 from repro_torch.kernels import ref
 
@@ -27,6 +28,23 @@ def gram(xa: torch.Tensor, xb: torch.Tensor, lengthscale: torch.Tensor,
     if xa.device.type == "cpu":
         return ref.gram(xa, xb, lengthscale, sigma_f, kind=kind)
     raise ValueError(f"no gram implementation for device {xa.device}")
+
+
+def gp_fit_forecast(X: torch.Tensor, y: torch.Tensor, row_valid: torch.Tensor,
+                    hist: torch.Tensor, T: int, horizon: int, cfg):
+    """The GP's evidence loop, fit and iterated horizon per series, in
+    standardized units: X (B,N,D) patterns, y (B,N) targets, row_valid
+    (B,N), hist (B,D-1) the last D-1 values, T the window length, cfg a
+    ``GPConfig`` -> (mean, var, log_params), ``(B, horizon)`` twice and
+    ``(B, 3)``.  On the card one kernel launch; a call it cannot take
+    raises."""
+    if X.device.type == "cuda":
+        return _gf.gp_fit_forecast(X.contiguous(), y.contiguous(),
+                                   row_valid.contiguous(), hist.contiguous(),
+                                   T, horizon, cfg)
+    if X.device.type == "cpu":
+        return ref.gp_fit_forecast(X, y, row_valid, hist, T, horizon, cfg)
+    raise ValueError(f"no gp_fit_forecast implementation for device {X.device}")
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

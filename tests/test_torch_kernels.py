@@ -243,6 +243,25 @@ def test_cuda_flash_attention_misaligned_bf16_takes_simt(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 20])
+def test_cuda_flash_attention_fp32_off_16_bytes_takes_4_byte_copies(cuda, d):
+    """fp32 q, k and v whose rows do not start on 16 bytes: the CUDA-core
+    kernel loads them with 4-byte copies and stores o element by element."""
+    rng = np.random.default_rng(d)
+    shape = (2, 4, 100, d)
+    n = int(np.prod(shape))
+    flat = torch.as_tensor(rng.standard_normal(3 * n + 1).astype(np.float32), device=cuda)
+    q, k, v = (flat[1 + i * n:][:n].view(shape) for i in range(3))
+    assert q.data_ptr() % 16 == 4 and q.is_contiguous()
+    r0 = dict(flash_attention.flash_attention.route_launches)
+    got = flash_attention.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert flash_attention.flash_attention.route_launches == {
+        "sm90": r0["sm90"], "simt": r0["simt"] + 1}
+    torch.testing.assert_close(got, ref.attention(q, k, v), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.gpu
 def test_cuda_flash_attention_refuses_what_it_cannot_compute(cuda):
     q = torch.zeros((1, 2, 8, 16), device=cuda)
     with pytest.raises(ValueError, match="q_offset"):
