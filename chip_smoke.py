@@ -327,16 +327,21 @@ def time_kernels(gp_gram, ref, dev) -> dict:
 
 
 def gp_flops(B, N, D, steps, H) -> int:
-    """Operations of the fused GP program for B series of N patterns of D
-    features, counted as its design needs them: the pair distances once;
-    per factor (steps + 1 of them) the kernel values and the Cholesky
-    factor; per Adam step the solve for alpha, L^-1, the gradient matrix
-    and its three sums; per horizon step the query's kernel row, the mean,
-    a solve and the variance."""
-    dist = 6 * N * N * D + 4 * N * N
-    fact = 4 * N * N + (2 * N ** 3) // 3 + 2 * N
-    grad = 2 * N * N + N ** 3 // 3 + (2 * N ** 3) // 3 + 6 * N * N + 12
-    horizon = 6 * N * D + 4 * N + 2 * N * N + 4 * N
+    """Operations the fused GP program's function needs for B series of N
+    patterns of D features, counted for what it must compute, not as the
+    kernel happens to compute it: each row's norm once and a dot product
+    per unordered pair (K is symmetric); per factor (steps + 1 of them) the
+    kernel values of the symmetric half and a Cholesky factor (N^3 / 3);
+    per Adam step the two solves for alpha, L^-1 (N^3 / 3), the symmetric
+    half of G = 0.5 (L^-T diag(m) L^-1 - alpha alpha^T) (N^3 / 3) and its
+    three weighted sums, and the Adam update of three parameters; per
+    horizon step the query's norm and kernel row, the mean, a solve and the
+    variance."""
+    half = N * (N + 1) // 2
+    dist = 2 * N * D + half * (2 * D + 4)
+    fact = 4 * half + N + N ** 3 // 3
+    grad = 2 * N * N + 2 * (N ** 3 // 3) + half + 6 * half + 3 * 12
+    horizon = 2 * D + 2 * N * D + 4 * N + 2 * N + N * N + 2 * N
     return B * (dist + (steps + 1) * fact + steps * grad + H * horizon)
 
 

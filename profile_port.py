@@ -7,8 +7,8 @@ number of ticks under ``torch.profiler`` and prints the device's busy
 share (summed kernel time over wall time), the device time by kind (the
 fused GP program ``gp_forecast_kernel`` is the "GP program" group), the
 operators that take the most device time and the most host time, and
-the device time per launch of the GP program and of the Gram kernels at
-the main path's largest batch.
+the Gram kernels' device time per launch at the main path's largest
+batch (chip_smoke.py's phase 8 times the GP program alone).
 
 ``--path whisper`` does the same for Whisper-large-v3 serving at full
 width (random weights): one prefill of 8 requests x 1,500 frames with
@@ -127,8 +127,6 @@ def main() -> int:
         print("profile_port: torch sees no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
-    from repro_torch.core.forecast import GPConfig
-    from repro_torch.core.forecast import gp as G
     from repro_torch.kernels import gp_forecast, gp_gram
     from repro_torch.sim import SimConfig, run_sim
 
@@ -183,24 +181,6 @@ def main() -> int:
                   f"({e.count} launches)")
     print(f"wrapper calls: {wall / (2 * n) * 1e6:.3f} us per call on the host clock")
 
-    # the fused GP program alone at B = 512 windows of 24 samples
-    cfg = GPConfig(history=10, max_patterns=10, opt_steps=10)
-    w = (torch.rand((512, 24), device="cuda", generator=g) + 0.5).cumsum(1)
-    X, y, rv, hist, _, _ = G.fit_inputs(w, torch.ones_like(w, dtype=torch.bool), cfg)
-    X, y, rv, hist = (t.contiguous() for t in (X, y, rv, hist))
-    gp_forecast.gp_fit_forecast(X, y, rv, hist, 24, 3, cfg)
-    torch.cuda.synchronize()
-    with profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n):
-            gp_forecast.gp_fit_forecast(X, y, rv, hist, 24, 3, cfg)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    for e in prof.key_averages():
-        if "gp_forecast_kernel" in e.key:
-            print(f"gp_forecast_kernel (B=512, N=10, D=11): {_dev_us(e) / e.count:.3f} us "
-                  f"device time per launch ({e.count} launches)")
-    print(f"GP program calls: {wall / n * 1e6:.3f} us per call on the host clock")
     return 0
 
 

@@ -69,6 +69,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
 
 constexpr int kBQ = 64;        // query rows per block
@@ -358,12 +360,18 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
            int causal, int q_offset, cudaStream_t stream) {
   constexpr int smem = smem_bytes<DP>();
   auto* kernel = flash_fwd_kernel<T, DP, VEC, KD>;
-  static bool attr_set = false;  // the limit is set once per instantiation
-  if (!attr_set) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  // the shared-memory limit belongs to one device: it is set once per
+  // device and instantiation (bit d of `set`; every time past device 63)
+  static std::atomic<uint64_t> set{0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const uint64_t bit = dev < 64 ? 1ull << dev : 0;
+  if (!(set.load() & bit)) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    attr_set = true;
+    set.fetch_or(bit);
   }
   const dim3 grid((S + kBQ - 1) / kBQ, Hq, B);
   kernel<<<grid, kThreads, smem, stream>>>(

@@ -36,8 +36,9 @@
 //
 // What bounds it: at B = 512 series of N = 10 patterns of D = 11 (the
 // default simulation's largest forecast batch) a call moves 289,792 B
-// (0.09 us at 3.35 TB/s) and does ~20 MFLOP as chip_smoke.py's gp_flops
-// counts them (0.3 us at fp32's 67 TFLOP/s), but each series is a chain
+// (0.09 us at 3.35 TB/s) and its function needs ~11 MFLOP as
+// chip_smoke.py's gp_flops counts them (0.17 us at fp32's 67 TFLOP/s;
+// symmetric halves, N^3 / 3 per factor), but each series is a chain
 // of 11 N x N factorizations, each N pivots long, with solves, an
 // inverse and reductions between: the kernel is bound by that chain's
 // latency, not by bytes or operations.  What it removes is the host's

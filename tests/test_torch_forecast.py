@@ -1,7 +1,6 @@
 """The port's GP forecaster and forecast reductions against the JAX
 reference, on windows recorded from a reference simulation."""
 import dataclasses
-import math
 
 import jax
 import jax.numpy as jnp
@@ -18,7 +17,6 @@ from repro.sim.scenarios.registry import build_trace
 from repro.sim.sweep import quick_base_config
 from repro_torch.core.forecast import Forecast, GPConfig, GPForecaster, base
 from repro_torch.core.forecast import gp as tgp
-from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 
 H = 3          # the engine's horizon
@@ -196,80 +194,20 @@ def test_forecast_batch_refuses_cuda_without_a_card(monkeypatch):
         GPForecaster().forecast_batch(np.zeros((2, 24), np.float32), H)
 
 
-def _forecast_batch_before_fusion(cfg, W, V, horizon):
-    """forecast_batch as it was written before its evidence loop, fit and
-    horizon became one kernel: autograd through the Gram matrix, batched
-    Cholesky and solves, and a Python loop over the horizon (CPU)."""
-    w = torch.as_tensor(W, dtype=torch.float32)
-    v = torch.as_tensor(V, dtype=torch.bool)
-    B, T = w.shape
-    h = cfg.history
-    z, mu, sd = tgp._standardize(w, v)
-    X, y = tgp.build_patterns(z, h, cfg.max_patterns)
-    n = X.shape[1]
-    tgt = torch.arange(T - n, T)
-    row_valid = v[:, tgt[:, None] + torch.arange(-h, 1)].all(2)
-
-    def noisy_cholesky(ell, sf, sn):
-        K = kops.gram(X, X, ell, sf, kind=cfg.kernel)
-        noise = torch.where(row_valid, sn[:, None] ** 2 + cfg.jitter, 1e6)
-        L, info = torch.linalg.cholesky_ex(K + torch.diag_embed(noise))
-        return L.masked_fill((info > 0)[:, None, None], float("nan"))
-
-    def neg_log_marginal(lp):
-        ell, sf, sn = lp.exp().unbind(1)
-        L = noisy_cholesky(ell, sf, sn)
-        alpha = torch.cholesky_solve(y[:, :, None], L)[:, :, 0]
-        logdet = torch.where(row_valid, torch.log(torch.diagonal(L, dim1=1, dim2=2)), 0.0)
-        return ((0.5 * y * alpha).sum(1) + logdet.sum(1)
-                + 0.5 * row_valid.sum(1).to(y.dtype) * math.log(2.0 * math.pi))
-
-    b1, b2, eps = 0.9, 0.999, 1e-8
-    steps = torch.arange(1, cfg.opt_steps + 1, dtype=torch.float32)
-    bc1 = (1 - torch.tensor(b1, dtype=torch.float32) ** steps).tolist()
-    bc2 = (1 - torch.tensor(b2, dtype=torch.float32) ** steps).tolist()
-    p = torch.log(torch.tensor([1.0, 1.0, 0.3])).expand(B, 3).clone()
-    m, vv = torch.zeros_like(p), torch.zeros_like(p)
-    for i in range(cfg.opt_steps):
-        lp = p.detach().requires_grad_(True)
-        (g,) = torch.autograd.grad(neg_log_marginal(lp).sum(), lp)
-        g = torch.where(torch.isfinite(g), g, 0.0)
-        m = b1 * m + (1 - b1) * g
-        vv = b2 * vv + (1 - b2) * g * g
-        p = torch.clamp(p - cfg.opt_lr * (m / bc1[i]) / (torch.sqrt(vv / bc2[i]) + eps),
-                        -6.0, 6.0)
-    with torch.no_grad():
-        ell, sf, sn = p.exp().unbind(1)
-        L = noisy_cholesky(ell, sf, sn)
-        alpha = torch.cholesky_solve(y[:, :, None], L)[:, :, 0]
-        hist = z[:, -h:]
-        means, variances = [], []
-        for k in range(horizon):
-            t_next = torch.full((B, 1), (T + k) / max(T - 1, 1), dtype=torch.float32)
-            xs = torch.cat([t_next, hist], dim=1)[:, None, :]
-            ks = kops.gram(xs, X, ell, sf, kind=cfg.kernel)[:, 0]
-            mean_k = (ks * alpha).sum(1)
-            kv = torch.cholesky_solve(ks[:, :, None], L)[:, :, 0]
-            means.append(mean_k)
-            variances.append(torch.clamp_min(sf ** 2 + sn ** 2 - (ks * kv).sum(1), 1e-9))
-            hist = torch.cat([hist[:, 1:], mean_k[:, None]], dim=1)
-        mean = torch.stack(means, 1) * sd[:, None] + mu[:, None]
-        var = torch.stack(variances, 1) * (sd ** 2)[:, None]
-        enough = (v.sum(1) >= h + 1)[:, None]
-        last = w[:, -1:]
-        return (torch.where(enough, mean, last),
-                torch.where(enough, var, (0.5 * torch.abs(last) + 1.0) ** 2))
-
-
 @pytest.mark.parametrize("kind", ["exp", "rbf"])
-def test_plain_gp_program_equals_the_body_it_replaced(recorded, kind):
-    """On the CPU forecast_batch now hands its patterns to
-    ops.gp_fit_forecast, whose plain version (ref.gp_fit_forecast) must
-    give what the body it replaced gave, bit for bit, on every recorded
-    window."""
+def test_plain_gp_program_fits_the_reference_parameters(recorded, kind, monkeypatch):
+    """The fitted log (ell, sf, sn) that ref.gp_fit_forecast returns,
+    against the reference's _optimize_evidence on the same patterns (its
+    Gram diagonal summed exactly, as in the first test), on every
+    recorded window.  The forecasts alone can hide a parameter that went
+    astray; fp32 Adam over 10 steps keeps the two within 1e-4 here
+    (largest difference seen 4.5e-5)."""
     cfg, W, V = recorded
-    gcfg = dataclasses.replace(_port_gp(cfg).cfg, kernel=kind)
-    want = _forecast_batch_before_fusion(gcfg, W, V, H)
-    got = GPForecaster(gcfg).forecast_batch(W, H, valid=V, device="cpu")
-    torch.testing.assert_close(got.mean, want[0], rtol=0, atol=0, equal_nan=True)
-    torch.testing.assert_close(got.var, want[1], rtol=0, atol=0, equal_nan=True)
+    monkeypatch.setattr(jref, "sq_dists", _sq_dists_exact_diagonal)
+    pcfg = dataclasses.replace(_port_gp(cfg).cfg, kernel=kind)
+    rcfg = dataclasses.replace(cfg.gp, kernel=kind)
+    X, y, rv, hist, _, _ = tgp.fit_inputs(torch.as_tensor(W), torch.as_tensor(V), pcfg)
+    got = kref.gp_fit_forecast(X, y, rv, hist, W.shape[1], H, pcfg)[2]
+    want = jax.jit(jax.vmap(lambda a, b, c: rgp._optimize_evidence(a, b, c, rcfg)))(
+        X.numpy(), y.numpy(), rv.numpy())
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-4)
