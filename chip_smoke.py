@@ -2,15 +2,21 @@
 """Smoke test of the PyTorch port on one CUDA card.
 
 Builds the port's CUDA kernels from the sources in this checkout (one
-``nvcc`` per source, all at once), checks each against its plain PyTorch
-version on the card, and drives the port's two main paths through their
-public entry points:
+``nvcc`` per source, all at once), checks each against its plain version
+on the card, and drives the port's main paths through their public entry
+points:
 
-  * the default simulation (``run_sim(SimConfig())``: GP forecaster,
-    pessimistic policy, 500 apps, 50 hosts) with a cap on its ticks,
-    after checking the GP and small runs on the card against the CPU;
-    each forecasting tick launches the fused GP program (evidence loop,
-    fit and horizon in one kernel) once and the Gram kernels not at all;
+  * the default simulation on the host engine (``run_sim(SimConfig())``:
+    GP forecaster, pessimistic policy, 500 apps, 50 hosts) with a cap on
+    its ticks, after checking the GP and small runs on the card against
+    the CPU; each forecasting tick launches the fused GP program once,
+    each shaping tick Algorithm 1's kernel once, the Gram kernels never;
+  * the same simulation on the device engine (``run_sim_scan(SimConfig())``)
+    to completion, every chunk under ``torch.cuda.set_sync_debug_mode(
+    "error")``, with one launch per tick of the GP program, Algorithm 1's
+    pass and the three scheduler kernels (OOM, admission, elastic
+    re-placement), after the full-width oracle run on the card against
+    the CPU;
   * Whisper-large-v3 serving at full width (random weights from a seeded
     generator on the card): 8 requests of 1,500 frames prefilled with 448
     teacher-forced tokens through the tensor-core flash kernel (bf16,
@@ -21,10 +27,13 @@ public entry points:
 
 Before the paths it checks every kernel against its plain version on the
 card: the Gram pair, the fused GP program (on 512 seeded windows with a
-row whose factor fails and padded all-invalid rows, "exp" and "rbf") and
-both flash routes on every shape of FLASH_SHAPES.  It then times each
-kernel against its plain version, its bound and, where one PyTorch call
-computes the same function, that call.  Every phase raises on failure.
+row whose factor fails and padded all-invalid rows, "exp" and "rbf"),
+both flash routes on every shape of FLASH_SHAPES, and the device
+engine's four kernels on full-width states captured from the port's own
+CPU runs and seeded tie-prone tables (every output equal).  It then
+times each kernel against its plain version, its bound and, where one
+PyTorch call computes the same function, that call.  Every phase raises
+on failure.
 
 Run from the repository root with no arguments:
 
@@ -595,20 +604,26 @@ def run_whisper_fp32(flash_attention) -> int:
 
 
 class count_calls:
-    """Count calls of ``cls.name`` until ``stop()``, which restores it and
-    returns the count."""
+    """Count calls of ``owner.name`` (or ``owner[name]`` for a dict) until
+    ``stop()``, which restores it and returns the count."""
 
-    def __init__(self, cls, name):
-        self.cls, self.name, self.n = cls, name, 0
-        self.orig = getattr(cls, name)
+    def __init__(self, owner, name):
+        self.owner, self.name, self.n = owner, name, 0
+        self.orig = owner[name] if isinstance(owner, dict) else getattr(owner, name)
 
         def counted(*a, **k):
             self.n += 1
             return self.orig(*a, **k)
-        setattr(cls, name, counted)
+        self._set(counted)
+
+    def _set(self, fn):
+        if isinstance(self.owner, dict):
+            self.owner[self.name] = fn
+        else:
+            setattr(self.owner, self.name, fn)
 
     def stop(self) -> int:
-        setattr(self.cls, self.name, self.orig)
+        self._set(self.orig)
         return self.n
 
 
@@ -707,6 +722,303 @@ def time_flash(flash_attention, ref, dev) -> dict:
     return out
 
 
+# ----------------------------------------------------------------------
+# the device engine (run_sim_scan) and its kernels
+# ----------------------------------------------------------------------
+
+SCAN_KERNELS = ("pessimistic_pass", "resolve_oom", "admit_queued", "place_missing_elastic")
+SCAN_REPLACES = {"pessimistic_pass": "src/repro/core/shaper/pessimistic.py:117",
+                 "resolve_oom": "src/repro/sim/step.py:472",
+                 "admit_queued": "src/repro/sim/step.py:554",
+                 "place_missing_elastic": "src/repro/sim/step.py:670"}
+SCAN_SOURCES = {"pessimistic_pass": "src/repro_torch/kernels/csrc/shaper.cu",
+                **{k: "src/repro_torch/kernels/csrc/sched.cu" for k in SCAN_KERNELS[1:]}}
+CAPTURE_TICKS = range(40, 400, 40)
+
+
+def capture_states(step, SimConfig, policy):
+    """The port's own device engine on the CPU at full width (SimConfig(),
+    oracle forecasts), tick by tick; returns (trace, state, host_cap) at
+    CAPTURE_TICKS.  Under the optimistic policy hosts are over-committed,
+    so the OOM handler finds victims."""
+    import torch
+    from repro_torch.sim.scenarios.registry import build_trace
+    from repro_torch.sim.state import DeviceTrace, init_state
+    cfg = SimConfig(forecaster="oracle", policy=policy)
+    wl = build_trace(cfg.workload)
+    tr = DeviceTrace.from_traces([wl], "cpu")
+    st = init_state(cfg, wl.n_apps, wl.max_components, 1, "cpu")
+    cap = step.host_capacity(cfg, "cpu")
+    out = []
+    with torch.no_grad():
+        for k in range(max(CAPTURE_TICKS) + 1):
+            if k in CAPTURE_TICKS:
+                out.append((cfg, tr, st, cap))
+            st, _ = step.fused_tick(cfg, None, tr, st, cap)
+    return out
+
+
+def random_tables(seed, S=3, A=16, C=4, N=24, H=3):
+    """Seeded slot tables for the scheduler kernels (numpy, then CPU
+    tensors), S members, values from small sets so that hosts tie on free
+    memory, apps on submit time and components on memory overage."""
+    import torch
+    rng = np.random.default_rng(seed)
+    idx = np.arange(C)
+    n_comp = rng.integers(1, C + 1, (S, N))
+    exists = idx < n_comp[..., None]
+    is_core = idx < np.minimum(rng.integers(1, 3, (S, N)), n_comp)[..., None]
+    cpu_req = np.where(exists, rng.choice([0.5, 1.0, 2.0], (S, N, C)), 0).astype(np.float32)
+    mem_req = np.where(exists, rng.choice([2.0, 4.0, 6.0], (S, N, C)), 0).astype(np.float32)
+    slot_gid = np.full((S, A), -1, np.int32)
+    queued = np.zeros((S, N), bool)
+    for s in range(S):
+        apps = rng.permutation(N)
+        n = rng.integers(A // 2, A + 1)
+        slot_gid[s, rng.choice(A, n, replace=False)] = apps[:n]
+        queued[s, apps[n:]] = rng.random(N - n) < 0.8
+    g = np.maximum(slot_gid, 0)
+    take = lambda x: np.take_along_axis(x, g[..., None], 1)  # noqa: E731
+    run = ((slot_gid >= 0)[..., None] & take(exists)
+           & (take(is_core) | (rng.random((S, A, C)) < 0.6)))
+    alloc = (np.stack([take(cpu_req), take(mem_req)], -1) * run[..., None]
+             * rng.choice([0.5, 1.0], (S, A, C, 1))).astype(np.float32)
+    t = lambda x: torch.as_tensor(np.ascontiguousarray(x))  # noqa: E731
+    return dict(
+        submit=t(np.sort(rng.integers(0, 6, (S, N)) * 10.0, 1).astype(np.float32)),
+        gid=t(np.tile(np.arange(N, dtype=np.int32), (S, 1))), cpu_req=t(cpu_req),
+        mem_req=t(mem_req), exists=t(exists), is_core=t(is_core), slot_gid=t(slot_gid),
+        work_done=t(rng.uniform(0, 300, (S, A)).astype(np.float32)), comp_running=t(run),
+        comp_host=t(np.where(run, rng.integers(0, H, (S, A, C)), 0).astype(np.int32)),
+        alloc=t(alloc), usage=t((alloc * rng.choice([1.0, 1.5, 2.0], (S, A, C, 1)))
+                                .astype(np.float32)),
+        alive_since=t((60.0 * rng.integers(0, 3, (S, A, C))).astype(np.float32)),
+        queued=t(queued), failed=t(np.zeros((S, N), bool)),
+        has_saved=t(rng.random((S, N)) < 0.5),
+        saved_work=t(rng.uniform(0, 300, (S, N)).astype(np.float32)),
+        t=t(np.full(S, 300.0, np.float32)),
+        counters=[t(np.zeros(S, np.int32)) for _ in range(3)],
+        host_cap=t(np.tile(np.float32([[rng.choice([6.0, 8.0]), rng.choice([16.0, 24.0])]]),
+                           (H, 1))))
+
+
+def scan_kernel_cases(step, SimConfig):
+    """Every kernel's argument tuples (CPU tensors): the full-width states
+    captured under the pessimistic and the optimistic policy (the pass on
+    the tick's own problem, the scheduler loops on its state with the usage
+    at its progress) and 16 seeded random tables of three members each."""
+    import torch
+    from repro_torch.core.shaper import pessimistic as P
+    cases = {k: [] for k in SCAN_KERNELS}
+    for policy in ("pessimistic", "optimistic"):
+        for cfg, tr, st, cap in capture_states(step, SimConfig, policy):
+            t = st.t + 60.0
+            usage = step._usage_at(tr, st, torch.clamp(
+                st.work_done / step._rows(tr.runtime, step._gid(st)), 0.0, 1.0))
+            demand, _, _ = step._shaped_demands(cfg, None, tr, st, 60.0)
+            cases["pessimistic_pass"].append(
+                P.pass_inputs(step._shape_problem(tr, st, demand, t, cap))[0])
+            d = dict(submit=tr.submit, gid=tr.gid, cpu_req=tr.cpu_req, mem_req=tr.mem_req,
+                     exists=tr.exists, is_core=tr.is_core, usage=usage, t=t, host_cap=cap,
+                     counters=[st.oom_kills, st.failure_events, st.partial_preemptions],
+                     **{f: getattr(st, f) for f in (
+                         "slot_gid", "work_done", "comp_running", "comp_host", "alloc",
+                         "alive_since", "queued", "failed", "has_saved", "saved_work")})
+            add_sched_cases(cases, d)
+    for seed in range(16):
+        add_sched_cases(cases, random_tables(seed))
+        rng = np.random.default_rng(seed)
+        S, A, C, H = 3, 64, 12, 7
+        core = rng.random((S, A, C)) < 0.3
+        cases["pessimistic_pass"].append(tuple(torch.as_tensor(x) for x in (
+            rng.random((S, A)) < 0.8,
+            rng.choice([0.25, 0.5, 1.0, 2.0], (S, A, C, 2)).astype(np.float32), core,
+            ~core & (rng.random((S, A, C)) < 0.6),
+            rng.integers(0, H, (S, A, C)).astype(np.int32),
+            np.argsort(rng.random((S, A, C)), -1).astype(np.int32),
+            rng.choice([8.0, 16.0], (S, H, 2)).astype(np.float32))))
+    return cases
+
+
+def add_sched_cases(cases, d):
+    cases["resolve_oom"].append((
+        d["slot_gid"], d["work_done"], d["comp_running"], d["comp_host"], d["alloc"],
+        d["usage"], d["failed"], d["queued"], *d["counters"], d["is_core"], d["host_cap"]))
+    for resume in (False, True):
+        cases["admit_queued"].append((
+            d["submit"], d["gid"], d["cpu_req"], d["mem_req"], d["exists"], d["is_core"],
+            d["slot_gid"], d["work_done"], d["comp_running"], d["comp_host"], d["alloc"],
+            d["alive_since"], d["queued"], d["has_saved"], d["saved_work"], d["t"],
+            d["host_cap"], resume))
+    cases["place_missing_elastic"].append((
+        d["cpu_req"], d["mem_req"], d["exists"], d["is_core"], d["slot_gid"],
+        d["comp_running"], d["comp_host"], d["alloc"], d["alive_since"], d["t"],
+        d["host_cap"]))
+
+
+def check_scan_kernels(shaper, sched, ref, cases) -> tuple[dict, dict]:
+    """Each kernel on the card against its plain version on the CPU on the
+    same inputs: every output equal (the same float operations in the same
+    order).  Returns the largest absolute error per kernel and the events
+    the cases hold (kills, admissions, placements)."""
+    import torch
+    fns = {"pessimistic_pass": (shaper.pessimistic_pass, ref.pessimistic_pass),
+           "resolve_oom": (sched.resolve_oom, ref.resolve_oom),
+           "admit_queued": (sched.admit_queued, ref.admit_queued),
+           "place_missing_elastic": (sched.place_missing_elastic, ref.place_missing_elastic)}
+    err = dict.fromkeys(SCAN_KERNELS, 0.0)
+    events = dict.fromkeys(SCAN_KERNELS, 0)
+    for name, (kern, plain) in fns.items():
+        for args in cases[name]:
+            cpu = [a.contiguous() if isinstance(a, torch.Tensor) else a for a in args]
+            got = kern(*(a.cuda() if isinstance(a, torch.Tensor) else a for a in cpu))
+            torch.cuda.synchronize()
+            want = plain(*cpu)
+            for g, w in zip(got, want):
+                g = g.cpu()
+                if not torch.equal(g, w):
+                    bad = (g != w).nonzero()[:5].tolist()
+                    raise AssertionError(f"{name}: output {tuple(w.shape)} differs at {bad}")
+                if w.is_floating_point():
+                    err[name] = max(err[name], (g - w).abs().max().item() if w.numel() else 0.0)
+            if name == "pessimistic_pass":
+                events[name] += int(want[0].sum() + want[1].sum())
+            elif name == "resolve_oom":
+                events[name] += int((want[7] - cpu[8]).sum() + (want[9] - cpu[10]).sum())
+            elif name == "admit_queued":
+                events[name] += int(cpu[12].sum() - want[6].sum())
+            else:
+                events[name] += int(want[0].sum() - cpu[5].sum())
+        log(f"  {name}: {len(cases[name])} cases, kernel == plain version; "
+            f"{events[name]} events")
+    assert all(v > 0 for v in events.values()), events
+    return err, events
+
+
+def check_scan_card_vs_cpu(step, SimConfig) -> None:
+    """run_sim_scan(SimConfig(forecaster="oracle")) at full width to
+    completion on the card and on the CPU: equal summaries (decisions are
+    discrete, the safeguard exact, the metric sums exact float64 sums)."""
+    cfg = SimConfig(forecaster="oracle")
+    t = time.perf_counter()
+    a = step.run_sim_scan(cfg, device="cuda")
+    t_gpu = time.perf_counter() - t
+    t = time.perf_counter()
+    b = step.run_sim_scan(cfg, device="cpu")
+    t_cpu = time.perf_counter() - t
+    sa, sb = a.summary(), b.summary()
+    assert sa == sb, (sa, sb)
+    assert (a.util_mem, a.n_running) == (b.util_mem, b.n_running)
+    assert sa["completed"] == 500, sa
+    log(f"  full-width oracle run: card == cpu over {a.timings['ticks']} ticks "
+        f"(card {t_gpu:.3f} s, cpu {t_cpu:.3f} s); summary {json.dumps(sa)}")
+
+
+class strict_chunks:
+    """Run every chunk of the device engine under
+    torch.cuda.set_sync_debug_mode("error"): anything inside a chunk that
+    waits for the card raises."""
+
+    def __init__(self, step):
+        import torch
+        self.step, self.orig = step, step._run_chunk
+        self.chunks = 0
+
+        def strict(*a, **k):
+            prev = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return self.orig(*a, **k)
+            finally:
+                torch.cuda.set_sync_debug_mode(prev)
+                self.chunks += 1
+        step._run_chunk = strict
+
+    def stop(self) -> int:
+        self.step._run_chunk = self.orig
+        return self.chunks
+
+
+def scan_launch_counts(gp_forecast, shaper, sched) -> dict:
+    return {"pessimistic_pass": shaper.pessimistic_pass.launches,
+            "resolve_oom": sched.resolve_oom.launches,
+            "admit_queued": sched.admit_queued.launches,
+            "place_missing_elastic": sched.place_missing_elastic.launches,
+            "gp_fit_forecast": gp_forecast.gp_fit_forecast.launches}
+
+
+def run_scan_main(step, SimConfig, gp_forecast, shaper, sched) -> dict:
+    """The device engine's main path: run_sim_scan(SimConfig()) on the card
+    to completion (GP, pessimistic, full width), every chunk sync-free,
+    each of the five kernels launched once per tick.  Counts are set to 0
+    just before the run and read just after; returns them."""
+    import torch
+    step.run_sim_scan(SimConfig(max_ticks=64), device="cuda")    # warm-up
+    torch.cuda.synchronize()
+    for m in (gp_forecast, shaper, sched):
+        m.reset_launch_counts()
+    guard = strict_chunks(step)
+    try:
+        t = time.perf_counter()
+        res = step.run_sim_scan(SimConfig(), device="cuda")
+        torch.cuda.synchronize()
+        t = time.perf_counter() - t
+    finally:
+        chunks = guard.stop()
+    launches = scan_launch_counts(gp_forecast, shaper, sched)
+    ticks = res.timings["ticks"]
+    summary = res.summary()
+    log(f"  {ticks} ticks ({len(res.n_running)} executed before the last app finished) "
+        f"in {chunks} chunks, {t:.3f} s: {ticks / t:.3f} ticks/s, "
+        f"{t / ticks * 1e3:.4f} ms per tick; every chunk sync-free")
+    log(f"  kernel launches {launches}")
+    log(f"  summary {json.dumps(summary)}")
+    log(f"  forecast rows {res.forecast_rows}")
+    assert all(n == ticks for n in launches.values()), (launches, ticks)
+    assert summary["completed"] == 500, summary
+    for k in ("util_cpu_mean", "util_mem_mean", "slack_cpu_mean", "slack_mem_mean"):
+        assert np.isfinite(summary[k]), (k, summary[k])
+    return launches
+
+
+def time_scan_kernels(shaper, sched, ref, cases) -> dict:
+    """The four kernels at the main path's shapes (a full-width state
+    captured at tick 200 of the pessimistic run: S = 1, A = 128, C = 12,
+    H = 50, N = 500), kernel by CUDA events against the plain version (a
+    loop over numpy on the host) by the host clock, in turns.  The bound:
+    every input read once and every output written once over 3.35 TB/s
+    (their operations are a few thousand additions and comparisons)."""
+    import torch
+    fns = {"pessimistic_pass": (shaper.pessimistic_pass, ref.pessimistic_pass),
+           "resolve_oom": (sched.resolve_oom, ref.resolve_oom),
+           "admit_queued": (sched.admit_queued, ref.admit_queued),
+           "place_missing_elastic": (sched.place_missing_elastic, ref.place_missing_elastic)}
+    pick = {"pessimistic_pass": 4, "resolve_oom": 4, "admit_queued": 8,
+            "place_missing_elastic": 4}
+    out = {}
+    for name, (kern, plain) in fns.items():
+        cpu = cases[name][pick[name]]
+        gpu = [a.cuda() if isinstance(a, torch.Tensor) else a for a in cpu]
+        outs = kern(*gpu)
+        torch.cuda.synchronize()
+        nbytes = sum(a.numel() * a.element_size() for a in list(gpu) + list(outs)
+                     if isinstance(a, torch.Tensor))
+
+        def host_ms():
+            t = time.perf_counter()
+            for _ in range(5):
+                plain(*cpu)
+            return (time.perf_counter() - t) / 5 * 1e3
+        p1 = host_ms()
+        k1, k2 = (cuda_time_ms(lambda: kern(*gpu), iters=200, warmup=10) for _ in range(2))
+        p2 = host_ms()
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        out[name] = dict(ms=min(k1, k2), plain_ms=min(p1, p2), bound_ms=bound,
+                         bound_by="bytes", library_ms=None)
+        log(f"  {name}: kernel {k1:.5f}/{k2:.5f} ms, plain (numpy on the host) "
+            f"{p1:.5f}/{p2:.5f} ms; bound {bound * 1e3:.3f} us ({nbytes} B)")
+    return out
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -714,8 +1026,11 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.core.forecast import GPConfig, GPForecaster
-    from repro_torch.kernels import flash_attention, gp_forecast, gp_gram, nvcc, ref
+    from repro_torch.core import shaper as core_shaper
+    from repro_torch.kernels import (flash_attention, gp_forecast, gp_gram, nvcc, ref, sched,
+                                     shaper)
     from repro_torch.sim import ClusterConfig, SimConfig, WorkloadConfig, run_sim
+    from repro_torch.sim import step
     from repro_torch.sim.engine import forecast_peaks
 
     # full fp32 everywhere: the GP's numbers must not go through TF32; bf16
@@ -735,7 +1050,7 @@ def main() -> int:
 
     log("== 2. build (one nvcc per source, all at once)")
     sources = (gp_gram.SOURCE, flash_attention.SOURCE, flash_attention.SOURCE_SM90,
-               gp_forecast.SOURCE)
+               gp_forecast.SOURCE, shaper.SOURCE, sched.SOURCE)
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         builds = list(pool.map(nvcc.build, sources))
     for b in builds:
@@ -755,11 +1070,16 @@ def main() -> int:
     flash_err = check_flash(flash_attention, ref, dev)
     err["flash_attention"] = flash_err["sm90"]
     err["flash_attention_simt"] = flash_err["simt"]
+    scan_cases = scan_kernel_cases(step, SimConfig)
+    err.update(check_scan_kernels(shaper, sched, ref, scan_cases)[0])
     log(f"  max abs error: {err}")
 
     log("== 4. GP check (card vs CPU)")
     check_gp(GPForecaster, GPConfig)
     check_small_runs(run_sim, SimConfig, ClusterConfig, WorkloadConfig)
+    log("== 4b. the device engine at full width, card vs CPU: run_sim_scan(SimConfig("
+        "forecaster='oracle'))")
+    check_scan_card_vs_cpu(step, SimConfig)
 
     log("== 5. main path: run_sim(SimConfig(), device='cuda')")
     cfg = SimConfig(max_ticks=MAIN_PATH_TICKS)
@@ -769,15 +1089,16 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     calls = count_calls(GPForecaster, "forecast_batch")
-    gp_gram.reset_launch_counts()
-    gp_forecast.reset_launch_counts()
-    flash_attention.reset_launch_counts()
+    policy_calls = count_calls(core_shaper.POLICIES, "pessimistic")
+    for m in (gp_gram, gp_forecast, flash_attention, shaper, sched):
+        m.reset_launch_counts()
     res = run_sim(cfg, device="cuda")
     torch.cuda.synchronize()
     launches = {"gp_gram_fwd": gp_gram.gram_fwd.launches,
                 "gp_gram_bwd": gp_gram.gram_bwd.launches,
                 "gp_fit_forecast": gp_forecast.gp_fit_forecast.launches}
     fc_ticks = calls.stop()
+    shaping_ticks = policy_calls.stop()
     tm = res.timings
     summary = res.summary()
     ticks = tm["ticks"]
@@ -789,9 +1110,12 @@ def main() -> int:
     log(f"  max memory allocated {torch.cuda.max_memory_allocated()} B")
     host_launches, dev_kernels = gp_launches_per_batch(GPForecaster, GPConfig,
                                                        forecast_peaks)
-    log(f"  kernel launches {launches} in {fc_ticks} forecasting ticks; one forecast "
-        f"of 512 windows under torch.profiler: {host_launches} host launch calls, "
-        f"{dev_kernels} device kernels")
+    log(f"  kernel launches {launches} in {fc_ticks} forecasting ticks; "
+        f"{shaper.pessimistic_pass.launches} pessimistic_pass launches in {shaping_ticks} "
+        f"shaping ticks; one forecast of 512 windows under torch.profiler: "
+        f"{host_launches} host launch calls, {dev_kernels} device kernels")
+    assert shaping_ticks > 0 and shaper.pessimistic_pass.launches == shaping_ticks
+    assert sched.resolve_oom.launches == 0     # the host engine's loops stay numpy
     assert ticks == MAIN_PATH_TICKS, ticks
     assert fc_ticks > 0 and launches["gp_fit_forecast"] == fc_ticks, (launches, fc_ticks)
     assert launches["gp_gram_fwd"] == launches["gp_gram_bwd"] == 0, launches
@@ -800,6 +1124,10 @@ def main() -> int:
     for k in ("util_cpu_mean", "util_mem_mean", "slack_cpu_mean", "slack_mem_mean"):
         assert np.isfinite(summary[k]), (k, summary[k])
     assert 0 < summary["util_mem_mean"] <= 1, summary
+
+    log("== 5b. main path: run_sim_scan(SimConfig(), device='cuda'), the device engine, "
+        "to completion")
+    scan_launches = run_scan_main(step, SimConfig, gp_forecast, shaper, sched)
 
     log("== 6. Whisper, smoke widths, fp32: the card against the CPU")
     check_whisper_smoke(flash_attention)
@@ -814,22 +1142,26 @@ def main() -> int:
     times = time_kernels(gp_gram, ref, dev)
     times.update(time_gp_kernel(gp_forecast, ref, GPConfig, dev))
     times.update(time_flash(flash_attention, ref, dev))
+    times.update(time_scan_kernels(shaper, sched, ref, scan_cases))
     log(f"  gp_gram library_ms: null - no single PyTorch call computes the Gram "
         f"matrix (torch.cdist gives distances only) or its (ell, sf) gradient")
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     launches["flash_attention"] = whisper_launches
     launches["flash_attention_simt"] = simt_launches
+    launches.update({k: scan_launches[k] for k in SCAN_KERNELS})
     replaces = {"gp_gram_fwd": "src/repro/kernels/gp_gram.py:75",
                 "gp_gram_bwd": "src/repro/kernels/gp_gram.py:75",
                 "gp_fit_forecast": "src/repro/kernels/gp_gram.py:75",
                 "flash_attention": "src/repro/kernels/flash_attention.py:110",
-                "flash_attention_simt": "src/repro/kernels/flash_attention.py:110"}
+                "flash_attention_simt": "src/repro/kernels/flash_attention.py:110",
+                **SCAN_REPLACES}
     sources = {"gp_gram_fwd": "src/repro_torch/kernels/csrc/gp_gram.cu",
                "gp_gram_bwd": "src/repro_torch/kernels/csrc/gp_gram.cu",
                "gp_fit_forecast": "src/repro_torch/kernels/csrc/gp_forecast.cu",
                "flash_attention": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
-               "flash_attention_simt": "src/repro_torch/kernels/csrc/flash_attention.cu"}
+               "flash_attention_simt": "src/repro_torch/kernels/csrc/flash_attention.cu",
+               **SCAN_SOURCES}
     log(smi)   # the card's name and power limit, as nvidia-smi prints them
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": sources[name],
@@ -839,7 +1171,7 @@ def main() -> int:
          "bound_ms": times[name]["bound_ms"], "bound_by": times[name]["bound_by"],
          "library_ms": times[name].get("library_ms")}
         for name in ("gp_gram_fwd", "gp_gram_bwd", "gp_fit_forecast",
-                     "flash_attention", "flash_attention_simt")]}))
+                     "flash_attention", "flash_attention_simt") + SCAN_KERNELS]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": count}}))
     return 0

@@ -10,6 +10,12 @@ operators that take the most device time and the most host time, and
 the Gram kernels' device time per launch at the main path's largest
 batch (chip_smoke.py's phase 8 times the GP program alone).
 
+``--path scan`` runs the device engine (``run_sim_scan(SimConfig())``,
+full width) for its first SCAN_TICKS ticks under the profiler after a
+warm-up, and prints the busy share, the host's kernel launches per tick
+and the device time by kind, with Algorithm 1's pass, the three
+scheduler kernels and the GP program as groups of their own.
+
 ``--path whisper`` does the same for Whisper-large-v3 serving at full
 width (random weights): one prefill of 8 requests x 1,500 frames with
 ``attn_impl="flash"``, then 4 greedy cached decode steps, each profiled
@@ -17,7 +23,7 @@ on its own, with the device time summed by kind of kernel.
 
 Run from the repository root:
 
-    python3 profile_port.py [--path sim|whisper]
+    python3 profile_port.py [--path sim|scan|whisper]
 
 Without a CUDA device it exits with an error and prints nothing else.
 """
@@ -30,6 +36,9 @@ import time
 from pathlib import Path
 
 PROFILED_TICKS = 120
+SCAN_TICKS = 640       # 20 chunks of 32 ticks
+LAUNCH_KEYS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
+               "cuLaunchKernelEx")
 
 
 def _dev_us(e) -> float:
@@ -42,6 +51,18 @@ SIM_KINDS = (("GP program", ("gp_forecast_kernel",)),
              ("copy / cast", ("copy", "cast", "Copy", "Memcpy", "Memset")),
              ("elementwise", ("elementwise", "vectorized", "where", "unrolled")),
              ("reduction", ("reduce", "Reduce")))
+
+# device-time groups of the device engine's profile, by kernel name
+SCAN_KINDS = (("pessimistic_pass", ("pessimistic_pass_kernel",)),
+              ("resolve_oom", ("resolve_oom_kernel",)),
+              ("admit_queued", ("admit_queued_kernel",)),
+              ("place_missing_elastic", ("place_missing_elastic_kernel",)),
+              ("GP program", ("gp_forecast_kernel",)),
+              ("sort", ("sort", "Sort", "radix")),
+              ("index / gather / scatter", ("index", "gather", "scatter", "Index")),
+              ("copy / cast", ("copy", "cast", "Copy", "Memcpy", "Memset")),
+              ("elementwise", ("elementwise", "vectorized", "where", "unrolled")),
+              ("reduction", ("reduce", "Reduce")))
 
 # device-time groups of the Whisper profile, by kernel name
 KINDS = (("flash kernel", ("flash_fwd_kernel", "flash_fwd_sm90_kernel")),
@@ -117,11 +138,43 @@ def profile_whisper() -> int:
     return 0
 
 
+def profile_scan() -> int:
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import gp_forecast, sched, shaper
+    from repro_torch.sim import SimConfig, run_sim_scan
+
+    run_sim_scan(SimConfig(max_ticks=64), device="cuda")        # build + warm-up
+    for m in (gp_forecast, shaper, sched):
+        m.reset_launch_counts()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = run_sim_scan(SimConfig(max_ticks=SCAN_TICKS), device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ka = prof.key_averages()
+    ticks = res.timings["ticks"]
+    print(f"device engine, {ticks} ticks under the profiler: "
+          f"{shaper.pessimistic_pass.launches} pessimistic_pass, "
+          f"{sched.resolve_oom.launches} resolve_oom, {sched.admit_queued.launches} "
+          f"admit_queued, {sched.place_missing_elastic.launches} place_missing_elastic, "
+          f"{gp_forecast.gp_fit_forecast.launches} GP program launches")
+    _report(prof, wall, f"device engine, {ticks} ticks", kinds=SCAN_KINDS, top=15)
+    n_launch = sum(e.count for e in ka if e.key in LAUNCH_KEYS)
+    print(f"  host kernel launches: {n_launch} ({n_launch / ticks:.1f} per tick); "
+          f"wall {wall / ticks * 1e3:.4f} ms per tick")
+    print("top operators by host time (self):")
+    for e in sorted(ka, key=lambda e: e.self_cpu_time_total, reverse=True)[:15]:
+        print(f"  {e.self_cpu_time_total / 1e3:10.3f} ms  {e.count:8d} calls  {e.key[:90]}")
+    return 0
+
+
 def main() -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--path", choices=("sim", "whisper"), default="sim")
+    ap.add_argument("--path", choices=("sim", "scan", "whisper"), default="sim")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_port: torch sees no CUDA device", file=sys.stderr)
@@ -135,6 +188,8 @@ def main() -> int:
     print(torch.cuda.get_device_name(0), torch.__version__, torch.version.cuda)
     if args.path == "whisper":
         return profile_whisper()
+    if args.path == "scan":
+        return profile_scan()
     run_sim(SimConfig(max_ticks=20), device="cuda")          # build + warm-up
     gp_forecast.reset_launch_counts()
 

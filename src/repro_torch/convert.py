@@ -9,6 +9,13 @@ every tick — so a run's whole state is its configuration and its trace:
   * :func:`trace_from_arrays` takes the numpy columns of a reference
     ``Trace``.
 
+The device engine starts from a state, which a test can take from a
+reference run:
+
+  * :func:`device_trace_from_arrays` and :func:`sim_state_from_arrays`
+    take the fields of the reference's ``DeviceTrace`` and ``SimState``
+    as numpy arrays (``jax.tree.map(np.asarray, ...)``).
+
 A Whisper model's state is its parameters:
 
   * :func:`whisper_params_from_arrays` takes the reference's
@@ -30,6 +37,7 @@ from repro_torch.device import resolve_device
 from repro_torch.sim.cluster import ClusterConfig
 from repro_torch.sim.engine import SimConfig, Switch
 from repro_torch.sim.scenarios.schema import Trace
+from repro_torch.sim.state import DeviceTrace, SimState
 from repro_torch.sim.workload import WorkloadConfig
 
 _SCALARS = ("policy", "forecaster", "window", "grace", "horizon", "max_ticks",
@@ -66,6 +74,44 @@ def trace_from_arrays(**cols: np.ndarray) -> Trace:
     if unknown:
         raise TypeError(f"unknown trace columns: {sorted(unknown)}")
     return Trace(**{k: np.array(v, copy=True) for k, v in cols.items()}).validate()
+
+
+def _stacked(cls, fields: dict, device, solo: bool, skip=()) -> dict:
+    """``cls``'s tensor fields from numpy arrays on ``device`` (float32,
+    int32 or bool, as the port keeps them), with a leading member axis
+    added to a solo run's arrays."""
+    names = {f.name for f in dataclasses.fields(cls)} - set(skip)
+    missing, extra = names - set(fields), set(fields) - names
+    if missing or extra:
+        raise KeyError(f"{cls.__name__} fields: missing {sorted(missing)}, "
+                       f"left over {sorted(extra)}")
+    out = {}
+    for name in names:
+        a = np.asarray(fields[name])
+        dt = (bool if a.dtype == bool else np.int32 if a.dtype.kind in "iu"
+              else np.float32)
+        t = torch.from_numpy(np.array(a, dtype=dt, copy=True))
+        out[name] = (t[None] if solo else t).to(device)
+    return out
+
+
+def device_trace_from_arrays(*, device="cuda", **fields) -> DeviceTrace:
+    """The port's ``DeviceTrace`` for the reference's (``submit``,
+    ``runtime``, ..., ``gid``), solo (N, ...) or stacked (S, N, ...)."""
+    return DeviceTrace(**_stacked(DeviceTrace, fields, resolve_device(device),
+                                  solo=np.ndim(fields.get("submit")) == 1))
+
+
+def sim_state_from_arrays(*, device="cuda", **fields) -> SimState:
+    """The port's ``SimState`` for the reference's fields, solo (``t`` a
+    scalar) or stacked.  ``calib``, ``tenancy`` and ``obs`` must be None
+    (not ported)."""
+    for name in ("calib", "tenancy", "obs"):
+        if fields.pop(name, None) is not None:
+            raise NotImplementedError(f"SimState.{name} is not ported yet")
+    return SimState(**_stacked(SimState, fields, resolve_device(device),
+                               solo=np.ndim(fields.get("t")) == 0,
+                               skip=("calib", "tenancy", "obs")))
 
 
 _LN = ("scale", "bias")

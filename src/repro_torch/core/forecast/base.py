@@ -27,12 +27,22 @@ def peak_over_horizon(fc: Forecast) -> tuple[torch.Tensor, torch.Tensor]:
             torch.take_along_dim(fc.var, k, 1)[:, 0])
 
 
+def _sum_rows(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis one term at a time from the first, the
+    order in which XLA:CPU reduces a row, so the float32 sums are the
+    reference's to the bit."""
+    acc = torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
+    for k in range(x.shape[-1]):
+        acc = acc + x[..., k]
+    return acc
+
+
 def persistence_peak(windows: torch.Tensor,
                      valid: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """The ``persist`` forecaster over ``(B, W)`` windows: mean = last
     observation, var = masked window variance + 1e-6."""
     w = valid.to(windows.dtype)
-    cnt = torch.clamp_min(w.sum(1), 1.0)
-    mu = (windows * w).sum(1) / cnt
-    var = (((windows - mu[:, None]) ** 2) * w).sum(1) / cnt
+    cnt = torch.clamp_min(_sum_rows(w), 1.0)
+    mu = _sum_rows(windows * w) / cnt
+    var = _sum_rows(((windows - mu[:, None]) ** 2) * w) / cnt
     return windows[:, -1], var + 1e-6

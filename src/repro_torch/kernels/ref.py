@@ -6,12 +6,15 @@ kernel checks compare the CUDA kernels with them on the card.  The Gram
 functions carry an explicit batch of series where the reference used
 ``vmap``: ``xa (B, M, D)``, ``xb (B, N, D)`` and per-series
 ``lengthscale`` and ``sigma_f`` of shape ``(B,)``.  Attention keeps the
-reference's ``(B, H, S, D)`` layout.
+reference's ``(B, H, S, D)`` layout.  The device engine's sequential
+programs (Algorithm 1's pass and the scheduler's event loops) carry a
+leading member axis and take CPU tensors only.
 """
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 KINDS = ("exp", "rbf")
@@ -249,3 +252,263 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         logits = logits.masked_fill(kpos > qpos, float("-inf"))
     w = torch.softmax(logits, dim=-1)
     return torch.matmul(w, vf).to(q.dtype)
+
+
+# ----------------------------------------------------------------------
+# pessimistic_pass — Algorithm 1's sequential pass; resolve_oom,
+# admit_queued, place_missing_elastic — the device engine's event loops
+# ----------------------------------------------------------------------
+#
+# Every tensor carries a leading member axis S and members never
+# interact.  These take CPU tensors only: each walks its rows or events
+# in Python over numpy copies, in float32.  Sums over more than 32 rows
+# are taken in the order XLA:CPU gives the reference's reductions
+# (:func:`xla_sum`), and the CUDA kernels take them in the same order.
+
+TREE_WINDOW = 32   # XLA:CPU's tree-reduction window
+
+
+def xla_sum(x: np.ndarray, group: int = 1) -> np.ndarray:
+    """Float32 sum over axis 0 in the order XLA:CPU reduces it.
+
+    XLA:CPU rewrites a reduction whose reduced dimension exceeds 32 into
+    a tree: the dimension is padded to a multiple of 32 (the padding
+    split between its two ends, the odd one at the end), each window of
+    32 is summed in order, and the window sums are reduced the same way;
+    32 or fewer are summed in order.  ``group`` rows make one unit of the
+    reduced dimension, for a sum over (A, C) flattened to A*C rows with
+    C <= 32 (the window then spans whole slots)."""
+    n = x.shape[0] // group
+    if n <= TREE_WINDOW:
+        return (np.cumsum(x, axis=0, dtype=np.float32)[-1] if len(x)
+                else np.zeros(x.shape[1:], np.float32))
+    padded = -(-n // TREE_WINDOW) * TREE_WINDOW
+    lo = (padded - n) // 2
+    parts = [np.cumsum(x[max(j - lo, 0) * group:min(j + TREE_WINDOW - lo, n) * group],
+                       axis=0, dtype=np.float32)[-1]
+             for j in range(0, padded, TREE_WINDOW)]
+    return xla_sum(np.stack(parts))
+
+def _numpy(*ts):
+    return [t.numpy().copy() for t in ts]
+
+
+def _tensors(*arrays):
+    return tuple(torch.from_numpy(a) for a in arrays)
+
+
+def pessimistic_pass(valid, dem, core, el, host, order, free0):
+    """Algorithm 1's greedy pass over the rows of the processing order
+    (``repro/core/shaper/pessimistic.py:117-143``).
+
+    valid (S,A) bool: row r holds a running app; dem (S,A,C,2) f32 the
+    row's shaped demand by component; core and el (S,A,C) bool its core
+    and elastic components; host (S,A,C) int32; order (S,A,C) int32 its
+    components oldest-first; free0 (S,H,2) f32 the hosts' capacity.
+    Returns remove_pos (S,A) bool (full preemption of row r), kill_pos
+    (S,A,C) bool (partial preemption of the row's j-th component in
+    ``order``) and the free table (S,H,2) after the pass."""
+    valid, dem, core, el, host, order, free = _numpy(valid, dem, core, el, host,
+                                                     order, free0)
+    S, A, C = core.shape
+    remove = np.zeros((S, A), bool)
+    kill = np.zeros((S, A, C), bool)
+    for s in range(S):
+        f = free[s]
+        for r in np.flatnonzero(valid[s]):
+            # core components (lines 11-19): the app's demand per host,
+            # summed in component order, must fit everywhere (< 0 fails)
+            core_dem = np.zeros_like(f)
+            for c in np.flatnonzero(core[s, r]):
+                core_dem[host[s, r, c]] += dem[s, r, c]
+            trial = f - core_dem
+            if (trial < 0.0).any():
+                remove[s, r] = True
+                continue
+            f[:] = trial
+            # elastic components (lines 25-33), oldest first (<= 0 fails)
+            for j, c in enumerate(order[s, r]):
+                if not el[s, r, c]:
+                    continue
+                h = host[s, r, c]
+                after = f[h] - dem[s, r, c]
+                if (after <= 0.0).any():
+                    kill[s, r, j] = True
+                else:
+                    f[h] = after
+    return _tensors(remove, kill, free)
+
+
+def _on_host(run, host, H):
+    """(A*C, H) bool: flat row e runs on host h."""
+    return run.reshape(-1)[:, None] & (host.reshape(-1)[:, None] == np.arange(H))
+
+
+def _free_table(run, host, alloc, cap):
+    """(H, 2) capacity minus the allocations of running components over
+    the flat (slot, component) rows (``repro/sim/step.py:_free_resources``)."""
+    on = _on_host(run, host, cap.shape[0])
+    return cap - xla_sum(np.where(on[:, :, None], alloc.reshape(-1, 1, 2), 0.0
+                                  ).astype(np.float32))
+
+
+def _worst_fit(free, cpu, mem) -> int:
+    """The fitting host with the most free memory, the lowest index on
+    ties; -1 when none fits (``repro/sim/step.py:_worst_fit``)."""
+    ok = (free[:, 0] >= cpu) & (free[:, 1] >= mem)
+    if not ok.any():
+        return -1
+    return int(np.argmax(np.where(ok, free[:, 1], -np.inf)))
+
+
+def resolve_oom(slot_gid, work_done, comp_running, comp_host, alloc, usage,
+                failed, queued, oom_kills, failure_events, partial_preemptions,
+                is_core, host_cap):
+    """The OS OOM handler (``repro/sim/step.py:472``).  For each host
+    whose running components' memory usage exceeds capacity + 1e-6 at
+    entry, kill the component of largest ``usage - alloc`` overage (the
+    largest flat (slot, comp) index on ties) until the host fits.  A core
+    victim fails its whole app (evicted, marked failed and requeued); an
+    elastic victim is a partial preemption.
+
+    Slot-table tensors are (S,A[,C[,2]]); failed and queued (S,N) bool;
+    the three counters (S,) int32; is_core the trace's (S,N,C); host_cap
+    (H,2).  Returns the updated slot_gid, work_done, comp_running, alloc,
+    usage, failed, queued, the three counters and the monitor rows to
+    reset (S,A*C) bool."""
+    (slot_gid, work_done, run, host, alloc, usage, failed, queued, oom, fail, part,
+     is_core, cap) = _numpy(slot_gid, work_done, comp_running, comp_host, alloc,
+                            usage, failed, queued, oom_kills, failure_events,
+                            partial_preemptions, is_core, host_cap)
+    S, A, C = run.shape
+    lim = cap[:, 1] + np.float32(1e-6)
+    monreset = np.zeros((S, A * C), bool)
+    for s in range(S):
+        mem = usage[s, :, :, 1]                 # a view: kills zero it
+        on = _on_host(run[s], host[s], len(lim))
+        tot0 = xla_sum(np.where(on, mem.reshape(-1, 1), 0.0).astype(np.float32))
+        for h in np.flatnonzero(tot0 > lim):
+            while True:
+                on_h = run[s] & (host[s] == h)
+                if not on_h.any():
+                    break
+                tot = xla_sum(np.where(on_h, mem, 0.0).astype(np.float32).reshape(-1),
+                              group=C)
+                if not tot > lim[h]:
+                    break
+                over = np.where(on_h, mem - alloc[s, :, :, 1], -np.inf).reshape(-1)
+                vic = A * C - 1 - int(np.argmax(over[::-1] == over.max()))
+                a, c = divmod(vic, C)
+                g = slot_gid[s, a]
+                if is_core[s, g, c]:
+                    usage[s, a] = 0.0
+                    run[s, a] = False
+                    alloc[s, a] = 0.0
+                    slot_gid[s, a] = -1
+                    work_done[s, a] = 0.0
+                    failed[s, g] = queued[s, g] = True
+                    oom[s] += 1
+                    fail[s] += 1
+                else:
+                    usage[s, a, c] = 0.0
+                    run[s, a, c] = False
+                    alloc[s, a, c] = 0.0
+                    monreset[s, vic] = True
+                    part[s] += 1
+    return _tensors(slot_gid, work_done, run, alloc, usage, failed, queued,
+                    oom, fail, part, monreset)
+
+
+def _try_place(free, cpu, mem, exists, is_core):
+    """Worst-fit placement of one app's components: every core component
+    must fit (else the app is refused), then elastic ones best-effort
+    (``repro/sim/step.py:_admit_queued.try_place``).  Updates ``free``;
+    returns (admitted, host per component or -1)."""
+    placement = np.full(cpu.shape, -1, np.int32)
+    for core_pass in (True, False):
+        for c in np.flatnonzero(exists & (is_core == core_pass)):
+            h = _worst_fit(free, cpu[c], mem[c])
+            if h < 0:
+                if core_pass:
+                    return False, placement
+                continue
+            placement[c] = h
+            free[h, 0] -= cpu[c]
+            free[h, 1] -= mem[c]
+    return True, placement
+
+
+def admit_queued(submit, gid, cpu_req, mem_req, exists, is_core, slot_gid,
+                 work_done, comp_running, comp_host, alloc, alive_since, queued,
+                 has_saved, saved_work, t, host_cap, resume: bool):
+    """FIFO admission (``repro/sim/step.py:554``): while an app is queued
+    and a slot is empty, place the head (least submit, then least gid)
+    into the first empty slot if all its core components fit; stop at the
+    first head that does not.  ``resume`` (``work_lost_on_kill=False``)
+    restarts an app from its saved work.
+
+    The trace columns are (S,N[,C]); t (S,) f32; host_cap (H,2).  Returns
+    the updated slot_gid, work_done, comp_running, comp_host, alloc,
+    alive_since, queued, has_saved and the monitor rows to reset (S,A*C)."""
+    (submit, gid, cpu_req, mem_req, exists, is_core, slot_gid, work_done, run, host,
+     alloc, alive, queued, has_saved, saved_work, t, cap) = _numpy(
+        submit, gid, cpu_req, mem_req, exists, is_core, slot_gid, work_done,
+        comp_running, comp_host, alloc, alive_since, queued, has_saved, saved_work,
+        t, host_cap)
+    S, A, C = run.shape
+    resets = np.zeros((S, A, C), bool)
+    for s in range(S):
+        while queued[s].any() and (slot_gid[s] < 0).any():
+            q = np.flatnonzero(queued[s])
+            tied = q[submit[s, q] == submit[s, q].min()]
+            head = tied[np.argmin(gid[s, tied])]
+            slot = np.flatnonzero(slot_gid[s] < 0)[0]
+            free = _free_table(run[s], host[s], alloc[s], cap)
+            ok, placement = _try_place(free, cpu_req[s, head], mem_req[s, head],
+                                       exists[s, head], is_core[s, head])
+            if not ok:
+                break
+            placed = placement >= 0
+            slot_gid[s, slot] = head
+            work_done[s, slot] = (saved_work[s, head] if resume and has_saved[s, head]
+                                  else 0.0)
+            run[s, slot] = placed
+            host[s, slot] = np.maximum(placement, 0)
+            alloc[s, slot, :, 0] = np.where(placed, cpu_req[s, head], 0.0)
+            alloc[s, slot, :, 1] = np.where(placed, mem_req[s, head], 0.0)
+            alive[s, slot] = t[s]
+            queued[s, head] = has_saved[s, head] = False
+            resets[s, slot] = True
+    return _tensors(slot_gid, work_done, run, host, alloc, alive, queued, has_saved,
+                    resets.reshape(S, A * C))
+
+
+def place_missing_elastic(cpu_req, mem_req, exists, is_core, slot_gid, comp_running,
+                          comp_host, alloc, alive_since, t, host_cap):
+    """Best-effort re-placement of the running apps' missing elastic
+    components at their reservation, in row-major (slot, component) order
+    over the entry snapshot, each by worst fit
+    (``repro/sim/step.py:670``).  Returns the updated comp_running,
+    comp_host, alloc and alive_since."""
+    (cpu_req, mem_req, exists, is_core, slot_gid, run, host, alloc, alive, t,
+     cap) = _numpy(cpu_req, mem_req, exists, is_core, slot_gid, comp_running,
+                   comp_host, alloc, alive_since, t, host_cap)
+    for s in range(run.shape[0]):
+        g = np.maximum(slot_gid[s], 0)
+        missing = ((slot_gid[s] >= 0)[:, None] & exists[s, g] & ~is_core[s, g]
+                   & ~run[s])
+        if not missing.any():
+            continue
+        free = _free_table(run[s], host[s], alloc[s], cap)
+        for a, c in zip(*np.nonzero(missing)):
+            cpu, mem = cpu_req[s, g[a], c], mem_req[s, g[a], c]
+            h = _worst_fit(free, cpu, mem)
+            if h < 0:
+                continue
+            free[h, 0] -= cpu
+            free[h, 1] -= mem
+            run[s, a, c] = True
+            host[s, a, c] = h
+            alloc[s, a, c] = (cpu, mem)
+            alive[s, a, c] = t[s]
+    return _tensors(run, host, alloc, alive)

@@ -2,7 +2,7 @@
 
 A copy of ``SimResults`` from ``repro/sim/metrics.py`` (numpy only),
 without the telemetry blocks of features not ported yet, plus the
-engine's per-phase wall times.
+engines' wall times.
 """
 from __future__ import annotations
 
@@ -32,6 +32,9 @@ class SimResults:
     # wall seconds per engine phase ("forecast", "policy", "total") and the
     # tick count; NOT part of summary(), which the parity tests compare
     timings: dict = dataclasses.field(default_factory=dict)
+    # forecast-load telemetry of the device engine (rows past the grace
+    # period vs the rows the model computed); not part of summary()
+    forecast_rows: dict | None = None
 
     def record_completion(self, gid: int, submit: float, t: float) -> None:
         self.turnaround[int(gid)] = float(t - submit)

@@ -53,14 +53,20 @@ def test_importing_the_kernel_module_builds_nothing():
         "calls = []\n"
         "subprocess.run = lambda *a, **k: calls.append(a)\n"
         "from repro_torch.kernels import flash_attention, gp_forecast, gp_gram, ops\n"
+        "from repro_torch.kernels import sched, shaper\n"
         "print(json.dumps([len(calls), gp_gram._LIB is None,\n"
         "                  gp_gram.gram_fwd.launches, gp_gram.gram_bwd.launches,\n"
         "                  gp_forecast._LIB is None, gp_forecast.gp_fit_forecast.launches,\n"
         "                  flash_attention._LIB is None,\n"
         "                  flash_attention._LIB_SM90 is None,\n"
         "                  flash_attention.flash_attention.launches,\n"
-        "                  flash_attention.flash_attention.route_launches]))")
-    assert got == [0, True, 0, 0, True, 0, True, True, 0, {"sm90": 0, "simt": 0}]
+        "                  flash_attention.flash_attention.route_launches,\n"
+        "                  shaper._LIB is None, shaper.pessimistic_pass.launches,\n"
+        "                  sched._LIB is None, sched.resolve_oom.launches,\n"
+        "                  sched.admit_queued.launches,\n"
+        "                  sched.place_missing_elastic.launches]))")
+    assert got == [0, True, 0, 0, True, 0, True, True, 0, {"sm90": 0, "simt": 0},
+                   True, 0, True, 0, 0, 0]
 
 
 def test_run_sim_without_device_raises_on_a_cpu_only_machine(monkeypatch):

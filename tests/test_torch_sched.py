@@ -1,0 +1,369 @@
+"""The device engine's sequential programs against the JAX reference:
+Algorithm 1's pass (``ref.pessimistic_pass`` through
+``pessimistic_shape``) and the scheduler's event loops
+(``ref.resolve_oom``, ``ref.admit_queued``, ``ref.place_missing_elastic``
+through the tick helpers of ``repro_torch.sim.step``), on states captured
+from reference runs of ``quick_base_config`` and on seeded random tables
+built to tie; and the CUDA kernels against those plain versions (card
+only, ``-m gpu``).
+
+Decisions are discrete and must be equal; the float tables they leave
+behind must agree to rtol 1e-6.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import shaper as rshaper
+from repro.core.shaper import pessimistic_shape_raw
+from repro.sim import state as rstate
+from repro.sim import step as rstep
+from repro.sim.scenarios.registry import build_trace
+from repro.sim.sweep import quick_base_config
+from repro_torch import convert
+from repro_torch.core.shaper import ShapeProblem, pessimistic_shape
+from repro_torch.kernels import ops, ref, sched, shaper
+from repro_torch.sim import step as tstep
+
+DECISIONS = ("kill_app", "kill_comp", "alloc_cpu", "alloc_mem", "cpu_free", "mem_free")
+
+
+def _fields(obj):
+    return {f.name: np.asarray(getattr(obj, f.name)) for f in dataclasses.fields(obj)
+            if getattr(obj, f.name) is not None}
+
+
+def _port(rtr, rst):
+    return (convert.device_trace_from_arrays(device="cpu", **_fields(rtr)),
+            convert.sim_state_from_arrays(device="cpu", **_fields(rst)))
+
+
+def _cap(H, cpu, mem):
+    return np.tile(np.asarray([[cpu, mem]], np.float32), (H, 1))
+
+
+def _assert_same(got: dict, want: dict):
+    """Port tensors (leading member axis 1) against reference arrays."""
+    for name, w in want.items():
+        g = got[name].numpy()[0]
+        w = np.asarray(w)
+        if w.dtype.kind == "f":
+            np.testing.assert_allclose(g, w, rtol=1e-6, err_msg=name)
+        else:
+            np.testing.assert_array_equal(g, w, err_msg=name)
+
+
+# ----------------------------------------------------------------------
+# fixtures: reference states and seeded random tables
+# ----------------------------------------------------------------------
+
+CAPTURE_TICKS = range(4, 60, 4)
+
+
+@pytest.fixture(scope="module")
+def captured():
+    """(cfg, trace, state) at every 4th tick of reference runs of
+    quick_base_config: persist forecasts under the pessimistic and the
+    optimistic policy (the second over-commits hosts, so the OS OOM
+    handler has victims)."""
+    out = []
+    for policy in ("pessimistic", "optimistic"):
+        cfg = dataclasses.replace(quick_base_config(), forecaster="persist", policy=policy)
+        wl = build_trace(cfg.workload)
+        tr = rstate.DeviceTrace.from_trace(wl)
+        st = rstate.init_state(cfg, wl.n_apps, wl.max_components)
+        fn = rstep._chunk_fn(cfg, 1, rstep._shapes_key(wl, cfg), False, None)
+        for k in range(max(CAPTURE_TICKS) + 1):
+            if k in CAPTURE_TICKS:   # a copy: the chunk step donates its state
+                out.append((cfg, tr, jax.tree.map(lambda x: jnp.array(x, copy=True), st)))
+            st, _ = fn(tr, st)
+    return out
+
+
+def _random_case(seed, A=16, C=4, N=24, H=3):
+    """A reference (cfg, DeviceTrace, SimState, usage) whose values come
+    from small discrete sets, so that hosts tie on free memory, apps on
+    submit time and components on memory overage."""
+    rng = np.random.default_rng(seed)
+    n_comp = rng.integers(1, C + 1, N)
+    n_core = np.minimum(rng.integers(1, 3, N), n_comp)
+    idx = np.arange(C)[None, :]
+    exists = idx < n_comp[:, None]
+    is_core = idx < n_core[:, None]
+    cpu_req = np.where(exists, rng.choice([0.5, 1.0, 2.0], (N, C)), 0).astype(np.float32)
+    mem_req = np.where(exists, rng.choice([2.0, 4.0, 6.0], (N, C)), 0).astype(np.float32)
+    submit = np.sort(rng.integers(0, 6, N) * 10.0).astype(np.float32)
+    levels = np.zeros((N, C, 32, 2), np.float32)
+    wl = dict(submit=submit, runtime=np.full(N, 600.0, np.float32), cpu_req=cpu_req,
+              mem_req=mem_req, is_core=is_core, is_jumpy=np.zeros(N, bool),
+              levels=levels, exists=exists, tenant=np.zeros(N, np.int32),
+              gid=np.arange(N, dtype=np.int32))
+    apps = rng.permutation(N)
+    n_slot = rng.integers(A // 2, A + 1)
+    slot_gid = np.full(A, -1, np.int32)
+    slots = rng.choice(A, n_slot, replace=False)
+    slot_gid[slots] = apps[:n_slot]
+    g = np.maximum(slot_gid, 0)
+    run = (slot_gid >= 0)[:, None] & exists[g] & (is_core[g] | (rng.random((A, C)) < 0.6))
+    host = np.where(run, rng.integers(0, H, (A, C)), 0).astype(np.int32)
+    alloc = np.stack([cpu_req[g], mem_req[g]], -1) * run[:, :, None]
+    alloc = (alloc * rng.choice([0.5, 1.0], (A, C, 1))).astype(np.float32)
+    usage = (alloc * rng.choice([1.0, 1.5, 2.0], (A, C, 1))).astype(np.float32)
+    queued = np.zeros(N, bool)
+    queued[apps[n_slot:]] = rng.random(N - n_slot) < 0.8
+    z = lambda *s, dt=np.float32: np.zeros(s, dt)  # noqa: E731
+    st = dict(slot_gid=slot_gid, work_done=rng.uniform(0, 300, A).astype(np.float32),
+              comp_running=run, comp_host=host, alloc=alloc,
+              alive_since=(60.0 * rng.integers(0, 3, (A, C))).astype(np.float32),
+              mon_buf=z(A * C, 24, 2), mon_count=z(A * C, dt=np.int32),
+              arrived=np.ones(N, bool), queued=queued, done=z(N, dt=bool),
+              failed=z(N, dt=bool), finish_t=z(N),
+              saved_work=rng.uniform(0, 300, N).astype(np.float32),
+              has_saved=rng.random(N) < 0.5, t=np.float32(300.0),
+              failure_events=np.int32(0), oom_kills=np.int32(0),
+              full_preemptions=np.int32(0), partial_preemptions=np.int32(0))
+    rtr = rstate.DeviceTrace(**{k: jnp.asarray(v) for k, v in wl.items()})
+    rst = rstate.SimState(**{k: jnp.asarray(v) for k, v in st.items()},
+                          calib=None, tenancy=None, obs=None)
+    cap = _cap(H, rng.choice([6.0, 8.0]), rng.choice([16.0, 24.0]))
+    return rtr, rst, usage, cap
+
+
+def _cases(captured):
+    """Every (trace, state, usage, host_cap) of the captured and random
+    fixtures; usage of a captured state is the reference's usage at its
+    current progress."""
+    usage_at = jax.jit(rstep._usage_at)
+    for cfg, tr, st in captured:
+        prog = jnp.clip(st.work_done / tr.runtime[jnp.maximum(st.slot_gid, 0)], 0.0, 1.0)
+        yield tr, st, np.asarray(usage_at(tr, st, prog)), _cap(
+            cfg.cluster.n_hosts, cfg.cluster.host_cpu, cfg.cluster.host_mem)
+    for seed in range(24):
+        yield _random_case(seed)
+
+
+# ----------------------------------------------------------------------
+# plain versions against the reference
+# ----------------------------------------------------------------------
+
+def test_resolve_oom_equals_reference(captured):
+    fn = jax.jit(rstep._resolve_oom)
+    kills = parts = 0
+    for rtr, rst, usage, cap in _cases(captured):
+        want_st, want_usage, want_reset = fn(rtr, rst, jnp.asarray(usage), jnp.asarray(cap))
+        ptr, pst = _port(rtr, rst)
+        got_st, got_usage, got_reset = tstep._resolve_oom(
+            ptr, pst, torch.tensor(usage)[None], torch.as_tensor(cap))
+        _assert_same({"usage": got_usage, "monreset": got_reset,
+                      **{k: getattr(got_st, k) for k in _fields(want_st)}},
+                     {"usage": want_usage, "monreset": want_reset, **_fields(want_st)})
+        kills += int(want_st.oom_kills)
+        parts += int(want_st.partial_preemptions)
+    assert kills > 0 and parts > 0, (kills, parts)
+
+
+def test_oom_victim_ties_pick_the_largest_flat_index():
+    """Two components on an over-full host with the same overage: the
+    reference kills the one with the larger (slot, component) index."""
+    rtr, rst, usage, cap = _random_case(0)
+    A, C = np.asarray(rst.comp_running).shape
+    fields = _fields(rst)
+    fields["comp_running"] = np.zeros((A, C), bool)
+    fields["slot_gid"] = np.asarray(fields["slot_gid"]).copy()
+    g = np.flatnonzero(np.asarray(rtr.exists).sum(1) >= 2)[:2]
+    fields["slot_gid"][:2] = g
+    for a in (0, 1):
+        fields["comp_running"][a, :2] = np.asarray(rtr.exists)[g[a], :2]
+    fields["comp_host"] = np.zeros((A, C), np.int32)
+    fields["alloc"] = np.zeros((A, C, 2), np.float32)
+    usage = np.zeros((A, C, 2), np.float32)
+    usage[:2, :2, 1] = 20.0               # 80 GB on a 24 GB host; four equal overages
+    rst = rstate.SimState(**{k: jnp.asarray(v) for k, v in fields.items()},
+                          calib=None, tenancy=None, obs=None)
+    cap = _cap(3, 8.0, 24.0)
+    want_st, want_usage, want_reset = rstep._resolve_oom(
+        rtr, rst, jnp.asarray(usage), jnp.asarray(cap))
+    ptr, pst = _port(rtr, rst)
+    got_st, got_usage, got_reset = tstep._resolve_oom(
+        ptr, pst, torch.as_tensor(usage)[None], torch.as_tensor(cap))
+    _assert_same({"usage": got_usage, "slot_gid": got_st.slot_gid,
+                  "comp_running": got_st.comp_running, "monreset": got_reset},
+                 {"usage": want_usage, "slot_gid": want_st.slot_gid,
+                  "comp_running": want_st.comp_running, "monreset": want_reset})
+    # the first victim is the tied component of the largest flat index
+    assert np.asarray(want_usage)[1, 1, 1] == 0.0 and int(want_st.oom_kills
+                                                          + want_st.partial_preemptions) > 0
+
+
+def test_admit_queued_equals_reference(captured):
+    for resume in (False, True):
+        cfg = dataclasses.replace(quick_base_config(), work_lost_on_kill=not resume)
+        fn = jax.jit(lambda tr, st, t, cap: rstep._admit_queued(cfg, tr, st, t, cap))
+        admitted = 0
+        for rtr, rst, _, cap in _cases(captured):
+            t = rst.t + jnp.float32(60.0)
+            want_st, want_resets = fn(rtr, rst, t, jnp.asarray(cap))
+            ptr, pst = _port(rtr, rst)
+            pcfg = convert.sim_config_from_dict(dataclasses.asdict(cfg))
+            got_st, got_resets = tstep._admit_queued(
+                pcfg, ptr, pst, torch.tensor(np.asarray(t))[None], torch.as_tensor(cap))
+            _assert_same({"resets": got_resets,
+                          **{k: getattr(got_st, k) for k in _fields(want_st)}},
+                         {"resets": want_resets, **_fields(want_st)})
+            admitted += int(np.asarray(rst.queued).sum() - np.asarray(want_st.queued).sum())
+        assert admitted > 0
+
+
+def test_place_missing_elastic_equals_reference(captured):
+    fn = jax.jit(rstep._place_missing_elastic)
+    placed = 0
+    for rtr, rst, _, cap in _cases(captured):
+        t = rst.t + jnp.float32(60.0)
+        want = fn(rtr, rst, t, jnp.asarray(cap))
+        ptr, pst = _port(rtr, rst)
+        got = tstep._place_missing_elastic(ptr, pst, torch.tensor(np.asarray(t))[None],
+                                           torch.as_tensor(cap))
+        _assert_same({k: getattr(got, k) for k in _fields(want)}, _fields(want))
+        placed += int(np.asarray(want.comp_running).sum() - np.asarray(rst.comp_running).sum())
+    assert placed > 0
+
+
+def _random_problems(seed, S=3, A=24, C=6, H=5):
+    """S over-committed clusters as reference ShapeProblem arrays: demands
+    and capacities from small discrete sets (hosts and components tie),
+    ages from a few values (elastic components tie on age), and the live
+    apps in a random order followed by -1 padding."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(S):
+        app_exists = rng.random(A) < 0.8
+        n_comp = rng.integers(1, C + 1, A)
+        n_core = np.minimum(rng.integers(1, 4, A), n_comp)
+        idx = np.arange(C)[None, :]
+        comp_exists = (idx < n_comp[:, None]) & app_exists[:, None]
+        live = np.flatnonzero(app_exists)
+        order = np.full(A, -1, np.int32)
+        order[:live.size] = rng.permutation(live)
+        out.append(dict(
+            host_cpu=rng.choice([6.0, 8.0], H).astype(np.float32),
+            host_mem=rng.choice([24.0, 32.0], H).astype(np.float32),
+            app_exists=app_exists, app_order=order, comp_exists=comp_exists,
+            comp_core=(idx < n_core[:, None]) & app_exists[:, None],
+            comp_host=np.where(comp_exists, rng.integers(0, H, (A, C)), 0).astype(np.int32),
+            comp_cpu=np.where(comp_exists, rng.choice([0.5, 1.0, 1.5], (A, C)), 0
+                              ).astype(np.float32),
+            comp_mem=np.where(comp_exists, rng.choice([1.0, 2.0, 4.0], (A, C)), 0
+                              ).astype(np.float32),
+            comp_alive=(60.0 * rng.integers(0, 3, (A, C))).astype(np.float32)))
+    return out
+
+
+def test_pessimistic_pass_equals_reference(captured):
+    """Algorithm 1 through ``pessimistic_shape`` (``ref.pessimistic_pass``
+    on the CPU): on the tick's own problem of each captured state (the
+    reference's persist demands and FIFO order), and on batches of three
+    random tie-prone clusters, each member against the reference."""
+    cfg = captured[0][0]
+    cap = jnp.asarray(_cap(cfg.cluster.n_hosts, cfg.cluster.host_cpu, cfg.cluster.host_mem))
+
+    @jax.jit
+    def problem(tr, st, t):
+        demand, _, _, _ = rstep._shaped_demands(cfg, None, tr, st, 60.0)
+        return demand, rstep._shape_problem(cfg, tr, st, demand, t, cap)
+
+    policy = jax.jit(pessimistic_shape_raw)
+    for _, tr, st in captured:
+        t = st.t + jnp.float32(60.0)
+        demand, prob = problem(tr, st, t)
+        want = policy(prob)
+        ptr, pst = _port(tr, st)
+        got = pessimistic_shape(tstep._shape_problem(
+            ptr, pst, torch.tensor(np.asarray(demand))[None],
+            torch.tensor(np.asarray(t))[None], torch.tensor(np.asarray(cap))))
+        _assert_same({f: getattr(got, f) for f in DECISIONS},
+                     {f: getattr(want, f) for f in DECISIONS})
+    kills = np.zeros(2, int)
+    for seed in range(8):
+        members = _random_problems(seed)
+        got = pessimistic_shape(ShapeProblem(**{
+            k: torch.as_tensor(np.stack([m[k] for m in members])) for k in members[0]}))
+        for i, m in enumerate(members):
+            want = policy(rshaper.ShapeProblem(**{k: jnp.asarray(v) for k, v in m.items()}))
+            _assert_same({f: getattr(got, f)[i:i + 1] for f in DECISIONS},
+                         {f: getattr(want, f) for f in DECISIONS})
+            kills += [int(want.kill_app.sum()), int(want.kill_comp.sum())]
+    assert (kills > 0).all(), kills
+
+
+def test_plain_versions_take_cpu_tensors_only():
+    x = torch.zeros((1, 2), dtype=torch.bool, device="meta")
+    with pytest.raises(ValueError, match="no pessimistic_pass implementation"):
+        ops.pessimistic_pass(x, x, x, x, x, x, x)
+    with pytest.raises(ValueError, match="no resolve_oom implementation"):
+        ops.resolve_oom(x)
+
+
+# ----------------------------------------------------------------------
+# CUDA kernels against the plain versions (card only)
+# ----------------------------------------------------------------------
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _both(fn_kernel, fn_plain, args):
+    """Run the kernel on the card and the plain version on the CPU on the
+    same inputs; return both results as CPU tensors."""
+    got = fn_kernel(*(a.cuda() if isinstance(a, torch.Tensor) else a for a in args))
+    torch.cuda.synchronize()
+    return [g.cpu() for g in got], fn_plain(*args)
+
+
+@pytest.mark.gpu
+def test_sched_kernels_equal_plain_versions(cuda, captured):
+    for rtr, rst, usage, cap in _cases(captured):
+        ptr, pst = _port(rtr, rst)
+        cap_t, t = torch.as_tensor(cap), pst.t + 60.0
+        oom_args = (pst.slot_gid, pst.work_done, pst.comp_running, pst.comp_host,
+                    pst.alloc, torch.as_tensor(usage)[None], pst.failed, pst.queued,
+                    pst.oom_kills, pst.failure_events, pst.partial_preemptions,
+                    ptr.is_core, cap_t)
+        adm_args = (ptr.submit, ptr.gid, ptr.cpu_req, ptr.mem_req, ptr.exists,
+                    ptr.is_core, pst.slot_gid, pst.work_done, pst.comp_running,
+                    pst.comp_host, pst.alloc, pst.alive_since, pst.queued,
+                    pst.has_saved, pst.saved_work, t, cap_t, True)
+        el_args = (ptr.cpu_req, ptr.mem_req, ptr.exists, ptr.is_core, pst.slot_gid,
+                   pst.comp_running, pst.comp_host, pst.alloc, pst.alive_since, t, cap_t)
+        for kern, plain, args in ((sched.resolve_oom, ref.resolve_oom, oom_args),
+                                  (sched.admit_queued, ref.admit_queued, adm_args),
+                                  (sched.place_missing_elastic, ref.place_missing_elastic,
+                                   el_args)):
+            got, want = _both(kern, plain, args)
+            for g, w in zip(got, want):
+                torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+def test_pessimistic_pass_kernel_equals_plain_version(cuda, captured):
+    for seed in range(16):
+        rng = np.random.default_rng(seed)
+        S, A, C, H = 3, 64, 12, 7
+        core = rng.random((S, A, C)) < 0.3
+        el = ~core & (rng.random((S, A, C)) < 0.6)
+        args = (torch.as_tensor(rng.random((S, A)) < 0.8),
+                torch.as_tensor(rng.choice([0.25, 0.5, 1.0, 2.0], (S, A, C, 2))
+                                .astype(np.float32)),
+                torch.as_tensor(core), torch.as_tensor(el),
+                torch.as_tensor(rng.integers(0, H, (S, A, C)).astype(np.int32)),
+                torch.as_tensor(np.argsort(rng.random((S, A, C)), -1).astype(np.int32)),
+                torch.as_tensor(rng.choice([8.0, 16.0], (S, H, 2)).astype(np.float32)))
+        got, want = _both(shaper.pessimistic_pass, ref.pessimistic_pass, args)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=0, atol=0)

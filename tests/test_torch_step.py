@@ -1,0 +1,252 @@
+"""The port's device engine (``repro_torch.sim.step``) against the
+reference's scan engine (``repro.sim.step``) on the CPU, and its own
+contracts: chunk invariance, cohort equivalence, refused switches.
+
+The reference and the port are compared phase for phase: one fused tick
+from the same converted mid-run state must leave the same next state,
+and whole runs the same discrete outcomes (completions, failures,
+preemptions, OOM kills) with turnaround and utilisation allclose.  The
+per-tick metric sums are the one float the port takes in another order
+(exact float64 sums where XLA sums float32 in a tree), so they agree to
+rtol 1e-6 and are held to it.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.forecast.base import Forecast as RForecast
+from repro.sim import SimConfig
+from repro.sim import state as rstate
+from repro.sim import step as rstep
+from repro.sim.scenarios.registry import build_trace
+from repro.sim.sweep import quick_base_config
+from repro_torch import convert
+from repro_torch.core.forecast import Forecast as TForecast
+from repro_torch.sim import step as tstep
+
+COUNTERS = ("completed", "n_apps", "failure_events", "oom_kills", "full_preemptions",
+            "partial_preemptions", "failed_frac", "sim_hours")
+SMALL = quick_base_config(n_apps=24, n_hosts=3)
+
+
+def _columns(tr):
+    return {f.name: getattr(tr, f.name) for f in dataclasses.fields(tr) if f.name != "cfg"}
+
+
+def _fields(obj):
+    return {f.name: np.asarray(getattr(obj, f.name)) for f in dataclasses.fields(obj)
+            if getattr(obj, f.name) is not None}
+
+
+def _port_inputs(cfg):
+    wl = build_trace(cfg.workload)
+    return (convert.sim_config_from_dict(dataclasses.asdict(cfg)),
+            convert.trace_from_arrays(**_columns(wl)), wl)
+
+
+def _assert_summary(got: dict, want: dict):
+    for k in COUNTERS:
+        assert got[k] == want[k], (k, got[k], want[k])
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-6, err_msg=k)
+
+
+# ----------------------------------------------------------------------
+# one tick
+# ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("forecaster", ["persist", "oracle"])
+def test_fused_tick_equals_reference(forecaster):
+    """From the reference's state at ticks 10, 20, ..., 50 of a saturated
+    run, one tick in both packages leaves the same next state, and the
+    same metrics."""
+    cfg = dataclasses.replace(quick_base_config(), forecaster=forecaster)
+    pcfg, _, wl = _port_inputs(cfg)
+    tr = rstate.DeviceTrace.from_trace(wl)
+    st = rstate.init_state(cfg, wl.n_apps, wl.max_components)
+    fn = rstep._chunk_fn(cfg, 1, rstep._shapes_key(wl, cfg), False, None)
+    ptr = convert.device_trace_from_arrays(device="cpu", **_fields(tr))
+    cap = tstep.host_capacity(pcfg, "cpu")
+    events = 0
+    for k in range(51):
+        before = _fields(st)          # numpy copies: the chunk step donates its state
+        st, m = fn(tr, st)
+        if k % 10 or not k:
+            continue
+        pst, pm = tstep.fused_tick(pcfg, None, ptr,
+                                   convert.sim_state_from_arrays(device="cpu", **before),
+                                   cap)
+        for name, want in _fields(st).items():
+            np.testing.assert_array_equal(getattr(pst, name).numpy()[0], want, err_msg=name)
+        for f in dataclasses.fields(pm):
+            got, want = getattr(pm, f.name).numpy()[0], np.asarray(getattr(m, f.name))[0]
+            if want.dtype.kind == "f":
+                np.testing.assert_allclose(got, want, rtol=1e-6, err_msg=f.name)
+            else:
+                np.testing.assert_array_equal(got, want, err_msg=f.name)
+        events += int((before["slot_gid"] != _fields(st)["slot_gid"]).sum())
+    assert events > 0
+
+
+# ----------------------------------------------------------------------
+# whole runs
+# ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("policy", ["pessimistic", "optimistic", "baseline"])
+@pytest.mark.parametrize("forecaster", ["persist", "oracle"])
+def test_run_sim_scan_equals_reference(forecaster, policy):
+    cfg = dataclasses.replace(SMALL, forecaster=forecaster, policy=policy)
+    pcfg, ptr, wl = _port_inputs(cfg)
+    _assert_summary(tstep.run_sim_scan(pcfg, ptr, device="cpu").summary(),
+                    rstep.run_sim_scan(cfg, wl).summary())
+
+
+def test_preempt_to_checkpoint_equals_reference():
+    """work_lost_on_kill=False: preempted apps resume from saved work."""
+    cfg = dataclasses.replace(quick_base_config(), forecaster="persist",
+                              work_lost_on_kill=False)
+    pcfg, ptr, wl = _port_inputs(cfg)
+    want = rstep.run_sim_scan(cfg, wl).summary()
+    _assert_summary(tstep.run_sim_scan(pcfg, ptr, device="cpu").summary(), want)
+    assert want["full_preemptions"] > 0
+
+
+def test_full_width_oracle_equals_reference():
+    """The repo's default SimConfig at full width (500 apps, 50 hosts,
+    A=128, C=12) to completion with oracle forecasts."""
+    cfg = SimConfig(forecaster="oracle")
+    pcfg, ptr, wl = _port_inputs(cfg)
+    want = rstep.run_sim_scan(cfg, wl).summary()
+    res = tstep.run_sim_scan(pcfg, ptr, device="cpu")
+    _assert_summary(res.summary(), want)
+    assert want["completed"] == 500 and res.timings["ticks"] > 1000
+
+
+def _shared_client(w: np.ndarray, v: np.ndarray, horizon: int = 3):
+    """A deterministic numpy forecast client: the masked window mean
+    drifting by the last step's change, with the masked variance."""
+    wf = v.astype(np.float32)
+    cnt = np.maximum(wf.sum(1), 1.0)
+    mu = (w * wf).sum(1) / cnt
+    step = (w[:, -1] - w[:, -2]) * v[:, -2]
+    k = np.arange(1, horizon + 1, dtype=np.float32)
+    mean = (mu[:, None] + step[:, None] * k).astype(np.float32)
+    var = np.repeat(((w - mu[:, None]) ** 2 * wf).sum(1, keepdims=True) / cnt[:, None]
+                    + 1e-3, horizon, 1).astype(np.float32)
+    return mean, var
+
+
+class _JaxClient:
+    def forecast_batch(self, w, horizon, valid=None):
+        shape = jax.ShapeDtypeStruct((w.shape[0], horizon), jnp.float32)
+        mean, var = jax.pure_callback(
+            lambda a, b: _shared_client(np.asarray(a), np.asarray(b), horizon),
+            (shape, shape), w, valid)
+        return RForecast(mean=mean, var=var)
+
+
+class _TorchClient:
+    def forecast_batch(self, w, horizon, *, valid, device):
+        mean, var = _shared_client(w.cpu().numpy(), valid.cpu().numpy(), horizon)
+        return TForecast(mean=torch.as_tensor(mean, device=device),
+                         var=torch.as_tensor(var, device=device))
+
+
+def test_gp_path_with_shared_client_equals_reference(monkeypatch):
+    """The gp path (model over all 2*A*C rows, masking, telemetry) with one
+    forecast client for both engines: everything downstream of the
+    forecast must reproduce the reference's run."""
+    cfg = dataclasses.replace(quick_base_config(), forecaster="gp", forecast_bucket=False)
+    pcfg, ptr, wl = _port_inputs(cfg)
+    monkeypatch.setattr(rstep, "_CHUNK_CACHE", {})
+    monkeypatch.setattr(rstep, "_make_model", lambda c: _JaxClient())
+    monkeypatch.setattr(tstep, "_make_model", lambda c: _TorchClient())
+    want = rstep.run_sim_scan(cfg, wl)
+    got = tstep.run_sim_scan(pcfg, ptr, device="cpu")
+    _assert_summary(got.summary(), want.summary())
+    assert got.forecast_rows == want.forecast_rows
+    assert want.summary()["partial_preemptions"] > 0
+
+
+# ----------------------------------------------------------------------
+# the port's own contracts
+# ----------------------------------------------------------------------
+
+def _series(res):
+    return (res.summary(), res.n_running, res.util_cpu, res.util_mem, res.slack_cpu,
+            res.slack_mem, res.turnaround, res.failed_apps, res.forecast_rows)
+
+
+def test_chunk_invariance():
+    pcfg, ptr, _ = _port_inputs(dataclasses.replace(quick_base_config(),
+                                                    forecaster="persist"))
+    runs = [tstep.run_sim_scan(pcfg, ptr, chunk=c, device="cpu") for c in (1, 32)]
+    assert _series(runs[0]) == _series(runs[1])
+    capped = dataclasses.replace(pcfg, max_ticks=45)
+    a, b = (tstep.run_sim_scan(capped, ptr, chunk=c, device="cpu") for c in (1, 32))
+    assert _series(a) == _series(b) and a.timings["ticks"] == b.timings["ticks"] == 45
+
+
+@pytest.mark.parametrize("forecaster", ["persist", "oracle"])
+def test_cohort_equals_solo(forecaster):
+    pcfg = convert.sim_config_from_dict(dataclasses.asdict(
+        dataclasses.replace(SMALL, forecaster=forecaster)))
+    cohort = tstep.run_cohort_scan(pcfg, [0, 1, 2], device="cpu")
+    for seed, res in zip([0, 1, 2], cohort):
+        solo = tstep.run_sim_scan(dataclasses.replace(
+            pcfg, workload=dataclasses.replace(pcfg.workload, seed=seed)), device="cpu")
+        assert _series(res) == _series(solo), seed
+    assert len({r.summary()["turnaround_mean"] for r in cohort}) == 3
+    with pytest.raises(ValueError, match="disagree on shape"):
+        tstep.run_cohort_scan(pcfg, [0, 1], device="cpu", wls=[
+            build_trace(dataclasses.replace(SMALL.workload, n_apps=n)) for n in (24, 25)])
+
+
+def test_unported_switches_raise():
+    pcfg = convert.sim_config_from_dict(dataclasses.asdict(SMALL))
+    Switch = type(pcfg.obs)
+    for bad, match in ((dict(forecaster="arima"), "ARIMA"),
+                       (dict(calibration=Switch(True)), "calibration"),
+                       (dict(control=Switch(True)), "control plane"),
+                       (dict(obs=Switch(True)), "telemetry"),
+                       (dict(leap=True), "leap")):
+        for run in (tstep.run_sim_scan, lambda c, **k: tstep.run_cohort_scan(c, [0], **k)):
+            with pytest.raises(NotImplementedError, match=match):
+                run(dataclasses.replace(pcfg, **bad), device="cpu")
+
+    @dataclasses.dataclass(frozen=True)
+    class StreamConfig:
+        seed: int = 0
+
+    with pytest.raises(NotImplementedError, match="streamed"):
+        tstep.run_sim_scan(dataclasses.replace(pcfg, workload=StreamConfig()), device="cpu")
+
+
+def test_run_sim_scan_defaults_to_cuda_and_raises_without_it(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    pcfg = convert.sim_config_from_dict(dataclasses.asdict(SMALL))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tstep.run_sim_scan(pcfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tstep.run_cohort_scan(pcfg, [0, 1])
+
+
+# ----------------------------------------------------------------------
+# on the card (``-m gpu``)
+# ----------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("forecaster", ["persist", "oracle"])
+def test_card_equals_cpu(forecaster):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    pcfg = convert.sim_config_from_dict(dataclasses.asdict(
+        dataclasses.replace(quick_base_config(), forecaster=forecaster)))
+    cpu = tstep.run_cohort_scan(pcfg, [0, 1], device="cpu")
+    gpu = tstep.run_cohort_scan(pcfg, [0, 1], device="cuda")
+    for a, b in zip(gpu, cpu):
+        assert _series(a) == _series(b)
