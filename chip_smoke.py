@@ -736,6 +736,12 @@ SCAN_SOURCES = {"pessimistic_pass": "src/repro_torch/kernels/csrc/shaper.cu",
 CAPTURE_TICKS = range(40, 400, 40)
 
 
+def scan_kernel_pairs(shaper, sched, ref) -> dict:
+    """Each device-engine kernel's wrapper and its plain version, by name."""
+    return {name: (getattr(shaper if name == "pessimistic_pass" else sched, name),
+                   getattr(ref, name)) for name in SCAN_KERNELS}
+
+
 def capture_states(step, SimConfig, policy):
     """The port's own device engine on the CPU at full width (SimConfig(),
     oracle forecasts), tick by tick; returns (trace, state, host_cap) at
@@ -856,16 +862,12 @@ def add_sched_cases(cases, d):
         d["host_cap"]))
 
 
-def check_scan_kernels(shaper, sched, ref, cases) -> tuple[dict, dict]:
+def check_scan_kernels(fns, cases) -> tuple[dict, dict]:
     """Each kernel on the card against its plain version on the CPU on the
     same inputs: every output equal (the same float operations in the same
     order).  Returns the largest absolute error per kernel and the events
     the cases hold (kills, admissions, placements)."""
     import torch
-    fns = {"pessimistic_pass": (shaper.pessimistic_pass, ref.pessimistic_pass),
-           "resolve_oom": (sched.resolve_oom, ref.resolve_oom),
-           "admit_queued": (sched.admit_queued, ref.admit_queued),
-           "place_missing_elastic": (sched.place_missing_elastic, ref.place_missing_elastic)}
     err = dict.fromkeys(SCAN_KERNELS, 0.0)
     events = dict.fromkeys(SCAN_KERNELS, 0)
     for name, (kern, plain) in fns.items():
@@ -981,28 +983,86 @@ def run_scan_main(step, SimConfig, gp_forecast, shaper, sched) -> dict:
     return launches
 
 
-def time_scan_kernels(shaper, sched, ref, cases) -> dict:
+def _nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def _changed_bytes(new, old) -> int:
+    """The bytes of the entries an update changes: what a version that
+    updates its state in place must write."""
+    return int((new != old).sum()) * new.element_size()
+
+
+def scan_bound_bytes(name, args, outs) -> int:
+    """The bytes the function needs on one case: what it must read to
+    decide, each once, and the entries it changes, each written once (a
+    fresh output is written in full).  The reads depend on the data, so
+    they are counted from the case and its plain outputs: the rows the
+    pass visits, the heads admission tries, the missing components, the
+    hosts over their memory and their victims."""
+    import torch
+    if name == "pessimistic_pass":
+        valid, dem, core, el, host, order, free0 = args
+        row = _nbytes(dem[0, 0], core[0, 0], el[0, 0], host[0, 0], order[0, 0])
+        return _nbytes(valid, free0) + int(valid.sum()) * row + _nbytes(*outs)
+    if name == "resolve_oom":
+        slot_gid, _, run, host, alloc, usage, *_, is_core, cap = args
+        mem = usage[..., 1]
+        on = run[..., None] & (host[..., None] == torch.arange(cap.shape[0]))
+        over = (mem.double()[..., None] * on).sum((1, 2)) > cap[:, 1].double() + 1e-6
+        on_over = (on & over[:, None, None, :]).any(-1)
+        victims = int((outs[7] - args[8]).sum() + (outs[9] - args[10]).sum())
+        reads = (_nbytes(mem, run, host, cap[:, 1])
+                 + int(on_over.sum()) * alloc.element_size()      # their overage
+                 + victims * (slot_gid.element_size() + is_core.element_size()))
+        pairs = ((0, 0), (1, 1), (2, 2), (3, 4), (4, 5), (5, 6), (6, 7), (7, 8), (8, 9),
+                 (9, 10))
+        return (reads + sum(_changed_bytes(outs[o], args[i]) for o, i in pairs)
+                + _nbytes(outs[10]))
+    if name == "admit_queued":
+        (submit, gid, cpu_req, mem_req, exists, is_core, slot_gid, _, run, host, alloc,
+         _, queued, has_saved, saved_work, t, cap, resume) = args
+        admitted = int(queued.sum() - outs[6].sum())
+        refused = int((outs[6].any(1) & (outs[0] < 0).any(1)).sum())
+        head = _nbytes(cpu_req[0, 0], mem_req[0, 0], exists[0, 0], is_core[0, 0])
+        if resume:
+            head += _nbytes(has_saved[0, 0], saved_work[0, 0])
+        reads = (_nbytes(submit, gid, queued, slot_gid, run, host, alloc, t, cap)
+                 + (admitted + refused) * head)
+        return (reads + sum(_changed_bytes(outs[o], args[o + 6]) for o in range(8))
+                + _nbytes(outs[8]))
+    cpu_req, mem_req, exists, is_core, slot_gid, run, host, alloc, _, t, cap = args
+    S, A, C = run.shape
+    occupied = slot_gid >= 0
+    g = slot_gid.clamp_min(0).long()[..., None].expand(S, A, C)
+    missing = (occupied[..., None] & torch.gather(exists, 1, g)
+               & ~torch.gather(is_core, 1, g) & ~run)
+    members = int(missing.any(-1).any(-1).sum())
+    reads = (_nbytes(slot_gid, run)
+             + int(occupied.sum()) * C * (exists.element_size() + is_core.element_size())
+             + members * (_nbytes(host[0], alloc[0], cap) + t.element_size())
+             + int(missing.sum()) * (cpu_req.element_size() + mem_req.element_size()))
+    return reads + sum(_changed_bytes(outs[o], args[o + 5]) for o in range(4))
+
+
+def time_scan_kernels(fns, cases) -> dict:
     """The four kernels at the main path's shapes (a full-width state
     captured at tick 200 of the pessimistic run: S = 1, A = 128, C = 12,
     H = 50, N = 500), kernel by CUDA events against the plain version (a
     loop over numpy on the host) by the host clock, in turns.  The bound:
-    every input read once and every output written once over 3.35 TB/s
-    (their operations are a few thousand additions and comparisons)."""
+    the bytes each function needs on that state (scan_bound_bytes) over
+    3.35 TB/s; their operations are a few thousand additions and
+    comparisons."""
     import torch
-    fns = {"pessimistic_pass": (shaper.pessimistic_pass, ref.pessimistic_pass),
-           "resolve_oom": (sched.resolve_oom, ref.resolve_oom),
-           "admit_queued": (sched.admit_queued, ref.admit_queued),
-           "place_missing_elastic": (sched.place_missing_elastic, ref.place_missing_elastic)}
     pick = {"pessimistic_pass": 4, "resolve_oom": 4, "admit_queued": 8,
             "place_missing_elastic": 4}
     out = {}
     for name, (kern, plain) in fns.items():
         cpu = cases[name][pick[name]]
         gpu = [a.cuda() if isinstance(a, torch.Tensor) else a for a in cpu]
-        outs = kern(*gpu)
+        kern(*gpu)
         torch.cuda.synchronize()
-        nbytes = sum(a.numel() * a.element_size() for a in list(gpu) + list(outs)
-                     if isinstance(a, torch.Tensor))
+        nbytes = scan_bound_bytes(name, cpu, plain(*cpu))
 
         def host_ms():
             t = time.perf_counter()
@@ -1016,8 +1076,9 @@ def time_scan_kernels(shaper, sched, ref, cases) -> dict:
         out[name] = dict(ms=min(k1, k2), plain_ms=min(p1, p2), bound_ms=bound,
                          bound_by="bytes", library_ms=None)
         log(f"  {name}: kernel {k1:.5f}/{k2:.5f} ms, plain (numpy on the host) "
-            f"{p1:.5f}/{p2:.5f} ms; bound {bound * 1e3:.3f} us ({nbytes} B)")
+            f"{p1:.5f}/{p2:.5f} ms; bound {bound * 1e3:.4f} us ({nbytes} B needed)")
     return out
+
 
 def main() -> int:
     import torch
@@ -1071,7 +1132,8 @@ def main() -> int:
     err["flash_attention"] = flash_err["sm90"]
     err["flash_attention_simt"] = flash_err["simt"]
     scan_cases = scan_kernel_cases(step, SimConfig)
-    err.update(check_scan_kernels(shaper, sched, ref, scan_cases)[0])
+    scan_fns = scan_kernel_pairs(shaper, sched, ref)
+    err.update(check_scan_kernels(scan_fns, scan_cases)[0])
     log(f"  max abs error: {err}")
 
     log("== 4. GP check (card vs CPU)")
@@ -1142,7 +1204,7 @@ def main() -> int:
     times = time_kernels(gp_gram, ref, dev)
     times.update(time_gp_kernel(gp_forecast, ref, GPConfig, dev))
     times.update(time_flash(flash_attention, ref, dev))
-    times.update(time_scan_kernels(shaper, sched, ref, scan_cases))
+    times.update(time_scan_kernels(scan_fns, scan_cases))
     log(f"  gp_gram library_ms: null - no single PyTorch call computes the Gram "
         f"matrix (torch.cdist gives distances only) or its (ell, sf) gradient")
     log(f"total {time.perf_counter() - t_start:.1f} s")

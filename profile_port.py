@@ -14,7 +14,11 @@ batch (chip_smoke.py's phase 8 times the GP program alone).
 full width) for its first SCAN_TICKS ticks under the profiler after a
 warm-up, and prints the busy share, the host's kernel launches per tick
 and the device time by kind, with Algorithm 1's pass, the three
-scheduler kernels and the GP program as groups of their own.
+scheduler kernels and the GP program as groups of their own.  It then
+counts, for the default (GP) and the persist forecaster, the host's
+launches per tick made inside the code that copies XLA:CPU's rounding
+(``step._fma``, ``base._sum_rows``, ``safeguard.beta`` and
+``safeguard.sigma_from_var``, each run under a profiler range).
 
 ``--path whisper`` does the same for Whisper-large-v3 serving at full
 width (random weights): one prefill of 8 requests x 1,500 frames with
@@ -39,6 +43,12 @@ PROFILED_TICKS = 120
 SCAN_TICKS = 640       # 20 chunks of 32 ticks
 LAUNCH_KEYS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
                "cuLaunchKernelEx")
+COPY_TICKS = 320       # ticks of each run that attributes launches to the copies
+# the device engine's code that rounds as XLA:CPU does (module, function)
+XLA_COPIES = (("repro_torch.sim.step", "_fma"),
+              ("repro_torch.core.forecast.base", "_sum_rows"),
+              ("repro_torch.core.shaper.safeguard", "beta"),
+              ("repro_torch.core.shaper.safeguard", "sigma_from_var"))
 
 
 def _dev_us(e) -> float:
@@ -138,6 +148,50 @@ def profile_whisper() -> int:
     return 0
 
 
+def _in_range(fn, tag):
+    from torch.profiler import record_function
+
+    def ranged(*a, **k):
+        with record_function(tag):
+            return fn(*a, **k)
+    return ranged
+
+
+def copy_launches(cfg) -> tuple[int, int, dict]:
+    """Run the device engine on ``cfg`` under the profiler with every
+    function of XLA_COPIES in a range of its own; returns (ticks, host
+    launches, launches by the innermost copy they were made in)."""
+    import importlib
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.sim import run_sim_scan
+    saved = []
+    for mod_name, name in XLA_COPIES:
+        mod = importlib.import_module(mod_name)
+        saved.append((mod, name, getattr(mod, name)))
+        setattr(mod, name, _in_range(getattr(mod, name), f"xla_copy:{name}"))
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            res = run_sim_scan(cfg, device="cuda")
+            torch.cuda.synchronize()
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    total, by_copy = 0, {}
+    for e in prof.events():
+        if e.name not in LAUNCH_KEYS:
+            continue
+        total += 1
+        p = e.cpu_parent
+        while p is not None and not p.name.startswith("xla_copy:"):
+            p = p.cpu_parent
+        if p is not None:
+            key = p.name.split(":", 1)[1]
+            by_copy[key] = by_copy.get(key, 0) + 1
+    return res.timings["ticks"], total, by_copy
+
+
 def profile_scan() -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -167,6 +221,13 @@ def profile_scan() -> int:
     print("top operators by host time (self):")
     for e in sorted(ka, key=lambda e: e.self_cpu_time_total, reverse=True)[:15]:
         print(f"  {e.self_cpu_time_total / 1e3:10.3f} ms  {e.count:8d} calls  {e.key[:90]}")
+    for forecaster in ("gp", "persist"):
+        ticks, total, by_copy = copy_launches(
+            SimConfig(forecaster=forecaster, max_ticks=COPY_TICKS))
+        n = sum(by_copy.values())
+        per = ", ".join(f"{k} {v / ticks:.1f}" for k, v in sorted(by_copy.items()))
+        print(f"XLA:CPU rounding copies, {forecaster}, {ticks} ticks: {n / ticks:.1f} of "
+              f"{total / ticks:.1f} host launches per tick ({per or 'none attributed'})")
     return 0
 
 

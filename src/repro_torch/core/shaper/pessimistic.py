@@ -73,7 +73,7 @@ def _scatter_any(index: torch.Tensor, src: torch.Tensor, size: int) -> torch.Ten
     return out.scatter_reduce_(1, idx, src.to(torch.int32), "amax").bool()
 
 
-def _rows(x: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+def gather_rows(x: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
     """``x[s, index[s, i]]``: member s's rows in the order ``index`` gives."""
     tail = x.shape[2:]
     idx = index.reshape(index.shape + (1,) * len(tail)).expand(index.shape + tail)
@@ -91,13 +91,13 @@ def pass_inputs(p: ShapeProblem):
                             float("-inf"))
     elastic_order = torch.argsort(-alive_key, dim=-1, stable=True)  # (S,A,C)
     a_all = torch.clamp_min(p.app_order, 0).long()
-    exists = _rows(p.comp_exists, a_all)
-    is_core = _rows(p.comp_core, a_all)
-    return ((p.app_order >= 0) & _rows(p.app_exists, a_all),
-            _rows(torch.stack([p.comp_cpu, p.comp_mem], -1), a_all),      # (S,A,C,2)
+    exists = gather_rows(p.comp_exists, a_all)
+    is_core = gather_rows(p.comp_core, a_all)
+    return ((p.app_order >= 0) & gather_rows(p.app_exists, a_all),
+            gather_rows(torch.stack([p.comp_cpu, p.comp_mem], -1), a_all),      # (S,A,C,2)
             exists & is_core, exists & ~is_core,
-            _rows(p.comp_host, a_all).to(torch.int32),
-            _rows(elastic_order, a_all).to(torch.int32),
+            gather_rows(p.comp_host, a_all).to(torch.int32),
+            gather_rows(elastic_order, a_all).to(torch.int32),
             torch.stack([p.host_cpu, p.host_mem], -1)), a_all             # (S,H,2)
 
 

@@ -139,30 +139,15 @@ def _launch(which, q, k, v, shape, causal, sm_scale, q_offset):
         sm_scale = D ** -0.5
     lib = _library(which)
     out = torch.empty_like(q)
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Hq, Hkv,
-            S, T, D, float(sm_scale), int(causal), int(q_offset))
-    index = q.device.index
-    if index != torch.cuda.current_device():
-        with torch.cuda.device(index):
-            rc = _call(lib, which, args, q.dtype, index)
+    args = (q, k, v, out, B, Hq, Hkv, S, T, D, float(sm_scale), int(causal), int(q_offset))
+    if which == "sm90":
+        nvcc.launch(lib.flash_attention_sm90_fwd, "flash_attention (sm90)", q.device, *args)
     else:
-        rc = _call(lib, which, args, q.dtype, index)
-    if rc != 0:
-        raise RuntimeError(f"flash_attention ({which}) launch failed: "
-                           + (f"CUresult {rc - 1000} encoding a tensor map" if rc >= 1000
-                              else f"CUDA error {rc}"))
+        nvcc.launch(lib.flash_attention_fwd, "flash_attention (simt)", q.device, *args,
+                    _DTYPES[q.dtype])
     flash_attention.launches += 1
     flash_attention.route_launches[which] += 1
     return out
-
-
-def _call(lib, which, args, dtype, index):
-    # the raw handle of the device's current stream, without building a
-    # torch.cuda.Stream (several microseconds per call)
-    stream = torch._C._cuda_getCurrentRawStream(index)
-    if which == "sm90":
-        return lib.flash_attention_sm90_fwd(*args, stream)
-    return lib.flash_attention_fwd(*args, _DTYPES[dtype], stream)
 
 
 flash_attention.launches = 0

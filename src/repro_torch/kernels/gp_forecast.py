@@ -105,19 +105,9 @@ def gp_fit_forecast(X: torch.Tensor, y: torch.Tensor, row_valid: torch.Tensor,
     mean = torch.empty((B, horizon), dtype=torch.float32, device=X.device)
     var = torch.empty((B, horizon), dtype=torch.float32, device=X.device)
     logp = torch.empty((B, 3), dtype=torch.float32, device=X.device)
-    args = (X.data_ptr(), y.data_ptr(), row_valid.data_ptr(), hist.data_ptr(),
-            mean.data_ptr(), var.data_ptr(), logp.data_ptr(), B, N, D, horizon,
-            T, cfg.opt_steps, code, cfg.opt_lr, cfg.jitter, bc1, bc2, init)
-    index = X.device.index
-    if index != torch.cuda.current_device():
-        with torch.cuda.device(index):
-            rc = lib.gp_forecast(*args, torch._C._cuda_getCurrentRawStream(index))
-    else:
-        # the raw handle of the current stream, without building a
-        # torch.cuda.Stream (several microseconds per call)
-        rc = lib.gp_forecast(*args, torch._C._cuda_getCurrentRawStream(index))
-    if rc != 0:
-        raise RuntimeError(f"gp_forecast launch failed: CUDA error {rc}")
+    nvcc.launch(lib.gp_forecast, "gp_forecast", X.device, X, y, row_valid, hist, mean,
+                var, logp, B, N, D, horizon, T, cfg.opt_steps, code, cfg.opt_lr,
+                cfg.jitter, bc1, bc2, init)
     gp_fit_forecast.launches += 1
     return mean, var, logp
 

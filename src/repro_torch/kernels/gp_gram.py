@@ -76,13 +76,8 @@ def gram_fwd(xa: torch.Tensor, xb: torch.Tensor, ell: torch.Tensor,
     B, M, N, D, code = _check(xa, xb, ell, sf, kind)
     lib = _library()
     out = torch.empty((B, M, N), dtype=torch.float32, device=xa.device)
-    with torch.cuda.device(xa.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.gp_gram_fwd(xa.data_ptr(), xb.data_ptr(), ell.data_ptr(),
-                             sf.data_ptr(), out.data_ptr(), B, M, N, D, code,
-                             stream)
-    if rc != 0:
-        raise RuntimeError(f"gp_gram_fwd launch failed: CUDA error {rc}")
+    nvcc.launch(lib.gp_gram_fwd, "gp_gram_fwd", xa.device, xa, xb, ell, sf, out,
+                B, M, N, D, code)
     gram_fwd.launches += 1
     return out
 
@@ -99,13 +94,8 @@ def gram_bwd(grad: torch.Tensor, xa: torch.Tensor, xb: torch.Tensor,
     lib = _library()
     d_ell = torch.empty((B,), dtype=torch.float32, device=xa.device)
     d_sf = torch.empty((B,), dtype=torch.float32, device=xa.device)
-    with torch.cuda.device(xa.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.gp_gram_bwd(grad.data_ptr(), xa.data_ptr(), xb.data_ptr(),
-                             ell.data_ptr(), sf.data_ptr(), d_ell.data_ptr(),
-                             d_sf.data_ptr(), B, M, N, D, code, stream)
-    if rc != 0:
-        raise RuntimeError(f"gp_gram_bwd launch failed: CUDA error {rc}")
+    nvcc.launch(lib.gp_gram_bwd, "gp_gram_bwd", xa.device, grad, xa, xb, ell, sf,
+                d_ell, d_sf, B, M, N, D, code)
     gram_bwd.launches += 1
     return d_ell, d_sf
 

@@ -5,9 +5,9 @@ No PyTorch headers are involved, so a build takes seconds.  The library
 goes under ``build/`` beside this file, named after the source and keyed
 by a hash of the source and the flags, so a later call with the same
 source reuses it.  Nothing is built when a kernel module is imported:
-each module builds at its first launch.  :func:`check` and :func:`launch`
-are the tensor checks and the launch that the wrappers of the device
-engine's kernels share.
+each module builds at its first launch.  :func:`launch` is the launch
+every kernel wrapper of the package goes through; :func:`check` holds a
+tensor to an exact dtype and shape.
 """
 from __future__ import annotations
 
@@ -91,8 +91,9 @@ def check(device, **specs) -> None:
 
 def launch(fn, name: str, device, *args) -> None:
     """Call the C entry point ``fn(*args, stream)`` on ``device``'s current
-    stream and raise if it returned a CUDA error.  Tensors are passed by
-    their data pointers."""
+    stream and raise if it returned an error.  Tensors are passed by their
+    data pointers.  An entry point returns 0, a CUDA runtime error code,
+    or 1000 plus a ``CUresult`` from encoding a TMA tensor map."""
     import torch
     index = device.index if device.index is not None else torch.cuda.current_device()
     args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
@@ -100,7 +101,9 @@ def launch(fn, name: str, device, *args) -> None:
         with torch.cuda.device(index):
             rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     else:
-        # the raw handle, without building a torch.cuda.Stream
+        # the raw handle, without building a torch.cuda.Stream (several
+        # microseconds per call)
         rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     if rc != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+        raise RuntimeError(f"{name} launch failed: "
+                           + (f"CUresult {rc - 1000}" if rc >= 1000 else f"CUDA error {rc}"))

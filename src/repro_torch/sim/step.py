@@ -51,6 +51,7 @@ from repro_torch.core.forecast import GPForecaster, peak_over_horizon
 from repro_torch.core.forecast.base import persistence_peak
 from repro_torch.core.shaper import (POLICIES, ShapeDecision, ShapeProblem,
                                      shaped_demand)
+from repro_torch.core.shaper.pessimistic import gather_rows as _rows
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.sim.engine import _check_ported
@@ -72,13 +73,6 @@ def _fma(a: torch.Tensor, b, c: torch.Tensor) -> torch.Tensor:
     exact, so only the sum rounds before the cast."""
     b = b.double() if isinstance(b, torch.Tensor) else float(b)
     return (a.double() * b + c.double()).float()
-
-
-def _rows(x: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
-    """``x[s, index[s, a]]``: member s's trace rows for its (S, A) slots."""
-    tail = x.shape[2:]
-    idx = index.reshape(index.shape + (1,) * len(tail)).expand(index.shape + tail)
-    return torch.gather(x, 1, idx)
 
 
 def _gid(st: SimState) -> torch.Tensor:
