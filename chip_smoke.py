@@ -15,8 +15,9 @@ points:
     to completion, every chunk under ``torch.cuda.set_sync_debug_mode(
     "error")``, with one launch per tick of the GP program, Algorithm 1's
     pass and the three scheduler kernels (OOM, admission, elastic
-    re-placement), after the full-width oracle run on the card against
-    the CPU;
+    re-placement) and the same number of launches every tick of the
+    one-rounding ``a*b + c`` kernel, after the full-width oracle run on
+    the card against the CPU;
   * Whisper-large-v3 serving at full width (random weights from a seeded
     generator on the card): 8 requests of 1,500 frames prefilled with 448
     teacher-forced tokens through the tensor-core flash kernel (bf16,
@@ -28,12 +29,17 @@ points:
 Before the paths it checks every kernel against its plain version on the
 card: the Gram pair, the fused GP program (on 512 seeded windows with a
 row whose factor fails and padded all-invalid rows, "exp" and "rbf"),
-both flash routes on every shape of FLASH_SHAPES, and the device
-engine's four kernels on full-width states captured from the port's own
-CPU runs and seeded tie-prone tables (every output equal).  It then
-times each kernel against its plain version, its bound and, where one
-PyTorch call computes the same function, that call.  Every phase raises
-on failure.
+both flash routes on every shape of FLASH_SHAPES, the ``a*b + c`` kernel
+bit for bit (a counterexample to two roundings, float32 midpoints, 10^5
+seeded triples, the engine's shapes), and the device engine's four
+kernels on full-width states captured from the port's own CPU runs,
+seeded tie-prone tables and edge cases (three members, A * C and N off
+the 16-byte vectors, a host below 0 before the pass, tied OOM victims;
+every output equal).  It then times each kernel against its plain
+version, its bound and, where one PyTorch call computes the same
+function, that call; the device engine's kernels also by their device
+and host time per call and (the two that stamp them) their phases'
+cycles.  Every phase raises on failure.
 
 Run from the repository root with no arguments:
 
@@ -723,6 +729,91 @@ def time_flash(flash_attention, ref, dev) -> dict:
 
 
 # ----------------------------------------------------------------------
+# a * b + c with one rounding (XLA:CPU's fused multiply-add)
+# ----------------------------------------------------------------------
+
+def fma_cases():
+    """(name, a, b, c) as CPU tensors: the counterexample to two roundings
+    ((1+2**-12)**2 + 2**-80), products on a float32 midpoint with c =
+    +-2**-60 below them (only c says which way the one rounding goes),
+    10^5 seeded normal-range triples whose sums cancel, the usage
+    interpolation's shape (b broadcast over (1, 128, 12, 2)) and
+    the safeguard's (a scalar b over 3,072 rows)."""
+    import torch
+    rng = np.random.default_rng(0)
+    t = lambda x: torch.as_tensor(np.ascontiguousarray(x, np.float32))  # noqa: E731
+    one = np.float32(1 + 2**-12)
+    yield "counterexample", t([one]), t([one]), t([2.0**-80])
+    k, m = np.meshgrid(np.arange(0, 2**11, 7), np.arange(1, 2**12, 5), indexing="ij")
+    a = (1 + k.ravel() * 2.0**-11).astype(np.float32)
+    b = (1 + m.ravel() * 2.0**-12).astype(np.float32)
+    q = a.astype(np.float64) * b
+    q = q * np.where(q < 2, 2.0**24, 2.0**23)
+    mid = (q == np.floor(q)) & (q % 2 == 1)
+    sign = np.where(np.arange(int(mid.sum())) % 2 == 0, 1.0, -1.0)
+    yield "midpoints", t(a[mid]), t(b[mid]), t(sign * 2.0**-60)
+
+    def draw(n, lo, hi):
+        return (rng.choice([-1.0, 1.0], n) * rng.uniform(1, 2, n)
+                * 2.0 ** rng.integers(lo, hi, n)).astype(np.float32)
+    a, b = draw(100_000, -8, 8), draw(100_000, -8, 8)
+    yield "random", t(a), t(b), t(draw(100_000, -40, 4) * np.abs(a) * np.abs(b))
+    lv = rng.uniform(0, 8, (2, 1, 128, 12, 2)).astype(np.float32)
+    yield "usage interpolation", t(lv[1] - lv[0]), t(rng.random((1, 128, 1, 1))), t(lv[0])
+    yield "safeguard", t(rng.uniform(0.01, 64, (1, 3072))), 0.05, t(rng.uniform(0, 2, (1, 3072)))
+
+
+def check_fma(fma, ref) -> float:
+    """The fma kernel on the card against its plain version on the CPU:
+    every bit equal, on every case of fma_cases."""
+    import torch
+    for name, a, b, c in fma_cases():
+        on_card = [x.cuda() if isinstance(x, torch.Tensor) else x for x in (a, b, c)]
+        got = fma.fma_f32(*on_card)
+        torch.cuda.synchronize()
+        want = ref.fma_f32(a, b, c)
+        if not torch.equal(got.cpu().view(torch.int32), want.view(torch.int32)):
+            bad = (got.cpu() != want).nonzero()[:5].tolist()
+            raise AssertionError(f"fma_f32 {name}: kernel differs from plain at {bad}")
+        log(f"  fma_f32 {name} {tuple(want.shape)}: kernel == plain, bit for bit")
+    return 0.0
+
+
+def time_fma(fma, ref) -> dict:
+    """The fma kernel at the safeguard's shape (3,072 rows, a scalar b),
+    in turns with its plain version on the card and torch.add(c, a,
+    alpha=b) (one PyTorch call computing c + b * a, the library yardstick,
+    timed here only), with its device and host time per call.  The bound:
+    a and c read and the output written once over 3.35 TB/s, against two
+    flops per element over fp32's peak."""
+    import torch
+    *_, (_, a, b, c) = fma_cases()
+    a, c = a.cuda(), c.cuda()
+    kern = lambda: fma.fma_f32(a, b, c)  # noqa: E731
+    plain = lambda: ref.fma_f32(a, b, c)  # noqa: E731
+    lib = lambda: torch.add(c, a, alpha=float(np.float32(b)))  # noqa: E731
+    fns = {"kernel": kern, "plain": plain, "torch.add": lib}
+    ms = {k: [] for k in fns}
+    for k in list(fns) + list(fns)[::-1]:
+        ms[k].append(cuda_time_ms(fns[k], iters=200, warmup=10))
+    dev_us = device_us_per_call(kern, "fma_f32_kernel")
+    host_us = host_us_per_call(kern)
+    same = torch.equal(lib().view(torch.int32), kern().view(torch.int32))
+    n = a.numel()
+    nbytes, flops = 3 * 4 * n, 2 * n
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    times = "; ".join(f"{k} {'/'.join(f'{x:.5f}' for x in v)} ms" for k, v in ms.items())
+    log(f"  fma_f32 (1, {n}), scalar b: {times}; device "
+        f"{'not measured' if dev_us is None else f'{dev_us:.3f} us'} per launch, host "
+        f"{host_us:.3f} us per call; torch.add's bits {'equal' if same else 'differ'}; "
+        f"bound {max(t_bytes, t_ops) * 1e3:.4f} us ({nbytes} B, {flops} flop)")
+    return {"fma_f32": dict(ms=min(ms["kernel"]), plain_ms=min(ms["plain"]),
+                            library_ms=min(ms["torch.add"]), bound_ms=max(t_bytes, t_ops),
+                            bound_by="bytes" if t_bytes >= t_ops else "operations")}
+
+
+# ----------------------------------------------------------------------
 # the device engine (run_sim_scan) and its kernels
 # ----------------------------------------------------------------------
 
@@ -734,6 +825,7 @@ SCAN_REPLACES = {"pessimistic_pass": "src/repro/core/shaper/pessimistic.py:117",
 SCAN_SOURCES = {"pessimistic_pass": "src/repro_torch/kernels/csrc/shaper.cu",
                 **{k: "src/repro_torch/kernels/csrc/sched.cu" for k in SCAN_KERNELS[1:]}}
 CAPTURE_TICKS = range(40, 400, 40)
+OOM_HOST_MEM = 16.0        # GB per host where resolve_oom is timed with victims
 
 
 def scan_kernel_pairs(shaper, sched, ref) -> dict:
@@ -833,17 +925,53 @@ def scan_kernel_cases(step, SimConfig):
             add_sched_cases(cases, d)
     for seed in range(16):
         add_sched_cases(cases, random_tables(seed))
-        rng = np.random.default_rng(seed)
-        S, A, C, H = 3, 64, 12, 7
-        core = rng.random((S, A, C)) < 0.3
-        cases["pessimistic_pass"].append(tuple(torch.as_tensor(x) for x in (
-            rng.random((S, A)) < 0.8,
+        cases["pessimistic_pass"].append(pass_table(seed))
+    # edge cases of the block-per-member kernels: three members each; A * C
+    # and N off the 16-byte vectors; hosts over memory with every overage
+    # tied; a host short of cpu (member 0) or memory (member 1) before the
+    # pass, which removes every valid row; core components sharing hosts
+    for seed in range(4):
+        add_sched_cases(cases, random_tables(seed, A=13, C=7, N=37, H=5))
+        add_sched_cases(cases, tied_oom_table(seed))
+        cases["pessimistic_pass"] += [pass_table(seed, A=7, C=5, H=3),
+                                      pass_table(seed, A=13, C=3, H=4),
+                                      pass_table(seed, negative=True),
+                                      pass_table(seed, A=32, H=2, core_p=0.6)]
+    return cases
+
+
+def pass_table(seed, S=3, A=64, C=12, H=7, *, negative=False, core_p=0.3):
+    """Seeded inputs of Algorithm 1's pass (CPU tensors): demands and
+    capacities from small sets, so that decisions tie.  ``negative`` puts
+    one host of member 0 below 0 in cpu and one of member 1 below 0 in
+    memory."""
+    import torch
+    rng = np.random.default_rng(seed)
+    core = rng.random((S, A, C)) < core_p
+    args = [rng.random((S, A)) < 0.8,
             rng.choice([0.25, 0.5, 1.0, 2.0], (S, A, C, 2)).astype(np.float32), core,
             ~core & (rng.random((S, A, C)) < 0.6),
             rng.integers(0, H, (S, A, C)).astype(np.int32),
             np.argsort(rng.random((S, A, C)), -1).astype(np.int32),
-            rng.choice([8.0, 16.0], (S, H, 2)).astype(np.float32))))
-    return cases
+            rng.choice([8.0, 16.0], (S, H, 2)).astype(np.float32)]
+    free0 = args[-1]
+    if negative:
+        free0[0, 0, 0] = -0.5
+        free0[1, H - 1, 1] = -0.25
+    return tuple(torch.as_tensor(x) for x in args)
+
+
+def tied_oom_table(seed):
+    """random_tables with every running component at 20 GB of memory use
+    against 4 GB allocated: each host with two of them is over its
+    memory, and every overage ties, so the largest flat index decides."""
+    import torch
+    d = random_tables(seed, A=13, C=7, N=37, H=3)
+    run = d["comp_running"]
+    for k, v in (("usage", 20.0), ("alloc", 4.0)):
+        d[k] = d[k].clone()
+        d[k][..., 1] = torch.where(run, v, 0.0)
+    return d
 
 
 def add_sched_cases(cases, d):
@@ -860,6 +988,18 @@ def add_sched_cases(cases, d):
         d["cpu_req"], d["mem_req"], d["exists"], d["is_core"], d["slot_gid"],
         d["comp_running"], d["comp_host"], d["alloc"], d["alive_since"], d["t"],
         d["host_cap"]))
+
+
+def scan_events(name, args, outs) -> int:
+    """The events a kernel's plain outputs hold: the pass's removals and
+    kills, the OOM handler's victims, admissions, placements."""
+    if name == "pessimistic_pass":
+        return int(outs[0].sum() + outs[1].sum())
+    if name == "resolve_oom":
+        return int((outs[7] - args[8]).sum() + (outs[9] - args[10]).sum())
+    if name == "admit_queued":
+        return int(args[12].sum() - outs[6].sum())
+    return int(outs[0].sum() - args[5].sum())
 
 
 def check_scan_kernels(fns, cases) -> tuple[dict, dict]:
@@ -883,14 +1023,7 @@ def check_scan_kernels(fns, cases) -> tuple[dict, dict]:
                     raise AssertionError(f"{name}: output {tuple(w.shape)} differs at {bad}")
                 if w.is_floating_point():
                     err[name] = max(err[name], (g - w).abs().max().item() if w.numel() else 0.0)
-            if name == "pessimistic_pass":
-                events[name] += int(want[0].sum() + want[1].sum())
-            elif name == "resolve_oom":
-                events[name] += int((want[7] - cpu[8]).sum() + (want[9] - cpu[10]).sum())
-            elif name == "admit_queued":
-                events[name] += int(cpu[12].sum() - want[6].sum())
-            else:
-                events[name] += int(want[0].sum() - cpu[5].sum())
+            events[name] += scan_events(name, cpu, want)
         log(f"  {name}: {len(cases[name])} cases, kernel == plain version; "
             f"{events[name]} events")
     assert all(v > 0 for v in events.values()), events
@@ -941,23 +1074,25 @@ class strict_chunks:
         return self.chunks
 
 
-def scan_launch_counts(gp_forecast, shaper, sched) -> dict:
+def scan_launch_counts(gp_forecast, shaper, sched, fma) -> dict:
     return {"pessimistic_pass": shaper.pessimistic_pass.launches,
             "resolve_oom": sched.resolve_oom.launches,
             "admit_queued": sched.admit_queued.launches,
             "place_missing_elastic": sched.place_missing_elastic.launches,
-            "gp_fit_forecast": gp_forecast.gp_fit_forecast.launches}
+            "gp_fit_forecast": gp_forecast.gp_fit_forecast.launches,
+            "fma_f32": fma.fma_f32.launches}
 
 
-def run_scan_main(step, SimConfig, gp_forecast, shaper, sched) -> dict:
+def run_scan_main(step, SimConfig, gp_forecast, shaper, sched, fma) -> dict:
     """The device engine's main path: run_sim_scan(SimConfig()) on the card
     to completion (GP, pessimistic, full width), every chunk sync-free,
-    each of the five kernels launched once per tick.  Counts are set to 0
-    just before the run and read just after; returns them."""
+    each of the five sim kernels launched once per tick and the fma kernel
+    the same number of times every tick.  Counts are set to 0 just before
+    the run and read just after; returns them."""
     import torch
     step.run_sim_scan(SimConfig(max_ticks=64), device="cuda")    # warm-up
     torch.cuda.synchronize()
-    for m in (gp_forecast, shaper, sched):
+    for m in (gp_forecast, shaper, sched, fma):
         m.reset_launch_counts()
     guard = strict_chunks(step)
     try:
@@ -967,7 +1102,7 @@ def run_scan_main(step, SimConfig, gp_forecast, shaper, sched) -> dict:
         t = time.perf_counter() - t
     finally:
         chunks = guard.stop()
-    launches = scan_launch_counts(gp_forecast, shaper, sched)
+    launches = scan_launch_counts(gp_forecast, shaper, sched, fma)
     ticks = res.timings["ticks"]
     summary = res.summary()
     log(f"  {ticks} ticks ({len(res.n_running)} executed before the last app finished) "
@@ -976,7 +1111,10 @@ def run_scan_main(step, SimConfig, gp_forecast, shaper, sched) -> dict:
     log(f"  kernel launches {launches}")
     log(f"  summary {json.dumps(summary)}")
     log(f"  forecast rows {res.forecast_rows}")
-    assert all(n == ticks for n in launches.values()), (launches, ticks)
+    fma_per_tick = launches["fma_f32"] / ticks
+    log(f"  fma_f32: {fma_per_tick} launches per tick")
+    assert all(n == ticks for k, n in launches.items() if k != "fma_f32"), (launches, ticks)
+    assert fma_per_tick >= 1 and fma_per_tick == int(fma_per_tick), launches
     assert summary["completed"] == 500, summary
     for k in ("util_cpu_mean", "util_mem_mean", "slack_cpu_mean", "slack_mem_mean"):
         assert np.isfinite(summary[k]), (k, summary[k])
@@ -1045,20 +1183,42 @@ def scan_bound_bytes(name, args, outs) -> int:
     return reads + sum(_changed_bytes(outs[o], args[o + 5]) for o in range(4))
 
 
-def time_scan_kernels(fns, cases) -> dict:
+def time_scan_kernels(fns, cases, shaper, sched) -> dict:
     """The four kernels at the main path's shapes (a full-width state
     captured at tick 200 of the pessimistic run: S = 1, A = 128, C = 12,
     H = 50, N = 500), kernel by CUDA events against the plain version (a
-    loop over numpy on the host) by the host clock, in turns.  The bound:
-    the bytes each function needs on that state (scan_bound_bytes) over
-    3.35 TB/s; their operations are a few thousand additions and
-    comparisons."""
+    loop over numpy on the host) by the host clock, in turns.  Beside each:
+    its device time per launch (torch.profiler) and its host time per call
+    (checks, ctypes, enqueue); once a kernel's device time falls below its
+    wrapper's host cost, CUDA events timed back to back time the wrapper.
+    resolve_oom is timed again with victims: no state of the default
+    config puts a host over its 128 GB (memory runs at ~10% of the
+    cluster), so the captured optimistic state at tick 200 runs on hosts
+    of 16 GB there (OOM_HOST_MEM: 19 victims, 2 of them core).  The two
+    block-per-member kernels also report the clock64() cycles of their
+    phases.  The bound: the bytes each function
+    needs on that state (scan_bound_bytes) over 3.35 TB/s; their
+    operations are a few thousand additions and comparisons."""
     import torch
     pick = {"pessimistic_pass": 4, "resolve_oom": 4, "admit_queued": 8,
             "place_missing_elastic": 4}
+    *oom, cap = cases["resolve_oom"][len(CAPTURE_TICKS) + pick["resolve_oom"]]
+    cap = cap.clone()
+    cap[:, 1] = OOM_HOST_MEM
+    victims_case = (*oom, cap)
+    victims = scan_events("resolve_oom", victims_case, fns["resolve_oom"][1](*victims_case))
+    timed = [(name, cases[name][pick[name]], "tick 200") for name in fns]
+    timed.append(("resolve_oom", victims_case, f"optimistic tick 200 on {OOM_HOST_MEM:g} GB "
+                                               f"hosts, {victims} victims"))
+    # (a kernel of an older checkout, timed by profile_port.py --src, has no stamps)
+    phase_fns = {"pessimistic_pass": (getattr(shaper, "phase_cycles", None),
+                                      ("stage", "precompute", "chain", "write")),
+                 "resolve_oom": (getattr(sched, "oom_phase_cycles", None),
+                                 ("stage", "per-host sums", "victim loop", "write"))}
+    log(f"  nvidia-smi clocks.sm, clocks.max.sm: {smi_clocks()}")
     out = {}
-    for name, (kern, plain) in fns.items():
-        cpu = cases[name][pick[name]]
+    for i, (name, cpu, where) in enumerate(timed):
+        kern, plain = fns[name]
         gpu = [a.cuda() if isinstance(a, torch.Tensor) else a for a in cpu]
         kern(*gpu)
         torch.cuda.synchronize()
@@ -1072,12 +1232,29 @@ def time_scan_kernels(fns, cases) -> dict:
         p1 = host_ms()
         k1, k2 = (cuda_time_ms(lambda: kern(*gpu), iters=200, warmup=10) for _ in range(2))
         p2 = host_ms()
+        dev_us = device_us_per_call(lambda: kern(*gpu), f"{name}_kernel")
+        host_us = host_us_per_call(lambda: kern(*gpu))
         bound = nbytes / HBM_BYTES_PER_S * 1e3
-        out[name] = dict(ms=min(k1, k2), plain_ms=min(p1, p2), bound_ms=bound,
-                         bound_by="bytes", library_ms=None)
-        log(f"  {name}: kernel {k1:.5f}/{k2:.5f} ms, plain (numpy on the host) "
-            f"{p1:.5f}/{p2:.5f} ms; bound {bound * 1e3:.4f} us ({nbytes} B needed)")
+        log(f"  {name} ({where}): kernel {k1:.5f}/{k2:.5f} ms, plain (numpy on the host) "
+            f"{p1:.5f}/{p2:.5f} ms; device "
+            f"{'not measured' if dev_us is None else f'{dev_us:.3f} us'} per launch "
+            f"(torch.profiler), host {host_us:.3f} us per call; bound {bound * 1e3:.4f} us "
+            f"({nbytes} B needed)")
+        fn, phases = phase_fns.get(name, (None, ()))
+        if fn is not None:
+            cyc = [min(c) for c in zip(*(fn(*gpu)[0].tolist() for _ in range(20)))]
+            log("    clock64 cycles by phase (min of 20 launches): " + ", ".join(
+                f"{ph} {c} ({c / max(sum(cyc), 1):.1%})" for ph, c in zip(phases, cyc)))
+        if i < len(fns):
+            out[name] = dict(ms=min(k1, k2), plain_ms=min(p1, p2), bound_ms=bound,
+                             bound_by="bytes", library_ms=None)
     return out
+
+
+def smi_clocks() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          timeout=60).stdout.strip()
 
 
 def main() -> int:
@@ -1088,8 +1265,8 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.core.forecast import GPConfig, GPForecaster
     from repro_torch.core import shaper as core_shaper
-    from repro_torch.kernels import (flash_attention, gp_forecast, gp_gram, nvcc, ref, sched,
-                                     shaper)
+    from repro_torch.kernels import (flash_attention, fma, gp_forecast, gp_gram, nvcc, ref,
+                                     sched, shaper)
     from repro_torch.sim import ClusterConfig, SimConfig, WorkloadConfig, run_sim
     from repro_torch.sim import step
     from repro_torch.sim.engine import forecast_peaks
@@ -1111,7 +1288,7 @@ def main() -> int:
 
     log("== 2. build (one nvcc per source, all at once)")
     sources = (gp_gram.SOURCE, flash_attention.SOURCE, flash_attention.SOURCE_SM90,
-               gp_forecast.SOURCE, shaper.SOURCE, sched.SOURCE)
+               gp_forecast.SOURCE, shaper.SOURCE, sched.SOURCE, fma.SOURCE)
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         builds = list(pool.map(nvcc.build, sources))
     for b in builds:
@@ -1124,6 +1301,14 @@ def main() -> int:
     counts = {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HGMMA", "UTMALDG")}
     log(f"  {builds[2].path.name} SASS: {counts}")
     assert all(n > 0 for n in counts.values()), counts
+    # the wrappers size a block's shared memory as the kernels carve it
+    for A, C, N, H in ((128, 12, 500, 50), (64, 12, 100, 7), (7, 5, 24, 3), (13, 7, 37, 5)):
+        assert shaper.smem_bytes(A, C, H) == shaper._library().pessimistic_pass_smem(A, C, H)
+        assert (sched.oom_smem_bytes(A, C, N, H)
+                == sched._library().resolve_oom_smem(A, C, N, H))
+    log(f"  shared memory per block at A=128, C=12, N=500, H=50: pessimistic_pass "
+        f"{shaper.smem_bytes(128, 12, 50)} B, resolve_oom "
+        f"{sched.oom_smem_bytes(128, 12, 500, 50)} B")
 
     log("== 3. kernel checks (kernel vs plain on the card)")
     err = check_kernels(gp_gram, ref, dev)
@@ -1131,6 +1316,7 @@ def main() -> int:
     flash_err = check_flash(flash_attention, ref, dev)
     err["flash_attention"] = flash_err["sm90"]
     err["flash_attention_simt"] = flash_err["simt"]
+    err["fma_f32"] = check_fma(fma, ref)
     scan_cases = scan_kernel_cases(step, SimConfig)
     scan_fns = scan_kernel_pairs(shaper, sched, ref)
     err.update(check_scan_kernels(scan_fns, scan_cases)[0])
@@ -1152,7 +1338,7 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     calls = count_calls(GPForecaster, "forecast_batch")
     policy_calls = count_calls(core_shaper.POLICIES, "pessimistic")
-    for m in (gp_gram, gp_forecast, flash_attention, shaper, sched):
+    for m in (gp_gram, gp_forecast, flash_attention, shaper, sched, fma):
         m.reset_launch_counts()
     res = run_sim(cfg, device="cuda")
     torch.cuda.synchronize()
@@ -1174,7 +1360,8 @@ def main() -> int:
                                                        forecast_peaks)
     log(f"  kernel launches {launches} in {fc_ticks} forecasting ticks; "
         f"{shaper.pessimistic_pass.launches} pessimistic_pass launches in {shaping_ticks} "
-        f"shaping ticks; one forecast of 512 windows under torch.profiler: "
+        f"shaping ticks; {fma.fma_f32.launches} fma_f32 launches (the safeguard); "
+        f"one forecast of 512 windows under torch.profiler: "
         f"{host_launches} host launch calls, {dev_kernels} device kernels")
     assert shaping_ticks > 0 and shaper.pessimistic_pass.launches == shaping_ticks
     assert sched.resolve_oom.launches == 0     # the host engine's loops stay numpy
@@ -1189,7 +1376,7 @@ def main() -> int:
 
     log("== 5b. main path: run_sim_scan(SimConfig(), device='cuda'), the device engine, "
         "to completion")
-    scan_launches = run_scan_main(step, SimConfig, gp_forecast, shaper, sched)
+    scan_launches = run_scan_main(step, SimConfig, gp_forecast, shaper, sched, fma)
 
     log("== 6. Whisper, smoke widths, fp32: the card against the CPU")
     check_whisper_smoke(flash_attention)
@@ -1204,25 +1391,28 @@ def main() -> int:
     times = time_kernels(gp_gram, ref, dev)
     times.update(time_gp_kernel(gp_forecast, ref, GPConfig, dev))
     times.update(time_flash(flash_attention, ref, dev))
-    times.update(time_scan_kernels(scan_fns, scan_cases))
+    times.update(time_scan_kernels(scan_fns, scan_cases, shaper, sched))
+    times.update(time_fma(fma, ref))
     log(f"  gp_gram library_ms: null - no single PyTorch call computes the Gram "
         f"matrix (torch.cdist gives distances only) or its (ell, sf) gradient")
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     launches["flash_attention"] = whisper_launches
     launches["flash_attention_simt"] = simt_launches
-    launches.update({k: scan_launches[k] for k in SCAN_KERNELS})
+    launches.update({k: scan_launches[k] for k in SCAN_KERNELS + ("fma_f32",)})
     replaces = {"gp_gram_fwd": "src/repro/kernels/gp_gram.py:75",
                 "gp_gram_bwd": "src/repro/kernels/gp_gram.py:75",
                 "gp_fit_forecast": "src/repro/kernels/gp_gram.py:75",
                 "flash_attention": "src/repro/kernels/flash_attention.py:110",
                 "flash_attention_simt": "src/repro/kernels/flash_attention.py:110",
+                "fma_f32": "src/repro/sim/step.py:114",
                 **SCAN_REPLACES}
     sources = {"gp_gram_fwd": "src/repro_torch/kernels/csrc/gp_gram.cu",
                "gp_gram_bwd": "src/repro_torch/kernels/csrc/gp_gram.cu",
                "gp_fit_forecast": "src/repro_torch/kernels/csrc/gp_forecast.cu",
                "flash_attention": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
                "flash_attention_simt": "src/repro_torch/kernels/csrc/flash_attention.cu",
+               "fma_f32": "src/repro_torch/kernels/csrc/fma.cu",
                **SCAN_SOURCES}
     log(smi)   # the card's name and power limit, as nvidia-smi prints them
     log(json.dumps({"kernels": [
@@ -1233,7 +1423,8 @@ def main() -> int:
          "bound_ms": times[name]["bound_ms"], "bound_by": times[name]["bound_by"],
          "library_ms": times[name].get("library_ms")}
         for name in ("gp_gram_fwd", "gp_gram_bwd", "gp_fit_forecast",
-                     "flash_attention", "flash_attention_simt") + SCAN_KERNELS]}))
+                     "flash_attention", "flash_attention_simt") + SCAN_KERNELS
+        + ("fma_f32",)]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": count}}))
     return 0

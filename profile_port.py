@@ -20,6 +20,14 @@ launches per tick made inside the code that copies XLA:CPU's rounding
 (``step._fma``, ``base._sum_rows``, ``safeguard.beta`` and
 ``safeguard.sigma_from_var``, each run under a profiler range).
 
+``--path kernels`` checks and times the device engine's four kernels
+alone, as ``chip_smoke.py`` phase 8 does (device and host time per call
+at the tick-200 states, resolve_oom also with victims, and the phase
+cycles of the kernels that stamp them).  With ``--src DIR`` it takes the
+package from another checkout's ``src`` (a parent commit unpacked with
+``git archive``), so that two commits' kernels are timed on one card in
+one call.
+
 ``--path whisper`` does the same for Whisper-large-v3 serving at full
 width (random weights): one prefill of 8 requests x 1,500 frames with
 ``attn_impl="flash"``, then 4 greedy cached decode steps, each profiled
@@ -27,7 +35,7 @@ on its own, with the device time summed by kind of kernel.
 
 Run from the repository root:
 
-    python3 profile_port.py [--path sim|scan|whisper]
+    python3 profile_port.py [--path sim|scan|kernels|whisper] [--src DIR]
 
 Without a CUDA device it exits with an error and prints nothing else.
 """
@@ -65,6 +73,7 @@ SIM_KINDS = (("GP program", ("gp_forecast_kernel",)),
 # device-time groups of the device engine's profile, by kernel name
 SCAN_KINDS = (("pessimistic_pass", ("pessimistic_pass_kernel",)),
               ("resolve_oom", ("resolve_oom_kernel",)),
+              ("fma_f32", ("fma_f32_kernel",)),
               ("admit_queued", ("admit_queued_kernel",)),
               ("place_missing_elastic", ("place_missing_elastic_kernel",)),
               ("GP program", ("gp_forecast_kernel",)),
@@ -231,16 +240,32 @@ def profile_scan() -> int:
     return 0
 
 
+def profile_kernels() -> int:
+    import chip_smoke
+    from repro_torch.kernels import ref, sched, shaper
+    from repro_torch.sim import SimConfig, step
+    print(f"package {Path(shaper.__file__).resolve().parents[2]}; nvidia-smi: "
+          f"{chip_smoke.nvidia_smi()}")
+    cases = chip_smoke.scan_kernel_cases(step, SimConfig)
+    fns = chip_smoke.scan_kernel_pairs(shaper, sched, ref)
+    chip_smoke.check_scan_kernels(fns, cases)
+    chip_smoke.time_scan_kernels(fns, cases, shaper, sched)
+    return 0
+
+
 def main() -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
+    here = Path(__file__).resolve().parent
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--path", choices=("sim", "scan", "whisper"), default="sim")
+    ap.add_argument("--path", choices=("sim", "scan", "kernels", "whisper"), default="sim")
+    ap.add_argument("--src", type=Path, default=here / "src",
+                    help="the directory that holds the repro_torch package")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_port: torch sees no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    sys.path[:0] = [str(args.src.resolve()), str(here)]
     from repro_torch.kernels import gp_forecast, gp_gram
     from repro_torch.sim import SimConfig, run_sim
 
@@ -251,6 +276,8 @@ def main() -> int:
         return profile_whisper()
     if args.path == "scan":
         return profile_scan()
+    if args.path == "kernels":
+        return profile_kernels()
     run_sim(SimConfig(max_ticks=20), device="cuda")          # build + warm-up
     gp_forecast.reset_launch_counts()
 

@@ -17,8 +17,9 @@ The rows are gathered into processing order with a few batched tensor
 operations; the sequential pass itself, the reference's ``lax.scan``
 over apps with an inner scan over components, is
 ``repro_torch.kernels.ops.pessimistic_pass``: one CUDA kernel launch on
-the card (``kernels/csrc/shaper.cu``, one warp per member with the free
-table in shared memory), the plain loop of ``kernels/ref.py`` on the CPU.
+the card (``kernels/csrc/shaper.cu``, one block per member with the
+member's state staged in shared memory), the plain loop of
+``kernels/ref.py`` on the CPU.
 Nothing is read back to the host, so on the card a call is a fixed
 number of asynchronous launches whatever the number of running apps.
 A problem may carry a leading member axis (the device engine's batch of

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.uncertainty.scoring import sigma_from_var
+from repro_torch.kernels import ops as kops
 
 
 @dataclasses.dataclass(frozen=True)
@@ -27,12 +28,11 @@ def beta(request: torch.Tensor, var: torch.Tensor,
     """Buffer added on top of the predicted peak utilization.
 
     ``k1 * request`` is added to the dynamic term with a single rounding
-    (a fused multiply-add, done in float64 where the float32 product is
-    exact), which is how XLA compiles the reference's expression; two
-    roundings would move about 0.5% of the demands by one ulp."""
+    (``ops.fma_f32``, a fused multiply-add), which is how XLA compiles the
+    reference's expression; two roundings would move about 0.5% of the
+    demands by one ulp."""
     dyn = cfg.k2 * sigma_from_var(var)
-    k1 = float(np.float32(cfg.k1))
-    return (k1 * request.double() + dyn.double()).to(request.dtype)
+    return kops.fma_f32(request, np.float32(cfg.k1), dyn)
 
 
 def shaped_demand(pred_peak: torch.Tensor, request: torch.Tensor,

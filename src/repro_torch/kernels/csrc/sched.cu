@@ -16,12 +16,17 @@
 // on the state the previous one left (a kill changes the host's total,
 // an admission the free table), and a tick has a handful of events; per
 // member a call reads and writes the slot table once (~A*C*30 bytes).
-// They are latency-bound by construction.  The design: one warp per
-// member, no block-wide barrier; each host is owned by lane h % 32,
-// which keeps that host's entries of the (H, 2) free table in shared
-// memory; a scan over the flat (slot, component) rows takes them 32 at
-// a time with one coalesced load per lane, and a __ballot_sync orders
-// the rows that matter so that the owner lanes add them in flat order.
+// They are latency-bound by construction.  admit_queued and
+// place_missing_elastic run one warp per member, with no block-wide
+// barrier; each host is owned by lane h % 32, which keeps that host's
+// entries of the (H, 2) free table in shared memory; a scan over the
+// flat (slot, component) rows takes them 32 at a time with one
+// coalesced load per lane, and a __ballot_sync orders the rows that
+// matter so that the owner lanes add them in flat order.  resolve_oom
+// runs one block per member (its design is described at its kernel):
+// the whole block stages the member's state in shared memory and sums
+// memory per host in parallel, its victim loop reads and updates shared
+// memory only, and each output is written once at the end.
 //
 // Arithmetic: sums and differences only, no a*b+c to contract.  Every
 // sum over the flat rows is taken in the order XLA:CPU gives the
@@ -31,11 +36,15 @@
 // same way; 32 or fewer summed in order.  The lanes walk the windows in
 // order and carry one running sum per level (struct Tree).
 //
-// Each kernel first copies its inputs to its outputs and then updates
-// the outputs, so the caller's tensors are never written.
+// admit_queued and place_missing_elastic first copy their inputs to
+// their outputs and then update the outputs; resolve_oom updates its
+// staged copy and writes the outputs from it.  The caller's tensors are
+// never written.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "block_copy.cuh"
 
 namespace {
 
@@ -184,7 +193,49 @@ __device__ void take(float* fr, int h, float cpu, float mem) {
   }
 }
 
-__global__ void __launch_bounds__(32) resolve_oom_kernel(
+// The OS OOM handler, one block of kOomThreads per member:
+//
+//   0. stage: the member's slot table (slot, work, run, host, alloc,
+//      usage) and queue flags (failed, queued) go to shared memory with
+//      the whole block by cp.async, every load in flight at once
+//      (block_copy.cuh); then per flat row its host if running (else -1)
+//      and its memory usage, in a padded layout (row e at e + e / 32) so
+//      that the threads of step 1, one per window of 32 rows, read 32
+//      different banks;
+//   1. per-host memory at entry, in XLA:CPU's order, in parallel: one
+//      thread per level-0 window sums its window's running rows into its
+//      own row of a (window, host) table, in flat order from 0; each
+//      upper level likewise, one thread per (window, host); the top level
+//      one thread per host (what tree_of / tree_push carry lane by lane);
+//   2. only when a host is over its memory, the victim loop: one warp,
+//      hosts in order, each total over windows of whole slots and the
+//      victim (the largest overage, the largest flat index on ties) read
+//      from shared memory, each kill written there;
+//   3. write every output once from shared memory, 16 bytes a thread
+//      where the addresses allow.
+constexpr int kOomThreads = 256;
+constexpr int kMaxSmem = 232448;   // the opt-in shared memory of a block on sm_90
+
+__host__ __device__ inline size_t padded_rows(size_t n) { return n + n / 32 + 1; }
+
+__host__ __device__ inline int oom_windows(int AC) {
+  return AC > WIN ? (AC + WIN - 1) / WIN : 1;
+}
+
+__host__ __device__ inline size_t oom_smem(int A, int C, int N, int H) {
+  using blk::Carve;
+  const size_t AC = size_t(A) * C, nw = oom_windows(int(AC));
+  return 2 * Carve::bytes(size_t(A) * 4) + 2 * Carve::bytes(AC) +      // slot, work, run, monreset
+         Carve::bytes(AC * 4) + 2 * Carve::bytes(AC * 8) +             // host, alloc, usage
+         2 * Carve::bytes(N) +                                          // failed, queued
+         2 * Carve::bytes(padded_rows(AC) * 4) +                        // live host, memory
+         Carve::bytes(nw * H * 4) + Carve::bytes((nw + WIN - 1) / WIN * H * 4) +
+         Carve::bytes(size_t(H) * 4);                                   // over
+}
+
+__device__ __forceinline__ int prow(int e) { return e + (e >> 5); }
+
+__global__ void __launch_bounds__(kOomThreads) resolve_oom_kernel(
     const int* __restrict__ slot_in, const float* __restrict__ work_in,
     const uint8_t* __restrict__ run_in, const int* __restrict__ host_all,
     const float* __restrict__ alloc_in, const float* __restrict__ usage_in,
@@ -196,66 +247,110 @@ __global__ void __launch_bounds__(32) resolve_oom_kernel(
     float* __restrict__ alloc_all, float* __restrict__ usage_all,
     uint8_t* __restrict__ failed_all, uint8_t* __restrict__ queued_all,
     int* __restrict__ oom, int* __restrict__ fail, int* __restrict__ part,
-    uint8_t* __restrict__ monreset_all, int A, int C, int N, int H) {
-  extern __shared__ float over0[];   // (H,) 1 where the host is over at entry
-  const int s = blockIdx.x, lane = threadIdx.x, AC = A * C;
+    uint8_t* __restrict__ monreset_all, int A, int C, int N, int H,
+    long long* __restrict__ clocks) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int s = blockIdx.x, tid = threadIdx.x, lane = tid & 31, AC = A * C;
   const size_t sa = size_t(s) * A, se = size_t(s) * AC, sn = size_t(s) * N;
-  int* slot = slot_all + sa;
-  float* work = work_all + sa;
-  uint8_t* run = run_all + se;
-  const int* host = host_all + se;
-  float* alloc = alloc_all + 2 * se;
-  float* usage = usage_all + 2 * se;
-  uint8_t* failed = failed_all + sn;
-  uint8_t* queued = queued_all + sn;
-  uint8_t* monreset = monreset_all + se;
-  const uint8_t* is_core = is_core_all + sn * C;
-  copy_rows(slot, slot_in + sa, A);
-  copy_rows(work, work_in + sa, A);
-  copy_rows(run, run_in + se, AC);
-  copy_rows(alloc, alloc_in + 2 * se, 2 * size_t(AC));
-  copy_rows(usage, usage_in + 2 * se, 2 * size_t(AC));
-  copy_rows(failed, failed_in + sn, N);
-  copy_rows(queued, queued_in + sn, N);
-  for (int e = lane; e < AC; e += 32) monreset[e] = 0;
+  const int nw = oom_windows(AC);
+  const long long t0 = clock64();
 
-  // the running components' memory usage per host at entry
-  float* tot0 = over0 + H;              // (H, 2); then 2 * MAX_LEVELS per host
-  host_sums([&](int e, bool* live, int* h, float* v0, float* v1) {
-    *live = run_in[se + e];
-    *h = host[e];
-    *v0 = usage_in[2 * (se + e) + 1];
-    *v1 = 0.f;
-  }, AC, H, tot0 + 2 * H, tot0);
-  for (int h = lane; h < H; h += 32) over0[h] = tot0[2 * h];
-  bool any = false;
-  for (int h = lane; h < H; h += 32) {
-    const bool over = over0[h] > __fadd_rn(cap[2 * h + 1], 1e-6f);
-    over0[h] = over ? 1.f : 0.f;
-    any |= over;
+  // ---- 0. stage ----
+  blk::Carve sm{smem};
+  int* slot = sm.take<int>(size_t(A) * 4, slot_in + sa);
+  float* work = sm.take<float>(size_t(A) * 4, work_in + sa);
+  uint8_t* run = sm.take<uint8_t>(AC, run_in + se);
+  int* host = sm.take<int>(size_t(AC) * 4, host_all + se);
+  float* alloc = sm.take<float>(size_t(AC) * 8, alloc_in + 2 * se);
+  float* usage = sm.take<float>(size_t(AC) * 8, usage_in + 2 * se);
+  uint8_t* failed = sm.take<uint8_t>(N, failed_in + sn);
+  uint8_t* queued = sm.take<uint8_t>(N, queued_in + sn);
+  uint8_t* monreset = sm.take<uint8_t>(AC, monreset_all + se);
+  int* live_host = sm.take<int>(padded_rows(AC) * 4);
+  float* mem = sm.take<float>(padded_rows(AC) * 4);
+  float* part_sum = sm.take<float>(size_t(nw) * H * 4);             // (window, host)
+  float* level = sm.take<float>(size_t(nw + WIN - 1) / WIN * H * 4);
+  int* over = sm.take<int>(size_t(H) * 4);
+  blk::stage(slot, slot_in + sa, size_t(A) * 4);
+  blk::stage(work, work_in + sa, size_t(A) * 4);
+  blk::stage(run, run_in + se, AC);
+  blk::stage(host, host_all + se, size_t(AC) * 4);
+  blk::stage(alloc, alloc_in + 2 * se, size_t(AC) * 8);
+  blk::stage(usage, usage_in + 2 * se, size_t(AC) * 8);
+  blk::stage(failed, failed_in + sn, N);
+  blk::stage(queued, queued_in + sn, N);
+  blk::zero(monreset, AC);
+  for (size_t i = tid; i < size_t(nw) * H; i += kOomThreads) part_sum[i] = 0.f;
+  blk::stage_wait();
+  __syncthreads();
+  for (int e = tid; e < AC; e += kOomThreads) {
+    live_host[prow(e)] = run[e] ? host[e] : -1;
+    mem[prow(e)] = usage[2 * e + 1];
   }
+  __syncthreads();
+  const long long t1 = clock64();
+
+  // ---- 1. the running components' memory usage per host at entry ----
+  const Tree t = tree_of(AC);
+  for (int j = tid; j < nw; j += kOomThreads) {
+    int e0, e1;
+    window(t, j, AC, &e0, &e1);
+    float* row = part_sum + size_t(j) * H;
+    for (int e = e0; e < e1; ++e) {
+      const int h = live_host[prow(e)];
+      if (h >= 0 && h < H) row[h] += mem[prow(e)];
+    }
+  }
+  __syncthreads();
+  float* items = part_sum;   // (n, H): the current level's items
+  int n = nw;
+  for (int l = 1; l < t.levels; ++l) {
+    const int lo = t.lo[l], n_next = (n + WIN - 1) / WIN;
+    for (int i = tid; i < n_next * H; i += kOomThreads) {
+      const int w = i / H, h = i % H;
+      float acc = 0.f;
+      for (int u = max(w * WIN - lo, 0), u1 = min((w + 1) * WIN - lo, n); u < u1; ++u)
+        acc += items[size_t(u) * H + h];
+      level[i] = acc;
+    }
+    __syncthreads();
+    float* done = items;
+    items = level;
+    level = done;
+    n = n_next;
+  }
+  bool any = false;
+  for (int h = tid; h < H; h += kOomThreads) {
+    float tot = 0.f;
+    for (int u = 0; u < n; ++u) tot += items[size_t(u) * H + h];
+    over[h] = tot > __fadd_rn(cap[2 * h + 1], 1e-6f);
+    any |= over[h];
+  }
+  any = __syncthreads_or(any);
+  const long long t2 = clock64();
+
+  // ---- 2. the victim loop, on warp 0 ----
   int n_full = 0, n_part = 0;
-  if (__any_sync(FULL, any)) {
-    __syncwarp();
+  if (any && tid < 32) {
+    const Tree ts = tree_of(A);
     for (int h = 0; h < H; ++h) {
-      if (over0[h] == 0.f) continue;
+      if (!over[h]) continue;
       const float lim = __fadd_rn(cap[2 * h + 1], 1e-6f);
       for (;;) {
         // the host's total (a sum over (A, C): windows of whole slots)
         // and the victim: the largest usage - alloc overage, the largest
         // flat index on ties
-        const Tree t = tree_of(A);
         float acc[MAX_LEVELS] = {};
         float bv = 0.f;
         int bi = -1;
         bool on_any = false;
-        for (int j = 0, nw = n_windows(t, A); j < nw; ++j) {
+        for (int j = 0, nws = n_windows(ts, A); j < nws; ++j) {
           int a0, a1;
-          window(t, j, A, &a0, &a1);
+          window(ts, j, A, &a0, &a1);
           for (int base = a0 * C; base < a1 * C; base += 32) {
             const int e = base + lane;
-            const bool on = e < a1 * C && run[e] && host[e] == h;
-            const float u = on ? usage[2 * e + 1] : 0.f;
+            const bool on = e < a1 * C && live_host[prow(e)] == h;
+            const float u = on ? mem[prow(e)] : 0.f;
             const unsigned mask = __ballot_sync(FULL, on);
             on_any |= mask != 0;
             for (unsigned m = mask; m; m &= m - 1) acc[0] += __shfl_sync(FULL, u, __ffs(m) - 1);
@@ -267,9 +362,9 @@ __global__ void __launch_bounds__(32) resolve_oom_kernel(
               }
             }
           }
-          if (t.levels) tree_push<1>(acc, t, j);
+          if (ts.levels) tree_push<1>(acc, ts, j);
         }
-        const float tot = acc[t.levels];
+        const float tot = acc[ts.levels];
         if (!(on_any && tot > lim)) break;
         for (int o = 16; o > 0; o >>= 1) {
           const float ob = __shfl_xor_sync(FULL, bv, o);
@@ -281,15 +376,16 @@ __global__ void __launch_bounds__(32) resolve_oom_kernel(
         }
         const int a = bi / C, c = bi % C;
         const int g = slot[a];
-        const bool core = is_core[size_t(g) * C + c];
-        __syncwarp();                               // every lane has read slot[a]
-        if (core) {                                 // a core victim fails its app
+        if (is_core_all[(sn + g) * C + c]) {        // a core victim fails its app
           for (int cc = lane; cc < C; cc += 32) {
             const int e = a * C + cc;
+            live_host[prow(e)] = -1;
+            mem[prow(e)] = 0.f;
             usage[2 * e] = usage[2 * e + 1] = 0.f;
             alloc[2 * e] = alloc[2 * e + 1] = 0.f;
             run[e] = 0;
           }
+          __syncwarp();                             // every lane has read slot[a]
           if (lane == 0) {
             slot[a] = -1;
             work[a] = 0.f;
@@ -298,6 +394,8 @@ __global__ void __launch_bounds__(32) resolve_oom_kernel(
           ++n_full;
         } else {                                    // an elastic victim alone
           if (lane == 0) {
+            live_host[prow(bi)] = -1;
+            mem[prow(bi)] = 0.f;
             usage[2 * bi] = usage[2 * bi + 1] = 0.f;
             alloc[2 * bi] = alloc[2 * bi + 1] = 0.f;
             run[bi] = 0;
@@ -309,10 +407,32 @@ __global__ void __launch_bounds__(32) resolve_oom_kernel(
       }
     }
   }
-  if (lane == 0) {
+  __syncthreads();
+  const long long t3 = clock64();
+
+  // ---- 3. write ----
+  blk::copy(slot_all + sa, slot, size_t(A) * 4);
+  blk::copy(work_all + sa, work, size_t(A) * 4);
+  blk::copy(run_all + se, run, AC);
+  blk::copy(alloc_all + 2 * se, alloc, size_t(AC) * 8);
+  blk::copy(usage_all + 2 * se, usage, size_t(AC) * 8);
+  blk::copy(failed_all + sn, failed, N);
+  blk::copy(queued_all + sn, queued, N);
+  blk::copy(monreset_all + se, monreset, AC);
+  if (tid == 0) {
     oom[s] = oom_in[s] + n_full;
     fail[s] = fail_in[s] + n_full;
     part[s] = part_in[s] + n_part;
+  }
+  if (clocks) {
+    __syncthreads();
+    if (tid == 0) {
+      long long* out = clocks + 4 * size_t(s);
+      out[0] = t1 - t0;           // stage
+      out[1] = t2 - t1;           // per-host sums at entry
+      out[2] = t3 - t2;           // victim loop
+      out[3] = clock64() - t3;    // write
+    }
   }
 }
 
@@ -488,6 +608,22 @@ __global__ void __launch_bounds__(32) place_missing_elastic_kernel(
 
 }  // namespace
 
+// The shared memory one block of resolve_oom needs at (A, C, N, H), in
+// bytes; the wrapper refuses a call above kMaxSmem (its MAX_SMEM).
+extern "C" long long resolve_oom_smem(int A, int C, int N, int H) {
+  return static_cast<long long>(oom_smem(A, C, N, H));
+}
+
+// Allow resolve_oom its opt-in shared memory on the current device: once,
+// before the first launch (never inside one, so a captured CUDA graph
+// holds launches only).
+extern "C" int resolve_oom_init() {
+  return static_cast<int>(cudaFuncSetAttribute(
+      resolve_oom_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem));
+}
+
+// clocks: null, or (S, 4) int64 for the cycles of each phase per member
+// (stage, per-host sums, victim loop, write).
 extern "C" int resolve_oom(const void* slot_in, const void* work_in,
                            const void* run_in, const void* host,
                            const void* alloc_in, const void* usage_in,
@@ -497,9 +633,11 @@ extern "C" int resolve_oom(const void* slot_in, const void* work_in,
                            const void* cap, void* slot, void* work, void* run,
                            void* alloc, void* usage, void* failed, void* queued,
                            void* oom, void* fail, void* part, void* monreset,
-                           int S, int A, int C, int N, int H, void* stream) {
-  const size_t smem = (3 + 2 * MAX_LEVELS) * H * sizeof(float);
-  resolve_oom_kernel<<<S, 32, smem, static_cast<cudaStream_t>(stream)>>>(
+                           int S, int A, int C, int N, int H, void* clocks,
+                           void* stream) {
+  const size_t smem = oom_smem(A, C, N, H);
+  if (smem > size_t(kMaxSmem)) return static_cast<int>(cudaErrorInvalidValue);
+  resolve_oom_kernel<<<S, kOomThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(slot_in), static_cast<const float*>(work_in),
       static_cast<const uint8_t*>(run_in), static_cast<const int*>(host),
       static_cast<const float*>(alloc_in), static_cast<const float*>(usage_in),
@@ -511,7 +649,7 @@ extern "C" int resolve_oom(const void* slot_in, const void* work_in,
       static_cast<float*>(alloc), static_cast<float*>(usage),
       static_cast<uint8_t*>(failed), static_cast<uint8_t*>(queued),
       static_cast<int*>(oom), static_cast<int*>(fail), static_cast<int*>(part),
-      static_cast<uint8_t*>(monreset), A, C, N, H);
+      static_cast<uint8_t*>(monreset), A, C, N, H, static_cast<long long*>(clocks));
   return static_cast<int>(cudaGetLastError());
 }
 

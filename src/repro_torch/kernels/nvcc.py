@@ -6,8 +6,9 @@ goes under ``build/`` beside this file, named after the source and keyed
 by a hash of the source and the flags, so a later call with the same
 source reuses it.  Nothing is built when a kernel module is imported:
 each module builds at its first launch.  :func:`launch` is the launch
-every kernel wrapper of the package goes through; :func:`check` holds a
-tensor to an exact dtype and shape.
+every kernel wrapper of the package goes through, after :func:`prepare`
+where a kernel has set-up to do; :func:`check` holds a tensor to an
+exact dtype and shape.
 """
 from __future__ import annotations
 
@@ -39,11 +40,13 @@ def _nvcc() -> str:
 
 
 def build(source: Path) -> Build:
-    """Compile ``source`` unless a library of the same source and flags
-    exists.  Safe under concurrent callers: each compiles to its own
-    temporary file and renames it into place."""
+    """Compile ``source`` unless a library of the same source, the same
+    headers beside it (``*.cuh``) and the same flags exists.  Safe under
+    concurrent callers: each compiles to its own temporary file and
+    renames it into place."""
     source = Path(source)
-    tag = hashlib.sha256(source.read_bytes()
+    headers = b"".join(h.read_bytes() for h in sorted(source.parent.glob("*.cuh")))
+    tag = hashlib.sha256(source.read_bytes() + headers
                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     lib = BUILD_DIR / f"lib{source.stem}_{tag}.so"
     log = BUILD_DIR / f"lib{source.stem}_{tag}.log"
@@ -87,6 +90,24 @@ def check(device, **specs) -> None:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+
+_PREPARED: set[tuple[str, int]] = set()
+
+
+def prepare(fn, name: str, device) -> None:
+    """Call the C function ``fn()``, a kernel's one-time set-up on a device
+    (its opt-in shared memory), once per device before the first launch,
+    and raise if it returned an error."""
+    import torch
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if (name, index) in _PREPARED:
+        return
+    with torch.cuda.device(index):
+        rc = fn()
+    if rc != 0:
+        raise RuntimeError(f"{name} set-up failed: CUDA error {rc}")
+    _PREPARED.add((name, index))
 
 
 def launch(fn, name: str, device, *args) -> None:

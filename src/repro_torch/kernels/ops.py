@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import fma as _fm
 from repro_torch.kernels import gp_forecast as _gf
 from repro_torch.kernels import gp_gram as _gg
 from repro_torch.kernels import ref
@@ -76,6 +77,17 @@ def _route(name: str, kernel, plain, t: torch.Tensor, args):
     if t.device.type == "cpu":
         return plain(*args)
     raise ValueError(f"no {name} implementation for device {t.device}")
+
+
+def fma_f32(a: torch.Tensor, b, c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` rounded once to float32, as XLA:CPU's fused
+    multiply-add gives it; ``b`` a tensor that broadcasts or a scalar
+    taken as float32.  On the card one kernel launch."""
+    if a.device.type == "cuda":
+        return _fm.fma_f32(a, b, c)
+    if a.device.type == "cpu":
+        return ref.fma_f32(a, b, c)
+    raise ValueError(f"no fma_f32 implementation for device {a.device}")
 
 
 def pessimistic_pass(valid, dem, core, el, host, order, free0):

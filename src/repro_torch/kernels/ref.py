@@ -39,6 +39,26 @@ def sq_dists(xa: torch.Tensor, xb: torch.Tensor) -> torch.Tensor:
     return torch.clamp_min(na[:, :, None] + nb[:, None, :] - 2.0 * ab, 0.0)
 
 
+def fma_f32(a: torch.Tensor, b, c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` rounded once to float32, as XLA:CPU's fused
+    multiply-add gives it.  ``b`` is a tensor that broadcasts or a Python
+    or numpy scalar, taken as float32 (as JAX takes a weakly typed one).
+
+    The float64 product of two float32 values is exact; the float64 sum
+    is made round-to-odd (its TwoSum error decides the last bit), and a
+    53-bit round-to-odd value rounds to the 24 bits of float32 as the
+    exact sum would (53 >= 2 * 24 + 2)."""
+    a64, c64 = a.double(), c.double()
+    b64 = b.double() if isinstance(b, torch.Tensor) else float(np.float32(b))
+    p = a64 * b64
+    s = p + c64
+    bp = s - p
+    err = (p - (s - bp)) + (c64 - bp)
+    inexact = (err != 0) & torch.isfinite(err) & ((s.view(torch.int64) & 1) == 0)
+    toward = torch.where(err > 0, math.inf, -math.inf).to(s.dtype)
+    return torch.where(inexact, torch.nextafter(s, toward), s).float()
+
+
 def _unit_kernel(d2: torch.Tensor, ell: torch.Tensor, kind: str):
     """(k, t): ``exp(-r/ell)`` or ``exp(-d2/(2 ell^2))``, and the factor
     (``r`` or ``d2``) that d/d ell multiplies the kernel by."""

@@ -26,6 +26,11 @@ from repro_torch.kernels import nvcc
 SOURCE = Path(__file__).resolve().parent / "csrc" / "sched.cu"
 MAX_HOSTS = 1024    # the free table and per-host running sums in 48 KB of shared memory
 MAX_COMPONENTS = 32  # a slot's components fit one window of the sums' order
+# resolve_oom stages a member's state in one block's shared memory (at
+# most 227 KB on sm_90): 30 B per flat row, 8 B per slot, 2 B per app and
+# 4 B per host and window of 32 rows, beside 16 B of alignment per region;
+# oom_smem_bytes() gives the exact figure.
+MAX_SMEM = 232448
 
 _LIB: ctypes.CDLL | None = None
 _B, _F32, _I32 = torch.bool, torch.float32, torch.int32
@@ -36,22 +41,37 @@ def _library() -> ctypes.CDLL:
     if _LIB is None:
         lib = ctypes.CDLL(str(nvcc.build(SOURCE).path))
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        for name, n_ptr, n_int in (("resolve_oom", 24, 5), ("admit_queued", 26, 6),
-                                   ("place_missing_elastic", 15, 5)):
+        for name, n_ptr, n_int, tail in (("resolve_oom", 24, 5, 2),
+                                         ("admit_queued", 26, 6, 1),
+                                         ("place_missing_elastic", 15, 5, 1)):
             fn = getattr(lib, name)
-            fn.argtypes = [ptr] * n_ptr + [i32] * n_int + [ptr]
+            fn.argtypes = [ptr] * n_ptr + [i32] * n_int + [ptr] * tail
             fn.restype = i32
+        lib.resolve_oom_init.argtypes = []
+        lib.resolve_oom_init.restype = i32
+        lib.resolve_oom_smem.argtypes = [i32] * 4
+        lib.resolve_oom_smem.restype = ctypes.c_longlong
         _LIB = lib
     return _LIB
+
+
+def oom_smem_bytes(A: int, C: int, N: int, H: int) -> int:
+    """The shared memory one block of resolve_oom takes at (A, C, N, H);
+    the arithmetic of ``csrc/sched.cu:oom_smem``."""
+    def region(n):
+        return (n + 31) // 16 * 16
+    AC = A * C
+    windows = -(-AC // 32) if AC > 32 else 1
+    padded = AC + AC // 32 + 1
+    return (2 * region(A * 4) + 2 * region(AC) + region(AC * 4) + 2 * region(AC * 8)
+            + 2 * region(N) + 2 * region(padded * 4) + region(windows * H * 4)
+            + region(-(-windows // 32) * H * 4) + region(H * 4))
 
 
 def _dims(comp_running, n_apps_tensor, host_cap):
     S, A, C = comp_running.shape
     N = n_apps_tensor.shape[1]
     H = host_cap.shape[0]
-    if comp_running.device.type != "cuda":
-        raise ValueError(f"the scheduler kernels take CUDA tensors, got "
-                         f"{comp_running.device}")
     if not 1 <= H <= MAX_HOSTS:
         raise ValueError(f"{H} hosts: the kernels take 1..{MAX_HOSTS}")
     if not 1 <= C <= MAX_COMPONENTS or A * C > 2**20:
@@ -60,11 +80,20 @@ def _dims(comp_running, n_apps_tensor, host_cap):
     return S, A, C, N, H
 
 
-def resolve_oom(slot_gid, work_done, comp_running, comp_host, alloc, usage, failed,
+def _on_cuda(t):
+    if t.device.type != "cuda":
+        raise ValueError(f"the scheduler kernels take CUDA tensors, got {t.device}")
+
+
+def _launch_oom(slot_gid, work_done, comp_running, comp_host, alloc, usage, failed,
                 queued, oom_kills, failure_events, partial_preemptions, is_core,
-                host_cap):
-    """Launch the OOM kernel; returns what ``ref.resolve_oom`` returns."""
+                host_cap, clocks):
     S, A, C, N, H = _dims(comp_running, failed, host_cap)
+    if oom_smem_bytes(A, C, N, H) > MAX_SMEM:
+        raise ValueError(f"A={A} slots of C={C} components, N={N} apps, H={H} hosts: "
+                         f"resolve_oom takes a member's state in {MAX_SMEM} B of shared "
+                         f"memory (this one needs {oom_smem_bytes(A, C, N, H)} B)")
+    _on_cuda(comp_running)
     nvcc.check(comp_running.device, slot_gid=(slot_gid, _I32, (S, A)),
                work_done=(work_done, _F32, (S, A)),
                comp_running=(comp_running, _B, (S, A, C)),
@@ -80,12 +109,36 @@ def resolve_oom(slot_gid, work_done, comp_running, comp_host, alloc, usage, fail
                                           failure_events, partial_preemptions)]
     monreset = torch.empty((S, A * C), dtype=_B, device=comp_running.device)
     if S:
-        nvcc.launch(_library().resolve_oom, "resolve_oom", comp_running.device,
+        lib = _library()
+        nvcc.prepare(lib.resolve_oom_init, "resolve_oom", comp_running.device)
+        nvcc.launch(lib.resolve_oom, "resolve_oom", comp_running.device,
                     slot_gid, work_done, comp_running, comp_host, alloc, usage,
                     failed, queued, oom_kills, failure_events, partial_preemptions,
-                    is_core, host_cap, *outs, monreset, S, A, C, N, H)
-        resolve_oom.launches += 1
+                    is_core, host_cap, *outs, monreset, S, A, C, N, H, clocks)
     return (*outs, monreset)
+
+
+def resolve_oom(slot_gid, work_done, comp_running, comp_host, alloc, usage, failed,
+                queued, oom_kills, failure_events, partial_preemptions, is_core,
+                host_cap):
+    """Launch the OOM kernel (one block per member); returns what
+    ``ref.resolve_oom`` returns."""
+    out = _launch_oom(slot_gid, work_done, comp_running, comp_host, alloc, usage,
+                      failed, queued, oom_kills, failure_events, partial_preemptions,
+                      is_core, host_cap, None)
+    if slot_gid.shape[0]:
+        resolve_oom.launches += 1
+    return out
+
+
+def oom_phase_cycles(*args) -> torch.Tensor:
+    """One launch of the OOM kernel that also stamps ``clock64()`` between
+    its phases: ``(S, 4)`` int64 cycles per member of the staging, the
+    per-host sums at entry, the victim loop and the write.  A measurement,
+    not a launch of the main path: it is not counted."""
+    clocks = torch.zeros((args[0].shape[0], 4), dtype=torch.int64, device=args[0].device)
+    _launch_oom(*args, clocks)
+    return clocks
 
 
 def admit_queued(submit, gid, cpu_req, mem_req, exists, is_core, slot_gid,
@@ -94,6 +147,7 @@ def admit_queued(submit, gid, cpu_req, mem_req, exists, is_core, slot_gid,
     """Launch the admission kernel; returns what ``ref.admit_queued``
     returns."""
     S, A, C, N, H = _dims(comp_running, submit, host_cap)
+    _on_cuda(comp_running)
     nvcc.check(comp_running.device, submit=(submit, _F32, (S, N)),
                gid=(gid, _I32, (S, N)), cpu_req=(cpu_req, _F32, (S, N, C)),
                mem_req=(mem_req, _F32, (S, N, C)), exists=(exists, _B, (S, N, C)),
@@ -125,6 +179,7 @@ def place_missing_elastic(cpu_req, mem_req, exists, is_core, slot_gid, comp_runn
     """Launch the elastic re-placement kernel; returns what
     ``ref.place_missing_elastic`` returns."""
     S, A, C, N, H = _dims(comp_running, cpu_req, host_cap)
+    _on_cuda(comp_running)
     nvcc.check(comp_running.device, cpu_req=(cpu_req, _F32, (S, N, C)),
                mem_req=(mem_req, _F32, (S, N, C)), exists=(exists, _B, (S, N, C)),
                is_core=(is_core, _B, (S, N, C)), slot_gid=(slot_gid, _I32, (S, A)),

@@ -21,7 +21,8 @@ port is checked against it (not against the host engine: the two
 reference engines sum floats in different orders and break FIFO ties
 differently, ``repro/sim/step.py:12-20``).  Where XLA:CPU contracts an
 ``a * b + c`` into one fused multiply-add, the port rounds once too
-(:func:`_fma`).  The contracts of ``repro/sim/step.py:22-31`` hold:
+(:func:`_fma`, one kernel launch on the card).  The contracts of
+``repro/sim/step.py:22-31`` hold:
 
   * CHUNK INVARIANCE — ticks after every app of a member is done change
     nothing but are masked out of the metrics (``TickMetrics.valid``),
@@ -29,9 +30,9 @@ differently, ``repro/sim/step.py:12-20``).  Where XLA:CPU contracts an
     chunk=32 give identical results;
   * COHORT EQUIVALENCE — a cohort is one batch with a leading member
     axis; every phase treats members independently, each kernel gives
-    each member its own warp, and the metric sums are taken in float64,
-    exact for these values in any order, so each member's results equal
-    its solo run.
+    each member its own block or warp, and the metric sums are taken in
+    float64, exact for these values in any order, so each member's
+    results equal its solo run.
 
 Not ported, and refused: ARIMA, calibration, the control plane, the
 telemetry rings, leap ticks and streamed workloads; ``run_fleet_shard``.
@@ -69,10 +70,8 @@ __all__ = ["fused_tick", "run_sim_scan", "run_cohort_scan"]
 
 def _fma(a: torch.Tensor, b, c: torch.Tensor) -> torch.Tensor:
     """``a * b + c`` rounded once to float32, as XLA:CPU compiles it (a
-    fused multiply-add): the float64 product of two float32 values is
-    exact, so only the sum rounds before the cast."""
-    b = b.double() if isinstance(b, torch.Tensor) else float(b)
-    return (a.double() * b + c.double()).float()
+    fused multiply-add): ``ops.fma_f32``, one kernel launch on the card."""
+    return kops.fma_f32(a, b, c)
 
 
 def _gid(st: SimState) -> torch.Tensor:

@@ -53,7 +53,7 @@ def test_importing_the_kernel_module_builds_nothing():
         "calls = []\n"
         "subprocess.run = lambda *a, **k: calls.append(a)\n"
         "from repro_torch.kernels import flash_attention, gp_forecast, gp_gram, ops\n"
-        "from repro_torch.kernels import sched, shaper\n"
+        "from repro_torch.kernels import fma, sched, shaper\n"
         "print(json.dumps([len(calls), gp_gram._LIB is None,\n"
         "                  gp_gram.gram_fwd.launches, gp_gram.gram_bwd.launches,\n"
         "                  gp_forecast._LIB is None, gp_forecast.gp_fit_forecast.launches,\n"
@@ -64,9 +64,10 @@ def test_importing_the_kernel_module_builds_nothing():
         "                  shaper._LIB is None, shaper.pessimistic_pass.launches,\n"
         "                  sched._LIB is None, sched.resolve_oom.launches,\n"
         "                  sched.admit_queued.launches,\n"
-        "                  sched.place_missing_elastic.launches]))")
+        "                  sched.place_missing_elastic.launches,\n"
+        "                  fma._LIB is None, fma.fma_f32.launches]))")
     assert got == [0, True, 0, 0, True, 0, True, True, 0, {"sm90": 0, "simt": 0},
-                   True, 0, True, 0, 0, 0]
+                   True, 0, True, 0, 0, 0, True, 0]
 
 
 def test_run_sim_without_device_raises_on_a_cpu_only_machine(monkeypatch):

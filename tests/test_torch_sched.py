@@ -299,12 +299,151 @@ def test_pessimistic_pass_equals_reference(captured):
     assert (kills > 0).all(), kills
 
 
+# ----------------------------------------------------------------------
+# edge cases of the block-per-member kernels, plain versions first
+# ----------------------------------------------------------------------
+
+def _members_policy(members):
+    """The port's pass over a batch of reference problems against the
+    reference, member by member; returns the reference decisions."""
+    policy = jax.jit(pessimistic_shape_raw)
+    got = pessimistic_shape(ShapeProblem(**{
+        k: torch.as_tensor(np.stack([m[k] for m in members])) for k in members[0]}))
+    wants = []
+    for i, m in enumerate(members):
+        want = policy(rshaper.ShapeProblem(**{k: jnp.asarray(v) for k, v in m.items()}))
+        _assert_same({f: getattr(got, f)[i:i + 1] for f in DECISIONS},
+                     {f: getattr(want, f) for f in DECISIONS})
+        wants.append(want)
+    return wants
+
+
+@pytest.mark.parametrize("resource", ["host_cpu", "host_mem"])
+def test_pessimistic_pass_host_below_zero_removes_every_row(resource):
+    """A host already short of cpu or memory fails every app's core test,
+    whether or not the app has a component there (the reference tests
+    ``free - core_dem < 0`` over all hosts)."""
+    for seed in range(4):
+        members = _random_problems(seed)
+        for m in members[:2]:
+            m[resource] = m[resource].copy()
+            m[resource][seed % len(m[resource])] = -0.25
+        wants = _members_policy(members)
+        for m, want in zip(members[:2], wants):
+            np.testing.assert_array_equal(np.asarray(want.kill_app), m["app_exists"])
+        assert not np.asarray(wants[2].kill_app).all()
+
+
+@pytest.mark.parametrize("A,C,H", [(7, 5, 3), (13, 3, 4), (32, 12, 2)])
+def test_pessimistic_pass_odd_shapes_and_shared_core_hosts(A, C, H):
+    """A * C off the kernel's 16-byte vectors, and (on two hosts) apps
+    whose core components share a host, so that a row's core demand per
+    host is a sum."""
+    shared = 0
+    for seed in range(6):
+        members = _random_problems(seed, A=A, C=C, H=H)
+        _members_policy(members)
+        for m in members:
+            core = m["comp_core"] & m["comp_exists"]
+            for a in range(A):
+                hosts = m["comp_host"][a][core[a]]
+                shared += len(hosts) - len(set(hosts.tolist()))
+    assert shared > 0 or H > 2
+
+
+def _tied(seed, A=13, C=7, N=37, H=3):
+    """A reference case where every running component uses 20 GB of
+    memory against 4 GB allocated: every host with two of them is over
+    its memory and every overage ties (the largest flat index decides)."""
+    rtr, rst, usage, cap = _random_case(seed, A=A, C=C, N=N, H=H)
+    run = np.asarray(rst.comp_running)
+    usage = usage.copy()
+    usage[..., 1] = np.where(run, 20.0, 0.0)
+    fields = _fields(rst)
+    fields["alloc"] = fields["alloc"].copy()
+    fields["alloc"][..., 1] = np.where(run, 4.0, 0.0)
+    rst = rstate.SimState(**{k: jnp.asarray(v) for k, v in fields.items()},
+                          calib=None, tenancy=None, obs=None)
+    return rtr, rst, usage, cap
+
+
+def _cohort(cases):
+    """The scheduler kernels' argument tuples for a batch of same-shaped
+    reference cases, stacked on the member axis (S = len(cases)), with the
+    host capacity of the first."""
+    ports = [_port(rtr, rst) for rtr, rst, _, _ in cases]
+    cat = lambda get: torch.cat([get(tr, st) for tr, st in ports])  # noqa: E731
+    st = lambda f: cat(lambda tr, st: getattr(st, f))  # noqa: E731
+    tr = lambda f: cat(lambda tr, st: getattr(tr, f))  # noqa: E731
+    cap = torch.as_tensor(cases[0][3])
+    usage = torch.stack([torch.as_tensor(np.array(u)) for _, _, u, _ in cases])
+    t = st("t") + 60.0
+    oom = (st("slot_gid"), st("work_done"), st("comp_running"), st("comp_host"),
+           st("alloc"), usage, st("failed"), st("queued"), st("oom_kills"),
+           st("failure_events"), st("partial_preemptions"), tr("is_core"), cap)
+    adm = (tr("submit"), tr("gid"), tr("cpu_req"), tr("mem_req"), tr("exists"),
+           tr("is_core"), st("slot_gid"), st("work_done"), st("comp_running"),
+           st("comp_host"), st("alloc"), st("alive_since"), st("queued"),
+           st("has_saved"), st("saved_work"), t, cap, True)
+    el = (tr("cpu_req"), tr("mem_req"), tr("exists"), tr("is_core"), st("slot_gid"),
+          st("comp_running"), st("comp_host"), st("alloc"), st("alive_since"), t, cap)
+    return oom, adm, el
+
+
+def test_resolve_oom_cohort_with_tied_overages_equals_reference():
+    """Three members at once (the plain version that the kernel is held
+    to), each over its memory on several hosts with every overage tied,
+    A * C = 91 and N = 37 off the 16-byte vectors: each member equals the
+    reference's OOM handler on it alone."""
+    fn = jax.jit(rstep._resolve_oom)
+    kills = 0
+    for seed in range(4):
+        cases = [_tied(3 * seed + i) for i in range(3)]
+        oom_args, _, _ = _cohort(cases)
+        got = ops.resolve_oom(*oom_args)
+        names = ("slot_gid", "work_done", "comp_running", "alloc", "usage", "failed",
+                 "queued", "oom_kills", "failure_events", "partial_preemptions",
+                 "monreset")
+        cap = jnp.asarray(cases[0][3])              # one cluster shape for the batch
+        for i, (rtr, rst, usage, _) in enumerate(cases):
+            want_st, want_usage, want_reset = fn(rtr, rst, jnp.asarray(usage), cap)
+            want = {**_fields(want_st), "usage": want_usage, "monreset": want_reset}
+            _assert_same({n: g[i:i + 1] for n, g in zip(names, got)},
+                         {n: want[n] for n in names})
+            kills += int(want_st.oom_kills) + int(want_st.partial_preemptions)
+    assert kills > 0
+
+
 def test_plain_versions_take_cpu_tensors_only():
     x = torch.zeros((1, 2), dtype=torch.bool, device="meta")
     with pytest.raises(ValueError, match="no pessimistic_pass implementation"):
         ops.pessimistic_pass(x, x, x, x, x, x, x)
     with pytest.raises(ValueError, match="no resolve_oom implementation"):
         ops.resolve_oom(x)
+
+
+def test_block_kernels_refuse_a_member_beyond_shared_memory():
+    """The block-per-member kernels keep a member's state in one block's
+    shared memory: the main path's widths fit, a wider member is refused
+    before anything is launched (meta tensors: no data, no device)."""
+    assert shaper.smem_bytes(128, 12, 50) == 80288 < shaper.MAX_SMEM
+    assert sched.oom_smem_bytes(128, 12, 500, 50) == 58976 < sched.MAX_SMEM
+    m = dict(device="meta")
+    A, C, H = 1024, 12, 50
+    with pytest.raises(ValueError, match="shared memory"):
+        shaper.pessimistic_pass(
+            torch.empty((1, A), dtype=torch.bool, **m),
+            torch.empty((1, A, C, 2), **m), *(torch.empty((1, A, C), dtype=torch.bool, **m),) * 2,
+            *(torch.empty((1, A, C), dtype=torch.int32, **m),) * 2, torch.empty((1, H, 2), **m))
+    A, C, H = 1024, 32, 1024
+    b, i = dict(dtype=torch.bool, **m), dict(dtype=torch.int32, **m)
+    with pytest.raises(ValueError, match="shared memory"):
+        sched.resolve_oom(
+            torch.empty((1, A), **i), torch.empty((1, A), **m),
+            torch.empty((1, A, C), **b), torch.empty((1, A, C), **i),
+            *(torch.empty((1, A, C, 2), **m),) * 2, *(torch.empty((1, 500), **b),) * 2,
+            *(torch.empty((1,), **i),) * 3, torch.empty((1, 500, C), **b),
+            torch.empty((H, 2), **m))
 
 
 # ----------------------------------------------------------------------
@@ -328,19 +467,14 @@ def _both(fn_kernel, fn_plain, args):
 
 @pytest.mark.gpu
 def test_sched_kernels_equal_plain_versions(cuda, captured):
-    for rtr, rst, usage, cap in _cases(captured):
-        ptr, pst = _port(rtr, rst)
-        cap_t, t = torch.as_tensor(cap), pst.t + 60.0
-        oom_args = (pst.slot_gid, pst.work_done, pst.comp_running, pst.comp_host,
-                    pst.alloc, torch.as_tensor(usage)[None], pst.failed, pst.queued,
-                    pst.oom_kills, pst.failure_events, pst.partial_preemptions,
-                    ptr.is_core, cap_t)
-        adm_args = (ptr.submit, ptr.gid, ptr.cpu_req, ptr.mem_req, ptr.exists,
-                    ptr.is_core, pst.slot_gid, pst.work_done, pst.comp_running,
-                    pst.comp_host, pst.alloc, pst.alive_since, pst.queued,
-                    pst.has_saved, pst.saved_work, t, cap_t, True)
-        el_args = (ptr.cpu_req, ptr.mem_req, ptr.exists, ptr.is_core, pst.slot_gid,
-                   pst.comp_running, pst.comp_host, pst.alloc, pst.alive_since, t, cap_t)
+    """Every captured and random case alone, then cohorts of three: seeded
+    tables with A * C = 91 and N = 37 off the 16-byte vectors, and tables
+    over memory with every overage tied."""
+    cohorts = [[_random_case(3 * seed + i, A=13, C=7, N=37, H=5) for i in range(3)]
+               for seed in range(4)]
+    cohorts += [[_tied(3 * seed + i) for i in range(3)] for seed in range(4)]
+    for oom_args, adm_args, el_args in [_cohort([c]) for c in _cases(captured)] + [
+            _cohort(c) for c in cohorts]:
         for kern, plain, args in ((sched.resolve_oom, ref.resolve_oom, oom_args),
                                   (sched.admit_queued, ref.admit_queued, adm_args),
                                   (sched.place_missing_elastic, ref.place_missing_elastic,
@@ -350,20 +484,36 @@ def test_sched_kernels_equal_plain_versions(cuda, captured):
                 torch.testing.assert_close(g, w, rtol=0, atol=0)
 
 
+def _pass_table(seed, S=3, A=64, C=12, H=7, *, negative=False, core_p=0.3):
+    """Seeded inputs of Algorithm 1's pass, demands and capacities from
+    small sets; ``negative`` puts a host of member 0 below 0 in cpu and
+    one of member 1 below 0 in memory."""
+    rng = np.random.default_rng(seed)
+    core = rng.random((S, A, C)) < core_p
+    args = [rng.random((S, A)) < 0.8,
+            rng.choice([0.25, 0.5, 1.0, 2.0], (S, A, C, 2)).astype(np.float32), core,
+            ~core & (rng.random((S, A, C)) < 0.6),
+            rng.integers(0, H, (S, A, C)).astype(np.int32),
+            np.argsort(rng.random((S, A, C)), -1).astype(np.int32),
+            rng.choice([8.0, 16.0], (S, H, 2)).astype(np.float32)]
+    if negative:
+        args[-1][0, 0, 0] = -0.5
+        args[-1][1, H - 1, 1] = -0.25
+    return tuple(torch.as_tensor(x) for x in args)
+
+
 @pytest.mark.gpu
 def test_pessimistic_pass_kernel_equals_plain_version(cuda, captured):
-    for seed in range(16):
-        rng = np.random.default_rng(seed)
-        S, A, C, H = 3, 64, 12, 7
-        core = rng.random((S, A, C)) < 0.3
-        el = ~core & (rng.random((S, A, C)) < 0.6)
-        args = (torch.as_tensor(rng.random((S, A)) < 0.8),
-                torch.as_tensor(rng.choice([0.25, 0.5, 1.0, 2.0], (S, A, C, 2))
-                                .astype(np.float32)),
-                torch.as_tensor(core), torch.as_tensor(el),
-                torch.as_tensor(rng.integers(0, H, (S, A, C)).astype(np.int32)),
-                torch.as_tensor(np.argsort(rng.random((S, A, C)), -1).astype(np.int32)),
-                torch.as_tensor(rng.choice([8.0, 16.0], (S, H, 2)).astype(np.float32)))
+    """Seeded batches of three, then the edge cases: A * C off the 16-byte
+    vectors, hosts below 0 before the pass, core components sharing one of
+    two hosts."""
+    tables = [_pass_table(seed) for seed in range(16)]
+    for seed in range(4):
+        tables += [_pass_table(seed, A=7, C=5, H=3), _pass_table(seed, A=13, C=3, H=4),
+                   _pass_table(seed, negative=True), _pass_table(seed, A=32, H=2, core_p=0.6)]
+    for args in tables:
         got, want = _both(shaper.pessimistic_pass, ref.pessimistic_pass, args)
         for g, w in zip(got, want):
             torch.testing.assert_close(g, w, rtol=0, atol=0)
+        if args[-1].min() < 0:
+            assert torch.equal(want[0][:2], args[0][:2])   # every valid row removed

@@ -83,3 +83,46 @@ def test_shaped_demand_equals_reference(k1, k2):
     got = tshaper.shaped_demand(*map(torch.as_tensor, (peak, req, var)),
                                 tshaper.SafeguardConfig(k1, k2))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def _beta_cases():
+    """(request, var, k1, k2) on which one rounding of k1 * request + the
+    dynamic term differs from two: the counterexample (1+2**-12)**2 +
+    2**-80; requests whose product with k1 lands on a float32 midpoint
+    (25 bits), with a dynamic term of +-2**-60 far below it, the float32
+    below the midpoint even and odd; and seeded random inputs."""
+    one = float(np.float32(1 + 2**-12))
+    yield "counterexample", (np.array([one], np.float32), np.array([2.0**-80], np.float32),
+                             one, 2.0**-40)
+    k1 = float(np.float32(1 + 1365 * 2.0**-12))
+    req = (1 + np.arange(0, 2**11) * 2.0**-11).astype(np.float32)
+    q = req.astype(np.float64) * k1
+    q = q * np.where(q < 2, 2.0**24, 2.0**23)
+    mid = (q == np.floor(q)) & (q % 2 == 1)
+    lower_odd = (q - 1) / 2 % 2 == 1
+    var = np.full(req.shape, 2.0**-60, np.float32)     # sigma 2**-30
+    for odd in (False, True):
+        sel = mid & (lower_odd == odd)
+        for k2 in (2.0**-30, -(2.0**-30)):
+            yield f"midpoint lower_odd={odd} k2={k2:+.0e}", (req[sel], var[sel], k1, k2)
+    rng = np.random.default_rng(11)
+    yield "random", (rng.uniform(0.01, 64.0, 100_000).astype(np.float32),
+                     rng.uniform(-1e-3, 4.0, 100_000).astype(np.float32),
+                     float(rng.uniform(0, 1)), float(rng.uniform(0, 4)))
+
+
+@pytest.mark.parametrize("case", [name for name, _ in _beta_cases()])
+def test_beta_rounds_once_as_reference(case):
+    """Eq. 9's beta against the jitted reference bit for bit, where XLA
+    contracts k1 * request + k2 * sigma into one fused multiply-add."""
+    import jax
+
+    req, var, k1, k2 = dict(_beta_cases())[case]
+    assert req.size > 0
+    want = jax.jit(lambda r, v: rshaper.beta(r, v, rshaper.SafeguardConfig(k1, k2)))(req, var)
+    got = tshaper.beta(torch.as_tensor(req), torch.as_tensor(var),
+                       tshaper.SafeguardConfig(k1, k2))
+    np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                  np.asarray(want).view(np.int32))
+    if case == "counterexample":
+        assert float(got[0]).hex() == "0x1.0020020000000p+0"

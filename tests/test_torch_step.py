@@ -26,6 +26,7 @@ from repro.sim.scenarios.registry import build_trace
 from repro.sim.sweep import quick_base_config
 from repro_torch import convert
 from repro_torch.core.forecast import Forecast as TForecast
+from repro_torch.kernels import ops as kops
 from repro_torch.sim import step as tstep
 
 COUNTERS = ("completed", "n_apps", "failure_events", "oom_kills", "full_preemptions",
@@ -236,6 +237,99 @@ def test_run_sim_scan_defaults_to_cuda_and_raises_without_it(monkeypatch):
 
 
 # ----------------------------------------------------------------------
+# one rounding for a * b + c (XLA:CPU contracts it into a fused
+# multiply-add)
+# ----------------------------------------------------------------------
+
+_XLA_FMA = jax.jit(lambda a, b, c: a * b + c)
+
+
+def _bits(x) -> np.ndarray:
+    return np.asarray(x, np.float32).view(np.int32)
+
+
+def _midpoint_triples():
+    """(a, b, c, lower_odd): a * b exact in 25 bits on a float32 midpoint,
+    c = +-2**-60 far below it, so the float64 sum is the midpoint itself
+    and only c says which way the one rounding goes; ``lower_odd`` is the
+    last bit of the float32 below the midpoint (ties-to-even goes up when
+    it is 1)."""
+    k, m = np.meshgrid(np.arange(0, 2**11, 7), np.arange(1, 2**12, 5), indexing="ij")
+    a = (1 + k.ravel() * 2.0**-11).astype(np.float32)
+    b = (1 + m.ravel() * 2.0**-12).astype(np.float32)
+    p = a.astype(np.float64) * b
+    q = p * np.where(p < 2, 2.0**24, 2.0**23)         # in half float32 ulps
+    mid = (q == np.floor(q)) & (q % 2 == 1)
+    a, b, q = a[mid], b[mid], q[mid]
+    lower_odd = ((q - 1) / 2 % 2 == 1)
+    sign = np.where(np.arange(a.size) % 2 == 0, 1.0, -1.0)
+    return a, b, (sign * 2.0**-60).astype(np.float32), lower_odd
+
+
+def _random_triples(n=100_000, seed=0):
+    """Seeded float32 triples in the normal range, c within a few binades
+    of a * b so that the sum cancels and rounds in every way.  (XLA:CPU
+    flushes subnormal results to zero; the port does not, so subnormal
+    results are left out.)"""
+    rng = np.random.default_rng(seed)
+
+    def draw(lo, hi):
+        return (rng.choice([-1.0, 1.0], n) * rng.uniform(1, 2, n)
+                * 2.0 ** rng.integers(lo, hi, n)).astype(np.float32)
+    a, b = draw(-8, 8), draw(-8, 8)
+    c = (draw(-40, 4) * np.abs(a) * np.abs(b)).astype(np.float32)
+    return a, b, c
+
+
+def _fma_cases():
+    one = np.float32(1 + 2**-12)
+    yield "counterexample", (np.array([one], np.float32), np.array([one], np.float32),
+                             np.array([2**-80], np.float32))
+    a, b, c, lower_odd = _midpoint_triples()
+    for odd in (False, True):
+        for up in (False, True):
+            sel = (lower_odd == odd) & ((c > 0) == up)
+            yield f"midpoint lower_odd={odd} err>0={up}", (a[sel], b[sel], c[sel])
+    yield "random", _random_triples()
+
+
+def test_random_triples_cover_both_parities_of_the_float64_sum():
+    a, b, c = (x.astype(np.float64) for x in _random_triples())
+    p = a * b
+    s = p + c
+    bp = s - p
+    inexact = ((p - (s - bp)) + (c - bp)) != 0
+    odd = (s.view(np.int64) & 1) == 1
+    assert (inexact & odd).sum() > 1000 and (inexact & ~odd).sum() > 1000
+
+
+@pytest.mark.parametrize("case", [name for name, _ in _fma_cases()])
+def test_fma_equals_xla_fused_multiply_add(case):
+    a, b, c = dict(_fma_cases())[case]
+    assert a.size > 0
+    want = _bits(_XLA_FMA(a, b, c))
+    ta, tb, tc = map(torch.as_tensor, (a, b, c))
+    np.testing.assert_array_equal(_bits(kops.fma_f32(ta, tb, tc)), want)
+    np.testing.assert_array_equal(_bits(tstep._fma(ta, tb, tc)), want)
+    if case == "counterexample":
+        assert float(kops.fma_f32(ta, tb, tc)[0]).hex() == "0x1.0020020000000p+0"
+
+
+def test_fma_scalar_b_is_float32_and_b_broadcasts():
+    """A scalar b is taken as float32 (JAX's weak type); a tensor b
+    broadcasts against a and c, as at the usage interpolation."""
+    a, _, c = _random_triples(4096, seed=1)
+    b = 0.1                                  # not a float32: rounds to one first
+    want = _bits(jax.jit(lambda a, c: a * b + c)(a, c))
+    np.testing.assert_array_equal(
+        _bits(tstep._fma(torch.as_tensor(a), b, torch.as_tensor(c))), want)
+    a, c = a.reshape(16, 64, 4), c.reshape(16, 64, 4)
+    frac = np.random.default_rng(2).random((16, 64, 1)).astype(np.float32)
+    np.testing.assert_array_equal(
+        _bits(tstep._fma(*map(torch.as_tensor, (a, frac, c)))), _bits(_XLA_FMA(a, frac, c)))
+
+
+# ----------------------------------------------------------------------
 # on the card (``-m gpu``)
 # ----------------------------------------------------------------------
 
@@ -250,3 +344,16 @@ def test_card_equals_cpu(forecaster):
     gpu = tstep.run_cohort_scan(pcfg, [0, 1], device="cuda")
     for a, b in zip(gpu, cpu):
         assert _series(a) == _series(b)
+
+@pytest.mark.gpu
+def test_fma_kernel_equals_plain_version():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels import fma, ref
+    for _, (a, b, c) in _fma_cases():
+        ta, tb, tc = map(torch.as_tensor, (a, b, c))
+        want = _bits(ref.fma_f32(ta, tb, tc))
+        got = fma.fma_f32(ta.cuda(), tb.cuda(), tc.cuda())
+        np.testing.assert_array_equal(_bits(got.cpu()), want)
+        got = fma.fma_f32(ta.cuda(), 0.1, tc.cuda())
+        np.testing.assert_array_equal(_bits(got.cpu()), _bits(ref.fma_f32(ta, 0.1, tc)))
