@@ -34,12 +34,13 @@ bit for bit (a counterexample to two roundings, float32 midpoints, 10^5
 seeded triples, the engine's shapes), and the device engine's four
 kernels on full-width states captured from the port's own CPU runs,
 seeded tie-prone tables and edge cases (three members, A * C and N off
-the 16-byte vectors, a host below 0 before the pass, tied OOM victims;
-every output equal).  It then times each kernel against its plain
-version, its bound and, where one PyTorch call computes the same
-function, that call; the device engine's kernels also by their device
-and host time per call and (the two that stamp them) their phases'
-cycles.  Every phase raises on failure.
+the 16-byte vectors, a host below 0 before the pass, tied OOM victims,
+admissions until a head does not fit, submit ties broken by gid,
+missing elastic components that fill the hosts; every output equal).
+It then times each kernel against its plain version, its bound and,
+where one PyTorch call computes the same function, that call; the
+device engine's kernels also by their device and host time per call
+and their phases' cycles.  Every phase raises on failure.
 
 Run from the repository root with no arguments:
 
@@ -737,8 +738,9 @@ def fma_cases():
     ((1+2**-12)**2 + 2**-80), products on a float32 midpoint with c =
     +-2**-60 below them (only c says which way the one rounding goes),
     10^5 seeded normal-range triples whose sums cancel, the usage
-    interpolation's shape (b broadcast over (1, 128, 12, 2)) and
-    the safeguard's (a scalar b over 3,072 rows)."""
+    interpolation's shape (b broadcast over (1, 128, 12, 2)), the
+    subnormal rows and 10^5 triples near +-2**-126 (what XLA:CPU flushes)
+    and the safeguard's shape (a scalar b over 3,072 rows)."""
     import torch
     rng = np.random.default_rng(0)
     t = lambda x: torch.as_tensor(np.ascontiguousarray(x, np.float32))  # noqa: E731
@@ -760,12 +762,54 @@ def fma_cases():
     yield "random", t(a), t(b), t(draw(100_000, -40, 4) * np.abs(a) * np.abs(b))
     lv = rng.uniform(0, 8, (2, 1, 128, 12, 2)).astype(np.float32)
     yield "usage interpolation", t(lv[1] - lv[0]), t(rng.random((1, 128, 1, 1))), t(lv[0])
+    yield "subnormal rows", *(t(x) for x in zip(*SUBNORMAL_ROWS))
+    yield "near 2**-126", *(t(x) for x in tiny_triples())
     yield "safeguard", t(rng.uniform(0.01, 64, (1, 3072))), 0.05, t(rng.uniform(0, 2, (1, 3072)))
+
+
+TINY = 2.0**-126   # the least normal float32
+# (a, b, c) where XLA:CPU's flushing shows (tests/test_torch_step.py holds
+# ops.fma_f32 to XLA on them): subnormal products flushed to +0 and -0,
+# 2**-126 - 2**-150 flushed, a subnormal c read as 0, a subnormal product
+# inside a normal result kept, and exact values (2**25 - k) * 2**-151 for
+# k = 1 (a tie that rounds up to 2**-126: kept), 3 and 2 (flushed), -1
+# (kept, negative)
+SUBNORMAL_ROWS = ((2.0**-70, 1.5 * 2.0**-70, 0.0), (-2.0**-70, 1.5 * 2.0**-70, 0.0),
+                  (1 - 2.0**-24, TINY, 0.0), (TINY, 1.0, -2.0**-127),
+                  (2.0**-100, 2.0**-30, TINY),
+                  (18631 * 2.0**-75, 1801 * 2.0**-76, 0.0),
+                  (479 * 2.0**-75, 70051 * 2.0**-76, 0.0),
+                  (8190 * 2.0**-75, 4097 * 2.0**-76, 0.0),
+                  (8283 * 2.0**-75, -4051 * 2.0**-76, 0.0))
+
+
+def tiny_triples(n=100_000, seed=0):
+    """Seeded float32 triples whose exact a * b + c lies within a few ulp
+    of +-2**-126, both signs: b from 16 values (one of them subnormal, so
+    that Eq. 9's beta can take it as its scalar k1), c from a set of
+    zeros, normals near 2**-126 and subnormals (each with at most 12
+    significant bits, so that beta's dynamic term can carry it exactly),
+    a = (target - c) / b rounded to float32; 5% of the a replaced by
+    subnormals."""
+    rng = np.random.default_rng(seed)
+    ks = (rng.uniform(1, 2, 16) * 2.0 ** rng.integers(-24, 4, 16)).astype(np.float32)
+    ks[:2] = 1.0, 3 * 2.0**-140
+    b = ks[rng.integers(0, len(ks), n)]
+    mags = np.array([0.0, TINY, 2 * TINY, 3 * TINY, 5 * 2.0**-125, 2.0**-149,
+                     3 * 2.0**-149, 1023 * 2.0**-149, 2047 * 2.0**-138])
+    c = (rng.choice([-1.0, 1.0], n) * rng.choice(mags, n)).astype(np.float32)
+    target = rng.choice([-1.0, 1.0], n) * TINY * (1 + rng.integers(-6, 7, n) * 2.0**-23)
+    a = ((target - c.astype(np.float64)) / b.astype(np.float64)).astype(np.float32)
+    sub = rng.random(n) < 0.05
+    a[sub] = (rng.choice([-1.0, 1.0], sub.sum()) * rng.integers(1, 2**23, sub.sum())
+              * 2.0**-149).astype(np.float32)
+    return a, b, c
 
 
 def check_fma(fma, ref) -> float:
     """The fma kernel on the card against its plain version on the CPU:
-    every bit equal, on every case of fma_cases."""
+    every bit equal, signs of zeros included, on every case of
+    fma_cases."""
     import torch
     for name, a, b, c in fma_cases():
         on_card = [x.cuda() if isinstance(x, torch.Tensor) else x for x in (a, b, c)]
@@ -783,7 +827,9 @@ def time_fma(fma, ref) -> dict:
     """The fma kernel at the safeguard's shape (3,072 rows, a scalar b),
     in turns with its plain version on the card and torch.add(c, a,
     alpha=b) (one PyTorch call computing c + b * a, the library yardstick,
-    timed here only), with its device and host time per call.  The bound:
+    timed here only), with the device time per call of both (the kernels
+    compared, not their wrappers) and the kernel's host time per call.
+    The bound:
     a and c read and the output written once over 3.35 TB/s, against two
     flops per element over fp32's peak."""
     import torch
@@ -797,6 +843,7 @@ def time_fma(fma, ref) -> dict:
     for k in list(fns) + list(fns)[::-1]:
         ms[k].append(cuda_time_ms(fns[k], iters=200, warmup=10))
     dev_us = device_us_per_call(kern, "fma_f32_kernel")
+    lib_dev_us = device_us_per_call(lib)
     host_us = host_us_per_call(kern)
     same = torch.equal(lib().view(torch.int32), kern().view(torch.int32))
     n = a.numel()
@@ -805,8 +852,10 @@ def time_fma(fma, ref) -> dict:
     t_ops = flops / FP32_FLOP_PER_S * 1e3
     times = "; ".join(f"{k} {'/'.join(f'{x:.5f}' for x in v)} ms" for k, v in ms.items())
     log(f"  fma_f32 (1, {n}), scalar b: {times}; device "
-        f"{'not measured' if dev_us is None else f'{dev_us:.3f} us'} per launch, host "
-        f"{host_us:.3f} us per call; torch.add's bits {'equal' if same else 'differ'}; "
+        f"{'not measured' if dev_us is None else f'{dev_us:.3f} us'} per launch, "
+        f"torch.add {'not measured' if lib_dev_us is None else f'{lib_dev_us:.3f} us'} "
+        f"per call (torch.profiler); host {host_us:.3f} us per call; torch.add's bits "
+        f"{'equal' if same else 'differ'}; "
         f"bound {max(t_bytes, t_ops) * 1e3:.4f} us ({nbytes} B, {flops} flop)")
     return {"fma_f32": dict(ms=min(ms["kernel"]), plain_ms=min(ms["plain"]),
                             library_ms=min(ms["torch.add"]), bound_ms=max(t_bytes, t_ops),
@@ -825,6 +874,7 @@ SCAN_REPLACES = {"pessimistic_pass": "src/repro/core/shaper/pessimistic.py:117",
 SCAN_SOURCES = {"pessimistic_pass": "src/repro_torch/kernels/csrc/shaper.cu",
                 **{k: "src/repro_torch/kernels/csrc/sched.cu" for k in SCAN_KERNELS[1:]}}
 CAPTURE_TICKS = range(40, 400, 40)
+TICK_200 = CAPTURE_TICKS.index(200)   # the pessimistic tick-200 state's case
 OOM_HOST_MEM = 16.0        # GB per host where resolve_oom is timed with victims
 
 
@@ -837,9 +887,15 @@ def scan_kernel_pairs(shaper, sched, ref) -> dict:
 def capture_states(step, SimConfig, policy):
     """The port's own device engine on the CPU at full width (SimConfig(),
     oracle forecasts), tick by tick; returns (trace, state, host_cap) at
-    CAPTURE_TICKS.  Under the optimistic policy hosts are over-committed,
-    so the OOM handler finds victims."""
+    CAPTURE_TICKS, and the arguments of the tick's own call of
+    admit_queued and of place_missing_elastic that held the most events
+    (admissions, placed components) over those ticks: a state at the
+    start of a tick has nothing to admit or re-place, since each tick
+    admits its arrivals and re-places what its policy killed.  Under the
+    optimistic policy hosts are over-committed, so the OOM handler finds
+    victims."""
     import torch
+    from repro_torch.kernels import ops, ref
     from repro_torch.sim.scenarios.registry import build_trace
     from repro_torch.sim.state import DeviceTrace, init_state
     cfg = SimConfig(forecaster="oracle", policy=policy)
@@ -847,13 +903,29 @@ def capture_states(step, SimConfig, policy):
     tr = DeviceTrace.from_traces([wl], "cpu")
     st = init_state(cfg, wl.n_apps, wl.max_components, 1, "cpu")
     cap = step.host_capacity(cfg, "cpu")
-    out = []
-    with torch.no_grad():
-        for k in range(max(CAPTURE_TICKS) + 1):
-            if k in CAPTURE_TICKS:
-                out.append((cfg, tr, st, cap))
-            st, _ = step.fused_tick(cfg, None, tr, st, cap)
-    return out
+    out, busiest = [], {}
+
+    def recording(name):
+        def call(*args):
+            res = getattr(ref, name)(*args)
+            n = scan_events(name, args, res)
+            if n > busiest.get(name, (0,))[0]:
+                busiest[name] = (n, args)
+            return res
+        return call
+    saved = {name: getattr(ops, name) for name in ("admit_queued", "place_missing_elastic")}
+    try:
+        for name in saved:
+            setattr(ops, name, recording(name))
+        with torch.no_grad():
+            for k in range(max(CAPTURE_TICKS) + 1):
+                if k in CAPTURE_TICKS:
+                    out.append((cfg, tr, st, cap))
+                st, _ = step.fused_tick(cfg, None, tr, st, cap)
+    finally:
+        for name, fn in saved.items():
+            setattr(ops, name, fn)
+    return out, {name: args for name, (_, args) in busiest.items()}
 
 
 def random_tables(seed, S=3, A=16, C=4, N=24, H=3):
@@ -900,16 +972,95 @@ def random_tables(seed, S=3, A=16, C=4, N=24, H=3):
                            (H, 1))))
 
 
+EDGE_KINDS = ("admissions", "gid ties", "missing elastics")
+
+
+def edge_member(kind, seed, A=13, C=7, N=37, H=4):
+    """One member's scheduler state (numpy) built for an edge case of
+    admission or elastic re-placement, A * C = 91 and N = 37 off the
+    16-byte vectors, hosts of (8 cpu, 24 GB), apps' gid a permutation of
+    their rows (tests/test_torch_sched.py holds the plain versions to the
+    reference on them):
+
+      "admissions"        3 running apps, 10 empty slots; the FIFO
+                          queue's 2nd head has an elastic component of
+                          30 GB (it cannot fit: the app is admitted
+                          without it), its 5th a core component of 40 GB
+                          (FIFO stops there, with apps queued behind it);
+      "gid ties"          2 empty slots and 10 queued apps, all submitted
+                          at once: the two of least gid are admitted;
+      "missing elastics"  13 running apps with most elastic components
+                          not running, each asking 4 GB: the walk fills
+                          the hosts part-way and places no more."""
+    rng = np.random.default_rng([seed, EDGE_KINDS.index(kind)])
+    idx = np.arange(C)
+    n_comp = rng.integers(3, C + 1, N)
+    exists = idx < n_comp[:, None]
+    is_core = idx < rng.integers(1, 3, N)[:, None]
+    cpu_req = np.where(exists, rng.choice([0.25, 0.5], (N, C)), 0).astype(np.float32)
+    mem_req = np.where(exists, rng.choice([1.0, 2.0], (N, C)), 0).astype(np.float32)
+    gid = rng.permutation(N).astype(np.int32)
+    submit = np.sort(rng.integers(0, 4, N) * 10.0).astype(np.float32)
+    apps = rng.permutation(N)
+    queued = np.zeros(N, bool)
+    p_elastic = 0.8
+    if kind == "admissions":
+        running, q = apps[:3], apps[3:]
+        fifo = q[np.lexsort((gid[q], submit[q]))]
+        mem_req[fifo[1], n_comp[fifo[1]] - 1] = 30.0
+        mem_req[fifo[4], 0] = 40.0
+    elif kind == "gid ties":
+        running, q = apps[:A - 2], apps[A - 2:A + 8]
+        submit[q] = 20.0
+    else:
+        running, q = apps[:A], apps[:0]
+        p_elastic = 0.3
+        mem_req = np.where(is_core, mem_req, 4.0 * exists).astype(np.float32)
+    queued[q] = True
+    slot_gid = np.full(A, -1, np.int32)
+    slot_gid[rng.choice(A, len(running), replace=False)] = running
+    g = np.maximum(slot_gid, 0)
+    run = (slot_gid >= 0)[:, None] & exists[g] & (is_core[g] | (rng.random((A, C)) < p_elastic))
+    alloc = (np.stack([cpu_req[g], mem_req[g]], -1) * run[..., None]).astype(np.float32)
+    return dict(
+        submit=submit, gid=gid, cpu_req=cpu_req, mem_req=mem_req, exists=exists,
+        is_core=is_core, slot_gid=slot_gid,
+        work_done=rng.uniform(0, 300, A).astype(np.float32), comp_running=run,
+        comp_host=np.where(run, rng.integers(0, H, (A, C)), 0).astype(np.int32),
+        alloc=alloc, usage=alloc.copy(),
+        alive_since=(60.0 * rng.integers(0, 3, (A, C))).astype(np.float32),
+        queued=queued, failed=np.zeros(N, bool), has_saved=rng.random(N) < 0.5,
+        saved_work=rng.uniform(0, 300, N).astype(np.float32), t=np.float32(300.0),
+        host_cap=np.tile(np.float32([[8.0, 24.0]]), (H, 1)))
+
+
+def edge_tables(seed):
+    """The three edge members of edge_member as one batch (S = 3) in
+    random_tables' layout."""
+    import torch
+    members = [edge_member(kind, seed) for kind in EDGE_KINDS]
+    d = {k: torch.as_tensor(np.stack([m[k] for m in members]))
+         for k in members[0] if k != "host_cap"}
+    d["host_cap"] = torch.as_tensor(members[0]["host_cap"])
+    d["counters"] = [torch.zeros(3, dtype=torch.int32) for _ in range(3)]
+    return d
+
+
 def scan_kernel_cases(step, SimConfig):
     """Every kernel's argument tuples (CPU tensors): the full-width states
     captured under the pessimistic and the optimistic policy (the pass on
     the tick's own problem, the scheduler loops on its state with the usage
-    at its progress) and 16 seeded random tables of three members each."""
+    at its progress), 16 seeded random tables of three members each, the
+    edge cases, and last the busiest captured calls of admission and
+    re-placement."""
     import torch
     from repro_torch.core.shaper import pessimistic as P
     cases = {k: [] for k in SCAN_KERNELS}
+    calls = []
     for policy in ("pessimistic", "optimistic"):
-        for cfg, tr, st, cap in capture_states(step, SimConfig, policy):
+        states, busiest = capture_states(step, SimConfig, policy)
+        calls += busiest.items()
+        for cfg, tr, st, cap in states:
             t = st.t + 60.0
             usage = step._usage_at(tr, st, torch.clamp(
                 st.work_done / step._rows(tr.runtime, step._gid(st)), 0.0, 1.0))
@@ -928,16 +1079,40 @@ def scan_kernel_cases(step, SimConfig):
         cases["pessimistic_pass"].append(pass_table(seed))
     # edge cases of the block-per-member kernels: three members each; A * C
     # and N off the 16-byte vectors; hosts over memory with every overage
-    # tied; a host short of cpu (member 0) or memory (member 1) before the
-    # pass, which removes every valid row; core components sharing hosts
+    # tied; admissions until a head does not fit, gid ties, missing elastic
+    # components that fill the hosts; a host short of cpu (member 0) or
+    # memory (member 1) before the pass, which removes every valid row;
+    # core components sharing hosts
     for seed in range(4):
         add_sched_cases(cases, random_tables(seed, A=13, C=7, N=37, H=5))
         add_sched_cases(cases, tied_oom_table(seed))
+        add_sched_cases(cases, edge_tables(seed))
         cases["pessimistic_pass"] += [pass_table(seed, A=7, C=5, H=3),
                                       pass_table(seed, A=13, C=3, H=4),
                                       pass_table(seed, negative=True),
                                       pass_table(seed, A=32, H=2, core_p=0.6)]
+    # no captured call re-places anything (no policy kill or OOM victim
+    # leaves an elastic component missing at these widths): the
+    # pessimistic tick-200 state with the running elastic components of
+    # every other slot stopped, as partial preemptions leave them
+    calls.append(("place_missing_elastic",
+                  stop_elastics(cases["place_missing_elastic"][TICK_200])))
+    for name, args in calls:
+        cases[name].append(args)
     return cases
+
+
+def stop_elastics(args):
+    """place_missing_elastic's arguments with the running elastic
+    components of the even slots stopped (not running, nothing allocated)."""
+    import torch
+    cpu_req, mem_req, exists, is_core, slot_gid, run, host, alloc, alive, t, cap = args
+    S, A, C = run.shape
+    g = slot_gid.clamp_min(0).long()[..., None].expand(S, A, C)
+    even = (torch.arange(A) % 2 == 0)[None, :, None]
+    stop = run & ~torch.gather(is_core, 1, g) & even
+    return (cpu_req, mem_req, exists, is_core, slot_gid, run & ~stop, host,
+            alloc * ~stop[..., None], alive, t, cap)
 
 
 def pass_table(seed, S=3, A=64, C=12, H=7, *, negative=False, core_p=0.3):
@@ -1194,14 +1369,16 @@ def time_scan_kernels(fns, cases, shaper, sched) -> dict:
     resolve_oom is timed again with victims: no state of the default
     config puts a host over its 128 GB (memory runs at ~10% of the
     cluster), so the captured optimistic state at tick 200 runs on hosts
-    of 16 GB there (OOM_HOST_MEM: 19 victims, 2 of them core).  The two
-    block-per-member kernels also report the clock64() cycles of their
-    phases.  The bound: the bytes each function
+    of 16 GB there (OOM_HOST_MEM: 19 victims, 2 of them core);
+    admit_queued and place_missing_elastic again on the full-width case
+    with the most admissions (a tick's own call, captured) and placed
+    components (the tick-200 state with elastic components stopped).  The kernels that
+    stamp them also report the clock64() cycles of their phases.  The bound: the bytes each function
     needs on that state (scan_bound_bytes) over 3.35 TB/s; their
     operations are a few thousand additions and comparisons."""
     import torch
-    pick = {"pessimistic_pass": 4, "resolve_oom": 4, "admit_queued": 8,
-            "place_missing_elastic": 4}
+    pick = {"pessimistic_pass": TICK_200, "resolve_oom": TICK_200,
+            "admit_queued": 2 * TICK_200, "place_missing_elastic": TICK_200}
     *oom, cap = cases["resolve_oom"][len(CAPTURE_TICKS) + pick["resolve_oom"]]
     cap = cap.clone()
     cap[:, 1] = OOM_HOST_MEM
@@ -1210,11 +1387,24 @@ def time_scan_kernels(fns, cases, shaper, sched) -> dict:
     timed = [(name, cases[name][pick[name]], "tick 200") for name in fns]
     timed.append(("resolve_oom", victims_case, f"optimistic tick 200 on {OOM_HOST_MEM:g} GB "
                                                f"hosts, {victims} victims"))
+    # admission and re-placement where they have events: the full-width
+    # case (S = 1) with the most admissions (a tick's own call, captured)
+    # and placed components (the tick-200 state with elastics stopped)
+    for name, what in (("admit_queued", "admissions"),
+                       ("place_missing_elastic", "placed components")):
+        plain = fns[name][1]
+        n, busiest = max(((scan_events(name, a, plain(*a)), a) for a in cases[name]
+                          if a[0].shape[0] == 1), key=lambda x: x[0])
+        timed.append((name, busiest, f"full-width case with {n} {what}"))
     # (a kernel of an older checkout, timed by profile_port.py --src, has no stamps)
+    event_phases = ("stage", "search", "free table", "placement", "write")
     phase_fns = {"pessimistic_pass": (getattr(shaper, "phase_cycles", None),
                                       ("stage", "precompute", "chain", "write")),
                  "resolve_oom": (getattr(sched, "oom_phase_cycles", None),
-                                 ("stage", "per-host sums", "victim loop", "write"))}
+                                 ("stage", "per-host sums", "victim loop", "write")),
+                 "admit_queued": (getattr(sched, "admit_phase_cycles", None), event_phases),
+                 "place_missing_elastic": (getattr(sched, "elastic_phase_cycles", None),
+                                           event_phases)}
     log(f"  nvidia-smi clocks.sm, clocks.max.sm: {smi_clocks()}")
     out = {}
     for i, (name, cpu, where) in enumerate(timed):
@@ -1235,11 +1425,14 @@ def time_scan_kernels(fns, cases, shaper, sched) -> dict:
         dev_us = device_us_per_call(lambda: kern(*gpu), f"{name}_kernel")
         host_us = host_us_per_call(lambda: kern(*gpu))
         bound = nbytes / HBM_BYTES_PER_S * 1e3
+        events = scan_events(name, cpu, plain(*cpu))
+        per = (f", {dev_us / events:.3f} us per event ({events})"
+               if dev_us is not None and events else "")
         log(f"  {name} ({where}): kernel {k1:.5f}/{k2:.5f} ms, plain (numpy on the host) "
             f"{p1:.5f}/{p2:.5f} ms; device "
             f"{'not measured' if dev_us is None else f'{dev_us:.3f} us'} per launch "
-            f"(torch.profiler), host {host_us:.3f} us per call; bound {bound * 1e3:.4f} us "
-            f"({nbytes} B needed)")
+            f"(torch.profiler){per}, host {host_us:.3f} us per call; bound "
+            f"{bound * 1e3:.4f} us ({nbytes} B needed)")
         fn, phases = phase_fns.get(name, (None, ()))
         if fn is not None:
             cyc = [min(c) for c in zip(*(fn(*gpu)[0].tolist() for _ in range(20)))]
@@ -1304,11 +1497,11 @@ def main() -> int:
     # the wrappers size a block's shared memory as the kernels carve it
     for A, C, N, H in ((128, 12, 500, 50), (64, 12, 100, 7), (7, 5, 24, 3), (13, 7, 37, 5)):
         assert shaper.smem_bytes(A, C, H) == shaper._library().pessimistic_pass_smem(A, C, H)
-        assert (sched.oom_smem_bytes(A, C, N, H)
-                == sched._library().resolve_oom_smem(A, C, N, H))
+        for name, fn in sched.SMEM_BYTES.items():
+            assert fn(A, C, N, H) == getattr(sched._library(), f"{name}_smem")(A, C, N, H)
     log(f"  shared memory per block at A=128, C=12, N=500, H=50: pessimistic_pass "
-        f"{shaper.smem_bytes(128, 12, 50)} B, resolve_oom "
-        f"{sched.oom_smem_bytes(128, 12, 500, 50)} B")
+        f"{shaper.smem_bytes(128, 12, 50)} B, " + ", ".join(
+            f"{name} {fn(128, 12, 500, 50)} B" for name, fn in sched.SMEM_BYTES.items()))
 
     log("== 3. kernel checks (kernel vs plain on the card)")
     err = check_kernels(gp_gram, ref, dev)

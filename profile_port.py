@@ -22,11 +22,13 @@ launches per tick made inside the code that copies XLA:CPU's rounding
 
 ``--path kernels`` checks and times the device engine's four kernels
 alone, as ``chip_smoke.py`` phase 8 does (device and host time per call
-at the tick-200 states, resolve_oom also with victims, and the phase
-cycles of the kernels that stamp them).  With ``--src DIR`` it takes the
-package from another checkout's ``src`` (a parent commit unpacked with
-``git archive``), so that two commits' kernels are timed on one card in
-one call.
+at the tick-200 states, resolve_oom also with victims, admission and
+elastic re-placement also on the full-width cases with the most events,
+and the phase cycles of the kernels that stamp them), then times the
+``a*b + c`` kernel beside ``torch.add``'s device time.  With ``--src
+DIR`` it takes the package from another checkout's ``src`` (a parent
+commit unpacked with ``git archive``), so that two commits' kernels are
+timed on one card in one call.
 
 ``--path whisper`` does the same for Whisper-large-v3 serving at full
 width (random weights): one prefill of 8 requests x 1,500 frames with
@@ -242,7 +244,7 @@ def profile_scan() -> int:
 
 def profile_kernels() -> int:
     import chip_smoke
-    from repro_torch.kernels import ref, sched, shaper
+    from repro_torch.kernels import fma, ref, sched, shaper
     from repro_torch.sim import SimConfig, step
     print(f"package {Path(shaper.__file__).resolve().parents[2]}; nvidia-smi: "
           f"{chip_smoke.nvidia_smi()}")
@@ -250,6 +252,7 @@ def profile_kernels() -> int:
     fns = chip_smoke.scan_kernel_pairs(shaper, sched, ref)
     chip_smoke.check_scan_kernels(fns, cases)
     chip_smoke.time_scan_kernels(fns, cases, shaper, sched)
+    chip_smoke.time_fma(fma, ref)
     return 0
 
 

@@ -30,7 +30,10 @@ def beta(request: torch.Tensor, var: torch.Tensor,
     ``k1 * request`` is added to the dynamic term with a single rounding
     (``ops.fma_f32``, a fused multiply-add), which is how XLA compiles the
     reference's expression; two roundings would move about 0.5% of the
-    demands by one ulp."""
+    demands by one ulp.  At k1 = 1 XLA drops the multiplication by one
+    and contracts ``k2 * sigma + request`` instead."""
+    if np.float32(cfg.k1) == 1:
+        return kops.fma_f32(sigma_from_var(var), np.float32(cfg.k2), request)
     dyn = cfg.k2 * sigma_from_var(var)
     return kops.fma_f32(request, np.float32(cfg.k1), dyn)
 

@@ -1,6 +1,6 @@
 """CUDA kernel of ``a * b + c`` rounded once to float32 (the fused
-multiply-add XLA:CPU makes of the reference's expression): build, bind
-and launch.
+multiply-add XLA:CPU makes of the reference's expression, subnormals
+flushed as XLA:CPU flushes them): build, bind and launch.
 
 The kernel, its bound and its design are described in ``csrc/fma.cu``;
 its plain version is ``ref.fma_f32``.  Nothing is built when this module

@@ -81,8 +81,9 @@ def _route(name: str, kernel, plain, t: torch.Tensor, args):
 
 def fma_f32(a: torch.Tensor, b, c: torch.Tensor) -> torch.Tensor:
     """``a * b + c`` rounded once to float32, as XLA:CPU's fused
-    multiply-add gives it; ``b`` a tensor that broadcasts or a scalar
-    taken as float32.  On the card one kernel launch."""
+    multiply-add gives it, subnormal inputs and tiny results flushed to
+    zero as XLA:CPU does; ``b`` a tensor that broadcasts or a scalar taken
+    as float32.  On the card one kernel launch."""
     if a.device.type == "cuda":
         return _fm.fma_f32(a, b, c)
     if a.device.type == "cpu":

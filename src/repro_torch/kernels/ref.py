@@ -39,6 +39,14 @@ def sq_dists(xa: torch.Tensor, xb: torch.Tensor) -> torch.Tensor:
     return torch.clamp_min(na[:, :, None] + nb[:, None, :] - 2.0 * ab, 0.0)
 
 
+F32_TINY = 2.0**-126   # the least normal float32
+
+
+def _daz(x: torch.Tensor) -> torch.Tensor:
+    """``x`` with every subnormal read as a zero of its sign."""
+    return torch.where(x.abs() < F32_TINY, torch.copysign(torch.zeros_like(x), x), x)
+
+
 def fma_f32(a: torch.Tensor, b, c: torch.Tensor) -> torch.Tensor:
     """``a * b + c`` rounded once to float32, as XLA:CPU's fused
     multiply-add gives it.  ``b`` is a tensor that broadcasts or a Python
@@ -47,16 +55,31 @@ def fma_f32(a: torch.Tensor, b, c: torch.Tensor) -> torch.Tensor:
     The float64 product of two float32 values is exact; the float64 sum
     is made round-to-odd (its TwoSum error decides the last bit), and a
     53-bit round-to-odd value rounds to the 24 bits of float32 as the
-    exact sum would (53 >= 2 * 24 + 2)."""
-    a64, c64 = a.double(), c.double()
-    b64 = b.double() if isinstance(b, torch.Tensor) else float(np.float32(b))
+    exact sum would (53 >= 2 * 24 + 2).
+
+    Subnormals go as on XLA:CPU (x86's flush-to-zero and
+    denormals-are-zero): an input below 2**-126 in magnitude is read as a
+    zero of its sign, and a result is flushed to a zero of its sign when
+    it is tiny after rounding: when the exact value, rounded to float32's
+    24 bits as if the exponent had no lower limit, lies below 2**-126.
+    So 2**-126 - 2**-150 is flushed, while an exact value a quarter of an
+    ulp below 2**-126 rounds up to it and is kept.  Scaling by 2**64
+    (exact) brings that rounding into the normal range."""
+    a64, c64 = _daz(a).double(), _daz(c).double()
+    if isinstance(b, torch.Tensor):
+        b64 = _daz(b).double()
+    else:
+        b64 = float(np.float32(b))
+        b64 = math.copysign(0.0, b64) if abs(b64) < F32_TINY else b64
     p = a64 * b64
     s = p + c64
     bp = s - p
     err = (p - (s - bp)) + (c64 - bp)
     inexact = (err != 0) & torch.isfinite(err) & ((s.view(torch.int64) & 1) == 0)
     toward = torch.where(err > 0, math.inf, -math.inf).to(s.dtype)
-    return torch.where(inexact, torch.nextafter(s, toward), s).float()
+    s = torch.where(inexact, torch.nextafter(s, toward), s)
+    tiny = (s * 2.0**64).float().abs() < F32_TINY * 2.0**64
+    return torch.where(tiny, torch.copysign(torch.zeros_like(s), s), s).float()
 
 
 def _unit_kernel(d2: torch.Tensor, ell: torch.Tensor, kind: str):

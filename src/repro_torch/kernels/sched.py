@@ -24,16 +24,18 @@ import torch
 from repro_torch.kernels import nvcc
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "sched.cu"
-MAX_HOSTS = 1024    # the free table and per-host running sums in 48 KB of shared memory
+MAX_HOSTS = 1024    # the placement loops' worst fit: one warp, 32 hosts a lane
 MAX_COMPONENTS = 32  # a slot's components fit one window of the sums' order
-# resolve_oom stages a member's state in one block's shared memory (at
-# most 227 KB on sm_90): 30 B per flat row, 8 B per slot, 2 B per app and
-# 4 B per host and window of 32 rows, beside 16 B of alignment per region;
-# oom_smem_bytes() gives the exact figure.
+# Each kernel stages a member's state in one block's shared memory (at
+# most 227 KB on sm_90): ~30-40 B per flat row, 8 B per slot, 2-10 B per
+# app and 4-8 B per host and window of 32 rows, beside 16 B of alignment
+# per region; *_smem_bytes() give the exact figures.
 MAX_SMEM = 232448
+BLOCK_WARPS = 8     # csrc/sched.cu:kWarps
 
 _LIB: ctypes.CDLL | None = None
 _B, _F32, _I32 = torch.bool, torch.float32, torch.int32
+KERNELS = ("resolve_oom", "admit_queued", "place_missing_elastic")
 
 
 def _library() -> ctypes.CDLL:
@@ -41,34 +43,67 @@ def _library() -> ctypes.CDLL:
     if _LIB is None:
         lib = ctypes.CDLL(str(nvcc.build(SOURCE).path))
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        for name, n_ptr, n_int, tail in (("resolve_oom", 24, 5, 2),
-                                         ("admit_queued", 26, 6, 1),
-                                         ("place_missing_elastic", 15, 5, 1)):
+        for name, n_ptr, n_int in zip(KERNELS, (24, 26, 15), (5, 6, 5)):
             fn = getattr(lib, name)
-            fn.argtypes = [ptr] * n_ptr + [i32] * n_int + [ptr] * tail
+            fn.argtypes = [ptr] * n_ptr + [i32] * n_int + [ptr] * 2   # clocks, stream
             fn.restype = i32
-        lib.resolve_oom_init.argtypes = []
-        lib.resolve_oom_init.restype = i32
-        lib.resolve_oom_smem.argtypes = [i32] * 4
-        lib.resolve_oom_smem.restype = ctypes.c_longlong
+            getattr(lib, f"{name}_init").argtypes = []
+            getattr(lib, f"{name}_init").restype = i32
+            getattr(lib, f"{name}_smem").argtypes = [i32] * 4
+            getattr(lib, f"{name}_smem").restype = ctypes.c_longlong
         _LIB = lib
     return _LIB
+
+
+def _region(n):
+    return (n + 31) // 16 * 16
+
+
+def _sums_bytes(AC, H, V):
+    """block_host_sums' two tables (csrc/sched.cu:sums_smem)."""
+    windows = -(-AC // 32) if AC > 32 else 1
+    return (_region(windows * (H * V + (V > 1)) * 4)
+            + _region(-(-windows // 32) * H * V * 4))
 
 
 def oom_smem_bytes(A: int, C: int, N: int, H: int) -> int:
     """The shared memory one block of resolve_oom takes at (A, C, N, H);
     the arithmetic of ``csrc/sched.cu:oom_smem``."""
-    def region(n):
-        return (n + 31) // 16 * 16
     AC = A * C
-    windows = -(-AC // 32) if AC > 32 else 1
     padded = AC + AC // 32 + 1
-    return (2 * region(A * 4) + 2 * region(AC) + region(AC * 4) + 2 * region(AC * 8)
-            + 2 * region(N) + 2 * region(padded * 4) + region(windows * H * 4)
-            + region(-(-windows // 32) * H * 4) + region(H * 4))
+    return (2 * _region(A * 4) + 2 * _region(AC) + _region(AC * 4) + 2 * _region(AC * 8)
+            + 2 * _region(N) + 2 * _region(padded * 4) + _sums_bytes(AC, H, 1)
+            + _region(H * 4))
 
 
-def _dims(comp_running, n_apps_tensor, host_cap):
+def admit_smem_bytes(A: int, C: int, N: int, H: int) -> int:
+    """The shared memory one block of admit_queued takes at (A, C, N, H);
+    the arithmetic of ``csrc/sched.cu:admit_smem``."""
+    AC = A * C
+    padded = AC + AC // 32 + 1
+    return (2 * _region(A * 4) + 2 * _region(AC) + 2 * _region(AC * 4) + _region(AC * 8)
+            + 2 * _region(N) + 2 * _region(N * 4) + _region(padded * 4)
+            + _region(padded * 8) + _sums_bytes(AC, H, 2) + _region(H * 8)
+            + _region((3 * BLOCK_WARPS + 2) * 4))
+
+
+def elastic_smem_bytes(A: int, C: int, N: int, H: int) -> int:
+    """The shared memory one block of place_missing_elastic takes at (A, C,
+    N, H); the arithmetic of ``csrc/sched.cu:elastic_smem``."""
+    AC = A * C
+    padded = AC + AC // 32 + 1
+    return (_region(A * 4) + 2 * _region(AC) + 2 * _region(AC * 4) + 2 * _region(AC * 8)
+            + _region(padded * 4) + _region(padded * 8) + _sums_bytes(AC, H, 2)
+            + _region(H * 8))
+
+
+SMEM_BYTES = {"resolve_oom": oom_smem_bytes, "admit_queued": admit_smem_bytes,
+              "place_missing_elastic": elastic_smem_bytes}
+
+
+def _dims(name, comp_running, n_apps_tensor, host_cap):
+    """(S, A, C, N, H) of a call of kernel ``name``; raises before any
+    launch if the kernel cannot take it."""
     S, A, C = comp_running.shape
     N = n_apps_tensor.shape[1]
     H = host_cap.shape[0]
@@ -77,23 +112,27 @@ def _dims(comp_running, n_apps_tensor, host_cap):
     if not 1 <= C <= MAX_COMPONENTS or A * C > 2**20:
         raise ValueError(f"A={A} slots of C={C} components: the kernels take "
                          f"C <= {MAX_COMPONENTS} and A * C <= 2**20")
+    need = SMEM_BYTES[name](A, C, N, H)
+    if need > MAX_SMEM:
+        raise ValueError(f"A={A} slots of C={C} components, N={N} apps, H={H} hosts: "
+                         f"{name} takes a member's state in {MAX_SMEM} B of shared "
+                         f"memory (this one needs {need} B)")
+    if comp_running.device.type != "cuda":
+        raise ValueError(f"the scheduler kernels take CUDA tensors, got "
+                         f"{comp_running.device}")
     return S, A, C, N, H
 
 
-def _on_cuda(t):
-    if t.device.type != "cuda":
-        raise ValueError(f"the scheduler kernels take CUDA tensors, got {t.device}")
+def _launch(name, device, *args) -> None:
+    lib = _library()
+    nvcc.prepare(getattr(lib, f"{name}_init"), name, device)
+    nvcc.launch(getattr(lib, name), name, device, *args)
 
 
 def _launch_oom(slot_gid, work_done, comp_running, comp_host, alloc, usage, failed,
                 queued, oom_kills, failure_events, partial_preemptions, is_core,
                 host_cap, clocks):
-    S, A, C, N, H = _dims(comp_running, failed, host_cap)
-    if oom_smem_bytes(A, C, N, H) > MAX_SMEM:
-        raise ValueError(f"A={A} slots of C={C} components, N={N} apps, H={H} hosts: "
-                         f"resolve_oom takes a member's state in {MAX_SMEM} B of shared "
-                         f"memory (this one needs {oom_smem_bytes(A, C, N, H)} B)")
-    _on_cuda(comp_running)
+    S, A, C, N, H = _dims("resolve_oom", comp_running, failed, host_cap)
     nvcc.check(comp_running.device, slot_gid=(slot_gid, _I32, (S, A)),
                work_done=(work_done, _F32, (S, A)),
                comp_running=(comp_running, _B, (S, A, C)),
@@ -109,45 +148,17 @@ def _launch_oom(slot_gid, work_done, comp_running, comp_host, alloc, usage, fail
                                           failure_events, partial_preemptions)]
     monreset = torch.empty((S, A * C), dtype=_B, device=comp_running.device)
     if S:
-        lib = _library()
-        nvcc.prepare(lib.resolve_oom_init, "resolve_oom", comp_running.device)
-        nvcc.launch(lib.resolve_oom, "resolve_oom", comp_running.device,
-                    slot_gid, work_done, comp_running, comp_host, alloc, usage,
-                    failed, queued, oom_kills, failure_events, partial_preemptions,
-                    is_core, host_cap, *outs, monreset, S, A, C, N, H, clocks)
+        _launch("resolve_oom", comp_running.device, slot_gid, work_done, comp_running,
+                comp_host, alloc, usage, failed, queued, oom_kills, failure_events,
+                partial_preemptions, is_core, host_cap, *outs, monreset, S, A, C, N, H,
+                clocks)
     return (*outs, monreset)
 
 
-def resolve_oom(slot_gid, work_done, comp_running, comp_host, alloc, usage, failed,
-                queued, oom_kills, failure_events, partial_preemptions, is_core,
-                host_cap):
-    """Launch the OOM kernel (one block per member); returns what
-    ``ref.resolve_oom`` returns."""
-    out = _launch_oom(slot_gid, work_done, comp_running, comp_host, alloc, usage,
-                      failed, queued, oom_kills, failure_events, partial_preemptions,
-                      is_core, host_cap, None)
-    if slot_gid.shape[0]:
-        resolve_oom.launches += 1
-    return out
-
-
-def oom_phase_cycles(*args) -> torch.Tensor:
-    """One launch of the OOM kernel that also stamps ``clock64()`` between
-    its phases: ``(S, 4)`` int64 cycles per member of the staging, the
-    per-host sums at entry, the victim loop and the write.  A measurement,
-    not a launch of the main path: it is not counted."""
-    clocks = torch.zeros((args[0].shape[0], 4), dtype=torch.int64, device=args[0].device)
-    _launch_oom(*args, clocks)
-    return clocks
-
-
-def admit_queued(submit, gid, cpu_req, mem_req, exists, is_core, slot_gid,
-                 work_done, comp_running, comp_host, alloc, alive_since, queued,
-                 has_saved, saved_work, t, host_cap, resume: bool):
-    """Launch the admission kernel; returns what ``ref.admit_queued``
-    returns."""
-    S, A, C, N, H = _dims(comp_running, submit, host_cap)
-    _on_cuda(comp_running)
+def _launch_admit(submit, gid, cpu_req, mem_req, exists, is_core, slot_gid, work_done,
+                  comp_running, comp_host, alloc, alive_since, queued, has_saved,
+                  saved_work, t, host_cap, resume, clocks):
+    S, A, C, N, H = _dims("admit_queued", comp_running, submit, host_cap)
     nvcc.check(comp_running.device, submit=(submit, _F32, (S, N)),
                gid=(gid, _I32, (S, N)), cpu_req=(cpu_req, _F32, (S, N, C)),
                mem_req=(mem_req, _F32, (S, N, C)), exists=(exists, _B, (S, N, C)),
@@ -165,21 +176,16 @@ def admit_queued(submit, gid, cpu_req, mem_req, exists, is_core, slot_gid,
                                           has_saved)]
     resets = torch.empty((S, A * C), dtype=_B, device=comp_running.device)
     if S:
-        nvcc.launch(_library().admit_queued, "admit_queued", comp_running.device,
-                    submit, gid, cpu_req, mem_req, exists, is_core, slot_gid,
-                    work_done, comp_running, comp_host, alloc, alive_since, queued,
-                    has_saved, saved_work, t, host_cap, *outs, resets, S, A, C, N, H,
-                    int(resume))
-        admit_queued.launches += 1
+        _launch("admit_queued", comp_running.device, submit, gid, cpu_req, mem_req,
+                exists, is_core, slot_gid, work_done, comp_running, comp_host, alloc,
+                alive_since, queued, has_saved, saved_work, t, host_cap, *outs, resets,
+                S, A, C, N, H, int(resume), clocks)
     return (*outs, resets)
 
 
-def place_missing_elastic(cpu_req, mem_req, exists, is_core, slot_gid, comp_running,
-                          comp_host, alloc, alive_since, t, host_cap):
-    """Launch the elastic re-placement kernel; returns what
-    ``ref.place_missing_elastic`` returns."""
-    S, A, C, N, H = _dims(comp_running, cpu_req, host_cap)
-    _on_cuda(comp_running)
+def _launch_elastic(cpu_req, mem_req, exists, is_core, slot_gid, comp_running,
+                    comp_host, alloc, alive_since, t, host_cap, clocks):
+    S, A, C, N, H = _dims("place_missing_elastic", comp_running, cpu_req, host_cap)
     nvcc.check(comp_running.device, cpu_req=(cpu_req, _F32, (S, N, C)),
                mem_req=(mem_req, _F32, (S, N, C)), exists=(exists, _B, (S, N, C)),
                is_core=(is_core, _B, (S, N, C)), slot_gid=(slot_gid, _I32, (S, A)),
@@ -190,12 +196,80 @@ def place_missing_elastic(cpu_req, mem_req, exists, is_core, slot_gid, comp_runn
                host_cap=(host_cap, _F32, (H, 2)))
     outs = [torch.empty_like(x) for x in (comp_running, comp_host, alloc, alive_since)]
     if S:
-        nvcc.launch(_library().place_missing_elastic, "place_missing_elastic",
-                    comp_running.device, cpu_req, mem_req, exists, is_core, slot_gid,
-                    comp_running, comp_host, alloc, alive_since, t, host_cap, *outs,
-                    S, A, C, N, H)
-        place_missing_elastic.launches += 1
+        _launch("place_missing_elastic", comp_running.device, cpu_req, mem_req, exists,
+                is_core, slot_gid, comp_running, comp_host, alloc, alive_since, t,
+                host_cap, *outs, S, A, C, N, H, clocks)
     return tuple(outs)
+
+
+def resolve_oom(slot_gid, work_done, comp_running, comp_host, alloc, usage, failed,
+                queued, oom_kills, failure_events, partial_preemptions, is_core,
+                host_cap):
+    """Launch the OOM kernel (one block per member); returns what
+    ``ref.resolve_oom`` returns."""
+    out = _launch_oom(slot_gid, work_done, comp_running, comp_host, alloc, usage,
+                      failed, queued, oom_kills, failure_events, partial_preemptions,
+                      is_core, host_cap, None)
+    if slot_gid.shape[0]:
+        resolve_oom.launches += 1
+    return out
+
+
+def admit_queued(submit, gid, cpu_req, mem_req, exists, is_core, slot_gid,
+                 work_done, comp_running, comp_host, alloc, alive_since, queued,
+                 has_saved, saved_work, t, host_cap, resume: bool):
+    """Launch the admission kernel (one block per member); returns what
+    ``ref.admit_queued`` returns."""
+    out = _launch_admit(submit, gid, cpu_req, mem_req, exists, is_core, slot_gid,
+                        work_done, comp_running, comp_host, alloc, alive_since, queued,
+                        has_saved, saved_work, t, host_cap, resume, None)
+    if submit.shape[0]:
+        admit_queued.launches += 1
+    return out
+
+
+def place_missing_elastic(cpu_req, mem_req, exists, is_core, slot_gid, comp_running,
+                          comp_host, alloc, alive_since, t, host_cap):
+    """Launch the elastic re-placement kernel (one block per member);
+    returns what ``ref.place_missing_elastic`` returns."""
+    out = _launch_elastic(cpu_req, mem_req, exists, is_core, slot_gid, comp_running,
+                          comp_host, alloc, alive_since, t, host_cap, None)
+    if cpu_req.shape[0]:
+        place_missing_elastic.launches += 1
+    return out
+
+
+def _clocks(args, n):
+    return torch.zeros((args[0].shape[0], n), dtype=torch.int64, device=args[0].device)
+
+
+def oom_phase_cycles(*args) -> torch.Tensor:
+    """One launch of the OOM kernel that also stamps ``clock64()`` between
+    its phases: ``(S, 4)`` int64 cycles per member of the staging, the
+    per-host sums at entry, the victim loop and the write.  A measurement,
+    not a launch of the main path: it is not counted."""
+    clocks = _clocks(args, 4)
+    _launch_oom(*args, clocks)
+    return clocks
+
+
+def admit_phase_cycles(*args) -> torch.Tensor:
+    """One uncounted launch of the admission kernel with ``clock64()``
+    stamps: ``(S, 5)`` int64 cycles per member of the staging, the head
+    searches, the free tables, the placements (each summed over the
+    admissions tried) and the write."""
+    clocks = _clocks(args, 5)
+    _launch_admit(*args, clocks)
+    return clocks
+
+
+def elastic_phase_cycles(*args) -> torch.Tensor:
+    """One uncounted launch of the elastic re-placement kernel with
+    ``clock64()`` stamps: ``(S, 5)`` int64 cycles per member of the
+    staging, the missing search, the free table, the walk and the write."""
+    clocks = _clocks(args, 5)
+    _launch_elastic(*args, clocks)
+    return clocks
 
 
 resolve_oom.launches = 0

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import EDGE_KINDS, edge_member
 from repro.core import shaper as rshaper
 from repro.core.shaper import pessimistic_shape_raw
 from repro.sim import state as rstate
@@ -367,6 +368,31 @@ def _tied(seed, A=13, C=7, N=37, H=3):
     return rtr, rst, usage, cap
 
 
+def _edge_case(kind, seed):
+    """chip_smoke.edge_member's member (an edge case of admission or
+    re-placement) as a reference (DeviceTrace, SimState, usage, host_cap)."""
+    m = edge_member(kind, seed)
+    N, C = m["exists"].shape
+    A = m["slot_gid"].shape[0]
+    trace = dict(submit=m["submit"], runtime=np.full(N, 600.0, np.float32),
+                 cpu_req=m["cpu_req"], mem_req=m["mem_req"], is_core=m["is_core"],
+                 is_jumpy=np.zeros(N, bool), levels=np.zeros((N, C, 32, 2), np.float32),
+                 exists=m["exists"], tenant=np.zeros(N, np.int32), gid=m["gid"])
+    z = lambda *s, dt=np.float32: np.zeros(s, dt)  # noqa: E731
+    st = dict(slot_gid=m["slot_gid"], work_done=m["work_done"],
+              comp_running=m["comp_running"], comp_host=m["comp_host"], alloc=m["alloc"],
+              alive_since=m["alive_since"], mon_buf=z(A * C, 24, 2),
+              mon_count=z(A * C, dt=np.int32), arrived=np.ones(N, bool),
+              queued=m["queued"], done=z(N, dt=bool), failed=m["failed"], finish_t=z(N),
+              saved_work=m["saved_work"], has_saved=m["has_saved"], t=m["t"],
+              failure_events=np.int32(0), oom_kills=np.int32(0),
+              full_preemptions=np.int32(0), partial_preemptions=np.int32(0))
+    rtr = rstate.DeviceTrace(**{k: jnp.asarray(v) for k, v in trace.items()})
+    rst = rstate.SimState(**{k: jnp.asarray(v) for k, v in st.items()},
+                          calib=None, tenancy=None, obs=None)
+    return rtr, rst, m["usage"], m["host_cap"]
+
+
 def _cohort(cases):
     """The scheduler kernels' argument tuples for a batch of same-shaped
     reference cases, stacked on the member axis (S = len(cases)), with the
@@ -414,6 +440,56 @@ def test_resolve_oom_cohort_with_tied_overages_equals_reference():
     assert kills > 0
 
 
+@pytest.mark.parametrize("seed", range(4))
+def test_admission_and_replacement_edge_cases_equal_reference(seed):
+    """The three edge members at once (the plain versions that the kernels
+    are held to), each against the reference alone: several admissions
+    with more empty slots than admissions, then a head whose core does not
+    fit, which stops FIFO with apps still queued; an app admitted without
+    its elastic component that does not fit; submit ties broken by gid
+    (not by row); resume on and off with saved work; missing elastic
+    components that fill the hosts part-way through the walk."""
+    cases = [_edge_case(kind, seed) for kind in EDGE_KINDS]
+    _, adm_args, el_args = _cohort(cases)
+    cap = jnp.asarray(cases[0][3])
+    adm_names = ("slot_gid", "work_done", "comp_running", "comp_host", "alloc",
+                 "alive_since", "queued", "has_saved", "resets")
+    el_names = ("comp_running", "comp_host", "alloc", "alive_since")
+    place = jax.jit(rstep._place_missing_elastic)
+    got_el = ops.place_missing_elastic(*el_args)
+    for resume in (False, True):
+        cfg = dataclasses.replace(quick_base_config(), work_lost_on_kill=not resume)
+        admit = jax.jit(lambda tr, st, t, cap: rstep._admit_queued(cfg, tr, st, t, cap))
+        got = ops.admit_queued(*adm_args[:-1], resume)
+        for i, (rtr, rst, _, _) in enumerate(cases):
+            t = rst.t + jnp.float32(60.0)
+            want_st, want_resets = admit(rtr, rst, t, cap)
+            want = {**_fields(want_st), "resets": want_resets}
+            _assert_same({n: g[i:i + 1] for n, g in zip(adm_names, got)},
+                         {n: want[n] for n in adm_names})
+            if resume:
+                want_el = _fields(place(rtr, rst, t, cap))
+                _assert_same({n: g[i:i + 1] for n, g in zip(el_names, got_el)},
+                             {n: want_el[n] for n in el_names})
+        # what each member was built to show
+        q0, q1 = adm_args[12], got[6]
+        admitted = (q0 & ~q1).sum(1)
+        assert admitted[0] >= 2 and (got[0][0] < 0).any() and q1[0].any()
+        A, C = got[2].shape[1:]
+        new_slots = got[8][0].view(A, C).any(1)
+        apps = got[0][0][new_slots].long()
+        assert (adm_args[4][0][apps] & ~got[2][0][new_slots]).any()   # an elastic left out
+        gid = adm_args[1][1]
+        assert admitted[1] == 2
+        assert sorted(gid[q0[1] & ~q1[1]].tolist()) == gid[q0[1]].sort().values[:2].tolist()
+        assert admitted[2] == 0
+    g = adm_args[6][2].clamp_min(0).long()
+    missing = ((adm_args[6][2] >= 0)[:, None] & adm_args[4][2][g] & ~adm_args[5][2][g]
+               & ~el_args[5][2])
+    placed = (got_el[0][2] & ~el_args[5][2]).sum()
+    assert 0 < placed < missing.sum()
+
+
 def test_plain_versions_take_cpu_tensors_only():
     x = torch.zeros((1, 2), dtype=torch.bool, device="meta")
     with pytest.raises(ValueError, match="no pessimistic_pass implementation"):
@@ -423,11 +499,14 @@ def test_plain_versions_take_cpu_tensors_only():
 
 
 def test_block_kernels_refuse_a_member_beyond_shared_memory():
-    """The block-per-member kernels keep a member's state in one block's
-    shared memory: the main path's widths fit, a wider member is refused
-    before anything is launched (meta tensors: no data, no device)."""
+    """The block-per-member kernels (Algorithm 1's pass and the three
+    scheduler loops) keep a member's state in one block's shared memory:
+    the main path's widths fit, a wider member is refused before anything
+    is launched or counted (meta tensors: no data, no device)."""
     assert shaper.smem_bytes(128, 12, 50) == 80288 < shaper.MAX_SMEM
     assert sched.oom_smem_bytes(128, 12, 500, 50) == 58976 < sched.MAX_SMEM
+    assert sched.admit_smem_bytes(128, 12, 500, 50) == 73712 < sched.MAX_SMEM
+    assert sched.elastic_smem_bytes(128, 12, 500, 50) == 80272 < sched.MAX_SMEM
     m = dict(device="meta")
     A, C, H = 1024, 12, 50
     with pytest.raises(ValueError, match="shared memory"):
@@ -444,6 +523,22 @@ def test_block_kernels_refuse_a_member_beyond_shared_memory():
             *(torch.empty((1, A, C, 2), **m),) * 2, *(torch.empty((1, 500), **b),) * 2,
             *(torch.empty((1,), **i),) * 3, torch.empty((1, 500, C), **b),
             torch.empty((H, 2), **m))
+    N = 500
+    before = (sched.admit_queued.launches, sched.place_missing_elastic.launches)
+    trace = (torch.empty((1, N, C), **m), torch.empty((1, N, C), **m),
+             torch.empty((1, N, C), **b), torch.empty((1, N, C), **b))
+    table = (torch.empty((1, A), **i), torch.empty((1, A, C), **b),
+             torch.empty((1, A, C), **i), torch.empty((1, A, C, 2), **m),
+             torch.empty((1, A, C), **m))
+    with pytest.raises(ValueError, match="admit_queued takes a member's state in .* shared"):
+        sched.admit_queued(torch.empty((1, N), **m), torch.empty((1, N), **i), *trace,
+                           table[0], torch.empty((1, A), **m), *table[1:],
+                           *(torch.empty((1, N), **b),) * 2, torch.empty((1, N), **m),
+                           torch.empty((1,), **m), torch.empty((H, 2), **m), True)
+    with pytest.raises(ValueError, match="place_missing_elastic takes a member's state in "):
+        sched.place_missing_elastic(*trace, *table, torch.empty((1,), **m),
+                                    torch.empty((H, 2), **m))
+    assert (sched.admit_queued.launches, sched.place_missing_elastic.launches) == before
 
 
 # ----------------------------------------------------------------------
@@ -468,11 +563,13 @@ def _both(fn_kernel, fn_plain, args):
 @pytest.mark.gpu
 def test_sched_kernels_equal_plain_versions(cuda, captured):
     """Every captured and random case alone, then cohorts of three: seeded
-    tables with A * C = 91 and N = 37 off the 16-byte vectors, and tables
-    over memory with every overage tied."""
+    tables with A * C = 91 and N = 37 off the 16-byte vectors, tables
+    over memory with every overage tied, and the admission and
+    re-placement edge members."""
     cohorts = [[_random_case(3 * seed + i, A=13, C=7, N=37, H=5) for i in range(3)]
                for seed in range(4)]
     cohorts += [[_tied(3 * seed + i) for i in range(3)] for seed in range(4)]
+    cohorts += [[_edge_case(kind, seed) for kind in EDGE_KINDS] for seed in range(4)]
     for oom_args, adm_args, el_args in [_cohort([c]) for c in _cases(captured)] + [
             _cohort(c) for c in cohorts]:
         for kern, plain, args in ((sched.resolve_oom, ref.resolve_oom, oom_args),

@@ -90,7 +90,8 @@ def _beta_cases():
     dynamic term differs from two: the counterexample (1+2**-12)**2 +
     2**-80; requests whose product with k1 lands on a float32 midpoint
     (25 bits), with a dynamic term of +-2**-60 far below it, the float32
-    below the midpoint even and odd; and seeded random inputs."""
+    below the midpoint even and odd; and seeded random inputs, also at
+    k1 = 1."""
     one = float(np.float32(1 + 2**-12))
     yield "counterexample", (np.array([one], np.float32), np.array([2.0**-80], np.float32),
                              one, 2.0**-40)
@@ -109,6 +110,9 @@ def _beta_cases():
     yield "random", (rng.uniform(0.01, 64.0, 100_000).astype(np.float32),
                      rng.uniform(-1e-3, 4.0, 100_000).astype(np.float32),
                      float(rng.uniform(0, 1)), float(rng.uniform(0, 4)))
+    # k1 = 1: XLA drops the multiplication and contracts k2 * sigma + request
+    yield "random k1=1", (rng.uniform(0.01, 64.0, 100_000).astype(np.float32),
+                          rng.uniform(-1e-3, 4.0, 100_000).astype(np.float32), 1.0, 3.0)
 
 
 @pytest.mark.parametrize("case", [name for name, _ in _beta_cases()])

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import SUBNORMAL_ROWS, TINY, tiny_triples
 from repro.core.forecast.base import Forecast as RForecast
 from repro.sim import SimConfig
 from repro.sim import state as rstate
@@ -101,6 +102,20 @@ def test_fused_tick_equals_reference(forecaster):
 @pytest.mark.parametrize("forecaster", ["persist", "oracle"])
 def test_run_sim_scan_equals_reference(forecaster, policy):
     cfg = dataclasses.replace(SMALL, forecaster=forecaster, policy=policy)
+    pcfg, ptr, wl = _port_inputs(cfg)
+    _assert_summary(tstep.run_sim_scan(pcfg, ptr, device="cpu").summary(),
+                    rstep.run_sim_scan(cfg, wl).summary())
+
+
+def test_k1_of_one_equals_reference():
+    """A whole run with Eq. 9's k1 = 1 (the reservation as the floor),
+    where XLA contracts k2 * sigma + request instead of k1 * request +
+    dyn: the same summary.  (The two contractions differ in the last bit
+    of ~8% of the demands, which on this config flips no decision; the
+    bits are held in tests/test_torch_shaper.py's "random k1=1" case.)"""
+    from repro.core.shaper.safeguard import SafeguardConfig
+    cfg = dataclasses.replace(quick_base_config(), forecaster="persist",
+                              safeguard=SafeguardConfig(k1=1.0, k2=3.0))
     pcfg, ptr, wl = _port_inputs(cfg)
     _assert_summary(tstep.run_sim_scan(pcfg, ptr, device="cpu").summary(),
                     rstep.run_sim_scan(cfg, wl).summary())
@@ -268,9 +283,9 @@ def _midpoint_triples():
 
 def _random_triples(n=100_000, seed=0):
     """Seeded float32 triples in the normal range, c within a few binades
-    of a * b so that the sum cancels and rounds in every way.  (XLA:CPU
-    flushes subnormal results to zero; the port does not, so subnormal
-    results are left out.)"""
+    of a * b so that the sum cancels and rounds in every way.  (Subnormal
+    inputs and results near 2**-126, which XLA:CPU flushes to zero, have
+    cases of their own: chip_smoke's SUBNORMAL_ROWS and tiny_triples.)"""
     rng = np.random.default_rng(seed)
 
     def draw(lo, hi):
@@ -291,6 +306,8 @@ def _fma_cases():
             sel = (lower_odd == odd) & ((c > 0) == up)
             yield f"midpoint lower_odd={odd} err>0={up}", (a[sel], b[sel], c[sel])
     yield "random", _random_triples()
+    yield "subnormal rows", tuple(np.array(x, np.float32) for x in zip(*SUBNORMAL_ROWS))
+    yield "near 2**-126", tiny_triples()
 
 
 def test_random_triples_cover_both_parities_of_the_float64_sum():
@@ -313,6 +330,54 @@ def test_fma_equals_xla_fused_multiply_add(case):
     np.testing.assert_array_equal(_bits(tstep._fma(ta, tb, tc)), want)
     if case == "counterexample":
         assert float(kops.fma_f32(ta, tb, tc)[0]).hex() == "0x1.0020020000000p+0"
+
+
+def test_tiny_triples_flush_and_keep_results_near_2_to_the_minus_126():
+    """The near-2**-126 triples hold every way XLA:CPU treats a tiny
+    value: results flushed to +0 and -0, results 2**-126 kept (some of
+    them below 2**-126 before rounding), subnormal a, b and c."""
+    a, b, c = tiny_triples()
+    want = np.asarray(_XLA_FMA(a, b, c))
+    exact = a.astype(np.float64) * b + c
+    assert ((want == 0) & np.signbit(want)).sum() > 1000
+    assert ((want == 0) & ~np.signbit(want)).sum() > 1000
+    assert (np.abs(want) == np.float32(TINY)).sum() > 1000
+    assert ((np.abs(want) == np.float32(TINY)) & (np.abs(exact) < TINY)).sum() > 100
+    for x in (a, b, c):
+        assert ((x != 0) & (np.abs(x) < TINY)).sum() > 1000
+
+
+@pytest.mark.parametrize("case", ["subnormal rows", "near 2**-126"])
+def test_beta_flushes_subnormals_as_reference(case):
+    """Eq. 9's beta, k1 * request + k2 * sigma, on the subnormal cases:
+    request = a, k1 = b and a dynamic term equal to c (k2 = +-2**-100,
+    var = (|c| * 2**100)**2, both exact), one call per (b, sign of c),
+    against the jitted reference beta and, except at k1 = 1, the jitted
+    a * b + c (at k1 = 1 XLA drops the multiplication by one and
+    contracts k2 * sigma + request instead, so the subnormal c is an
+    addend no more)."""
+    from repro.core import shaper as rshaper
+    from repro_torch.core import shaper as tshaper
+    a, b, c = dict(_fma_cases())[case]
+    want = _bits(_XLA_FMA(a, b, c))
+    var = np.square(np.abs(c).astype(np.float64) * 2.0**100).astype(np.float32)
+    assert np.array_equal(np.sqrt(var.astype(np.float64)) * 2.0**-100, np.abs(c))
+    groups = 0
+    for k1 in np.unique(b):
+        for neg in (False, True):
+            sel = (b == k1) & (np.signbit(c) == neg)
+            if not sel.any():
+                continue
+            k2 = -(2.0**-100) if neg else 2.0**-100
+            got = tshaper.beta(torch.as_tensor(a[sel]), torch.as_tensor(var[sel]),
+                               tshaper.SafeguardConfig(float(k1), k2))
+            ref_beta = jax.jit(lambda r, v: rshaper.beta(
+                r, v, rshaper.SafeguardConfig(float(k1), k2)))(a[sel], var[sel])
+            np.testing.assert_array_equal(_bits(got), _bits(ref_beta))
+            if k1 != 1:
+                np.testing.assert_array_equal(_bits(got), want[sel])
+            groups += 1
+    assert groups > (1 if case == "subnormal rows" else 30)
 
 
 def test_fma_scalar_b_is_float32_and_b_broadcasts():
