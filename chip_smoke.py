@@ -12,12 +12,16 @@ points:
     the CPU; each forecasting tick launches the fused GP program once,
     each shaping tick Algorithm 1's kernel once, the Gram kernels never;
   * the same simulation on the device engine (``run_sim_scan(SimConfig())``)
-    to completion, every chunk under ``torch.cuda.set_sync_debug_mode(
-    "error")``, with one launch per tick of the GP program, Algorithm 1's
-    pass and the three scheduler kernels (OOM, admission, elastic
-    re-placement) and the same number of launches every tick of the
-    one-rounding ``a*b + c`` kernel, after the full-width oracle run on
-    the card against the CPU;
+    to completion, each chunk a replayed CUDA graph, captured and
+    replayed under ``torch.cuda.set_sync_debug_mode("error")``, with one
+    launch per tick of the GP program, Algorithm 1's pass and the three
+    scheduler kernels (OOM, admission, elastic re-placement) and the same
+    number of launches every tick of the one-rounding ``a*b + c`` kernel
+    (replays x the launches each graph holds), after the full-width
+    oracle run on the card (graphs) against the CPU (eager); then the
+    graphs against the eager ticks on the card, bit for bit at every
+    chunk boundary (135 ticks, so that the full and the cut chunk's
+    graphs both run, and a 3-seed cohort), and both timed in turns;
   * Whisper-large-v3 serving at full width (random weights from a seeded
     generator on the card): 8 requests of 1,500 frames prefilled with 448
     teacher-forced tokens through the tensor-core flash kernel (bf16,
@@ -31,7 +35,8 @@ card: the Gram pair, the fused GP program (on 512 seeded windows with a
 row whose factor fails and padded all-invalid rows, "exp" and "rbf"),
 both flash routes on every shape of FLASH_SHAPES, the ``a*b + c`` kernel
 bit for bit (a counterexample to two roundings, float32 midpoints, 10^5
-seeded triples, the engine's shapes), and the device engine's four
+seeded triples, the engine's shapes; scalar and tensor b, aligned and
+not), and the device engine's four
 kernels on full-width states captured from the port's own CPU runs,
 seeded tie-prone tables and edge cases (three members, A * C and N off
 the 16-byte vectors, a host below 0 before the pass, tied OOM victims,
@@ -54,6 +59,7 @@ times and bound.  Without a CUDA device, or without the repository's
 from __future__ import annotations
 
 import concurrent.futures
+import ctypes
 import dataclasses
 import json
 import re
@@ -806,20 +812,37 @@ def tiny_triples(n=100_000, seed=0):
     return a, b, c
 
 
+def fma_variants(name, a, b, c):
+    """(name, a, b, c, shift): each case as given and, where it is
+    one-dimensional, from its second element on (on the card a view 4
+    bytes into the upload: pointers off 16 bytes) and with its first b
+    as a scalar (the other template instance)."""
+    import torch
+    yield name, a, b, c, 0
+    if a.dim() == 1 and a.numel() > 1:
+        yield f"{name}, off 16 B", a, b, c, 1
+    if isinstance(b, torch.Tensor):
+        yield f"{name}, scalar b", a, float(b.reshape(-1)[0]), c, 0
+
+
 def check_fma(fma, ref) -> float:
     """The fma kernel on the card against its plain version on the CPU:
     every bit equal, signs of zeros included, on every case of
-    fma_cases."""
+    fma_cases and its variants (both template instances, aligned and
+    unaligned pointers)."""
     import torch
-    for name, a, b, c in fma_cases():
-        on_card = [x.cuda() if isinstance(x, torch.Tensor) else x for x in (a, b, c)]
-        got = fma.fma_f32(*on_card)
-        torch.cuda.synchronize()
-        want = ref.fma_f32(a, b, c)
-        if not torch.equal(got.cpu().view(torch.int32), want.view(torch.int32)):
-            bad = (got.cpu() != want).nonzero()[:5].tolist()
-            raise AssertionError(f"fma_f32 {name}: kernel differs from plain at {bad}")
-        log(f"  fma_f32 {name} {tuple(want.shape)}: kernel == plain, bit for bit")
+    for case in fma_cases():
+        for name, a, b, c, shift in fma_variants(*case):
+            cut = [x[shift:] if isinstance(x, torch.Tensor) else x for x in (a, b, c)]
+            on_card = [x.cuda()[shift:] if isinstance(x, torch.Tensor) else x
+                       for x in (a, b, c)]
+            got = fma.fma_f32(*on_card)
+            torch.cuda.synchronize()
+            want = ref.fma_f32(*cut)
+            if not torch.equal(got.cpu().view(torch.int32), want.view(torch.int32)):
+                bad = (got.cpu() != want).nonzero()[:5].tolist()
+                raise AssertionError(f"fma_f32 {name}: kernel differs from plain at {bad}")
+            log(f"  fma_f32 {name} {tuple(want.shape)}: kernel == plain, bit for bit")
     return 0.0
 
 
@@ -842,7 +865,7 @@ def time_fma(fma, ref) -> dict:
     ms = {k: [] for k in fns}
     for k in list(fns) + list(fns)[::-1]:
         ms[k].append(cuda_time_ms(fns[k], iters=200, warmup=10))
-    dev_us = device_us_per_call(kern, "fma_f32_kernel")
+    dev_us = device_us_per_call(kern, "fma_f32")
     lib_dev_us = device_us_per_call(lib)
     host_us = host_us_per_call(kern)
     same = torch.equal(lib().view(torch.int32), kern().view(torch.int32))
@@ -1207,8 +1230,9 @@ def check_scan_kernels(fns, cases) -> tuple[dict, dict]:
 
 def check_scan_card_vs_cpu(step, SimConfig) -> None:
     """run_sim_scan(SimConfig(forecaster="oracle")) at full width to
-    completion on the card and on the CPU: equal summaries (decisions are
-    discrete, the safeguard exact, the metric sums exact float64 sums)."""
+    completion on the card (replayed CUDA graphs) and on the CPU (the
+    chunk program run eagerly): equal summaries (decisions are discrete,
+    the safeguard exact, the metric sums exact float64 sums)."""
     cfg = SimConfig(forecaster="oracle")
     t = time.perf_counter()
     a = step.run_sim_scan(cfg, device="cuda")
@@ -1225,23 +1249,18 @@ def check_scan_card_vs_cpu(step, SimConfig) -> None:
 
 
 class strict_chunks:
-    """Run every chunk of the device engine under
-    torch.cuda.set_sync_debug_mode("error"): anything inside a chunk that
-    waits for the card raises."""
+    """Run every chunk of the device engine (its capture, where it has
+    none yet, and its replay) under torch.cuda.set_sync_debug_mode(
+    "error"): anything inside a chunk that waits for the card raises."""
 
     def __init__(self, step):
-        import torch
         self.step, self.orig = step, step._run_chunk
         self.chunks = 0
 
         def strict(*a, **k):
-            prev = torch.cuda.get_sync_debug_mode()
-            torch.cuda.set_sync_debug_mode("error")
-            try:
+            self.chunks += 1
+            with step._sync_errors():
                 return self.orig(*a, **k)
-            finally:
-                torch.cuda.set_sync_debug_mode(prev)
-                self.chunks += 1
         step._run_chunk = strict
 
     def stop(self) -> int:
@@ -1258,19 +1277,121 @@ def scan_launch_counts(gp_forecast, shaper, sched, fma) -> dict:
             "fma_f32": fma.fma_f32.launches}
 
 
+# CUgraphNodeType
+NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host", 4: "child graph", 5: "empty",
+              6: "wait event", 7: "event record", 10: "mem alloc", 11: "mem free"}
+
+# the kernel each counted wrapper of the device engine (nvcc.COUNTED)
+# launches, by the name of its function in the CUDA source
+KERNEL_OF = {"pessimistic_pass": "pessimistic_pass_kernel", "resolve_oom": "resolve_oom_kernel",
+             "admit_queued": "admit_queued_kernel",
+             "place_missing_elastic": "place_missing_elastic_kernel",
+             "gp_fit_forecast": "gp_forecast_kernel", "fma_f32": "fma_f32_kernel"}
+
+
+class KernelNodeParams(ctypes.Structure):
+    """CUDA_KERNEL_NODE_PARAMS_v2 of cuda.h."""
+    _fields_ = [("func", ctypes.c_void_p),
+                *[(f, ctypes.c_uint) for f in ("gridDimX", "gridDimY", "gridDimZ", "blockDimX",
+                                               "blockDimY", "blockDimZ", "sharedMemBytes")],
+                ("kernelParams", ctypes.c_void_p), ("extra", ctypes.c_void_p),
+                ("kern", ctypes.c_void_p), ("ctx", ctypes.c_void_p)]
+
+
+def libcuda():
+    """libcuda (CUDA's lower-level API) through ctypes, with the graph
+    queries declared."""
+    import torch
+    torch.cuda.init()
+    lib = ctypes.CDLL("libcuda.so.1")
+    ptr, out = ctypes.c_void_p, ctypes.POINTER
+    for name, args in (("cuGraphGetNodes", [ptr, ptr, out(ctypes.c_size_t)]),
+                       ("cuGraphNodeGetType", [ptr, out(ctypes.c_int)]),
+                       ("cuGraphKernelNodeGetParams_v2", [ptr, out(KernelNodeParams)]),
+                       ("cuFuncGetName", [out(ctypes.c_char_p), ptr]),
+                       ("cuKernelGetName", [out(ctypes.c_char_p), ptr])):
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = args, ctypes.c_int
+    return lib
+
+
+def graph_nodes(graph) -> tuple[dict, dict]:
+    """The nodes of a CUDA graph captured with keep_graph=True, as the
+    libcuda holds them (cuGraphGetNodes on raw_cuda_graph()): their count
+    by type, and the kernel nodes' count by the (mangled) name of the
+    function each launches (cuGraphKernelNodeGetParams, then
+    cuFuncGetName, or cuKernelGetName where the node holds a library
+    kernel; a node neither names is counted as unnamed)."""
+    lib = libcuda()
+    g = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    assert lib.cuGraphGetNodes(g, None, ctypes.byref(n)) == 0
+    nodes = (ctypes.c_void_p * n.value)()
+    assert lib.cuGraphGetNodes(g, nodes, ctypes.byref(n)) == 0
+    kinds: dict = {}
+    names: dict = {}
+    for node in nodes:
+        node, t = ctypes.c_void_p(node), ctypes.c_int(-1)
+        assert lib.cuGraphNodeGetType(node, ctypes.byref(t)) == 0
+        kind = NODE_TYPES.get(t.value, f"type {t.value}")
+        kinds[kind] = kinds.get(kind, 0) + 1
+        if kind == "kernel":
+            prm, name = KernelNodeParams(), ctypes.c_char_p()
+            rc = lib.cuGraphKernelNodeGetParams_v2(node, ctypes.byref(prm))
+            assert rc == 0, f"cuGraphKernelNodeGetParams: CUresult {rc}"
+            rc = lib.cuFuncGetName(ctypes.byref(name), prm.func) if prm.func else -1
+            if rc != 0:      # a library kernel (CUkernel), in kern or cast into func
+                rc = lib.cuKernelGetName(ctypes.byref(name), prm.kern or prm.func)
+            key = name.value.decode() if rc == 0 and name.value else f"unnamed (CUresult {rc})"
+            names[key] = names.get(key, 0) + 1
+    return kinds, names
+
+
+def wrapper_nodes(names: dict) -> dict:
+    """Kernel nodes per counted wrapper: those whose function is its
+    kernel (KERNEL_OF), from graph_nodes' count by name."""
+    return {w: sum(n for name, n in names.items() if kernel in name)
+            for w, kernel in KERNEL_OF.items()}
+
+
+def describe_graphs(entry) -> list[str]:
+    """One line per graph of a device-engine entry: its chunk size, nodes
+    by type, kernels per tick, capture and instantiate seconds, replays."""
+    lines = []
+    for size, g in sorted(entry.graphs.items()):
+        nodes, names = graph_nodes(g.graph)
+        per_tick = {w: n / size for w, n in wrapper_nodes(names).items()}
+        unnamed = sum(n for k, n in names.items() if k.startswith("unnamed"))
+        lines.append(f"chunk of {size}: {sum(nodes.values())} nodes {nodes}, "
+                     f"{nodes.get('kernel', 0) / size:.3f} kernels per tick (the port's, by "
+                     f"wrapper: {per_tick}; {unnamed} kernel nodes unnamed); capture "
+                     f"{g.capture_s:.3f} s, instantiate {g.instantiate_s:.3f} s; "
+                     f"{g.replays} replays")
+    return lines
+
+
 def run_scan_main(step, SimConfig, gp_forecast, shaper, sched, fma) -> dict:
     """The device engine's main path: run_sim_scan(SimConfig()) on the card
-    to completion (GP, pessimistic, full width), every chunk sync-free,
-    each of the five sim kernels launched once per tick and the fma kernel
-    the same number of times every tick.  Counts are set to 0 just before
-    the run and read just after; returns them."""
+    to completion (GP, pessimistic, full width) through replayed CUDA
+    graphs, every chunk sync-free (capture and replay), each of the five
+    sim kernels launched once per tick and the fma kernel the same number
+    of times every tick, counted as replays x the launches each graph's
+    capture counted, and held against replays x the graph's own kernel
+    nodes of each wrapper's kernel (graph_nodes).  A 64-tick run of the same config first warms up and captures
+    the graph (the cache is emptied before it).  Counts are set to 0 just
+    before the main run and read just after; returns them."""
     import torch
-    step.run_sim_scan(SimConfig(max_ticks=64), device="cuda")    # warm-up
-    torch.cuda.synchronize()
-    for m in (gp_forecast, shaper, sched, fma):
-        m.reset_launch_counts()
     guard = strict_chunks(step)
     try:
+        step._GRAPHS.clear()
+        t = time.perf_counter()
+        step.run_sim_scan(SimConfig(max_ticks=64), device="cuda")
+        torch.cuda.synchronize()
+        t_warm = time.perf_counter() - t
+        (entry,) = step._GRAPHS.values()
+        replays = {n: g.replays for n, g in entry.graphs.items()}
+        for m in (gp_forecast, shaper, sched, fma):
+            m.reset_launch_counts()
         t = time.perf_counter()
         res = step.run_sim_scan(SimConfig(), device="cuda")
         torch.cuda.synchronize()
@@ -1280,20 +1401,144 @@ def run_scan_main(step, SimConfig, gp_forecast, shaper, sched, fma) -> dict:
     launches = scan_launch_counts(gp_forecast, shaper, sched, fma)
     ticks = res.timings["ticks"]
     summary = res.summary()
+    ran = {n: g.replays - replays.get(n, 0) for n, g in entry.graphs.items()}
+    log(f"  warm-up and capture: run_sim_scan(SimConfig(max_ticks=64)) {t_warm:.3f} s")
+    for line in describe_graphs(entry):
+        log(f"  graph {line}")
     log(f"  {ticks} ticks ({len(res.n_running)} executed before the last app finished) "
-        f"in {chunks} chunks, {t:.3f} s: {ticks / t:.3f} ticks/s, "
-        f"{t / ticks * 1e3:.4f} ms per tick; every chunk sync-free")
+        f"in {chunks} chunks ({ran} replays), {t:.3f} s: {ticks / t:.3f} ticks/s, "
+        f"{t / ticks * 1e3:.4f} ms per tick; every chunk sync-free; max memory allocated "
+        f"{torch.cuda.max_memory_allocated()} B")
     log(f"  kernel launches {launches}")
     log(f"  summary {json.dumps(summary)}")
     log(f"  forecast rows {res.forecast_rows}")
     fma_per_tick = launches["fma_f32"] / ticks
     log(f"  fma_f32: {fma_per_tick} launches per tick")
+    assert len(entry.graphs) == 1 and sum(n * r for n, r in ran.items()) == ticks, ran
+    # the counts against the graphs themselves: replays x the kernel nodes
+    # of each wrapper's kernel that libcuda holds in the graph replayed
+    nodes = {size: wrapper_nodes(graph_nodes(entry.graphs[size].graph)[1]) for size in ran}
+    in_graphs = {k: sum(r * nodes[size][k] for size, r in ran.items()) for k in launches}
+    log(f"  kernel nodes replayed, by wrapper {in_graphs}")
+    assert launches == in_graphs, (launches, in_graphs)
     assert all(n == ticks for k, n in launches.items() if k != "fma_f32"), (launches, ticks)
     assert fma_per_tick >= 1 and fma_per_tick == int(fma_per_tick), launches
     assert summary["completed"] == 500, summary
     for k in ("util_cpu_mean", "util_mem_mean", "slack_cpu_mean", "slack_mem_mean"):
         assert np.isfinite(summary[k]), (k, summary[k])
     return launches
+
+
+def _bits(x):
+    import torch
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+def graph_vs_eager(step, cfg, seeds, ticks, chunk=32):
+    """Replays of the device engine's graph entry for ``cfg`` against the
+    eager loop of fused_tick on the card from the same initial state:
+    every SimState field and metric equal, bit for bit, at every chunk
+    boundary over ``ticks`` ticks.  Returns the entry."""
+    import torch
+    from repro_torch.sim.scenarios.registry import build_trace
+    from repro_torch.sim.state import DeviceTrace, init_state
+    wls = [build_trace(dataclasses.replace(cfg.workload, seed=s)) for s in seeds]
+    tr = DeviceTrace.from_traces(wls, "cuda")
+    st = init_state(cfg, wls[0].n_apps, wls[0].max_components, len(wls), "cuda")
+    cap = step.host_capacity(cfg, "cuda")
+    model = step._make_model(cfg)
+    entry = step._graph_entry(cfg, model, tr, st, chunk, cap)
+    eager, done = st, 0
+    while done < ticks:
+        size = min(chunk, ticks - done)
+        got = {k: v.clone() for k, v in entry.run(size).items()}
+        ms = []
+        for _ in range(size):
+            eager, m = step.fused_tick(cfg, model, tr, eager, cap)
+            ms.append(m)
+        done += size
+        want = {f: torch.stack([getattr(m, f) for m in ms], -1) for f in step._METRICS}
+        for what, a, b in (("metric", got, want),
+                           ("state", step._tensors(entry.st), step._tensors(eager))):
+            for k in b:
+                if not torch.equal(_bits(a[k]), _bits(b[k])):
+                    raise AssertionError(f"graph != eager: {what} {k} at tick {done} "
+                                         f"(seeds {seeds})")
+    log(f"  seeds {list(seeds)}, {ticks} ticks in chunks of {chunk}: graph == eager at "
+        f"every chunk boundary, every state field and metric bit for bit; "
+        f"{int(eager.done.sum())} apps done, {int(eager.arrived.sum())} arrived")
+    return entry
+
+
+def time_graph_vs_eager(step, cfg, ticks=640, chunk=32) -> dict:
+    """Ticks/s of the first ``ticks`` ticks of ``cfg`` from its initial
+    state, driven chunk by chunk as run_sim_scan drives them (the
+    metrics and the done flags read at each boundary), eagerly (the chunk
+    program) and by replays, in turns: eager, graph, graph, eager.  Each
+    replay is bracketed by CUDA events, so the replays' span and its
+    share of the wall are measured too (the span holds the gaps between
+    the graph's kernels, so it is not their kernel time)."""
+    import torch
+    from repro_torch.sim.scenarios.registry import build_trace
+    from repro_torch.sim.state import DeviceTrace, init_state
+    wl = build_trace(cfg.workload)
+    tr = DeviceTrace.from_traces([wl], "cuda")
+    st0 = init_state(cfg, wl.n_apps, wl.max_components, 1, "cuda")
+    cap = step.host_capacity(cfg, "cuda")
+    model = step._make_model(cfg)
+    entry = step._graph_entry(cfg, model, tr, st0, chunk, cap)
+
+    def boundary(ms, st):
+        for f in step._METRICS:
+            ms[f].cpu()
+        return bool(st.done.all())
+
+    def eager():
+        st = dataclasses.replace(st0, **{k: v.clone() for k, v in step._tensors(st0).items()})
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(ticks // chunk):
+            boundary(step._chunk_program(cfg, model, tr, st, chunk, cap), st)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t, None
+
+    def graph():
+        entry.load(tr, st0, cap)
+        events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                  for _ in range(ticks // chunk)]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for a, b in events:
+            a.record()
+            ms = entry.run(chunk)
+            b.record()
+            boundary(ms, entry.st)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t, sum(a.elapsed_time(b) for a, b in events) / 1e3
+
+    runs = {"eager": [], "graph": []}
+    for name in ("eager", "graph", "graph", "eager"):
+        runs[name].append((eager if name == "eager" else graph)())
+    for name, rs in runs.items():
+        log(f"  {name}: " + "; ".join(
+            f"{ticks / t:.3f} ticks/s ({t / ticks * 1e3:.4f} ms per tick)"
+            + ("" if d is None else f", replay span {d / ticks * 1e3:.4f} ms per tick "
+               f"= {d / t:.2%} of the wall") for t, d in rs))
+    return {name: [ticks / t for t, _ in rs] for name, rs in runs.items()}
+
+
+def check_graphs(step, SimConfig) -> None:
+    """Phase 5c: the graphs against the eager ticks on the card at full
+    width, then the two timed in turns."""
+    cfg = SimConfig()
+    entry = graph_vs_eager(step, cfg, (0,), 4 * 32 + 7)
+    assert set(entry.graphs) == {32, 7}, set(entry.graphs)
+    for line in describe_graphs(entry):
+        log(f"  graph {line}")
+    cohort = graph_vs_eager(step, cfg, (0, 1, 2), 64)
+    for line in describe_graphs(cohort):
+        log(f"  cohort graph {line}")
+    time_graph_vs_eager(step, cfg)
 
 
 def _nbytes(*ts) -> int:
@@ -1518,8 +1763,8 @@ def main() -> int:
     log("== 4. GP check (card vs CPU)")
     check_gp(GPForecaster, GPConfig)
     check_small_runs(run_sim, SimConfig, ClusterConfig, WorkloadConfig)
-    log("== 4b. the device engine at full width, card vs CPU: run_sim_scan(SimConfig("
-        "forecaster='oracle'))")
+    log("== 4b. the device engine at full width, card (graphs) vs CPU (eager): "
+        "run_sim_scan(SimConfig(forecaster='oracle'))")
     check_scan_card_vs_cpu(step, SimConfig)
 
     log("== 5. main path: run_sim(SimConfig(), device='cuda')")
@@ -1568,8 +1813,11 @@ def main() -> int:
     assert 0 < summary["util_mem_mean"] <= 1, summary
 
     log("== 5b. main path: run_sim_scan(SimConfig(), device='cuda'), the device engine, "
-        "to completion")
+        "to completion through replayed CUDA graphs")
     scan_launches = run_scan_main(step, SimConfig, gp_forecast, shaper, sched, fma)
+    log("== 5c. the device engine's graphs against its eager ticks on the card "
+        "(SimConfig(): 135 ticks solo, 64 ticks of a 3-seed cohort), then both timed")
+    check_graphs(step, SimConfig)
 
     log("== 6. Whisper, smoke widths, fp32: the card against the CPU")
     check_whisper_smoke(flash_attention)

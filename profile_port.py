@@ -11,14 +11,18 @@ the Gram kernels' device time per launch at the main path's largest
 batch (chip_smoke.py's phase 8 times the GP program alone).
 
 ``--path scan`` runs the device engine (``run_sim_scan(SimConfig())``,
-full width) for its first SCAN_TICKS ticks under the profiler after a
-warm-up, and prints the busy share, the host's kernel launches per tick
-and the device time by kind, with Algorithm 1's pass, the three
-scheduler kernels and the GP program as groups of their own.  It then
-counts, for the default (GP) and the persist forecaster, the host's
-launches per tick made inside the code that copies XLA:CPU's rounding
-(``step._fma``, ``base._sum_rows``, ``safeguard.beta`` and
-``safeguard.sigma_from_var``, each run under a profiler range).
+full width, each chunk a replayed CUDA graph) for its first SCAN_TICKS
+ticks under the profiler after a warm-up that captures the graph, and
+prints the busy share, the host's launch calls per tick (kernel and
+graph launches), the kernels per tick the graph holds
+(``cuGraphGetNodes``), and the device time by kind, with Algorithm
+1's pass, the three scheduler kernels and the GP program as groups of
+their own.  It then counts, for the default (GP) and the persist
+forecaster, the launches per tick made inside the code that copies
+XLA:CPU's rounding (``step._fma``, ``base._sum_rows``, ``safeguard.beta``
+and ``safeguard.sigma_from_var``, each run under a profiler range): a
+run from an empty graph cache, whose warm-up tick and captured chunk
+issue every launch from Python once, divided by the ticks so issued.
 
 ``--path kernels`` checks and times the device engine's four kernels
 alone, as ``chip_smoke.py`` phase 8 does (device and host time per call
@@ -51,9 +55,10 @@ from pathlib import Path
 
 PROFILED_TICKS = 120
 SCAN_TICKS = 640       # 20 chunks of 32 ticks
-LAUNCH_KEYS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
-               "cuLaunchKernelEx")
-COPY_TICKS = 320       # ticks of each run that attributes launches to the copies
+KERNEL_LAUNCH_KEYS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
+                      "cuLaunchKernelEx")
+LAUNCH_KEYS = KERNEL_LAUNCH_KEYS + ("cudaGraphLaunch", "cuGraphLaunch")   # host launch calls
+COPY_TICKS = 32        # the run that attributes launches to the copies: one captured chunk
 # the device engine's code that rounds as XLA:CPU does (module, function)
 XLA_COPIES = (("repro_torch.sim.step", "_fma"),
               ("repro_torch.core.forecast.base", "_sum_rows"),
@@ -75,7 +80,7 @@ SIM_KINDS = (("GP program", ("gp_forecast_kernel",)),
 # device-time groups of the device engine's profile, by kernel name
 SCAN_KINDS = (("pessimistic_pass", ("pessimistic_pass_kernel",)),
               ("resolve_oom", ("resolve_oom_kernel",)),
-              ("fma_f32", ("fma_f32_kernel",)),
+              ("fma_f32", ("fma_f32",)),
               ("admit_queued", ("admit_queued_kernel",)),
               ("place_missing_elastic", ("place_missing_elastic_kernel",)),
               ("GP program", ("gp_forecast_kernel",)),
@@ -169,29 +174,39 @@ def _in_range(fn, tag):
 
 
 def copy_launches(cfg) -> tuple[int, int, dict]:
-    """Run the device engine on ``cfg`` under the profiler with every
-    function of XLA_COPIES in a range of its own; returns (ticks, host
-    launches, launches by the innermost copy they were made in)."""
+    """Run the device engine on ``cfg`` from an empty graph cache under
+    the profiler with every function of XLA_COPIES in a range of its own;
+    returns (ticks issued from Python: the warm-up tick and the captured
+    ones, the kernel launches they issued, those launches by the
+    innermost copy they were made in)."""
     import importlib
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.sim import run_sim_scan
-    saved = []
+    from repro_torch.sim import run_sim_scan, step
+    saved, issued = [], [0]
     for mod_name, name in XLA_COPIES:
         mod = importlib.import_module(mod_name)
         saved.append((mod, name, getattr(mod, name)))
         setattr(mod, name, _in_range(getattr(mod, name), f"xla_copy:{name}"))
+    tick = step.fused_tick
+
+    def counted_tick(*a, **k):
+        issued[0] += 1
+        return tick(*a, **k)
+    step.fused_tick = counted_tick
+    step._GRAPHS.clear()
     try:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            res = run_sim_scan(cfg, device="cuda")
+            run_sim_scan(cfg, device="cuda")
             torch.cuda.synchronize()
     finally:
+        step.fused_tick = tick
         for mod, name, fn in saved:
             setattr(mod, name, fn)
     total, by_copy = 0, {}
     for e in prof.events():
-        if e.name not in LAUNCH_KEYS:
+        if e.name not in KERNEL_LAUNCH_KEYS:
             continue
         total += 1
         p = e.cpu_parent
@@ -200,16 +215,22 @@ def copy_launches(cfg) -> tuple[int, int, dict]:
         if p is not None:
             key = p.name.split(":", 1)[1]
             by_copy[key] = by_copy.get(key, 0) + 1
-    return res.timings["ticks"], total, by_copy
+    return issued[0], total, by_copy
 
 
 def profile_scan() -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
+    import chip_smoke
     from repro_torch.kernels import gp_forecast, sched, shaper
-    from repro_torch.sim import SimConfig, run_sim_scan
+    from repro_torch.sim import SimConfig, run_sim_scan, step
 
-    run_sim_scan(SimConfig(max_ticks=64), device="cuda")        # build + warm-up
+    print(f"nvidia-smi: {chip_smoke.nvidia_smi()}")
+    step._GRAPHS.clear()
+    run_sim_scan(SimConfig(max_ticks=64), device="cuda")     # build, warm-up, capture
+    (entry,) = step._GRAPHS.values()
+    for line in chip_smoke.describe_graphs(entry):
+        print(f"graph {line}")
     for m in (gp_forecast, shaper, sched):
         m.reset_launch_counts()
     torch.cuda.synchronize()
@@ -224,21 +245,27 @@ def profile_scan() -> int:
           f"{shaper.pessimistic_pass.launches} pessimistic_pass, "
           f"{sched.resolve_oom.launches} resolve_oom, {sched.admit_queued.launches} "
           f"admit_queued, {sched.place_missing_elastic.launches} place_missing_elastic, "
-          f"{gp_forecast.gp_fit_forecast.launches} GP program launches")
+          f"{gp_forecast.gp_fit_forecast.launches} GP program launches (replays x captured)")
     _report(prof, wall, f"device engine, {ticks} ticks", kinds=SCAN_KINDS, top=15)
-    n_launch = sum(e.count for e in ka if e.key in LAUNCH_KEYS)
-    print(f"  host kernel launches: {n_launch} ({n_launch / ticks:.1f} per tick); "
+    calls = {k: sum(e.count for e in ka if e.key == k) for k in LAUNCH_KEYS}
+    n_launch = sum(calls.values())
+    kernels = sum(chip_smoke.graph_nodes(g.graph)[0].get("kernel", 0) / n
+                  for n, g in entry.graphs.items()) / len(entry.graphs)
+    print(f"  host launch calls: {n_launch} ({n_launch / ticks:.4f} per tick: "
+          + ", ".join(f"{k} {v}" for k, v in calls.items() if v)
+          + f"); kernels per tick in the graph: {kernels:.3f}; "
           f"wall {wall / ticks * 1e3:.4f} ms per tick")
     print("top operators by host time (self):")
     for e in sorted(ka, key=lambda e: e.self_cpu_time_total, reverse=True)[:15]:
         print(f"  {e.self_cpu_time_total / 1e3:10.3f} ms  {e.count:8d} calls  {e.key[:90]}")
     for forecaster in ("gp", "persist"):
-        ticks, total, by_copy = copy_launches(
+        issued, total, by_copy = copy_launches(
             SimConfig(forecaster=forecaster, max_ticks=COPY_TICKS))
         n = sum(by_copy.values())
-        per = ", ".join(f"{k} {v / ticks:.1f}" for k, v in sorted(by_copy.items()))
-        print(f"XLA:CPU rounding copies, {forecaster}, {ticks} ticks: {n / ticks:.1f} of "
-              f"{total / ticks:.1f} host launches per tick ({per or 'none attributed'})")
+        per = ", ".join(f"{k} {v / issued:.1f}" for k, v in sorted(by_copy.items()))
+        print(f"XLA:CPU rounding copies, {forecaster}, {issued} ticks issued from Python "
+              f"(warm-up and capture): {n / issued:.1f} of {total / issued:.1f} kernel "
+              f"launches per tick ({per or 'none attributed'})")
     return 0
 
 

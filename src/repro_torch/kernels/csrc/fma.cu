@@ -10,9 +10,15 @@
 //
 // What bounds it: bytes, (2 or 3 reads + 1 write) x 4 B per element;
 // at the engine's sizes (a few thousand elements) a launch is all
-// latency.  The design: one thread per element in a grid-stride loop,
-// __fmaf_rn (the correctly rounded FMA by definition), and b either a
-// tensor of the output's shape or one scalar passed by value.
+// latency, so the design keeps each thread's path short: one element
+// per thread with a 32-bit index and no grid-stride loop; __fmaf_rn (the
+// correctly rounded FMA by definition); a scalar b (passed by value) and
+// a tensor b of the output's shape as two instances of one template, so
+// no element branches on which it is; and each input's flush one
+// instruction, a multiply by 1 with .ftz.  Four elements per thread
+// (one float4 load per operand) measured slower at 3,072 elements: the
+// launch has too few elements to hide a thread's four chains, and the
+// port launches nothing larger.
 //
 // Subnormals as XLA:CPU treats them (x86's denormals-are-zero and
 // flush-to-zero): an input below 2^-126 in magnitude is read as a zero
@@ -23,9 +29,9 @@
 // is kept).  Only a nonzero result of at most 2^-126 can be tiny; then
 // |a| <= 2^48 and |c| <= 2^-77, so the FMA of a * 2^64 and c * 2^64 is
 // exact in its scaling and rounds 2^64 times the exact value in the
-// normal range, which decides.  Explicit here, not by -ftz: the flags
-// build every kernel of the package, and the others keep IEEE
-// subnormals.
+// normal range, which decides.  Explicit here (each input by a .ftz
+// multiply, each result by that test), not by -ftz: the flags build
+// every kernel of the package, and the others keep IEEE subnormals.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -33,39 +39,49 @@
 namespace {
 
 constexpr float kTiny = 0x1p-126f;   // the least normal float32
+constexpr int kThreads = 128;
 
+// x read as XLA:CPU reads it: a subnormal as a zero of its sign (a
+// multiply by 1 that flushes its input; exact for every other x)
 __device__ __forceinline__ float daz(float x) {
-  return fabsf(x) < kTiny ? copysignf(0.f, x) : x;
+  float r;
+  asm("mul.ftz.f32 %0, %1, 0f3F800000;" : "=f"(r) : "f"(x));
+  return r;
 }
 
-__global__ void __launch_bounds__(256) fma_f32_kernel(
+// b is read only when kTensorB
+template <bool kTensorB>
+__global__ void __launch_bounds__(kThreads) fma_f32_kernel(
     const float* __restrict__ a, const float* __restrict__ b, float b_scalar,
-    const float* __restrict__ c, float* __restrict__ out, int64_t n) {
-  const float bs = daz(b_scalar);
-  for (int64_t i = blockIdx.x * int64_t(blockDim.x) + threadIdx.x; i < n;
-       i += int64_t(gridDim.x) * blockDim.x) {
-    const float x = daz(a[i]), y = b ? daz(b[i]) : bs, z = daz(c[i]);
-    float r = __fmaf_rn(x, y, z);
-    if (r != 0.f && fabsf(r) <= kTiny) {
-      const float scaled = __fmaf_rn(x * 0x1p64f, y, z * 0x1p64f);
-      if (fabsf(scaled) < 0x1p-62f) r = copysignf(0.f, scaled);
-    }
-    out[i] = r;
+    const float* __restrict__ c, float* __restrict__ out, int n) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= n) return;
+  const float x = daz(a[i]), y = daz(kTensorB ? b[i] : b_scalar), z = daz(c[i]);
+  float r = __fmaf_rn(x, y, z);
+  if (r != 0.f && fabsf(r) <= kTiny) {
+    const float scaled = __fmaf_rn(x * 0x1p64f, y, z * 0x1p64f);
+    if (fabsf(scaled) < 0x1p-62f) r = copysignf(0.f, scaled);
   }
+  out[i] = r;
 }
 
 }  // namespace
 
-// a, c, out: n contiguous float32; b: n contiguous float32, or null for
-// the scalar b_scalar.
+// a, c, out: n contiguous float32, n < 2^31; b: n contiguous float32, or
+// null for the scalar b_scalar.
 extern "C" int fma_f32(const void* a, const void* b, float b_scalar,
                        const void* c, void* out, int64_t n, void* stream) {
   if (n <= 0) return 0;
-  const int threads = 256;
-  const int64_t blocks = (n + threads - 1) / threads;
-  fma_f32_kernel<<<static_cast<unsigned>(blocks < 65535 ? blocks : 65535), threads,
-                   0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(a), static_cast<const float*>(b), b_scalar,
-      static_cast<const float*>(c), static_cast<float*>(out), n);
+  if (n > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  const int blocks = static_cast<int>((n + kThreads - 1) / kThreads);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (b)
+    fma_f32_kernel<true><<<blocks, kThreads, 0, s>>>(
+        static_cast<const float*>(a), static_cast<const float*>(b), 0.f,
+        static_cast<const float*>(c), static_cast<float*>(out), static_cast<int>(n));
+  else
+    fma_f32_kernel<false><<<blocks, kThreads, 0, s>>>(
+        static_cast<const float*>(a), nullptr, b_scalar,
+        static_cast<const float*>(c), static_cast<float*>(out), static_cast<int>(n));
   return static_cast<int>(cudaGetLastError());
 }

@@ -69,6 +69,7 @@ constexpr int kMaxN = 64;
 constexpr int kMaxD = 128;
 constexpr int kMaxSteps = 256;
 constexpr int kWarpsPerBlock = 4;
+constexpr int kMaxSmem = 227 * 1024;   // a block's shared memory on sm_90
 constexpr unsigned kFull = 0xffffffffu;
 
 struct Params {
@@ -380,6 +381,15 @@ gp_forecast_kernel(const float* __restrict__ X, const float* __restrict__ Y,
 
 }  // namespace
 
+// Allow the kernel its opt-in shared memory on the current device: once,
+// before the first launch (never inside one, so a captured CUDA graph
+// holds launches only).  A large GP config (N, D) takes more than the
+// default 48 KB per block.
+extern "C" int gp_forecast_init() {
+  return static_cast<int>(cudaFuncSetAttribute(
+      gp_forecast_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem));
+}
+
 // X (B,N,D), y (B,N) float32; valid (B,N) bool; hist (B,D-1) float32;
 // bc1, bc2 (steps) and init (3) host float32 arrays.  Outputs mean and
 // var (B,H), logp (B,3).  kind: 0 = "exp", 1 = "rbf".  Sizes are checked
@@ -411,14 +421,9 @@ extern "C" int gp_forecast(const float* X, const float* y,
   P.T = T;
   const int per_warp = smem_per_warp(N, D);
   int warps = kWarpsPerBlock;
-  while (warps > 1 && warps * per_warp > 227 * 1024) --warps;
+  while (warps > 1 && warps * per_warp > kMaxSmem) --warps;
   const int smem = warps * per_warp;
-  if (smem > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        gp_forecast_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   const int blocks = (B + warps - 1) / warps;
   gp_forecast_kernel<<<blocks, 32 * kWarpsPerBlock, smem,
                        static_cast<cudaStream_t>(stream)>>>(

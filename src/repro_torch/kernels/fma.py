@@ -7,9 +7,10 @@ its plain version is ``ref.fma_f32``.  Nothing is built when this module
 is imported: the first launch builds (or reuses) the library with
 :func:`repro_torch.kernels.nvcc.build`.
 
-The wrapper broadcasts ``a``, ``b`` and ``c`` to one shape and copies
-only an operand that is not already a contiguous float32 tensor of that
-shape; a scalar ``b`` (Python or numpy) is passed by value as float32.
+The wrapper broadcasts ``a``, ``b`` and ``c`` to one shape of fewer than
+2**31 elements and copies only an operand that is not already a
+contiguous float32 tensor of that shape; a scalar ``b`` (Python or
+numpy) is passed by value as float32.
 It allocates the output with ``torch.empty``, launches on the current
 CUDA stream, raises if the launch returned an error, and counts its
 launches in ``fma_f32.launches``.
@@ -48,6 +49,7 @@ def _operand(name: str, t: torch.Tensor, shape, device) -> torch.Tensor:
     return t if t.shape == shape and t.is_contiguous() else t.expand(shape).contiguous()
 
 
+@nvcc.counted
 def fma_f32(a: torch.Tensor, b, c: torch.Tensor) -> torch.Tensor:
     """Launch the kernel: ``a * b + c`` with one rounding, as
     ``ref.fma_f32`` returns it."""
@@ -58,6 +60,8 @@ def fma_f32(a: torch.Tensor, b, c: torch.Tensor) -> torch.Tensor:
     # the engine's calls mostly take operands of one shape: skip the general
     # broadcast (several microseconds of host time) when they do
     shape = a.shape if all(x == a.shape for x in shapes) else torch.broadcast_shapes(*shapes)
+    if shape.numel() >= 2**31:
+        raise ValueError(f"fma_f32 takes fewer than 2**31 elements, got {shape.numel()}")
     a = _operand("a", a, shape, a.device)
     c = _operand("c", c, shape, a.device)
     b_t = _operand("b", b, shape, a.device) if tensor_b else None
@@ -67,9 +71,6 @@ def fma_f32(a: torch.Tensor, b, c: torch.Tensor) -> torch.Tensor:
                     0.0 if tensor_b else float(np.float32(b)), c, out, out.numel())
         fma_f32.launches += 1
     return out
-
-
-fma_f32.launches = 0
 
 
 def reset_launch_counts() -> None:

@@ -16,10 +16,12 @@ Nothing is built when this module is imported: the first launch builds
 (or reuses) the library.
 
 The wrapper checks its tensors, allocates its outputs with
-``torch.empty``, launches on the current CUDA stream, raises if the
-launch returned an error, and counts its launches in
-``gp_fit_forecast.launches``.  A call the kernel cannot take raises a
-``ValueError``.
+``torch.empty``, allows the kernel its opt-in shared memory once per
+device (``gp_forecast_init``, through :func:`nvcc.prepare`, so that a
+launch captured in a CUDA graph is a launch only), launches on the
+current CUDA stream, raises if the launch returned an error, and counts
+its launches in ``gp_fit_forecast.launches``.  A call the kernel cannot
+take raises a ``ValueError``.
 """
 from __future__ import annotations
 
@@ -48,6 +50,8 @@ def _library() -> ctypes.CDLL:
         lib.gp_forecast.argtypes = ([ptr] * 7 + [i32] * 7 + [f32] * 2
                                     + [ptr] * 3 + [ptr])
         lib.gp_forecast.restype = i32
+        lib.gp_forecast_init.argtypes = []
+        lib.gp_forecast_init.restype = i32
         _LIB = lib
     return _LIB
 
@@ -95,6 +99,7 @@ def _check(X, y, row_valid, hist, T, horizon, cfg):
     return B, N, D, ref.KINDS.index(cfg.kernel)
 
 
+@nvcc.counted
 def gp_fit_forecast(X: torch.Tensor, y: torch.Tensor, row_valid: torch.Tensor,
                     hist: torch.Tensor, T: int, horizon: int, cfg):
     """Launch the kernel: ``(mean, var, log_params)``, ``(B, horizon)``,
@@ -105,14 +110,12 @@ def gp_fit_forecast(X: torch.Tensor, y: torch.Tensor, row_valid: torch.Tensor,
     mean = torch.empty((B, horizon), dtype=torch.float32, device=X.device)
     var = torch.empty((B, horizon), dtype=torch.float32, device=X.device)
     logp = torch.empty((B, 3), dtype=torch.float32, device=X.device)
+    nvcc.prepare(lib.gp_forecast_init, "gp_forecast", X.device)
     nvcc.launch(lib.gp_forecast, "gp_forecast", X.device, X, y, row_valid, hist, mean,
                 var, logp, B, N, D, horizon, T, cfg.opt_steps, code, cfg.opt_lr,
                 cfg.jitter, bc1, bc2, init)
     gp_fit_forecast.launches += 1
     return mean, var, logp
-
-
-gp_fit_forecast.launches = 0
 
 
 def reset_launch_counts() -> None:

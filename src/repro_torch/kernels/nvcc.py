@@ -8,7 +8,9 @@ source reuses it.  Nothing is built when a kernel module is imported:
 each module builds at its first launch.  :func:`launch` is the launch
 every kernel wrapper of the package goes through, after :func:`prepare`
 where a kernel has set-up to do; :func:`check` holds a tensor to an
-exact dtype and shape.
+exact dtype and shape; :func:`counted` registers a wrapper's launch
+count, so that code which captures launches into a CUDA graph can
+account for them in one place.
 """
 from __future__ import annotations
 
@@ -90,6 +92,21 @@ def check(device, **specs) -> None:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+
+# the kernel wrappers that a captured CUDA graph may hold (the device
+# engine's), each counting its launches in ``fn.launches``
+COUNTED: list = []
+
+
+def counted(fn):
+    """Give the kernel wrapper ``fn`` a launch count, ``fn.launches``, which
+    it adds one to where it launches its kernel, and register it in
+    :data:`COUNTED`: a capture, which runs nothing, takes back what it
+    added, and each replay adds the launches it holds."""
+    fn.launches = 0
+    COUNTED.append(fn)
+    return fn
 
 
 _PREPARED: set[tuple[str, int]] = set()

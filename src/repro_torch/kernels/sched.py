@@ -202,6 +202,7 @@ def _launch_elastic(cpu_req, mem_req, exists, is_core, slot_gid, comp_running,
     return tuple(outs)
 
 
+@nvcc.counted
 def resolve_oom(slot_gid, work_done, comp_running, comp_host, alloc, usage, failed,
                 queued, oom_kills, failure_events, partial_preemptions, is_core,
                 host_cap):
@@ -215,6 +216,7 @@ def resolve_oom(slot_gid, work_done, comp_running, comp_host, alloc, usage, fail
     return out
 
 
+@nvcc.counted
 def admit_queued(submit, gid, cpu_req, mem_req, exists, is_core, slot_gid,
                  work_done, comp_running, comp_host, alloc, alive_since, queued,
                  has_saved, saved_work, t, host_cap, resume: bool):
@@ -228,6 +230,7 @@ def admit_queued(submit, gid, cpu_req, mem_req, exists, is_core, slot_gid,
     return out
 
 
+@nvcc.counted
 def place_missing_elastic(cpu_req, mem_req, exists, is_core, slot_gid, comp_running,
                           comp_host, alloc, alive_since, t, host_cap):
     """Launch the elastic re-placement kernel (one block per member);
@@ -270,11 +273,6 @@ def elastic_phase_cycles(*args) -> torch.Tensor:
     clocks = _clocks(args, 5)
     _launch_elastic(*args, clocks)
     return clocks
-
-
-resolve_oom.launches = 0
-admit_queued.launches = 0
-place_missing_elastic.launches = 0
 
 
 def reset_launch_counts() -> None:

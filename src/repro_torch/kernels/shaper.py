@@ -88,6 +88,7 @@ def _launch(valid, dem, core, el, host, order, free0, clocks):
     return remove, kill, free
 
 
+@nvcc.counted
 def pessimistic_pass(valid, dem, core, el, host, order, free0):
     """Launch the kernel: ``(remove_pos (S,A), kill_pos (S,A,C), free
     (S,H,2))`` as ``ref.pessimistic_pass`` returns them."""
@@ -105,9 +106,6 @@ def phase_cycles(valid, dem, core, el, host, order, free0) -> torch.Tensor:
     clocks = torch.zeros((valid.shape[0], 4), dtype=torch.int64, device=valid.device)
     _launch(valid, dem, core, el, host, order, free0, clocks)
     return clocks
-
-
-pessimistic_pass.launches = 0
 
 
 def reset_launch_counts() -> None:

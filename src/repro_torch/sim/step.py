@@ -4,17 +4,21 @@ Counterpart of ``repro/sim/step.py``.  One tick of the simulation —
 progress -> monitor sample -> forecast -> safeguard -> shaping policy
 (Algorithm 1) -> OS OOM -> FIFO admission -> elastic re-placement — as
 one function over the device state (:mod:`repro_torch.sim.state`).  The
-reference traces it into one XLA program and runs ``lax.scan`` over
-chunks of ticks; here a chunk is a Python loop of :func:`fused_tick`
-calls that only enqueue work on the state's device, and the host reads
-back only at chunk boundaries (the chunk's metrics and whether every app
-is done).  On the card nothing inside a chunk waits for the device on
-the default path (GP or persist or oracle forecasts, pessimistic or
-baseline policy): the reference's sequential loops — Algorithm 1's pass
-and the scheduler's three event-bounded ``lax.while_loop``s — are CUDA
-kernels (``kernels/csrc/{shaper,sched}.cu``) that take the whole batch
-of members per launch.  The optimistic policy still reads its loop
-condition on the host.
+reference traces a chunk of ticks (a ``lax.scan`` over its tick) into
+one jitted XLA program, cached by config and shapes.  Here a chunk is
+:func:`_chunk_program`, a Python loop of :func:`fused_tick` calls that
+only enqueue work on the state's device; on the card it is captured once
+as a CUDA graph and replayed for every chunk (:class:`_ChunkGraphs`,
+cached by the same key), and the host reads back only at chunk
+boundaries (the chunk's metrics and whether every app is done).  Nothing
+inside a chunk waits for the device on that path (GP or persist or
+oracle forecasts, pessimistic or baseline policy): the reference's
+sequential loops — Algorithm 1's pass and the scheduler's three
+event-bounded ``lax.while_loop``s — are CUDA kernels
+(``kernels/csrc/{shaper,sched}.cu``) that take the whole batch of
+members per launch.  The optimistic policy reads its loop condition on
+the host, so its chunks run eagerly on the card (:func:`_captures`), as
+every chunk does on the CPU.
 
 Semantics follow the reference's ``fused_tick`` phase for phase, and the
 port is checked against it (not against the host engine: the two
@@ -42,6 +46,7 @@ held bit-identical to that one by ``tests/test_scan_engine.py``).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 
@@ -54,6 +59,7 @@ from repro_torch.core.shaper import (POLICIES, ShapeDecision, ShapeProblem,
                                      shaped_demand)
 from repro_torch.core.shaper.pessimistic import gather_rows as _rows
 from repro_torch.device import resolve_device
+from repro_torch.kernels import nvcc
 from repro_torch.kernels import ops as kops
 from repro_torch.sim.engine import _check_ported
 from repro_torch.sim.metrics import SimResults
@@ -436,31 +442,207 @@ def _check_scan(cfg) -> None:
         raise NotImplementedError("streamed workloads are not ported yet")
 
 
-def _run_chunk(cfg, model, tr, st, size: int, host_cap):
-    """``size`` ticks, enqueued without reading anything back."""
-    metrics = []
-    for _ in range(size):
-        st, m = fused_tick(cfg, model, tr, st, host_cap)
-        metrics.append(m)
-    return st, metrics
-
-
 _METRICS = [f.name for f in dataclasses.fields(TickMetrics)]
+
+
+def _tensors(obj) -> dict[str, torch.Tensor]:
+    """The tensor fields of a state or trace by name (the fields that are
+    not ported are None)."""
+    return {f.name: getattr(obj, f.name) for f in dataclasses.fields(obj)
+            if getattr(obj, f.name) is not None}
+
+
+def _chunk_program(cfg, model, tr: DeviceTrace, st: SimState, size: int,
+                   host_cap: torch.Tensor) -> dict[str, torch.Tensor]:
+    """``size`` ticks from the state held in ``st``'s tensors, written back
+    into them (``copy_``, field by field), without reading anything back:
+    the counterpart of the reference's ``_chunk_body``.  Returns the
+    chunk's metrics stacked ``(S, size)`` per ``TickMetrics`` field.  On
+    the card this is what one CUDA graph holds (:class:`_ChunkGraphs`);
+    on the CPU, and for the optimistic policy, it runs as it stands."""
+    cur, metrics = st, []
+    for _ in range(size):
+        cur, m = fused_tick(cfg, model, tr, cur, host_cap)
+        metrics.append(m)
+    for name, dst in _tensors(st).items():
+        dst.copy_(getattr(cur, name))
+    return {f: torch.stack([getattr(m, f) for m in metrics], -1) for f in _METRICS}
+
+
+def _captures(cfg, device: torch.device) -> bool:
+    """Whether a chunk runs as a captured CUDA graph: on the card, except
+    under the optimistic policy, whose conflict loop reads its condition
+    on the host at every iteration (``core/shaper/optimistic.py``, via
+    :func:`_decide`) and so cannot be captured.  Decided from the config
+    and the device before anything is launched."""
+    return device.type == "cuda" and cfg.policy != "optimistic"
+
+
+def _cfg_key(cfg) -> tuple:
+    """Everything the captured program depends on besides shapes: the
+    fields of the reference's ``_cfg_key`` (``repro/sim/step.py``), which
+    the port's config has all of.  Not the workload, nor ``max_ticks``:
+    runs of other seeds, scenarios and lengths share one entry."""
+    return (cfg.cluster, cfg.policy, cfg.forecaster, cfg.safeguard,
+            cfg.calibration, cfg.control, cfg.obs, cfg.window, cfg.grace,
+            cfg.horizon, cfg.gp, cfg.arima, cfg.work_lost_on_kill,
+            cfg.leap, cfg.forecast_bucket)
+
+
+@contextlib.contextmanager
+def _sync_errors():
+    """Raise on any operation that waits for the card (nothing may, while
+    a graph is captured)."""
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+
+
+@dataclasses.dataclass(eq=False)
+class _Graph:
+    """One captured chunk program and what its replays need."""
+
+    graph: torch.cuda.CUDAGraph
+    metrics: dict[str, torch.Tensor]   # the chunk's metrics, rewritten by each replay
+    launches: dict                     # kernel wrapper -> its launches in the graph
+    capture_s: float                   # host seconds of the capture
+    instantiate_s: float               # host seconds of cudaGraphInstantiate
+    replays: int = 0
+
+
+class _ChunkGraphs:
+    """The device engine's chunk as captured CUDA graphs, for one config,
+    chunk size, shape and device: static copies of the trace, the host
+    capacities and the state, and one graph per chunk size (the full
+    chunk and the last one cut to ``max_ticks``, at most two), sharing
+    one memory pool.  The two graphs' temporaries may overlap, which is
+    safe because replays run one at a time on one stream and each
+    replay's metrics are read before the next replay.  One run at a
+    time uses an entry."""
+
+    def __init__(self, cfg, model, tr: DeviceTrace, st: SimState,
+                 host_cap: torch.Tensor, chunk: int):
+        self.cfg, self.model, self.chunk = cfg, model, chunk
+        self.tr = DeviceTrace(**{k: v.clone() for k, v in _tensors(tr).items()})
+        self.st = SimState(**{k: v.clone() for k, v in _tensors(st).items()})
+        self.host_cap = host_cap.clone()
+        self.device = host_cap.device
+        self.pool = torch.cuda.graph_pool_handle()
+        self.stream = torch.cuda.Stream(self.device)
+        self.graphs: dict[int, _Graph] = {}
+        # warm-up before any capture: one eager tick on a clone of the
+        # state, on the capture's stream, builds and loads every kernel's
+        # library, runs each one-time set-up (nvcc.prepare) and fills the
+        # allocator; its launches run, and count
+        self.stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(self.stream):
+            fused_tick(cfg, model, self.tr,
+                       SimState(**{k: v.clone() for k, v in _tensors(self.st).items()}),
+                       self.host_cap)
+        torch.cuda.synchronize(self.device)
+
+    def load(self, tr: DeviceTrace, st: SimState, host_cap: torch.Tensor) -> None:
+        """Copy a run's trace, initial state and capacities in."""
+        for src, dst in ((tr, self.tr), (st, self.st)):
+            for name, x in _tensors(dst).items():
+                x.copy_(getattr(src, name))
+        self.host_cap.copy_(host_cap)
+
+    def _capture(self, size: int) -> _Graph:
+        if size != self.chunk:     # at most one cut chunk besides the full one
+            for other in [n for n in self.graphs if n != self.chunk]:
+                del self.graphs[other]
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        before = {fn: fn.launches for fn in nvcc.COUNTED}
+        self.stream.wait_stream(torch.cuda.current_stream(self.device))
+        t0 = time.perf_counter()
+        with torch.cuda.stream(self.stream):
+            graph.capture_begin(pool=self.pool)
+            try:
+                with _sync_errors():
+                    metrics = _chunk_program(self.cfg, self.model, self.tr, self.st,
+                                             size, self.host_cap)
+            finally:
+                graph.capture_end()
+        t1 = time.perf_counter()
+        graph.instantiate()
+        t2 = time.perf_counter()
+        torch.cuda.current_stream(self.device).wait_stream(self.stream)
+        # the capture ran nothing: take back what the wrappers counted,
+        # and add it at every replay instead
+        launches = {fn: fn.launches - n for fn, n in before.items() if fn.launches != n}
+        for fn, n in before.items():
+            fn.launches = n
+        g = self.graphs[size] = _Graph(graph, metrics, launches, t1 - t0, t2 - t1)
+        return g
+
+    def run(self, size: int) -> dict[str, torch.Tensor]:
+        """One chunk of ``size`` ticks from the static state: a replay of
+        its graph, captured at its first use.  Returns the chunk's
+        metrics (static tensors, valid until the next replay)."""
+        g = self.graphs.get(size) or self._capture(size)
+        g.graph.replay()
+        g.replays += 1
+        for fn, n in g.launches.items():
+            fn.launches += n
+        return g.metrics
+
+
+# captured chunks by (config key, chunk, shapes, device), least recently
+# used first; bounded as the reference bounds its trace uploads
+# (_TRACE_CACHE_MAX), since each entry holds its trace, state and graph
+# pool on the card
+_GRAPHS: dict = {}
+_GRAPHS_MAX = 16
+
+
+def _graph_entry(cfg, model, tr: DeviceTrace, st: SimState, chunk: int,
+                 host_cap: torch.Tensor) -> _ChunkGraphs:
+    """The cached entry for this run, its static tensors loaded with the
+    run's trace, initial state and capacities; made (and warmed up) at
+    the first run of its key."""
+    S, A, C = st.comp_running.shape
+    shapes = (S, A, C, tr.submit.shape[1], st.mon_buf.shape[2], tr.levels.shape[3])
+    key = (_cfg_key(cfg), chunk, shapes, host_cap.device)
+    entry = _GRAPHS.pop(key, None)
+    if entry is None:
+        while len(_GRAPHS) >= _GRAPHS_MAX:
+            _GRAPHS.pop(next(iter(_GRAPHS)))
+        entry = _ChunkGraphs(cfg, model, tr, st, host_cap, chunk)
+    else:
+        entry.load(tr, st, host_cap)
+    _GRAPHS[key] = entry           # (re)inserted as the most recently used
+    return entry
+
+
+def _run_chunk(graphs: _ChunkGraphs | None, cfg, model, tr, st, size: int, host_cap):
+    """One chunk, enqueued without reading anything back: a replay of the
+    entry's graph, or the program run eagerly where none is captured."""
+    if graphs is not None:
+        return graphs.run(size)
+    return _chunk_program(cfg, model, tr, st, size, host_cap)
 
 
 def _drive_chunks(cfg, model, tr, st, chunk: int, host_cap):
     """Run chunks until every member is done or ``max_ticks`` is spent
     (the last chunk cut to the remaining ticks).  Returns the final
     state, the per-member metrics as numpy ``(S, ticks)`` arrays and the
-    number of ticks driven."""
+    number of ticks driven.  On the card the state lives in the graph
+    entry's static tensors (:func:`_captures` decides)."""
+    graphs = None
+    if _captures(cfg, host_cap.device):
+        graphs = _graph_entry(cfg, model, tr, st, chunk, host_cap)
+        tr, st, host_cap = graphs.tr, graphs.st, graphs.host_cap
     parts = []
     remaining = cfg.max_ticks
     while remaining > 0:
         size = min(chunk, remaining)
-        st, ms = _run_chunk(cfg, model, tr, st, size, host_cap)
+        ms = _run_chunk(graphs, cfg, model, tr, st, size, host_cap)
         # the chunk boundary: the one place the host reads the device
-        parts.append({f: torch.stack([getattr(m, f) for m in ms], -1).cpu().numpy()
-                      for f in _METRICS})
+        parts.append({f: ms[f].cpu().numpy() for f in _METRICS})
         remaining -= size
         if bool(st.done.all()):
             break
@@ -496,7 +678,10 @@ def run_sim_scan(cfg, wl=None, *, chunk: int = 32,
 
     ``wl`` overrides the trace that ``cfg.workload`` would build.
     ``device`` is where the whole tick runs: CUDA unless the caller asks
-    for the CPU, and asking for CUDA without a card raises.
+    for the CPU, and asking for CUDA without a card raises.  On the card
+    each chunk is a replayed CUDA graph, captured by the first run of its
+    config, chunk and shapes in the process (that run also pays the
+    capture); later runs, of any seed, capture nothing.
     ``SimResults.timings`` holds the run's wall seconds and the ticks
     driven."""
     dev = resolve_device(device)
