@@ -18,10 +18,19 @@ points:
     scheduler kernels (OOM, admission, elastic re-placement) and the same
     number of launches every tick of the one-rounding ``a*b + c`` kernel
     (replays x the launches each graph holds), after the full-width
-    oracle run on the card (graphs) against the CPU (eager); then the
-    graphs against the eager ticks on the card, bit for bit at every
-    chunk boundary (135 ticks, so that the full and the cut chunk's
-    graphs both run, and a 3-seed cohort), and both timed in turns;
+    oracle run on the card (graphs) against the CPU (eager).  Its
+    forecasts are bucketed: the GP program runs over the ready rows
+    only, their mask read on the card, and the run is held bit for
+    bit to the same run over the full batch (``forecast_bucket=False``),
+    both profiled for the GP program's share.  Then the graphs against
+    the eager ticks on the card, bit for bit at every chunk boundary
+    (135 ticks, so that the full and the cut chunk's graphs both run;
+    buckets that change at every boundary; a 3-seed cohort), and both
+    timed in turns;
+  * the four scenario families (diurnal, flashcrowd, heavytail,
+    colocated) at their default 500 apps and the replay of the two
+    fixtures in tests/data on the device engine, gp and oracle, the
+    oracle runs card against CPU;
   * Whisper-large-v3 serving at full width (random weights from a seeded
     generator on the card): 8 requests of 1,500 frames prefilled with 448
     teacher-forced tokens through the tensor-core flash kernel (bf16,
@@ -32,7 +41,9 @@ points:
 
 Before the paths it checks every kernel against its plain version on the
 card: the Gram pair, the fused GP program (on 512 seeded windows with a
-row whose factor fails and padded all-invalid rows, "exp" and "rbf"),
+row whose factor fails and padded all-invalid rows, "exp" and "rbf";
+with a ready mask in device memory, none, some and all per member, and
+at the device engine's 3,072 rows),
 both flash routes on every shape of FLASH_SHAPES, the ``a*b + c`` kernel
 bit for bit (a counterexample to two roundings, float32 midpoints, 10^5
 seeded triples, the engine's shapes; scalar and tensor b, aligned and
@@ -51,10 +62,11 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-The last line of standard output is ``{"ok": true, "device": ...}``; the
-line before it lists each kernel's launches on its main path, error,
-times and bound.  Without a CUDA device, or without the repository's
-``src/`` beside it, the script fails and prints no result.
+Each phase ends with its seconds.  The last line of standard output is
+``{"ok": true, "device": ...}``; the line before it lists each kernel's
+launches on its main path, error, times and bound.  Without a CUDA
+device, or without the repository's ``src/`` beside it, the script fails
+and prints no result.
 """
 from __future__ import annotations
 
@@ -110,8 +122,22 @@ SMOKE_GREEDY_STEPS = 8     # greedy steps of the card-vs-CPU check
 WHISPER_RTOL, WHISPER_ATOL = 1e-4, 1e-5
 
 
+_PHASE: list = []     # the phase running: its heading and its start on the host clock
+
+
 def log(*a):
+    """Print a line; a phase's heading ("== ...") first closes the phase
+    before it with its seconds."""
+    if a and str(a[0]).startswith("== "):
+        end_phase()
+        _PHASE[:] = [str(a[0]).split(".")[0][3:], time.perf_counter()]
     print(*a, flush=True)
+
+
+def end_phase() -> None:
+    if _PHASE:
+        print(f"   phase {_PHASE[0]}: {time.perf_counter() - _PHASE[1]:.1f} s", flush=True)
+        _PHASE.clear()
 
 
 def nvidia_smi() -> str:
@@ -287,7 +313,102 @@ def check_gp_kernel(gp_forecast, ref, GPConfig, dev) -> float:
             f"NaN in both), max abs forecast err {err:.3g}; log-params max abs diff "
             f"{lp_err.max().item():.3g}, median {lp_err.median().item():.3g}; padded rows "
             f"finite (mean max abs diff {(got[0][513:] - want[0][513:]).abs().max().item():.3g})")
+    worst = max(worst, check_gp_ready(gp_forecast, ref, GPConfig, dev))
     return worst
+
+
+def app_mask(n_ready, seed, A=128, C=12):
+    """(A*C,) bool ready rows as the device engine's table holds them: the
+    leading components of whole app slots (row a*C + c), slots drawn in a
+    seeded order, until ``n_ready`` rows are marked."""
+    rng = np.random.default_rng(seed)
+    mask = np.zeros(A * C, bool)
+    for a in rng.permutation(A):
+        k = min(int(rng.integers(1, C + 1)), n_ready - int(mask.sum()))
+        if k <= 0:
+            break
+        mask[a * C:a * C + k] = True
+    return mask
+
+
+def gp_mask_err(gp_forecast, ref, cfg, args, w, v, mu, sd, ready, what, full=None) -> float:
+    """The fused GP program with the ready mask ``ready`` (a bool tensor on
+    the card) against its plain version given the same mask: one launch;
+    the unmarked series zeros on both sides; the marked ones by check_gp's
+    tolerances after G.finish, and, where ``full`` (the kernel's outputs
+    without a mask) is given, equal to it bit for bit (a warp computes
+    its series alone).  Returns the largest absolute forecast error."""
+    import torch
+    from repro_torch.core.forecast import gp as G
+    n0 = gp_forecast.gp_fit_forecast.launches
+    got = gp_forecast.gp_fit_forecast(*args, 3, cfg, ready)
+    torch.cuda.synchronize()
+    assert gp_forecast.gp_fit_forecast.launches == n0 + 1
+    want = ref.gp_fit_forecast(*args, 3, cfg, ready)
+    for g, p in zip(got, want):
+        assert not g[~ready].any() and not p[~ready].any(), what
+    if full is not None:
+        for g, f in zip(got, full):
+            assert torch.equal(g[ready].view(torch.int32), f[ready].view(torch.int32)), what
+    rows = ready.nonzero()[:, 0].cpu().numpy()
+    if not rows.size:
+        return 0.0
+    wt, vt = torch.as_tensor(w, device=ready.device), torch.as_tensor(v, device=ready.device)
+    fg = G.finish(got[0], got[1], wt, vt, mu, sd, cfg)
+    fc = G.finish(want[0], want[1], wt, vt, mu, sd, cfg)
+    mg, vg, mc, vc = (t.cpu().numpy()[rows] for t in (fg.mean, fg.var, fc.mean, fc.var))
+    assert_gp_close(mg, vg, mc, vc, w[rows], v[rows].sum(1), what)
+    fin = np.isfinite(mc)
+    return float(np.abs(mg - mc)[fin].max()) if fin.any() else 0.0
+
+
+def main_path_gp(GPConfig, dev):
+    """The GP program's inputs at the device engine's shape: 2 x A x C =
+    3,072 seeded windows of one member (its CPU rows, then its MEM rows).
+    Returns (cfg, windows, valid, the kernel's inputs, mu, sd)."""
+    import torch
+    from repro_torch.core.forecast import gp as G
+    cfg = GPConfig(**GP_CFG)
+    w, v = seeded_windows(n=3072, seed=1)
+    X, y, rv, hist, mu, sd = G.fit_inputs(torch.as_tensor(w, device=dev),
+                                          torch.as_tensor(v, device=dev), cfg)
+    return cfg, w, v, [t.contiguous() for t in (X, y, rv, hist)] + [w.shape[1]], mu, sd
+
+
+def check_gp_ready(gp_forecast, ref, GPConfig, dev) -> float:
+    """The fused GP program with a ready mask in device memory, as the
+    device engine launches it: gp_batch's 528 rows as a cohort of three
+    176-row members, none, some and all ready per member; then the
+    engine's own shape, 3,072 rows of one member with the leading
+    components of whole app slots ready (app_mask, the same rows of
+    both resources).  Marked series equal the kernel without a mask bit
+    for bit, the others are zeros, and the plain version with the same
+    mask agrees by check_gp's tolerances.  Returns the largest absolute
+    forecast error against it."""
+    import torch
+    rng = np.random.default_rng(7)
+    cfg, w, v, args, mu, sd = gp_batch(GPConfig, dev)
+    full = gp_forecast.gp_fit_forecast(*args, 3, cfg)
+    members = {"none": np.zeros(528, bool), "all": np.ones(528, bool),
+               "some": np.concatenate([rng.random(176) < 0.3, np.zeros(176, bool),
+                                       np.ones(176, bool)])}
+    worst = 0.0
+    for what, mask in members.items():
+        ready = torch.as_tensor(mask, device=dev)
+        worst = max(worst, gp_mask_err(gp_forecast, ref, cfg, args, w, v, mu, sd, ready,
+                                       f"ready mask {what}", full))
+    cfg, w, v, args, mu, sd = main_path_gp(GPConfig, dev)
+    full = gp_forecast.gp_fit_forecast(*args, 3, cfg)
+    half = app_mask(73, seed=3)
+    ready = torch.as_tensor(np.concatenate([half, half]), device=dev)
+    err = gp_mask_err(gp_forecast, ref, cfg, args, w, v, mu, sd, ready,
+                      "ready mask, 3,072 rows", full)
+    log(f"  gp_fit_forecast with a ready mask (528 rows as 3 x 176; none, some, all): "
+        f"marked series == the kernel without a mask bit for bit, the rest zeros; "
+        f"against the plain version with the same mask max abs err {worst:.3g}; "
+        f"3,072 rows, {int(ready.sum())} ready (whole app slots): the same, max abs "
+        f"err {err:.3g}")
+    return max(worst, err)
 
 
 def check_small_runs(run_sim, SimConfig, ClusterConfig, WorkloadConfig) -> None:
@@ -367,36 +488,62 @@ def gp_flops(B, N, D, steps, H) -> int:
     return B * (dist + (steps + 1) * fact + steps * grad + H * horizon)
 
 
-def time_gp_kernel(gp_forecast, ref, GPConfig, dev) -> dict:
-    """The fused GP program at the main path's largest batch, B = 512
-    seeded windows (N = 10 patterns of D = 11, 10 Adam steps, horizon 3),
-    against its plain version on the card, in turns, with its device time
-    per launch and its bound: inputs read once and outputs written once
-    over 3.35 TB/s, against gp_flops over fp32's peak."""
+def time_gp_kernel(gp_forecast, ref, GPConfig, dev, ready) -> tuple[dict, float]:
+    """The fused GP program against its plain version on the card, in
+    turns, with its device time per launch and its bound: inputs read
+    once and outputs written once over 3.35 TB/s, against gp_flops over
+    fp32's peak.  At B = 512 seeded windows (N = 10 patterns of D = 11,
+    10 Adam steps, horizon 3), all of them run; at 2 x A x C = 3,072
+    rows of one member, all of them run (the full batch's launch); and,
+    where ``ready`` ((A*C,) bool, a member's ready rows) is given, as the
+    device engine launches it on the main path: the 3,072 rows with
+    those rows of both resources marked, the plain version given the
+    same mask and held to the kernel (gp_mask_err), and the bound
+    counting the rows that run (their inputs read, every output
+    written).  Returns the last case's times and the mask's error."""
+    import torch
     cfg, w, v, args, _, _ = gp_batch(GPConfig, dev)
     args = [a[:512] if hasattr(a, "shape") else a for a in args]
     X, y, rv, hist, T = args
     B, N, D = X.shape
     H = 3
-    kern = lambda: gp_forecast.gp_fit_forecast(X, y, rv, hist, T, H, cfg)  # noqa: E731
-    plain = lambda: ref.gp_fit_forecast(X, y, rv, hist, T, H, cfg)  # noqa: E731
-    nbytes = 4 * (X.numel() + y.numel() + hist.numel() + 2 * B * H + 3 * B) + rv.numel()
-    flops = gp_flops(B, N, D, cfg.opt_steps, H)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOP_PER_S * 1e3
-    p1 = cuda_time_ms(plain, iters=10, warmup=2)
-    k1, k2 = (cuda_time_ms(kern, iters=200, warmup=10) for _ in range(2))
-    p2 = cuda_time_ms(plain, iters=10, warmup=2)
-    dev_us = device_us_per_call(kern, "gp_forecast_kernel")
-    host_us = host_us_per_call(kern)
-    log(f"  gp_fit_forecast B={B} N={N} D={D}: kernel {k1:.5f}/{k2:.5f} ms, plain "
-        f"{p1:.5f}/{p2:.5f} ms; device {'not measured' if dev_us is None else f'{dev_us:.3f} us'} "
-        f"per launch (torch.profiler), host {host_us:.3f} us per call; bound "
-        f"{max(t_bytes, t_ops) * 1e3:.3f} us ({nbytes} B -> {t_bytes * 1e3:.3f} us, "
-        f"{flops} flop -> {t_ops * 1e3:.3f} us)")
-    return {"gp_fit_forecast": dict(
-        ms=min(k1, k2), plain_ms=min(p1, p2), bound_ms=max(t_bytes, t_ops),
-        bound_by="bytes" if t_bytes >= t_ops else "operations")}
+    cfg, w2, v2, full, mu2, sd2 = main_path_gp(GPConfig, dev)
+    full = full[:4]
+    cases = [("B=512", B, B, (X, y, rv, hist), None),
+             ("3072 rows, all run", 3072, 3072, full, None)]
+    err = 0.0
+    if ready is not None:
+        mask = torch.as_tensor(np.concatenate([ready, ready]), device=dev)
+        err = gp_mask_err(gp_forecast, ref, cfg, full + [T], w2, v2, mu2, sd2, mask,
+                          "main path ready mask")
+        cases.append((f"main path: 3072 rows with a ready mask "
+                      f"(max abs err against the plain version {err:.3g})", 3072,
+                      int(mask.sum()), full, mask))
+    out = {}
+    for what, B_all, n_run, a, mask in cases:
+        extra = () if mask is None else (mask,)
+        kern = lambda: gp_forecast.gp_fit_forecast(*a, T, H, cfg, *extra)  # noqa: E731
+        plain = lambda: ref.gp_fit_forecast(*a, T, H, cfg, *extra)  # noqa: E731
+        nbytes = (4 * n_run * (N * D + N + D - 1) + n_run * N + 4 * B_all * (2 * H + 3)
+                  + B_all * len(extra))
+        flops = gp_flops(n_run, N, D, cfg.opt_steps, H)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / FP32_FLOP_PER_S * 1e3
+        p1 = cuda_time_ms(plain, iters=10, warmup=2)
+        k1, k2 = (cuda_time_ms(kern, iters=200, warmup=10) for _ in range(2))
+        p2 = cuda_time_ms(plain, iters=10, warmup=2)
+        dev_us = device_us_per_call(kern, "gp_forecast_kernel")
+        host_us = host_us_per_call(kern)
+        log(f"  gp_fit_forecast {what} ({n_run} series run, N={N} D={D}): kernel "
+            f"{k1:.5f}/{k2:.5f} ms, plain {p1:.5f}/{p2:.5f} ms; device "
+            f"{'not measured' if dev_us is None else f'{dev_us:.3f} us'} per launch "
+            f"(torch.profiler), host {host_us:.3f} us per call; bound "
+            f"{max(t_bytes, t_ops) * 1e3:.3f} us ({nbytes} B -> {t_bytes * 1e3:.3f} us, "
+            f"{flops} flop -> {t_ops * 1e3:.3f} us)")
+        out = {"gp_fit_forecast": dict(
+            ms=min(k1, k2), plain_ms=min(p1, p2), bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations")}
+    return out, err
 
 
 def gp_launches_per_batch(GPForecaster, GPConfig, forecast_peaks) -> tuple[int, int]:
@@ -651,7 +798,8 @@ def tree_leaves(tree):
 def device_us_per_call(fn, kernel: str = "", n: int = 20):
     """Device time per call of ``fn`` in the kernels whose names contain
     ``kernel`` (all of them by default), from torch.profiler over n
-    calls; None if the trace shows no such kernel."""
+    calls; with ``kernel`` named, per launch of it (each timed call
+    launches it once); None if the trace shows no such kernel."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -664,7 +812,10 @@ def device_us_per_call(fn, kernel: str = "", n: int = 20):
             if e.device_type == DeviceType.CUDA and kernel in e.key and e.count]
     if not hits:
         return None
-    return sum(e.self_device_time_total for e in hits) / n
+    # per launch of the named kernel over the launches the trace holds (a
+    # profiler run after others in one process may drop some of them)
+    return sum(e.self_device_time_total for e in hits) / (
+        sum(e.count for e in hits) if kernel else n)
 
 
 def host_us_per_call(fn, n: int = 200) -> float:
@@ -1249,23 +1400,62 @@ def check_scan_card_vs_cpu(step, SimConfig) -> None:
 
 
 class strict_chunks:
-    """Run every chunk of the device engine (its capture, where it has
-    none yet, and its replay) under torch.cuda.set_sync_debug_mode(
-    "error"): anything inside a chunk that waits for the card raises."""
+    """Run every chunk of the device engine (a replay of its graph,
+    with the capture where it has none yet, or the chunk program run
+    eagerly) under torch.cuda.set_sync_debug_mode("error"): anything
+    inside a chunk that waits for the card raises.  Wraps
+    ``_ChunkGraphs.run`` and ``_chunk_program``; a chunk program run
+    by a capture inside ``run`` is not counted again."""
 
     def __init__(self, step):
-        self.step, self.orig = step, step._run_chunk
-        self.chunks = 0
+        self.step, self.chunks, self.depth = step, 0, 0
+        self.run, self.program = step._ChunkGraphs.run, step._chunk_program
 
-        def strict(*a, **k):
-            self.chunks += 1
-            with step._sync_errors():
-                return self.orig(*a, **k)
-        step._run_chunk = strict
+        def strict(fn):
+            def chunk(*a, **k):
+                self.chunks += self.depth == 0
+                self.depth += 1
+                try:
+                    with step._sync_errors():
+                        return fn(*a, **k)
+                finally:
+                    self.depth -= 1
+            return chunk
+        step._ChunkGraphs.run = strict(self.run)
+        step._chunk_program = strict(self.program)
 
     def stop(self) -> int:
-        self.step._run_chunk = self.orig
+        self.step._ChunkGraphs.run = self.run
+        self.step._chunk_program = self.program
         return self.chunks
+
+
+class record_runs:
+    """Keep, until ``stop()``, what each ``step._drive_chunks`` call
+    returned (its per-tick metrics), the bucket ``step._pick_bucket``
+    chose at each chunk boundary (None: the full table) and the first
+    member's ready rows there ((A*C,) bool, on the host)."""
+
+    def __init__(self, step):
+        self.step, self.metrics, self.buckets, self.ready = step, [], [], []
+        self.drive, self.pick = step._drive_chunks, step._pick_bucket
+
+        def drive(*a, **k):
+            out = self.drive(*a, **k)
+            self.metrics.append(out[1])
+            return out
+
+        def pick(cfg, st):
+            S, AC = st.mon_count.shape
+            run = ((st.slot_gid >= 0)[:, :, None] & st.comp_running).reshape(S, AC)
+            self.ready.append((run & (st.mon_count >= cfg.grace))[0].cpu().numpy())
+            self.buckets.append(self.pick(cfg, st))
+            return self.buckets[-1]
+        step._drive_chunks, step._pick_bucket = drive, pick
+
+    def stop(self):
+        self.step._drive_chunks, self.step._pick_bucket = self.drive, self.pick
+        return self
 
 
 def scan_launch_counts(gp_forecast, shaper, sched, fma) -> dict:
@@ -1370,16 +1560,86 @@ def describe_graphs(entry) -> list[str]:
     return lines
 
 
-def run_scan_main(step, SimConfig, gp_forecast, shaper, sched, fma) -> dict:
+PROFILE_TICKS = 640   # the device-engine window profiled for the GP program's share
+
+
+def run_series(res) -> tuple:
+    """A run's summary (as JSON, so that a NaN mean of no completion
+    compares equal) and per-tick series, for equality."""
+    return (json.dumps(res.summary()), res.n_running, res.util_cpu, res.util_mem, res.slack_cpu,
+            res.slack_mem, res.turnaround, res.failed_apps)
+
+
+def runs_of(xs) -> str:
+    """A sequence as runs, 'value xcount', in order."""
+    out = []
+    for x in xs:
+        if out and out[-1][0] == x:
+            out[-1][1] += 1
+        else:
+            out.append([x, 1])
+    return ", ".join(f"{'full' if x is None else x} x{n}" for x, n in out)
+
+
+def series_per_launch(metrics) -> tuple[float, int, int]:
+    """The series the GP program computes per launch (it launches every
+    tick) over a solo run's ticks: 2 x the tick's ready rows, from the
+    per-tick forecast rows; (mean, min, max)."""
+    rows = np.asarray(metrics["forecast_rows"][0])
+    return float(rows.mean()), int(rows.min()), int(rows.max())
+
+
+def gp_profile(step, cfg, ticks=PROFILE_TICKS) -> dict:
+    """The first ``ticks`` ticks of ``cfg`` on the device engine (its graph
+    captured before) under torch.profiler: the GP program's device time
+    per launch, its launches, its share of all kernel time, the device's
+    busy share of the wall, and the series per launch in the window."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    run = dataclasses.replace(cfg, max_ticks=ticks)
+    torch.cuda.synchronize()
+    rec = record_runs(step)
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            step.run_sim_scan(run, device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+    finally:
+        rec.stop()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in kernels)
+    gp = [e for e in kernels if "gp_forecast_kernel" in e.key]
+    gp_us, gp_n = sum(e.self_device_time_total for e in gp), sum(e.count for e in gp)
+    mean, lo, hi = series_per_launch(rec.metrics[0])
+    return dict(us_per_launch=gp_us / max(gp_n, 1), launches=gp_n,
+                share=gp_us / max(busy, 1e-9), busy=busy / 1e6 / wall,
+                ms_per_tick=wall / ticks * 1e3, series=(mean, lo, hi))
+
+
+def run_scan_main(step, SimConfig, gp_forecast, shaper, sched, fma) -> tuple[dict, float]:
     """The device engine's main path: run_sim_scan(SimConfig()) on the card
-    to completion (GP, pessimistic, full width) through replayed CUDA
-    graphs, every chunk sync-free (capture and replay), each of the five
-    sim kernels launched once per tick and the fma kernel the same number
-    of times every tick, counted as replays x the launches each graph's
-    capture counted, and held against replays x the graph's own kernel
-    nodes of each wrapper's kernel (graph_nodes).  A 64-tick run of the same config first warms up and captures
-    the graph (the cache is emptied before it).  Counts are set to 0 just
-    before the main run and read just after; returns them."""
+    to completion (GP with bucketed forecasts, pessimistic, full width)
+    through replayed CUDA graphs, every chunk sync-free (capture and
+    replay), each of the five sim kernels launched once per tick and the
+    fma kernel the same number of times every tick, counted as replays x
+    the launches each graph's capture counted, and held against replays
+    x the graph's own kernel nodes of each wrapper's kernel
+    (graph_nodes).  A 64-tick run of the same config first warms up and
+    captures the graph (the cache is emptied before it).  Counts are set
+    to 0 just before the main run and read just after.  The bucket is
+    re-chosen at every chunk boundary and replays the one graph.
+
+    Then the same run with forecast_bucket=False (the full batch, its own
+    graph entry) on the card: summaries, per-tick series and rows_ready
+    bit for bit, with fewer rows_bucketed; the graph cache within its
+    bound; and both profiled over their first PROFILE_TICKS ticks for the
+    GP program's time per launch, series per launch and share of device
+    time.  Returns the main run's launch counts and the ready rows at
+    the chunk boundary whose count is nearest the mean the GP program
+    ran per launch (half its series: the same rows of both resources)."""
     import torch
     guard = strict_chunks(step)
     try:
@@ -1390,15 +1650,28 @@ def run_scan_main(step, SimConfig, gp_forecast, shaper, sched, fma) -> dict:
         t_warm = time.perf_counter() - t
         (entry,) = step._GRAPHS.values()
         replays = {n: g.replays for n, g in entry.graphs.items()}
+        rec = record_runs(step)
         for m in (gp_forecast, shaper, sched, fma):
             m.reset_launch_counts()
-        t = time.perf_counter()
-        res = step.run_sim_scan(SimConfig(), device="cuda")
+        c0 = guard.chunks
+        try:
+            t = time.perf_counter()
+            res = step.run_sim_scan(SimConfig(), device="cuda")
+            torch.cuda.synchronize()
+            t = time.perf_counter() - t
+        finally:
+            rec.stop()
+        launches = scan_launch_counts(gp_forecast, shaper, sched, fma)
+        chunks = guard.chunks - c0
+        # the full batch: its own entry, captured by a 64-tick run first
+        step.run_sim_scan(SimConfig(forecast_bucket=False, max_ticks=64), device="cuda")
         torch.cuda.synchronize()
-        t = time.perf_counter() - t
+        t_full = time.perf_counter()
+        full = step.run_sim_scan(SimConfig(forecast_bucket=False), device="cuda")
+        torch.cuda.synchronize()
+        t_full = time.perf_counter() - t_full
     finally:
-        chunks = guard.stop()
-    launches = scan_launch_counts(gp_forecast, shaper, sched, fma)
+        guard.stop()
     ticks = res.timings["ticks"]
     summary = res.summary()
     ran = {n: g.replays - replays.get(n, 0) for n, g in entry.graphs.items()}
@@ -1409,12 +1682,18 @@ def run_scan_main(step, SimConfig, gp_forecast, shaper, sched, fma) -> dict:
         f"in {chunks} chunks ({ran} replays), {t:.3f} s: {ticks / t:.3f} ticks/s, "
         f"{t / ticks * 1e3:.4f} ms per tick; every chunk sync-free; max memory allocated "
         f"{torch.cuda.max_memory_allocated()} B")
+    log(f"  bucket per chunk (rows a resource; full = the whole table): "
+        f"{runs_of(rec.buckets)}")
+    mean, lo, hi = series_per_launch(rec.metrics[0])
+    log(f"  GP program series per launch: mean {mean:.3f}, min {lo}, max {hi} "
+        f"(of {res.forecast_rows['rows_batch']} in the full batch)")
     log(f"  kernel launches {launches}")
     log(f"  summary {json.dumps(summary)}")
     log(f"  forecast rows {res.forecast_rows}")
     fma_per_tick = launches["fma_f32"] / ticks
     log(f"  fma_f32: {fma_per_tick} launches per tick")
     assert len(entry.graphs) == 1 and sum(n * r for n, r in ran.items()) == ticks, ran
+    assert len(rec.buckets) == chunks and len(set(rec.buckets)) > 1, rec.buckets
     # the counts against the graphs themselves: replays x the kernel nodes
     # of each wrapper's kernel that libcuda holds in the graph replayed
     nodes = {size: wrapper_nodes(graph_nodes(entry.graphs[size].graph)[1]) for size in ran}
@@ -1426,7 +1705,34 @@ def run_scan_main(step, SimConfig, gp_forecast, shaper, sched, fma) -> dict:
     assert summary["completed"] == 500, summary
     for k in ("util_cpu_mean", "util_mem_mean", "slack_cpu_mean", "slack_mem_mean"):
         assert np.isfinite(summary[k]), (k, summary[k])
-    return launches
+
+    fr, ff = res.forecast_rows, full.forecast_rows
+    log(f"  forecast_bucket=False on the card: {full.timings['ticks']} ticks in "
+        f"{t_full:.3f} s: {full.timings['ticks'] / t_full:.3f} ticks/s (bucketed "
+        f"{ticks / t:.3f}); forecast rows {ff}")
+    assert run_series(res) == run_series(full), "bucketed != full batch on the card"
+    assert (fr["rows_ready"], fr["ticks_forecasting"], fr["ticks"]) == \
+        (ff["rows_ready"], ff["ticks_forecasting"], ff["ticks"]), (fr, ff)
+    assert fr["rows_bucketed"] < ff["rows_bucketed"], (fr, ff)
+    log("  bucketed == full batch on the card: summaries, per-tick series, turnaround, "
+        "failed apps and rows_ready bit for bit; rows_bucketed "
+        f"{fr['rows_bucketed']} < {ff['rows_bucketed']}")
+    # the cache: one entry per config (the full batch is a config of its
+    # own), each at most two graphs, whatever the buckets
+    sizes = {len(e.graphs) for e in step._GRAPHS.values()}
+    log(f"  graph cache: {len(step._GRAPHS)} entries (bound {step._GRAPHS_MAX}), "
+        f"graphs per entry {sorted(sizes)} (bound 2: the full and the cut chunk)")
+    assert len(step._GRAPHS) == 2 <= step._GRAPHS_MAX and max(sizes) <= 2, sizes
+    for name, cfg in (("bucketed", SimConfig()), ("full batch", SimConfig(forecast_bucket=False))):
+        p = gp_profile(step, cfg)
+        log(f"  {name}, first {PROFILE_TICKS} ticks under torch.profiler: GP program "
+            f"{p['us_per_launch']:.3f} us per launch over {p['launches']} launches, "
+            f"{p['share']:.2%} of device time; series per launch mean {p['series'][0]:.3f}, "
+            f"min {p['series'][1]}, max {p['series'][2]}; device busy {p['busy']:.2%} of "
+            f"the wall, {p['ms_per_tick']:.4f} ms per tick")
+    near = min(rec.ready, key=lambda r: abs(2 * int(r.sum()) - mean))
+    log(f"  ready rows kept for phase 8: {int(near.sum())} a resource, at a chunk boundary")
+    return launches, near
 
 
 def _bits(x):
@@ -1434,11 +1740,15 @@ def _bits(x):
     return x.view(torch.int32) if x.dtype == torch.float32 else x
 
 
-def graph_vs_eager(step, cfg, seeds, ticks, chunk=32):
+def graph_vs_eager(step, cfg, seeds, ticks, chunk=32, buckets=None):
     """Replays of the device engine's graph entry for ``cfg`` against the
     eager loop of fused_tick on the card from the same initial state:
     every SimState field and metric equal, bit for bit, at every chunk
-    boundary over ``ticks`` ticks.  Returns the entry."""
+    boundary over ``ticks`` ticks.  Bucketed, each chunk's bucket is the
+    one ``_drive_chunks`` picks at the boundary, or the next of ``buckets``
+    (cycled; None is the full table) where given, written to the entry's
+    scalar and to the eager loop's alike.  Returns the entry and the
+    buckets used."""
     import torch
     from repro_torch.sim.scenarios.registry import build_trace
     from repro_torch.sim.state import DeviceTrace, init_state
@@ -1448,13 +1758,20 @@ def graph_vs_eager(step, cfg, seeds, ticks, chunk=32):
     cap = step.host_capacity(cfg, "cuda")
     model = step._make_model(cfg)
     entry = step._graph_entry(cfg, model, tr, st, chunk, cap)
+    bucket, used = step._full_bucket(st), []
     eager, done = st, 0
     while done < ticks:
         size = min(chunk, ticks - done)
+        if step._bucketed(cfg):
+            b = (buckets[len(used) % len(buckets)] if buckets
+                 else step._pick_bucket(cfg, entry.st))
+            for scalar in (entry.bucket, bucket):
+                scalar.fill_(st.mon_count.shape[1] if b is None else b)
+            used.append(b)
         got = {k: v.clone() for k, v in entry.run(size).items()}
         ms = []
         for _ in range(size):
-            eager, m = step.fused_tick(cfg, model, tr, eager, cap)
+            eager, m = step.fused_tick(cfg, model, tr, eager, cap, bucket)
             ms.append(m)
         done += size
         want = {f: torch.stack([getattr(m, f) for m in ms], -1) for f in step._METRICS}
@@ -1464,10 +1781,11 @@ def graph_vs_eager(step, cfg, seeds, ticks, chunk=32):
                 if not torch.equal(_bits(a[k]), _bits(b[k])):
                     raise AssertionError(f"graph != eager: {what} {k} at tick {done} "
                                          f"(seeds {seeds})")
-    log(f"  seeds {list(seeds)}, {ticks} ticks in chunks of {chunk}: graph == eager at "
+    log(f"  seeds {list(seeds)}, {ticks} ticks in chunks of {chunk}"
+        + (f", buckets {runs_of(used)}" if used else "") + ": graph == eager at "
         f"every chunk boundary, every state field and metric bit for bit; "
         f"{int(eager.done.sum())} apps done, {int(eager.arrived.sum())} arrived")
-    return entry
+    return entry, used
 
 
 def time_graph_vs_eager(step, cfg, ticks=640, chunk=32) -> dict:
@@ -1498,7 +1816,7 @@ def time_graph_vs_eager(step, cfg, ticks=640, chunk=32) -> dict:
         torch.cuda.synchronize()
         t = time.perf_counter()
         for _ in range(ticks // chunk):
-            boundary(step._chunk_program(cfg, model, tr, st, chunk, cap), st)
+            boundary(step._chunk_program(cfg, model, tr, st, chunk, cap, entry.bucket), st)
         torch.cuda.synchronize()
         return time.perf_counter() - t, None
 
@@ -1531,14 +1849,73 @@ def check_graphs(step, SimConfig) -> None:
     """Phase 5c: the graphs against the eager ticks on the card at full
     width, then the two timed in turns."""
     cfg = SimConfig()
-    entry = graph_vs_eager(step, cfg, (0,), 4 * 32 + 7)
+    entry, used = graph_vs_eager(step, cfg, (0,), 4 * 32 + 7)
     assert set(entry.graphs) == {32, 7}, set(entry.graphs)
+    assert len(set(used)) > 1, used
     for line in describe_graphs(entry):
         log(f"  graph {line}")
-    cohort = graph_vs_eager(step, cfg, (0, 1, 2), 64)
+    # buckets that change at every boundary, below the ready count (extra
+    # passes counted) and above it, through the same two graphs
+    entry, used = graph_vs_eager(step, cfg, (1,), 6 * 32 + 7,
+                                 buckets=(8, None, 64, 16, 512, 8, 256))
+    assert set(entry.graphs) == {32, 7} and len(set(used)) == 6, (set(entry.graphs), used)
+    cohort, _ = graph_vs_eager(step, cfg, (0, 1, 2), 64)
     for line in describe_graphs(cohort):
         log(f"  cohort graph {line}")
     time_graph_vs_eager(step, cfg)
+
+
+FAMILY_TICKS = 320    # cap on each scenario family's device-engine runs
+FAMILIES = ("diurnal", "flashcrowd", "heavytail", "colocated")
+
+
+def run_families(step, scenarios, SimConfig, gp_forecast) -> None:
+    """Phase 5d: the four parametric families at their default size (500
+    apps of up to 12 components, as google) and the replay of both
+    fixtures in tests/data, through run_sim_scan on the card for up to
+    FAMILY_TICKS ticks: with gp forecasts (bucketed), one GP program
+    launch per tick and finite series, every chunk sync-free; and with
+    oracle forecasts, card (graphs) against CPU (eager), summaries and
+    per-tick series equal, as phase 4b."""
+    import torch
+    data = Path(__file__).resolve().parent / "tests" / "data"
+    cells = [(name, scenarios.make_config(name)) for name in FAMILIES]
+    cells += [(f"replay {p}", scenarios.ReplayConfig(path=str(data / f"{p}_tiny.csv"), preset=p))
+              for p in ("alibaba", "azure")]
+    guard = strict_chunks(step)
+    try:
+        for name, wl in cells:
+            tr = scenarios.build_trace(wl)
+            cfg = SimConfig(workload=wl, max_ticks=FAMILY_TICKS)
+            n0 = gp_forecast.gp_fit_forecast.launches
+            entries = set(map(id, step._GRAPHS.values()))
+            t = time.perf_counter()
+            res = step.run_sim_scan(cfg, device="cuda")
+            torch.cuda.synchronize()
+            t = time.perf_counter() - t
+            ticks = res.timings["ticks"]
+            # a new entry (new shapes) runs one eager warm-up tick first
+            new = sum(id(e) not in entries for e in step._GRAPHS.values())
+            launches = gp_forecast.gp_fit_forecast.launches - n0
+            assert launches == ticks + new, (name, launches, ticks, new)
+            assert all(np.isfinite(res.util_mem)) and max(res.n_running) > 0, name
+            ocfg = dataclasses.replace(cfg, forecaster="oracle")
+            t_o = time.perf_counter()
+            a = step.run_sim_scan(ocfg, device="cuda")
+            t_o = time.perf_counter() - t_o
+            b = step.run_sim_scan(ocfg, device="cpu")
+            assert run_series(a) == run_series(b), f"{name}: oracle card != cpu"
+            s = res.summary()
+            log(f"  {name}: {tr.n_apps} apps x {tr.max_components} components; gp "
+                f"{ticks} ticks in {t:.3f} s ({ticks / t:.3f} ticks/s, capture included "
+                f"where the shapes are new), {launches} GP launches ({new} in a warm-up "
+                f"tick), completed "
+                f"{s['completed']}, forecast rows {res.forecast_rows}; oracle card == cpu "
+                f"over {a.timings['ticks']} ticks (card {t_o:.3f} s), completed "
+                f"{a.summary()['completed']}")
+    finally:
+        chunks = guard.stop()
+    log(f"  {chunks} chunks on the card and the CPU, every one sync-free")
 
 
 def _nbytes(*ts) -> int:
@@ -1706,7 +2083,7 @@ def main() -> int:
     from repro_torch.kernels import (flash_attention, fma, gp_forecast, gp_gram, nvcc, ref,
                                      sched, shaper)
     from repro_torch.sim import ClusterConfig, SimConfig, WorkloadConfig, run_sim
-    from repro_torch.sim import step
+    from repro_torch.sim import scenarios, step
     from repro_torch.sim.engine import forecast_peaks
 
     # full fp32 everywhere: the GP's numbers must not go through TF32; bf16
@@ -1813,11 +2190,17 @@ def main() -> int:
     assert 0 < summary["util_mem_mean"] <= 1, summary
 
     log("== 5b. main path: run_sim_scan(SimConfig(), device='cuda'), the device engine, "
-        "to completion through replayed CUDA graphs")
-    scan_launches = run_scan_main(step, SimConfig, gp_forecast, shaper, sched, fma)
+        "to completion through replayed CUDA graphs, forecasts bucketed; then the full "
+        "batch")
+    # the node census reads each captured graph's nodes
+    step._ChunkGraphs.keep_nodes = True
+    scan_launches, gp_ready = run_scan_main(step, SimConfig, gp_forecast, shaper, sched, fma)
     log("== 5c. the device engine's graphs against its eager ticks on the card "
         "(SimConfig(): 135 ticks solo, 64 ticks of a 3-seed cohort), then both timed")
     check_graphs(step, SimConfig)
+    log(f"== 5d. the scenario families at full width and the replay fixtures on the "
+        f"device engine (gp, {FAMILY_TICKS} ticks at most), oracle card vs CPU")
+    run_families(step, scenarios, SimConfig, gp_forecast)
 
     log("== 6. Whisper, smoke widths, fp32: the card against the CPU")
     check_whisper_smoke(flash_attention)
@@ -1830,17 +2213,22 @@ def main() -> int:
     log("== 8. kernel timings (CUDA events; Gram at B=512, exp; flash at the "
         "Whisper decoder's shape)")
     times = time_kernels(gp_gram, ref, dev)
-    times.update(time_gp_kernel(gp_forecast, ref, GPConfig, dev))
+    gp_times, gp_err = time_gp_kernel(gp_forecast, ref, GPConfig, dev, gp_ready)
+    times.update(gp_times)
+    err["gp_fit_forecast"] = max(err["gp_fit_forecast"], gp_err)
     times.update(time_flash(flash_attention, ref, dev))
     times.update(time_scan_kernels(scan_fns, scan_cases, shaper, sched))
     times.update(time_fma(fma, ref))
     log(f"  gp_gram library_ms: null - no single PyTorch call computes the Gram "
         f"matrix (torch.cdist gives distances only) or its (ell, sf) gradient")
+    end_phase()
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     launches["flash_attention"] = whisper_launches
     launches["flash_attention_simt"] = simt_launches
-    launches.update({k: scan_launches[k] for k in SCAN_KERNELS + ("fma_f32",)})
+    # the GP program's launches and times are the device engine's (its
+    # bucketed launch); the host engine's were asserted in phase 5
+    launches.update({k: scan_launches[k] for k in SCAN_KERNELS + ("fma_f32", "gp_fit_forecast")})
     replaces = {"gp_gram_fwd": "src/repro/kernels/gp_gram.py:75",
                 "gp_gram_bwd": "src/repro/kernels/gp_gram.py:75",
                 "gp_fit_forecast": "src/repro/kernels/gp_gram.py:75",

@@ -12,8 +12,9 @@ batch (chip_smoke.py's phase 8 times the GP program alone).
 
 ``--path scan`` runs the device engine (``run_sim_scan(SimConfig())``,
 full width, each chunk a replayed CUDA graph) for its first SCAN_TICKS
-ticks under the profiler after a warm-up that captures the graph, and
-prints the busy share, the host's launch calls per tick (kernel and
+ticks under the profiler after a warm-up that captures the graph, with
+the forecasts bucketed (the default) and then over the full batch
+(``forecast_bucket=False``), and prints for each the busy share, the host's launch calls per tick (kernel and
 graph launches), the kernels per tick the graph holds
 (``cuGraphGetNodes``), and the device time by kind, with Algorithm
 1's pass, the three scheduler kernels and the GP program as groups of
@@ -29,7 +30,11 @@ alone, as ``chip_smoke.py`` phase 8 does (device and host time per call
 at the tick-200 states, resolve_oom also with victims, admission and
 elastic re-placement also on the full-width cases with the most events,
 and the phase cycles of the kernels that stamp them), then times the
-``a*b + c`` kernel beside ``torch.add``'s device time.  With ``--src
+``a*b + c`` kernel beside ``torch.add``'s device time, and the GP
+program as ``--path gp`` does.  ``--path gp`` times the GP program alone
+(its registers and spills as ptxas reports them; at 512 and 3,072
+series, and, where the package's wrapper takes a ready mask, over 3,072
+rows of which GP_SERIES run, the leading components of whole app slots).  With ``--src
 DIR`` it takes the package from another checkout's ``src`` (a parent
 commit unpacked with ``git archive``), so that two commits' kernels are
 timed on one card in one call.
@@ -41,7 +46,7 @@ on its own, with the device time summed by kind of kernel.
 
 Run from the repository root:
 
-    python3 profile_port.py [--path sim|scan|kernels|whisper] [--src DIR]
+    python3 profile_port.py [--path sim|scan|kernels|gp|whisper] [--src DIR]
 
 Without a CUDA device it exits with an error and prints nothing else.
 """
@@ -226,38 +231,56 @@ def profile_scan() -> int:
     from repro_torch.sim import SimConfig, run_sim_scan, step
 
     print(f"nvidia-smi: {chip_smoke.nvidia_smi()}")
-    step._GRAPHS.clear()
-    run_sim_scan(SimConfig(max_ticks=64), device="cuda")     # build, warm-up, capture
-    (entry,) = step._GRAPHS.values()
-    for line in chip_smoke.describe_graphs(entry):
-        print(f"graph {line}")
-    for m in (gp_forecast, shaper, sched):
-        m.reset_launch_counts()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        res = run_sim_scan(SimConfig(max_ticks=SCAN_TICKS), device="cuda")
+    step._ChunkGraphs.keep_nodes = True      # the kernels per tick are counted from the nodes
+    for name, cfg in (("bucketed", SimConfig()),
+                      ("full batch", SimConfig(forecast_bucket=False))):
+        step._GRAPHS.clear()
+        run_sim_scan(dataclasses.replace(cfg, max_ticks=64), device="cuda")  # warm-up, capture
+        (entry,) = step._GRAPHS.values()
+        for line in chip_smoke.describe_graphs(entry):
+            print(f"graph {line}")
+        for m in (gp_forecast, shaper, sched):
+            m.reset_launch_counts()
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    ka = prof.key_averages()
-    ticks = res.timings["ticks"]
-    print(f"device engine, {ticks} ticks under the profiler: "
-          f"{shaper.pessimistic_pass.launches} pessimistic_pass, "
-          f"{sched.resolve_oom.launches} resolve_oom, {sched.admit_queued.launches} "
-          f"admit_queued, {sched.place_missing_elastic.launches} place_missing_elastic, "
-          f"{gp_forecast.gp_fit_forecast.launches} GP program launches (replays x captured)")
-    _report(prof, wall, f"device engine, {ticks} ticks", kinds=SCAN_KINDS, top=15)
-    calls = {k: sum(e.count for e in ka if e.key == k) for k in LAUNCH_KEYS}
-    n_launch = sum(calls.values())
-    kernels = sum(chip_smoke.graph_nodes(g.graph)[0].get("kernel", 0) / n
-                  for n, g in entry.graphs.items()) / len(entry.graphs)
-    print(f"  host launch calls: {n_launch} ({n_launch / ticks:.4f} per tick: "
-          + ", ".join(f"{k} {v}" for k, v in calls.items() if v)
-          + f"); kernels per tick in the graph: {kernels:.3f}; "
-          f"wall {wall / ticks * 1e3:.4f} ms per tick")
-    print("top operators by host time (self):")
-    for e in sorted(ka, key=lambda e: e.self_cpu_time_total, reverse=True)[:15]:
-        print(f"  {e.self_cpu_time_total / 1e3:10.3f} ms  {e.count:8d} calls  {e.key[:90]}")
+        rec = chip_smoke.record_runs(step)
+        try:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                res = run_sim_scan(dataclasses.replace(cfg, max_ticks=SCAN_TICKS),
+                                   device="cuda")
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        finally:
+            rec.stop()
+        ka = prof.key_averages()
+        ticks = res.timings["ticks"]
+        mean, lo, hi = chip_smoke.series_per_launch(rec.metrics[0])
+        print(f"device engine, {name}, {ticks} ticks under the profiler: "
+              f"{shaper.pessimistic_pass.launches} pessimistic_pass, "
+              f"{sched.resolve_oom.launches} resolve_oom, {sched.admit_queued.launches} "
+              f"admit_queued, {sched.place_missing_elastic.launches} place_missing_elastic, "
+              f"{gp_forecast.gp_fit_forecast.launches} GP program launches (replays x "
+              f"captured), {mean:.3f} series per GP launch (min {lo}, max {hi}); buckets "
+              f"{chip_smoke.runs_of(rec.buckets) or 'none'}")
+        _report(prof, wall, f"device engine, {name}, {ticks} ticks", kinds=SCAN_KINDS,
+                top=15)
+        gp = [e for e in ka if "gp_forecast_kernel" in e.key and _dev_us(e) > 0]
+        if gp:
+            n = sum(e.count for e in gp)
+            print(f"  GP program: {sum(_dev_us(e) for e in gp) / n:.3f} us per launch "
+                  f"over {n} launches")
+        calls = {k: sum(e.count for e in ka if e.key == k) for k in LAUNCH_KEYS}
+        n_launch = sum(calls.values())
+        kernels = sum(chip_smoke.graph_nodes(g.graph)[0].get("kernel", 0) / n
+                      for n, g in entry.graphs.items()) / len(entry.graphs)
+        print(f"  host launch calls: {n_launch} ({n_launch / ticks:.4f} per tick: "
+              + ", ".join(f"{k} {v}" for k, v in calls.items() if v)
+              + f"); kernels per tick in the graph: {kernels:.3f}; "
+              f"wall {wall / ticks * 1e3:.4f} ms per tick")
+        print("top operators by host time (self):")
+        for e in sorted(ka, key=lambda e: e.self_cpu_time_total, reverse=True)[:15]:
+            print(f"  {e.self_cpu_time_total / 1e3:10.3f} ms  {e.count:8d} calls  "
+                  f"{e.key[:90]}")
     for forecaster in ("gp", "persist"):
         issued, total, by_copy = copy_launches(
             SimConfig(forecaster=forecaster, max_ticks=COPY_TICKS))
@@ -266,6 +289,29 @@ def profile_scan() -> int:
         print(f"XLA:CPU rounding copies, {forecaster}, {issued} ticks issued from Python "
               f"(warm-up and capture): {n / issued:.1f} of {total / issued:.1f} kernel "
               f"launches per tick ({per or 'none attributed'})")
+    return 0
+
+
+GP_SERIES = 146    # series per GP launch, the mean over the first 640 ticks of SimConfig()
+
+
+def profile_gp() -> int:
+    """The GP program alone: its registers and spills, and its times at
+    512 and 3,072 series and (a package whose wrapper takes a ready mask)
+    over 3,072 rows of which GP_SERIES run."""
+    import inspect
+    import torch
+    import chip_smoke
+    from repro_torch.core.forecast import GPConfig
+    from repro_torch.kernels import gp_forecast, nvcc, ref
+    print(f"package {Path(gp_forecast.__file__).resolve().parents[2]}; nvidia-smi: "
+          f"{chip_smoke.nvidia_smi()}")
+    for line in nvcc.build(gp_forecast.SOURCE).log.splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"  gp_forecast ptxas: {line.strip()}")
+    masked = "ready" in inspect.signature(gp_forecast.gp_fit_forecast).parameters
+    chip_smoke.time_gp_kernel(gp_forecast, ref, GPConfig, torch.device("cuda"),
+                              chip_smoke.app_mask(GP_SERIES // 2, seed=3) if masked else None)
     return 0
 
 
@@ -280,7 +326,7 @@ def profile_kernels() -> int:
     chip_smoke.check_scan_kernels(fns, cases)
     chip_smoke.time_scan_kernels(fns, cases, shaper, sched)
     chip_smoke.time_fma(fma, ref)
-    return 0
+    return profile_gp()
 
 
 def main() -> int:
@@ -288,7 +334,8 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
     here = Path(__file__).resolve().parent
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--path", choices=("sim", "scan", "kernels", "whisper"), default="sim")
+    ap.add_argument("--path", choices=("sim", "scan", "kernels", "gp", "whisper"),
+                    default="sim")
     ap.add_argument("--src", type=Path, default=here / "src",
                     help="the directory that holds the repro_torch package")
     args = ap.parse_args()
@@ -308,6 +355,8 @@ def main() -> int:
         return profile_scan()
     if args.path == "kernels":
         return profile_kernels()
+    if args.path == "gp":
+        return profile_gp()
     run_sim(SimConfig(max_ticks=20), device="cuda")          # build + warm-up
     gp_forecast.reset_launch_counts()
 

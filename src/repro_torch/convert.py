@@ -5,7 +5,7 @@ The GP has no pretrained weights — its hyper-parameters are fitted at
 every tick — so a run's whole state is its configuration and its trace:
 
   * :func:`sim_config_from_dict` takes ``dataclasses.asdict`` of a
-    reference ``SimConfig``;
+    reference ``SimConfig`` and the name of its workload's family;
   * :func:`trace_from_arrays` takes the numpy columns of a reference
     ``Trace``.
 
@@ -36,29 +36,31 @@ from repro_torch.core.shaper import SafeguardConfig
 from repro_torch.device import resolve_device
 from repro_torch.sim.cluster import ClusterConfig
 from repro_torch.sim.engine import SimConfig, Switch
+from repro_torch.sim import scenarios
 from repro_torch.sim.scenarios.schema import Trace
 from repro_torch.sim.state import DeviceTrace, SimState
-from repro_torch.sim.workload import WorkloadConfig
 
 _SCALARS = ("policy", "forecaster", "window", "grace", "horizon", "max_ticks",
             "work_lost_on_kill", "leap", "forecast_bucket")
 
 
-def sim_config_from_dict(d: dict) -> SimConfig:
+def sim_config_from_dict(d: dict, *, workload: str = "google") -> SimConfig:
     """The port's ``SimConfig`` for ``dataclasses.asdict(reference_cfg)``.
 
     Refuses a config whose calibration or control plane is enabled (not
     ported yet).  Drops ``gp.impl`` (the port dispatches on the device)
     and the ARIMA settings (the ARIMA forecaster is not ported; choosing
-    it makes ``run_sim`` raise).  The workload must be the ``google``
-    family's config."""
+    it makes ``run_sim`` raise).  ``asdict`` keeps no type, so
+    ``workload`` names the scenario family of ``d["workload"]``: any
+    registered one (``google``, ``diurnal``, ``flashcrowd``,
+    ``heavytail``, ``colocated``, ``replay``)."""
     for block in ("calibration", "control"):
         if d[block]["enabled"]:
             raise NotImplementedError(f"{block}.enabled is not ported yet")
     gp = {k: v for k, v in d["gp"].items() if k != "impl"}
     return SimConfig(
         cluster=ClusterConfig(**d["cluster"]),
-        workload=WorkloadConfig(**d["workload"]),
+        workload=scenarios.get(workload).config_cls(**d["workload"]),
         safeguard=SafeguardConfig(**d["safeguard"]),
         obs=Switch(enabled=d["obs"]["enabled"]),
         gp=GPConfig(**gp),

@@ -105,10 +105,14 @@ class GPForecaster:
     cfg: GPConfig = GPConfig()
 
     @torch.no_grad()
-    def forecast_batch(self, windows, horizon: int, *, valid=None,
+    def forecast_batch(self, windows, horizon: int, *, valid=None, ready=None,
                        device: str | torch.device = "cuda") -> Forecast:
         """Forecast ``(B, T)`` windows (oldest first) ``horizon`` steps
         ahead; ``valid`` masks samples a young series has not seen yet.
+        ``ready`` (B,) bool on ``device`` forecasts only the rows it marks
+        (the device engine's forecast-ready rows): each of those is
+        bit-identical to the row forecast without a mask, and the other
+        rows carry no forecast (the GP program skips them).
         Returns a Forecast of ``(B, horizon)`` tensors on ``device``."""
         cfg = self.cfg
         dev = resolve_device(device)
@@ -119,5 +123,5 @@ class GPForecaster:
         X, y, row_valid, hist, mu, sd = fit_inputs(w, v, cfg)
         # evidence loop, fit and horizon: one CUDA kernel on the card
         mean_z, var_z, _ = kops.gp_fit_forecast(X, y, row_valid, hist, T,
-                                                horizon, cfg)
+                                                horizon, cfg, ready)
         return finish(mean_z, var_z, w, v, mu, sd, cfg)

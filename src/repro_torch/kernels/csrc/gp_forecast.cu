@@ -42,7 +42,10 @@
 // of 11 N x N factorizations, each N pivots long, with solves, an
 // inverse and reductions between: the kernel is bound by that chain's
 // latency, not by bytes or operations.  What it removes is the host's
-// part: the plain version issues ~1,400 launches per batch.
+// part: the plain version issues ~1,400 launches per batch.  On the device
+// engine's bucketed path a launch covers 2 x A x C = 3,072 rows of which
+// only the ready ones run (a few hundred at most at the default config);
+// the launch still takes about one series' chain, however few run.
 //
 // Design: one warp per series, 4 warps per block (fewer when N is large);
 // lane i owns rows i and i + 32 of every N x N matrix (N <= 64); the
@@ -57,6 +60,14 @@
 // (|a|^2, |b|^2 and a.b summed by one loop, each product and sum rounded
 // on its own), so the diagonal cancels exactly, as in the plain version;
 // the Adam update rounds each operation in the plain version's order.
+//
+// Ready mask: the device engine passes, in device memory, one byte per
+// series that says whether it is forecast-ready.  A warp whose series is
+// not ready writes zeros and returns before it stages anything, so the
+// launch stays one node of a captured graph and a mask that changes from
+// tick to tick needs no host read.  A launch still costs about one
+// series' chain whatever the number that run, not in proportion to them.
+// Without a mask every series runs.
 //
 // The entry point launches on the stream it is given and returns
 // cudaGetLastError(); the caller allocates every output.
@@ -261,16 +272,32 @@ __device__ void evidence_grad(const Series& s, const float* y, float ell,
   __syncwarp();  // al and W are rewritten at the next step
 }
 
+// Whether series b is not ready; if so, write its outputs as zeros.  Not
+// inlined: inlined, ptxas held the whole kernel to 64 registers and
+// spilled, and every series ran slower.
+__device__ __noinline__ bool skip_series(int b, int lane, const unsigned char* ready,
+                                         int H, float* mean, float* var, float* logp) {
+  if (ready[b]) return false;
+  for (int k = lane; k < H; k += 32) {
+    mean[static_cast<size_t>(b) * H + k] = 0.f;
+    var[static_cast<size_t>(b) * H + k] = 0.f;
+  }
+  if (lane < 3) logp[static_cast<size_t>(b) * 3 + lane] = 0.f;
+  return true;
+}
+
 __global__ void __launch_bounds__(32 * kWarpsPerBlock)
 gp_forecast_kernel(const float* __restrict__ X, const float* __restrict__ Y,
                    const unsigned char* __restrict__ valid,
                    const float* __restrict__ hist, float* __restrict__ mean,
                    float* __restrict__ var, float* __restrict__ logp,
-                   const Params P, int warps) {
+                   const unsigned char* __restrict__ ready, const Params P,
+                   int warps) {
   extern __shared__ float smem[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int b = blockIdx.x * warps + warp;
   if (warp >= warps || b >= P.B) return;
+  if (ready != nullptr && skip_series(b, lane, ready, P.H, mean, var, logp)) return;
   const int N = P.N, D = P.D, ld = N | 1, kind = P.kind;
   const int per_warp = smem_per_warp(N, D) / static_cast<int>(sizeof(float));
   Series s;
@@ -392,7 +419,8 @@ extern "C" int gp_forecast_init() {
 
 // X (B,N,D), y (B,N) float32; valid (B,N) bool; hist (B,D-1) float32;
 // bc1, bc2 (steps) and init (3) host float32 arrays.  Outputs mean and
-// var (B,H), logp (B,3).  kind: 0 = "exp", 1 = "rbf".  Sizes are checked
+// var (B,H), logp (B,3).  kind: 0 = "exp", 1 = "rbf".  ready: null, or
+// B device bytes (series b runs iff ready[b] != 0).  Sizes are checked
 // by the Python wrapper; the checks here only keep a bad call from
 // launching.
 extern "C" int gp_forecast(const float* X, const float* y,
@@ -400,7 +428,8 @@ extern "C" int gp_forecast(const float* X, const float* y,
                            float* mean, float* var, float* logp, int B, int N,
                            int D, int H, int T, int steps, int kind, float lr,
                            float jitter, const float* bc1, const float* bc2,
-                           const float* init, void* stream) {
+                           const float* init, const unsigned char* ready,
+                           void* stream) {
   if (B < 1 || N < 1 || N > kMaxN || D < 2 || D > kMaxD || H < 1 || T < 1 ||
       steps < 0 || steps > kMaxSteps || (kind != 0 && kind != 1))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -427,6 +456,6 @@ extern "C" int gp_forecast(const float* X, const float* y,
   const int blocks = (B + warps - 1) / warps;
   gp_forecast_kernel<<<blocks, 32 * kWarpsPerBlock, smem,
                        static_cast<cudaStream_t>(stream)>>>(
-      X, y, valid, hist, mean, var, logp, P, warps);
+      X, y, valid, hist, mean, var, logp, ready, P, warps);
   return static_cast<int>(cudaGetLastError());
 }

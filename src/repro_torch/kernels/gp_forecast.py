@@ -21,7 +21,9 @@ device (``gp_forecast_init``, through :func:`nvcc.prepare`, so that a
 launch captured in a CUDA graph is a launch only), launches on the
 current CUDA stream, raises if the launch returned an error, and counts
 its launches in ``gp_fit_forecast.launches``.  A call the kernel cannot
-take raises a ``ValueError``.
+take raises a ``ValueError``.  With ``ready`` (one bool per series, on
+the card) the kernel runs only the series it marks; the device engine
+passes its forecast-ready monitor rows so.
 """
 from __future__ import annotations
 
@@ -48,7 +50,7 @@ def _library() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(nvcc.build(SOURCE).path))
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.gp_forecast.argtypes = ([ptr] * 7 + [i32] * 7 + [f32] * 2
-                                    + [ptr] * 3 + [ptr])
+                                    + [ptr] * 3 + [ptr] + [ptr])
         lib.gp_forecast.restype = i32
         lib.gp_forecast_init.argtypes = []
         lib.gp_forecast_init.restype = i32
@@ -66,7 +68,7 @@ def _host_constants(steps: int):
     return arr(*bc1), arr(*bc2), (ctypes.c_float * 3)(*init)
 
 
-def _check(X, y, row_valid, hist, T, horizon, cfg):
+def _check(X, y, row_valid, hist, T, horizon, cfg, ready=None):
     """Validate the kernel's inputs; return (B, N, D, kind code)."""
     if cfg.kernel not in ref.KINDS:
         raise ValueError(f"unknown kernel kind: {cfg.kernel!r} "
@@ -96,15 +98,20 @@ def _check(X, y, row_valid, hist, T, horizon, cfg):
         raise ValueError(f"opt_steps={cfg.opt_steps} outside [0, {MAX_STEPS}]")
     if horizon < 1 or T < 1 or B < 1 or B * N * D >= 2**31:
         raise ValueError(f"horizon={horizon}, T={T}, B={B}: out of the kernel's range")
+    if ready is not None:
+        nvcc.check(X.device, ready=(ready, torch.bool, (B,)))
     return B, N, D, ref.KINDS.index(cfg.kernel)
 
 
 @nvcc.counted
 def gp_fit_forecast(X: torch.Tensor, y: torch.Tensor, row_valid: torch.Tensor,
-                    hist: torch.Tensor, T: int, horizon: int, cfg):
+                    hist: torch.Tensor, T: int, horizon: int, cfg,
+                    ready: torch.Tensor | None = None):
     """Launch the kernel: ``(mean, var, log_params)``, ``(B, horizon)``,
-    ``(B, horizon)`` and ``(B, 3)``, as ``ref.gp_fit_forecast`` returns."""
-    B, N, D, code = _check(X, y, row_valid, hist, T, horizon, cfg)
+    ``(B, horizon)`` and ``(B, 3)``, as ``ref.gp_fit_forecast`` returns.
+    ``ready`` (B,) bool on the card: only the series it marks run; the
+    others come back zeros."""
+    B, N, D, code = _check(X, y, row_valid, hist, T, horizon, cfg, ready)
     lib = _library()
     bc1, bc2, init = _host_constants(cfg.opt_steps)
     mean = torch.empty((B, horizon), dtype=torch.float32, device=X.device)
@@ -113,7 +120,7 @@ def gp_fit_forecast(X: torch.Tensor, y: torch.Tensor, row_valid: torch.Tensor,
     nvcc.prepare(lib.gp_forecast_init, "gp_forecast", X.device)
     nvcc.launch(lib.gp_forecast, "gp_forecast", X.device, X, y, row_valid, hist, mean,
                 var, logp, B, N, D, horizon, T, cfg.opt_steps, code, cfg.opt_lr,
-                cfg.jitter, bc1, bc2, init)
+                cfg.jitter, bc1, bc2, init, ready)
     gp_fit_forecast.launches += 1
     return mean, var, logp
 

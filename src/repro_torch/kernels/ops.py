@@ -34,19 +34,22 @@ def gram(xa: torch.Tensor, xb: torch.Tensor, lengthscale: torch.Tensor,
 
 
 def gp_fit_forecast(X: torch.Tensor, y: torch.Tensor, row_valid: torch.Tensor,
-                    hist: torch.Tensor, T: int, horizon: int, cfg):
+                    hist: torch.Tensor, T: int, horizon: int, cfg,
+                    ready: torch.Tensor | None = None):
     """The GP's evidence loop, fit and iterated horizon per series, in
     standardized units: X (B,N,D) patterns, y (B,N) targets, row_valid
     (B,N), hist (B,D-1) the last D-1 values, T the window length, cfg a
     ``GPConfig`` -> (mean, var, log_params), ``(B, horizon)`` twice and
-    ``(B, 3)``.  On the card one kernel launch; a call it cannot take
-    raises."""
+    ``(B, 3)``.  ``ready`` (B,) bool, on X's device: only the series it
+    marks are computed, the others are zeros.  On the card one kernel
+    launch, which reads the mask itself; a call it cannot take raises."""
     if X.device.type == "cuda":
         return _gf.gp_fit_forecast(X.contiguous(), y.contiguous(),
                                    row_valid.contiguous(), hist.contiguous(),
-                                   T, horizon, cfg)
+                                   T, horizon, cfg,
+                                   None if ready is None else ready.contiguous())
     if X.device.type == "cpu":
-        return ref.gp_fit_forecast(X, y, row_valid, hist, T, horizon, cfg)
+        return ref.gp_fit_forecast(X, y, row_valid, hist, T, horizon, cfg, ready)
     raise ValueError(f"no gp_fit_forecast implementation for device {X.device}")
 
 

@@ -200,7 +200,8 @@ def gp_optimize_evidence(X: torch.Tensor, y: torch.Tensor,
 
 
 def gp_fit_forecast(X: torch.Tensor, y: torch.Tensor, row_valid: torch.Tensor,
-                    hist: torch.Tensor, T: int, horizon: int, cfg):
+                    hist: torch.Tensor, T: int, horizon: int, cfg,
+                    ready: torch.Tensor | None = None):
     """Fit the GP of each series and iterate its posterior mean over the
     horizon, in standardized units (the work of the CUDA ``gp_forecast``
     kernel).
@@ -208,7 +209,17 @@ def gp_fit_forecast(X: torch.Tensor, y: torch.Tensor, row_valid: torch.Tensor,
     X (B,N,D) patterns, y (B,N) targets, row_valid (B,N), hist (B,D-1)
     the series' last D-1 standardized values, T the window length.
     Returns ``(mean, var, log_params)``: ``(B, horizon)`` each, and the
-    fitted ``(B, 3)`` log ``(ell, sf, sn)``."""
+    fitted ``(B, 3)`` log ``(ell, sf, sn)``.  With ``ready`` (B,) bool
+    only the series it marks are computed (sliced out, as rows never
+    interact) and the others come back zeros, as the kernel writes them."""
+    if ready is not None:
+        out = [torch.zeros((X.shape[0], n), dtype=torch.float32, device=X.device)
+               for n in (horizon, horizon, 3)]
+        if ready.any():
+            for o, r in zip(out, gp_fit_forecast(X[ready], y[ready], row_valid[ready],
+                                                 hist[ready], T, horizon, cfg)):
+                o[ready] = r
+        return tuple(out)
     B = X.shape[0]
     log_params = gp_optimize_evidence(X, y, row_valid, cfg)
     ell, sf, sn = log_params.exp().unbind(1)

@@ -4,9 +4,11 @@ A copy of ``repro/sim/scenarios/schema.py`` (numpy only).  A
 :class:`Trace` is a column-oriented application table: arrival times,
 per-component reservations, rigid/elastic tags and piecewise-linear
 utilization profiles.  Every workload source emits this one schema, so
-the engine runs any of them unchanged.  Ported sources: the
-Google-shaped generator in :mod:`repro_torch.sim.workload` and
-:func:`repro_torch.convert.trace_from_arrays`.
+the engines run any of them unchanged.  Ported sources: the
+Google-shaped generator in :mod:`repro_torch.sim.workload`, the
+parametric families in :mod:`repro_torch.sim.scenarios.families`, the
+CSV/Parquet replay adapter in :mod:`repro_torch.sim.scenarios.replay`
+and :func:`repro_torch.convert.trace_from_arrays`.
 
 Invariants (checked by :meth:`Trace.validate`):
 
@@ -174,3 +176,17 @@ class Trace:
             raise TraceValidationError("; ".join(p))
         return self
 
+
+def sort_by_submit(submit: np.ndarray, **columns: np.ndarray) -> dict:
+    """Stable-sort per-app columns by submission time.
+
+    Generator families that interleave several arrival processes (e.g.
+    flashcrowd's background + burst populations) build their columns in
+    population order and call this to restore the engine's required
+    arrival order.  Returns ``{"submit": sorted, **columns sorted}``.
+    """
+    order = np.argsort(submit, kind="stable")
+    out = {"submit": submit[order]}
+    for name, col in columns.items():
+        out[name] = col[order]
+    return out

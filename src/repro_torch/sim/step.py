@@ -38,11 +38,19 @@ differently, ``repro/sim/step.py:12-20``).  Where XLA:CPU contracts an
     float64, exact for these values in any order, so each member's
     results equal its solo run.
 
+With ``forecast_bucket`` (the default) the gp forecast runs over the
+ready monitor rows only (:func:`_bucketed_forecast`): the GP program
+takes the full batch and a device mask of the ready rows and skips the
+others, so one launch per tick covers any number of ready rows and a
+captured graph never changes.
+The bucket the reference would choose at each chunk boundary
+(:func:`_pick_bucket`) is a device scalar that ``_drive_chunks`` writes before
+the chunk runs; it decides only the ``rows_bucketed`` count.
+
 Not ported, and refused: ARIMA, calibration, the control plane, the
 telemetry rings, leap ticks and streamed workloads; ``run_fleet_shard``.
-The forecast always runs over the full ``2 * A * C``-row batch, which is
-the reference's ``forecast_bucket=False`` program (its bucketed path is
-held bit-identical to that one by ``tests/test_scan_engine.py``).
+The reference's bucket telemetry (``forecast.bucket_*`` counters of its
+metrics registry) is not ported either.
 """
 from __future__ import annotations
 
@@ -193,15 +201,69 @@ def _oracle_peaks(tr: DeviceTrace, st: SimState, horizon: int,
     return peaks
 
 
-def _shaped_demands(cfg, model, tr: DeviceTrace, st: SimState, tick: float):
+# smallest forecast bucket, in monitor rows per resource, as the
+# reference's (the model's rows are counted in passes of 2 * bucket)
+_BUCKET_MIN = 8
+
+
+def _bucketed(cfg) -> bool:
+    """Does this config route forecasts through the bucketed path?"""
+    return (cfg.forecast_bucket and cfg.policy != "baseline"
+            and cfg.forecaster in ("gp", "arima"))
+
+
+def _pick_bucket(cfg, st: SimState) -> int | None:
+    """The reference's per-chunk bucket: the smallest power of two (at
+    least ``_BUCKET_MIN``) covering the largest ready-row count over the
+    members now, read on the host at the chunk boundary; ``None`` (the
+    full batch) when it would cover the whole table.  It decides only how
+    the rows the model computes are counted, never a result."""
+    S, AC = st.mon_count.shape
+    run = ((st.slot_gid >= 0)[:, :, None] & st.comp_running).reshape(S, AC)
+    n = int((run & (st.mon_count >= cfg.grace)).sum(-1).max())
+    b = _BUCKET_MIN
+    while b < n:
+        b *= 2
+    return None if b >= AC else b
+
+
+def _bucketed_forecast(cfg, model, flat_w: torch.Tensor, flat_v: torch.Tensor,
+                       ready: torch.Tensor, bucket: torch.Tensor):
+    """gp forecast over the READY monitor rows only: the counterpart of the
+    reference's ``_bucketed_forecast``.
+
+    The model takes the full ``(S * 2*A*C, W)`` batch, so the shapes never
+    change, and a device mask of the ready rows (each member's CPU rows,
+    then its MEM rows), and computes only those.  Rows never interact, so
+    every ready row's (mean, var) is the full-batch path's to the bit.
+    Non-ready rows carry no forecast, and the caller masks them.
+
+    Returns (mean, var), each ``(S * 2*A*C,)``, and the rows the
+    reference's passes compute, ``ceil(n_ready / bucket) * 2 * bucket``
+    per member, with ``bucket`` the chunk's (a 0-d int32 device tensor;
+    the whole table is bucket = A*C)."""
+    S, AC = ready.shape
+    fc = model.forecast_batch(flat_w, cfg.horizon, valid=flat_v,
+                              ready=ready[:, None, :].expand(S, 2, AC).reshape(-1),
+                              device=flat_w.device)
+    mean, var = (x.float() for x in peak_over_horizon(fc))
+    n = ready.sum(-1)
+    return mean, var, ((n - 1).div(bucket, rounding_mode="floor") + 1).mul(2 * bucket).int()
+
+
+def _shaped_demands(cfg, model, tr: DeviceTrace, st: SimState, tick: float,
+                    bucket: torch.Tensor | None = None):
     """(S, A, C, 2) shaped demand table, the forecast rows past the grace
     period this tick and the rows the forecast model computed.
 
     Running components default to their reservation; components past the
-    grace period get ``clip(peak + beta, 0, request)``.  The gp forecast
-    always runs over every monitor row and non-ready rows are masked
-    afterwards (the reference skips the model on ticks with no ready row;
-    the masked rows are never read, so the results are the same)."""
+    grace period get ``clip(peak + beta, 0, request)``.  Bucketed
+    (:func:`_bucketed`), the gp forecast runs over the ready rows only,
+    and ``bucket`` is the chunk's bucket, a 0-d int32 device tensor.
+    Otherwise it runs over every monitor row and non-ready rows are
+    masked afterwards (the reference skips the model on ticks with no
+    ready row; the masked rows are never read, so the results are the
+    same)."""
     S, A, C = st.comp_running.shape
     AC = A * C
     gid = _gid(st)
@@ -228,6 +290,8 @@ def _shaped_demands(cfg, model, tr: DeviceTrace, st: SimState, tick: float):
     fc_done = zero
     if cfg.forecaster == "persist":
         mean, var = persistence_peak(flat_w, flat_v)
+    elif _bucketed(cfg):
+        mean, var, fc_done = _bucketed_forecast(cfg, model, flat_w, flat_v, ready, bucket)
     else:
         fc = model.forecast_batch(flat_w, cfg.horizon, valid=flat_v, device=req.device)
         mean, var = (x.float() for x in peak_over_horizon(fc))
@@ -368,12 +432,14 @@ def host_capacity(cfg, device) -> torch.Tensor:
                         ).expand(c.n_hosts, 2).contiguous().to(device)
 
 
-def fused_tick(cfg, model, tr: DeviceTrace, st: SimState,
-               host_cap: torch.Tensor) -> tuple[SimState, TickMetrics]:
+def fused_tick(cfg, model, tr: DeviceTrace, st: SimState, host_cap: torch.Tensor,
+               bucket: torch.Tensor | None = None) -> tuple[SimState, TickMetrics]:
     """One simulation tick for every member, in the phase order of the
     host engine's loop body.  A member whose apps are all done only keeps
     its clock (every phase is a no-op on it) and its metrics are marked
-    not ``valid``."""
+    not ``valid``.  ``bucket``: the chunk's forecast bucket, a 0-d int32
+    device tensor that the bucketed forecast (:func:`_bucketed`) reads and
+    needs; other configs ignore it."""
     tick = cfg.cluster.tick
     active = ~st.done.all(-1)
     t = st.t + float(np.float32(tick))
@@ -394,7 +460,7 @@ def fused_tick(cfg, model, tr: DeviceTrace, st: SimState,
     # 4. shaping (the baseline policy never shapes)
     fc_rows = fc_done = torch.zeros_like(st.oom_kills)
     if cfg.policy != "baseline":
-        demand, fc_rows, fc_done = _shaped_demands(cfg, model, tr, st, tick)
+        demand, fc_rows, fc_done = _shaped_demands(cfg, model, tr, st, tick, bucket)
         dec = _decide(cfg.policy, _shape_problem(tr, st, demand, t, host_cap))
         st, usage, conflict, resets4 = _apply_decision(cfg, tr, st, dec, usage)
         st = dataclasses.replace(st, failed=st.failed | conflict,
@@ -453,16 +519,19 @@ def _tensors(obj) -> dict[str, torch.Tensor]:
 
 
 def _chunk_program(cfg, model, tr: DeviceTrace, st: SimState, size: int,
-                   host_cap: torch.Tensor) -> dict[str, torch.Tensor]:
+                   host_cap: torch.Tensor,
+                   bucket: torch.Tensor | None = None) -> dict[str, torch.Tensor]:
     """``size`` ticks from the state held in ``st``'s tensors, written back
     into them (``copy_``, field by field), without reading anything back:
     the counterpart of the reference's ``_chunk_body``.  Returns the
     chunk's metrics stacked ``(S, size)`` per ``TickMetrics`` field.  On
     the card this is what one CUDA graph holds (:class:`_ChunkGraphs`);
-    on the CPU, and for the optimistic policy, it runs as it stands."""
+    on the CPU, and for the optimistic policy, it runs as it stands.
+    ``bucket`` is read on the device at every tick, so one program serves
+    every bucket."""
     cur, metrics = st, []
     for _ in range(size):
-        cur, m = fused_tick(cfg, model, tr, cur, host_cap)
+        cur, m = fused_tick(cfg, model, tr, cur, host_cap, bucket)
         metrics.append(m)
     for name, dst in _tensors(st).items():
         dst.copy_(getattr(cur, name))
@@ -509,19 +578,26 @@ class _Graph:
     metrics: dict[str, torch.Tensor]   # the chunk's metrics, rewritten by each replay
     launches: dict                     # kernel wrapper -> its launches in the graph
     capture_s: float                   # host seconds of the capture
-    instantiate_s: float               # host seconds of cudaGraphInstantiate
+    instantiate_s: float               # host seconds to end the capture and instantiate
     replays: int = 0
 
 
 class _ChunkGraphs:
     """The device engine's chunk as captured CUDA graphs, for one config,
     chunk size, shape and device: static copies of the trace, the host
-    capacities and the state, and one graph per chunk size (the full
-    chunk and the last one cut to ``max_ticks``, at most two), sharing
-    one memory pool.  The two graphs' temporaries may overlap, which is
-    safe because replays run one at a time on one stream and each
-    replay's metrics are read before the next replay.  One run at a
-    time uses an entry."""
+    capacities, the state and the forecast bucket, and one graph per
+    chunk size (the full chunk and the last one cut to ``max_ticks``, at
+    most two; the bucket is read on the device, so every bucket replays
+    the same graph), sharing one memory pool.  The two graphs'
+    temporaries may overlap, which is safe because replays run one at a
+    time on one stream and each replay's metrics are read before the
+    next replay.  One run at a time uses an entry.
+
+    A graph's nodes are released once it is instantiated unless
+    ``keep_nodes`` is set before the capture, for a caller that reads
+    them (``torch.cuda.CUDAGraph.raw_cuda_graph``)."""
+
+    keep_nodes = False
 
     def __init__(self, cfg, model, tr: DeviceTrace, st: SimState,
                  host_cap: torch.Tensor, chunk: int):
@@ -530,6 +606,7 @@ class _ChunkGraphs:
         self.st = SimState(**{k: v.clone() for k, v in _tensors(st).items()})
         self.host_cap = host_cap.clone()
         self.device = host_cap.device
+        self.bucket = _full_bucket(st)
         self.pool = torch.cuda.graph_pool_handle()
         self.stream = torch.cuda.Stream(self.device)
         self.graphs: dict[int, _Graph] = {}
@@ -541,7 +618,7 @@ class _ChunkGraphs:
         with torch.cuda.stream(self.stream):
             fused_tick(cfg, model, self.tr,
                        SimState(**{k: v.clone() for k, v in _tensors(self.st).items()}),
-                       self.host_cap)
+                       self.host_cap, self.bucket)
         torch.cuda.synchronize(self.device)
 
     def load(self, tr: DeviceTrace, st: SimState, host_cap: torch.Tensor) -> None:
@@ -555,7 +632,7 @@ class _ChunkGraphs:
         if size != self.chunk:     # at most one cut chunk besides the full one
             for other in [n for n in self.graphs if n != self.chunk]:
                 del self.graphs[other]
-        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        graph = torch.cuda.CUDAGraph(keep_graph=self.keep_nodes)
         before = {fn: fn.launches for fn in nvcc.COUNTED}
         self.stream.wait_stream(torch.cuda.current_stream(self.device))
         t0 = time.perf_counter()
@@ -564,11 +641,14 @@ class _ChunkGraphs:
             try:
                 with _sync_errors():
                     metrics = _chunk_program(self.cfg, self.model, self.tr, self.st,
-                                             size, self.host_cap)
+                                             size, self.host_cap, self.bucket)
+                t1 = time.perf_counter()
             finally:
+                # ends the capture and, unless the nodes are kept,
+                # instantiates the graph and releases its nodes
                 graph.capture_end()
-        t1 = time.perf_counter()
-        graph.instantiate()
+        if self.keep_nodes:
+            graph.instantiate()
         t2 = time.perf_counter()
         torch.cuda.current_stream(self.device).wait_stream(self.stream)
         # the capture ran nothing: take back what the wrappers counted,
@@ -618,12 +698,11 @@ def _graph_entry(cfg, model, tr: DeviceTrace, st: SimState, chunk: int,
     return entry
 
 
-def _run_chunk(graphs: _ChunkGraphs | None, cfg, model, tr, st, size: int, host_cap):
-    """One chunk, enqueued without reading anything back: a replay of the
-    entry's graph, or the program run eagerly where none is captured."""
-    if graphs is not None:
-        return graphs.run(size)
-    return _chunk_program(cfg, model, tr, st, size, host_cap)
+def _full_bucket(st: SimState) -> torch.Tensor:
+    """A forecast-bucket scalar on the state's device set to the whole
+    table (A*C rows per resource), what ``_pick_bucket``'s None means."""
+    return torch.tensor(st.mon_count.shape[1], dtype=torch.int32,
+                        device=st.mon_count.device)
 
 
 def _drive_chunks(cfg, model, tr, st, chunk: int, host_cap):
@@ -631,16 +710,25 @@ def _drive_chunks(cfg, model, tr, st, chunk: int, host_cap):
     (the last chunk cut to the remaining ticks).  Returns the final
     state, the per-member metrics as numpy ``(S, ticks)`` arrays and the
     number of ticks driven.  On the card the state lives in the graph
-    entry's static tensors (:func:`_captures` decides)."""
+    entry's static tensors (:func:`_captures` decides).  Bucketed, the
+    bucket is re-chosen at every chunk boundary, as the reference's
+    ``_drive_chunks`` does, and written to the device before the chunk runs."""
     graphs = None
     if _captures(cfg, host_cap.device):
         graphs = _graph_entry(cfg, model, tr, st, chunk, host_cap)
         tr, st, host_cap = graphs.tr, graphs.st, graphs.host_cap
+    bucket = _full_bucket(st) if graphs is None else graphs.bucket
+    bucketing = _bucketed(cfg)
     parts = []
     remaining = cfg.max_ticks
     while remaining > 0:
         size = min(chunk, remaining)
-        ms = _run_chunk(graphs, cfg, model, tr, st, size, host_cap)
+        if bucketing:
+            b = _pick_bucket(cfg, st)
+            bucket.fill_(st.mon_count.shape[1] if b is None else b)
+        # one chunk, enqueued without reading anything back
+        ms = (graphs.run(size) if graphs is not None
+              else _chunk_program(cfg, model, tr, st, size, host_cap, bucket))
         # the chunk boundary: the one place the host reads the device
         parts.append({f: ms[f].cpu().numpy() for f in _METRICS})
         remaining -= size

@@ -127,6 +127,50 @@ def test_ops_dispatch_runs_the_plain_program_on_the_cpu():
                             hist.to("meta"), 24, 3, cfg)
 
 
+# ready masks of a cohort of three members with 8 series each, as the
+# device engine builds them: none, some (a different pattern per member)
+# and all ready
+READY_MASKS = {"none": [0] * 24,
+               "some": [1, 0, 0, 1, 1, 0, 0, 0] + [0] * 8 + [1, 1, 1, 0, 1, 1, 1, 1],
+               "all": [1] * 24}
+
+
+@pytest.mark.parametrize("mask", list(READY_MASKS.values()), ids=list(READY_MASKS))
+def test_ready_mask_runs_only_the_marked_series(mask):
+    """A ready mask on the CPU: the series it marks equal the program
+    without a mask bit for bit, in ``ops.gp_fit_forecast`` (where every
+    other series comes back zeros, as the kernel writes them) and in
+    ``forecast_batch``."""
+    rng = np.random.default_rng(11)
+    w = rng.uniform(0.5, 2.0, (24, 24)).astype(np.float32)
+    v = np.ones((24, 24), bool)
+    v[::5, :12] = False
+    cfg = GPConfig(history=10, max_patterns=10, opt_steps=3)
+    run = torch.tensor(mask, dtype=torch.bool)
+    X, y, rv, hist, _, _ = tgp.fit_inputs(torch.as_tensor(w), torch.as_tensor(v), cfg)
+    full = ops.gp_fit_forecast(X, y, rv, hist, 24, 3, cfg)
+    got = ops.gp_fit_forecast(X, y, rv, hist, 24, 3, cfg, ready=run)
+    gp = GPForecaster(cfg)
+    fc_full = gp.forecast_batch(w, 3, valid=v, device="cpu")
+    fc = gp.forecast_batch(w, 3, valid=v, ready=run, device="cpu")
+    for g, f in zip(got, full):
+        assert torch.equal(g[run], f[run]) and not g[~run].any()
+    for g, f in ((fc.mean, fc_full.mean), (fc.var, fc_full.var)):
+        assert torch.equal(g[run], f[run])
+
+
+def test_wrapper_check_takes_a_ready_mask():
+    a = _stand_ins()
+    args = (a["X"], a["y"], a["row_valid"], a["hist"], 24, 3, GPConfig())
+    assert gp_forecast._check(*args, CudaStandIn((512,), torch.bool)) == (512, N, D, 0)
+    with pytest.raises(ValueError, match="shape"):
+        gp_forecast._check(*args, CudaStandIn((511,), torch.bool))
+    with pytest.raises(TypeError, match="bool"):
+        gp_forecast._check(*args, CudaStandIn((512,), torch.int32))
+    with pytest.raises(ValueError, match="on cpu"):
+        gp_forecast._check(*args, CudaStandIn((512,), torch.bool, device="cpu"))
+
+
 def test_forecast_batch_refuses_cuda_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -224,6 +268,39 @@ def test_cuda_gp_program_matches_plain(cuda, kind, b):
     few = torch.as_tensor(cnt <= 10, device=cuda)
     assert torch.equal(fg.mean[few], fc.mean[few]) and torch.equal(fg.var[few], fc.var[few])
     assert torch.isfinite(got[0]).all() and torch.isfinite(got[1]).all()
+
+
+@pytest.mark.gpu
+def test_cuda_gp_program_with_a_ready_mask_matches_itself_and_plain(cuda):
+    """A ready mask on the card (none, some, all per member of a cohort of
+    three 192-series members): the kernel's marked series are its own
+    results without a mask, bit for bit (a warp computes its series
+    alone), the others zeros; and it agrees with the plain version with
+    the same mask as the full batch does."""
+    w, v = _windows(576, seed=3)
+    cfg = GPConfig(history=10, max_patterns=10, opt_steps=10)
+    wt, vt = torch.as_tensor(w, device=cuda), torch.as_tensor(v, device=cuda)
+    X, y, rv, hist, mu, sd = tgp.fit_inputs(wt, vt, cfg)
+    full = ops.gp_fit_forecast(X, y, rv, hist, 24, 3, cfg)
+    rng = np.random.default_rng(5)
+    for what, mask in (("none", np.zeros(576, bool)), ("all", np.ones(576, bool)),
+                       ("some", np.concatenate([rng.random(192) < 0.3, np.zeros(192, bool),
+                                                rng.random(192) < 0.9]))):
+        run = torch.as_tensor(mask, device=cuda)
+        n0 = gp_forecast.gp_fit_forecast.launches
+        got = ops.gp_fit_forecast(X, y, rv, hist, 24, 3, cfg, ready=run)
+        torch.cuda.synchronize()
+        assert gp_forecast.gp_fit_forecast.launches == n0 + 1
+        want = ref.gp_fit_forecast(X, y, rv, hist, 24, 3, cfg, ready=run)
+        for g, f, p in zip(got, full, want):
+            assert torch.equal(g[run].view(torch.int32), f[run].view(torch.int32)), what
+            assert not g[~run].any(), what
+            assert not p[~run].any(), what
+        fg, fc = (tgp.finish(m, s, wt, vt, mu, sd, cfg) for m, s, _ in (got, want))
+        rich = run & torch.as_tensor(v.sum(1) >= 12, device=cuda)
+        if rich.any():
+            torch.testing.assert_close(fg.mean[rich], fc.mean[rich], rtol=1e-3, atol=0)
+            torch.testing.assert_close(fg.var[rich], fc.var[rich], rtol=5e-3, atol=1e-9)
 
 
 @pytest.mark.gpu

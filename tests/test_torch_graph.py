@@ -6,9 +6,11 @@ On the CPU: which runs capture (the predicate), the cache key against
 the reference's, that the CPU never builds a graph, and the chunk
 program itself against a loop of ``fused_tick``.  On the card (``-m
 gpu``): every replay equals the eager loop of ``fused_tick`` from the
-same state, bit for bit, at every chunk boundary; a second run captures
-nothing; the launch counts equal replays times the launches captured;
-the optimistic policy (eager on the card) equals the CPU.
+same state, bit for bit, at every chunk boundary, also with a forecast
+bucket that changes at every boundary; the bucketed forecast equals the
+full batch; a second run captures nothing; the launch counts equal
+replays times the launches captured; the optimistic policy (eager on
+the card) equals the CPU.
 """
 import dataclasses
 
@@ -163,12 +165,12 @@ def _need_card():
         pytest.skip("needs a CUDA device")
 
 
-def _graph_vs_eager(cfg, seeds, chunk):
+def _graph_vs_eager(cfg, seeds, chunk, buckets=None):
     """chip_smoke's check over the config's ``max_ticks``: one graph entry
     driven chunk by chunk beside the eager fused_tick loop from the same
     initial state, every field and metric equal at every chunk boundary.
     Returns the entry."""
-    entry = graph_vs_eager(tstep, cfg, seeds, cfg.max_ticks, chunk)
+    entry, _ = graph_vs_eager(tstep, cfg, seeds, cfg.max_ticks, chunk, buckets)
     assert bool(entry.st.arrived.any())
     return entry
 
@@ -190,8 +192,41 @@ def test_graph_replay_equals_eager_ticks(forecaster, policy, chunk, seeds):
 
 
 @pytest.mark.gpu
-def test_second_run_captures_nothing_and_counts_replays():
+@pytest.mark.parametrize("seeds", [(0,), (0, 1, 2)], ids=["solo", "cohort3"])
+def test_graph_replay_equals_eager_with_changing_buckets(seeds):
+    """The bucketed gp forecast with a bucket that changes at every chunk
+    boundary (below the ready count, above it, the full table): one
+    graph per chunk size replays them all, equal to the eager loop."""
     _need_card()
+    cfg = _small(max_ticks=6 * 7 + 3)
+    entry = _graph_vs_eager(cfg, seeds, 7, buckets=(8, None, 64, 16, 8, 32, 128))
+    assert set(entry.graphs) == {7, 3}
+    assert len(tstep._GRAPHS) <= tstep._GRAPHS_MAX
+
+
+@pytest.mark.gpu
+def test_bucketed_equals_full_batch_on_the_card():
+    _need_card()
+    cfg = _small(max_ticks=160)
+    on = tstep.run_cohort_scan(cfg, [0, 1], chunk=16, device="cuda")
+    off = tstep.run_cohort_scan(dataclasses.replace(cfg, forecast_bucket=False), [0, 1],
+                                chunk=16, device="cuda")
+    for a, b in zip(on, off):
+        assert a.summary() == b.summary()
+        assert (a.n_running, a.util_cpu, a.util_mem, a.turnaround, a.failed_apps) == \
+            (b.n_running, b.util_cpu, b.util_mem, b.turnaround, b.failed_apps)
+        fa, fb = a.forecast_rows, b.forecast_rows
+        assert fa["rows_ready"] == fb["rows_ready"] > 0
+        assert fa["rows_bucketed"] < fb["rows_bucketed"]
+
+
+@pytest.mark.gpu
+def test_second_run_captures_nothing_and_counts_replays(monkeypatch):
+    _need_card()
+    # the census below reads the graphs' nodes; a fresh cache captures
+    # them with their nodes kept
+    monkeypatch.setattr(tstep._ChunkGraphs, "keep_nodes", True)
+    monkeypatch.setattr(tstep, "_GRAPHS", {})
     cfg = _small()
     _graph_vs_eager(cfg, (0,), 7)
     tr, st, cap = _setup(cfg, (5,), "cuda")

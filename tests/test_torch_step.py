@@ -23,11 +23,15 @@ from repro.core.forecast.base import Forecast as RForecast
 from repro.sim import SimConfig
 from repro.sim import state as rstate
 from repro.sim import step as rstep
+from repro.sim.scenarios import families as rfam
 from repro.sim.scenarios.registry import build_trace
 from repro.sim.sweep import quick_base_config
 from repro_torch import convert
 from repro_torch.core.forecast import Forecast as TForecast
+from repro_torch.core.forecast import GPConfig
 from repro_torch.kernels import ops as kops
+from repro_torch.sim import ClusterConfig, WorkloadConfig
+from repro_torch.sim import SimConfig as TSimConfig
 from repro_torch.sim import step as tstep
 
 COUNTERS = ("completed", "n_apps", "failure_events", "oom_kills", "full_preemptions",
@@ -107,6 +111,25 @@ def test_run_sim_scan_equals_reference(forecaster, policy):
                     rstep.run_sim_scan(cfg, wl).summary())
 
 
+def test_flashcrowd_run_equals_reference_scan_engine():
+    """A small flashcrowd cell to completion on the port's device engine
+    on the CPU and on the reference's scan engine, converted with
+    ``sim_config_from_dict(..., workload="flashcrowd")``: the same
+    discrete outcomes and per-tick series.  Its shapes and config are
+    SMALL's with oracle forecasts, so the reference's compiled chunk is
+    the one the run above built."""
+    wl = rfam.FlashcrowdConfig(n_apps=24, max_components=8, n_events=2, seed=1)
+    cfg = dataclasses.replace(SMALL, forecaster="oracle", workload=wl)
+    pcfg = convert.sim_config_from_dict(dataclasses.asdict(cfg), workload="flashcrowd")
+    assert type(pcfg.workload).__name__ == "FlashcrowdConfig"
+    want = rstep.run_sim_scan(cfg)
+    got = tstep.run_sim_scan(pcfg, device="cpu")
+    _assert_summary(got.summary(), want.summary())
+    assert got.n_running == want.n_running and got.turnaround == want.turnaround
+    np.testing.assert_allclose(got.util_mem, want.util_mem, rtol=1e-6)
+    assert want.summary()["completed"] == 24 and max(want.n_running) > 8
+
+
 def test_k1_of_one_equals_reference():
     """A whole run with Eq. 9's k1 = 1 (the reservation as the floor),
     where XLA contracts k2 * sigma + request instead of k1 * request +
@@ -166,17 +189,23 @@ class _JaxClient:
 
 
 class _TorchClient:
-    def forecast_batch(self, w, horizon, *, valid, device):
+    """The shared client for the port; ``ready`` (the bucketed path's
+    ready rows) leaves every row computed, as each row's forecast depends
+    on that row only."""
+
+    def forecast_batch(self, w, horizon, *, valid, device, ready=None):
         mean, var = _shared_client(w.cpu().numpy(), valid.cpu().numpy(), horizon)
         return TForecast(mean=torch.as_tensor(mean, device=device),
                          var=torch.as_tensor(var, device=device))
 
 
-def test_gp_path_with_shared_client_equals_reference(monkeypatch):
-    """The gp path (model over all 2*A*C rows, masking, telemetry) with one
-    forecast client for both engines: everything downstream of the
-    forecast must reproduce the reference's run."""
-    cfg = dataclasses.replace(quick_base_config(), forecaster="gp", forecast_bucket=False)
+@pytest.mark.parametrize("bucket", [False, True], ids=["full_batch", "bucketed"])
+def test_gp_path_with_shared_client_equals_reference(monkeypatch, bucket):
+    """The gp path (model over all 2*A*C rows, or over the ready rows in
+    the reference's buckets; masking, telemetry) with one forecast client
+    for both engines: everything downstream of the forecast must
+    reproduce the reference's run, ``forecast_rows`` in full."""
+    cfg = dataclasses.replace(quick_base_config(), forecaster="gp", forecast_bucket=bucket)
     pcfg, ptr, wl = _port_inputs(cfg)
     monkeypatch.setattr(rstep, "_CHUNK_CACHE", {})
     monkeypatch.setattr(rstep, "_make_model", lambda c: _JaxClient())
@@ -186,6 +215,8 @@ def test_gp_path_with_shared_client_equals_reference(monkeypatch):
     _assert_summary(got.summary(), want.summary())
     assert got.forecast_rows == want.forecast_rows
     assert want.summary()["partial_preemptions"] > 0
+    if bucket:      # the queue-3 run: 3,024 rows computed, not the full 36,864
+        assert got.forecast_rows["rows_bucketed"] == 3024
 
 
 # ----------------------------------------------------------------------
@@ -205,6 +236,54 @@ def test_chunk_invariance():
     capped = dataclasses.replace(pcfg, max_ticks=45)
     a, b = (tstep.run_sim_scan(capped, ptr, chunk=c, device="cpu") for c in (1, 32))
     assert _series(a) == _series(b) and a.timings["ticks"] == b.timings["ticks"] == 45
+
+
+def _gp_small(**over):
+    """The port's own GP at a small size: 16 apps of up to 6 components,
+    8 running (A*C = 48 rows a resource, so buckets 8, 16, 32 and the
+    full table), 12-sample windows, 4 patterns of 4, 2 Adam steps."""
+    return dataclasses.replace(TSimConfig(
+        cluster=ClusterConfig(n_hosts=3, max_running_apps=8),
+        workload=WorkloadConfig(n_apps=16, max_components=6, max_runtime=1800.0,
+                                mean_burst_gap=2.0, mean_long_gap=40.0),
+        window=12, gp=GPConfig(history=4, max_patterns=4, opt_steps=2), max_ticks=48), **over)
+
+
+def _results(res):
+    """Everything but the forecast rows, which count the buckets chosen."""
+    return _series(res)[:-1]
+
+
+def test_bucketed_forecast_off_is_bit_identical():
+    """The counterpart of the reference's test of the same name: the
+    bucketed forecast (ready rows only) gives the full batch's results,
+    and the full batch counts every row of every forecasting tick."""
+    cfg = _gp_small()
+    on = tstep.run_sim_scan(cfg, chunk=16, device="cpu")
+    off = tstep.run_sim_scan(dataclasses.replace(cfg, forecast_bucket=False), chunk=16,
+                             device="cpu")
+    assert _results(on) == _results(off)
+    fr = off.forecast_rows
+    assert fr["rows_bucketed"] == fr["ticks_forecasting"] * fr["rows_batch"]
+    assert 0 < on.forecast_rows["rows_bucketed"] < fr["rows_bucketed"]
+    assert on.forecast_rows["rows_ready"] == fr["rows_ready"] > 0
+
+
+def test_bucketed_forecast_chunk_invariance(monkeypatch):
+    """The counterpart of the reference's test of the same name: the
+    bucket is re-chosen at every chunk boundary, so chunks of 7 and of 32
+    run different bucket sequences, and the results are the same."""
+    picked = []
+    pick = tstep._pick_bucket
+    monkeypatch.setattr(tstep, "_pick_bucket", lambda c, st: picked.append(pick(c, st))
+                        or picked[-1])
+    cfg = _gp_small()
+    a = tstep.run_sim_scan(cfg, chunk=7, device="cpu")
+    seven, picked[:] = list(picked), []
+    b = tstep.run_sim_scan(cfg, chunk=32, device="cpu")
+    assert _results(a) == _results(b)
+    assert len(set(seven)) > 1 and seven != picked, (seven, picked)
+    assert a.forecast_rows["rows_ready"] == b.forecast_rows["rows_ready"]
 
 
 @pytest.mark.parametrize("forecaster", ["persist", "oracle"])
