@@ -31,6 +31,14 @@ points:
     colocated) at their default 500 apps and the replay of the two
     fixtures in tests/data on the device engine, gp and oracle, the
     oracle runs card against CPU;
+  * leap ticks on the device engine (phase 5e): google and the four
+    families at 500 apps and the reference's gap-dominated cell to
+    completion, leap graphs bit for bit against uniform graphs, the gap
+    cell timed in turns, the idle-tick skip kernel counted against its
+    graph's nodes; and the ARIMA forecaster (phase 5f) on both engines,
+    one launch per forecasting tick, 160 device-engine ticks card
+    against CPU; the GP's first 320 device-engine ticks card against CPU
+    (phase 4c, a finding where they differ);
   * Whisper-large-v3 serving at full width (random weights from a seeded
     generator on the card): 8 requests of 1,500 frames prefilled with 448
     teacher-forced tokens through the tensor-core flash kernel (bf16,
@@ -52,7 +60,9 @@ kernels on full-width states captured from the port's own CPU runs,
 seeded tie-prone tables and edge cases (three members, A * C and N off
 the 16-byte vectors, a host below 0 before the pass, tied OOM victims,
 admissions until a head does not fit, submit ties broken by gid,
-missing elastic components that fill the hosts; every output equal).
+missing elastic components that fill the hosts; every output equal),
+the idle-tick skip on seeded and edge members and the ARIMA kernel on
+3,072 seeded windows, each bit for bit.
 It then times each kernel against its plain version, its bound and,
 where one PyTorch call computes the same function, that call; the
 device engine's kernels also by their device and host time per call
@@ -70,6 +80,7 @@ and prints no result.
 """
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import ctypes
 import dataclasses
@@ -1379,26 +1390,6 @@ def check_scan_kernels(fns, cases) -> tuple[dict, dict]:
     return err, events
 
 
-def check_scan_card_vs_cpu(step, SimConfig) -> None:
-    """run_sim_scan(SimConfig(forecaster="oracle")) at full width to
-    completion on the card (replayed CUDA graphs) and on the CPU (the
-    chunk program run eagerly): equal summaries (decisions are discrete,
-    the safeguard exact, the metric sums exact float64 sums)."""
-    cfg = SimConfig(forecaster="oracle")
-    t = time.perf_counter()
-    a = step.run_sim_scan(cfg, device="cuda")
-    t_gpu = time.perf_counter() - t
-    t = time.perf_counter()
-    b = step.run_sim_scan(cfg, device="cpu")
-    t_cpu = time.perf_counter() - t
-    sa, sb = a.summary(), b.summary()
-    assert sa == sb, (sa, sb)
-    assert (a.util_mem, a.n_running) == (b.util_mem, b.n_running)
-    assert sa["completed"] == 500, sa
-    log(f"  full-width oracle run: card == cpu over {a.timings['ticks']} ticks "
-        f"(card {t_gpu:.3f} s, cpu {t_cpu:.3f} s); summary {json.dumps(sa)}")
-
-
 class strict_chunks:
     """Run every chunk of the device engine (a replay of its graph,
     with the capture where it has none yet, or the chunk program run
@@ -1431,19 +1422,25 @@ class strict_chunks:
 
 
 class record_runs:
-    """Keep, until ``stop()``, what each ``step._drive_chunks`` call
-    returned (its per-tick metrics), the bucket ``step._pick_bucket``
-    chose at each chunk boundary (None: the full table) and the first
-    member's ready rows there ((A*C,) bool, on the host)."""
+    """Keep, until ``stop()``, what each ``step._drive_chunks`` (or
+    ``_drive_chunks_leap``) call returned (its per-tick or per-step
+    metrics), the bucket ``step._pick_bucket`` chose at each chunk
+    boundary (None: the full table) and the first member's ready rows
+    there ((A*C,) bool, on the host)."""
 
     def __init__(self, step):
         self.step, self.metrics, self.buckets, self.ready = step, [], [], []
         self.drive, self.pick = step._drive_chunks, step._pick_bucket
+        self.drive_leap = step._drive_chunks_leap
 
-        def drive(*a, **k):
-            out = self.drive(*a, **k)
-            self.metrics.append(out[1])
-            return out
+        def recorded(fn):
+            def drive(*a, **k):
+                out = fn(*a, **k)
+                self.metrics.append(out[1])
+                return out
+            return drive
+        drive = recorded(self.drive)
+        step._drive_chunks_leap = recorded(self.drive_leap)
 
         def pick(cfg, st):
             S, AC = st.mon_count.shape
@@ -1455,6 +1452,7 @@ class record_runs:
 
     def stop(self):
         self.step._drive_chunks, self.step._pick_bucket = self.drive, self.pick
+        self.step._drive_chunks_leap = self.drive_leap
         return self
 
 
@@ -1476,7 +1474,8 @@ NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host", 4: "child graph"
 KERNEL_OF = {"pessimistic_pass": "pessimistic_pass_kernel", "resolve_oom": "resolve_oom_kernel",
              "admit_queued": "admit_queued_kernel",
              "place_missing_elastic": "place_missing_elastic_kernel",
-             "gp_fit_forecast": "gp_forecast_kernel", "fma_f32": "fma_f32_kernel"}
+             "gp_fit_forecast": "gp_forecast_kernel", "fma_f32": "fma_f32_kernel",
+             "leap_skip": "leap_skip_kernel", "arima_forecast": "arima_forecast_kernel"}
 
 
 class KernelNodeParams(ctypes.Structure):
@@ -1589,11 +1588,12 @@ def series_per_launch(metrics) -> tuple[float, int, int]:
     return float(rows.mean()), int(rows.min()), int(rows.max())
 
 
-def gp_profile(step, cfg, ticks=PROFILE_TICKS) -> dict:
+def gp_profile(step, cfg, ticks=PROFILE_TICKS, kernel="gp_forecast_kernel") -> dict:
     """The first ``ticks`` ticks of ``cfg`` on the device engine (its graph
-    captured before) under torch.profiler: the GP program's device time
-    per launch, its launches, its share of all kernel time, the device's
-    busy share of the wall, and the series per launch in the window."""
+    captured before) under torch.profiler: the forecast kernel's (the GP
+    program's unless ``kernel`` names another) device time per launch,
+    its launches, its share of all kernel time, the device's busy share
+    of the wall, and the series per launch in the window."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1611,7 +1611,7 @@ def gp_profile(step, cfg, ticks=PROFILE_TICKS) -> dict:
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     busy = sum(e.self_device_time_total for e in kernels)
-    gp = [e for e in kernels if "gp_forecast_kernel" in e.key]
+    gp = [e for e in kernels if kernel in e.key]
     gp_us, gp_n = sum(e.self_device_time_total for e in gp), sum(e.count for e in gp)
     mean, lo, hi = series_per_launch(rec.metrics[0])
     return dict(us_per_launch=gp_us / max(gp_n, 1), launches=gp_n,
@@ -1619,7 +1619,8 @@ def gp_profile(step, cfg, ticks=PROFILE_TICKS) -> dict:
                 ms_per_tick=wall / ticks * 1e3, series=(mean, lo, hi))
 
 
-def run_scan_main(step, SimConfig, gp_forecast, shaper, sched, fma) -> tuple[dict, float]:
+def run_scan_main(step, SimConfig, gp_forecast, shaper, sched, fma) -> tuple[dict, np.ndarray,
+                                                                             dict]:
     """The device engine's main path: run_sim_scan(SimConfig()) on the card
     to completion (GP with bucketed forecasts, pessimistic, full width)
     through replayed CUDA graphs, every chunk sync-free (capture and
@@ -1637,9 +1638,10 @@ def run_scan_main(step, SimConfig, gp_forecast, shaper, sched, fma) -> tuple[dic
     bit for bit, with fewer rows_bucketed; the graph cache within its
     bound; and both profiled over their first PROFILE_TICKS ticks for the
     GP program's time per launch, series per launch and share of device
-    time.  Returns the main run's launch counts and the ready rows at
-    the chunk boundary whose count is nearest the mean the GP program
-    ran per launch (half its series: the same rows of both resources)."""
+    time.  Returns the main run's launch counts, the ready rows at the
+    chunk boundary whose count is nearest the mean the GP program ran per
+    launch (half its series: the same rows of both resources), and the
+    main run's summary."""
     import torch
     guard = strict_chunks(step)
     try:
@@ -1732,7 +1734,7 @@ def run_scan_main(step, SimConfig, gp_forecast, shaper, sched, fma) -> tuple[dic
             f"the wall, {p['ms_per_tick']:.4f} ms per tick")
     near = min(rec.ready, key=lambda r: abs(2 * int(r.sum()) - mean))
     log(f"  ready rows kept for phase 8: {int(near.sum())} a resource, at a chunk boundary")
-    return launches, near
+    return launches, near, summary
 
 
 def _bits(x):
@@ -1918,6 +1920,533 @@ def run_families(step, scenarios, SimConfig, gp_forecast) -> None:
     log(f"  {chunks} chunks on the card and the CPU, every one sync-free")
 
 
+# ----------------------------------------------------------------------
+# leap ticks (the idle-tick skip) and the ARIMA forecaster
+# ----------------------------------------------------------------------
+
+LEAP_DTYPES = (np.int32, bool, bool, np.float32, bool, np.float32, np.int32)
+ARIMA_CPU_TICKS = 160   # the ARIMA device-engine run held card against CPU
+GP_CPU_TICKS = 320      # the GP device-engine run held card against CPU
+
+
+def gap_config(SimConfig, ClusterConfig, scenarios, **over):
+    """The reference's gap-dominated cell (benchmarks/engine.py:134-141): a
+    few background apps hours apart and three flash events of short apps,
+    so most ticks have an empty cluster and an empty queue."""
+    return SimConfig(
+        cluster=ClusterConfig(n_hosts=2, max_running_apps=16),
+        workload=scenarios.make_config(
+            "flashcrowd", n_apps=24, max_components=4, seed=0, burst_frac=0.75, n_events=3,
+            event_gap_s=2.0, mean_gap=10_800.0, min_runtime=120.0, max_runtime=600.0,
+            bg_max_runtime=900.0),
+        policy="pessimistic", forecaster="persist", max_ticks=20_000, **over)
+
+
+def leap_member(A, N, tick, *, gap, left, t0=600.1, busy=False, queued=False,
+                all_arrived=False, all_done=False):
+    """One member's (slot_gid, queued, arrived, submit, done, t, left): ten
+    apps arrived and done by t0, the next arriving ``gap`` ticks and a
+    half later, the rest after it; optionally a busy slot, a queued app,
+    every app arrived (next arrival +inf), every app done."""
+    submit = np.concatenate([np.linspace(0, t0 - 1, 10), t0 + (gap + 0.5) * tick
+                             + np.arange(N - 10) * 7 * tick]).astype(np.float32)
+    arrived = np.arange(N) < 10
+    arrived |= all_arrived
+    done = np.arange(N) < 10
+    if all_arrived:
+        done |= np.arange(N) < N - 1        # one app left, neither queued nor running
+    done |= all_done
+    slot = np.full(A, -1)
+    if busy:
+        slot[3] = 11
+    q = np.zeros(N, bool)
+    q[12] = queued
+    return slot, q, arrived, submit, done, np.float32(t0), left
+
+
+def leap_cases(A=128, N=500):
+    """(name, (slot_gid, queued, arrived, submit, done, t, left), tick, the
+    leads expected or None): seeded members at the main path's widths,
+    and edge members."""
+    cases = []
+    rng = np.random.default_rng(0)
+    for tick in (60.0, 0.1):
+        S = 64
+        slot = np.where(rng.random((S, A)) < 0.01, rng.integers(0, N, (S, A)), -1)
+        slot[: S // 2] = -1
+        queued = rng.random((S, N)) < 0.002
+        queued[: S // 3] = False
+        submit = np.sort(rng.uniform(0, 4 * N * tick, (S, N)), 1)
+        t = (rng.integers(0, 4 * N, S) + np.where(rng.random(S) < 0.3, 0.37, 0.0)) * tick
+        arrived = submit <= t[:, None]
+        arrived[::7] = True
+        done = arrived & (rng.random((S, N)) < 0.7)
+        done[::11] = True
+        left = rng.choice([0, 1, 2, 5, 40, 1000], S)
+        cases.append((f"64 seeded members, tick {tick:g}",
+                      (slot, queued, arrived, submit, done, t, left), tick, None))
+    for name, members, leads in (
+            ("every app arrived (next arrival +inf), budgets 7 and 1000",
+             [dict(gap=20, left=7, all_arrived=True), dict(gap=20, left=1000, all_arrived=True)],
+             [7, 1000]),
+            ("budgets 0 and 1", [dict(gap=20, left=0), dict(gap=20, left=1)], [0, 1]),
+            ("budget out mid-gap", [dict(gap=20, left=5)], [5]),
+            ("a 3-member cohort: a gap, a busy slot, every app done",
+             [dict(gap=12, left=1000), dict(gap=12, left=1000, busy=True),
+              dict(gap=12, left=1000, all_done=True)], [12, 0, 0]),
+            ("a queued app", [dict(gap=12, left=1000, queued=True)], [0])):
+        cols = list(zip(*(leap_member(A, N, 60.0, **m) for m in members)))
+        cases.append((name, tuple(np.stack(c) for c in cols), 60.0, leads))
+    return cases
+
+
+def check_leap(leap, ref) -> float:
+    """Phase 3: the idle-tick skip kernel against ref.leap_skip on the
+    card, bit for bit (the clock as int32 bits, the skipped ticks)."""
+    import torch
+    for name, args, tick, leads in leap_cases():
+        cpu = [torch.as_tensor(np.ascontiguousarray(a, dt)) for a, dt in zip(args, LEAP_DTYPES)]
+        want = ref.leap_skip(*cpu, tick)
+        got = [g.cpu() for g in leap.leap_skip(*(a.cuda() for a in cpu), tick)]
+        assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32)), name
+        assert torch.equal(got[1], want[1]), name
+        if leads is not None:
+            assert got[1].tolist() == leads, (name, got[1].tolist(), leads)
+        log(f"  leap_skip, {name}: kernel == plain bit for bit; skipped ticks "
+            f"{got[1].tolist() if leads else f'{int(got[1].sum())} over {len(got[1])} members'}")
+    return 0.0
+
+
+def arima_windows(n=3072, T=24, seed=0):
+    """(n, T) seeded windows and valid masks: random walks, constants,
+    trends, sines, AR(1) series and noise at several scales, a third of
+    them young (their first samples not seen yet)."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(T)
+    ar = np.zeros((n, T))
+    for k in range(1, T):
+        ar[:, k] = rng.uniform(-0.9, 0.9, n) * ar[:, k - 1] + rng.normal(size=n)
+    kinds = np.stack([np.cumsum(rng.normal(size=(n, T)), 1),
+                      np.repeat(rng.uniform(0, 4, (n, 1)), T, 1),
+                      rng.uniform(-1, 1, (n, 1)) * t + rng.normal(scale=0.1, size=(n, T)),
+                      rng.uniform(1, 3, (n, 1)) * np.sin(t / rng.uniform(2, 5, (n, 1)))
+                      + rng.uniform(0, 6, (n, 1)),
+                      ar, rng.uniform(0, 3, (n, T))])
+    w = (kinds[np.arange(n) % 6, np.arange(n)] * 10.0 ** rng.integers(-2, 3, (n, 1)))
+    v = np.ones((n, T), bool)
+    young = rng.integers(1, T - 3, n)
+    v[np.arange(T)[None, :] < np.where(np.arange(n) % 3 == 0, young, 0)[:, None]] = False
+    w[~v] = 0.0
+    return w.astype(np.float32), v
+
+
+def check_arima(arima_forecast, ref, ARIMAConfig) -> float:
+    """Phase 3: the ARIMA kernel against ref.arima_forecast on the card
+    (the plain version's torch ops on the same CUDA tensors), on 3,072
+    seeded windows without a mask and with a third of the rows ready:
+    every output bit equal (the kernel makes the plain version's IEEE
+    operations in its order; both logarithms are CUDA's double log);
+    the maximum absolute error is printed."""
+    import torch
+    w, v = arima_windows()
+    tw, tv = torch.as_tensor(w).cuda(), torch.as_tensor(v).cuda()
+    ready = torch.as_tensor(np.random.default_rng(1).random(len(w)) < 1 / 3).cuda()
+    err = 0.0
+    for name, mask in (("no mask", None), (f"{int(ready.sum())} ready", ready)):
+        got = arima_forecast.arima_forecast(tw, tv, 3, ARIMAConfig(), mask)
+        want = ref.arima_forecast(tw, tv, 3, ARIMAConfig(), mask)
+        torch.cuda.synchronize()
+        e = max(float((g - r).abs().max()) for g, r in zip(got, want))
+        same = all(torch.equal(g.view(torch.int32), r.view(torch.int32))
+                   for g, r in zip(got, want))
+        log(f"  arima_forecast, 3,072 windows, {name}: max abs error {e:.3e} "
+            f"({'every bit equal' if same else 'bits differ'})")
+        assert same, name
+        if mask is not None:
+            assert not any(g[~mask].any() for g in got), "unmarked rows not zero"
+        err = max(err, e)
+    best = ref.arima_select(tw, tv, 3, ARIMAConfig())[2].cpu()
+    log(f"  orders chosen (candidate index: rows): "
+        f"{dict(sorted(collections.Counter(best.tolist()).items()))}")
+    return err
+
+
+DECISIONS = ("completed", "failure_events", "oom_kills", "full_preemptions",
+             "partial_preemptions")
+SERIES = ("util_cpu", "util_mem", "slack_cpu", "slack_mem")
+
+
+def card_vs_cpu(step, cfg, what, *, strict: bool):
+    """One device-engine run on the card (graphs) and on the CPU (eager):
+    equal summaries and per-tick series, or what differs: whether the
+    decisions are equal (occupancy every tick, turnarounds, failed apps,
+    the event counters), and the first tick where they or a float series
+    differ, with the series' largest relative difference.  ``strict``
+    runs must be equal (the oracle's, and ARIMA's, whose kernel gives
+    its plain version's bits: decisions are discrete, the safeguard
+    exact, the metric sums exact float64 sums), and a difference fails
+    the phase; otherwise it is printed as a finding (the GP's forecasts
+    come from the card's kernel and from the plain version, whose float
+    sums may differ in the last bits).  Returns the card's run."""
+    t = time.perf_counter()
+    a = step.run_sim_scan(cfg, device="cuda")
+    t_gpu = time.perf_counter() - t
+    t = time.perf_counter()
+    b = step.run_sim_scan(cfg, device="cpu")
+    t_cpu = time.perf_counter() - t
+    sa, sb = a.summary(), b.summary()
+    if run_series(a) == run_series(b):
+        log(f"  {what}: card == cpu over {a.timings['ticks']} ticks, summaries and per-tick "
+            f"series (card {t_gpu:.3f} s, cpu {t_cpu:.3f} s); summary {json.dumps(sa)}")
+        return a
+    same = (a.n_running == b.n_running and a.turnaround == b.turnaround
+            and a.failed_apps == b.failed_apps and all(sa[k] == sb[k] for k in DECISIONS))
+    occupancy = next((k for k, (x, y) in enumerate(zip(a.n_running, b.n_running)) if x != y),
+                     None)
+    firsts, rel = {}, {}
+    for name in SERIES:
+        x, y = np.asarray(getattr(a, name)), np.asarray(getattr(b, name))
+        n = min(len(x), len(y))
+        d = np.nonzero(x[:n] != y[:n])[0]
+        if len(d):
+            firsts[name] = int(d[0])
+            rel[name] = float(np.max(np.abs(x[:n] - y[:n]) / np.maximum(np.abs(y[:n]), 1e-30)))
+    diff = {k: (sa[k], sb[k]) for k in sa if json.dumps(sa[k]) != json.dumps(sb[k])}
+    decisions = ("equal (occupancy, turnarounds, failed apps, event counters)" if same
+                 else "differ")
+    finding = (f"{what}: card != cpu over {a.timings['ticks']} ticks; decisions {decisions}"
+               f"; first tick of different occupancy {occupancy}; series that differ, from tick "
+               f"{json.dumps(firsts)}, largest relative difference {json.dumps(rel)}; summary "
+               f"differences (card, cpu) {json.dumps(diff)} "
+               f"(card {t_gpu:.3f} s, cpu {t_cpu:.3f} s)")
+    assert not strict, finding
+    log(f"  FINDING {finding}")
+    return a
+
+
+def find_entry(step, cfg):
+    """The graph entry of ``cfg``'s config key at the 32-tick chunk."""
+    (entry,) = [e for k, e in step._GRAPHS.items()
+                if k[0] == step._cfg_key(cfg) and k[1] == 32
+                and k[2][0] == 1 and k[2][1] == cfg.cluster.max_running_apps]
+    return entry
+
+
+def graph_census(entry, replays_before, launches) -> dict:
+    """Replays since ``replays_before`` x each counted wrapper's kernel
+    nodes in the graph replayed (phase 5b's census), for the wrappers in
+    ``launches``."""
+    ran = {n: g.replays - replays_before.get(n, 0) for n, g in entry.graphs.items()}
+    nodes = {n: wrapper_nodes(graph_nodes(entry.graphs[n].graph)[1]) for n, r in ran.items()
+             if r}
+    return {k: sum(r * nodes[n][k] for n, r in ran.items() if r) for k in launches}
+
+
+def kernels_per_step(entry) -> float:
+    """Kernel nodes per tick (per leap step under leap) of an entry's
+    full-chunk graph."""
+    nodes, _ = graph_nodes(entry.graphs[32].graph)
+    return nodes.get("kernel", 0) / 32
+
+
+def run_leap(step, scenarios, SimConfig, ClusterConfig, leap) -> tuple[int, dict]:
+    """Phase 5e: leap ticks on the card through replayed graphs, bit for
+    bit against uniform ticks: google and the four parametric families at
+    their default 500 apps (gp), capped at FAMILY_TICKS, and the gap cell
+    to completion, timed in turns (leap, uniform, uniform, leap) after
+    both are captured.  Prints ticks/s (simulated ticks over the wall),
+    the share of ticks skipped and the kernels a leap step holds against
+    a uniform tick's.  The gap cell's last leap run is leap's main path:
+    leap_skip's count is set to 0 just before it and read just after,
+    and held to replays x its kernel nodes.  Returns that count and the
+    gap cell's longest idle state for phase 8."""
+    import torch
+    guard = strict_chunks(step)
+    rec = record_runs(step)
+    try:
+        cells = [("google", SimConfig(max_ticks=FAMILY_TICKS))]
+        cells += [(n, SimConfig(workload=scenarios.make_config(n), max_ticks=FAMILY_TICKS))
+                  for n in FAMILIES]
+        for name, cfg in cells:
+            out = {}
+            for mode, c in (("uniform", cfg), ("leap", dataclasses.replace(cfg, leap=True))):
+                t = time.perf_counter()
+                out[mode] = step.run_sim_scan(c, device="cuda")
+                torch.cuda.synchronize()
+                out[mode].timings["wall"] = time.perf_counter() - t
+            u, lp = out["uniform"], out["leap"]
+            assert run_series(u) == run_series(lp), f"{name}: leap != uniform on the card"
+            assert u.forecast_rows["rows_ready"] == lp.forecast_rows["rows_ready"], name
+            lead = int(rec.metrics[-1]["lead"].sum())
+            ticks = len(lp.n_running)
+            log(f"  {name}: leap == uniform on the card over {ticks} ticks (series, "
+                f"summaries, rows_ready); {lp.timings['steps']} leap steps, {lead} ticks "
+                f"skipped ({lead / ticks:.2%}); uniform {ticks / u.timings['wall']:.3f}, leap "
+                f"{ticks / lp.timings['wall']:.3f} ticks/s (captures included)")
+        gap = gap_config(SimConfig, ClusterConfig, scenarios)
+        lgap = dataclasses.replace(gap, leap=True)
+        u0 = step.run_sim_scan(gap, device="cuda")
+        l0 = step.run_sim_scan(lgap, device="cuda")
+        assert run_series(u0) == run_series(l0), "gap cell: leap != uniform on the card"
+        ticks = len(l0.n_running)
+        lead = int(rec.metrics[-1]["lead"].sum())
+        lentry, uentry = find_entry(step, lgap), find_entry(step, gap)
+        walls = {"uniform": [], "leap": []}
+        for mode in ("leap", "uniform", "uniform", "leap"):
+            if mode == "leap" and walls["leap"]:
+                before = {n: g.replays for n, g in lentry.graphs.items()}
+                leap.reset_launch_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = step.run_sim_scan(lgap if mode == "leap" else gap, device="cuda")
+            torch.cuda.synchronize()
+            walls[mode].append(time.perf_counter() - t)
+            assert run_series(res) == run_series(u0), mode
+        launches = leap.leap_skip.launches
+        in_graph = graph_census(lentry, before, {"leap_skip": launches})["leap_skip"]
+        steps = l0.timings["steps"]
+    finally:
+        rec.stop()
+        chunks = guard.stop()
+    k_leap, k_uni = kernels_per_step(lentry), kernels_per_step(uentry)
+    log(f"  gap cell (24 apps x 4, 2 hosts, persist): leap == uniform on the card to "
+        f"completion, {ticks} ticks, {l0.summary()['completed']} apps completed; {steps} "
+        f"leap steps, {lead} ticks skipped ({lead / ticks:.2%})")
+    log("  gap cell ticks/s in turns (leap, uniform, uniform, leap): " + "; ".join(
+        f"{m} " + ", ".join(f"{ticks / w:.3f}" for w in ws) for m, ws in walls.items())
+        + f"; leap / uniform {min(walls['uniform']) / min(walls['leap']):.3f}x")
+    for line in describe_graphs(lentry):
+        log(f"  leap graph {line}")
+    log(f"  kernels per leap step {k_leap:.3f} against {k_uni:.3f} per uniform tick "
+        f"(+{k_leap - k_uni:.3f}: the skip, the run gate, the budget and the per-field "
+        f"where); leap_skip launches {launches} in the last leap run = replays x kernel "
+        f"nodes {in_graph} = its steps {steps}; {chunks} chunks sync-free")
+    assert launches == in_graph == steps, (launches, in_graph, steps)
+    assert lead > ticks // 2, (lead, ticks)
+    return launches, {"steps": steps, "ticks": ticks, "kernels_per_step": k_leap,
+                      "kernels_per_tick": k_uni}
+
+
+def gap_idle_state(scenarios, SimConfig, ClusterConfig):
+    """The gap cell's longest idle stretch as leap_skip's inputs (S = 1):
+    every app before the longest gap between arrivals arrived and done,
+    the clock on the tick grid past the last of them, a budget of
+    max_ticks; returns (args on the host, tick, the gap in ticks)."""
+    cfg = gap_config(SimConfig, ClusterConfig, scenarios)
+    tr = scenarios.build_trace(cfg.workload)
+    submit = np.asarray(tr.submit, np.float32)
+    k = int(np.argmax(np.diff(submit)))
+    tick = cfg.cluster.tick
+    t = np.float32(np.ceil(submit[k] / tick) * tick)
+    arrived = submit <= t
+    args = (np.full((1, cfg.cluster.max_running_apps), -1, np.int32),
+            np.zeros((1, len(submit)), bool), arrived[None], submit[None], arrived[None],
+            np.array([t], np.float32), np.array([cfg.max_ticks], np.int32))
+    return args, tick, float((submit[k + 1] - t) / tick)
+
+
+def run_arima(step, SimConfig, run_sim, ARIMAForecaster, arima_forecast, shaper, sched,
+              fma, gp_forecast, gp_summary) -> tuple[int, np.ndarray]:
+    """Phase 5f: the ARIMA forecaster on both engines on the card.  The host
+    engine, run_sim(SimConfig(forecaster="arima")) capped at
+    MAIN_PATH_TICKS: one arima_forecast launch per forecasting tick.
+    The device engine, run_sim_scan(SimConfig(forecaster="arima")) to
+    completion through replayed graphs (a 64-tick run captures first):
+    one launch a tick of arima_forecast and of the four sim kernels, the
+    counts (set to 0 just before, read just after) equal to replays x
+    each wrapper's kernel nodes, every chunk sync-free; then its first
+    ARIMA_CPU_TICKS ticks card against CPU.  Returns the device run's
+    arima_forecast launches and the ready rows at the chunk boundary
+    nearest its mean ready count, for phase 8."""
+    import torch
+    cfg = SimConfig(forecaster="arima", max_ticks=MAIN_PATH_TICKS)
+    calls = count_calls(ARIMAForecaster, "forecast_batch")
+    arima_forecast.reset_launch_counts()
+    t = time.perf_counter()
+    res = run_sim(cfg, device="cuda")
+    torch.cuda.synchronize()
+    t = time.perf_counter() - t
+    fc_ticks = calls.stop()
+    n = arima_forecast.arima_forecast.launches
+    tm = res.timings
+    log(f"  host engine, {tm['ticks']} ticks in {t:.3f} s ({tm['ticks'] / t:.3f} ticks/s; "
+        f"forecast {tm['forecast'] / tm['ticks'] * 1e3:.3f} ms a tick): {n} arima_forecast "
+        f"launches in {fc_ticks} forecasting ticks; summary {json.dumps(res.summary())}")
+    assert fc_ticks > 0 and n == fc_ticks and tm["ticks"] == MAIN_PATH_TICKS, (n, fc_ticks)
+    for k in ("util_cpu_mean", "util_mem_mean", "slack_cpu_mean", "slack_mem_mean"):
+        assert np.isfinite(res.summary()[k]), k
+
+    mods = (gp_forecast, shaper, sched, fma, arima_forecast)
+    guard = strict_chunks(step)
+    try:
+        step.run_sim_scan(SimConfig(forecaster="arima", max_ticks=64), device="cuda")
+        entry = find_entry(step, SimConfig(forecaster="arima"))
+        before = {k: g.replays for k, g in entry.graphs.items()}
+        rec = record_runs(step)
+        for m in mods:
+            m.reset_launch_counts()
+        c0 = guard.chunks
+        try:
+            t = time.perf_counter()
+            res = step.run_sim_scan(SimConfig(forecaster="arima"), device="cuda")
+            torch.cuda.synchronize()
+            t = time.perf_counter() - t
+        finally:
+            rec.stop()
+        launches = dict(scan_launch_counts(gp_forecast, shaper, sched, fma),
+                        arima_forecast=arima_forecast.arima_forecast.launches)
+        chunks = guard.chunks - c0
+    finally:
+        guard.stop()
+    in_graphs = graph_census(entry, before, launches)
+    ticks = res.timings["ticks"]
+    s = res.summary()
+    log(f"  device engine, {ticks} ticks in {chunks} chunks, {t:.3f} s: {ticks / t:.3f} "
+        f"ticks/s; kernel launches {launches} = replays x kernel nodes {in_graphs}; "
+        f"forecast rows {res.forecast_rows}")
+    log(f"  summary {json.dumps(s)}")
+    log("  against the GP run of phase 5b (arima, gp): " + ", ".join(
+        f"{k} ({s[k]:.4g}, {gp_summary[k]:.4g})" for k in
+        ("turnaround_mean", "failed_frac", "oom_kills", "util_mem_mean", "slack_mem_mean")))
+    assert launches == in_graphs, (launches, in_graphs)
+    assert launches["arima_forecast"] == ticks and launches["gp_fit_forecast"] == 0, launches
+    assert all(launches[k] == ticks for k in SCAN_KERNELS), launches
+    assert s["completed"] == 500 and np.isfinite(s["util_mem_mean"]), s
+    p = gp_profile(step, SimConfig(forecaster="arima"), kernel="arima_forecast_kernel")
+    log(f"  first {PROFILE_TICKS} ticks under torch.profiler: arima_forecast "
+        f"{p['us_per_launch']:.3f} us per launch over {p['launches']} launches, "
+        f"{p['share']:.2%} of device time; series per launch mean {p['series'][0]:.3f}; device "
+        f"busy {p['busy']:.2%} of the wall, {p['ms_per_tick']:.4f} ms per tick")
+    mean, _, _ = series_per_launch(rec.metrics[0])
+    near = min(rec.ready, key=lambda r: abs(2 * int(r.sum()) - mean))
+    card_vs_cpu(step, SimConfig(forecaster="arima", max_ticks=ARIMA_CPU_TICKS),
+                f"ARIMA, first {ARIMA_CPU_TICKS} ticks", strict=True)
+    return launches["arima_forecast"], near
+
+
+def time_leap(leap, ref, state) -> dict:
+    """leap_skip on the gap cell's longest idle stretch (S = 1, A = 16,
+    N = 24), kernel by CUDA events against the plain version (numpy on
+    the host) in turns, with its device and host time per call.  The
+    bound: the inputs read once and the outputs written once over
+    3.35 TB/s, against the loop's operations (an add, a compare and an
+    increment a skipped tick) over fp32's peak; the loop is serial, so
+    the card cannot reach either."""
+    import torch
+    args, tick, gap = state
+    cpu = [torch.as_tensor(np.ascontiguousarray(a, dt)) for a, dt in zip(args, LEAP_DTYPES)]
+    gpu = [a.cuda() for a in cpu]
+    lead = int(ref.leap_skip(*cpu, tick)[1][0])
+
+    def host_ms():
+        t = time.perf_counter()
+        for _ in range(20):
+            ref.leap_skip(*cpu, tick)
+        return (time.perf_counter() - t) / 20 * 1e3
+    kern = lambda: leap.leap_skip(*gpu, tick)  # noqa: E731
+    p1 = host_ms()
+    k1, k2 = (cuda_time_ms(kern, iters=200, warmup=10) for _ in range(2))
+    p2 = host_ms()
+    dev_us = device_us_per_call(kern, "leap_skip_kernel")
+    host_us = host_us_per_call(kern)
+    nbytes = _nbytes(*cpu) + 8
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 3 * lead / FP32_FLOP_PER_S * 1e3
+    log(f"  leap_skip (the gap cell's longest idle stretch, {lead} ticks skipped of a "
+        f"{gap:.1f}-tick gap): kernel {k1:.5f}/{k2:.5f} ms, plain (numpy on the host) "
+        f"{p1:.5f}/{p2:.5f} ms; device "
+        f"{'not measured' if dev_us is None else f'{dev_us:.3f} us'} per launch, "
+        f"{'' if dev_us is None or not lead else f'{dev_us * 1e3 / lead:.1f} ns a skipped tick, '}"
+        f"host {host_us:.3f} us per call; bound {max(t_bytes, t_ops) * 1e3:.6f} us "
+        f"({nbytes} B, {3 * lead} operations)")
+    return {"leap_skip": dict(ms=min(k1, k2), plain_ms=min(p1, p2),
+                              bound_ms=max(t_bytes, t_ops), library_ms=None,
+                              bound_by="bytes" if t_bytes >= t_ops else "operations")}
+
+
+def arima_flops(valid, ready, cfg, H=3) -> int:
+    """The operations the ARIMA function needs on these inputs (not those
+    of the kernel's loops, whose lanes of one d repeat its stage-1 fit and
+    whose degenerate candidates solve empty systems), from the valid
+    masks of the ready series.  A series with enough samples: the
+    normalisation and first difference (10 a sample and 4); for each d,
+    the stage-1 long AR over its in-sample rows (the upper triangle and
+    right-hand side of the 7 x 7 normal equations, a product and a sum
+    each a row, the ridge, an LU solve) and the innovations of those
+    rows; the one real stage-2 fit of that d, the order (max_p, d, max_q)
+    (its 6 x 6 normal equations over its rows, the ridge, an LU solve,
+    the residuals and their squares summed, the AIC); the other orders'
+    AIC of n = 1, sigma^2 = 1e-10 (a log, a product, a sum: their stage-2
+    rows are empty whatever the data); the argmin over the candidates;
+    the winner's recursion and psi weights over the horizon.  A series
+    with too few samples: its count and the last-value fallback."""
+    P, Q, M = cfg.max_p, cfg.max_q, cfg.long_ar
+    K = (cfg.max_d + 1) * ((P + 1) * (Q + 1) - 1)
+    n1, n2 = M + 1, 1 + P + Q
+
+    def lu(n):
+        return sum((n - k - 1) * (1 + 2 * (n - k - 1) + 2) for k in range(n)) + n * n + n
+
+    v = np.asarray(valid, bool)[np.asarray(ready, bool)]
+    T = v.shape[1]
+    fit = v.sum(1) >= M + P + 2
+    v = v[fit]
+    t = np.arange(T)
+    total = len(v) * (10 * T + 4 + 2 * K + H * (2 * (P + Q) + 2 * P + 14))
+    for d in range(cfg.max_d + 1):
+        zm = v.copy() if d == 0 else np.concatenate(
+            [np.zeros((len(v), 1), bool), v[:, 1:] & v[:, :-1]], 1)
+        rows1 = zm & (t >= M)
+        rows2 = zm & (t >= P) & (t >= Q) & (np.roll(rows1, 1, 1) if Q else True)
+        r1, r2 = rows1.sum(1), rows2.sum(1)
+        total += (r1 * (n1 * (n1 + 1) + 2 * n1 + 2 * n1 + 1) + n1 + lu(n1)).sum()
+        total += (r2 * (n2 * (n2 + 1) + 2 * n2 + 2 * n2 + 1 + 2) + n2 + lu(n2) + 4).sum()
+        total += len(v) * 3 * ((P + 1) * (Q + 1) - 2)
+    return int(total + (len(fit) - len(v)) * (T + 4))
+
+
+def time_arima(arima_forecast, ref, ARIMAConfig, ready_rows) -> tuple[dict, float]:
+    """arima_forecast at the device engine's shape (3,072 seeded windows of
+    24 samples) with the ready rows that the main ARIMA run held at a
+    chunk boundary (both resources' rows), kernel by CUDA events against
+    the plain version on the card in turns, with its device and host
+    time per call; checked against the plain version there.  The bound:
+    the larger of the bytes (the ready windows and masks read once, every
+    output row written once) over 3.35 TB/s and arima_flops over fp32's
+    peak.  Returns the timings and the error."""
+    import torch
+    w, v = arima_windows(seed=2)
+    ready = torch.as_tensor(np.concatenate([ready_rows, ready_rows])).cuda()
+    tw, tv = torch.as_tensor(w).cuda(), torch.as_tensor(v).cuda()
+    cfg = ARIMAConfig()
+    kern = lambda: arima_forecast.arima_forecast(tw, tv, 3, cfg, ready)  # noqa: E731
+    plain = lambda: ref.arima_forecast(tw, tv, 3, cfg, ready)  # noqa: E731
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    err = max(float((g - r).abs().max()) for g, r in zip(got, want))
+    assert all(torch.equal(g, r) for g, r in zip(got, want)), "arima_forecast != plain"
+    ms = {"kernel": [], "plain": []}
+    for k in ("kernel", "plain", "plain", "kernel"):
+        ms[k].append(cuda_time_ms(kern if k == "kernel" else plain,
+                                  iters=200 if k == "kernel" else 5,
+                                  warmup=10 if k == "kernel" else 1))
+    dev_us = device_us_per_call(kern, "arima_forecast_kernel")
+    host_us = host_us_per_call(kern)
+    r = ready.cpu().numpy()
+    nbytes = int(r.sum()) * w.shape[1] * 5 + len(w) * (1 + 2 * 3 * 4)
+    flops = arima_flops(v, r, cfg)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOP_PER_S * 1e3
+    log(f"  arima_forecast (3,072 windows, {int(r.sum())} ready as the main run held them): "
+        f"kernel {'/'.join(f'{x:.5f}' for x in ms['kernel'])} ms, plain (torch on the card) "
+        f"{'/'.join(f'{x:.3f}' for x in ms['plain'])} ms; device "
+        f"{'not measured' if dev_us is None else f'{dev_us:.3f} us'} per launch, host "
+        f"{host_us:.3f} us per call; max abs error {err:.3e}; bound "
+        f"{max(t_bytes, t_ops) * 1e3:.4f} us ({nbytes} B, {flops} flop)")
+    return {"arima_forecast": dict(ms=min(ms["kernel"]), plain_ms=min(ms["plain"]),
+                                   bound_ms=max(t_bytes, t_ops), library_ms=None,
+                                   bound_by="bytes" if t_bytes >= t_ops else "operations")}, err
+
+
 def _nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
@@ -2078,10 +2607,11 @@ def main() -> int:
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
-    from repro_torch.core.forecast import GPConfig, GPForecaster
+    from repro_torch.core.forecast import (ARIMAConfig, ARIMAForecaster, GPConfig,
+                                           GPForecaster)
     from repro_torch.core import shaper as core_shaper
-    from repro_torch.kernels import (flash_attention, fma, gp_forecast, gp_gram, nvcc, ref,
-                                     sched, shaper)
+    from repro_torch.kernels import (arima_forecast, flash_attention, fma, gp_forecast, gp_gram,
+                                     leap, nvcc, ref, sched, shaper)
     from repro_torch.sim import ClusterConfig, SimConfig, WorkloadConfig, run_sim
     from repro_torch.sim import scenarios, step
     from repro_torch.sim.engine import forecast_peaks
@@ -2103,7 +2633,8 @@ def main() -> int:
 
     log("== 2. build (one nvcc per source, all at once)")
     sources = (gp_gram.SOURCE, flash_attention.SOURCE, flash_attention.SOURCE_SM90,
-               gp_forecast.SOURCE, shaper.SOURCE, sched.SOURCE, fma.SOURCE)
+               gp_forecast.SOURCE, shaper.SOURCE, sched.SOURCE, fma.SOURCE, leap.SOURCE,
+               arima_forecast.SOURCE)
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         builds = list(pool.map(nvcc.build, sources))
     for b in builds:
@@ -2135,6 +2666,8 @@ def main() -> int:
     scan_cases = scan_kernel_cases(step, SimConfig)
     scan_fns = scan_kernel_pairs(shaper, sched, ref)
     err.update(check_scan_kernels(scan_fns, scan_cases)[0])
+    err["leap_skip"] = check_leap(leap, ref)
+    err["arima_forecast"] = check_arima(arima_forecast, ref, ARIMAConfig)
     log(f"  max abs error: {err}")
 
     log("== 4. GP check (card vs CPU)")
@@ -2142,7 +2675,12 @@ def main() -> int:
     check_small_runs(run_sim, SimConfig, ClusterConfig, WorkloadConfig)
     log("== 4b. the device engine at full width, card (graphs) vs CPU (eager): "
         "run_sim_scan(SimConfig(forecaster='oracle'))")
-    check_scan_card_vs_cpu(step, SimConfig)
+    res = card_vs_cpu(step, SimConfig(forecaster="oracle"), "full-width oracle run", strict=True)
+    assert res.summary()["completed"] == 500, res.summary()
+    log(f"== 4c. the GP on the device engine, card (graphs) vs CPU (eager): "
+        f"run_sim_scan(SimConfig(max_ticks={GP_CPU_TICKS}))")
+    card_vs_cpu(step, SimConfig(max_ticks=GP_CPU_TICKS), f"GP, first {GP_CPU_TICKS} ticks",
+                strict=False)
 
     log("== 5. main path: run_sim(SimConfig(), device='cuda')")
     cfg = SimConfig(max_ticks=MAIN_PATH_TICKS)
@@ -2194,13 +2732,22 @@ def main() -> int:
         "batch")
     # the node census reads each captured graph's nodes
     step._ChunkGraphs.keep_nodes = True
-    scan_launches, gp_ready = run_scan_main(step, SimConfig, gp_forecast, shaper, sched, fma)
+    scan_launches, gp_ready, gp_summary = run_scan_main(step, SimConfig, gp_forecast, shaper,
+                                                        sched, fma)
     log("== 5c. the device engine's graphs against its eager ticks on the card "
         "(SimConfig(): 135 ticks solo, 64 ticks of a 3-seed cohort), then both timed")
     check_graphs(step, SimConfig)
     log(f"== 5d. the scenario families at full width and the replay fixtures on the "
         f"device engine (gp, {FAMILY_TICKS} ticks at most), oracle card vs CPU")
     run_families(step, scenarios, SimConfig, gp_forecast)
+    log(f"== 5e. leap ticks on the card: the families at full width ({FAMILY_TICKS} ticks at "
+        f"most) and the gap-dominated cell to completion, leap graphs against uniform graphs")
+    leap_launches, _ = run_leap(step, scenarios, SimConfig, ClusterConfig, leap)
+    log("== 5f. the ARIMA forecaster: run_sim(SimConfig(forecaster='arima')) capped at "
+        f"{MAIN_PATH_TICKS} ticks, run_sim_scan(SimConfig(forecaster='arima')) to completion")
+    arima_launches, arima_ready = run_arima(step, SimConfig, run_sim, ARIMAForecaster,
+                                            arima_forecast, shaper, sched, fma, gp_forecast,
+                                            gp_summary)
 
     log("== 6. Whisper, smoke widths, fp32: the card against the CPU")
     check_whisper_smoke(flash_attention)
@@ -2219,6 +2766,10 @@ def main() -> int:
     times.update(time_flash(flash_attention, ref, dev))
     times.update(time_scan_kernels(scan_fns, scan_cases, shaper, sched))
     times.update(time_fma(fma, ref))
+    times.update(time_leap(leap, ref, gap_idle_state(scenarios, SimConfig, ClusterConfig)))
+    arima_times, arima_err = time_arima(arima_forecast, ref, ARIMAConfig, arima_ready)
+    times.update(arima_times)
+    err["arima_forecast"] = max(err["arima_forecast"], arima_err)
     log(f"  gp_gram library_ms: null - no single PyTorch call computes the Gram "
         f"matrix (torch.cdist gives distances only) or its (ell, sf) gradient")
     end_phase()
@@ -2229,12 +2780,16 @@ def main() -> int:
     # the GP program's launches and times are the device engine's (its
     # bucketed launch); the host engine's were asserted in phase 5
     launches.update({k: scan_launches[k] for k in SCAN_KERNELS + ("fma_f32", "gp_fit_forecast")})
+    launches["leap_skip"] = leap_launches           # the gap cell's leap run (phase 5e)
+    launches["arima_forecast"] = arima_launches     # run_sim_scan's ARIMA run (phase 5f)
     replaces = {"gp_gram_fwd": "src/repro/kernels/gp_gram.py:75",
                 "gp_gram_bwd": "src/repro/kernels/gp_gram.py:75",
                 "gp_fit_forecast": "src/repro/kernels/gp_gram.py:75",
                 "flash_attention": "src/repro/kernels/flash_attention.py:110",
                 "flash_attention_simt": "src/repro/kernels/flash_attention.py:110",
                 "fma_f32": "src/repro/sim/step.py:114",
+                "leap_skip": "src/repro/sim/step.py:955",
+                "arima_forecast": "src/repro/core/forecast/arima.py:140",
                 **SCAN_REPLACES}
     sources = {"gp_gram_fwd": "src/repro_torch/kernels/csrc/gp_gram.cu",
                "gp_gram_bwd": "src/repro_torch/kernels/csrc/gp_gram.cu",
@@ -2242,6 +2797,8 @@ def main() -> int:
                "flash_attention": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
                "flash_attention_simt": "src/repro_torch/kernels/csrc/flash_attention.cu",
                "fma_f32": "src/repro_torch/kernels/csrc/fma.cu",
+               "leap_skip": "src/repro_torch/kernels/csrc/leap.cu",
+               "arima_forecast": "src/repro_torch/kernels/csrc/arima_forecast.cu",
                **SCAN_SOURCES}
     log(smi)   # the card's name and power limit, as nvidia-smi prints them
     log(json.dumps({"kernels": [
@@ -2253,7 +2810,7 @@ def main() -> int:
          "library_ms": times[name].get("library_ms")}
         for name in ("gp_gram_fwd", "gp_gram_bwd", "gp_fit_forecast",
                      "flash_attention", "flash_attention_simt") + SCAN_KERNELS
-        + ("fma_f32",)]}))
+        + ("fma_f32", "leap_skip", "arima_forecast")]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": count}}))
     return 0

@@ -31,7 +31,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.core.forecast import GPConfig
+from repro_torch.core.forecast import ARIMAConfig, GPConfig
 from repro_torch.core.shaper import SafeguardConfig
 from repro_torch.device import resolve_device
 from repro_torch.sim.cluster import ClusterConfig
@@ -48,9 +48,8 @@ def sim_config_from_dict(d: dict, *, workload: str = "google") -> SimConfig:
     """The port's ``SimConfig`` for ``dataclasses.asdict(reference_cfg)``.
 
     Refuses a config whose calibration or control plane is enabled (not
-    ported yet).  Drops ``gp.impl`` (the port dispatches on the device)
-    and the ARIMA settings (the ARIMA forecaster is not ported; choosing
-    it makes ``run_sim`` raise).  ``asdict`` keeps no type, so
+    ported yet).  Drops ``gp.impl`` (the port dispatches on the device).
+    ``asdict`` keeps no type, so
     ``workload`` names the scenario family of ``d["workload"]``: any
     registered one (``google``, ``diurnal``, ``flashcrowd``,
     ``heavytail``, ``colocated``, ``replay``)."""
@@ -63,7 +62,7 @@ def sim_config_from_dict(d: dict, *, workload: str = "google") -> SimConfig:
         workload=scenarios.get(workload).config_cls(**d["workload"]),
         safeguard=SafeguardConfig(**d["safeguard"]),
         obs=Switch(enabled=d["obs"]["enabled"]),
-        gp=GPConfig(**gp),
+        gp=GPConfig(**gp), arima=ARIMAConfig(**d["arima"]),
         **{k: d[k] for k in _SCALARS})
 
 

@@ -1,11 +1,14 @@
 """Utilization forecasting (paper §3.1): predictive mean + variance.
 
-Ported: the GP forecaster and the persistence forecast.  ARIMA and the
-oracle forecaster class are still to port (the engine's ``oracle``
-forecaster reads the trace directly and needs neither)."""
+The GP (non-parametric) and ARIMA (parametric) forecasters, the oracle
+forecaster class and the persistence forecast.  The engines' ``oracle``
+forecaster reads the trace directly, as the reference's do."""
+from repro_torch.core.forecast.arima import ARIMAConfig, ARIMAForecaster
 from repro_torch.core.forecast.base import (Forecast, peak_over_horizon,
                                             persistence_peak)
 from repro_torch.core.forecast.gp import GPConfig, GPForecaster, build_patterns
+from repro_torch.core.forecast.oracle import OracleForecaster
 
 __all__ = ["Forecast", "peak_over_horizon", "persistence_peak",
-           "GPConfig", "GPForecaster", "build_patterns"]
+           "ARIMAConfig", "ARIMAForecaster", "GPConfig", "GPForecaster",
+           "build_patterns", "OracleForecaster"]

@@ -9,10 +9,12 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import arima_forecast as _ar
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import fma as _fm
 from repro_torch.kernels import gp_forecast as _gf
 from repro_torch.kernels import gp_gram as _gg
+from repro_torch.kernels import leap as _lp
 from repro_torch.kernels import ref
 from repro_torch.kernels import sched as _sc
 from repro_torch.kernels import shaper as _sh
@@ -51,6 +53,18 @@ def gp_fit_forecast(X: torch.Tensor, y: torch.Tensor, row_valid: torch.Tensor,
     if X.device.type == "cpu":
         return ref.gp_fit_forecast(X, y, row_valid, hist, T, horizon, cfg, ready)
     raise ValueError(f"no gp_fit_forecast implementation for device {X.device}")
+
+
+def arima_forecast(windows: torch.Tensor, valid: torch.Tensor, horizon: int, cfg,
+                   ready: torch.Tensor | None = None):
+    """ARIMA forecasts of ``(B, T)`` windows with ``valid`` samples,
+    ``horizon`` steps ahead, for an ``ARIMAConfig`` ``cfg``: ``(mean,
+    var)``, ``(B, horizon)`` each; see ``ref.arima_select``.  ``ready``
+    (B,) bool, on the windows' device: only the series it marks are
+    computed, the others are zeros.  On the card one kernel launch, which
+    reads the mask itself; a call it cannot take raises."""
+    return _route("arima_forecast", _ar.arima_forecast, ref.arima_forecast, windows,
+                  (windows, valid, horizon, cfg, ready))
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -119,3 +133,11 @@ def place_missing_elastic(*args):
     ``ref.place_missing_elastic``.  On the card one kernel launch."""
     return _route("place_missing_elastic", _sc.place_missing_elastic,
                   ref.place_missing_elastic, args[0], args)
+
+
+def leap_skip(slot_gid, queued, arrived, submit, done, t, left, tick):
+    """The idle ticks each member skips before its next real tick, and its
+    clock after them: ``(t, lead)``; see ``ref.leap_skip``.  On the card
+    one kernel launch, which reads nothing back."""
+    return _route("leap_skip", _lp.leap_skip, ref.leap_skip, slot_gid,
+                  (slot_gid, queued, arrived, submit, done, t, left, tick))

@@ -566,3 +566,235 @@ def place_missing_elastic(cpu_req, mem_req, exists, is_core, slot_gid, comp_runn
             alloc[s, a, c] = (cpu, mem)
             alive[s, a, c] = t[s]
     return _tensors(run, host, alloc, alive)
+
+
+def leap_skip(slot_gid, queued, arrived, submit, done, t, left, tick):
+    """The run of provably idle ticks before each member's next real tick
+    (the scalar ``lax.while_loop`` of ``repro/sim/step.py:955-970``).
+
+    A member is idle when some app is not done, its budget ``left`` is
+    positive, no slot holds an app and the queue is empty; then, while
+    fewer than ``left`` ticks were skipped and the next arrival lies
+    beyond ``t + tick`` (rounded once to float32, compared in float32),
+    the clock advances one tick.  slot_gid (S,A) int32; queued, arrived,
+    done (S,N) bool; submit (S,N) f32; t (S,) f32; left (S,) int32; tick
+    a float taken as float32.  Returns ``(t, lead)``: the new clock and
+    the ticks skipped, ``(S,)`` each."""
+    slot_gid, queued, arrived, submit, done, t, left = _numpy(
+        slot_gid, queued, arrived, submit, done, t, left)
+    idle = (~done.all(-1) & (left > 0) & (slot_gid < 0).all(-1) & ~queued.any(-1))
+    next_sub = np.where(arrived, np.float32(np.inf), submit).min(-1)
+    tick = np.float32(tick)
+    lead = np.zeros_like(left)
+    for s in np.nonzero(idle)[0]:
+        tc, n = t[s], 0
+        while n < left[s] and next_sub[s] > tc + tick:
+            tc += tick
+            n += 1
+        t[s], lead[s] = tc, n
+    return _tensors(t, lead)
+
+
+# ----------------------------------------------------------------------
+# ARIMA (paper §3.1.1): the work of the CUDA arima_forecast kernel.  Every
+# float32 operation below is one IEEE operation in the order the kernel
+# performs it (sums one term at a time from 0, products and sums rounded
+# separately, square roots and logarithms correctly rounded through
+# float64), so the kernel gives these bits.
+# ----------------------------------------------------------------------
+
+ARIMA_RIDGE = 1e-4
+
+
+def _f32(x: float) -> float:
+    return float(np.float32(x))
+
+
+def _seq_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis from 0, one term at a time."""
+    acc = torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
+    for k in range(x.shape[-1]):
+        acc = acc + x[..., k]
+    return acc
+
+
+def _lags(z: torch.Tensor, k: int) -> torch.Tensor:
+    """(..., T, k): column j is z lagged by j + 1, zeros before the start."""
+    T = z.shape[-1]
+    if k == 0:
+        return z.new_zeros(z.shape + (0,))
+    zp = torch.cat([torch.zeros(z.shape[:-1] + (k,), dtype=z.dtype, device=z.device), z], -1)
+    return torch.stack([zp[..., k - 1 - j:k - 1 - j + T] for j in range(k)], -1)
+
+
+def _masked_lstsq(A: torch.Tensor, z: torch.Tensor, rows: torch.Tensor,
+                  cols: torch.Tensor) -> torch.Tensor:
+    """The reference's ridge-regularised masked least squares
+    (``repro/core/forecast/arima.py:51``): A (..., T, n), z and rows
+    (..., T), cols (..., n) float 1/0.  The normal equations are summed
+    row by row, excluded columns pinned to beta = 0 by identity rows, and
+    solved by LU with partial pivoting (the first largest pivot)."""
+    n = A.shape[-1]
+    Aw = A * cols[..., None, :]
+    G = torch.zeros(A.shape[:-2] + (n, n), dtype=A.dtype, device=A.device)
+    b = torch.zeros(A.shape[:-2] + (n,), dtype=A.dtype, device=A.device)
+    for t in range(A.shape[-2]):
+        a, r = Aw[..., t, :], rows[..., t]
+        G = torch.where(r[..., None, None], G + a[..., :, None] * a[..., None, :], G)
+        b = torch.where(r[..., None], b + a * z[..., t, None], b)
+    eye = torch.eye(n, dtype=A.dtype, device=A.device)
+    G = G + eye * _f32(ARIMA_RIDGE)
+    both = (cols[..., :, None] * cols[..., None, :]) > 0
+    G = torch.where(both, G, eye)
+    return _lu_solve(G, b) * cols
+
+
+def _lu_solve(G: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solve G x = b over the leading axes: LU with partial pivoting (the
+    first row of largest magnitude), then back substitution."""
+    G, b = G.clone(), b.clone()
+    n = G.shape[-1]
+    rows = torch.arange(n, device=G.device).expand(b.shape).contiguous()
+    for k in range(n):
+        piv = G[..., k:, k].abs().argmax(-1, keepdim=True) + k
+        perm = rows.clone()
+        perm[..., k] = piv[..., 0]
+        perm.scatter_(-1, piv, k)
+        G = torch.gather(G, -2, perm[..., None].expand_as(G))
+        b = torch.gather(b, -1, perm)
+        lk = G[..., k + 1:, k] / G[..., k:k + 1, k]
+        G[..., k + 1:, k + 1:] = G[..., k + 1:, k + 1:] - lk[..., None] * G[..., k:k + 1, k + 1:]
+        b[..., k + 1:] = b[..., k + 1:] - lk * b[..., k:k + 1]
+    x = torch.zeros_like(b)
+    for i in reversed(range(n)):
+        acc = b[..., i]
+        for j in range(i + 1, n):
+            acc = acc - G[..., i, j] * x[..., j]
+        x[..., i] = acc / G[..., i, i]
+    return x
+
+
+def arima_select(windows: torch.Tensor, valid: torch.Tensor, horizon: int, cfg):
+    """ARIMA forecasts of ``(B, T)`` windows (oldest first), the
+    reference's function (``repro/core/forecast/arima.py:140-212``) over
+    rows and candidate orders at once: scale-normalise; for each (p, d, q)
+    (d, then p, then q; p + q > 0) fit ARMA(p, q) to the d-times differenced
+    series by Hannan-Rissanen (a long AR(``long_ar``) fit for innovation
+    estimates, then p lags of the series and q of the innovations; both
+    by :func:`_masked_lstsq`); score it by AIC; forecast the first
+    minimum's k-step recursion with its psi-weight variance (integrated
+    when d = 1); fall back to the last value with variance
+    ``(0.5 |last| + 1)^2`` when fewer than ``long_ar + max_p + 2``
+    samples are valid; clamp the variance at 1e-9.
+
+    Returns ``(mean, var, best, aic)``: ``(B, horizon)`` twice, the chosen
+    candidate's index ``(B,)`` and every candidate's AIC ``(B, K)``
+    (non-finite ones as +inf)."""
+    P, Q, M, D1 = cfg.max_p, cfg.max_q, cfg.long_ar, cfg.max_d + 1
+    x = windows.float()
+    B, T = x.shape
+    dev = x.device
+    w = valid.float()
+    cnt = _seq_sum(w)
+    den = torch.clamp_min(cnt, 1.0)
+    mu = _seq_sum(x * w) / den
+    dv = x - mu[:, None]
+    var0 = _seq_sum(dv * dv * w) / den
+    sd = torch.sqrt(torch.clamp_min(var0, _f32(1e-8)).double()).float()
+    y = (x - mu[:, None]) / sd[:, None]
+
+    # the series and its sample mask for each d: (B, D1, T)
+    diff = torch.cat([torch.zeros_like(y[:, :1]), y[:, 1:] - y[:, :-1]], 1)
+    Z = torch.stack([y, diff][:D1], 1)
+    vm = torch.cat([torch.zeros_like(valid[:, :1]), valid[:, 1:] & valid[:, :-1]], 1)
+    ZM = torch.stack([valid, vm][:D1], 1)
+    t_idx = torch.arange(T, device=dev)
+
+    # stage 1: long AR(M) on each differenced series
+    ones = torch.ones_like(Z)[..., None]
+    A1 = torch.cat([ones, _lags(Z, M)], -1)
+    rows1 = ZM & (t_idx >= M)
+    beta1 = _masked_lstsq(A1, Z, rows1, torch.ones(M + 1, device=dev))
+    E = torch.where(rows1, Z - _dot_last(A1, beta1[..., None, :]), 0.0)
+
+    # stage 2 per candidate: (B, K, ...)
+    cands = [(p, d, q) for d in range(D1) for p in range(P + 1) for q in range(Q + 1)
+             if p + q > 0]
+    K = len(cands)
+    cd = torch.tensor([c[1] for c in cands], device=dev)
+    cp = torch.tensor([c[0] for c in cands], device=dev)
+    cq = torch.tensor([c[2] for c in cands], device=dev)
+    pmask = (torch.arange(P, device=dev) < cp[:, None]).float()          # (K, P)
+    qmask = (torch.arange(Q, device=dev) < cq[:, None]).float()          # (K, Q)
+    cols = torch.cat([torch.ones(K, 1, device=dev), pmask, qmask], 1)   # (K, n2)
+    z, zm = Z[:, cd], ZM[:, cd]                                         # (B, K, T)
+    e, r1 = E[:, cd], rows1[:, cd]
+    need = ((cp == P) & (cq == Q))[:, None] & (t_idx >= P) & (t_idx >= Q)  # (K, T)
+    e_rows = torch.roll(r1, 1, -1)
+    rows2 = zm & need & torch.where((cq > 0)[:, None], e_rows, True)
+    A2 = torch.cat([torch.ones_like(z)[..., None], _lags(z, P), _lags(e, Q)], -1)
+    beta2 = _masked_lstsq(A2, z, rows2, cols.expand(B, K, -1))
+    resid = torch.where(rows2, z - _dot_last(A2, beta2[..., None, :]), 0.0)
+    n_eff = torch.clamp_min(rows2.sum(-1).float(), 1.0)
+    sig2 = torch.clamp_min(_seq_sum(resid * resid) / n_eff, _f32(1e-10))
+    pen = torch.tensor([_f32(2.0 * (p + q + 2)) for p, _, q in cands], device=dev)
+    aic = n_eff * torch.log(sig2.double()).float() + pen
+    aic = torch.where(torch.isfinite(aic), aic, torch.inf)
+    best = torch.argmin(aic, -1)                                        # (B,)
+
+    def pick(v):
+        return torch.take_along_dim(v, best.view(B, *(1,) * (v.dim() - 1)), 1)[:, 0]
+
+    d, bz, bres, bsig = cd[best], pick(z), pick(resid), pick(sig2)
+    delta, phi, theta = (pick(beta2)[:, sl] for sl in (0, slice(1, 1 + P), slice(1 + P, None)))
+    zl = [bz[:, T - 1 - i] if T - 1 - i >= 0 else torch.zeros_like(delta) for i in range(P)]
+    el = [bres[:, T - 1 - i] if T - 1 - i >= 0 else torch.zeros_like(delta) for i in range(Q)]
+    zero = torch.zeros_like(delta)
+    csum, means = zero, []
+    for _ in range(horizon):
+        s1, s2 = zero, zero
+        for i in range(P):
+            s1 = s1 + phi[:, i] * zl[i]
+        for i in range(Q):
+            s2 = s2 + theta[:, i] * el[i]
+        zt = (delta + s1) + s2
+        zl, el = [zt] + zl[:-1], [zero] + el[:-1]
+        csum = csum + zt
+        means.append(torch.where(d > 0, y[:, T - 1] + csum, zt))
+    psi = [torch.ones_like(delta)]
+    for j in range(1, horizon):
+        s = zero
+        for i in range(P):
+            s = s + phi[:, i] * (psi[j - 1 - i] if j - 1 - i >= 0 else zero)
+        psi.append((theta[:, j - 1] if j <= Q else zero) + s)
+    ipsi, c, cs2, variances = [], zero, zero, []
+    for j in range(horizon):
+        c = c + psi[j]
+        pj = torch.where(d > 0, c, psi[j])
+        cs2 = cs2 + pj * pj
+        variances.append(bsig * cs2)
+    mean = torch.stack(means, 1) * sd[:, None] + mu[:, None]
+    var = torch.stack(variances, 1) * (sd * sd)[:, None]
+    enough = (cnt >= float(M + P + 2))[:, None]
+    last = x[:, T - 1:]
+    u = 0.5 * torch.abs(last) + 1.0
+    mean = torch.where(enough, mean, last)
+    var = torch.where(enough, var, u * u)
+    var = torch.maximum(var, torch.tensor(_f32(1e-9), device=dev))
+    return mean, var, best, aic
+
+
+def arima_forecast(windows: torch.Tensor, valid: torch.Tensor, horizon: int, cfg,
+                   ready: torch.Tensor | None = None):
+    """``(mean, var)``, ``(B, horizon)`` each: :func:`arima_select`'s
+    forecasts.  With ``ready`` (B,) bool only the series it marks are
+    computed (sliced out, as rows never interact) and the others come
+    back zeros, as the kernel writes them."""
+    if ready is None:
+        return arima_select(windows, valid, horizon, cfg)[:2]
+    out = [torch.zeros((windows.shape[0], horizon), dtype=torch.float32,
+                       device=windows.device) for _ in range(2)]
+    if ready.any():
+        for o, r in zip(out, arima_select(windows[ready], valid[ready], horizon, cfg)[:2]):
+            o[ready] = r
+    return tuple(out)

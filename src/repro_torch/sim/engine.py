@@ -22,9 +22,9 @@ reference.  The forecast, the safeguard and the shaping policy run on
 the engine's ``device`` — the CUDA card unless the caller asks for the
 CPU.  Given the same forecasts, every decision equals the reference's.
 
-Not ported in this slice, and refused by :func:`run_sim`: the ARIMA
-forecaster, conformal calibration (``calibration.enabled``) and the
-multi-tenant control plane (``control.enabled``).  ``obs``, ``leap``
+Not ported in this slice, and refused by :func:`run_sim`: conformal
+calibration (``calibration.enabled``) and the multi-tenant control
+plane (``control.enabled``).  ``obs``, ``leap``
 and ``forecast_bucket`` configure the reference's device engine; the
 host engine ignores them, as the reference's does.
 """
@@ -37,7 +37,8 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.core.forecast import GPConfig, GPForecaster, peak_over_horizon
+from repro_torch.core.forecast import (ARIMAConfig, ARIMAForecaster, GPConfig,
+                                      GPForecaster, peak_over_horizon)
 from repro_torch.core.monitor import Monitor
 from repro_torch.core.shaper import (POLICIES, SafeguardConfig, ShapeProblem,
                                      shaped_demand)
@@ -61,7 +62,7 @@ class SimConfig:
     cluster: ClusterConfig = ClusterConfig()
     workload: WorkloadConfig = WorkloadConfig()
     policy: str = "pessimistic"          # baseline | optimistic | pessimistic
-    forecaster: str = "gp"               # oracle | gp | persist (arima: not ported)
+    forecaster: str = "gp"               # oracle | gp | arima | persist
     safeguard: SafeguardConfig = SafeguardConfig()
     calibration: Switch = Switch()       # conformal safeguard (not ported)
     control: Switch = Switch()           # multi-tenant control plane (not ported)
@@ -70,7 +71,7 @@ class SimConfig:
     grace: int = 10                      # grace period (paper §5: 10 min)
     horizon: int = 3                     # forecast look-ahead (ticks)
     gp: GPConfig = GPConfig(history=10, max_patterns=10, opt_steps=10)
-    arima: tuple = ()                    # ARIMA settings (not ported)
+    arima: ARIMAConfig = ARIMAConfig()
     max_ticks: int = 100_000
     work_lost_on_kill: bool = True       # kill primitive loses all work
     leap: bool = False                   # device engine only
@@ -78,18 +79,26 @@ class SimConfig:
 
 
 def _check_ported(cfg: SimConfig) -> None:
-    if cfg.forecaster == "arima":
-        raise NotImplementedError("the ARIMA forecaster is not ported yet")
     if cfg.calibration.enabled:
         raise NotImplementedError("conformal calibration is not ported yet")
     if cfg.control.enabled:
         raise NotImplementedError("the multi-tenant control plane is not ported yet")
-    if cfg.forecaster not in ("gp", "persist", "oracle"):
+    if cfg.forecaster not in ("gp", "arima", "persist", "oracle"):
         raise ValueError(f"unknown forecaster {cfg.forecaster!r} "
-                         "(expected oracle | gp | persist)")
+                         "(expected oracle | gp | arima | persist)")
     if cfg.policy not in POLICIES:
         raise ValueError(f"unknown policy {cfg.policy!r} "
                          f"(expected one of {tuple(POLICIES)})")
+
+
+def _make_model(cfg: SimConfig):
+    """The forecast model of ``cfg`` (None for persist and oracle, which
+    the engines compute inline)."""
+    if cfg.forecaster == "gp":
+        return GPForecaster(cfg.gp)
+    if cfg.forecaster == "arima":
+        return ARIMAForecaster(cfg.arima)
+    return None
 
 
 def forecast_peaks(model, horizon: int, windows: np.ndarray, valid: np.ndarray,
@@ -115,7 +124,7 @@ class _BatchedForecaster:
     def __init__(self, cfg: SimConfig, device: torch.device):
         self.cfg = cfg
         self.device = device
-        self._model = GPForecaster(cfg.gp) if cfg.forecaster == "gp" else None
+        self._model = _make_model(cfg)
 
     def __call__(self, windows: np.ndarray, valid: np.ndarray):
         if self.cfg.forecaster == "persist":

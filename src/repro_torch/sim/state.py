@@ -152,17 +152,32 @@ class TickMetrics:
     alloc_mem: torch.Tensor      # f32
     forecast_rows: torch.Tensor       # i32 rows past the grace period
     forecast_rows_done: torch.Tensor  # i32 rows the forecast model computed
+    # idle ticks a leap step skipped just before its tick (0 on uniform
+    # ticks); drain_results re-expands each step into ``lead`` all-zero
+    # ticks, then the executed tick when ``valid``
+    lead: torch.Tensor                # i32
 
 
 def drain_results(cfg, wl, state: dict, metrics: dict) -> SimResults:
-    """Fold one member's final state and per-tick metrics into
+    """Fold one member's final state and per-step metrics into
     ``SimResults``.  ``state`` and ``metrics`` map field names to numpy
-    arrays of that member (metrics with a leading tick axis)."""
+    arrays of that member (metrics with a leading step axis).
+
+    Each step stands for ``lead`` skipped idle ticks (all-zero metrics:
+    the cluster and the queue were empty) followed by its own tick when
+    ``valid``, re-expanded here as the reference's drain does; on uniform
+    ticks ``lead`` is 0 and this is plain ``valid`` masking."""
     res = SimResults(n_apps=int(wl.n_apps))
     valid = np.asarray(metrics["valid"], bool)
+    reps = np.asarray(metrics["lead"], np.int64) + valid
+    pos = np.cumsum(reps) - 1
+    T = int(reps.sum())
 
     def kept(name):
-        return np.asarray(metrics[name])[valid]
+        x = np.asarray(metrics[name])
+        out = np.zeros(T, x.dtype)
+        out[pos[valid]] = x[valid]
+        return out
 
     res.n_running = [int(v) for v in kept("n_running")]
     H = cfg.cluster.n_hosts
@@ -191,7 +206,7 @@ def drain_results(cfg, wl, state: dict, metrics: dict) -> SimResults:
             "rows_batch": 2 * int(np.asarray(state["mon_count"]).shape[-1]),
             "rows_bucketed": int(kept("forecast_rows_done").sum()),
             "ticks_forecasting": int((rows > 0).sum()),
-            "ticks": int(valid.sum()),
+            "ticks": T,
         }
     res.failure_events = int(state["failure_events"])
     res.oom_kills = int(state["oom_kills"])

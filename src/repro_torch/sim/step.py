@@ -47,8 +47,16 @@ The bucket the reference would choose at each chunk boundary
 (:func:`_pick_bucket`) is a device scalar that ``_drive_chunks`` writes before
 the chunk runs; it decides only the ``rows_bucketed`` count.
 
-Not ported, and refused: ARIMA, calibration, the control plane, the
-telemetry rings, leap ticks and streamed workloads; ``run_fleet_shard``.
+With ``leap`` each step of a chunk first skips its member's provably
+idle ticks (:func:`fused_leap`; the skip is ``kernels/csrc/leap.cu``,
+which reads and writes the clock and the tick budget on the device), so
+a chunk is a fixed number of steps over a variable number of ticks, and
+:func:`_drive_chunks_leap` runs it.  The ARIMA forecaster is bucketed
+as the GP is: one ``kernels/csrc/arima_forecast.cu`` launch a tick over
+the ready rows.
+
+Not ported, and refused: calibration, the control plane, the telemetry
+rings and streamed workloads; ``run_fleet_shard``.
 The reference's bucket telemetry (``forecast.bucket_*`` counters of its
 metrics registry) is not ported either.
 """
@@ -61,7 +69,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.core.forecast import GPForecaster, peak_over_horizon
+from repro_torch.core.forecast import peak_over_horizon
 from repro_torch.core.forecast.base import persistence_peak
 from repro_torch.core.shaper import (POLICIES, ShapeDecision, ShapeProblem,
                                      shaped_demand)
@@ -69,13 +77,13 @@ from repro_torch.core.shaper.pessimistic import gather_rows as _rows
 from repro_torch.device import resolve_device
 from repro_torch.kernels import nvcc
 from repro_torch.kernels import ops as kops
-from repro_torch.sim.engine import _check_ported
+from repro_torch.sim.engine import _check_ported, _make_model
 from repro_torch.sim.metrics import SimResults
 from repro_torch.sim.scenarios.registry import build_trace
 from repro_torch.sim.state import (CPU, MEM, DeviceTrace, SimState, TickMetrics,
                                    drain_results, init_state)
 
-__all__ = ["fused_tick", "run_sim_scan", "run_cohort_scan"]
+__all__ = ["fused_tick", "fused_leap", "run_sim_scan", "run_cohort_scan"]
 
 
 # ----------------------------------------------------------------------
@@ -229,7 +237,7 @@ def _pick_bucket(cfg, st: SimState) -> int | None:
 
 def _bucketed_forecast(cfg, model, flat_w: torch.Tensor, flat_v: torch.Tensor,
                        ready: torch.Tensor, bucket: torch.Tensor):
-    """gp forecast over the READY monitor rows only: the counterpart of the
+    """gp or arima forecast over the READY monitor rows only: the counterpart of the
     reference's ``_bucketed_forecast``.
 
     The model takes the full ``(S * 2*A*C, W)`` batch, so the shapes never
@@ -258,7 +266,7 @@ def _shaped_demands(cfg, model, tr: DeviceTrace, st: SimState, tick: float,
 
     Running components default to their reservation; components past the
     grace period get ``clip(peak + beta, 0, request)``.  Bucketed
-    (:func:`_bucketed`), the gp forecast runs over the ready rows only,
+    (:func:`_bucketed`), the gp or arima forecast runs over the ready rows only,
     and ``bucket`` is the chunk's bucket, a 0-d int32 device tensor.
     Otherwise it runs over every monitor row and non-ready rows are
     masked afterwards (the reference skips the model on ticks with no
@@ -458,7 +466,7 @@ def fused_tick(cfg, model, tr: DeviceTrace, st: SimState, host_cap: torch.Tensor
     st = _record_monitor(st, usage)
 
     # 4. shaping (the baseline policy never shapes)
-    fc_rows = fc_done = torch.zeros_like(st.oom_kills)
+    zero = fc_rows = fc_done = torch.zeros_like(st.oom_kills)
     if cfg.policy != "baseline":
         demand, fc_rows, fc_done = _shaped_demands(cfg, model, tr, st, tick, bucket)
         dec = _decide(cfg.policy, _shape_problem(tr, st, demand, t, host_cap))
@@ -486,24 +494,54 @@ def fused_tick(cfg, model, tr: DeviceTrace, st: SimState, host_cap: torch.Tensor
         valid=active, n_running=(st.slot_gid >= 0).sum(-1).int(),
         used_cpu=used[:, CPU], used_mem=used[:, MEM],
         alloc_cpu=alloc[:, CPU], alloc_mem=alloc[:, MEM],
-        forecast_rows=fc_rows, forecast_rows_done=fc_done)
+        forecast_rows=fc_rows, forecast_rows_done=fc_done, lead=zero)
     return dataclasses.replace(st, t=torch.where(active, t, st.t)), metrics
+
+
+def fused_leap(cfg, model, tr: DeviceTrace, st: SimState, host_cap: torch.Tensor,
+               left: torch.Tensor, bucket: torch.Tensor | None = None
+               ) -> tuple[SimState, torch.Tensor, TickMetrics]:
+    """One leap step for every member: skip its run of provably idle
+    ticks, then execute one :func:`fused_tick` (the counterpart of the
+    reference's ``fused_leap``).
+
+    The skip is ``ops.leap_skip`` (one kernel launch on the card, which
+    reads nothing back): while the cluster and the queue are empty and
+    the next arrival lies beyond ``t + tick``, the clock advances by the
+    uniform engine's own float32 additions, so every later tick sees the
+    uniform engine's clock to the bit.  ``left`` (S,) int32 is each
+    member's remaining tick budget; it caps the skip and gates the tick,
+    which always executes and is kept only where the member is not done
+    and has budget left after the skip (``run``), field by field.  A
+    member that is done or out of budget is a no-op.  The reference also
+    holds the skip while calibration scores are pending (``calib.left ==
+    0``); the port's calibration state is always None, so that guard
+    always holds here.  Returns (state,
+    ``left - lead - run``, metrics), the metrics' ``lead`` holding the
+    ticks skipped."""
+    t, lead = kops.leap_skip(st.slot_gid, st.queued, st.arrived, tr.submit, st.done,
+                             st.t, left, cfg.cluster.tick)
+    st = dataclasses.replace(st, t=t)
+    # left - lead > 0 implies left > 0: the reference's `active` gate
+    run = ~st.done.all(-1) & (left - lead > 0)
+    st2, m = fused_tick(cfg, model, tr, st, host_cap, bucket)
+    kept = {}
+    for name, old in _tensors(st).items():
+        new = getattr(st2, name)
+        kept[name] = old if new is old else torch.where(
+            run.view(-1, *(1,) * (old.dim() - 1)), new, old)
+    m = dataclasses.replace(m, valid=m.valid & run, lead=lead)
+    return dataclasses.replace(st, **kept), left - lead - run.int(), m
 
 
 # ----------------------------------------------------------------------
 # chunk drivers
 # ----------------------------------------------------------------------
 
-def _make_model(cfg):
-    return GPForecaster(cfg.gp) if cfg.forecaster == "gp" else None
-
-
 def _check_scan(cfg) -> None:
     _check_ported(cfg)
     if cfg.obs.enabled:
         raise NotImplementedError("the device engine's telemetry rings are not ported yet")
-    if cfg.leap:
-        raise NotImplementedError("leap ticks are not ported yet")
     if type(cfg.workload).__name__ == "StreamConfig":
         raise NotImplementedError("streamed workloads are not ported yet")
 
@@ -519,22 +557,29 @@ def _tensors(obj) -> dict[str, torch.Tensor]:
 
 
 def _chunk_program(cfg, model, tr: DeviceTrace, st: SimState, size: int,
-                   host_cap: torch.Tensor,
-                   bucket: torch.Tensor | None = None) -> dict[str, torch.Tensor]:
-    """``size`` ticks from the state held in ``st``'s tensors, written back
-    into them (``copy_``, field by field), without reading anything back:
-    the counterpart of the reference's ``_chunk_body``.  Returns the
-    chunk's metrics stacked ``(S, size)`` per ``TickMetrics`` field.  On
-    the card this is what one CUDA graph holds (:class:`_ChunkGraphs`);
-    on the CPU, and for the optimistic policy, it runs as it stands.
-    ``bucket`` is read on the device at every tick, so one program serves
-    every bucket."""
-    cur, metrics = st, []
+                   host_cap: torch.Tensor, bucket: torch.Tensor | None = None,
+                   left: torch.Tensor | None = None) -> dict[str, torch.Tensor]:
+    """``size`` ticks (leap steps when ``cfg.leap``) from the state held in
+    ``st``'s tensors, written back into them (``copy_``, field by field),
+    without reading anything back: the counterpart of the reference's
+    ``_chunk_body``.  Returns the chunk's metrics stacked ``(S, size)``
+    per ``TickMetrics`` field.  On the card this is what one CUDA graph
+    holds (:class:`_ChunkGraphs`); on the CPU, and for the optimistic
+    policy, it runs as it stands.  ``bucket`` is read on the device at
+    every tick, so one program serves every bucket.  Under leap ``left``
+    (S,) int32, each member's remaining tick budget, is one more state
+    tensor that the steps read and that is written back."""
+    cur, metrics, lft = st, [], left
     for _ in range(size):
-        cur, m = fused_tick(cfg, model, tr, cur, host_cap, bucket)
+        if cfg.leap:
+            cur, lft, m = fused_leap(cfg, model, tr, cur, host_cap, lft, bucket)
+        else:
+            cur, m = fused_tick(cfg, model, tr, cur, host_cap, bucket)
         metrics.append(m)
     for name, dst in _tensors(st).items():
         dst.copy_(getattr(cur, name))
+    if cfg.leap:
+        left.copy_(lft)
     return {f: torch.stack([getattr(m, f) for m in metrics], -1) for f in _METRICS}
 
 
@@ -585,11 +630,12 @@ class _Graph:
 class _ChunkGraphs:
     """The device engine's chunk as captured CUDA graphs, for one config,
     chunk size, shape and device: static copies of the trace, the host
-    capacities, the state and the forecast bucket, and one graph per
-    chunk size (the full chunk and the last one cut to ``max_ticks``, at
-    most two; the bucket is read on the device, so every bucket replays
-    the same graph), sharing one memory pool.  The two graphs'
-    temporaries may overlap, which is safe because replays run one at a
+    capacities, the state, the forecast bucket and, under leap, the tick
+    budgets ``left``, and one graph per chunk size (the full chunk and
+    the last one cut to ``max_ticks``, at most two; under leap every chunk
+    runs in full, so one; the bucket is read on the device, so every
+    bucket replays the same graph), sharing one memory pool.  The two
+    graphs' temporaries may overlap, which is safe because replays run one at a
     time on one stream and each replay's metrics are read before the
     next replay.  One run at a time uses an entry.
 
@@ -607,18 +653,20 @@ class _ChunkGraphs:
         self.host_cap = host_cap.clone()
         self.device = host_cap.device
         self.bucket = _full_bucket(st)
+        self.left = torch.zeros_like(st.oom_kills) if cfg.leap else None
         self.pool = torch.cuda.graph_pool_handle()
         self.stream = torch.cuda.Stream(self.device)
         self.graphs: dict[int, _Graph] = {}
-        # warm-up before any capture: one eager tick on a clone of the
-        # state, on the capture's stream, builds and loads every kernel's
-        # library, runs each one-time set-up (nvcc.prepare) and fills the
-        # allocator; its launches run, and count
+        # warm-up before any capture: one eager tick (leap step) on a
+        # clone of the state, on the capture's stream, builds and loads
+        # every kernel's library, runs each one-time set-up (nvcc.prepare)
+        # and fills the allocator; its launches run, and count
         self.stream.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(self.stream):
-            fused_tick(cfg, model, self.tr,
-                       SimState(**{k: v.clone() for k, v in _tensors(self.st).items()}),
-                       self.host_cap, self.bucket)
+            _chunk_program(cfg, model, self.tr,
+                           SimState(**{k: v.clone() for k, v in _tensors(self.st).items()}),
+                           1, self.host_cap, self.bucket,
+                           None if self.left is None else self.left.clone())
         torch.cuda.synchronize(self.device)
 
     def load(self, tr: DeviceTrace, st: SimState, host_cap: torch.Tensor) -> None:
@@ -641,7 +689,7 @@ class _ChunkGraphs:
             try:
                 with _sync_errors():
                     metrics = _chunk_program(self.cfg, self.model, self.tr, self.st,
-                                             size, self.host_cap, self.bucket)
+                                             size, self.host_cap, self.bucket, self.left)
                 t1 = time.perf_counter()
             finally:
                 # ends the capture and, unless the nodes are kept,
@@ -705,19 +753,25 @@ def _full_bucket(st: SimState) -> torch.Tensor:
                         device=st.mon_count.device)
 
 
+def _program(cfg, model, tr, st, chunk: int, host_cap):
+    """Where a run's chunks run: on the card (:func:`_captures`) the cached
+    graph entry, whose static tensors then hold the trace, state and
+    capacities; else None and the run's own tensors.  Returns (entry,
+    trace, state, capacities, forecast-bucket scalar)."""
+    if not _captures(cfg, host_cap.device):
+        return None, tr, st, host_cap, _full_bucket(st)
+    g = _graph_entry(cfg, model, tr, st, chunk, host_cap)
+    return g, g.tr, g.st, g.host_cap, g.bucket
+
+
 def _drive_chunks(cfg, model, tr, st, chunk: int, host_cap):
     """Run chunks until every member is done or ``max_ticks`` is spent
     (the last chunk cut to the remaining ticks).  Returns the final
     state, the per-member metrics as numpy ``(S, ticks)`` arrays and the
-    number of ticks driven.  On the card the state lives in the graph
-    entry's static tensors (:func:`_captures` decides).  Bucketed, the
-    bucket is re-chosen at every chunk boundary, as the reference's
-    ``_drive_chunks`` does, and written to the device before the chunk runs."""
-    graphs = None
-    if _captures(cfg, host_cap.device):
-        graphs = _graph_entry(cfg, model, tr, st, chunk, host_cap)
-        tr, st, host_cap = graphs.tr, graphs.st, graphs.host_cap
-    bucket = _full_bucket(st) if graphs is None else graphs.bucket
+    number of ticks driven.  Bucketed, the bucket is re-chosen at every
+    chunk boundary, as the reference's ``_drive_chunks`` does, and written
+    to the device before the chunk runs."""
+    graphs, tr, st, host_cap, bucket = _program(cfg, model, tr, st, chunk, host_cap)
     bucketing = _bucketed(cfg)
     parts = []
     remaining = cfg.max_ticks
@@ -738,6 +792,33 @@ def _drive_chunks(cfg, model, tr, st, chunk: int, host_cap):
     return st, metrics, cfg.max_ticks - remaining
 
 
+def _drive_chunks_leap(cfg, model, tr, st, chunk: int, host_cap):
+    """Run leap chunks (the reference's ``_drive_chunks_leap``): a leap step
+    covers a variable number of ticks, so ``max_ticks`` cannot be kept by
+    cutting the last chunk; each member's budget ``left`` (seeded with
+    ``max_ticks``) is part of the chunk's state instead, and every chunk
+    runs its full ``chunk`` steps (one graph).  Runs until every member
+    is done or out of budget, both read at the chunk boundary only; the
+    bucket is re-chosen there as in :func:`_drive_chunks`.  Returns what
+    that returns, the ticks being the most any member covered."""
+    graphs, tr, st, host_cap, bucket = _program(cfg, model, tr, st, chunk, host_cap)
+    left = graphs.left if graphs is not None else torch.empty_like(st.oom_kills)
+    left.fill_(cfg.max_ticks)
+    bucketing = _bucketed(cfg)
+    parts = []
+    while True:
+        if bucketing:
+            b = _pick_bucket(cfg, st)
+            bucket.fill_(st.mon_count.shape[1] if b is None else b)
+        ms = (graphs.run(chunk) if graphs is not None
+              else _chunk_program(cfg, model, tr, st, chunk, host_cap, bucket, left))
+        parts.append({f: ms[f].cpu().numpy() for f in _METRICS})
+        if bool((st.done.all(-1) | (left <= 0)).all()):
+            break
+    metrics = {f: np.concatenate([p[f] for p in parts], -1) for f in _METRICS}
+    return st, metrics, cfg.max_ticks - int(left.min())
+
+
 def _run(cfgs, wls, chunk: int, dev: torch.device) -> list[SimResults]:
     if chunk < 1:
         raise ValueError(f"chunk={chunk} must be >= 1")
@@ -745,8 +826,8 @@ def _run(cfgs, wls, chunk: int, dev: torch.device) -> list[SimResults]:
     t0 = time.perf_counter()
     tr = DeviceTrace.from_traces(wls, dev)
     st = init_state(cfg, wls[0].n_apps, wls[0].max_components, len(wls), dev)
-    st, metrics, ticks = _drive_chunks(cfg, _make_model(cfg), tr, st, chunk,
-                                       host_capacity(cfg, dev))
+    drive = _drive_chunks_leap if cfg.leap else _drive_chunks
+    st, metrics, ticks = drive(cfg, _make_model(cfg), tr, st, chunk, host_capacity(cfg, dev))
     state = {f.name: getattr(st, f.name).cpu().numpy()
              for f in dataclasses.fields(SimState) if getattr(st, f.name) is not None}
     seconds = time.perf_counter() - t0
@@ -754,7 +835,8 @@ def _run(cfgs, wls, chunk: int, dev: torch.device) -> list[SimResults]:
     for i, (c, w) in enumerate(zip(cfgs, wls)):
         res = drain_results(c, w, {k: v[i] for k, v in state.items()},
                             {k: v[i] for k, v in metrics.items()})
-        res.timings = dict(total=seconds, ticks=ticks, members=len(wls))
+        res.timings = dict(total=seconds, ticks=ticks, members=len(wls),
+                           steps=metrics["valid"].shape[-1])
         out.append(res)
     return out
 
@@ -770,8 +852,11 @@ def run_sim_scan(cfg, wl=None, *, chunk: int = 32,
     each chunk is a replayed CUDA graph, captured by the first run of its
     config, chunk and shapes in the process (that run also pays the
     capture); later runs, of any seed, capture nothing.
-    ``SimResults.timings`` holds the run's wall seconds and the ticks
-    driven."""
+    With ``cfg.leap`` each step first skips the member's provably idle
+    ticks (:func:`fused_leap`); the results equal the uniform ticks' to
+    the bit.  ``SimResults.timings`` holds the run's wall seconds, the
+    ticks driven (under leap the most any member covered) and the steps
+    driven (chunks x chunk; the ticks on uniform runs)."""
     dev = resolve_device(device)
     _check_scan(cfg)
     wl = wl if wl is not None else build_trace(cfg.workload)

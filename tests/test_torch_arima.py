@@ -1,0 +1,421 @@
+"""The port's ARIMA forecaster (``repro_torch.core.forecast.arima``,
+``ops.arima_forecast``, ``ref.arima_select``) and oracle forecaster
+against the reference's (``repro.core.forecast``) on the CPU, and both
+engines with ``forecaster="arima"``.
+
+XLA:CPU's ``jnp.linalg.solve`` (LAPACK's LU) and its sums cannot be
+copied to the bit, so the forecasts are held by tolerance, row by row:
+the chosen order equal wherever the reference's least AIC lies more than
+``AIC_GAP`` below every other value, and there the mean within
+``MEAN_RTOL`` of the row's scale (its largest forecast plus the window's
+standard deviation) and the variance within ``VAR_RTOL`` plus
+``VAR_ATOL`` times the window's variance (the variances of near-perfect
+fits are float32 noise of the normalised series, ~1e-8 of it).  The engines are held exactly to
+the reference with one forecast client shared by both packages; with
+each package's own ARIMA, a whole small run of each engine is compared
+too.  The reference's ARIMA is compiled once for the module, at one
+batch shape, and serves every comparison (rows never interact, so a
+row's forecast does not depend on the batch it rides in).
+"""
+import concurrent.futures
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.forecast import arima as rarima
+from repro.core.forecast import oracle as roracle
+from repro.core.forecast.base import Forecast as RForecast
+from repro.sim import engine as rengine
+from repro.sim import step as rstep
+from repro.sim.scenarios.registry import build_trace
+from repro.sim.sweep import quick_base_config
+from repro_torch import convert
+from repro_torch.core.forecast import (ARIMAConfig, ARIMAForecaster, Forecast,
+                                       OracleForecaster, peak_over_horizon)
+from repro_torch.kernels import arima_forecast as karima
+from repro_torch.kernels import ops, ref
+from repro_torch.sim import engine as tengine
+from repro_torch.sim import step as tstep
+from test_torch_flash_route import CudaStandIn
+from test_torch_step import _one_torch_thread, _shared_client  # noqa: F401
+
+T, H, ROWS = 24, 3, 128        # window, horizon, the reference's compiled batch
+AIC_GAP = 1e-2
+MEAN_RTOL, VAR_RTOL, VAR_ATOL = 1e-4, 1e-3, 1e-6
+CANDS = [(p, d, q) for d in range(2) for p in range(4) for q in range(3) if p + q > 0]
+
+
+
+def _ref_aics(window, valid):
+    """Every candidate's AIC as the reference's forecast computes it
+    (``repro/core/forecast/arima.py:145-181``), non-finite as +inf: its
+    ``_fit_arma`` mapped over the candidates' lag masks, one trace for
+    each d (p and q enter the fit only through the masks)."""
+    cfg = rarima.ARIMAConfig()
+    w = valid.astype(jnp.float32)
+    mu = (window * w).sum() / jnp.maximum(w.sum(), 1.0)
+    sd = jnp.sqrt(jnp.maximum(((window - mu) ** 2 * w).sum() / jnp.maximum(w.sum(), 1.0),
+                              1e-8))
+    y = (window - mu) / sd
+    out = []
+    for d in range(cfg.max_d + 1):
+        if d == 0:
+            z, zm = y, valid
+        else:
+            z = jnp.diff(y, prepend=y[:1])
+            zm = (valid & jnp.roll(valid, 1)).at[0].set(False)
+        pq = np.array([(p, q) for p, dd, q in CANDS if dd == d])
+        pm = (np.arange(cfg.max_p) < pq[:, :1]).astype(np.float32)
+        qm = (np.arange(cfg.max_q) < pq[:, 1:]).astype(np.float32)
+        fit = jax.vmap(lambda a, b: rarima._fit_arma(z, zm, a, b, cfg))(pm, qm)
+        sig2, n = fit[3], fit[5]
+        out.append(n * jnp.log(sig2) + (2 * (pq.sum(1) + 2)).astype(np.float32))
+    a = jnp.concatenate(out)
+    return jnp.where(jnp.isfinite(a), a, jnp.inf)
+
+
+@pytest.fixture(scope="module")
+def reference():
+    """The reference's forecasts and AICs of (n, T) windows: one compiled
+    program over blocks of ROWS rows, padded.  Every call runs on one
+    thread of its own: the engines call it from inside their compiled
+    programs (a host callback), and a call from another thread would
+    compile it again."""
+    model = rarima.ARIMAForecaster()
+    fn = jax.jit(lambda w, v: (*(lambda f: (f.mean, f.var))(
+        model.forecast_batch(w, H, valid=v)), jax.vmap(_ref_aics)(w, v)))
+
+    def blocks(w, v):
+        outs = []
+        for i in range(0, w.shape[0], ROWS):
+            wb = np.zeros((ROWS, T), np.float32)
+            vb = np.zeros((ROWS, T), bool)
+            m = min(ROWS, w.shape[0] - i)
+            wb[:m], vb[:m] = w[i:i + m], v[i:i + m]
+            outs.append([np.asarray(x)[:m] for x in fn(wb, vb)])
+        return [np.concatenate(x) for x in zip(*outs)]
+
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        yield lambda w, v: pool.submit(blocks, w, v).result()
+
+
+def seeded_windows(seed=0):
+    """(128, T) windows with their valid masks: random walks, constants,
+    trends, sines, AR(1) processes, uniform noise, and young series (the
+    first samples not seen yet) of each, at several scales."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(T)
+    kinds = [
+        lambda: np.cumsum(rng.normal(size=T)),
+        lambda: np.full(T, rng.uniform(0, 4)),
+        lambda: rng.uniform(-1, 1) * t + rng.normal(scale=0.1, size=T),
+        lambda: rng.uniform(1, 3) * np.sin(t / rng.uniform(2, 5)) + rng.uniform(0, 6),
+        lambda: _ar1(rng, rng.uniform(-0.9, 0.9)),
+        lambda: rng.uniform(0, 3, T),
+    ]
+    w = np.stack([kinds[i % len(kinds)]() * 10.0 ** rng.integers(-2, 3)
+                  for i in range(ROWS)]).astype(np.float32)
+    v = np.ones((ROWS, T), bool)
+    young = rng.integers(1, T - 3, ROWS)
+    for i in range(0, ROWS, 3):
+        v[i, :young[i]] = False            # 20 or fewer valid: some fall back
+    w[~v] = 0.0
+    return w, v
+
+
+def _ar1(rng, phi):
+    x = np.zeros(T)
+    for k in range(1, T):
+        x[k] = phi * x[k - 1] + rng.normal()
+    return x
+
+
+def _assert_close_to_reference(mean, var, best, want, wins, valid, what):
+    """Row by row, as the module docstring says; returns the rows held."""
+    rm, rv, raic = want
+    # the distance from the least AIC to the nearest other value: orders
+    # of exactly equal AIC (the degenerate fits of one p + q score the
+    # same n = 1, sigma^2 = 1e-10 in both packages) go to the first index
+    lo = raic.min(1, keepdims=True)
+    margin = np.where(raic > lo, raic - lo, np.inf).min(1)
+    sure = margin > AIC_GAP
+    assert sure.sum() > 0.9 * len(sure), (what, sure.sum())
+    np.testing.assert_array_equal(best[sure], np.argmin(raic, 1)[sure], err_msg=what)
+    for i in np.nonzero(sure)[0]:
+        sd2 = np.var(wins[i][valid[i]]) if valid[i].any() else 0.0
+        scale = np.abs(rm[i]).max() + np.sqrt(sd2)
+        np.testing.assert_allclose(mean[i], rm[i], rtol=0, atol=MEAN_RTOL * scale,
+                                   err_msg=f"{what} {i}")
+        np.testing.assert_allclose(var[i], rv[i], rtol=VAR_RTOL, atol=VAR_ATOL * sd2,
+                                   err_msg=f"{what} {i}")
+    return sure
+
+
+def test_plain_arima_equals_reference(reference):
+    w, v = seeded_windows()
+    want = reference(w, v)
+    mean, var, best, aic = ref.arima_select(torch.as_tensor(w), torch.as_tensor(v), H,
+                                            ARIMAConfig())
+    sure = _assert_close_to_reference(mean.numpy(), var.numpy(), best.numpy(), want, w, v,
+                                      "ref.arima_select")
+    # the fallback rows (fewer than 11 valid samples) equal to the bit
+    short = v.sum(1) < 11
+    assert 5 < short.sum() < 40
+    np.testing.assert_array_equal(mean.numpy()[short], want[0][short])
+    np.testing.assert_array_equal(var.numpy()[short], want[1][short])
+    # the forecaster on the CPU is this plain program
+    fc = ARIMAForecaster().forecast_batch(w, H, valid=v, device="cpu")
+    assert torch.equal(fc.mean, mean) and torch.equal(fc.var, var)
+    assert sure.sum() >= 120
+
+
+def test_aics_follow_the_reference(reference):
+    """The AICs themselves.  The reference's quirk is kept: only the
+    orders (3, d, 2) fit any row, since its stage-2 rows need every max_p
+    and max_q lag column active (repro/core/forecast/arima.py:95-104); the
+    others score n = 1, sigma^2 = 1e-10 and equal the reference's to the
+    bit.  The two real fits' AICs agree within 1% (near-perfect fits,
+    sigma^2 at float32's noise, differ most)."""
+    w, v = seeded_windows(1)
+    want = reference(w, v)[2]
+    aic = ref.arima_select(torch.as_tensor(w), torch.as_tensor(v), H, ARIMAConfig())[3]
+    aic = aic.numpy()
+    fits = np.array([(p, q) == (3, 2) for p, _, q in CANDS])
+    np.testing.assert_array_equal(aic[:, ~fits], want[:, ~fits])
+    flat = np.float32(np.log(np.float32(1e-10)))
+    np.testing.assert_array_equal(aic[:, ~fits][0], [flat + np.float32(2 * (p + q + 2))
+                                                     for p, _, q in np.array(CANDS)[~fits]])
+    np.testing.assert_allclose(aic[:, fits], want[:, fits], rtol=1e-2)
+
+
+@pytest.mark.parametrize("mask", ["none", "some", "all"])
+def test_ready_mask_runs_only_the_marked_series(mask):
+    w, v = seeded_windows(2)
+    rng = np.random.default_rng(3)
+    run = {"none": np.zeros(ROWS, bool), "some": rng.random(ROWS) < 0.3,
+           "all": np.ones(ROWS, bool)}[mask]
+    tw, tv, tr = torch.as_tensor(w), torch.as_tensor(v), torch.as_tensor(run)
+    full = ops.arima_forecast(tw, tv, H, ARIMAConfig())
+    part = ops.arima_forecast(tw, tv, H, ARIMAConfig(), tr)
+    fc = ARIMAForecaster().forecast_batch(w, H, valid=v, ready=tr, device="cpu")
+    for f, p, q in zip(full, part, (fc.mean, fc.var)):
+        assert torch.equal(p[tr], f[tr]) and torch.equal(q, p)
+        assert not p[~tr].any()
+
+
+# ----------------------------------------------------------------------
+# the kernel's wrapper (CUDA stand-ins: no card needed)
+# ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("change, error, match", [
+    ({}, None, None),
+    ({"windows": CudaStandIn((64, T), torch.float32, device="cpu")}, ValueError, "CUDA"),
+    ({"windows": CudaStandIn((64, T), torch.float64)}, TypeError, "float32"),
+    ({"valid": CudaStandIn((64, T + 1), torch.bool)}, ValueError, "valid has shape"),
+    ({"valid": CudaStandIn((64, T), torch.bool, contiguous=False)}, ValueError, "contiguous"),
+    ({"ready": CudaStandIn((63,), torch.bool)}, ValueError, "ready has shape"),
+    ({"ready": CudaStandIn((64,), torch.int32)}, TypeError, "bool"),
+    ({"windows": CudaStandIn((64, 257), torch.float32),
+      "valid": CudaStandIn((64, 257), torch.bool)}, ValueError, "T=257"),
+    ({"cfg": ARIMAConfig(max_p=4)}, ValueError, "max_p <= 3"),
+    ({"cfg": ARIMAConfig(max_d=2)}, ValueError, "max_d <= 1"),
+    ({"cfg": ARIMAConfig(long_ar=7)}, ValueError, "long_ar <= 6"),
+    ({"horizon": 0}, ValueError, "horizon=0"),
+], ids=["ok", "cpu", "f64", "valid-shape", "strided", "ready-shape", "ready-dtype", "long",
+        "max_p", "max_d", "long_ar", "horizon"])
+def test_kernel_checks_its_inputs(change, error, match):
+    args = dict(windows=CudaStandIn((64, T), torch.float32),
+                valid=CudaStandIn((64, T), torch.bool), horizon=H, cfg=ARIMAConfig(),
+                ready=CudaStandIn((64,), torch.bool))
+    args.update(change)
+    if error is None:
+        assert karima._check(**args) == (64, T)
+        return
+    with pytest.raises(error, match=match):
+        karima._check(**args)
+
+
+def test_dispatch_takes_cpu_and_cuda_only():
+    x = torch.zeros((2, T), device="meta")
+    with pytest.raises(ValueError, match="no arima_forecast implementation"):
+        ops.arima_forecast(x, x.bool(), H, ARIMAConfig())
+
+
+# ----------------------------------------------------------------------
+# the engines
+# ----------------------------------------------------------------------
+
+COUNTERS = ("completed", "n_apps", "failure_events", "oom_kills", "full_preemptions",
+            "partial_preemptions", "failed_frac", "sim_hours")
+SMALL = dataclasses.replace(quick_base_config(n_apps=32, n_hosts=2), forecaster="arima")
+# the forecast both packages' models call: numpy (w, v) -> (mean, var),
+# (n, H) each.  The reference's device engine runs over the full batch
+# (its own tests hold its bucketed runs to that bit for bit), so one
+# program, whose model is a callback to this, is compiled for the module.
+_CLIENT: dict = {}
+_REF_CHUNKS: dict = {}
+
+
+class _RefClient:
+    def forecast_batch(self, w, horizon, valid=None):
+        shape = jax.ShapeDtypeStruct((w.shape[0], horizon), jnp.float32)
+        mean, var = jax.pure_callback(
+            lambda a, b: _CLIENT["fn"](np.asarray(a), np.asarray(b)), (shape, shape),
+            w, valid)
+        return RForecast(mean=mean, var=var)
+
+
+class _PortClient:
+    def forecast_batch(self, w, horizon, *, valid, device, ready=None):
+        mean, var = _CLIENT["fn"](w.cpu().numpy(), valid.cpu().numpy())
+        return Forecast(mean=torch.as_tensor(mean, device=device),
+                        var=torch.as_tensor(var, device=device))
+
+
+def _peaks(fn):
+    """A host engine's forecast_fn: the peak of ``fn``'s forecast and its
+    variance (the first maximum, as both packages take it)."""
+    def peaks(w, v):
+        mean, var = fn(w, v)
+        k = np.argmax(mean, 1)[:, None]
+        return (np.take_along_axis(mean, k, 1)[:, 0], np.take_along_axis(var, k, 1)[:, 0])
+    return peaks
+
+
+def _port_inputs(cfg):
+    wl = build_trace(cfg.workload)
+    cols = {f.name: getattr(wl, f.name) for f in dataclasses.fields(wl) if f.name != "cfg"}
+    return (convert.sim_config_from_dict(dataclasses.asdict(cfg)),
+            convert.trace_from_arrays(**cols), wl)
+
+
+def _assert_runs(got, want):
+    """Equal per-tick occupancy, outcomes and turnarounds; the metric
+    means allclose (rtol 1e-6, the port's float64 metric sums)."""
+    first = next((k for k, (a, b) in enumerate(zip(got.n_running, want.n_running))
+                  if a != b), None)
+    assert first is None, f"the runs diverge at tick {first}"
+    g, w = got.summary(), want.summary()
+    for k in COUNTERS:
+        assert g[k] == w[k], (k, g[k], w[k])
+    for k in w:
+        np.testing.assert_allclose(g[k], w[k], rtol=1e-6, err_msg=k)
+    assert got.turnaround == want.turnaround and got.failed_apps == want.failed_apps
+
+
+def _reference_scan(monkeypatch, wl, fn):
+    _CLIENT["fn"] = fn
+    monkeypatch.setattr(rstep, "_CHUNK_CACHE", _REF_CHUNKS)
+    monkeypatch.setattr(rstep, "_make_model", lambda c: _RefClient())
+    return rstep.run_sim_scan(dataclasses.replace(SMALL, forecast_bucket=False), wl)
+
+
+def _rows(fr):
+    return {k: v for k, v in fr.items() if k != "rows_bucketed"}
+
+
+def test_device_engine_with_shared_client_equals_reference(monkeypatch):
+    """The arima path of the device engine with one client for both
+    packages, bucketed (the forecast over the ready rows) and over the
+    full batch: each equal to the reference's run, the forecast rows
+    counted as it counts them."""
+    pcfg, ptr, wl = _port_inputs(SMALL)
+    want = _reference_scan(monkeypatch, wl, _shared_client)
+    monkeypatch.setattr(tstep, "_make_model", lambda c: _PortClient())
+    full = tstep.run_sim_scan(dataclasses.replace(pcfg, forecast_bucket=False), ptr,
+                              device="cpu")
+    _assert_runs(full, want)
+    assert full.forecast_rows == want.forecast_rows
+    fast = tstep.run_sim_scan(pcfg, ptr, device="cpu")
+    _assert_runs(fast, want)
+    assert _rows(fast.forecast_rows) == _rows(want.forecast_rows)
+    assert 0 < fast.forecast_rows["rows_bucketed"] < full.forecast_rows["rows_bucketed"]
+
+
+def test_host_engine_with_shared_client_equals_reference():
+    pcfg, ptr, wl = _port_inputs(SMALL)
+    want = rengine.run_sim(SMALL, wl, forecast_fn=_peaks(_shared_client))
+    _assert_runs(tengine.run_sim(pcfg, ptr, forecast_fn=_peaks(_shared_client),
+                                 device="cpu"), want)
+
+
+def test_device_engine_own_arima_equals_reference(monkeypatch, reference):
+    """A whole run of the device engine with the port's own ARIMA (the
+    plain version on the CPU, over the ready rows) against the reference
+    engine whose model is the reference's ARIMA."""
+    pcfg, ptr, wl = _port_inputs(SMALL)
+    want = _reference_scan(monkeypatch, wl, _ready_only(reference))
+    got = tstep.run_sim_scan(pcfg, ptr, device="cpu")
+    _assert_runs(got, want)
+    assert _rows(got.forecast_rows) == _rows(want.forecast_rows)
+    assert got.forecast_rows["rows_ready"] > 0
+    assert want.summary()["full_preemptions"] > 0
+
+
+def _ready_only(reference):
+    """The reference's ARIMA over the full batch's rows with at least
+    ``grace`` valid samples (the ready rows: the engine masks the others'
+    forecasts out), zeros for the rest."""
+    def fn(w, v):
+        mean = np.zeros((w.shape[0], H), np.float32)
+        var = np.zeros((w.shape[0], H), np.float32)
+        rows = v.sum(1) >= SMALL.grace
+        if rows.any():
+            mean[rows], var[rows] = reference(w[rows], v[rows])[:2]
+        return mean, var
+    return fn
+
+
+def test_host_engine_own_arima_equals_reference(reference):
+    pcfg, ptr, wl = _port_inputs(SMALL)
+    want = rengine.run_sim(SMALL, wl, forecast_fn=_peaks(lambda w, v: reference(w, v)[:2]))
+    _assert_runs(tengine.run_sim(pcfg, ptr, device="cpu"), want)
+
+
+def test_convert_carries_the_arima_block():
+    cfg = dataclasses.replace(SMALL, arima=rarima.ARIMAConfig(max_p=2, max_q=1, long_ar=5))
+    assert convert.sim_config_from_dict(dataclasses.asdict(cfg)).arima == ARIMAConfig(
+        max_p=2, max_q=1, long_ar=5)
+    assert tstep._make_model(convert.sim_config_from_dict(dataclasses.asdict(SMALL))) \
+        == ARIMAForecaster()
+
+
+# ----------------------------------------------------------------------
+# the oracle forecaster
+# ----------------------------------------------------------------------
+
+def test_oracle_forecaster_equals_reference():
+    rng = np.random.default_rng(5)
+    w = rng.uniform(0, 3, (6, T)).astype(np.float32)
+    fut = rng.uniform(0, 3, (6, H)).astype(np.float32)
+    r, o = roracle.OracleForecaster(), OracleForecaster()
+    for got, want in ((o.forecast_from_future(fut, device="cpu"), r.forecast_from_future(fut)),
+                      (o.forecast(w[0], H, device="cpu"), r.forecast(w[0], H)),
+                      (o.forecast_batch(w, H, device="cpu"), r.forecast_batch(w, H))):
+        np.testing.assert_array_equal(got.mean.numpy(), np.asarray(want.mean))
+        np.testing.assert_array_equal(got.var.numpy(), np.asarray(want.var))
+        assert got.mean.dtype == torch.float32
+    m, _ = peak_over_horizon(o.forecast_batch(w, H, device="cpu"))
+    np.testing.assert_array_equal(m.numpy(), w[:, -1])
+
+
+# ----------------------------------------------------------------------
+# on the card (``-m gpu``)
+# ----------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mask", [False, True])
+def test_kernel_equals_plain_version(mask):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    w, v = seeded_windows(6)
+    run = torch.as_tensor(np.random.default_rng(7).random(ROWS) < 0.5) if mask else None
+    want = ref.arima_forecast(torch.as_tensor(w), torch.as_tensor(v), H, ARIMAConfig(), run)
+    got = karima.arima_forecast(torch.as_tensor(w).cuda(), torch.as_tensor(v).cuda(), H,
+                                ARIMAConfig(), None if run is None else run.cuda())
+    for g, r in zip(got, want):
+        np.testing.assert_array_equal(g.cpu().numpy(), r.numpy())

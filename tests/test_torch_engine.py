@@ -103,8 +103,6 @@ def test_unported_features_are_refused():
             convert.sim_config_from_dict(dataclasses.asdict(bad))
     pcfg = convert.sim_config_from_dict(d)
     assert pcfg.gp == tengine.GPConfig(history=10, max_patterns=10, opt_steps=10)
-    with pytest.raises(NotImplementedError, match="ARIMA"):
-        tengine.run_sim(dataclasses.replace(pcfg, forecaster="arima"), device="cpu")
     with pytest.raises(NotImplementedError, match="calibration"):
         tengine.run_sim(dataclasses.replace(pcfg, calibration=tengine.Switch(True)),
                         device="cpu")

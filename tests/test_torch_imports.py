@@ -53,7 +53,7 @@ def test_importing_the_kernel_module_builds_nothing():
         "calls = []\n"
         "subprocess.run = lambda *a, **k: calls.append(a)\n"
         "from repro_torch.kernels import flash_attention, gp_forecast, gp_gram, ops\n"
-        "from repro_torch.kernels import fma, sched, shaper\n"
+        "from repro_torch.kernels import arima_forecast, fma, leap, sched, shaper\n"
         "print(json.dumps([len(calls), gp_gram._LIB is None,\n"
         "                  gp_gram.gram_fwd.launches, gp_gram.gram_bwd.launches,\n"
         "                  gp_forecast._LIB is None, gp_forecast.gp_fit_forecast.launches,\n"
@@ -65,9 +65,12 @@ def test_importing_the_kernel_module_builds_nothing():
         "                  sched._LIB is None, sched.resolve_oom.launches,\n"
         "                  sched.admit_queued.launches,\n"
         "                  sched.place_missing_elastic.launches,\n"
-        "                  fma._LIB is None, fma.fma_f32.launches]))")
+        "                  fma._LIB is None, fma.fma_f32.launches,\n"
+        "                  leap._LIB is None, leap.leap_skip.launches,\n"
+        "                  arima_forecast._LIB is None,\n"
+        "                  arima_forecast.arima_forecast.launches]))")
     assert got == [0, True, 0, 0, True, 0, True, True, 0, {"sm90": 0, "simt": 0},
-                   True, 0, True, 0, 0, 0, True, 0]
+                   True, 0, True, 0, 0, 0, True, 0, True, 0, True, 0]
 
 
 def test_run_sim_without_device_raises_on_a_cpu_only_machine(monkeypatch):
@@ -75,6 +78,20 @@ def test_run_sim_without_device_raises_on_a_cpu_only_machine(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run_sim(SimConfig())
+
+
+def test_forecasters_without_device_raise_on_a_cpu_only_machine(monkeypatch):
+    from repro_torch.core.forecast import ARIMAForecaster, GPForecaster, OracleForecaster
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    w = torch.zeros((2, 24))
+    for model in (ARIMAForecaster(), GPForecaster(), OracleForecaster()):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            model.forecast_batch(w, 3)
+    oracle = OracleForecaster()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        oracle.forecast(w[0], 3)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        oracle.forecast_from_future(w)
 
 
 def test_whisper_entry_points_without_device_raise_on_a_cpu_only_machine(monkeypatch):
