@@ -39,6 +39,16 @@ points:
     one launch per forecasting tick, 160 device-engine ticks card
     against CPU; the GP's first 320 device-engine ticks card against CPU
     (phase 4c, a finding where they differ);
+  * conformal calibration (phase 5g): SimConfig(calibration=
+    CalibrationConfig(enabled=True, q=0.9, adaptive=True, budget=0.1)) on
+    the device engine to completion through replayed graphs, one
+    calib_observe, conformal_scale and calib_begin launch a tick counted
+    against the graphs' kernel nodes, the same with adaptive=False,
+    ticks/s against the uncalibrated run in turns and kernels a tick
+    with and without calibration; the host engine capped at 240 ticks;
+    heavytail at 500 apps for 320 ticks; card against CPU with persist
+    over 160 ticks (equal, else the phase fails) and with the GP over 96
+    (a finding where they differ);
   * Whisper-large-v3 serving at full width (random weights from a seeded
     generator on the card): 8 requests of 1,500 frames prefilled with 448
     teacher-forced tokens through the tensor-core flash kernel (bf16,
@@ -61,8 +71,14 @@ seeded tie-prone tables and edge cases (three members, A * C and N off
 the 16-byte vectors, a host below 0 before the pass, tied OOM victims,
 admissions until a head does not fit, submit ties broken by gid,
 missing elastic components that fill the hosts; every output equal),
-the idle-tick skip on seeded and edge members and the ARIMA kernel on
-3,072 seeded windows, each bit for bit.
+the idle-tick skip on seeded and edge members (and members whose
+calibration scores are pending), the ARIMA kernel on 3,072 seeded
+windows, and the calibration's three kernels (calib_observe;
+conformal_scale, generic and in the engine's shaping step with
+calib_begin) on seeded full-width members, counts from 0 to past the
+capacity, a tick that resolves more scores than the pool holds, ties,
+signed zeros and NaN, the pool or the adaptive step off, a 3-member
+cohort, 20 and 40 rows and a capacity of 256, each bit for bit.
 It then times each kernel against its plain version, its bound and,
 where one PyTorch call computes the same function, that call; the
 device engine's kernels also by their device and host time per call
@@ -170,6 +186,32 @@ def cuda_time_ms(fn, iters=200, warmup=20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_us(fn, n=50, replays=5) -> float:
+    """Device microseconds per call of ``fn``: ``n`` calls captured in one
+    CUDA graph and replayed between CUDA events, so the host's cost per
+    call (checks, ctypes, enqueue) is out of the way."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    graph, stream = torch.cuda.CUDAGraph(), torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        graph.capture_begin()
+        for _ in range(n):
+            fn()
+        graph.capture_end()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph.replay()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * n) * 1e3
 
 
 def inputs(b, m, n, d, dev, *, same, seed):
@@ -1249,7 +1291,7 @@ def scan_kernel_cases(step, SimConfig):
             t = st.t + 60.0
             usage = step._usage_at(tr, st, torch.clamp(
                 st.work_done / step._rows(tr.runtime, step._gid(st)), 0.0, 1.0))
-            demand, _, _ = step._shaped_demands(cfg, None, tr, st, 60.0)
+            demand, *_ = step._shaped_demands(cfg, None, tr, st, 60.0)
             cases["pessimistic_pass"].append(
                 P.pass_inputs(step._shape_problem(tr, st, demand, t, cap))[0])
             d = dict(submit=tr.submit, gid=tr.gid, cpu_req=tr.cpu_req, mem_req=tr.mem_req,
@@ -1475,7 +1517,9 @@ KERNEL_OF = {"pessimistic_pass": "pessimistic_pass_kernel", "resolve_oom": "reso
              "admit_queued": "admit_queued_kernel",
              "place_missing_elastic": "place_missing_elastic_kernel",
              "gp_fit_forecast": "gp_forecast_kernel", "fma_f32": "fma_f32_kernel",
-             "leap_skip": "leap_skip_kernel", "arima_forecast": "arima_forecast_kernel"}
+             "leap_skip": "leap_skip_kernel", "arima_forecast": "arima_forecast_kernel",
+             "calib_observe": "calib_observe_kernel", "conformal_scale": "conformal_scale_kernel",
+             "calib_begin": "calib_begin_kernel"}
 
 
 class KernelNodeParams(ctypes.Structure):
@@ -1588,12 +1632,13 @@ def series_per_launch(metrics) -> tuple[float, int, int]:
     return float(rows.mean()), int(rows.min()), int(rows.max())
 
 
-def gp_profile(step, cfg, ticks=PROFILE_TICKS, kernel="gp_forecast_kernel") -> dict:
+def gp_profile(step, cfg, ticks=PROFILE_TICKS, kernel="gp_forecast_kernel", also=()) -> dict:
     """The first ``ticks`` ticks of ``cfg`` on the device engine (its graph
     captured before) under torch.profiler: the forecast kernel's (the GP
     program's unless ``kernel`` names another) device time per launch,
     its launches, its share of all kernel time, the device's busy share
-    of the wall, and the series per launch in the window."""
+    of the wall, and the series per launch in the window; under
+    ``others`` the same three for each kernel named in ``also``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1611,12 +1656,14 @@ def gp_profile(step, cfg, ticks=PROFILE_TICKS, kernel="gp_forecast_kernel") -> d
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     busy = sum(e.self_device_time_total for e in kernels)
-    gp = [e for e in kernels if kernel in e.key]
-    gp_us, gp_n = sum(e.self_device_time_total for e in gp), sum(e.count for e in gp)
+
+    def stats(name):
+        hits = [e for e in kernels if name in e.key]
+        us, n = sum(e.self_device_time_total for e in hits), sum(e.count for e in hits)
+        return dict(us_per_launch=us / max(n, 1), launches=n, share=us / max(busy, 1e-9))
     mean, lo, hi = series_per_launch(rec.metrics[0])
-    return dict(us_per_launch=gp_us / max(gp_n, 1), launches=gp_n,
-                share=gp_us / max(busy, 1e-9), busy=busy / 1e6 / wall,
-                ms_per_tick=wall / ticks * 1e3, series=(mean, lo, hi))
+    return dict(stats(kernel), busy=busy / 1e6 / wall, ms_per_tick=wall / ticks * 1e3,
+                series=(mean, lo, hi), others={name: stats(name) for name in also})
 
 
 def run_scan_main(step, SimConfig, gp_forecast, shaper, sched, fma) -> tuple[dict, np.ndarray,
@@ -1814,7 +1861,7 @@ def time_graph_vs_eager(step, cfg, ticks=640, chunk=32) -> dict:
         return bool(st.done.all())
 
     def eager():
-        st = dataclasses.replace(st0, **{k: v.clone() for k, v in step._tensors(st0).items()})
+        st = step._clone(st0)
         torch.cuda.synchronize()
         t = time.perf_counter()
         for _ in range(ticks // chunk):
@@ -2125,10 +2172,13 @@ def card_vs_cpu(step, cfg, what, *, strict: bool):
 
 
 def find_entry(step, cfg):
-    """The graph entry of ``cfg``'s config key at the 32-tick chunk."""
+    """The graph entry of ``cfg``'s config key at the 32-tick chunk, for a
+    solo run of its workload's shapes."""
+    wl = cfg.workload
     (entry,) = [e for k, e in step._GRAPHS.items()
                 if k[0] == step._cfg_key(cfg) and k[1] == 32
-                and k[2][0] == 1 and k[2][1] == cfg.cluster.max_running_apps]
+                and k[2][:4] == (1, cfg.cluster.max_running_apps, wl.max_components,
+                                 wl.n_apps)]
     return entry
 
 
@@ -2447,6 +2497,458 @@ def time_arima(arima_forecast, ref, ARIMAConfig, ready_rows) -> tuple[dict, floa
                                    bound_by="bytes" if t_bytes >= t_ops else "operations")}, err
 
 
+# ----------------------------------------------------------------------
+# conformal calibration: calib_observe and conformal_scale
+# ----------------------------------------------------------------------
+
+CALIB_CPU_TICKS = 160   # the calibrated persist run held card against CPU
+CALIB_GP_CPU_TICKS = 96   # the calibrated GP run held card against CPU (a finding)
+CALIB_PROFILE_TICKS = 160   # the calibrated run's window under torch.profiler
+# tie-prone scores: signed zeros, equal values, infinities and NaN
+CALIB_TIES = np.array([-1.5, -0.0, 0.0, 0.0, 0.25, 0.25, 2.0, np.inf, -np.inf, np.nan],
+                      np.float32)
+
+
+def calib_config(CalibrationConfig, **over):
+    """Phase 5g's calibration: conformal at q = 0.9, adaptive against a
+    budget of 0.1, the reference's other defaults."""
+    return CalibrationConfig(**{"enabled": True, "q": 0.9, "adaptive": True, "budget": 0.1,
+                                **over})
+
+
+def score_rings(rng, rows, cap, counts, *, ties=0.25, circular=True):
+    """(rows, cap) float32 rings holding ``counts`` scores each: seeded
+    normal scores, a share of the rows drawn from CALIB_TIES; circular
+    rings (the device engine's) hold +inf in their unwritten cells."""
+    ring = rng.normal(0.5, 1.5, (rows, cap)).astype(np.float32)
+    tie = rng.random(rows) < ties
+    ring[tie] = rng.choice(CALIB_TIES, (int(tie.sum()), cap))
+    if circular:
+        ring[np.arange(cap)[None, :] >= np.asarray(counts)[:, None]] = np.inf
+    return ring
+
+
+def calib_state(seed, S=1, M=1536, cap=128, pcap=1024, *, warm=False, due_share=0.35):
+    """A seeded calibration state at the engine's widths (S members of R =
+    2M rows; M = A*C = 1,536 at full width) as the CalibState fields in
+    numpy, with this tick's usage (S, M, 2), monitor counts (S, M), and a
+    deploy mask, forecast means and variances for the shaping step.
+    Counts 0, below min_scores, exactly the capacity and above it (all
+    above when ``warm``); about ``due_share`` of the rows come due with
+    the count they are due at (more than the pool holds), some at
+    another count (dropped)."""
+    rng = np.random.default_rng(seed)
+    R = 2 * M
+    choices = [cap, cap + 1, 3 * cap + 5] if warm else [0, 3, 15, 16, cap, cap + 1, 3 * cap + 5]
+    counts = rng.choice(choices, (S, R)).astype(np.int32)
+    pool_count = rng.choice([0, 9, pcap, 5 * pcap + 3] if not warm else [5 * pcap + 3],
+                            S).astype(np.int32)
+    mon = rng.integers(0, 200, (S, M)).astype(np.int32)
+    due = np.concatenate([mon, mon], 1) + (rng.random((S, R)) < 0.2).astype(np.int32)
+    left = np.where(rng.random((S, R)) < due_share, 1, rng.choice([0, 2, 3], (S, R)))
+    st = dict(
+        ring=np.stack([score_rings(rng, R, cap, c) for c in counts]), ring_count=counts,
+        pool=np.stack([score_rings(rng, 1, pcap, [c])[0] for c in pool_count]),
+        pool_count=pool_count,
+        mean=rng.uniform(0, 4, (S, R)).astype(np.float32),
+        sigma=rng.choice([0.0, 1e-8, 0.05, 0.7], (S, R)).astype(np.float32),
+        scale=rng.uniform(0.5, 4, (S, R)).astype(np.float32),
+        peak=np.where(rng.random((S, R)) < 0.3, -np.inf,
+                      rng.uniform(0, 5, (S, R))).astype(np.float32),
+        left=left.astype(np.int32), due=due.astype(np.int32),
+        q=rng.uniform(0.6, 0.95, S).astype(np.float32),
+        resolved=rng.integers(0, 9999, S).astype(np.int32),
+        errors=rng.integers(0, 999, S).astype(np.int32),
+        dropped=rng.integers(0, 999, S).astype(np.int32),
+        scale_sum=rng.uniform(0, 9999, S).astype(np.float32),
+        scale_n=rng.integers(0, 9999, S).astype(np.int32))
+    tick = dict(usage=rng.uniform(0, 6, (S, M, 2)).astype(np.float32), mon_count=mon,
+                active=np.arange(S) != 2, deploy=rng.random((S, M)) < 0.5,
+                fmean=rng.uniform(0, 4, (S, R)).astype(np.float32),
+                var=rng.choice([-1e-7, 0.0, 0.01, 3.0], (S, R)).astype(np.float32))
+    return st, tick
+
+
+CALIB_STATE = ("ring", "ring_count", "pool", "pool_count", "mean", "sigma", "scale", "peak",
+               "left", "due", "q", "resolved", "errors", "dropped")
+OBSERVE_OUT = ("ring", "ring_count", "pool", "pool_count", "peak", "left", "q", "resolved",
+               "errors", "dropped")
+BEGIN_STATE = ("mean", "sigma", "scale", "peak", "left", "due", "scale_sum", "scale_n")
+
+
+def observe_args(st, tick, dev):
+    import torch
+    return [torch.as_tensor(st[k]).to(dev) for k in CALIB_STATE] + [
+        torch.as_tensor(tick[k]).to(dev) for k in ("usage", "mon_count", "active")]
+
+
+def scales_args(st, tick, dev, k2=3.0):
+    import torch
+    T = lambda x: torch.as_tensor(x).to(dev)  # noqa: E731
+    return ([T(st[k]) for k in ("ring", "ring_count", "pool", "pool_count", "q")] + [k2]
+            + [T(tick[k]) for k in ("deploy", "fmean", "var", "mon_count")]
+            + [T(st[k]) for k in BEGIN_STATE])
+
+
+def calib_cases(CalibrationConfig):
+    """(name, state, tick, config) of phase 3: seeded full-width members,
+    warm and young; a tick resolving more scores than the pool holds; the
+    pool off; adaptive off; a 3-member cohort (one of them done)."""
+    cfg = calib_config(CalibrationConfig)
+    cases = []
+    for seed, warm in ((0, False), (1, True)):
+        st, tick = calib_state(seed, warm=warm)
+        cases.append((f"full width (3,072 rows), seed {seed}, "
+                      f"{'warm rings' if warm else 'counts 0 to 3 x capacity'}", st, tick, cfg))
+    st, tick = calib_state(2, due_share=0.9)
+    cases.append(("full width, 90% of the rows due (more than the pool's 1,024)", st, tick, cfg))
+    cases.append(("the pool off, adaptive off", *calib_state(3),
+                  calib_config(CalibrationConfig, pool=False, adaptive=False)))
+    small = calib_config(CalibrationConfig, capacity=16, pool_capacity=8, min_scores=4)
+    cases.append(("a 3-member cohort (the third done), capacity 16, pool 8",
+                  *calib_state(4, S=3, M=200, cap=16, pcap=8), small))
+    for M in (10, 20):   # R = 20: one sequential sum; R = 40: windows offset by 12
+        cases.append((f"R = {2 * M} rows, 2 members", *calib_state(5 + M, S=2, M=M, cap=16,
+                                                                  pcap=8), small))
+    cases.append(("capacity 256 (two blocks a row)", *calib_state(9, M=512, cap=256),
+                  calib_config(CalibrationConfig, capacity=256)))
+    return cases
+
+
+def _same(got, want) -> bool:
+    import torch
+    g, w = got.cpu(), want.cpu()
+    if g.dtype == torch.float32:
+        g, w = g.view(torch.int32), w.view(torch.int32)
+    return torch.equal(g, w)
+
+
+def check_calib(calib, ref, CalibrationConfig) -> dict:
+    """Phase 3: calib_observe and conformal_scale (its generic launch on
+    rolled and circular rings, and the engine's shaping step) against
+    their plain versions on the card, every output bit for bit."""
+    import torch
+    kw = lambda c: dict(pool_on=c.pool, adaptive=c.adaptive, gamma=c.gamma,  # noqa: E731
+                        budget=c.budget, q_min=c.q_min, q_max=c.q_max)
+    for name, st, tick, cfg in calib_cases(CalibrationConfig):
+        cpu = observe_args(st, tick, "cpu")
+        want = ref.calib_observe(*cpu, **kw(cfg))
+        got = calib.calib_observe(*(a.cuda() for a in cpu), **kw(cfg))
+        for k, g, w in zip(OBSERVE_OUT, got, want):
+            assert _same(g, w), f"calib_observe, {name}: {k} differs"
+        n_res = (want[7] - cpu[11]).tolist()
+        skw = dict(min_scores=cfg.min_scores, pool_on=cfg.pool, horizon=3)
+        cpu = scales_args(st, tick, "cpu")
+        want2 = ref.calib_scales(*cpu, **skw)
+        got2 = calib.calib_scales(*(a.cuda() if isinstance(a, torch.Tensor) else a
+                                    for a in cpu), **skw)
+        for k, g, w in zip(("scale",) + BEGIN_STATE, got2, want2):
+            assert _same(g, w), f"calib_scales, {name}: {k} differs"
+        young = int((np.minimum(st["ring_count"], st["ring"].shape[2]) < cfg.min_scores).sum())
+        log(f"  calib_observe and the engine's step (conformal_scale, calib_begin), {name}: "
+            f"kernels == plain, "
+            f"every output bit for bit; resolved {n_res}, young rows {young}")
+    rng = np.random.default_rng(5)
+    for circular in (True, False):
+        for cap, rows in ((128, 3072), (1024, 6)):
+            counts = rng.choice([0, 1, 15, 16, cap - 1, cap, cap + 1, 7 * cap], rows).astype(
+                np.int32)
+            ring = score_rings(rng, rows, cap, counts, ties=0.5, circular=circular)
+            q = rng.uniform(0.05, 1.0, rows).astype(np.float32)
+            args = [torch.as_tensor(x) for x in (ring, counts, q, -q)]
+            want = ref.conformal_scale(*args, rolled=not circular)
+            got = calib.conformal_scale(*(a.cuda() for a in args), rolled=not circular)
+            assert _same(got, want), f"conformal_scale, capacity {cap}"
+            log(f"  conformal_scale, {rows} {'circular' if circular else 'rolled'} rings of "
+                f"{cap} (counts 0 to 7 x capacity, half of the rows tie-prone: +-0, equal "
+                f"values, +-inf, NaN): kernel == plain bit for bit")
+    return {"calib_observe": 0.0, "conformal_scale": 0.0, "calib_begin": 0.0}
+
+
+def calib_leap_cases(A=128, N=500, R=3072):
+    """leap_skip with the calibration state's pending scores: idle members
+    whose scores are pending are held (0 skipped), the others skip as
+    without calibration."""
+    members = [dict(gap=12, left=1000)] * 3 + [dict(gap=12, left=1000, busy=True)]
+    cols = list(zip(*(leap_member(A, N, 60.0, **m) for m in members)))
+    pending = np.zeros((4, R), np.int32)
+    pending[0, 7] = 1
+    pending[1, R - 1] = 3
+    return tuple(np.stack(c) for c in cols), pending, [0, 0, 12, 0]
+
+
+def check_leap_calib(leap, ref) -> None:
+    import torch
+    args, pending, leads = calib_leap_cases()
+    cpu = [torch.as_tensor(np.ascontiguousarray(a, dt)) for a, dt in zip(args, LEAP_DTYPES)]
+    p = torch.as_tensor(pending)
+    want = ref.leap_skip(*cpu, 60.0, p)
+    got = [g.cpu() for g in leap.leap_skip(*(a.cuda() for a in cpu), 60.0, p.cuda())]
+    assert all(_same(g, w) for g, w in zip(got, want)) and got[1].tolist() == leads, got
+    log(f"  leap_skip with pending calibration scores (members 0 and 1 pending, 2 not, 3 "
+        f"busy): kernel == plain bit for bit; skipped ticks {got[1].tolist()}")
+
+
+def _changed_bits(new, old) -> int:
+    """The bytes of the entries an update changes, compared bit by bit
+    (a NaN left as it was is unchanged)."""
+    import torch
+    if new.dtype == torch.float32:
+        new, old = new.view(torch.int32), old.view(torch.int32)
+    return _changed_bytes(new, old)
+
+
+def calib_launches(calib) -> dict:
+    return {"calib_observe": calib.calib_observe.launches,
+            "conformal_scale": calib.conformal_scale.launches,
+            "calib_begin": calib.calib_begin.launches}
+
+
+def run_calibrated(step, scenarios, SimConfig, CalibrationConfig, run_sim, calib):
+    """Phase 5g: the default simulation with conformal calibration
+    (q = 0.9, adaptive against a 0.1 budget) on the card.  The device
+    engine to completion through replayed graphs (a 64-tick run captures
+    first), every chunk sync-free, one calib_observe, conformal_scale and
+    calib_begin launch a tick, the counts (set to 0 just before the run,
+    read just after) equal to replays x each kernel's nodes; the
+    same with adaptive=False; ticks/s against the uncalibrated run in
+    turns and kernels a tick with and without calibration; the host
+    engine capped at MAIN_PATH_TICKS; heavytail at 500 apps for
+    FAMILY_TICKS; persist card against CPU over CALIB_CPU_TICKS (any
+    difference fails), then GP over CALIB_GP_CPU_TICKS, printed as a
+    finding where they differ.  Prints the seconds of each step.
+    Returns the main run's launch counts."""
+    import torch
+    ccfg = calib_config(CalibrationConfig)
+    cal = SimConfig(calibration=ccfg)
+    guard = strict_chunks(step)
+    out = {}
+    steps, t_step = {}, [time.perf_counter()]
+
+    def done(what):
+        t = time.perf_counter()
+        steps[what] = round(t - t_step[0], 1)
+        t_step[0] = t
+    try:
+        for name, cfg in (("adaptive", cal),
+                          ("adaptive=False", SimConfig(calibration=dataclasses.replace(
+                              ccfg, adaptive=False)))):
+            step.run_sim_scan(dataclasses.replace(cfg, max_ticks=64), device="cuda")
+            entry = find_entry(step, cfg)
+            before = {k: g.replays for k, g in entry.graphs.items()}
+            calib.reset_launch_counts()
+            c0 = guard.chunks
+            t = time.perf_counter()
+            res = step.run_sim_scan(cfg, device="cuda")
+            torch.cuda.synchronize()
+            t = time.perf_counter() - t
+            launches = calib_launches(calib)
+            in_graphs = graph_census(entry, before, launches)
+            ticks = res.timings["ticks"]
+            s = res.summary()
+            log(f"  device engine, {name}: {ticks} ticks in {guard.chunks - c0} chunks "
+                f"(sync-free), {t:.3f} s: {ticks / t:.3f} ticks/s (capture before); launches "
+                f"{launches} = replays x kernel nodes {in_graphs}")
+            log(f"    calibration {json.dumps(s['calibration'])}")
+            log(f"    summary {json.dumps({k: v for k, v in s.items() if k != 'calibration'})}")
+            assert launches == in_graphs and all(n == ticks for n in launches.values()), (
+                launches, in_graphs, ticks)
+            assert s["completed"] == 500 and s["calibration"]["resolved"] > 0, s
+            for k in ("util_cpu_mean", "util_mem_mean", "slack_cpu_mean", "slack_mem_mean"):
+                assert np.isfinite(s[k]), (k, s[k])
+            out.setdefault("launches", launches)
+            done(f"device, {name}")
+        uentry, centry = find_entry(step, SimConfig()), find_entry(step, cal)
+        walls = {"calibrated": [], "uncalibrated": []}
+        for mode in ("calibrated", "uncalibrated", "uncalibrated", "calibrated"):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = step.run_sim_scan(cal if mode == "calibrated" else SimConfig(), device="cuda")
+            torch.cuda.synchronize()
+            walls[mode].append(res.timings["ticks"] / (time.perf_counter() - t))
+        k_cal, k_uni = kernels_per_step(centry), kernels_per_step(uentry)
+        log("  device engine ticks/s in turns (calibrated, uncalibrated, uncalibrated, "
+            "calibrated): " + "; ".join(f"{m} " + ", ".join(f"{x:.3f}" for x in xs)
+                                        for m, xs in walls.items())
+            + f"; kernels a tick {k_cal:.3f} calibrated against {k_uni:.3f} "
+            f"(+{k_cal - k_uni:.3f})")
+        done("turns")
+        for line in describe_graphs(centry):
+            log(f"  calibrated graph {line}")
+        names = [f"{k}_kernel" for k in ("calib_observe", "conformal_scale", "calib_begin")]
+        p = gp_profile(step, cal, ticks=CALIB_PROFILE_TICKS, also=names)
+        log(f"  first {CALIB_PROFILE_TICKS} ticks under torch.profiler: " + ", ".join(
+            f"{k[:-7]} {v['us_per_launch']:.3f} us per launch over {v['launches']} launches, "
+            f"{v['share']:.2%} of device time" for k, v in p["others"].items())
+            + f" (GP program {p['us_per_launch']:.3f} us, {p['share']:.2%}); device busy "
+            f"{p['busy']:.2%} of the wall, {p['ms_per_tick']:.4f} ms per tick")
+        done("profile")
+        heavy = SimConfig(workload=scenarios.make_config("heavytail"), calibration=ccfg,
+                          max_ticks=FAMILY_TICKS)
+        t = time.perf_counter()
+        res = step.run_sim_scan(heavy, device="cuda")
+        torch.cuda.synchronize()
+        log(f"  heavytail (500 apps), {res.timings['ticks']} ticks in "
+            f"{time.perf_counter() - t:.3f} s (capture included): calibration "
+            f"{json.dumps(res.calibration)}")
+        assert res.calibration["resolved"] > 0, res.calibration
+        done("heavytail")
+    finally:
+        guard.stop()
+    calib.reset_launch_counts()
+    hcfg = dataclasses.replace(cal, max_ticks=MAIN_PATH_TICKS)
+    t = time.perf_counter()
+    res = run_sim(hcfg, device="cuda")
+    torch.cuda.synchronize()
+    t = time.perf_counter() - t
+    tm = res.timings
+    log(f"  host engine, {tm['ticks']} ticks in {t:.3f} s ({tm['ticks'] / t:.3f} ticks/s): "
+        f"launches {calib_launches(calib)} (conformal_scale: a series launch per shaping "
+        f"tick, a pool launch where young rows take the warm pool); calibration "
+        f"{json.dumps(res.calibration)}")
+    assert calib.conformal_scale.launches > 0 and calib.calib_observe.launches == 0
+    assert tm["ticks"] == MAIN_PATH_TICKS and res.calibration["resolved"] > 0, res.calibration
+    done("host engine")
+    card_vs_cpu(step, SimConfig(forecaster="persist", calibration=ccfg,
+                                max_ticks=CALIB_CPU_TICKS),
+                f"calibrated persist, first {CALIB_CPU_TICKS} ticks", strict=True)
+    done("persist card vs cpu")
+    card_vs_cpu(step, dataclasses.replace(cal, max_ticks=CALIB_GP_CPU_TICKS),
+                f"calibrated GP, first {CALIB_GP_CPU_TICKS} ticks", strict=False)
+    done("gp card vs cpu")
+    log(f"  phase 5g seconds by step: {json.dumps(steps)}")
+    out["walls"] = walls
+    return out["launches"]
+
+
+def time_calib(calib, ref, CalibrationConfig) -> tuple[dict, float]:
+    """Phase 8: calib_observe, conformal_scale and calib_begin at the
+    device engine's 3,072 rows, each kernel by CUDA events against its
+    plain version (numpy on the host) in turns, with its device time per
+    launch (torch.profiler) and host time per call.  conformal_scale as
+    the engine launches it (the series rings and the pool) on warm rings,
+    every row ranked, and its generic launch on the same rings beside
+    torch.sort + gather and torch.kthvalue (one PyTorch call computing
+    the same order statistic where every ring is full and q one value,
+    as here).  The bound: the bytes each function needs on these inputs
+    over 3.35 TB/s, the reads that decide, each once, and the entries it
+    changes (as scan_bound_bytes counts a state update; fresh outputs in
+    full): calib_observe reads each row's left, peak and usage where it
+    ages, due and the monitor count where it comes due, mean, sigma,
+    scale and count where it resolves; conformal_scale each ranked ring
+    row, the counts and the pool; calib_begin the counts, the quantiles
+    a row takes, the deploy mask and left, and what the registered rows
+    take.  Their comparisons (a selection needs ~cap a row) would take
+    far less at fp32's peak.  Returns the timings and the largest error
+    against the plain versions."""
+    import torch
+    cfg = calib_config(CalibrationConfig)
+    okw = dict(pool_on=cfg.pool, adaptive=cfg.adaptive, gamma=cfg.gamma, budget=cfg.budget,
+               q_min=cfg.q_min, q_max=cfg.q_max)
+    st, tick = calib_state(7, warm=True)
+    ocpu = observe_args(st, tick, "cpu")
+    scpu = scales_args(st, tick, "cpu")
+    ogpu = [a.cuda() for a in ocpu]
+    sgpu = [a.cuda() if isinstance(a, torch.Tensor) else a for a in scpu]
+    R, cap = st["ring"].shape[1:]
+    pcap = st["pool"].shape[1]
+    qkw = dict(min_scores=cfg.min_scores, pool_on=cfg.pool)
+    bkw = dict(cap=cap, pcap=pcap, horizon=3, fallback=3.0, **qkw)
+    raw, raw_pool = calib.calib_quantiles(*sgpu[:6], **qkw)
+    begin_args = lambda dev: [sgpu[1].to(dev), sgpu[3].to(dev), raw.to(dev),  # noqa: E731
+                              raw_pool.to(dev)] + [a.to(dev) for a in sgpu[6:]]
+    bgpu, bcpu = begin_args("cuda"), begin_args("cpu")
+    kerns = {"calib_observe": (lambda: calib.calib_observe(*ogpu, **okw),
+                               lambda: ref.calib_observe(*ocpu, **okw)),
+             "conformal_scale": (lambda: calib.calib_quantiles(*sgpu[:6], **qkw),
+                                 lambda: ref.calib_quantiles(*scpu[:6], **qkw)),
+             "calib_begin": (lambda: calib.calib_begin(*bgpu, **bkw),
+                             lambda: ref.calib_begin(*bcpu, **bkw))}
+    # the bytes each needs on these inputs
+    wo, wb = ref.calib_observe(*ocpu, **okw), ref.calib_begin(*bcpu, **bkw)
+    ages, fire = st["left"][0] > 0, st["left"][0] == 1
+    res_rows = int((wo[7] - ocpu[11]).sum())
+    warm = np.minimum(st["ring_count"][0], cap) >= cfg.min_scores
+    m_rows = int((np.concatenate([tick["deploy"]] * 2, 1)[0] & (st["left"][0] == 0)).sum())
+    bounds = {
+        "calib_observe": (R * 4 + int(ages.sum()) * 8 + int(fire.sum()) * 8 + res_rows * 16
+                          + 4 * 6 + sum(_changed_bits(n, o) for n, o in zip(
+                              wo, [ocpu[CALIB_STATE.index(k)] for k in OBSERVE_OUT]))),
+        "conformal_scale": int(warm.sum()) * (cap + 1) * 4 + R * 4 + (pcap + 1) * 4 + 8,
+        "calib_begin": (R * 4 + 8 + int(warm.sum()) * 4 + 4 + R // 2 + R * 4 + m_rows * 8
+                        + R // 2 * 4 + 8 + _nbytes(wb[0])
+                        + sum(_changed_bits(n, o) for n, o in zip(wb[1:], scpu[10:])))}
+
+    def host_ms(fn):
+        t0 = time.perf_counter()
+        fn()
+        return (time.perf_counter() - t0) * 1e3
+    out, err = {}, 0.0
+    for name, (kern, plain) in kerns.items():
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        if name == "conformal_scale":     # the entries the step reads
+            got, want = (got[0][0][torch.as_tensor(warm).cuda()], got[1]), (
+                want[0][0][torch.as_tensor(warm)], want[1])
+        assert all(_same(g, w) for g, w in zip(got, want)), f"{name} != plain"
+        err = max(err, max(float((g.cpu().double() - w.double()).abs().nan_to_num().max())
+                           for g, w in zip(got, want) if g.numel()))
+        ms = {"kernel": [], "plain": []}
+        for k in ("kernel", "plain", "plain", "kernel"):
+            ms[k].append(cuda_time_ms(kern, iters=200, warmup=10) if k == "kernel"
+                         else host_ms(plain))
+        dev_us = [graph_us(kern) for _ in range(2)]
+        host_us = host_us_per_call(kern)
+        bound = bounds[name] / HBM_BYTES_PER_S * 1e3
+        out[name] = dict(ms=min(ms["kernel"]), plain_ms=min(ms["plain"]), bound_ms=bound,
+                         bound_by="bytes", library_ms=None)
+        what = {"calib_observe": f"{res_rows} resolving",
+                "conformal_scale": f"{int(warm.sum())} ranked and the pool",
+                "calib_begin": f"{m_rows} registered"}[name]
+        log(f"  {name} (3,072 rows, {what}): kernel "
+            f"{'/'.join(f'{x:.5f}' for x in ms['kernel'])} ms a call back to back, plain "
+            f"(numpy on the host) {'/'.join(f'{x:.3f}' for x in ms['plain'])} ms; device "
+            f"{'/'.join(f'{x:.3f}' for x in dev_us)} us a launch (50 launches in a CUDA "
+            f"graph, replayed), host {host_us:.3f} us per call; bound {bound * 1e3:.4f} us "
+            f"({bounds[name]} B)")
+    # what the engine's quantile launch spends where: every series young
+    # (only the pool ranked), the pool off (only the warm series)
+    young = [a.clone() if i == 1 else a for i, a in enumerate(sgpu[:6])]
+    young[1].zero_()
+    parts = {"the pool alone (every series young)": graph_us(
+                 lambda: calib.calib_quantiles(*young, **qkw)),
+             "the 3,072 warm series alone (the pool off)": graph_us(
+                 lambda: calib.calib_quantiles(*sgpu[:6], min_scores=cfg.min_scores,
+                                               pool_on=False))}
+    log("  conformal_scale, the engine's launch by part: " + ", ".join(
+        f"{k} {v:.3f} us" for k, v in parts.items()))
+    # the generic launch on the same rings against torch's sort + gather and kthvalue
+    ring = sgpu[0][0]
+    full = torch.full((R,), 3 * cap, dtype=torch.int32, device="cuda")
+    q = sgpu[4].expand(R).contiguous()
+    fb = torch.zeros_like(q)
+    k = int(np.ceil(np.float32(cap + 1) * np.float32(st["q"][0]))) - 1
+    idx = torch.full((R, 1), k, device="cuda")
+    gen = lambda: calib.conformal_scale(ring, full, q, fb, False)  # noqa: E731
+    srt = lambda: torch.sort(ring, dim=1, stable=True)[0].gather(1, idx)  # noqa: E731
+    kth = lambda: torch.kthvalue(ring, k + 1, dim=1)[0]  # noqa: E731
+    same = bool(torch.equal(gen().view(torch.int32), srt()[:, 0].view(torch.int32)))
+    t = {n: [] for n in ("kernel", "sort+gather", "kthvalue")}
+    for n in ("kernel", "sort+gather", "kthvalue", "kthvalue", "sort+gather", "kernel"):
+        t[n].append(cuda_time_ms({"kernel": gen, "sort+gather": srt, "kthvalue": kth}[n],
+                                 iters=200, warmup=10))
+    dev = {n: round(graph_us(f), 3) for n, f in
+           (("kernel", gen), ("sort+gather", srt), ("kthvalue", kth))}
+    log(f"  conformal_scale's generic launch on the same 3,072 full rings: kernel "
+        f"{'/'.join(f'{x:.5f}' for x in t['kernel'])} ms; torch.sort + gather "
+        f"{'/'.join(f'{x:.5f}' for x in t['sort+gather'])} ms; torch.kthvalue "
+        f"{'/'.join(f'{x:.5f}' for x in t['kthvalue'])} ms (its k for every row: all full, "
+        f"one q); device us a call (CUDA graph) {json.dumps(dev)}; kernel == sort + "
+        f"gather, bit for bit: {same}")
+    out["conformal_scale"]["library_ms"] = min(t["kthvalue"])
+    return out, err
+
+
 def _nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
@@ -2610,8 +3112,9 @@ def main() -> int:
     from repro_torch.core.forecast import (ARIMAConfig, ARIMAForecaster, GPConfig,
                                            GPForecaster)
     from repro_torch.core import shaper as core_shaper
-    from repro_torch.kernels import (arima_forecast, flash_attention, fma, gp_forecast, gp_gram,
-                                     leap, nvcc, ref, sched, shaper)
+    from repro_torch.core.uncertainty import CalibrationConfig
+    from repro_torch.kernels import (arima_forecast, calib, flash_attention, fma, gp_forecast,
+                                     gp_gram, leap, nvcc, ref, sched, shaper)
     from repro_torch.sim import ClusterConfig, SimConfig, WorkloadConfig, run_sim
     from repro_torch.sim import scenarios, step
     from repro_torch.sim.engine import forecast_peaks
@@ -2634,7 +3137,7 @@ def main() -> int:
     log("== 2. build (one nvcc per source, all at once)")
     sources = (gp_gram.SOURCE, flash_attention.SOURCE, flash_attention.SOURCE_SM90,
                gp_forecast.SOURCE, shaper.SOURCE, sched.SOURCE, fma.SOURCE, leap.SOURCE,
-               arima_forecast.SOURCE)
+               arima_forecast.SOURCE, calib.SOURCE)
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         builds = list(pool.map(nvcc.build, sources))
     for b in builds:
@@ -2667,7 +3170,9 @@ def main() -> int:
     scan_fns = scan_kernel_pairs(shaper, sched, ref)
     err.update(check_scan_kernels(scan_fns, scan_cases)[0])
     err["leap_skip"] = check_leap(leap, ref)
+    check_leap_calib(leap, ref)
     err["arima_forecast"] = check_arima(arima_forecast, ref, ARIMAConfig)
+    err.update(check_calib(calib, ref, CalibrationConfig))
     log(f"  max abs error: {err}")
 
     log("== 4. GP check (card vs CPU)")
@@ -2748,6 +3253,10 @@ def main() -> int:
     arima_launches, arima_ready = run_arima(step, SimConfig, run_sim, ARIMAForecaster,
                                             arima_forecast, shaper, sched, fma, gp_forecast,
                                             gp_summary)
+    log("== 5g. conformal calibration: run_sim_scan(SimConfig(calibration=CalibrationConfig("
+        "enabled=True, q=0.9, adaptive=True, budget=0.1))) to completion, adaptive=False, "
+        f"the host engine capped at {MAIN_PATH_TICKS} ticks, heavytail, card vs CPU")
+    calib_main = run_calibrated(step, scenarios, SimConfig, CalibrationConfig, run_sim, calib)
 
     log("== 6. Whisper, smoke widths, fp32: the card against the CPU")
     check_whisper_smoke(flash_attention)
@@ -2770,6 +3279,10 @@ def main() -> int:
     arima_times, arima_err = time_arima(arima_forecast, ref, ARIMAConfig, arima_ready)
     times.update(arima_times)
     err["arima_forecast"] = max(err["arima_forecast"], arima_err)
+    calib_times, calib_err = time_calib(calib, ref, CalibrationConfig)
+    times.update(calib_times)
+    for k in calib_times:
+        err[k] = max(err[k], calib_err)
     log(f"  gp_gram library_ms: null - no single PyTorch call computes the Gram "
         f"matrix (torch.cdist gives distances only) or its (ell, sf) gradient")
     end_phase()
@@ -2782,6 +3295,7 @@ def main() -> int:
     launches.update({k: scan_launches[k] for k in SCAN_KERNELS + ("fma_f32", "gp_fit_forecast")})
     launches["leap_skip"] = leap_launches           # the gap cell's leap run (phase 5e)
     launches["arima_forecast"] = arima_launches     # run_sim_scan's ARIMA run (phase 5f)
+    launches.update(calib_main)                     # the calibrated run (phase 5g)
     replaces = {"gp_gram_fwd": "src/repro/kernels/gp_gram.py:75",
                 "gp_gram_bwd": "src/repro/kernels/gp_gram.py:75",
                 "gp_fit_forecast": "src/repro/kernels/gp_gram.py:75",
@@ -2790,6 +3304,9 @@ def main() -> int:
                 "fma_f32": "src/repro/sim/step.py:114",
                 "leap_skip": "src/repro/sim/step.py:955",
                 "arima_forecast": "src/repro/core/forecast/arima.py:140",
+                "calib_observe": "src/repro/core/uncertainty/online.py:317",
+                "conformal_scale": "src/repro/core/uncertainty/conformal.py:113",
+                "calib_begin": "src/repro/core/uncertainty/online.py:413",
                 **SCAN_REPLACES}
     sources = {"gp_gram_fwd": "src/repro_torch/kernels/csrc/gp_gram.cu",
                "gp_gram_bwd": "src/repro_torch/kernels/csrc/gp_gram.cu",
@@ -2799,6 +3316,9 @@ def main() -> int:
                "fma_f32": "src/repro_torch/kernels/csrc/fma.cu",
                "leap_skip": "src/repro_torch/kernels/csrc/leap.cu",
                "arima_forecast": "src/repro_torch/kernels/csrc/arima_forecast.cu",
+               "calib_observe": "src/repro_torch/kernels/csrc/calib.cu",
+               "conformal_scale": "src/repro_torch/kernels/csrc/calib.cu",
+               "calib_begin": "src/repro_torch/kernels/csrc/calib.cu",
                **SCAN_SOURCES}
     log(smi)   # the card's name and power limit, as nvidia-smi prints them
     log(json.dumps({"kernels": [
@@ -2810,7 +3330,8 @@ def main() -> int:
          "library_ms": times[name].get("library_ms")}
         for name in ("gp_gram_fwd", "gp_gram_bwd", "gp_fit_forecast",
                      "flash_attention", "flash_attention_simt") + SCAN_KERNELS
-        + ("fma_f32", "leap_skip", "arima_forecast")]}))
+        + ("fma_f32", "leap_skip", "arima_forecast", "calib_observe", "conformal_scale",
+           "calib_begin")]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": count}}))
     return 0

@@ -12,9 +12,10 @@ every tick — so a run's whole state is its configuration and its trace:
 The device engine starts from a state, which a test can take from a
 reference run:
 
-  * :func:`device_trace_from_arrays` and :func:`sim_state_from_arrays`
-    take the fields of the reference's ``DeviceTrace`` and ``SimState``
-    as numpy arrays (``jax.tree.map(np.asarray, ...)``).
+  * :func:`device_trace_from_arrays`, :func:`sim_state_from_arrays` and
+    :func:`calib_state_from_arrays` take the fields of the reference's
+    ``DeviceTrace``, ``SimState`` and ``CalibState`` as numpy arrays
+    (``jax.tree.map(np.asarray, ...)``).
 
 A Whisper model's state is its parameters:
 
@@ -33,6 +34,7 @@ import torch
 
 from repro_torch.core.forecast import ARIMAConfig, GPConfig
 from repro_torch.core.shaper import SafeguardConfig
+from repro_torch.core.uncertainty import CalibrationConfig, CalibState
 from repro_torch.device import resolve_device
 from repro_torch.sim.cluster import ClusterConfig
 from repro_torch.sim.engine import SimConfig, Switch
@@ -47,20 +49,20 @@ _SCALARS = ("policy", "forecaster", "window", "grace", "horizon", "max_ticks",
 def sim_config_from_dict(d: dict, *, workload: str = "google") -> SimConfig:
     """The port's ``SimConfig`` for ``dataclasses.asdict(reference_cfg)``.
 
-    Refuses a config whose calibration or control plane is enabled (not
-    ported yet).  Drops ``gp.impl`` (the port dispatches on the device).
+    Refuses a config whose control plane is enabled (not ported yet).
+    Drops ``gp.impl`` (the port dispatches on the device).
     ``asdict`` keeps no type, so
     ``workload`` names the scenario family of ``d["workload"]``: any
     registered one (``google``, ``diurnal``, ``flashcrowd``,
     ``heavytail``, ``colocated``, ``replay``)."""
-    for block in ("calibration", "control"):
-        if d[block]["enabled"]:
-            raise NotImplementedError(f"{block}.enabled is not ported yet")
+    if d["control"]["enabled"]:
+        raise NotImplementedError("control.enabled is not ported yet")
     gp = {k: v for k, v in d["gp"].items() if k != "impl"}
     return SimConfig(
         cluster=ClusterConfig(**d["cluster"]),
         workload=scenarios.get(workload).config_cls(**d["workload"]),
         safeguard=SafeguardConfig(**d["safeguard"]),
+        calibration=CalibrationConfig(**d["calibration"]),
         obs=Switch(enabled=d["obs"]["enabled"]),
         gp=GPConfig(**gp), arima=ARIMAConfig(**d["arima"]),
         **{k: d[k] for k in _SCALARS})
@@ -103,16 +105,35 @@ def device_trace_from_arrays(*, device="cuda", **fields) -> DeviceTrace:
                                   solo=np.ndim(fields.get("submit")) == 1))
 
 
+_GROUP_TIER = ("group_ring", "group_count", "group", "group_resolved", "group_errors")
+
+
+def calib_state_from_arrays(*, device="cuda", **fields) -> CalibState:
+    """The port's ``CalibState`` for the reference's fields, solo
+    (``pool_count`` a scalar) or stacked.  The per-group tier must be
+    None (it comes with the control plane, not ported yet)."""
+    for name in _GROUP_TIER:
+        if fields.pop(name, None) is not None:
+            raise NotImplementedError(f"CalibState.{name} (the per-group tier) is not "
+                                      "ported yet")
+    return CalibState(**_stacked(CalibState, fields, resolve_device(device),
+                                 solo=np.ndim(fields.get("pool_count")) == 0))
+
+
 def sim_state_from_arrays(*, device="cuda", **fields) -> SimState:
     """The port's ``SimState`` for the reference's fields, solo (``t`` a
-    scalar) or stacked.  ``calib``, ``tenancy`` and ``obs`` must be None
-    (not ported)."""
-    for name in ("calib", "tenancy", "obs"):
+    scalar) or stacked; ``calib`` is None or a dict of the reference's
+    ``CalibState`` fields.  ``tenancy`` and ``obs`` must be None (not
+    ported)."""
+    for name in ("tenancy", "obs"):
         if fields.pop(name, None) is not None:
             raise NotImplementedError(f"SimState.{name} is not ported yet")
+    calib = fields.pop("calib", None)
+    if calib is not None:
+        calib = calib_state_from_arrays(device=device, **calib)
     return SimState(**_stacked(SimState, fields, resolve_device(device),
                                solo=np.ndim(fields.get("t")) == 0,
-                               skip=("calib", "tenancy", "obs")))
+                               skip=("calib", "tenancy", "obs")), calib=calib)
 
 
 _LN = ("scale", "bias")

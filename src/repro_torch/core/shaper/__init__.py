@@ -4,7 +4,7 @@ from repro_torch.core.shaper.optimistic import optimistic_shape
 from repro_torch.core.shaper.pessimistic import (ShapeDecision, ShapeProblem,
                                                  pessimistic_shape)
 from repro_torch.core.shaper.safeguard import (SafeguardConfig, beta,
-                                               shaped_demand)
+                                               shaped_demand, shaped_demand_scaled)
 
 POLICIES = {
     "baseline": baseline_shape,
@@ -14,4 +14,4 @@ POLICIES = {
 
 __all__ = ["ShapeProblem", "ShapeDecision", "pessimistic_shape",
            "optimistic_shape", "baseline_shape", "POLICIES",
-           "SafeguardConfig", "beta", "shaped_demand"]
+           "SafeguardConfig", "beta", "shaped_demand", "shaped_demand_scaled"]

@@ -3,8 +3,10 @@
 Counterpart of ``repro/core/shaper/safeguard.py``.  K1 scales the static
 term (a floor as a fraction of the reservation R), K2 the dynamic term:
 K2 predictive standard deviations of the forecaster (the paper's
-"three-sigma" bands).  Elementwise, so it runs on whatever device its
-tensors are on.
+"three-sigma" bands).  With conformal calibration
+(``SimConfig.calibration``) the dynamic term is a per-series calibrated
+multiplier times sigma instead (:func:`shaped_demand_scaled`).
+Elementwise, so it runs on whatever device its tensors are on.
 """
 from __future__ import annotations
 
@@ -43,4 +45,26 @@ def shaped_demand(pred_peak: torch.Tensor, request: torch.Tensor,
     """Allocation target: forecast peak + beta, clamped into [0, request]
     (the shaper only redeems slack; it never grants more than reserved)."""
     b = beta(request, var, cfg)
+    return torch.minimum(torch.clamp_min(pred_peak + b, 0.0), request)
+
+
+def shaped_demand_scaled(pred_peak: torch.Tensor, request: torch.Tensor,
+                         var: torch.Tensor, k1: float, scale: torch.Tensor, *,
+                         k1_folded: bool = False) -> torch.Tensor:
+    """Eq. 9 with a per-element sigma multiplier ``scale`` (the conformal
+    safeguard), clamped into [0, request] as :func:`shaped_demand`.
+
+    XLA contracts ``k1 * request + scale * sigma`` into
+    ``fma(k1, request, scale * sigma)``, rounded once (``ops.fma_f32``).
+    Where k1 is a constant of the compiled program (the reference's
+    device engine: ``k1_folded``) and equals 1, XLA drops the product by
+    one and contracts ``scale * sigma + request`` instead; the host
+    engine passes k1 as an argument, so its program keeps the first form
+    at every k1."""
+    k1 = np.float32(k1)
+    sigma = sigma_from_var(var)
+    if k1_folded and k1 == 1:
+        b = kops.fma_f32(scale, sigma, request)
+    else:
+        b = kops.fma_f32(request, k1, scale * sigma)
     return torch.minimum(torch.clamp_min(pred_peak + b, 0.0), request)

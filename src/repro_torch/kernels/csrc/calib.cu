@@ -1,0 +1,531 @@
+// The device engine's conformal calibration, three kernels: the tick's
+// resolution of outstanding predictions (calib_observe), the conformal
+// quantile of score rings (conformal_scale), and the rest of the
+// engine's shaping step (calib_begin: the fallback hierarchy and the
+// registration of the deployed predictions).
+//
+// Replaces: XLA code of the reference, not a Pallas kernel:
+// calib_observe (repro/core/uncertainty/online.py:317), whose pool
+// update is a cumsum scatter; conformal_scale / conformal_scale_ring
+// (repro/core/uncertainty/conformal.py:83,113), a sort of every ring;
+// calib_scales' hierarchy and calib_begin (online.py:447,413).  The plain
+// versions are repro_torch/kernels/ref.py:calib_observe, conformal_scale
+// and calib_scales; each output equals them to the bit.
+//
+// calib_observe: grid (1 + ceil(R / 32), S) of 1,024 threads, S members
+// of R = 2 * A * C series rows (3,072 at the default widths).  Blocks
+// x >= 1 take 32 rows each, a warp a row: age `left`, take the running
+// max `peak`, and copy the row's ring into the output with the resolved
+// score at count % capacity.  Block x = 0 takes the member: one pass
+// stages each row's outcome (resolved, its score) in shared memory and
+// counts, then the resolved scores enter the pool in row order (a
+// block-wide exclusive scan, ballot and popc per warp, of each 1,024-row
+// tile) at pool_count + k, the last pool_capacity of them (so no two
+// writes share a cell), and thread 0 adds the counters and takes the
+// adaptive step of q.  What bounds it: bytes, the ring (1.5 MB a member
+// at capacity 128) copied by the row blocks; the member block's one
+// pass over ~30 B a row is its latency.
+//
+// conformal_scale: 128-thread blocks, each the row's keys in shared
+// memory and a share of its cells: a cell's rank (keys below it, plus
+// equal keys before it) is counted by `split` neighbouring lanes over
+// their shares of the keys (the least power of two that leaves each at
+// most 128 keys) and added by shuffles, and the cell of rank k writes its
+// value.  The key orders floats as jnp.sort does (-0 = +0, every NaN
+// equal and last) and ties fall in position order, so the result is the
+// element jnp.sort puts at k, to the bit.  A series row of 128 cells is
+// ranked by one block, a lane a cell, four rows a block in turn (on an
+// H100, a block a row cost 13.1 us a launch at 3,072 rows for the blocks
+// alone, every row young); a pool of 1,024 is 64 blocks of 16 cells,
+// eight lanes a cell (eight blocks of 128 cells, a lane a cell, took
+// 21.8 us a launch on an H100).  The engine's launch (calib_quantiles)
+// takes the series rings and the pools in one grid and skips what its
+// hierarchy does not read (young series, the pool when it is off).  What
+// bounds it:
+// operations, cap^2 key comparisons a row (16,384 at 128; 1,048,576 for
+// the pool), integer work; the rings' bytes (1.5 MB) take ~0.5 us.
+//
+// calib_begin: one block of 1,024 threads per member after the
+// quantiles: each row's scale (its series' quantile once warm, else the
+// pool's once warm, else K2) and the predictions it registers, the
+// deployed scales staged in shared memory, then summed in XLA:CPU's tree
+// of 32-wide windows (a thread a window).  It is a launch of its own
+// because it needs the pool's quantile, which other blocks compute: a
+// version that ran it in the quantiles' launch (the last block of each
+// member, or of each window, found by atomic counters) measured 71.7 and
+// 335.9 us a launch at 3,072 warm rows on an H100, against 15 for the
+// quantiles.
+// What bounds it: bytes, ~60 B a row.
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include <algorithm>
+
+#include "xla_fma.cuh"
+
+namespace {
+
+constexpr int kThreads = 1024;             // calib_observe's blocks
+constexpr int kWarps = kThreads / 32;      // ring rows per block
+constexpr int kRankThreads = 128;          // conformal_scale's blocks
+constexpr int kRowsPerBlock = 4;           // its rows a block, where a row fits one
+constexpr int kWindow = 32;                // XLA:CPU's tree-reduction window
+
+// max and min as XLA and numpy take them: NaN when either is NaN
+__device__ __forceinline__ float max_nan(float a, float b) {
+  return (a >= b || a != a) ? a : b;
+}
+__device__ __forceinline__ float min_nan(float a, float b) {
+  return (a <= b || a != a) ? a : b;
+}
+
+// a + b rounded once, a NaN operand returned as x86 returns it (the
+// first NaN, quieted; CUDA's add returns its canonical NaN), so a NaN
+// score reaches the sums with the bits the plain version's numpy gives
+__device__ __forceinline__ float add_x86(float a, float b) {
+  if (a != a) return __uint_as_float(__float_as_uint(a) | 0x400000u);
+  if (b != b) return __uint_as_float(__float_as_uint(b) | 0x400000u);
+  return __fadd_rn(a, b);
+}
+
+// ---------------------------------------------------------------------
+// calib_observe
+// ---------------------------------------------------------------------
+
+struct ObserveArgs {
+  const float* ring; const int* ring_count; const float* pool; const int* pool_count;
+  const float* mean; const float* sigma; const float* scale; const float* peak;
+  const int* left; const int* due; const float* q; const int* resolved;
+  const int* errors; const int* dropped; const float* usage; const int* mon_count;
+  const uint8_t* active;
+  float* o_ring; int* o_ring_count; float* o_pool; int* o_pool_count; float* o_peak;
+  int* o_left; float* o_q; int* o_resolved; int* o_errors; int* o_dropped;
+  int R, cap, pcap, pool_on, adaptive;
+  float gamma, budget, q_min, q_max;
+};
+
+struct Row {
+  float peak, score;
+  int left;
+  bool fire, ok, err;
+};
+
+// series row r of member s this tick (rows r < M read the monitor row's
+// cpu usage, M + r its mem)
+__device__ __forceinline__ Row observe_row(const ObserveArgs& p, int s, int r,
+                                           bool active) {
+  const size_t i = static_cast<size_t>(s) * p.R + r;
+  const int M = p.R / 2;
+  const int mr = r < M ? r : r - M;
+  const size_t mi = static_cast<size_t>(s) * M + mr;
+  Row o;
+  const int l = p.left[i];
+  const bool act = active && l > 0;
+  const float pk = p.peak[i];
+  o.peak = act ? max_nan(pk, p.usage[mi * 2 + (r < M ? 0 : 1)]) : pk;
+  o.left = l - (act ? 1 : 0);
+  o.fire = act && o.left == 0;
+  o.ok = o.fire && p.mon_count[mi] == p.due[i];
+  const float mean = p.mean[i], sigma = p.sigma[i];
+  o.score = __fdiv_rn(__fsub_rn(o.peak, mean), max_nan(sigma, 1e-6f));
+  o.err = o.ok && o.peak > xla::fma_f32(p.scale[i], sigma, mean);
+  return o;
+}
+
+__global__ void __launch_bounds__(kThreads) calib_observe_kernel(const ObserveArgs p) {
+  const int s = blockIdx.y;
+  const bool active = p.active[s] != 0;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if (blockIdx.x > 0) {                    // ring rows, a warp each
+    const int r = (blockIdx.x - 1) * kWarps + warp;
+    if (r >= p.R) return;
+    const Row o = observe_row(p, s, r, active);
+    const size_t i = static_cast<size_t>(s) * p.R + r;
+    const int count = p.ring_count[i];
+    if (lane == 0) {
+      p.o_peak[i] = o.peak;
+      p.o_left[i] = o.left;
+      p.o_ring_count[i] = count + (o.ok ? 1 : 0);
+    }
+    const int pos = count % p.cap;
+    const float* src = p.ring + i * p.cap;
+    float* dst = p.o_ring + i * p.cap;
+    for (int c = lane; c < p.cap; c += 32) dst[c] = (o.ok && c == pos) ? o.score : src[c];
+    return;
+  }
+
+  // the member: each row's outcome staged in shared memory by one pass
+  // over the rows, then the pool, the counters and q
+  extern __shared__ float score[];                       // [R], then ok [R]
+  uint8_t* ok = reinterpret_cast<uint8_t*>(score + p.R);
+  __shared__ int warp_ok[kWarps], totals[3];
+  if (tid < 3) totals[tid] = 0;
+  const float* psrc = p.pool + static_cast<size_t>(s) * p.pcap;
+  float* pdst = p.o_pool + static_cast<size_t>(s) * p.pcap;
+  for (int c = tid; c < p.pcap; c += kThreads) pdst[c] = psrc[c];
+  int n_ok = 0, n_err = 0, n_drop = 0;
+  for (int r = tid; r < p.R; r += kThreads) {
+    const Row o = observe_row(p, s, r, active);
+    score[r] = o.score;
+    ok[r] = o.ok;
+    n_ok += o.ok;
+    n_err += o.err;
+    n_drop += o.fire && !o.ok;
+  }
+  n_ok = __reduce_add_sync(0xffffffffu, n_ok);
+  n_err = __reduce_add_sync(0xffffffffu, n_err);
+  n_drop = __reduce_add_sync(0xffffffffu, n_drop);
+  __syncthreads();                         // totals zeroed, the pool copied, rows staged
+  if (lane == 0) {
+    atomicAdd(&totals[0], n_ok);
+    atomicAdd(&totals[1], n_err);
+    atomicAdd(&totals[2], n_drop);
+  }
+  __syncthreads();
+  n_ok = totals[0];
+  const int pool_count = p.pool_count[s];
+  for (int t0 = 0, base = 0; p.pool_on && t0 < p.R; t0 += kThreads) {
+    const int r = t0 + tid;
+    const bool here = r < p.R && ok[r];
+    const unsigned ballot = __ballot_sync(0xffffffffu, here);
+    if (lane == 0) warp_ok[warp] = __popc(ballot);
+    __syncthreads();
+    int k = base + __popc(ballot & ((1u << lane) - 1u)), tile = 0;
+    for (int w = 0; w < kWarps; ++w) {
+      if (w < warp) k += warp_ok[w];
+      tile += warp_ok[w];
+    }
+    if (here && k >= n_ok - p.pcap) pdst[(pool_count + k) % p.pcap] = score[r];
+    base += tile;
+    __syncthreads();                       // this tile's reads of warp_ok are done
+  }
+  if (tid != 0) return;
+  p.o_pool_count[s] = pool_count + (p.pool_on ? n_ok : 0);
+  p.o_resolved[s] = p.resolved[s] + n_ok;
+  p.o_errors[s] = p.errors[s] + totals[1];
+  p.o_dropped[s] = p.dropped[s] + totals[2];
+  float q = p.q[s];
+  if (p.adaptive && n_ok > 0) {
+    const float rate = __fdiv_rn(static_cast<float>(totals[1]), static_cast<float>(n_ok));
+    q = min_nan(max_nan(xla::fma_f32(p.gamma, __fsub_rn(rate, p.budget), q), p.q_min),
+                p.q_max);
+  }
+  p.o_q[s] = q;
+}
+
+// ---------------------------------------------------------------------
+// conformal_scale
+// ---------------------------------------------------------------------
+
+struct ScaleArgs {
+  // two sets of rings: 0 the series (or the only set), 1 the pools
+  const float* scores[2];
+  const int* counts[2];
+  // split: the lanes that rank one cell; chunks: the blocks of a row;
+  // rpb: the rows of a block (one chunk each)
+  int rows[2], cap[2], chunks[2], split[2], rpb[2];
+  const float* q;          // (groups,): row r of a set takes entry r / (rows / groups)
+  const float* fallback;   // (groups,), or null for k2
+  float k2;
+  int groups, rolled;
+  float* out[2];
+  // the engine's step ranks only what its hierarchy reads: no series
+  // below min_scores, no pool when pool_on is 0 (min_scores 0 and
+  // pool_on 1 rank every row)
+  int min_scores, pool_on;
+};
+
+// a float32's key in jnp.sort's order
+__device__ __forceinline__ unsigned sort_key(float v) {
+  if (v != v) return 0xffffffffu;
+  const unsigned u = v == 0.f ? 0u : __float_as_uint(v);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+// one block per (row, 128 cells of it): the element at sorted position
+// k of the row, written by the thread of this block's cells that holds it
+__global__ void __launch_bounds__(kRankThreads) conformal_scale_kernel(const ScaleArgs p) {
+  extern __shared__ unsigned keys[];   // [cap], then the values [cap]
+  int b = blockIdx.x;
+  const int blocks0 = (p.rows[0] + p.rpb[0] - 1) / p.rpb[0] * p.chunks[0];
+  const int set = b < blocks0 ? 0 : 1;
+  if (set) b -= blocks0;
+  const int cap = p.cap[set], chunk = b % p.chunks[set], per = p.rows[set] / p.groups;
+  const int row0 = b / p.chunks[set] * p.rpb[set];
+  const int row1 = min(row0 + p.rpb[set], p.rows[set]);
+  float* vals = reinterpret_cast<float*>(keys + cap);
+  // `split` neighbouring lanes rank one cell, each over its share of the
+  // keys, and add their counts, so no thread compares more than ~128 keys
+  const int split = p.split[set], part = threadIdx.x % split;
+  const int c = chunk * (kRankThreads / split) + threadIdx.x / split;
+  const int seg = (cap + split - 1) / split, j1 = min((part + 1) * seg, cap);
+  for (int row = row0; row < row1; ++row) {
+    const int g = row / per;
+    const int n = min(p.counts[set][row], cap);
+    if (n < p.min_scores || (set == 1 && !p.pool_on)) continue;
+    if (n <= 0) {
+      if (chunk == 0 && threadIdx.x == 0) p.out[set][row] = p.fallback ? p.fallback[g] : p.k2;
+      continue;
+    }
+    int k = static_cast<int>(ceilf(__fmul_rn(__fadd_rn(static_cast<float>(n), 1.f),
+                                             p.q[g]))) - 1;
+    k = min(max(k, 0), n - 1);
+    const float* src = p.scores[set] + static_cast<size_t>(row) * cap;
+    __syncthreads();                       // the last row's ranking is done with the keys
+    for (int i = threadIdx.x; i < cap; i += kRankThreads) {
+      const float v = (p.rolled && i < cap - n) ? INFINITY : src[i];
+      keys[i] = sort_key(v);
+      vals[i] = v;
+    }
+    __syncthreads();
+    const unsigned kc = c < cap ? keys[c] : 0u;
+    int rank = 0;
+#pragma unroll 8
+    for (int j = part * seg; j < j1; ++j) {
+      const unsigned kj = keys[j];
+      rank += (kj < kc) | ((kj == kc) & (j < c));
+    }
+    for (int o = split / 2; o > 0; o /= 2) rank += __shfl_xor_sync(0xffffffffu, rank, o);
+    if (c < cap && part == 0 && rank == k) p.out[set][row] = vals[c];
+  }
+}
+
+int scale_launch(ScaleArgs& p, void* stream) {
+  int max_cap = 0;
+  long long blocks = 0;
+  for (int s = 0; s < 2; ++s) {
+    if (p.rows[s] <= 0) continue;
+    if (p.cap[s] <= 0 || p.rows[s] % p.groups) return static_cast<int>(cudaErrorInvalidValue);
+    p.split[s] = 1;
+    while (p.split[s] < 32 && p.split[s] * kRankThreads < p.cap[s]) p.split[s] *= 2;
+    p.chunks[s] = (p.cap[s] + kRankThreads / p.split[s] - 1) / (kRankThreads / p.split[s]);
+    p.rpb[s] = p.chunks[s] == 1 ? kRowsPerBlock : 1;
+    blocks += static_cast<long long>((p.rows[s] + p.rpb[s] - 1) / p.rpb[s]) * p.chunks[s];
+    max_cap = std::max(max_cap, p.cap[s]);
+  }
+  if (blocks == 0) return 0;
+  const size_t smem = 2 * static_cast<size_t>(max_cap) * sizeof(float);
+  if (blocks > INT32_MAX || smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  conformal_scale_kernel<<<static_cast<int>(blocks), kRankThreads, smem,
+                           static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------
+// calib_begin: the engine's step after the quantiles
+// ---------------------------------------------------------------------
+
+// float32 sum of x(0), ..., x(n - 1) in XLA:CPU's order (ref.py:xla_sum):
+// over more than 32 terms, the axis padded to a multiple of 32 (the
+// padding split between its ends, the odd one at the end), each window
+// summed in order from its first term, and the window sums the same way.
+// The block's threads sum a window each, through buf (two halves of
+// ``half`` >= ceil(n / 32) + 1 floats); the result is thread 0's.
+template <class F>
+__device__ float xla_tree_sum(int n, F x, float* buf, int half) {
+  float* cur = nullptr;
+  for (int level = 0; n > kWindow; ++level) {
+    const int padded = (n + kWindow - 1) / kWindow * kWindow;
+    const int lo = (padded - n) / 2, nw = padded / kWindow;
+    float* nxt = buf + (level & 1) * half;
+    for (int w = threadIdx.x; w < nw; w += blockDim.x) {
+      const int j0 = max(w * kWindow - lo, 0), j1 = min(w * kWindow + kWindow - lo, n);
+      float a = cur ? cur[j0] : x(j0);
+      for (int j = j0 + 1; j < j1; ++j) a = add_x86(a, cur ? cur[j] : x(j));
+      nxt[w] = a;
+    }
+    __syncthreads();
+    cur = nxt;
+    n = nw;
+  }
+  float a = 0.f;
+  if (threadIdx.x == 0 && n > 0) {
+    a = cur ? cur[0] : x(0);
+    for (int j = 1; j < n; ++j) a = add_x86(a, cur ? cur[j] : x(j));
+  }
+  return a;
+}
+
+struct BeginArgs {
+  const int* ring_count; const int* pool_count;
+  const float* raw; const float* raw_pool;   // conformal_scale's quantiles
+  const uint8_t* deploy;   // (S, M)
+  const float* mean; const float* var;       // (S, R)
+  const int* mon_count;    // (S, M)
+  const float* c_mean; const float* c_sigma; const float* c_scale; const float* c_peak;
+  const int* c_left; const int* c_due; const float* scale_sum; const int* scale_n;
+  float* o_scale; float* o_mean; float* o_sigma; float* o_cscale; float* o_peak;
+  int* o_left; int* o_due; float* o_scale_sum; int* o_scale_n;
+  int R, cap, pcap, min_scores, pool_on, horizon;
+  float k2;
+};
+
+// one block per member: the fallback hierarchy and calib_begin of each
+// row, the deployed scales staged in shared memory, then their sum in
+// XLA's tree
+__global__ void __launch_bounds__(kThreads) calib_begin_kernel(const BeginArgs p) {
+  extern __shared__ float x[];           // [R], then the tree's two halves
+  __shared__ int deployed;
+  const int g = blockIdx.x, R = p.R, M = R / 2;
+  if (threadIdx.x == 0) deployed = 0;
+  float fb = p.k2;
+  if (p.pool_on && min(p.pool_count[g], p.pcap) >= p.min_scores) fb = p.raw_pool[g];
+  int n_dep = 0;
+  for (int r = threadIdx.x; r < R; r += kThreads) {
+    const size_t i = static_cast<size_t>(g) * R + r;
+    const float scale = min(p.ring_count[i], p.cap) < p.min_scores ? fb : p.raw[i];
+    p.o_scale[i] = scale;
+    const size_t mi = static_cast<size_t>(g) * M + (r < M ? r : r - M);
+    const bool dep = p.deploy[mi] != 0;
+    x[r] = dep ? scale : 0.f;
+    n_dep += dep;
+    const int left = p.c_left[i];
+    const bool m = dep && left == 0;
+    p.o_mean[i] = m ? p.mean[i] : p.c_mean[i];
+    p.o_sigma[i] = m ? __fsqrt_rn(max_nan(p.var[i], 0.f)) : p.c_sigma[i];
+    p.o_cscale[i] = m ? scale : p.c_scale[i];
+    p.o_peak[i] = m ? -INFINITY : p.c_peak[i];
+    p.o_left[i] = m ? p.horizon : left;
+    p.o_due[i] = m ? p.mon_count[mi] + p.horizon : p.c_due[i];
+  }
+  n_dep = __reduce_add_sync(0xffffffffu, n_dep);
+  __syncthreads();                         // deployed zeroed, x staged
+  if ((threadIdx.x & 31) == 0) atomicAdd(&deployed, n_dep);
+  const int half = (R + kWindow - 1) / kWindow + 1;
+  const float sum = xla_tree_sum(R, [&](int j) { return x[j]; }, x + R, half);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    p.o_scale_sum[g] = add_x86(p.scale_sum[g], sum);
+    p.o_scale_n[g] = p.scale_n[g] + deployed;
+  }
+}
+
+}  // namespace
+
+// The state as CalibState holds it, S members of R series rows: ring
+// (S, R, cap) f32, ring_count (S, R) i32, pool (S, pcap) f32, pool_count
+// (S,) i32, mean sigma scale peak (S, R) f32, left due (S, R) i32, q (S,)
+// f32, resolved errors dropped (S,) i32; usage (S, R/2, 2) f32,
+// mon_count (S, R/2) i32, active (S,) bool.  Outputs: new ring,
+// ring_count, pool, pool_count, peak, left, q, resolved, errors,
+// dropped of the same shapes.  R even.
+extern "C" int calib_observe(
+    const void* ring, const void* ring_count, const void* pool, const void* pool_count,
+    const void* mean, const void* sigma, const void* scale, const void* peak,
+    const void* left, const void* due, const void* q, const void* resolved,
+    const void* errors, const void* dropped, const void* usage, const void* mon_count,
+    const void* active, void* o_ring, void* o_ring_count, void* o_pool,
+    void* o_pool_count, void* o_peak, void* o_left, void* o_q, void* o_resolved,
+    void* o_errors, void* o_dropped, int S, int R, int cap, int pcap, int pool_on,
+    int adaptive, float gamma, float budget, float q_min, float q_max, void* stream) {
+  if (S <= 0 || R <= 0 || R % 2 || cap <= 0 || pcap <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  ObserveArgs p{
+      static_cast<const float*>(ring), static_cast<const int*>(ring_count),
+      static_cast<const float*>(pool), static_cast<const int*>(pool_count),
+      static_cast<const float*>(mean), static_cast<const float*>(sigma),
+      static_cast<const float*>(scale), static_cast<const float*>(peak),
+      static_cast<const int*>(left), static_cast<const int*>(due),
+      static_cast<const float*>(q), static_cast<const int*>(resolved),
+      static_cast<const int*>(errors), static_cast<const int*>(dropped),
+      static_cast<const float*>(usage), static_cast<const int*>(mon_count),
+      static_cast<const uint8_t*>(active),
+      static_cast<float*>(o_ring), static_cast<int*>(o_ring_count),
+      static_cast<float*>(o_pool), static_cast<int*>(o_pool_count),
+      static_cast<float*>(o_peak), static_cast<int*>(o_left), static_cast<float*>(o_q),
+      static_cast<int*>(o_resolved), static_cast<int*>(o_errors),
+      static_cast<int*>(o_dropped), R, cap, pcap, pool_on, adaptive, gamma, budget,
+      q_min, q_max};
+  const size_t smem = static_cast<size_t>(R) * (sizeof(float) + 1);
+  if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(1 + (R + kWarps - 1) / kWarps, S);
+  calib_observe_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// scores (B, cap) f32 rings, counts (B,) i32, q and fallback (G,) f32
+// with G dividing B, rolled 0 (circular rings) or 1 (rolled: the first
+// cap - n cells read as +inf); out (B,) f32.
+extern "C" int conformal_scale(const void* scores, const void* counts, int B, int cap,
+                               const void* q, const void* fallback, int G, int rolled,
+                               void* out, void* stream) {
+  if (B < 0 || G <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  ScaleArgs p{};
+  p.scores[0] = static_cast<const float*>(scores);
+  p.counts[0] = static_cast<const int*>(counts);
+  p.rows[0] = B;
+  p.cap[0] = cap;
+  p.q = static_cast<const float*>(q);
+  p.fallback = static_cast<const float*>(fallback);
+  p.groups = G;
+  p.rolled = rolled;
+  p.out[0] = static_cast<float*>(out);
+  p.pool_on = 1;
+  return scale_launch(p, stream);
+}
+
+// The engine's quantiles for S members, in one launch: of ring (S, R,
+// cap) into raw (S, R), where a row holds min_scores scores, and of pool
+// (S, pcap) into raw_pool (S,) where pool_on, each at its member's q
+// (S,), k2 where a ring is empty; the other entries are left unwritten.
+extern "C" int calib_quantiles(const void* ring, const void* ring_count, const void* pool,
+                               const void* pool_count, const void* q, float k2, void* raw,
+                               void* raw_pool, int S, int R, int cap, int pcap,
+                               int min_scores, int pool_on, void* stream) {
+  if (S <= 0 || R <= 0 || cap <= 0 || pcap <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  ScaleArgs p{};
+  p.scores[0] = static_cast<const float*>(ring);
+  p.counts[0] = static_cast<const int*>(ring_count);
+  p.rows[0] = S * R;
+  p.cap[0] = cap;
+  p.scores[1] = static_cast<const float*>(pool);
+  p.counts[1] = static_cast<const int*>(pool_count);
+  p.rows[1] = S;
+  p.cap[1] = pcap;
+  p.q = static_cast<const float*>(q);
+  p.k2 = k2;
+  p.groups = S;
+  p.out[0] = static_cast<float*>(raw);
+  p.out[1] = static_cast<float*>(raw_pool);
+  p.min_scores = min_scores;
+  p.pool_on = pool_on;
+  return scale_launch(p, stream);
+}
+
+// The engine's step after calib_quantiles, S members of R rows: the
+// hierarchy into scale (S, R) (a series' quantile once it holds
+// min_scores, else its member's pool quantile where pool_on and the pool
+// holds min_scores, else k2) and calib_begin: deploy (S, R/2) bool, mean
+// var (S, R) f32, mon_count (S, R/2) i32, and the state's mean sigma
+// scale peak (S, R) f32, left due (S, R) i32, scale_sum (S,) f32,
+// scale_n (S,) i32, into the o_ arrays of the same shapes.
+extern "C" int calib_begin(
+    const void* ring_count, const void* pool_count, const void* raw, const void* raw_pool,
+    const void* deploy, const void* mean, const void* var, const void* mon_count,
+    const void* c_mean, const void* c_sigma, const void* c_scale, const void* c_peak,
+    const void* c_left, const void* c_due, const void* scale_sum, const void* scale_n,
+    void* scale, void* o_mean, void* o_sigma, void* o_cscale, void* o_peak, void* o_left,
+    void* o_due, void* o_scale_sum, void* o_scale_n, int S, int R, int cap, int pcap,
+    int min_scores, int pool_on, int horizon, float k2, void* stream) {
+  if (S <= 0 || R <= 0 || R % 2 || cap <= 0 || pcap <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = (static_cast<size_t>(R) + 2 * ((R + kWindow - 1) / kWindow + 1)) *
+                      sizeof(float);
+  if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  BeginArgs p{
+      static_cast<const int*>(ring_count), static_cast<const int*>(pool_count),
+      static_cast<const float*>(raw), static_cast<const float*>(raw_pool),
+      static_cast<const uint8_t*>(deploy), static_cast<const float*>(mean),
+      static_cast<const float*>(var), static_cast<const int*>(mon_count),
+      static_cast<const float*>(c_mean), static_cast<const float*>(c_sigma),
+      static_cast<const float*>(c_scale), static_cast<const float*>(c_peak),
+      static_cast<const int*>(c_left), static_cast<const int*>(c_due),
+      static_cast<const float*>(scale_sum), static_cast<const int*>(scale_n),
+      static_cast<float*>(scale), static_cast<float*>(o_mean), static_cast<float*>(o_sigma),
+      static_cast<float*>(o_cscale), static_cast<float*>(o_peak), static_cast<int*>(o_left),
+      static_cast<int*>(o_due), static_cast<float*>(o_scale_sum),
+      static_cast<int*>(o_scale_n), R, cap, pcap, min_scores, pool_on, horizon, k2};
+  calib_begin_kernel<<<S, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -21,33 +21,17 @@
 // port launches nothing larger.
 //
 // Subnormals as XLA:CPU treats them (x86's denormals-are-zero and
-// flush-to-zero): an input below 2^-126 in magnitude is read as a zero
-// of its sign, and a result is flushed to a zero of its sign when it is
-// tiny after rounding, i.e. when the exact value rounded to 24 bits with
-// no lower limit on the exponent lies below 2^-126 (2^-126 - 2^-150 is
-// flushed; a value a quarter of an ulp below 2^-126 rounds up to it and
-// is kept).  Only a nonzero result of at most 2^-126 can be tiny; then
-// |a| <= 2^48 and |c| <= 2^-77, so the FMA of a * 2^64 and c * 2^64 is
-// exact in its scaling and rounds 2^64 times the exact value in the
-// normal range, which decides.  Explicit here (each input by a .ftz
-// multiply, each result by that test), not by -ftz: the flags build
-// every kernel of the package, and the others keep IEEE subnormals.
+// flush-to-zero), by xla::fma_flushed (xla_fma.cuh): each input flushed
+// by one .ftz multiply, each result tested after rounding.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "xla_fma.cuh"
+
 namespace {
 
-constexpr float kTiny = 0x1p-126f;   // the least normal float32
 constexpr int kThreads = 128;
-
-// x read as XLA:CPU reads it: a subnormal as a zero of its sign (a
-// multiply by 1 that flushes its input; exact for every other x)
-__device__ __forceinline__ float daz(float x) {
-  float r;
-  asm("mul.ftz.f32 %0, %1, 0f3F800000;" : "=f"(r) : "f"(x));
-  return r;
-}
 
 // b is read only when kTensorB
 template <bool kTensorB>
@@ -56,13 +40,8 @@ __global__ void __launch_bounds__(kThreads) fma_f32_kernel(
     const float* __restrict__ c, float* __restrict__ out, int n) {
   const int i = blockIdx.x * kThreads + threadIdx.x;
   if (i >= n) return;
-  const float x = daz(a[i]), y = daz(kTensorB ? b[i] : b_scalar), z = daz(c[i]);
-  float r = __fmaf_rn(x, y, z);
-  if (r != 0.f && fabsf(r) <= kTiny) {
-    const float scaled = __fmaf_rn(x * 0x1p64f, y, z * 0x1p64f);
-    if (fabsf(scaled) < 0x1p-62f) r = copysignf(0.f, scaled);
-  }
-  out[i] = r;
+  out[i] = xla::fma_flushed(xla::daz(a[i]), xla::daz(kTensorB ? b[i] : b_scalar),
+                            xla::daz(c[i]));
 }
 
 }  // namespace

@@ -7,8 +7,11 @@
 // version is repro_torch/kernels/ref.py:leap_skip.
 //
 // A member is idle when some app is not done, its tick budget `left` is
-// positive, no slot holds an app and the FIFO queue is empty; then every
-// phase of a tick is a no-op until the next arrival.  The reference's
+// positive, no slot holds an app, the FIFO queue is empty and, with
+// calibration on, no calibration score is pending (every row's `left`
+// of the calibration state is 0: a pending score ages per executed
+// tick, so those ticks must run); then every phase of a tick is a no-op
+// until the next arrival.  The reference's
 // loop
 //     while idle && n < left && next_sub > t + tick: t = t + tick; n++
 // is serial by nature (each t rounds from the one before, so the count
@@ -16,19 +19,17 @@
 // one thread runs it.  t + tick is rounded once to float32 (__fadd_rn,
 // never contracted) and compared in float32, as the reference does, so
 // the arrival tick indices and everything after them are the uniform
-// engine's for any tick value.  The reference also holds the skip while
-// its calibration has scores pending (calib.left == 0); the port's
-// calibration is not ported and its state is always absent, so that
-// guard is always true here.
+// engine's for any tick value.
 //
 // Design: one block per member.  The block's threads reduce the idle
-// test (__syncthreads_and / _or over the slot table and the app columns)
+// test (__syncthreads_and / _or over the slot table, the app columns and
+// the calibration rows)
 // and the next arrival time (the least submit time of the apps that have
 // not arrived; +inf when all have) with one pass over the member's
 // columns, then thread 0 runs the loop and writes the new clock and the
 // number of skipped ticks.  What bounds it: the bytes of one read of the
 // slot table and four app columns (~4.5 KB a member at the main path's
-// widths), then a loop of at most `left` iterations that runs only on
+// widths; 12 KB more with calibration's rows), then a loop of at most `left` iterations that runs only on
 // idle members; at the engine's sizes a launch is latency.
 #include <cuda_runtime.h>
 #include <math.h>
@@ -42,8 +43,8 @@ __global__ void __launch_bounds__(kThreads) leap_skip_kernel(
     const int* __restrict__ slot_gid, const uint8_t* __restrict__ queued,
     const uint8_t* __restrict__ arrived, const float* __restrict__ submit,
     const uint8_t* __restrict__ done, const float* __restrict__ t_in,
-    const int* __restrict__ left_in, float tick, float* __restrict__ t_out,
-    int* __restrict__ lead_out, int A, int N) {
+    const int* __restrict__ left_in, const int* __restrict__ calib_left, float tick,
+    float* __restrict__ t_out, int* __restrict__ lead_out, int A, int N, int R) {
   __shared__ float warp_min[kThreads / 32];
   const int s = blockIdx.x;
   const int tid = threadIdx.x;
@@ -56,6 +57,9 @@ __global__ void __launch_bounds__(kThreads) leap_skip_kernel(
 
   int running = 0;
   for (int a = tid; a < A; a += kThreads) running |= slot_gid[a] >= 0;
+  if (calib_left)   // a pending calibration score keeps the member busy
+    for (int r = tid; r < R; r += kThreads)
+      running |= calib_left[static_cast<size_t>(s) * R + r] != 0;
   int all_done = 1, any_queued = 0;
   float next_sub = INFINITY;
   for (int n = tid; n < N; n += kThreads) {
@@ -91,18 +95,21 @@ __global__ void __launch_bounds__(kThreads) leap_skip_kernel(
 }  // namespace
 
 // slot_gid (S, A) int32; queued, arrived, done (S, N) bool; submit (S, N)
-// float32; t (S,) float32; left (S,) int32; out: t_out (S,) float32 and
-// lead (S,) int32.  S, A, N >= 1.
+// float32; t (S,) float32; left (S,) int32; calib_left (S, R) int32, the
+// calibration state's ticks to each pending score, or null without
+// calibration; out: t_out (S,) float32 and lead (S,) int32.  S, A, N >= 1.
 extern "C" int leap_skip(const void* slot_gid, const void* queued, const void* arrived,
                          const void* submit, const void* done, const void* t,
-                         const void* left, float tick, void* t_out, void* lead,
-                         int S, int A, int N, void* stream) {
-  if (S <= 0 || A <= 0 || N <= 0) return static_cast<int>(cudaErrorInvalidValue);
+                         const void* left, const void* calib_left, float tick,
+                         void* t_out, void* lead, int S, int A, int N, int R,
+                         void* stream) {
+  if (S <= 0 || A <= 0 || N <= 0 || (calib_left && R <= 0))
+    return static_cast<int>(cudaErrorInvalidValue);
   leap_skip_kernel<<<S, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(slot_gid), static_cast<const uint8_t*>(queued),
       static_cast<const uint8_t*>(arrived), static_cast<const float*>(submit),
       static_cast<const uint8_t*>(done), static_cast<const float*>(t),
-      static_cast<const int*>(left), tick, static_cast<float*>(t_out),
-      static_cast<int*>(lead), A, N);
+      static_cast<const int*>(left), static_cast<const int*>(calib_left), tick,
+      static_cast<float*>(t_out), static_cast<int*>(lead), A, N, R);
   return static_cast<int>(cudaGetLastError());
 }

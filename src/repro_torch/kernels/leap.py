@@ -34,7 +34,7 @@ def _library() -> ctypes.CDLL:
     if _LIB is None:
         lib = ctypes.CDLL(str(nvcc.build(SOURCE).path))
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.leap_skip.argtypes = [ptr] * 7 + [ctypes.c_float] + [ptr] * 2 + [i32] * 3 + [ptr]
+        lib.leap_skip.argtypes = [ptr] * 8 + [ctypes.c_float] + [ptr] * 2 + [i32] * 4 + [ptr]
         lib.leap_skip.restype = i32
         _LIB = lib
     return _LIB
@@ -59,18 +59,32 @@ def _check(slot_gid, queued, arrived, submit, done, t, left) -> tuple[int, int, 
     return S, A, N
 
 
+def _check_calib(calib_left, S: int, device) -> int:
+    """Validate the calibration state's ``left`` (S, R); return R (0 when
+    absent)."""
+    if calib_left is None:
+        return 0
+    if calib_left.dim() != 2 or calib_left.shape[1] < 1:
+        raise ValueError(f"expected calib_left (S, R), got {tuple(calib_left.shape)}")
+    R = calib_left.shape[1]
+    nvcc.check(device, calib_left=(calib_left, torch.int32, (S, R)))
+    return R
+
+
 @nvcc.counted
 def leap_skip(slot_gid: torch.Tensor, queued: torch.Tensor, arrived: torch.Tensor,
               submit: torch.Tensor, done: torch.Tensor, t: torch.Tensor,
-              left: torch.Tensor, tick: float) -> tuple[torch.Tensor, torch.Tensor]:
+              left: torch.Tensor, tick: float, calib_left: torch.Tensor | None = None
+              ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the kernel: ``(t, lead)``, each ``(S,)``, as ``ref.leap_skip``
     returns them."""
     S, A, N = _check(slot_gid, queued, arrived, submit, done, t, left)
+    R = _check_calib(calib_left, S, slot_gid.device)
     t_out = torch.empty_like(t)
     lead = torch.empty_like(left)
     nvcc.launch(_library().leap_skip, "leap_skip", slot_gid.device, slot_gid, queued,
-                arrived, submit, done, t, left, float(np.float32(tick)), t_out, lead,
-                S, A, N)
+                arrived, submit, done, t, left, calib_left, float(np.float32(tick)), t_out,
+                lead, S, A, N, R)
     leap_skip.launches += 1
     return t_out, lead
 

@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import arima_forecast as _ar
+from repro_torch.kernels import calib as _cb
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import fma as _fm
 from repro_torch.kernels import gp_forecast as _gf
@@ -135,9 +136,51 @@ def place_missing_elastic(*args):
                   ref.place_missing_elastic, args[0], args)
 
 
-def leap_skip(slot_gid, queued, arrived, submit, done, t, left, tick):
+def leap_skip(slot_gid, queued, arrived, submit, done, t, left, tick, calib_left=None):
     """The idle ticks each member skips before its next real tick, and its
-    clock after them: ``(t, lead)``; see ``ref.leap_skip``.  On the card
-    one kernel launch, which reads nothing back."""
+    clock after them: ``(t, lead)``; see ``ref.leap_skip``.  ``calib_left``
+    (S, R), the calibration state's ticks to each pending score, holds a
+    member with a pending score.  On the card one kernel launch, which
+    reads nothing back."""
     return _route("leap_skip", _lp.leap_skip, ref.leap_skip, slot_gid,
-                  (slot_gid, queued, arrived, submit, done, t, left, tick))
+                  (slot_gid, queued, arrived, submit, done, t, left, tick, calib_left))
+
+
+def conformal_scale(scores, counts, q, fallback, *, rolled: bool):
+    """The conformal quantile of each ``(B, cap)`` score ring, q and
+    fallback ``(G,)`` per group of rows; see ``ref.conformal_scale``.  On
+    the card one kernel launch."""
+    return _route("conformal_scale", _cb.conformal_scale, ref.conformal_scale, scores,
+                  (scores, counts, q, fallback, rolled))
+
+
+def _calib_kw(cfg) -> dict:
+    return dict(pool_on=cfg.pool, adaptive=cfg.adaptive, gamma=cfg.gamma,
+                budget=cfg.budget, q_min=cfg.q_min, q_max=cfg.q_max)
+
+
+def calib_observe(ring, ring_count, pool, pool_count, mean, sigma, scale, peak, left, due,
+                  q, resolved, errors, dropped, usage, mon_count, active, cfg):
+    """One tick of the calibration's outstanding predictions for a
+    ``CalibrationConfig`` ``cfg``; see ``ref.calib_observe``.  On the card
+    one kernel launch."""
+    kw = _calib_kw(cfg)
+    return _route("calib_observe", lambda *a: _cb.calib_observe(*a, **kw),
+                  lambda *a: ref.calib_observe(*a, **kw), ring,
+                  (ring, ring_count, pool, pool_count, mean, sigma, scale, peak, left, due,
+                   q, resolved, errors, dropped, usage, mon_count, active))
+
+
+def calib_scales(ring, ring_count, pool, pool_count, q, fallback, cfg, deploy, mean, var,
+                 mon_count, horizon, c_mean, c_sigma, c_scale, c_peak, c_left, c_due,
+                 scale_sum, scale_n):
+    """The device engine's calibrated shaping step (the fallback
+    hierarchy's scales, then ``calib_begin``); see ``ref.calib_scales``.
+    On the card two launches, ``conformal_scale`` over the warm rings and
+    the pools, then ``calib_begin``."""
+    kw = dict(min_scores=cfg.min_scores, pool_on=cfg.pool, horizon=horizon)
+    return _route("calib_scales", lambda *a: _cb.calib_scales(*a, **kw),
+                  lambda *a: ref.calib_scales(*a, **kw), ring,
+                  (ring, ring_count, pool, pool_count, q, fallback, deploy, mean, var,
+                   mon_count, c_mean, c_sigma, c_scale, c_peak, c_left, c_due, scale_sum,
+                   scale_n))

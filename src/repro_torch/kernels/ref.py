@@ -568,12 +568,14 @@ def place_missing_elastic(cpu_req, mem_req, exists, is_core, slot_gid, comp_runn
     return _tensors(run, host, alloc, alive)
 
 
-def leap_skip(slot_gid, queued, arrived, submit, done, t, left, tick):
+def leap_skip(slot_gid, queued, arrived, submit, done, t, left, tick, calib_left=None):
     """The run of provably idle ticks before each member's next real tick
     (the scalar ``lax.while_loop`` of ``repro/sim/step.py:955-970``).
 
     A member is idle when some app is not done, its budget ``left`` is
-    positive, no slot holds an app and the queue is empty; then, while
+    positive, no slot holds an app, the queue is empty and, where
+    ``calib_left`` (S, R) int32 (the calibration state's ticks to each
+    pending score) is given, no score is pending; then, while
     fewer than ``left`` ticks were skipped and the next arrival lies
     beyond ``t + tick`` (rounded once to float32, compared in float32),
     the clock advances one tick.  slot_gid (S,A) int32; queued, arrived,
@@ -583,6 +585,8 @@ def leap_skip(slot_gid, queued, arrived, submit, done, t, left, tick):
     slot_gid, queued, arrived, submit, done, t, left = _numpy(
         slot_gid, queued, arrived, submit, done, t, left)
     idle = (~done.all(-1) & (left > 0) & (slot_gid < 0).all(-1) & ~queued.any(-1))
+    if calib_left is not None:
+        idle &= (calib_left.numpy() == 0).all(-1)
     next_sub = np.where(arrived, np.float32(np.inf), submit).min(-1)
     tick = np.float32(tick)
     lead = np.zeros_like(left)
@@ -798,3 +802,171 @@ def arima_forecast(windows: torch.Tensor, valid: torch.Tensor, horizon: int, cfg
         for o, r in zip(out, arima_select(windows[ready], valid[ready], horizon, cfg)[:2]):
             o[ready] = r
     return tuple(out)
+
+
+# ----------------------------------------------------------------------
+# conformal calibration: the work of the CUDA kernels in calib.cu
+# ----------------------------------------------------------------------
+
+def sort_keys(x: np.ndarray) -> np.ndarray:
+    """uint32 keys that order float32 values as ``jnp.sort`` does: -0 and
+    +0 equal, every NaN equal and after +inf (ties then keep their
+    positions, the sort being stable)."""
+    u = np.where(x == 0, np.uint32(0), np.asarray(x, np.float32).view(np.uint32))
+    key = np.where(u & np.uint32(0x80000000), ~u, u | np.uint32(0x80000000))
+    return np.where(np.isnan(x), np.uint32(0xFFFFFFFF), key).astype(np.uint32)
+
+
+def conformal_scale(scores, counts, q, fallback, rolled: bool):
+    """The conformal quantile of each score ring
+    (``repro/core/uncertainty/conformal.py:83,113``).
+
+    scores (B, cap) f32; counts (B,) int32, the scores ever pushed; q and
+    fallback (G,) f32, row r taking entry ``r // (B / G)``.  Of the
+    ``n = min(count, cap)`` live cells (rolled: the last n, the others
+    read as +inf; circular: every cell, the unwritten ones +inf) returns
+    the one at position ``k = ceil((n + 1) q) - 1`` (in float32, clipped
+    to ``[0, n - 1]``) of the stable sort by :func:`sort_keys`, its own
+    bits; ``fallback`` where n = 0.  Returns (B,) f32."""
+    s, c, q, fb = _numpy(scores, counts, q, fallback)
+    B, cap = s.shape
+    per = B // q.shape[0]
+    n = np.minimum(c, cap).astype(np.int32)
+    if rolled:
+        s = np.where(np.arange(cap)[None, :] < (cap - n)[:, None], np.float32(np.inf), s)
+    order = np.argsort(sort_keys(s), axis=1, kind="stable")
+    qr, fbr = np.repeat(q, per), np.repeat(fb, per)
+    k = np.ceil((n.astype(np.float32) + np.float32(1.0)) * qr).astype(np.int32) - 1
+    k = np.minimum(np.maximum(k, 0), np.maximum(n - 1, 0))
+    rows = np.arange(B)
+    val = s[rows, order[rows, k]] if cap else np.zeros(B, np.float32)
+    return torch.from_numpy(np.where(n > 0, val, fbr).astype(np.float32))
+
+
+def _tiled(x: np.ndarray) -> np.ndarray:
+    """(S, M) per monitor row -> (S, 2M) per series row (cpu, then mem)."""
+    return np.concatenate([x, x], -1)
+
+
+def calib_observe(ring, ring_count, pool, pool_count, mean, sigma, scale, peak, left,
+                  due, q, resolved, errors, dropped, usage, mon_count, active, *,
+                  pool_on: bool, adaptive: bool, gamma: float, budget: float,
+                  q_min: float, q_max: float):
+    """One tick of the outstanding predictions of each member
+    (``repro/core/uncertainty/online.py:317``, ``calib_observe``).
+
+    The calibration state as ``CalibState`` holds it, S members of R =
+    2M series rows; usage (S, M, 2) f32 and mon_count (S, M) int32 per
+    monitor row (series r < M reads its cpu, M + r its mem); active (S,)
+    bool.  Rows age where active and a prediction is pending; a row whose
+    prediction comes due scores ``(peak - mean) / max(sigma, 1e-6)`` into
+    its ring at ``count % cap`` if its monitor count is the one due, else
+    counts as dropped; the member's scores enter its pool in row order at
+    ``pool_count + k``, only the last ``pool_cap`` of them when more
+    resolve.  A score is miscovered when ``peak > fma(scale, sigma,
+    mean)``; adaptive, ``q`` becomes ``clip(fma(gamma, err_rate - budget,
+    q), q_min, q_max)`` where any resolved.  Returns (ring, ring_count,
+    pool, pool_count, peak, left, q, resolved, errors, dropped)."""
+    (ring, ring_count, pool, pool_count, mean, sigma, scale, peak, left, due, q, resolved,
+     errors, dropped, usage, mon_count, active) = _numpy(
+        ring, ring_count, pool, pool_count, mean, sigma, scale, peak, left, due, q,
+        resolved, errors, dropped, usage, mon_count, active)
+    cap, pcap = ring.shape[2], pool.shape[1]
+    use = np.concatenate([usage[..., 0], usage[..., 1]], -1)
+    act = (left > 0) & active[:, None]
+    peak = np.where(act, np.maximum(peak, use), peak)
+    left = (left - act).astype(np.int32)
+    fire = act & (left == 0)
+    ok = fire & (_tiled(mon_count) == due)
+    dropped = (dropped + (fire & ~ok).sum(-1)).astype(np.int32)
+    s = ((peak - mean) / np.maximum(sigma, np.float32(1e-6))).astype(np.float32)
+    n_ok = ok.sum(-1).astype(np.int32)
+    for m in range(ring.shape[0]):
+        rows = np.nonzero(ok[m])[0]
+        ring[m, rows, ring_count[m, rows] % cap] = s[m, rows]
+        if pool_on:
+            k = np.arange(rows.size)
+            w = k >= rows.size - pcap
+            pool[m, (pool_count[m] + k[w]) % pcap] = s[m, rows[w]]
+    ring_count = (ring_count + ok).astype(np.int32)
+    if pool_on:
+        pool_count = (pool_count + n_ok).astype(np.int32)
+    bound = fma_f32(*_tensors(scale, sigma, mean)).numpy()
+    err = ok & (peak > bound)
+    resolved = (resolved + n_ok).astype(np.int32)
+    errors = (errors + err.sum(-1)).astype(np.int32)
+    if adaptive:
+        rate = err.sum(-1).astype(np.float32) / np.maximum(n_ok, 1).astype(np.float32)
+        step = fma_f32(torch.from_numpy(rate - np.float32(budget)), gamma,
+                       torch.from_numpy(q)).numpy()
+        qn = np.minimum(np.maximum(step, np.float32(q_min)), np.float32(q_max))
+        q = np.where(n_ok > 0, qn, q).astype(np.float32)
+    return _tensors(ring, ring_count, pool, pool_count, peak, left, q, resolved, errors,
+                    dropped)
+
+
+def calib_quantiles(ring, ring_count, pool, pool_count, q, fallback, *, min_scores: int,
+                    pool_on: bool):
+    """The quantiles the engine's shaping step reads (``online.py:447``):
+    each series row's of its circular ring and each member's of its pool
+    (where ``pool_on``), at the member's q, ``fallback`` (K2) where a ring
+    is empty.  The kernel ranks only the rows holding ``min_scores``
+    scores, the others unread; here every row is computed.  Returns (raw
+    (S, R), raw_pool (S,))."""
+    ring, ring_count, pool, pool_count, q = _numpy(ring, ring_count, pool, pool_count, q)
+    S, R, cap = ring.shape
+    fb = np.full(S, np.float32(fallback))
+    raw = conformal_scale(*_tensors(ring.reshape(S * R, cap), ring_count.reshape(-1), q, fb),
+                          rolled=False).reshape(S, R)
+    raw_pool = (conformal_scale(*_tensors(pool, pool_count, q, fb), rolled=False) if pool_on
+                else torch.from_numpy(fb))
+    return raw, raw_pool
+
+
+def calib_begin(ring_count, pool_count, raw, raw_pool, deploy, mean, var, mon_count, c_mean,
+                c_sigma, c_scale, c_peak, c_left, c_due, scale_sum, scale_n, *, cap: int,
+                pcap: int, min_scores: int, pool_on: bool, horizon: int, fallback: float):
+    """The rest of the engine's shaping step per member
+    (``online.py:447,413``): each series row's scale, its quantile in
+    ``raw`` once it holds ``min_scores`` scores (of a ring of ``cap``),
+    else the member's pool quantile ``raw_pool`` when the pool is on and
+    holds ``min_scores`` (of ``pcap``), else ``fallback`` (K2); then
+    ``calib_begin``: the rows of the monitor rows in ``deploy`` (S, M)
+    bool register ``mean``, ``sigma = sqrt(max(var, 0))`` and the scale
+    where no prediction is pending (``left == 0``): ``peak`` -inf,
+    ``left`` ``horizon``, ``due`` ``mon_count + horizon``; ``scale_sum``
+    adds the deployed rows' scales summed in XLA's tree (:func:`xla_sum`),
+    ``scale_n`` their count.  Returns (scale (S, R), mean, sigma, scale,
+    peak, left, due, scale_sum, scale_n) of the state."""
+    (ring_count, pool_count, raw, raw_pool, deploy, mean, var, mon_count, c_mean, c_sigma,
+     c_scale, c_peak, c_left, c_due, scale_sum, scale_n) = _numpy(
+        ring_count, pool_count, raw, raw_pool, deploy, mean, var, mon_count, c_mean, c_sigma,
+        c_scale, c_peak, c_left, c_due, scale_sum, scale_n)
+    fb = np.full(raw.shape[0], np.float32(fallback))
+    if pool_on:
+        fb = np.where(np.minimum(pool_count, pcap) >= min_scores, raw_pool, fb)
+    scale = np.where(np.minimum(ring_count, cap) < min_scores, fb[:, None], raw)
+    dep = _tiled(deploy)
+    m = dep & (c_left == 0)
+    sigma = np.sqrt(np.maximum(var, np.float32(0.0)))
+    tree = xla_sum(np.where(dep, scale, np.float32(0.0)).T)
+    return _tensors(scale, np.where(m, mean, c_mean), np.where(m, sigma, c_sigma),
+                    np.where(m, scale, c_scale), np.where(m, np.float32(-np.inf), c_peak),
+                    np.where(m, np.int32(horizon), c_left).astype(np.int32),
+                    np.where(m, _tiled(mon_count) + np.int32(horizon), c_due).astype(np.int32),
+                    (scale_sum + tree).astype(np.float32),
+                    (scale_n + dep.sum(-1)).astype(np.int32))
+
+
+def calib_scales(ring, ring_count, pool, pool_count, q, fallback, deploy, mean, var,
+                 mon_count, c_mean, c_sigma, c_scale, c_peak, c_left, c_due, scale_sum,
+                 scale_n, *, min_scores: int, pool_on: bool, horizon: int):
+    """The device engine's calibrated shaping step (``calib_scales``, then
+    ``calib_begin``, ``online.py:447,413``): :func:`calib_quantiles`, then
+    :func:`calib_begin`.  Returns what that returns."""
+    raw, raw_pool = calib_quantiles(ring, ring_count, pool, pool_count, q, fallback,
+                                    min_scores=min_scores, pool_on=pool_on)
+    return calib_begin(ring_count, pool_count, raw, raw_pool, deploy, mean, var, mon_count,
+                       c_mean, c_sigma, c_scale, c_peak, c_left, c_due, scale_sum, scale_n,
+                       cap=ring.shape[2], pcap=pool.shape[1], min_scores=min_scores,
+                       pool_on=pool_on, horizon=horizon, fallback=fallback)

@@ -22,11 +22,17 @@ reference.  The forecast, the safeguard and the shaping policy run on
 the engine's ``device`` — the CUDA card unless the caller asks for the
 CPU.  Given the same forecasts, every decision equals the reference's.
 
-Not ported in this slice, and refused by :func:`run_sim`: conformal
-calibration (``calibration.enabled``) and the multi-tenant control
-plane (``control.enabled``).  ``obs``, ``leap``
-and ``forecast_bucket`` configure the reference's device engine; the
-host engine ignores them, as the reference's does.
+With ``SimConfig.calibration`` enabled (and a forecaster other than
+oracle), Eq. 9's dynamic term uses a per-series conformal quantile of
+sigma-normalized residual scores instead of K2
+(:class:`~repro_torch.core.uncertainty.OnlineCalibrator`): each tick's
+deployed bounds are scored ``horizon`` ticks later, and the calibrated
+scales are one ``ops.conformal_scale`` launch on the engine's device.
+
+Not ported, and refused by :func:`run_sim`: the multi-tenant control
+plane (``control.enabled``).  ``obs``, ``leap`` and ``forecast_bucket``
+configure the reference's device engine; the host engine ignores them,
+as the reference's does.
 """
 from __future__ import annotations
 
@@ -41,8 +47,9 @@ from repro_torch.core.forecast import (ARIMAConfig, ARIMAForecaster, GPConfig,
                                       GPForecaster, peak_over_horizon)
 from repro_torch.core.monitor import Monitor
 from repro_torch.core.shaper import (POLICIES, SafeguardConfig, ShapeProblem,
-                                     shaped_demand)
-from repro_torch.core.uncertainty import bucket_pow2
+                                     shaped_demand, shaped_demand_scaled)
+from repro_torch.core.uncertainty import (CalibrationConfig, OnlineCalibrator,
+                                          bucket_pow2, sigma_from_var_np)
 from repro_torch.device import resolve_device
 from repro_torch.sim.cluster import CPU, MEM, Cluster, ClusterConfig
 from repro_torch.sim.metrics import SimResults
@@ -64,7 +71,7 @@ class SimConfig:
     policy: str = "pessimistic"          # baseline | optimistic | pessimistic
     forecaster: str = "gp"               # oracle | gp | arima | persist
     safeguard: SafeguardConfig = SafeguardConfig()
-    calibration: Switch = Switch()       # conformal safeguard (not ported)
+    calibration: CalibrationConfig = CalibrationConfig()   # conformal safeguard
     control: Switch = Switch()           # multi-tenant control plane (not ported)
     obs: Switch = Switch()               # device telemetry rings (device engine only)
     window: int = 24                     # monitor window (ticks)
@@ -79,8 +86,6 @@ class SimConfig:
 
 
 def _check_ported(cfg: SimConfig) -> None:
-    if cfg.calibration.enabled:
-        raise NotImplementedError("conformal calibration is not ported yet")
     if cfg.control.enabled:
         raise NotImplementedError("the multi-tenant control plane is not ported yet")
     if cfg.forecaster not in ("gp", "arima", "persist", "oracle"):
@@ -155,13 +160,26 @@ def _oracle_peaks(cluster: Cluster, wl: Workload, horizon: int,
     return out
 
 
+def _f32(x, device: torch.device) -> torch.Tensor:
+    """A numpy input as float32 on ``device``, as the reference's
+    ``jnp.asarray`` with x64 off makes it."""
+    return torch.as_tensor(np.array(x, dtype=np.float32), device=device)
+
+
 def _shaped_demand(peak, req, var, sg: SafeguardConfig,
                    device: torch.device) -> np.ndarray:
-    """Eq. 9 on ``device`` over numpy inputs (float32, as the reference's
-    ``jnp.asarray`` with x64 off makes them)."""
-    def t(x):
-        return torch.as_tensor(np.array(x, dtype=np.float32), device=device)
-    return shaped_demand(t(peak), t(req), t(var), sg).cpu().numpy()
+    """Eq. 9 on ``device`` over numpy inputs."""
+    return shaped_demand(_f32(peak, device), _f32(req, device), _f32(var, device),
+                         sg).cpu().numpy()
+
+
+def _shaped_demand_scaled(peak, req, var, k1: float, scale,
+                          device: torch.device) -> np.ndarray:
+    """Eq. 9 with calibrated sigma multipliers on ``device`` over numpy
+    inputs; ``k1`` is an argument of the reference's compiled function,
+    so its contraction is never folded."""
+    return shaped_demand_scaled(_f32(peak, device), _f32(req, device), _f32(var, device),
+                                k1, _f32(scale, device)).cpu().numpy()
 
 
 class _PhaseClock:
@@ -186,9 +204,10 @@ class _PhaseClock:
 
 def _shape_decisions(cfg: SimConfig, cl: Cluster, wl: Workload, mon: Monitor,
                      fc, policy_fn, submit0: np.ndarray, run: np.ndarray,
-                     t: float, tick: float, device: torch.device):
-    """Forecast -> safeguard -> Algorithm 1 for one tick.  Returns numpy
-    (kill_app, kill_comp, alloc_cpu, alloc_mem)."""
+                     t: float, tick: float, device: torch.device, calib=None):
+    """Forecast -> safeguard -> Algorithm 1 for one tick; with a calibrator
+    the safeguard takes its scales and registers the deployed bounds.
+    Returns numpy (kill_app, kill_comp, alloc_cpu, alloc_mem)."""
     A, C = cl.A, cl.C
     gids = cl.slot_gid[run]
     req = np.stack([wl.cpu_req[gids], wl.mem_req[gids]], -1)  # (n,C,2)
@@ -214,10 +233,25 @@ def _shape_decisions(cfg: SimConfig, cl: Cluster, wl: Workload, mon: Monitor,
             vflat = np.concatenate([vmask, vmask])
             mean, var = fc(wflat, vflat)
             reqs = req[rc[0][sel], rc[1][sel]]     # (n, 2)
-            for r, off in ((CPU, 0), (MEM, n)):
-                demand[rc[0][sel], rc[1][sel], r] = _shaped_demand(
-                    mean[off:off + n], reqs[:, r], var[off:off + n],
-                    cfg.safeguard, device)
+            if calib is None:
+                for r, off in ((CPU, 0), (MEM, n)):
+                    demand[rc[0][sel], rc[1][sel], r] = _shaped_demand(
+                        mean[off:off + n], reqs[:, r], var[off:off + n],
+                        cfg.safeguard, device)
+            else:
+                # conformal safeguard: the calibrated scale of each row
+                # (the batch layout: CPU rows, then MEM rows) replaces K2
+                M = mon.count.shape[0]
+                rows = np.concatenate([mslots[sel], M + mslots[sel]])
+                scale = calib.scales(rows)
+                for r, off in ((CPU, 0), (MEM, n)):
+                    demand[rc[0][sel], rc[1][sel], r] = _shaped_demand_scaled(
+                        mean[off:off + n], reqs[:, r], var[off:off + n],
+                        cfg.safeguard.k1, scale[off:off + n], device)
+                sigma = sigma_from_var_np(var).astype(np.float32)
+                counts = np.concatenate([mon.count[mslots[sel]]] * 2)
+                calib.begin(rows, mean.astype(np.float32), sigma,
+                            scale.astype(np.float32), counts)
 
     # build the fixed-size ShapeProblem over ALL slots
     dem_full = np.zeros((A, C, 2), np.float32)
@@ -276,6 +310,13 @@ def run_sim(cfg: SimConfig, wl: Workload | None = None, *, forecast_fn=None,
     res = SimResults(n_apps=N)
     tick = cfg.cluster.tick
     all_comps = np.arange(C)[None, :]     # broadcast helper for mon resets
+    # online conformal calibration (oracle forecasts are exact: there is
+    # no residual distribution to calibrate)
+    calib = None
+    if cfg.calibration.enabled and cfg.forecaster != "oracle":
+        calib = OnlineCalibrator(n_series=2 * A * C, horizon=cfg.horizon,
+                                 fallback=cfg.safeguard.k2, cfg=cfg.calibration,
+                                 device=dev)
 
     queue: list[tuple[float, int]] = []   # (original submit, gid) sorted
     arrived = 0
@@ -321,6 +362,9 @@ def run_sim(cfg: SimConfig, wl: Workload | None = None, *, forecast_fn=None,
             rc = np.nonzero(cl.comp_running[run])  # (slot_i, c)
             mslots = run[rc[0]] * C + rc[1]
             mon.record(mslots, usage[run][rc][:, CPU], usage[run][rc][:, MEM])
+        if calib is not None:
+            calib.observe(np.concatenate([usage[:, :, CPU].ravel(),
+                                          usage[:, :, MEM].ravel()]), mon.count)
 
         # 4. shaping ------------------------------------------------------
         # two kill channels (paper §4.2): controlled preemptions
@@ -330,7 +374,7 @@ def run_sim(cfg: SimConfig, wl: Workload | None = None, *, forecast_fn=None,
         oom_failed_this_tick: list[int] = []
         if cfg.policy != "baseline" and run.size:
             kill_app, kill_comp, alloc_cpu, alloc_mem = _shape_decisions(
-                cfg, cl, wl, mon, fc, policy_fn, submit0, run, t, tick, dev)
+                cfg, cl, wl, mon, fc, policy_fn, submit0, run, t, tick, dev, calib)
 
             kills = np.nonzero(kill_app & (cl.slot_gid >= 0))[0]
             if kills.size:
@@ -388,6 +432,8 @@ def run_sim(cfg: SimConfig, wl: Workload | None = None, *, forecast_fn=None,
         # 7. metrics -------------------------------------------------------
         res.record_tick(t, cl, usage)
 
+    if calib is not None:
+        res.calibration = calib.report()
     res.finalize(t)
     res.timings = dict(clock.seconds, total=time.perf_counter() - t0,
                        ticks=ticks)

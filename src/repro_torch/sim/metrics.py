@@ -1,8 +1,8 @@
 """Simulation metrics (paper §4.1): turnaround, resource slack, failures.
 
 A copy of ``SimResults`` from ``repro/sim/metrics.py`` (numpy only),
-without the telemetry blocks of features not ported yet, plus the
-engines' wall times.
+with the calibration block and without the telemetry blocks of features
+not ported yet, plus the engines' wall times.
 """
 from __future__ import annotations
 
@@ -35,6 +35,9 @@ class SimResults:
     # forecast-load telemetry of the device engine (rows past the grace
     # period vs the rows the model computed); not part of summary()
     forecast_rows: dict | None = None
+    # online conformal-calibration telemetry, filled only when
+    # SimConfig.calibration is enabled (and part of summary() then)
+    calibration: dict | None = None
 
     def record_completion(self, gid: int, submit: float, t: float) -> None:
         self.turnaround[int(gid)] = float(t - submit)
@@ -64,7 +67,7 @@ class SimResults:
     # ------------------------------------------------------------------
     def summary(self) -> dict:
         ta = np.asarray(list(self.turnaround.values()), np.float64)
-        return {
+        out = {
             "completed": len(self.turnaround),
             "n_apps": self.n_apps,
             "sim_hours": self.sim_time / 3600.0,
@@ -81,3 +84,6 @@ class SimResults:
             "full_preemptions": self.full_preemptions,
             "partial_preemptions": self.partial_preemptions,
         }
+        if self.calibration is not None:
+            out["calibration"] = self.calibration
+        return out

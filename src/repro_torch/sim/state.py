@@ -9,7 +9,9 @@ anything back:
   * :class:`DeviceTrace` — the immutable workload columns, uploaded once
     per run;
   * :class:`SimState`    — everything that evolves per tick: slot table,
-    monitor rings, FIFO-queue membership, per-app telemetry, counters;
+    monitor rings, FIFO-queue membership, per-app telemetry, counters
+    and, with calibration on, the conformal score rings
+    (:class:`~repro_torch.core.uncertainty.CalibState`);
   * :class:`TickMetrics` — the per-tick outputs, stacked on the device
     and read at chunk boundaries;
   * :func:`drain_results` — folds one member's final state and metrics
@@ -18,9 +20,9 @@ anything back:
 Every tensor carries a leading member axis S where the reference adds a
 ``vmap`` axis for seed cohorts: a solo run has S = 1, a cohort stacks
 its members, and every phase and kernel treats members independently.
-Integer state is int32 as in the reference.  The reference's
-calibration, tenancy and telemetry rings are not ported, so ``calib``,
-``tenancy`` and ``obs`` are always ``None``.
+Integer state is int32 as in the reference.  The reference's tenancy
+and telemetry rings are not ported, so ``tenancy`` and ``obs`` are
+always ``None``; ``calib`` is ``None`` unless calibration is on.
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.core.uncertainty import CalibState, calib_init, calib_report
 from repro_torch.sim.metrics import SimResults
 
 CPU, MEM = 0, 1
@@ -109,8 +112,9 @@ class SimState:
     oom_kills: torch.Tensor            # (S,) i32
     full_preemptions: torch.Tensor     # (S,) i32
     partial_preemptions: torch.Tensor  # (S,) i32
+    # conformal calibration rings (None when calibration is off)
+    calib: CalibState | None = None
     # not ported: always None
-    calib: None = None
     tenancy: None = None
     obs: None = None
 
@@ -125,6 +129,9 @@ def init_state(cfg, n_apps: int, max_components: int, batch: int,
         return torch.zeros((S,) + shape, dtype=dtype, device=device)
 
     i32, f32, b = torch.int32, torch.float32, torch.bool
+    calib = None
+    if cfg.calibration.enabled and cfg.forecaster != "oracle":
+        calib = calib_init(2 * A * C, cfg.calibration, S, device)
     return SimState(
         slot_gid=torch.full((S, A), -1, dtype=i32, device=device),
         work_done=z(A, dtype=f32), comp_running=z(A, C, dtype=b),
@@ -135,7 +142,7 @@ def init_state(cfg, n_apps: int, max_components: int, batch: int,
         failed=z(N, dtype=b), finish_t=z(N, dtype=f32),
         saved_work=z(N, dtype=f32), has_saved=z(N, dtype=b),
         t=z(dtype=f32), failure_events=z(dtype=i32), oom_kills=z(dtype=i32),
-        full_preemptions=z(dtype=i32), partial_preemptions=z(dtype=i32))
+        full_preemptions=z(dtype=i32), partial_preemptions=z(dtype=i32), calib=calib)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -161,7 +168,8 @@ class TickMetrics:
 def drain_results(cfg, wl, state: dict, metrics: dict) -> SimResults:
     """Fold one member's final state and per-step metrics into
     ``SimResults``.  ``state`` and ``metrics`` map field names to numpy
-    arrays of that member (metrics with a leading step axis).
+    arrays of that member (metrics with a leading step axis; the
+    calibration state's fields as ``calib.<name>``).
 
     Each step stands for ``lead`` skipped idle ticks (all-zero metrics:
     the cluster and the queue were empty) followed by its own tick when
@@ -212,5 +220,8 @@ def drain_results(cfg, wl, state: dict, metrics: dict) -> SimResults:
     res.oom_kills = int(state["oom_kills"])
     res.full_preemptions = int(state["full_preemptions"])
     res.partial_preemptions = int(state["partial_preemptions"])
+    calib = {k[len("calib."):]: v for k, v in state.items() if k.startswith("calib.")}
+    if calib:
+        res.calibration = calib_report(calib, cfg.calibration)
     res.finalize(float(state["t"]))
     return res

@@ -55,8 +55,18 @@ a chunk is a fixed number of steps over a variable number of ticks, and
 as the GP is: one ``kernels/csrc/arima_forecast.cu`` launch a tick over
 the ready rows.
 
-Not ported, and refused: calibration, the control plane, the telemetry
-rings and streamed workloads; ``run_fleet_shard``.
+With ``calibration`` enabled (and a forecaster other than oracle) the
+state carries the conformal score rings (``SimState.calib``): after
+monitor sampling one ``calib_observe`` launch resolves the predictions
+that come due; the safeguard's scales are one ``conformal_scale`` launch
+(the quantiles of the warm rings and the pools) and one ``calib_begin``
+launch (the fallback hierarchy and the registration of the deployed
+predictions), all three in ``kernels/csrc/calib.cu``, so a calibrated
+chunk is one captured graph too.  Leap holds its skip while a score is
+pending.
+
+Not ported, and refused: the control plane, the telemetry rings and
+streamed workloads; ``run_fleet_shard``.
 The reference's bucket telemetry (``forecast.bucket_*`` counters of its
 metrics registry) is not ported either.
 """
@@ -72,8 +82,9 @@ import torch
 from repro_torch.core.forecast import peak_over_horizon
 from repro_torch.core.forecast.base import persistence_peak
 from repro_torch.core.shaper import (POLICIES, ShapeDecision, ShapeProblem,
-                                     shaped_demand)
+                                     shaped_demand, shaped_demand_scaled)
 from repro_torch.core.shaper.pessimistic import gather_rows as _rows
+from repro_torch.core.uncertainty import calib_observe, calib_scales_begin
 from repro_torch.device import resolve_device
 from repro_torch.kernels import nvcc
 from repro_torch.kernels import ops as kops
@@ -261,11 +272,14 @@ def _bucketed_forecast(cfg, model, flat_w: torch.Tensor, flat_v: torch.Tensor,
 
 def _shaped_demands(cfg, model, tr: DeviceTrace, st: SimState, tick: float,
                     bucket: torch.Tensor | None = None):
-    """(S, A, C, 2) shaped demand table, the forecast rows past the grace
-    period this tick and the rows the forecast model computed.
+    """(S, A, C, 2) shaped demand table, the state (its calibration
+    updated), the forecast rows past the grace period this tick and the
+    rows the forecast model computed.
 
     Running components default to their reservation; components past the
-    grace period get ``clip(peak + beta, 0, request)``.  Bucketed
+    grace period get ``clip(peak + beta, 0, request)``, with the
+    calibrated scale in place of K2 when calibration is on (the rows past
+    the grace period then register their predictions).  Bucketed
     (:func:`_bucketed`), the gp or arima forecast runs over the ready rows only,
     and ``bucket`` is the chunk's bucket, a 0-d int32 device tensor.
     Otherwise it runs over every monitor row and non-ready rows are
@@ -286,7 +300,7 @@ def _shaped_demands(cfg, model, tr: DeviceTrace, st: SimState, tick: float,
         peaks = _oracle_peaks(tr, st, cfg.horizon, tick)
         shaped = _fma(req, np.float32(cfg.safeguard.k1), peaks)
         shaped = torch.minimum(torch.clamp_min(shaped, 0.0), req)
-        return torch.where(run[..., None], shaped, demand), zero, zero
+        return torch.where(run[..., None], shaped, demand), st, zero, zero
 
     W = st.mon_buf.shape[2]
     ready = run.reshape(S, AC) & (st.mon_count >= cfg.grace)
@@ -305,13 +319,20 @@ def _shaped_demands(cfg, model, tr: DeviceTrace, st: SimState, tick: float,
         mean, var = (x.float() for x in peak_over_horizon(fc))
         fc_done = torch.where(ready.any(-1), 2 * AC, 0).int()
     req_rows = torch.cat([req[..., CPU].reshape(S, AC), req[..., MEM].reshape(S, AC)], 1)
-    shaped = shaped_demand(mean.reshape(S, 2 * AC), req_rows, var.reshape(S, 2 * AC),
-                           cfg.safeguard)
+    mean, var = mean.reshape(S, 2 * AC), var.reshape(S, 2 * AC)
+    if st.calib is None:
+        shaped = shaped_demand(mean, req_rows, var, cfg.safeguard)
+    else:
+        scale, calib = calib_scales_begin(st.calib, cfg.calibration, cfg.safeguard.k2,
+                                          ready, mean, var, st.mon_count, cfg.horizon)
+        shaped = shaped_demand_scaled(mean, req_rows, var, cfg.safeguard.k1, scale,
+                                      k1_folded=True)
+        st = dataclasses.replace(st, calib=calib)
     rows = torch.where(torch.cat([ready, ready], 1), shaped, 0.0)
     shaped_tbl = torch.stack([rows[:, :AC].reshape(S, A, C),
                               rows[:, AC:].reshape(S, A, C)], -1)
     fc_rows = (2 * ready.sum(-1)).int()
-    return (torch.where(ready.reshape(S, A, C, 1), shaped_tbl, demand), fc_rows,
+    return (torch.where(ready.reshape(S, A, C, 1), shaped_tbl, demand), st, fc_rows,
             fc_done)
 
 
@@ -464,11 +485,15 @@ def fused_tick(cfg, model, tr: DeviceTrace, st: SimState, host_cap: torch.Tensor
     prog = torch.clamp(st.work_done / _rows(tr.runtime, _gid(st)), 0.0, 1.0)
     usage = _usage_at(tr, st, prog)
     st = _record_monitor(st, usage)
+    if st.calib is not None:
+        S, AC = st.mon_count.shape
+        st = dataclasses.replace(st, calib=calib_observe(
+            st.calib, usage.reshape(S, AC, 2), st.mon_count, cfg.calibration, active))
 
     # 4. shaping (the baseline policy never shapes)
     zero = fc_rows = fc_done = torch.zeros_like(st.oom_kills)
     if cfg.policy != "baseline":
-        demand, fc_rows, fc_done = _shaped_demands(cfg, model, tr, st, tick, bucket)
+        demand, st, fc_rows, fc_done = _shaped_demands(cfg, model, tr, st, tick, bucket)
         dec = _decide(cfg.policy, _shape_problem(tr, st, demand, t, host_cap))
         st, usage, conflict, resets4 = _apply_decision(cfg, tr, st, dec, usage)
         st = dataclasses.replace(st, failed=st.failed | conflict,
@@ -506,32 +531,30 @@ def fused_leap(cfg, model, tr: DeviceTrace, st: SimState, host_cap: torch.Tensor
     reference's ``fused_leap``).
 
     The skip is ``ops.leap_skip`` (one kernel launch on the card, which
-    reads nothing back): while the cluster and the queue are empty and
-    the next arrival lies beyond ``t + tick``, the clock advances by the
+    reads nothing back): while the cluster and the queue are empty, no
+    calibration score is pending and the next arrival lies beyond ``t +
+    tick``, the clock advances by the
     uniform engine's own float32 additions, so every later tick sees the
     uniform engine's clock to the bit.  ``left`` (S,) int32 is each
     member's remaining tick budget; it caps the skip and gates the tick,
     which always executes and is kept only where the member is not done
     and has budget left after the skip (``run``), field by field.  A
-    member that is done or out of budget is a no-op.  The reference also
-    holds the skip while calibration scores are pending (``calib.left ==
-    0``); the port's calibration state is always None, so that guard
-    always holds here.  Returns (state,
+    member that is done or out of budget is a no-op.  Returns (state,
     ``left - lead - run``, metrics), the metrics' ``lead`` holding the
     ticks skipped."""
     t, lead = kops.leap_skip(st.slot_gid, st.queued, st.arrived, tr.submit, st.done,
-                             st.t, left, cfg.cluster.tick)
+                             st.t, left, cfg.cluster.tick,
+                             None if st.calib is None else st.calib.left)
     st = dataclasses.replace(st, t=t)
     # left - lead > 0 implies left > 0: the reference's `active` gate
     run = ~st.done.all(-1) & (left - lead > 0)
     st2, m = fused_tick(cfg, model, tr, st, host_cap, bucket)
-    kept = {}
-    for name, old in _tensors(st).items():
-        new = getattr(st2, name)
-        kept[name] = old if new is old else torch.where(
-            run.view(-1, *(1,) * (old.dim() - 1)), new, old)
+    new = _tensors(st2)
+    kept = {name: old if new[name] is old else torch.where(
+                run.view(-1, *(1,) * (old.dim() - 1)), new[name], old)
+            for name, old in _tensors(st).items()}
     m = dataclasses.replace(m, valid=m.valid & run, lead=lead)
-    return dataclasses.replace(st, **kept), left - lead - run.int(), m
+    return _replace(st, kept), left - lead - run.int(), m
 
 
 # ----------------------------------------------------------------------
@@ -549,11 +572,32 @@ def _check_scan(cfg) -> None:
 _METRICS = [f.name for f in dataclasses.fields(TickMetrics)]
 
 
-def _tensors(obj) -> dict[str, torch.Tensor]:
-    """The tensor fields of a state or trace by name (the fields that are
-    not ported are None)."""
-    return {f.name: getattr(obj, f.name) for f in dataclasses.fields(obj)
-            if getattr(obj, f.name) is not None}
+def _tensors(obj, prefix: str = "") -> dict[str, torch.Tensor]:
+    """Every tensor of a state or trace by name, those of a nested state
+    (``SimState.calib``) as ``calib.<field>``; fields that are None (not
+    ported, or off) are left out."""
+    out = {}
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        if dataclasses.is_dataclass(v):
+            out.update(_tensors(v, f"{prefix}{f.name}."))
+        elif v is not None:
+            out[prefix + f.name] = v
+    return out
+
+
+def _replace(obj, tensors: dict[str, torch.Tensor]):
+    """``obj`` with its tensors taken from ``tensors``, named as
+    :func:`_tensors` names them."""
+    kw = {}
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        if dataclasses.is_dataclass(v):
+            kw[f.name] = _replace(v, {k[len(f.name) + 1:]: t for k, t in tensors.items()
+                                      if k.startswith(f.name + ".")})
+        elif v is not None:
+            kw[f.name] = tensors[f.name]
+    return dataclasses.replace(obj, **kw)
 
 
 def _chunk_program(cfg, model, tr: DeviceTrace, st: SimState, size: int,
@@ -576,8 +620,9 @@ def _chunk_program(cfg, model, tr: DeviceTrace, st: SimState, size: int,
         else:
             cur, m = fused_tick(cfg, model, tr, cur, host_cap, bucket)
         metrics.append(m)
+    final = _tensors(cur)
     for name, dst in _tensors(st).items():
-        dst.copy_(getattr(cur, name))
+        dst.copy_(final[name])
     if cfg.leap:
         left.copy_(lft)
     return {f: torch.stack([getattr(m, f) for m in metrics], -1) for f in _METRICS}
@@ -615,6 +660,11 @@ def _sync_errors():
         torch.cuda.set_sync_debug_mode(prev)
 
 
+def _clone(obj):
+    """A copy of a state or trace whose tensors are copies."""
+    return _replace(obj, {k: v.clone() for k, v in _tensors(obj).items()})
+
+
 @dataclasses.dataclass(eq=False)
 class _Graph:
     """One captured chunk program and what its replays need."""
@@ -648,8 +698,8 @@ class _ChunkGraphs:
     def __init__(self, cfg, model, tr: DeviceTrace, st: SimState,
                  host_cap: torch.Tensor, chunk: int):
         self.cfg, self.model, self.chunk = cfg, model, chunk
-        self.tr = DeviceTrace(**{k: v.clone() for k, v in _tensors(tr).items()})
-        self.st = SimState(**{k: v.clone() for k, v in _tensors(st).items()})
+        self.tr = _clone(tr)
+        self.st = _clone(st)
         self.host_cap = host_cap.clone()
         self.device = host_cap.device
         self.bucket = _full_bucket(st)
@@ -663,17 +713,16 @@ class _ChunkGraphs:
         # and fills the allocator; its launches run, and count
         self.stream.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(self.stream):
-            _chunk_program(cfg, model, self.tr,
-                           SimState(**{k: v.clone() for k, v in _tensors(self.st).items()}),
-                           1, self.host_cap, self.bucket,
+            _chunk_program(cfg, model, self.tr, _clone(self.st), 1, self.host_cap, self.bucket,
                            None if self.left is None else self.left.clone())
         torch.cuda.synchronize(self.device)
 
     def load(self, tr: DeviceTrace, st: SimState, host_cap: torch.Tensor) -> None:
         """Copy a run's trace, initial state and capacities in."""
         for src, dst in ((tr, self.tr), (st, self.st)):
+            got = _tensors(src)
             for name, x in _tensors(dst).items():
-                x.copy_(getattr(src, name))
+                x.copy_(got[name])
         self.host_cap.copy_(host_cap)
 
     def _capture(self, size: int) -> _Graph:
@@ -828,8 +877,7 @@ def _run(cfgs, wls, chunk: int, dev: torch.device) -> list[SimResults]:
     st = init_state(cfg, wls[0].n_apps, wls[0].max_components, len(wls), dev)
     drive = _drive_chunks_leap if cfg.leap else _drive_chunks
     st, metrics, ticks = drive(cfg, _make_model(cfg), tr, st, chunk, host_capacity(cfg, dev))
-    state = {f.name: getattr(st, f.name).cpu().numpy()
-             for f in dataclasses.fields(SimState) if getattr(st, f.name) is not None}
+    state = {k: v.cpu().numpy() for k, v in _tensors(st).items()}
     seconds = time.perf_counter() - t0
     out = []
     for i, (c, w) in enumerate(zip(cfgs, wls)):
