@@ -49,6 +49,17 @@ points:
     heavytail at 500 apps for 320 ticks; card against CPU with persist
     over 160 ticks (equal, else the phase fails) and with the GP over 96
     (a finding where they differ);
+  * the multi-tenant control plane (phase 5h): SimConfig(workload=
+    WorkloadConfig(n_tenants=4), control=TenancyConfig(enabled=True),
+    calibration as phase 5g's) on the device engine to completion through
+    replayed graphs, one control_tick launch a tick counted against the
+    graphs' kernel nodes, kernels a tick and ticks/s in turns against the
+    same run with the control plane off; the host engine capped at 240
+    ticks; card against CPU with persist over 160 ticks (equal, else the
+    phase fails) and with the GP over 96 (a finding); the reference's two
+    tenancy cells (benchmarks/tenancy.py: fairness in its ungated, wdrf
+    and credit modes, per-tenant coverage), their Jain indices and
+    coverage printed beside the reference's criteria;
   * Whisper-large-v3 serving at full width (random weights from a seeded
     generator on the card): 8 requests of 1,500 frames prefilled with 448
     teacher-forced tokens through the tensor-core flash kernel (bf16,
@@ -78,7 +89,14 @@ conformal_scale, generic and in the engine's shaping step with
 calib_begin) on seeded full-width members, counts from 0 to past the
 capacity, a tick that resolves more scores than the pool holds, ties,
 signed zeros and NaN, the pool or the adaptive step off, a 3-member
-cohort, 20 and 40 rows and a capacity of 256, each bit for bit.
+cohort, 20 and 40 rows and a capacity of 256, each bit for bit; and the
+control plane's kernels: control_tick on seeded full-width members (T =
+1, 4 and 8, a tenant with no event, conflicts, weights, every tenant
+gated, zero shares, the credit or the gate off, a 3-member cohort), the
+admission kernel with the gate on every admission case (T = 1, 4, 8;
+every tenant gated, every tenant eligible) and the calibration kernels'
+per-tenant tier (full width, T = 4 and 8, credit on and off, a 3-member
+cohort), each bit for bit.
 It then times each kernel against its plain version, its bound and,
 where one PyTorch call computes the same function, that call; the
 device engine's kernels also by their device and host time per call
@@ -1519,7 +1537,7 @@ KERNEL_OF = {"pessimistic_pass": "pessimistic_pass_kernel", "resolve_oom": "reso
              "gp_fit_forecast": "gp_forecast_kernel", "fma_f32": "fma_f32_kernel",
              "leap_skip": "leap_skip_kernel", "arima_forecast": "arima_forecast_kernel",
              "calib_observe": "calib_observe_kernel", "conformal_scale": "conformal_scale_kernel",
-             "calib_begin": "calib_begin_kernel"}
+             "calib_begin": "calib_begin_kernel", "control_tick": "control_tick_kernel"}
 
 
 class KernelNodeParams(ctypes.Structure):
@@ -2949,6 +2967,502 @@ def time_calib(calib, ref, CalibrationConfig) -> tuple[dict, float]:
     return out, err
 
 
+# ----------------------------------------------------------------------
+# the multi-tenant control plane: control_tick, the gated admission and
+# the calibration's per-tenant tier
+# ----------------------------------------------------------------------
+
+CONTROL_CPU_TICKS = 160      # the tenanted persist run held card against CPU
+CONTROL_GP_CPU_TICKS = 96    # the tenanted GP run held card against CPU (a finding)
+CONTROL_KW = dict(credit_on=True, gate_on=True, gamma=0.1, floor=0.05, slack=0.1)
+JAIN_WDRF, JAIN_UNGATED, COVERAGE_TOL = 0.9, 0.8, 0.03   # benchmarks/tenancy.py's criteria
+
+
+def control_member(rng, T, *, N=500, A=128, C=12, events=True, zero=False,
+                   conflicts=False):
+    """One member's control_tick inputs at the engine's widths (numpy, in
+    ref.control_tick's order up to the slot table): tenants of N apps
+    drawn from T, the tick's completions, OOM kills and (optimistic)
+    conflicts, queued apps, per-tenant conformal resolutions, A slots of C
+    components holding seeded allocations (all zero with ``zero``); the
+    last tenant (T > 1) has no event."""
+    tenant = rng.integers(0, T, N).astype(np.int32)
+    quiet = (tenant == T - 1) if T > 1 else np.zeros(N, bool)
+    p = 0.05 if events else 0.0
+    done0 = rng.random(N) < 0.3
+    done = done0 | (~quiet & (rng.random(N) < p))
+    queued0 = ~done & (rng.random(N) < 0.2)
+    queued = queued0 | (~done & ~quiet & (rng.random(N) < p))
+    conflict = (~done & ~queued & ~quiet & (rng.random(N) < p)) if conflicts else None
+    slot_gid = np.where(rng.random(A) < 0.8, rng.choice(N, A, replace=False), -1).astype(
+        np.int32)
+    alloc = (rng.choice([0.0, 0.25, 0.5, 1.0, 2.0, 4.0], (A, C, 2))
+             * (slot_gid >= 0)[:, None, None] * (not zero)).astype(np.float32)
+    d_res = np.where(np.arange(T) == T - 1 if T > 1 else False, 0,
+                     rng.integers(0, 40, T) if events else 0).astype(np.int32)
+    d_err = rng.integers(0, d_res + 1).astype(np.int32)
+    state = [rng.uniform(0.05, 1, T).astype(np.float32)] + [
+        rng.integers(0, 50, T).astype(np.int32) for _ in range(3)] + [
+        rng.uniform(0, 40, T).astype(np.float32), rng.integers(0, 300, T).astype(np.int32)]
+    return state + [done0, done, queued0, queued, conflict, d_res, d_err, tenant, slot_gid,
+                    alloc]
+
+
+def control_case(members, T, H=50, weights=None):
+    """control_tick's arguments (CPU tensors) for ``members`` stacked on
+    the member axis, the engine's host capacities and the wDRF weights."""
+    import torch
+    cols = []
+    for i in range(len(members[0])):
+        col = [m[i] for m in members]
+        cols.append(None if col[0] is None else torch.as_tensor(np.stack(col)))
+    cap = torch.tensor([[32.0, 128.0]]).expand(H, 2).contiguous()
+    w = torch.ones(T) if weights is None else torch.as_tensor(weights, dtype=torch.float32)
+    return cols + [cap, w]
+
+
+def control_cases():
+    """(name, args, kw) of phase 3's control_tick checks: seeded full-width
+    members with T = 1, 4 and 8, a tenant with no event in each; the
+    optimistic policy's conflicts; non-unit weights; every active tenant
+    gated (a negative slack); zero shares; the credit off; the gate off;
+    a 3-member cohort."""
+    rng = np.random.default_rng(24)
+    cases = [(f"full width, T = {T}", control_case([control_member(rng, T)], T), CONTROL_KW)
+             for T in (1, 4, 8)]
+    cases += [
+        ("T = 8 with optimistic conflicts",
+         control_case([control_member(rng, 8, conflicts=True)], 8), CONTROL_KW),
+        ("T = 8, weights 0.5 to 3",
+         control_case([control_member(rng, 8)], 8, weights=rng.choice([0.5, 1, 2, 3], 8)),
+         CONTROL_KW),
+        ("T = 4, every active tenant gated (slack -1)",
+         control_case([control_member(rng, 4)], 4), dict(CONTROL_KW, slack=-1.0)),
+        ("T = 4, zero shares", control_case([control_member(rng, 4, zero=True)], 4),
+         CONTROL_KW),
+        ("T = 4, no event", control_case([control_member(rng, 4, events=False)], 4),
+         CONTROL_KW),
+        ("T = 8, the credit off", control_case([control_member(rng, 8)], 8),
+         dict(CONTROL_KW, credit_on=False)),
+        ("T = 8, the gate off", control_case([control_member(rng, 8)], 8),
+         dict(CONTROL_KW, gate_on=False)),
+        ("a 3-member cohort, T = 4",
+         control_case([control_member(rng, 4, zero=i == 1) for i in range(3)], 4),
+         CONTROL_KW)]
+    return cases
+
+
+def check_control(control, ref) -> float:
+    """Phase 3: control_tick on the card against its plain version, every
+    output bit for bit."""
+    for name, args, kw in control_cases():
+        want = ref.control_tick(*args, **kw)
+        got = control.control_tick(*(a.cuda() if a is not None else None for a in args), **kw)
+        for k, g, w in zip(("credit", "throttled", "completed", "failed", "share_sum",
+                            "active_ticks", "elig"), got, want):
+            assert _same(g, w), f"control_tick, {name}: {k} differs"
+        log(f"  control_tick, {name}: kernel == plain, every output bit for bit; eligible "
+            f"{want[6].sum(1).tolist()} of {want[6].shape[1]}, throttled "
+            f"{(want[1] - args[1]).sum().item()}, credit moved "
+            f"{int((want[0] != args[0]).sum())}")
+    return 0.0
+
+
+def gate_args(rng, args, T, mode="half"):
+    """The gate's three arguments for an admission case of S members:
+    seeded tenants of its apps from T, the eligible tenants (half, none or
+    all), seeded admitted counts."""
+    import torch
+    S, N = args[0].shape
+    elig = {"half": rng.random((S, T)) < 0.5, "none": np.zeros((S, T), bool),
+            "all": np.ones((S, T), bool)}[mode]
+    return (torch.as_tensor(rng.integers(0, T, (S, N)).astype(np.int32)),
+            torch.as_tensor(elig), torch.as_tensor(rng.integers(0, 9, (S, T)).astype(np.int32)))
+
+
+def check_gated_admit(sched, ref, cases) -> float:
+    """Phase 3: the admission kernel with the control plane's gate against
+    its plain version on every admission case of the scan kernels'
+    checks (full-width captured states, seeded tables, edge members),
+    T = 1, 4 and 8 in turn, half the tenants eligible; every tenant gated
+    and every tenant eligible on the captured states; every output bit for
+    bit, the admitted counts included."""
+    import torch
+    rng = np.random.default_rng(25)
+    admitted = n = 0
+    for i, args in enumerate(cases["admit_queued"]):
+        modes = ["half"] + (["none", "all"] if args[0].shape[1] == 500 and i % 4 == 0 else [])
+        for mode in modes:
+            gate = gate_args(rng, args, (1, 4, 8)[i % 3], mode)
+            cpu = tuple(args) + gate
+            want = ref.admit_queued(*cpu)
+            got = sched.admit_queued(*(a.cuda() if isinstance(a, torch.Tensor) else a
+                                       for a in cpu))
+            for k, (g, w) in enumerate(zip(got, want)):
+                assert _same(g, w), f"gated admit_queued, case {i} ({mode}): output {k} differs"
+            if mode == "none":
+                assert torch.equal(want[6], args[12]), "a gated tenant admitted"
+            admitted += int((want[9] - gate[2]).sum())
+            n += 1
+    log(f"  admit_queued with the gate: {n} cases, kernel == plain, every output bit for bit "
+        f"(the admitted counts too); {admitted} admissions")
+    assert admitted > 0
+    return 0.0
+
+
+def calib_tier(rng, st, T, *, gcap=256, A=128, N=500):
+    """The per-tenant tier over a phase-3 calibration state (S members of R
+    rows): group rings of T tenants (counts 0 to 3 x gcap), each row's
+    deploy group (-1 for a fifth), counters; and the slot table it reads,
+    A slots of R / 2A components with tenants of N apps, and the credit."""
+    S, R = st["ring_count"].shape
+    counts = rng.choice([0, 5, 16, gcap, gcap + 7, 3 * gcap], (S, T)).astype(np.int32)
+    tier = dict(group_ring=np.stack([score_rings(rng, T, gcap, c) for c in counts]),
+                group_count=counts,
+                group=np.where(rng.random((S, R)) < 0.2, -1,
+                               rng.integers(0, T, (S, R))).astype(np.int32),
+                group_resolved=rng.integers(0, 999, (S, T)).astype(np.int32),
+                group_errors=rng.integers(0, 99, (S, T)).astype(np.int32))
+    table = dict(slot_gid=np.where(rng.random((S, A)) < 0.8, rng.integers(0, N, (S, A)),
+                                   -1).astype(np.int32),
+                 tenant=rng.integers(0, T, (S, N)).astype(np.int32),
+                 credit=rng.uniform(0.05, 1, (S, T)).astype(np.float32))
+    return tier, table
+
+
+TIER = ("group_ring", "group_count", "group", "group_resolved", "group_errors")
+
+
+def tier_args(st, tick, tier, table, dev, *, credit=True, spread=0.05, cfg=None):
+    """(observe's arguments with the tier, calib_scales' with it) on dev."""
+    import torch
+    T_ = lambda x: torch.as_tensor(x).to(dev)  # noqa: E731
+    obs = observe_args(st, tick, dev) + [tuple(T_(tier[k]) for k in TIER)]
+    scales = scales_args(st, tick, dev) + [(
+        T_(table["credit"]) if credit else None, T_(table["tenant"]), T_(table["slot_gid"]),
+        T_(tier["group_ring"]), T_(tier["group_count"]), T_(tier["group"]), spread,
+        cfg.q_min, cfg.q_max)]
+    return obs, scales
+
+
+def tier_cases(CalibrationConfig):
+    """(name, state, tick, tier, slot table, config) of phase 3's checks of
+    the calibration's per-tenant tier."""
+    cfg = calib_config(CalibrationConfig)
+    rng = np.random.default_rng(26)
+    cases = []
+    for seed, warm, T in ((0, False, 4), (1, True, 8), (2, False, 8)):
+        st, tick = calib_state(20 + seed, warm=warm, due_share=0.9 if seed == 2 else 0.35)
+        cases.append((f"full width (3,072 rows), T = {T}, "
+                      f"{'warm' if warm else 'counts 0 to 3 x capacity'}"
+                      f"{', 90% of the rows due' if seed == 2 else ''}",
+                      st, tick, *calib_tier(rng, st, T), cfg))
+    small = calib_config(CalibrationConfig, capacity=16, pool_capacity=8, min_scores=4,
+                         group_capacity=8)
+    st, tick = calib_state(23, S=3, M=200, cap=16, pcap=8)
+    cases.append(("a 3-member cohort (the third done), capacity 16, group rings of 8",
+                  st, tick, *calib_tier(rng, st, 4, gcap=8, A=50, N=60), small))
+    return cases
+
+
+def check_calib_tier(calib, ref, CalibrationConfig) -> float:
+    """Phase 3: the three calibration kernels with the per-tenant tier
+    against their plain versions: calib_observe (the group rings, their
+    counts and the tick's per-tenant deltas) and the engine's shaping step
+    (the quantiles at the credit-modulated levels, the series -> group ->
+    pool -> K2 fallback, the rows' groups), with the credit and without,
+    every output bit for bit."""
+    import torch
+    kw = lambda c: dict(pool_on=c.pool, adaptive=c.adaptive, gamma=c.gamma,  # noqa: E731
+                        budget=c.budget, q_min=c.q_min, q_max=c.q_max)
+    for name, st, tick, tier, table, cfg in tier_cases(CalibrationConfig):
+        for credit in (True, False):
+            ocpu, scpu = tier_args(st, tick, tier, table, "cpu", credit=credit, cfg=cfg)
+            want = ref.calib_observe(*ocpu, **kw(cfg))
+            got = calib.calib_observe(*(a.cuda() for a in ocpu[:-1]),
+                                      tuple(a.cuda() for a in ocpu[-1]), **kw(cfg))
+            assert len(got) == len(want) == 16
+            for k, (g, w) in enumerate(zip(got, want)):
+                assert _same(g, w), f"calib_observe with the tier, {name}: output {k} differs"
+            skw = dict(min_scores=cfg.min_scores, pool_on=cfg.pool, horizon=3)
+            want2 = ref.calib_scales(*scpu, **skw)
+            to = lambda a: a.cuda() if isinstance(a, torch.Tensor) else a  # noqa: E731
+            got2 = calib.calib_scales(*(to(a) for a in scpu[:-1]),
+                                      tuple(to(a) for a in scpu[-1]), **skw)
+            assert len(got2) == len(want2) == 10
+            for k, (g, w) in enumerate(zip(got2, want2)):
+                assert _same(g, w), f"calib_scales with the tier, {name}: output {k} differs"
+        warm = (np.minimum(tier["group_count"], tier["group_ring"].shape[2])
+                >= cfg.min_scores)
+        log(f"  calib_observe, conformal_scale and calib_begin with the per-tenant tier, "
+            f"{name}: kernels == plain, every output bit for bit (credit on and off); "
+            f"resolved per tenant {want[14].tolist()}, warm group rings {int(warm.sum())}")
+    return 0.0
+
+
+def tenancy_config(SimConfig, WorkloadConfig, TenancyConfig, CalibrationConfig, **over):
+    """Phase 5h's full-width path: 500 apps of 4 tenants, the control plane
+    on, conformal calibration as phase 5g's."""
+    return SimConfig(workload=WorkloadConfig(n_tenants=4),
+                     control=TenancyConfig(enabled=True),
+                     calibration=calib_config(CalibrationConfig), **over)
+
+
+def control_launches(control, calib, sched) -> dict:
+    return {"control_tick": control.control_tick.launches,
+            "admit_queued": sched.admit_queued.launches, **calib_launches(calib)}
+
+
+def tenancy_cells(step, scenarios, SimConfig, ClusterConfig, TenancyConfig,
+                  CalibrationConfig) -> None:
+    """The reference's own tenancy cells (benchmarks/tenancy.py) at their
+    sizes on the device engine: the fairness cell in its ungated, wdrf and
+    credit modes and the coverage cell, their Jain indices and per-tenant
+    coverage printed beside the reference's criteria (findings, not
+    gates); every app completes."""
+    import torch
+    wl = scenarios.make_config("colocated", n_apps=128, max_components=4, n_tenants=4,
+                               tenant_skew=1.0, seed=1, mean_gap=5.0, svc_min_runtime=1800.0,
+                               svc_max_runtime=7200.0, batch_min_runtime=900.0,
+                               batch_max_runtime=3600.0)
+    base = SimConfig(cluster=ClusterConfig(n_hosts=3, max_running_apps=24), workload=wl,
+                     policy="baseline", max_ticks=20000)
+    modes = {"ungated": TenancyConfig(enabled=True, gate=False, credit=False),
+             "wdrf": TenancyConfig(enabled=True, gate=True, credit=False, slack=0.02),
+             "credit": TenancyConfig(enabled=True, gate=True, credit=True, slack=0.02)}
+    jain = {}
+    for name, ctl in modes.items():
+        t = time.perf_counter()
+        res = step.run_sim_scan(dataclasses.replace(base, control=ctl), device="cuda")
+        torch.cuda.synchronize()
+        ten = res.tenancy
+        jain[name] = ten["jain_mean_share"]
+        log(f"  fairness cell (colocated, 128 apps, 4 tenants, skew 1.0, 3 hosts, 24 slots, "
+            f"baseline), {name}: {res.timings['ticks']} ticks in {time.perf_counter() - t:.3f} "
+            f"s (capture included); Jain {ten['jain_mean_share']}, mean share "
+            f"{ten['mean_share']}, throttled {ten['throttled']}, completed "
+            f"{sum(ten['completed'])}, turnaround mean {ten['turnaround_mean']}")
+        assert sum(ten["completed"]) == 128, f"{name}: the gate must defer work, not lose it"
+    log(f"  FINDING fairness cell: Jain wdrf {jain['wdrf']} (the reference's criterion >= "
+        f"{JAIN_WDRF}: {jain['wdrf'] >= JAIN_WDRF}), ungated {jain['ungated']} (< "
+        f"{JAIN_UNGATED}: {jain['ungated'] < JAIN_UNGATED}), credit {jain['credit']}")
+    cal = CalibrationConfig(enabled=True, adaptive=True)
+    wl = scenarios.make_config("heavytail", n_apps=128, max_components=6, n_tenants=2,
+                               tenant_skew=0.0, seed=0, mean_gap=20.0, max_runtime=14400.0)
+    cfg = SimConfig(cluster=ClusterConfig(n_hosts=4, max_running_apps=32), workload=wl,
+                    policy="pessimistic", forecaster="persist", max_ticks=40000,
+                    calibration=cal, control=TenancyConfig(enabled=True))
+    t = time.perf_counter()
+    res = step.run_sim_scan(cfg, device="cuda")
+    torch.cuda.synchronize()
+    groups = res.calibration["groups"]
+    covs = [c for c in groups["coverage"] if c is not None]
+    dev = max(abs(c - (1 - cal.budget)) for c in covs)
+    log(f"  coverage cell (heavytail, 128 apps, 2 tenants, persist, adaptive calibration): "
+        f"{res.timings['ticks']} ticks in {time.perf_counter() - t:.3f} s (capture "
+        f"included); completed {res.summary()['completed']}, q_target "
+        f"{res.calibration['q_target']}, resolved {groups['resolved'][:2]}")
+    log(f"  FINDING coverage cell: per-tenant coverage {covs} against the nominal "
+        f"{1 - cal.budget:.2f}, largest deviation {dev:.4f} (the reference's criterion <= "
+        f"{COVERAGE_TOL}: {dev <= COVERAGE_TOL})")
+    assert res.summary()["completed"] == 128, res.summary()
+
+
+def run_tenancy(step, scenarios, SimConfig, WorkloadConfig, ClusterConfig, TenancyConfig,
+                CalibrationConfig, run_sim, control, calib, sched) -> dict:
+    """Phase 5h: the multi-tenant control plane on the card.  The
+    full-width tenanted, calibrated path (tenancy_config) on the device
+    engine to completion through replayed graphs (a 64-tick run captures
+    first), every chunk sync-free, one control_tick launch a tick and the
+    admission and calibration kernels once a tick, the counts (set to 0
+    just before the run, read just after) equal to replays x each kernel's
+    nodes; kernels a tick and ticks/s in turns against the same run with
+    the control plane off (the same trace but its tenant column: the
+    tenant draw comes last); the host engine capped at MAIN_PATH_TICKS;
+    persist card against CPU over CONTROL_CPU_TICKS (any difference
+    fails), GP over CONTROL_GP_CPU_TICKS (a finding); then the reference's
+    tenancy cells (tenancy_cells).  Prints the seconds of each step.
+    Returns the main run's launch counts."""
+    import torch
+    cfg = tenancy_config(SimConfig, WorkloadConfig, TenancyConfig, CalibrationConfig)
+    off = dataclasses.replace(cfg, control=TenancyConfig())
+    guard = strict_chunks(step)
+    steps, t_step = {}, [time.perf_counter()]
+
+    def done(what):
+        t = time.perf_counter()
+        steps[what] = round(t - t_step[0], 1)
+        t_step[0] = t
+    try:
+        step.run_sim_scan(dataclasses.replace(cfg, max_ticks=64), device="cuda")
+        entry = find_entry(step, cfg)
+        before = {k: g.replays for k, g in entry.graphs.items()}
+        for m in (control, calib, sched):
+            m.reset_launch_counts()
+        c0 = guard.chunks
+        t = time.perf_counter()
+        res = step.run_sim_scan(cfg, device="cuda")
+        torch.cuda.synchronize()
+        t = time.perf_counter() - t
+        launches = control_launches(control, calib, sched)
+        in_graphs = graph_census(entry, before, launches)
+        ticks = res.timings["ticks"]
+        s = res.summary()
+        log(f"  device engine, control on: {ticks} ticks in {guard.chunks - c0} chunks "
+            f"(sync-free), {t:.3f} s: {ticks / t:.3f} ticks/s (capture before); launches "
+            f"{launches} = replays x kernel nodes {in_graphs}")
+        log(f"    tenancy {json.dumps(s['tenancy'])}")
+        log(f"    calibration {json.dumps(s['calibration'])}")
+        log(f"    summary {json.dumps({k: v for k, v in s.items() if k not in ('tenancy', 'calibration')})}")
+        assert launches == in_graphs and all(n == ticks for n in launches.values()), (
+            launches, in_graphs, ticks)
+        assert s["completed"] == 500 and s["calibration"]["resolved"] > 0, s
+        assert sum(s["tenancy"]["completed"]) == 500 and "groups" in s["calibration"], s
+        for k in ("util_cpu_mean", "util_mem_mean", "slack_cpu_mean", "slack_mem_mean"):
+            assert np.isfinite(s[k]), (k, s[k])
+        done("device, control on")
+        roff = step.run_sim_scan(off, device="cuda")
+        oentry = find_entry(step, off)
+        walls = {"control on": [], "control off": []}
+        for mode in ("control on", "control off", "control off", "control on"):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            r = step.run_sim_scan(cfg if mode == "control on" else off, device="cuda")
+            torch.cuda.synchronize()
+            walls[mode].append(r.timings["ticks"] / (time.perf_counter() - t))
+        k_on, k_off = kernels_per_step(entry), kernels_per_step(oentry)
+        log("  device engine ticks/s in turns (on, off, off, on): " + "; ".join(
+            f"{m} " + ", ".join(f"{x:.3f}" for x in xs) for m, xs in walls.items())
+            + f"; kernels a tick {k_on:.3f} with the control plane against {k_off:.3f} "
+            f"without (+{k_on - k_off:.3f}); the run without it: {roff.timings['ticks']} "
+            f"ticks, {roff.summary()['completed']} completed")
+        for line in describe_graphs(entry):
+            log(f"  control graph {line}")
+        done("turns")
+    finally:
+        guard.stop()
+    for m in (control, calib):
+        m.reset_launch_counts()
+    hcfg = dataclasses.replace(cfg, max_ticks=MAIN_PATH_TICKS)
+    t = time.perf_counter()
+    res = run_sim(hcfg, device="cuda")
+    torch.cuda.synchronize()
+    t = time.perf_counter() - t
+    tm = res.timings
+    log(f"  host engine, {tm['ticks']} ticks in {t:.3f} s ({tm['ticks'] / t:.3f} ticks/s): "
+        f"control_tick launches {control.control_tick.launches} (the host engine's control "
+        f"plane is numpy), conformal_scale {calib.conformal_scale.launches}; tenancy "
+        f"{json.dumps(res.tenancy)}; groups {json.dumps(res.calibration['groups'])}")
+    assert control.control_tick.launches == 0 and calib.conformal_scale.launches > 0
+    assert tm["ticks"] == MAIN_PATH_TICKS and res.tenancy is not None, tm
+    done("host engine")
+    card_vs_cpu(step, dataclasses.replace(cfg, forecaster="persist", max_ticks=CONTROL_CPU_TICKS),
+                f"tenanted calibrated persist, first {CONTROL_CPU_TICKS} ticks", strict=True)
+    done("persist card vs cpu")
+    card_vs_cpu(step, dataclasses.replace(cfg, max_ticks=CONTROL_GP_CPU_TICKS),
+                f"tenanted calibrated GP, first {CONTROL_GP_CPU_TICKS} ticks", strict=False)
+    done("gp card vs cpu")
+    tenancy_cells(step, scenarios, SimConfig, ClusterConfig, TenancyConfig, CalibrationConfig)
+    done("tenancy cells")
+    log(f"  phase 5h seconds by step: {json.dumps(steps)}")
+    return {"control_tick": launches["control_tick"]}
+
+
+def control_bound_bytes(args, outs) -> int:
+    """The bytes control_tick needs on one case: each input read once (the
+    app columns, the occupied slots' allocations, the per-tenant state, the
+    capacities and weights) and each output written once."""
+    (credit, throttled, completed, failed, share_sum, active_ticks, done0, done, queued0,
+     queued, conflict, d_res, d_err, tenant, slot_gid, alloc, cap, w) = args
+    occupied = int((slot_gid >= 0).sum())
+    reads = _nbytes(credit, throttled, completed, failed, share_sum, active_ticks, done0,
+                    done, queued0, queued, tenant, slot_gid, cap, w)
+    reads += _nbytes(*(x for x in (conflict, d_res, d_err) if x is not None))
+    reads += occupied * alloc.shape[2] * 2 * alloc.element_size()
+    return reads + _nbytes(*outs)
+
+
+def time_control(control, ref, sched, cases, calib, CalibrationConfig) -> tuple[dict, float]:
+    """Phase 8: control_tick at the main path's widths (one member of 500
+    apps of T = 4 tenants, 128 slots of 12 components, 50 hosts), kernel by
+    CUDA events against its plain version (numpy on the host) in turns,
+    its device time per launch (a CUDA graph of 50 launches) and host time
+    per call, beside its bound (control_bound_bytes over 3.35 TB/s); the
+    admission kernel on the busiest full-width captured admission with
+    and without the gate, in turns; and the three calibration kernels
+    with the per-tenant tier on the full-width warm state (T = 4), each
+    beside the same launch without it.  Returns the timings and the
+    largest error of control_tick against its plain version."""
+    import torch
+    rng = np.random.default_rng(27)
+    args = control_case([control_member(rng, 4)], 4)
+    gpu = [a.cuda() if a is not None else None for a in args]
+    kern = lambda: control.control_tick(*gpu, **CONTROL_KW)  # noqa: E731
+    plain = lambda: ref.control_tick(*args, **CONTROL_KW)  # noqa: E731
+    want = plain()
+    got = kern()
+    assert all(_same(g, w) for g, w in zip(got, want))
+
+    def host_ms(fn):
+        t0 = time.perf_counter()
+        fn()
+        return (time.perf_counter() - t0) * 1e3
+    ms = {"kernel": [], "plain": []}
+    for k in ("kernel", "plain", "plain", "kernel"):
+        ms[k].append(cuda_time_ms(kern, iters=200, warmup=10) if k == "kernel"
+                     else host_ms(plain))
+    dev_us = [graph_us(kern) for _ in range(2)]
+    host_us = host_us_per_call(kern)
+    nbytes = control_bound_bytes(args, want)
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"  control_tick (500 apps, T = 4, 128 slots of 12, 50 hosts): kernel "
+        f"{'/'.join(f'{x:.5f}' for x in ms['kernel'])} ms a call back to back, plain (numpy "
+        f"on the host) {'/'.join(f'{x:.3f}' for x in ms['plain'])} ms; device "
+        f"{'/'.join(f'{x:.3f}' for x in dev_us)} us a launch (50 launches in a CUDA graph, "
+        f"replayed), host {host_us:.3f} us per call; bound {bound * 1e3:.4f} us ({nbytes} B)")
+    out = {"control_tick": dict(ms=min(ms["kernel"]), plain_ms=min(ms["plain"]), bound_ms=bound,
+                                bound_by="bytes", library_ms=None)}
+    # the admission with and without the gate, on the busiest captured call
+    n, busiest = max(((scan_events("admit_queued", a, ref.admit_queued(*a)), a)
+                      for a in cases["admit_queued"] if a[0].shape[0] == 1),
+                     key=lambda x: x[0])
+    gate = gate_args(rng, busiest, 4, "all")
+    agpu = [a.cuda() if isinstance(a, torch.Tensor) else a for a in busiest]
+    ggpu = agpu + [g.cuda() for g in gate]
+    runs = {"ungated": lambda: sched.admit_queued(*agpu),
+            "gated (every tenant eligible)": lambda: sched.admit_queued(*ggpu)}
+    t = {k: [] for k in runs}
+    for k in list(runs) + list(runs)[::-1]:
+        t[k].append(cuda_time_ms(runs[k], iters=200, warmup=10))
+    dev = {k: round(graph_us(f), 3) for k, f in runs.items()}
+    log(f"  admit_queued, full-width captured call with {n} admissions: " + "; ".join(
+        f"{k} {'/'.join(f'{x:.5f}' for x in v)} ms" for k, v in t.items())
+        + f"; device us a launch (CUDA graph) {json.dumps(dev)}")
+    # the calibration kernels with the per-tenant tier, and without it
+    cfg = calib_config(CalibrationConfig)
+    st, tick = calib_state(7, warm=True)
+    tier, table = calib_tier(rng, st, 4)
+    ocpu, scpu = tier_args(st, tick, tier, table, "cpu", cfg=cfg)
+    to = lambda a: a.cuda() if isinstance(a, torch.Tensor) else a  # noqa: E731
+    og = [to(a) for a in ocpu[:-1]] + [tuple(to(a) for a in ocpu[-1])]
+    sg = [to(a) for a in scpu[:-1]] + [tuple(to(a) for a in scpu[-1])]
+    okw = dict(pool_on=cfg.pool, adaptive=cfg.adaptive, gamma=cfg.gamma, budget=cfg.budget,
+               q_min=cfg.q_min, q_max=cfg.q_max)
+    skw = dict(min_scores=cfg.min_scores, pool_on=cfg.pool, horizon=3)
+    pairs = {"calib_observe": (lambda: calib.calib_observe(*og, **okw),
+                               lambda: calib.calib_observe(*og[:-1], **okw)),
+             "calib_scales (conformal_scale + calib_begin)": (
+                 lambda: calib.calib_scales(*sg, **skw),
+                 lambda: calib.calib_scales(*sg[:-1], **skw))}
+    for name, (with_tier, without) in pairs.items():
+        us = {"tier": [graph_us(with_tier) for _ in range(2)],
+              "no tier": [graph_us(without) for _ in range(2)]}
+        log(f"  {name} at 3,072 warm rows, T = 4 (group rings of 256): device "
+            + "; ".join(f"{k} {'/'.join(f'{x:.3f}' for x in v)} us a call (CUDA graph)"
+                        for k, v in us.items()))
+    return out, 0.0
+
+
 def _nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
@@ -3112,9 +3626,10 @@ def main() -> int:
     from repro_torch.core.forecast import (ARIMAConfig, ARIMAForecaster, GPConfig,
                                            GPForecaster)
     from repro_torch.core import shaper as core_shaper
+    from repro_torch.control import TenancyConfig
     from repro_torch.core.uncertainty import CalibrationConfig
-    from repro_torch.kernels import (arima_forecast, calib, flash_attention, fma, gp_forecast,
-                                     gp_gram, leap, nvcc, ref, sched, shaper)
+    from repro_torch.kernels import (arima_forecast, calib, control, flash_attention, fma,
+                                     gp_forecast, gp_gram, leap, nvcc, ref, sched, shaper)
     from repro_torch.sim import ClusterConfig, SimConfig, WorkloadConfig, run_sim
     from repro_torch.sim import scenarios, step
     from repro_torch.sim.engine import forecast_peaks
@@ -3137,7 +3652,7 @@ def main() -> int:
     log("== 2. build (one nvcc per source, all at once)")
     sources = (gp_gram.SOURCE, flash_attention.SOURCE, flash_attention.SOURCE_SM90,
                gp_forecast.SOURCE, shaper.SOURCE, sched.SOURCE, fma.SOURCE, leap.SOURCE,
-               arima_forecast.SOURCE, calib.SOURCE)
+               arima_forecast.SOURCE, calib.SOURCE, control.SOURCE)
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         builds = list(pool.map(nvcc.build, sources))
     for b in builds:
@@ -3173,6 +3688,9 @@ def main() -> int:
     check_leap_calib(leap, ref)
     err["arima_forecast"] = check_arima(arima_forecast, ref, ARIMAConfig)
     err.update(check_calib(calib, ref, CalibrationConfig))
+    err["control_tick"] = check_control(control, ref)
+    check_gated_admit(sched, ref, scan_cases)
+    check_calib_tier(calib, ref, CalibrationConfig)
     log(f"  max abs error: {err}")
 
     log("== 4. GP check (card vs CPU)")
@@ -3257,6 +3775,13 @@ def main() -> int:
         "enabled=True, q=0.9, adaptive=True, budget=0.1))) to completion, adaptive=False, "
         f"the host engine capped at {MAIN_PATH_TICKS} ticks, heavytail, card vs CPU")
     calib_main = run_calibrated(step, scenarios, SimConfig, CalibrationConfig, run_sim, calib)
+    log("== 5h. the multi-tenant control plane: run_sim_scan(SimConfig(workload=WorkloadConfig("
+        "n_tenants=4), control=TenancyConfig(enabled=True), calibration=CalibrationConfig("
+        "enabled=True, q=0.9, adaptive=True, budget=0.1))) to completion, against control off, "
+        f"the host engine capped at {MAIN_PATH_TICKS} ticks, card vs CPU, the reference's "
+        "tenancy cells")
+    control_main = run_tenancy(step, scenarios, SimConfig, WorkloadConfig, ClusterConfig,
+                               TenancyConfig, CalibrationConfig, run_sim, control, calib, sched)
 
     log("== 6. Whisper, smoke widths, fp32: the card against the CPU")
     check_whisper_smoke(flash_attention)
@@ -3283,6 +3808,10 @@ def main() -> int:
     times.update(calib_times)
     for k in calib_times:
         err[k] = max(err[k], calib_err)
+    control_times, control_err = time_control(control, ref, sched, scan_cases, calib,
+                                              CalibrationConfig)
+    times.update(control_times)
+    err["control_tick"] = max(err["control_tick"], control_err)
     log(f"  gp_gram library_ms: null - no single PyTorch call computes the Gram "
         f"matrix (torch.cdist gives distances only) or its (ell, sf) gradient")
     end_phase()
@@ -3296,6 +3825,7 @@ def main() -> int:
     launches["leap_skip"] = leap_launches           # the gap cell's leap run (phase 5e)
     launches["arima_forecast"] = arima_launches     # run_sim_scan's ARIMA run (phase 5f)
     launches.update(calib_main)                     # the calibrated run (phase 5g)
+    launches.update(control_main)                   # the tenanted run (phase 5h)
     replaces = {"gp_gram_fwd": "src/repro/kernels/gp_gram.py:75",
                 "gp_gram_bwd": "src/repro/kernels/gp_gram.py:75",
                 "gp_fit_forecast": "src/repro/kernels/gp_gram.py:75",
@@ -3307,6 +3837,7 @@ def main() -> int:
                 "calib_observe": "src/repro/core/uncertainty/online.py:317",
                 "conformal_scale": "src/repro/core/uncertainty/conformal.py:113",
                 "calib_begin": "src/repro/core/uncertainty/online.py:413",
+                "control_tick": "src/repro/sim/step.py:778",
                 **SCAN_REPLACES}
     sources = {"gp_gram_fwd": "src/repro_torch/kernels/csrc/gp_gram.cu",
                "gp_gram_bwd": "src/repro_torch/kernels/csrc/gp_gram.cu",
@@ -3319,6 +3850,7 @@ def main() -> int:
                "calib_observe": "src/repro_torch/kernels/csrc/calib.cu",
                "conformal_scale": "src/repro_torch/kernels/csrc/calib.cu",
                "calib_begin": "src/repro_torch/kernels/csrc/calib.cu",
+               "control_tick": "src/repro_torch/kernels/csrc/control.cu",
                **SCAN_SOURCES}
     log(smi)   # the card's name and power limit, as nvidia-smi prints them
     log(json.dumps({"kernels": [
@@ -3331,7 +3863,7 @@ def main() -> int:
         for name in ("gp_gram_fwd", "gp_gram_bwd", "gp_fit_forecast",
                      "flash_attention", "flash_attention_simt") + SCAN_KERNELS
         + ("fma_f32", "leap_skip", "arima_forecast", "calib_observe", "conformal_scale",
-           "calib_begin")]}))
+           "calib_begin", "control_tick")]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": count}}))
     return 0

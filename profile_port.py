@@ -39,6 +39,14 @@ DIR`` it takes the package from another checkout's ``src`` (a parent
 commit unpacked with ``git archive``), so that two commits' kernels are
 timed on one card in one call.
 
+``--path control`` times the control plane's kernels alone, as
+``chip_smoke.py`` phase 8 does: ``control_tick`` at the main path's
+widths against its plain version and its bound, the admission kernel
+with and without the gate, and the calibration kernels with and without
+the per-tenant tier, for the package under ``--src`` too (one that has
+the control plane), so that two versions are timed on one card in one
+call.
+
 ``--path whisper`` does the same for Whisper-large-v3 serving at full
 width (random weights): one prefill of 8 requests x 1,500 frames with
 ``attn_impl="flash"``, then 4 greedy cached decode steps, each profiled
@@ -46,7 +54,7 @@ on its own, with the device time summed by kind of kernel.
 
 Run from the repository root:
 
-    python3 profile_port.py [--path sim|scan|kernels|gp|whisper] [--src DIR]
+    python3 profile_port.py [--path sim|scan|kernels|gp|control|whisper] [--src DIR]
 
 Without a CUDA device it exits with an error and prints nothing else.
 """
@@ -329,12 +337,24 @@ def profile_kernels() -> int:
     return profile_gp()
 
 
+def profile_control() -> int:
+    import chip_smoke
+    from repro_torch.core.uncertainty import CalibrationConfig
+    from repro_torch.kernels import calib, control, ref, sched
+    from repro_torch.sim import SimConfig, step
+    print(f"package {Path(control.__file__).resolve().parents[2]}; nvidia-smi: "
+          f"{chip_smoke.nvidia_smi()}")
+    cases = chip_smoke.scan_kernel_cases(step, SimConfig)
+    chip_smoke.time_control(control, ref, sched, cases, calib, CalibrationConfig)
+    return 0
+
+
 def main() -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
     here = Path(__file__).resolve().parent
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--path", choices=("sim", "scan", "kernels", "gp", "whisper"),
+    ap.add_argument("--path", choices=("sim", "scan", "kernels", "gp", "control", "whisper"),
                     default="sim")
     ap.add_argument("--src", type=Path, default=here / "src",
                     help="the directory that holds the repro_torch package")
@@ -357,6 +377,8 @@ def main() -> int:
         return profile_kernels()
     if args.path == "gp":
         return profile_gp()
+    if args.path == "control":
+        return profile_control()
     run_sim(SimConfig(max_ticks=20), device="cuda")          # build + warm-up
     gp_forecast.reset_launch_counts()
 

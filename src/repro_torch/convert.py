@@ -12,9 +12,10 @@ every tick — so a run's whole state is its configuration and its trace:
 The device engine starts from a state, which a test can take from a
 reference run:
 
-  * :func:`device_trace_from_arrays`, :func:`sim_state_from_arrays` and
-    :func:`calib_state_from_arrays` take the fields of the reference's
-    ``DeviceTrace``, ``SimState`` and ``CalibState`` as numpy arrays
+  * :func:`device_trace_from_arrays`, :func:`sim_state_from_arrays`,
+    :func:`calib_state_from_arrays` and :func:`tenant_state_from_arrays`
+    take the fields of the reference's ``DeviceTrace``, ``SimState``,
+    ``CalibState`` and ``TenantState`` as numpy arrays
     (``jax.tree.map(np.asarray, ...)``).
 
 A Whisper model's state is its parameters:
@@ -32,9 +33,11 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.control import TenancyConfig, TenantState
 from repro_torch.core.forecast import ARIMAConfig, GPConfig
 from repro_torch.core.shaper import SafeguardConfig
 from repro_torch.core.uncertainty import CalibrationConfig, CalibState
+from repro_torch.core.uncertainty.online import GROUP_TIER
 from repro_torch.device import resolve_device
 from repro_torch.sim.cluster import ClusterConfig
 from repro_torch.sim.engine import SimConfig, Switch
@@ -49,20 +52,18 @@ _SCALARS = ("policy", "forecaster", "window", "grace", "horizon", "max_ticks",
 def sim_config_from_dict(d: dict, *, workload: str = "google") -> SimConfig:
     """The port's ``SimConfig`` for ``dataclasses.asdict(reference_cfg)``.
 
-    Refuses a config whose control plane is enabled (not ported yet).
     Drops ``gp.impl`` (the port dispatches on the device).
     ``asdict`` keeps no type, so
     ``workload`` names the scenario family of ``d["workload"]``: any
     registered one (``google``, ``diurnal``, ``flashcrowd``,
     ``heavytail``, ``colocated``, ``replay``)."""
-    if d["control"]["enabled"]:
-        raise NotImplementedError("control.enabled is not ported yet")
     gp = {k: v for k, v in d["gp"].items() if k != "impl"}
     return SimConfig(
         cluster=ClusterConfig(**d["cluster"]),
         workload=scenarios.get(workload).config_cls(**d["workload"]),
         safeguard=SafeguardConfig(**d["safeguard"]),
         calibration=CalibrationConfig(**d["calibration"]),
+        control=TenancyConfig(**d["control"]),
         obs=Switch(enabled=d["obs"]["enabled"]),
         gp=GPConfig(**gp), arima=ARIMAConfig(**d["arima"]),
         **{k: d[k] for k in _SCALARS})
@@ -79,11 +80,13 @@ def trace_from_arrays(**cols: np.ndarray) -> Trace:
     return Trace(**{k: np.array(v, copy=True) for k, v in cols.items()}).validate()
 
 
-def _stacked(cls, fields: dict, device, solo: bool, skip=()) -> dict:
+def _stacked(cls, fields: dict, device, solo: bool, skip=(), optional=()) -> dict:
     """``cls``'s tensor fields from numpy arrays on ``device`` (float32,
     int32 or bool, as the port keeps them), with a leading member axis
-    added to a solo run's arrays."""
+    added to a solo run's arrays; the ``optional`` fields may be left
+    out."""
     names = {f.name for f in dataclasses.fields(cls)} - set(skip)
+    names -= set(optional) - set(fields)
     missing, extra = names - set(fields), set(fields) - names
     if missing or extra:
         raise KeyError(f"{cls.__name__} fields: missing {sorted(missing)}, "
@@ -105,35 +108,44 @@ def device_trace_from_arrays(*, device="cuda", **fields) -> DeviceTrace:
                                   solo=np.ndim(fields.get("submit")) == 1))
 
 
-_GROUP_TIER = ("group_ring", "group_count", "group", "group_resolved", "group_errors")
-
-
 def calib_state_from_arrays(*, device="cuda", **fields) -> CalibState:
     """The port's ``CalibState`` for the reference's fields, solo
-    (``pool_count`` a scalar) or stacked.  The per-group tier must be
-    None (it comes with the control plane, not ported yet)."""
-    for name in _GROUP_TIER:
-        if fields.pop(name, None) is not None:
-            raise NotImplementedError(f"CalibState.{name} (the per-group tier) is not "
-                                      "ported yet")
+    (``pool_count`` a scalar) or stacked.  The per-group tier (the
+    ``group_*`` fields) is all there or all None."""
+    fields = {k: v for k, v in fields.items() if v is not None}
+    tier = [name for name in GROUP_TIER if name in fields]
+    if tier and len(tier) != len(GROUP_TIER):
+        raise ValueError(f"CalibState's per-group tier is {GROUP_TIER}, all or none; "
+                         f"got {tier}")
     return CalibState(**_stacked(CalibState, fields, resolve_device(device),
-                                 solo=np.ndim(fields.get("pool_count")) == 0))
+                                 solo=np.ndim(fields.get("pool_count")) == 0,
+                                 optional=GROUP_TIER))
+
+
+def tenant_state_from_arrays(*, device="cuda", **fields) -> TenantState:
+    """The port's ``TenantState`` for the reference's fields (``credit``,
+    ``admitted``, ...), solo (T,) or stacked (S, T)."""
+    return TenantState(**_stacked(TenantState, fields, resolve_device(device),
+                                  solo=np.ndim(fields.get("credit")) == 1))
 
 
 def sim_state_from_arrays(*, device="cuda", **fields) -> SimState:
     """The port's ``SimState`` for the reference's fields, solo (``t`` a
-    scalar) or stacked; ``calib`` is None or a dict of the reference's
-    ``CalibState`` fields.  ``tenancy`` and ``obs`` must be None (not
-    ported)."""
-    for name in ("tenancy", "obs"):
-        if fields.pop(name, None) is not None:
-            raise NotImplementedError(f"SimState.{name} is not ported yet")
+    scalar) or stacked; ``calib`` and ``tenancy`` are None or dicts of the
+    reference's ``CalibState`` and ``TenantState`` fields.  ``obs`` must be
+    None (not ported)."""
+    if fields.pop("obs", None) is not None:
+        raise NotImplementedError("SimState.obs is not ported yet")
     calib = fields.pop("calib", None)
     if calib is not None:
         calib = calib_state_from_arrays(device=device, **calib)
+    tenancy = fields.pop("tenancy", None)
+    if tenancy is not None:
+        tenancy = tenant_state_from_arrays(device=device, **tenancy)
     return SimState(**_stacked(SimState, fields, resolve_device(device),
                                solo=np.ndim(fields.get("t")) == 0,
-                               skip=("calib", "tenancy", "obs")), calib=calib)
+                               skip=("calib", "tenancy", "obs")), calib=calib,
+                    tenancy=tenancy)
 
 
 _LN = ("scale", "bias")

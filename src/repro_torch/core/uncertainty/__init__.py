@@ -10,8 +10,10 @@ from repro_torch.core.uncertainty.conformal import (CalibrationConfig,
                                                     ScoreBuffer, conformal_scale,
                                                     conformal_scale_ring)
 from repro_torch.core.uncertainty.online import (CalibState, OnlineCalibrator,
-                                                 calib_init, calib_observe,
-                                                 calib_report, calib_scales_begin)
+                                                 calib_group_report, calib_init,
+                                                 calib_observe, calib_observe_groups,
+                                                 calib_report,
+                                                 calib_scales_begin)
 from repro_torch.core.uncertainty.scoring import (bucket_pow2, crps_empirical,
                                                   crps_gaussian, empirical_coverage,
                                                   gaussian_quantile_scale, pinball_loss,
@@ -24,5 +26,5 @@ __all__ = [
     "CalibrationConfig", "conformal_scale", "conformal_scale_ring",
     "ScoreBuffer", "ConformalForecaster", "QuantileController",
     "OnlineCalibrator", "CalibState", "calib_init", "calib_observe",
-    "calib_scales_begin", "calib_report",
+    "calib_observe_groups", "calib_scales_begin", "calib_report", "calib_group_report",
 ]

@@ -29,8 +29,13 @@ Two forms, as in the reference:
     deployed predictions); none reads anything back, so a captured CUDA
     graph holds them.
 
-The per-group (tenant) tier of the device state belongs to the control
-plane, which is not ported: :func:`calib_init` refuses ``n_groups > 0``.
+With the control plane on, both forms add the per-group (tenant) tier:
+each resolved score also enters the ring of the tenant that owned its
+slot when the bound was deployed, and a young series falls back to its
+tenant's quantile (once warm) before the pool's; each tenant's target
+quantile moves with its credit (:func:`calib_scales_begin`'s
+``tenancy``).  On the card the tier adds no launch: the three kernels
+take it.
 """
 from __future__ import annotations
 
@@ -44,7 +49,7 @@ from repro_torch.core.uncertainty.conformal import CalibrationConfig, ScoreBuffe
 from repro_torch.kernels import ops as kops
 
 __all__ = ["OnlineCalibrator", "CalibState", "calib_init", "calib_observe",
-           "calib_scales_begin", "calib_report"]
+           "calib_observe_groups", "calib_scales_begin", "calib_report", "calib_group_report"]
 
 
 class OnlineCalibrator:
@@ -233,14 +238,21 @@ class CalibState:
     dropped: torch.Tensor     # (S,) i32 invalidated by a series reset
     scale_sum: torch.Tensor   # (S,) f32
     scale_n: torch.Tensor     # (S,) i32
+    # the per-group (tenant) tier, None without the control plane
+    group_ring: torch.Tensor | None = None      # (S, G, group_capacity) f32
+    group_count: torch.Tensor | None = None     # (S, G) i32
+    group: torch.Tensor | None = None           # (S, R) i32 deploy group, -1 idle
+    group_resolved: torch.Tensor | None = None  # (S, G) i32
+    group_errors: torch.Tensor | None = None    # (S, G) i32
+
+
+GROUP_TIER = ("group_ring", "group_count", "group", "group_resolved", "group_errors")
 
 
 def calib_init(n_series: int, cfg: CalibrationConfig, batch: int, device,
                n_groups: int = 0) -> CalibState:
-    """Fresh state for ``batch`` members of ``n_series`` rows."""
-    if n_groups > 0:
-        raise NotImplementedError("the per-group calibration tier comes with the "
-                                  "control plane, which is not ported yet")
+    """Fresh state for ``batch`` members of ``n_series`` rows;
+    ``n_groups > 0`` adds the per-group tier."""
     S = batch
     f32, i32 = torch.float32, torch.int32
 
@@ -248,6 +260,14 @@ def calib_init(n_series: int, cfg: CalibrationConfig, batch: int, device,
         return torch.zeros((S,) + shape, dtype=dtype, device=device)
 
     q0 = float(np.clip(cfg.q, cfg.q_min, cfg.q_max) if cfg.adaptive else cfg.q)
+    groups = {}
+    if n_groups > 0:
+        groups = dict(
+            group_ring=torch.full((S, n_groups, cfg.group_capacity), float("inf"),
+                                  dtype=f32, device=device),
+            group_count=z(n_groups, dtype=i32),
+            group=torch.full((S, n_series), -1, dtype=i32, device=device),
+            group_resolved=z(n_groups, dtype=i32), group_errors=z(n_groups, dtype=i32))
     return CalibState(
         ring=torch.full((S, n_series, cfg.capacity), float("inf"), dtype=f32, device=device),
         ring_count=z(n_series, dtype=i32),
@@ -258,7 +278,7 @@ def calib_init(n_series: int, cfg: CalibrationConfig, batch: int, device,
         left=z(n_series, dtype=i32), due=z(n_series, dtype=i32),
         q=torch.full((S,), float(np.float32(q0)), dtype=f32, device=device),
         resolved=z(dtype=i32), errors=z(dtype=i32), dropped=z(dtype=i32),
-        scale_sum=z(dtype=f32), scale_n=z(dtype=i32))
+        scale_sum=z(dtype=f32), scale_n=z(dtype=i32), **groups)
 
 
 def calib_observe(st: CalibState, usage: torch.Tensor, mon_count: torch.Tensor,
@@ -274,20 +294,41 @@ def calib_observe(st: CalibState, usage: torch.Tensor, mon_count: torch.Tensor,
     the pool in row order, the last ``pool_capacity`` of them when more
     resolve.  Where XLA contracts ``mean + scale * sigma`` and the
     adaptive ``q + gamma * (err_rate - budget)``, both are rounded once.
-    On the card one kernel launch."""
-    (ring, ring_count, pool, pool_count, peak, left, q, resolved, errors,
-     dropped) = kops.calib_observe(
+    With the per-group tier each resolved row's score also enters its
+    deploy group's ring (the group's scores in row order, the last
+    ``group_capacity`` of them when more resolve).  On the card one kernel
+    launch."""
+    return calib_observe_groups(st, usage, mon_count, cfg, active)[0]
+
+
+def calib_observe_groups(st: CalibState, usage: torch.Tensor, mon_count: torch.Tensor,
+                         cfg: CalibrationConfig, active: torch.Tensor
+                         ) -> tuple[CalibState, tuple | None]:
+    """:func:`calib_observe`, returning the state and, with the per-group
+    tier, the tick's resolved and missed scores per group ((S, G), (S, G))
+    int32 (what the control plane's credit counts), else None: the
+    kernel's outputs, so the tick needs no copy of the old counters."""
+    groups = (None if st.group_ring is None else
+              (st.group_ring, st.group_count, st.group, st.group_resolved, st.group_errors))
+    out = kops.calib_observe(
         st.ring, st.ring_count, st.pool, st.pool_count, st.mean, st.sigma, st.scale,
         st.peak, st.left, st.due, st.q, st.resolved, st.errors, st.dropped,
-        usage, mon_count, active, cfg)
-    return dataclasses.replace(st, ring=ring, ring_count=ring_count, pool=pool,
-                               pool_count=pool_count, peak=peak, left=left, q=q,
-                               resolved=resolved, errors=errors, dropped=dropped)
+        usage, mon_count, active, cfg, groups)
+    (ring, ring_count, pool, pool_count, peak, left, q, resolved, errors, dropped) = out[:10]
+    st = dataclasses.replace(st, ring=ring, ring_count=ring_count, pool=pool,
+                             pool_count=pool_count, peak=peak, left=left, q=q,
+                             resolved=resolved, errors=errors, dropped=dropped)
+    if groups is None:
+        return st, None
+    group_ring, group_count, group_resolved, group_errors, d_res, d_err = out[10:]
+    return dataclasses.replace(st, group_ring=group_ring, group_count=group_count,
+                               group_resolved=group_resolved,
+                               group_errors=group_errors), (d_res, d_err)
 
 
 def calib_scales_begin(st: CalibState, cfg: CalibrationConfig, fallback: float,
                        deploy: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
-                       mon_count: torch.Tensor, horizon: int):
+                       mon_count: torch.Tensor, horizon: int, tenancy=None):
     """The device engine's calibrated shaping step: the reference's
     ``calib_scales``, then its ``calib_begin`` with ``sigma = sqrt(max(var,
     0))``, as one step (``kernels/ref.py::calib_scales``).
@@ -297,15 +338,29 @@ def calib_scales_begin(st: CalibState, cfg: CalibrationConfig, fallback: float,
     forecast peaks and their variances, ``mon_count`` (S, M).  Returns
     (scale (S, R), the state after ``calib_begin``).  On the card two
     kernel launches, ``conformal_scale`` and ``calib_begin``, which read
-    nothing back."""
-    (scale, mean_, sigma_, scale_, peak, left, due, scale_sum,
-     scale_n) = kops.calib_scales(
+    nothing back.
+
+    ``tenancy`` (the control plane, with the per-group tier): (credit (S,
+    T) f32 or None without the credit, tenant (S, N) int32, slot_gid (S,
+    A) int32, ``TenancyConfig``).  The rows of a tenant's slot fall back
+    to the tenant's warm ring before the pool and register the tenant as
+    their group; with the credit, the tenant's rows and ring take its
+    quantile ``clip(q + q_spread * (1 - 2 * credit), q_min, q_max)``."""
+    tier = None
+    if tenancy is not None:
+        credit, tenant, slot_gid, tcfg = tenancy
+        tier = (credit, tenant, slot_gid, st.group_ring, st.group_count, st.group,
+                tcfg.q_spread, cfg.q_min, cfg.q_max)
+    out = kops.calib_scales(
         st.ring, st.ring_count, st.pool, st.pool_count, st.q, fallback, cfg,
         deploy, mean, var, mon_count, horizon, st.mean, st.sigma, st.scale, st.peak,
-        st.left, st.due, st.scale_sum, st.scale_n)
-    return scale, dataclasses.replace(st, mean=mean_, sigma=sigma_, scale=scale_, peak=peak,
-                                      left=left, due=due, scale_sum=scale_sum,
-                                      scale_n=scale_n)
+        st.left, st.due, st.scale_sum, st.scale_n, tier)
+    scale, mean_, sigma_, scale_, peak, left, due, scale_sum, scale_n = out[:9]
+    st = dataclasses.replace(st, mean=mean_, sigma=sigma_, scale=scale_, peak=peak,
+                             left=left, due=due, scale_sum=scale_sum, scale_n=scale_n)
+    if tier is not None:
+        st = dataclasses.replace(st, group=out[9])
+    return scale, st
 
 
 def calib_report(state: dict, cfg: CalibrationConfig) -> dict:
@@ -331,4 +386,22 @@ def calib_report(state: dict, cfg: CalibrationConfig) -> dict:
             np.asarray(state["pool_count"]), np.asarray(state["pool"]).shape[-1]))
             >= cfg.min_scores),
         "mean_scale": round(float(state["scale_sum"]) / scale_n, 4) if scale_n else None,
+    }
+
+
+def calib_group_report(state: dict, cfg: CalibrationConfig) -> dict | None:
+    """One member's per-group block from its final state's fields (numpy,
+    ``group_*`` among them), as :meth:`OnlineCalibrator.group_report`; None
+    without the tier."""
+    if state.get("group_ring") is None:
+        return None
+    res = np.asarray(state["group_resolved"])
+    err = np.asarray(state["group_errors"])
+    live = np.minimum(np.asarray(state["group_count"]), np.asarray(state["group_ring"]).shape[-1])
+    return {
+        "resolved": res.tolist(),
+        "miscovered": err.tolist(),
+        "coverage": [(round(1.0 - e / r, 4) if r else None)
+                     for r, e in zip(res.tolist(), err.tolist())],
+        "warm": (live >= cfg.min_scores).astype(int).tolist(),
     }

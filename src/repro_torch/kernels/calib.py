@@ -32,6 +32,7 @@ import torch
 from repro_torch.kernels import nvcc
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "calib.cu"
+MAX_GROUPS = 127     # a resolved row's group staged as an int8 (csrc/calib.cu)
 
 _LIB: ctypes.CDLL | None = None
 
@@ -41,10 +42,11 @@ def _library() -> ctypes.CDLL:
     if _LIB is None:
         lib = ctypes.CDLL(str(nvcc.build(SOURCE).path))
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.calib_observe.argtypes = [ptr] * 27 + [i32] * 6 + [f32] * 4 + [ptr]
+        lib.calib_observe.argtypes = [ptr] * 38 + [i32] * 8 + [f32] * 4 + [ptr]
         lib.conformal_scale.argtypes = [ptr] * 2 + [i32] * 2 + [ptr] * 2 + [i32] * 2 + [ptr] * 2
-        lib.calib_quantiles.argtypes = [ptr] * 5 + [f32] + [ptr] * 2 + [i32] * 6 + [ptr]
-        lib.calib_begin.argtypes = [ptr] * 25 + [i32] * 7 + [f32, ptr]
+        lib.calib_quantiles.argtypes = ([ptr] * 5 + [f32] + [ptr] * 2 + [i32] * 6 + [ptr] * 6
+                                        + [i32] * 5 + [f32] * 3 + [ptr])
+        lib.calib_begin.argtypes = [ptr] * 25 + [i32] * 7 + [f32] + [ptr] * 6 + [i32] * 5 + [ptr]
         for fn in (lib.calib_observe, lib.conformal_scale, lib.calib_quantiles,
                    lib.calib_begin):
             fn.restype = i32
@@ -77,10 +79,11 @@ def _state_specs(ring, ring_count, pool, pool_count, q):
 
 @nvcc.counted
 def calib_observe(ring, ring_count, pool, pool_count, mean, sigma, scale, peak, left, due,
-                  q, resolved, errors, dropped, usage, mon_count, active, *, pool_on: bool,
-                  adaptive: bool, gamma: float, budget: float, q_min: float, q_max: float):
+                  q, resolved, errors, dropped, usage, mon_count, active, groups=None, *,
+                  pool_on: bool, adaptive: bool, gamma: float, budget: float, q_min: float,
+                  q_max: float):
     """Launch ``calib_observe``: the arguments and results of
-    ``ref.calib_observe``."""
+    ``ref.calib_observe``, with the per-tenant tier ``groups`` or None."""
     dev = _device(ring, "calib_observe")
     (S, R, cap, pcap), specs = _state_specs(ring, ring_count, pool, pool_count, q)
     f32, i32 = torch.float32, torch.int32
@@ -93,12 +96,30 @@ def calib_observe(ring, ring_count, pool, pool_count, mean, sigma, scale, peak, 
                mon_count=(mon_count, i32, (S, M)), active=(active, torch.bool, (S,)))
     outs = tuple(torch.empty_like(x) for x in (ring, ring_count, pool, pool_count, peak,
                                                left, q, resolved, errors, dropped))
+    tier, tier_outs, G, gcap = (None,) * 5, (), 0, 0
+    if groups is not None:
+        tier = tuple(groups)
+        group_ring, group_count, group, group_resolved, group_errors = tier
+        if group_ring.dim() != 3:
+            raise ValueError(f"group_ring has shape {tuple(group_ring.shape)}; expected "
+                             "(S, G, group_capacity)")
+        G, gcap = group_ring.shape[1:]
+        if not 1 <= G <= MAX_GROUPS:
+            raise ValueError(f"{G} groups: the kernel takes 1..{MAX_GROUPS}")
+        nvcc.check(dev, group_ring=(group_ring, f32, (S, G, gcap)),
+                   group_count=(group_count, i32, (S, G)), group=(group, i32, (S, R)),
+                   group_resolved=(group_resolved, i32, (S, G)),
+                   group_errors=(group_errors, i32, (S, G)))
+        tier_outs = tuple(torch.empty_like(x) for x in (group_ring, group_count,
+                                                        group_resolved, group_errors,
+                                                        group_count, group_count))
     nvcc.launch(_library().calib_observe, "calib_observe", dev, ring, ring_count, pool,
                 pool_count, mean, sigma, scale, peak, left, due, q, resolved, errors, dropped,
-                usage, mon_count, active, *outs, S, R, cap, pcap, int(pool_on),
-                int(adaptive), *(float(np.float32(x)) for x in (gamma, budget, q_min, q_max)))
+                usage, mon_count, active, *tier, *outs,
+                *(tier_outs or (None,) * 6), S, R, cap, pcap, int(pool_on), int(adaptive), G,
+                gcap, *(float(np.float32(x)) for x in (gamma, budget, q_min, q_max)))
     calib_observe.launches += 1
-    return outs
+    return outs + tier_outs
 
 
 @nvcc.counted
@@ -126,10 +147,10 @@ def conformal_scale(scores: torch.Tensor, counts: torch.Tensor, q: torch.Tensor,
 
 def calib_scales(ring, ring_count, pool, pool_count, q, fallback, deploy, mean, var,
                  mon_count, c_mean, c_sigma, c_scale, c_peak, c_left, c_due, scale_sum,
-                 scale_n, *, min_scores: int, pool_on: bool, horizon: int):
+                 scale_n, tenancy=None, *, min_scores: int, pool_on: bool, horizon: int):
     """The engine's shaping step as two launches, :func:`calib_quantiles`
     and :func:`calib_begin`: the arguments and results of
-    ``ref.calib_scales``."""
+    ``ref.calib_scales``, with the per-tenant tier ``tenancy`` or None."""
     dev = _device(ring, "calib_scales")
     (S, R, cap, pcap), specs = _state_specs(ring, ring_count, pool, pool_count, q)
     f32, i32 = torch.float32, torch.int32
@@ -140,47 +161,84 @@ def calib_scales(ring, ring_count, pool, pool_count, q, fallback, deploy, mean, 
                c_scale=(c_scale, f32, (S, R)), c_peak=(c_peak, f32, (S, R)),
                c_left=(c_left, i32, (S, R)), c_due=(c_due, i32, (S, R)),
                scale_sum=(scale_sum, f32, (S,)), scale_n=(scale_n, i32, (S,)))
-    raw, raw_pool = calib_quantiles(ring, ring_count, pool, pool_count, q, fallback,
-                                    min_scores=min_scores, pool_on=pool_on)
-    return calib_begin(ring_count, pool_count, raw, raw_pool, deploy, mean, var, mon_count,
+    qt = bt = None
+    if tenancy is not None:
+        credit, tenant, slot_gid, group_ring, group_count, group, spread, q_min, q_max = tenancy
+        if group_ring.dim() != 3 or slot_gid.dim() != 2 or R % (2 * slot_gid.shape[1]):
+            raise ValueError(f"group_ring {tuple(group_ring.shape)} must be (S, T, gcap) and "
+                             f"slot_gid {tuple(slot_gid.shape)} (S, A) with 2 * A dividing R={R}")
+        T, gcap = group_ring.shape[1:]
+        A, N = slot_gid.shape[1], tenant.shape[-1]
+        specs = dict(tenant=(tenant, i32, (S, N)), slot_gid=(slot_gid, i32, (S, A)),
+                     group_ring=(group_ring, f32, (S, T, gcap)),
+                     group_count=(group_count, i32, (S, T)), group=(group, i32, (S, R)))
+        if credit is not None:
+            specs["credit"] = (credit, f32, (S, T))
+        nvcc.check(dev, **specs)
+        qt = (credit, tenant, slot_gid, group_ring, group_count, spread, q_min, q_max)
+    raw = calib_quantiles(ring, ring_count, pool, pool_count, q, fallback, qt,
+                          min_scores=min_scores, pool_on=pool_on)
+    if tenancy is not None:
+        bt = (tenant, slot_gid, group_count, raw[2], group, gcap)
+    return calib_begin(ring_count, pool_count, raw[0], raw[1], deploy, mean, var, mon_count,
                        c_mean, c_sigma, c_scale, c_peak, c_left, c_due, scale_sum, scale_n,
-                       cap=cap, pcap=pcap, min_scores=min_scores, pool_on=pool_on,
+                       bt, cap=cap, pcap=pcap, min_scores=min_scores, pool_on=pool_on,
                        horizon=horizon, fallback=fallback)
 
 
-def calib_quantiles(ring, ring_count, pool, pool_count, q, fallback, *, min_scores: int,
-                    pool_on: bool):
+def calib_quantiles(ring, ring_count, pool, pool_count, q, fallback, tenancy=None, *,
+                    min_scores: int, pool_on: bool):
     """Launch ``conformal_scale`` once over a calibration state's series
-    rings and pools (checked by the caller): ``ref.calib_quantiles``'s
-    results where the step reads them (the rows of ``min_scores`` scores
-    or more, the pool where on; the other entries unwritten)."""
+    rings, pools and, with the per-tenant tier ``tenancy`` (as
+    ``ref.calib_quantiles`` takes it), group rings, all checked by the
+    caller: ``ref.calib_quantiles``'s results where the step reads them
+    (the rows of ``min_scores`` scores or more, the pool where on; the
+    other entries unwritten)."""
     S, R, cap = ring.shape
     dev = ring.device
     raw = torch.empty((S, R), dtype=torch.float32, device=dev)
     raw_pool = torch.empty(S, dtype=torch.float32, device=dev)
+    groups, raw_group = (None,) * 6 + (0,) * 5 + (0.0,) * 3, ()
+    if tenancy is not None:
+        credit, tenant, slot_gid, group_ring, group_count, spread, q_min, q_max = tenancy
+        T, gcap = group_ring.shape[1:]
+        raw_group = (torch.empty((S, T), dtype=torch.float32, device=dev),)
+        A = slot_gid.shape[1]
+        groups = (group_ring, group_count, raw_group[0], credit, slot_gid, tenant, T, gcap, A,
+                  R // 2 // A, tenant.shape[1],
+                  *(float(np.float32(x)) for x in (spread, q_min, q_max)))
     nvcc.launch(_library().calib_quantiles, "conformal_scale", dev, ring, ring_count, pool,
                 pool_count, q, float(np.float32(fallback)), raw, raw_pool, S, R, cap,
-                pool.shape[1], int(min_scores), int(pool_on))
+                pool.shape[1], int(min_scores), int(pool_on), *groups)
     conformal_scale.launches += 1
-    return raw, raw_pool
+    return (raw, raw_pool) + raw_group
 
 
 @nvcc.counted
 def calib_begin(ring_count, pool_count, raw, raw_pool, deploy, mean, var, mon_count, c_mean,
-                c_sigma, c_scale, c_peak, c_left, c_due, scale_sum, scale_n, *, cap: int,
-                pcap: int, min_scores: int, pool_on: bool, horizon: int, fallback: float):
+                c_sigma, c_scale, c_peak, c_left, c_due, scale_sum, scale_n, tenancy=None, *,
+                cap: int, pcap: int, min_scores: int, pool_on: bool, horizon: int,
+                fallback: float):
     """Launch ``calib_begin`` (inputs checked by the caller): the arguments
-    and results of ``ref.calib_begin``."""
+    and results of ``ref.calib_begin``, with its per-tenant tier
+    ``tenancy`` or None."""
     S, R = c_scale.shape
     outs = (torch.empty_like(c_scale),) + tuple(
         torch.empty_like(x) for x in (c_mean, c_sigma, c_scale, c_peak, c_left, c_due,
                                       scale_sum, scale_n))
+    groups, o_group = (None,) * 6 + (0,) * 5, ()
+    if tenancy is not None:
+        tenant, slot_gid, group_count, raw_group, group, gcap = tenancy
+        o_group = (torch.empty_like(group),)
+        A = slot_gid.shape[1]
+        groups = (slot_gid, tenant, group_count, raw_group, group, o_group[0], A, R // 2 // A,
+                  tenant.shape[1], group_count.shape[1], int(gcap))
     nvcc.launch(_library().calib_begin, "calib_begin", c_scale.device, ring_count, pool_count,
                 raw, raw_pool, deploy, mean, var, mon_count, c_mean, c_sigma, c_scale, c_peak,
                 c_left, c_due, scale_sum, scale_n, *outs, S, R, cap, pcap, int(min_scores),
-                int(pool_on), int(horizon), float(np.float32(fallback)))
+                int(pool_on), int(horizon), float(np.float32(fallback)), *groups)
     calib_begin.launches += 1
-    return outs
+    return outs + o_group
 
 
 def reset_launch_counts() -> None:

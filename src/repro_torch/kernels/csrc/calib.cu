@@ -45,6 +45,22 @@
 // operations, cap^2 key comparisons a row (16,384 at 128; 1,048,576 for
 // the pool), integer work; the rings' bytes (1.5 MB) take ~0.5 us.
 //
+// The per-tenant tier (the control plane on; every pointer of it null
+// otherwise, and the kernels then do what they did without it):
+// calib_observe's member block also scores each resolved row into its
+// deploy group's ring, the group's scores ranked in row order by a
+// ballot per group and warp over each 1,024-row tile, the last
+// group_capacity of them written (online.py:375-413), and counts each
+// group's resolved and missed scores, which it also returns as the
+// tick's deltas for the tenant credit; conformal_scale ranks the group
+// rings too, each at its tenant's credit-modulated quantile
+// clip(fma(spread, 1 - 2 * credit, q), q_min, q_max) (XLA contracts it),
+// and a series row of a tenant's slot at its tenant's quantile;
+// calib_begin falls back from a young series to its tenant's warm ring
+// before the pool, and registers the tenant as the row's group.  A row's
+// tenant is read from the slot table (slot_gid, then the trace's tenant
+// column) where it is needed.
+//
 // calib_begin: one block of 1,024 threads per member after the
 // quantiles: each row's scale (its series' quantile once warm, else the
 // pool's once warm, else K2) and the predictions it registers, the
@@ -89,6 +105,31 @@ __device__ __forceinline__ float add_x86(float a, float b) {
   return __fadd_rn(a, b);
 }
 
+// the per-tenant tier's view of the slot table: a series row's tenant
+struct Tier {
+  const int* slot_gid;   // (S, A), null without the tier
+  const int* tenant;     // (S, N)
+  int A, C, N, T;
+};
+
+// the tenant of series row r (of R = 2M) of member s: its slot's app's,
+// -1 for an empty slot (or a tenant id outside [0, T))
+__device__ __forceinline__ int row_group(const Tier& t, int s, int r, int M) {
+  const int mr = r < M ? r : r - M;
+  const int gid = t.slot_gid[static_cast<size_t>(s) * t.A + mr / t.C];
+  if (gid < 0) return -1;
+  const int g = t.tenant[static_cast<size_t>(s) * t.N + gid];
+  return (g >= 0 && g < t.T) ? g : -1;
+}
+
+// a tenant's target quantile from its credit (repro/control/credit.py:46,
+// contracted as the reference's compiled tick does; 2 * credit is exact)
+__device__ __forceinline__ float tenant_q(float q, float credit, float spread, float q_min,
+                                          float q_max) {
+  const float lin = __fsub_rn(1.f, __fmul_rn(2.f, credit));
+  return min_nan(max_nan(xla::fma_f32(spread, lin, q), q_min), q_max);
+}
+
 // ---------------------------------------------------------------------
 // calib_observe
 // ---------------------------------------------------------------------
@@ -103,6 +144,12 @@ struct ObserveArgs {
   int* o_left; float* o_q; int* o_resolved; int* o_errors; int* o_dropped;
   int R, cap, pcap, pool_on, adaptive;
   float gamma, budget, q_min, q_max;
+  // the per-tenant tier (G = 0 and null pointers without it)
+  const float* group_ring; const int* group_count; const int* group;
+  const int* group_resolved; const int* group_errors;
+  float* o_group_ring; int* o_group_count; int* o_group_resolved; int* o_group_errors;
+  int* o_d_res; int* o_d_err;
+  int G, gcap;
 };
 
 struct Row {
@@ -156,14 +203,27 @@ __global__ void __launch_bounds__(kThreads) calib_observe_kernel(const ObserveAr
   }
 
   // the member: each row's outcome staged in shared memory by one pass
-  // over the rows, then the pool, the counters and q
+  // over the rows, then the pool, the group rings, the counters and q
   extern __shared__ float score[];                       // [R], then ok [R]
   uint8_t* ok = reinterpret_cast<uint8_t*>(score + p.R);
+  // the tier: each resolved row's group or -1 [R], then per group its
+  // scores and misses this tick, the scores of the tiles before, and the
+  // scores of each warp in the current tile [G * kWarps]
+  int8_t* gsel = reinterpret_cast<int8_t*>(ok + p.R);
+  int* g_n = reinterpret_cast<int*>(score + (3 * p.R + 3) / 2 + 1);
+  int* g_err = g_n + p.G;
+  int* g_base = g_err + p.G;
+  int* g_warp = g_base + p.G;
   __shared__ int warp_ok[kWarps], totals[3];
   if (tid < 3) totals[tid] = 0;
+  for (int g = tid; g < 3 * p.G; g += kThreads) g_n[g] = 0;
   const float* psrc = p.pool + static_cast<size_t>(s) * p.pcap;
   float* pdst = p.o_pool + static_cast<size_t>(s) * p.pcap;
   for (int c = tid; c < p.pcap; c += kThreads) pdst[c] = psrc[c];
+  const size_t gring = static_cast<size_t>(s) * p.G * p.gcap;
+  for (int c = tid; c < p.G * p.gcap; c += kThreads)
+    p.o_group_ring[gring + c] = p.group_ring[gring + c];
+  if (p.G) __syncthreads();                // the group counters zeroed
   int n_ok = 0, n_err = 0, n_drop = 0;
   for (int r = tid; r < p.R; r += kThreads) {
     const Row o = observe_row(p, s, r, active);
@@ -172,6 +232,15 @@ __global__ void __launch_bounds__(kThreads) calib_observe_kernel(const ObserveAr
     n_ok += o.ok;
     n_err += o.err;
     n_drop += o.fire && !o.ok;
+    if (p.G) {
+      const int g = p.group[static_cast<size_t>(s) * p.R + r];
+      const bool mine = o.ok && g >= 0 && g < p.G;
+      gsel[r] = mine ? static_cast<int8_t>(g) : -1;
+      if (mine) {
+        atomicAdd(&g_n[g], 1);
+        if (o.err) atomicAdd(&g_err[g], 1);
+      }
+    }
   }
   n_ok = __reduce_add_sync(0xffffffffu, n_ok);
   n_err = __reduce_add_sync(0xffffffffu, n_err);
@@ -200,6 +269,40 @@ __global__ void __launch_bounds__(kThreads) calib_observe_kernel(const ObserveAr
     base += tile;
     __syncthreads();                       // this tile's reads of warp_ok are done
   }
+  // the group rings: a score's rank among its group's in row order is
+  // the group's scores of the earlier tiles, of the earlier warps of this
+  // tile and of the earlier lanes of its warp
+  const int* gcount = p.group_count + static_cast<size_t>(s) * p.G;
+  for (int t0 = 0; p.G && t0 < p.R; t0 += kThreads) {
+    const int r = t0 + tid;
+    const int mine = r < p.R ? gsel[r] : -1;
+    unsigned own = 0;
+    for (int g = 0; g < p.G; ++g) {
+      const unsigned b = __ballot_sync(0xffffffffu, mine == g);
+      if (lane == 0) g_warp[g * kWarps + warp] = __popc(b);
+      if (mine == g) own = b;
+    }
+    __syncthreads();
+    if (mine >= 0) {
+      int k = g_base[mine] + __popc(own & ((1u << lane) - 1u));
+      for (int w = 0; w < warp; ++w) k += g_warp[mine * kWarps + w];
+      if (k >= g_n[mine] - p.gcap)
+        p.o_group_ring[gring + static_cast<size_t>(mine) * p.gcap +
+                       (gcount[mine] + k) % p.gcap] = score[r];
+    }
+    __syncthreads();                       // this tile's reads of g_base, g_warp are done
+    for (int g = tid; g < p.G; g += kThreads)
+      for (int w = 0; w < kWarps; ++w) g_base[g] += g_warp[g * kWarps + w];
+    __syncthreads();
+  }
+  for (int g = tid; g < p.G; g += kThreads) {
+    const size_t i = static_cast<size_t>(s) * p.G + g;
+    p.o_group_count[i] = gcount[g] + g_n[g];
+    p.o_group_resolved[i] = p.group_resolved[i] + g_n[g];
+    p.o_group_errors[i] = p.group_errors[i] + g_err[g];
+    p.o_d_res[i] = g_n[g];
+    p.o_d_err[i] = g_err[g];
+  }
   if (tid != 0) return;
   p.o_pool_count[s] = pool_count + (p.pool_on ? n_ok : 0);
   p.o_resolved[s] = p.resolved[s] + n_ok;
@@ -219,22 +322,38 @@ __global__ void __launch_bounds__(kThreads) calib_observe_kernel(const ObserveAr
 // ---------------------------------------------------------------------
 
 struct ScaleArgs {
-  // two sets of rings: 0 the series (or the only set), 1 the pools
-  const float* scores[2];
-  const int* counts[2];
+  // three sets of rings: 0 the series (or the only set), 1 the pools, 2
+  // the group rings of the per-tenant tier
+  const float* scores[3];
+  const int* counts[3];
   // split: the lanes that rank one cell; chunks: the blocks of a row;
-  // rpb: the rows of a block (one chunk each)
-  int rows[2], cap[2], chunks[2], split[2], rpb[2];
+  // rpb: the rows of a block (one chunk each); blocks: the set's blocks
+  int rows[3], cap[3], chunks[3], split[3], rpb[3], blocks[3];
   const float* q;          // (groups,): row r of a set takes entry r / (rows / groups)
   const float* fallback;   // (groups,), or null for k2
   float k2;
   int groups, rolled;
-  float* out[2];
+  float* out[3];
   // the engine's step ranks only what its hierarchy reads: no series
   // below min_scores, no pool when pool_on is 0 (min_scores 0 and
   // pool_on 1 rank every row)
   int min_scores, pool_on;
+  // the tier: a credit (S, T) moves the q of a tenant's series rows and
+  // of its group ring (null: every row at its member's q)
+  Tier tier;
+  const float* credit;
+  float spread, q_min, q_max;
 };
+
+// the q of row `row` of set `set`
+__device__ __forceinline__ float row_q(const ScaleArgs& p, int set, int row) {
+  const int per = p.rows[set] / p.groups, m = row / per;
+  const float q = p.q[m];
+  if (!p.credit || set == 1) return q;
+  const int g = set == 2 ? row % per : row_group(p.tier, m, row % per, per / 2);
+  return g < 0 ? q : tenant_q(q, p.credit[static_cast<size_t>(m) * p.tier.T + g], p.spread,
+                              p.q_min, p.q_max);
+}
 
 // a float32's key in jnp.sort's order
 __device__ __forceinline__ unsigned sort_key(float v) {
@@ -247,10 +366,8 @@ __device__ __forceinline__ unsigned sort_key(float v) {
 // k of the row, written by the thread of this block's cells that holds it
 __global__ void __launch_bounds__(kRankThreads) conformal_scale_kernel(const ScaleArgs p) {
   extern __shared__ unsigned keys[];   // [cap], then the values [cap]
-  int b = blockIdx.x;
-  const int blocks0 = (p.rows[0] + p.rpb[0] - 1) / p.rpb[0] * p.chunks[0];
-  const int set = b < blocks0 ? 0 : 1;
-  if (set) b -= blocks0;
+  int b = blockIdx.x, set = 0;
+  while (b >= p.blocks[set]) b -= p.blocks[set++];
   const int cap = p.cap[set], chunk = b % p.chunks[set], per = p.rows[set] / p.groups;
   const int row0 = b / p.chunks[set] * p.rpb[set];
   const int row1 = min(row0 + p.rpb[set], p.rows[set]);
@@ -269,7 +386,7 @@ __global__ void __launch_bounds__(kRankThreads) conformal_scale_kernel(const Sca
       continue;
     }
     int k = static_cast<int>(ceilf(__fmul_rn(__fadd_rn(static_cast<float>(n), 1.f),
-                                             p.q[g]))) - 1;
+                                             row_q(p, set, row)))) - 1;
     k = min(max(k, 0), n - 1);
     const float* src = p.scores[set] + static_cast<size_t>(row) * cap;
     __syncthreads();                       // the last row's ranking is done with the keys
@@ -294,14 +411,19 @@ __global__ void __launch_bounds__(kRankThreads) conformal_scale_kernel(const Sca
 int scale_launch(ScaleArgs& p, void* stream) {
   int max_cap = 0;
   long long blocks = 0;
-  for (int s = 0; s < 2; ++s) {
+  for (int s = 0; s < 3; ++s) {
+    p.blocks[s] = 0;
     if (p.rows[s] <= 0) continue;
     if (p.cap[s] <= 0 || p.rows[s] % p.groups) return static_cast<int>(cudaErrorInvalidValue);
     p.split[s] = 1;
     while (p.split[s] < 32 && p.split[s] * kRankThreads < p.cap[s]) p.split[s] *= 2;
     p.chunks[s] = (p.cap[s] + kRankThreads / p.split[s] - 1) / (kRankThreads / p.split[s]);
     p.rpb[s] = p.chunks[s] == 1 ? kRowsPerBlock : 1;
-    blocks += static_cast<long long>((p.rows[s] + p.rpb[s] - 1) / p.rpb[s]) * p.chunks[s];
+    const long long nb =
+        static_cast<long long>((p.rows[s] + p.rpb[s] - 1) / p.rpb[s]) * p.chunks[s];
+    if (nb > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
+    p.blocks[s] = static_cast<int>(nb);
+    blocks += nb;
     max_cap = std::max(max_cap, p.cap[s]);
   }
   if (blocks == 0) return 0;
@@ -359,6 +481,12 @@ struct BeginArgs {
   int* o_left; int* o_due; float* o_scale_sum; int* o_scale_n;
   int R, cap, pcap, min_scores, pool_on, horizon;
   float k2;
+  // the per-tenant tier (null tier.slot_gid without it): the group rings'
+  // counts (S, T) and quantiles (S, T), the rows' groups (S, R) and their
+  // output
+  Tier tier;
+  const int* group_count; const float* raw_group; const int* c_group; int* o_group;
+  int gcap;
 };
 
 // one block per member: the fallback hierarchy and calib_begin of each
@@ -374,7 +502,15 @@ __global__ void __launch_bounds__(kThreads) calib_begin_kernel(const BeginArgs p
   int n_dep = 0;
   for (int r = threadIdx.x; r < R; r += kThreads) {
     const size_t i = static_cast<size_t>(g) * R + r;
-    const float scale = min(p.ring_count[i], p.cap) < p.min_scores ? fb : p.raw[i];
+    float fb_row = fb;
+    int grp = -1;
+    if (p.tier.slot_gid) {
+      grp = row_group(p.tier, g, r, M);
+      const size_t gi = static_cast<size_t>(g) * p.tier.T + grp;
+      if (grp >= 0 && min(p.group_count[gi], p.gcap) >= p.min_scores)
+        fb_row = p.group_count[gi] == 0 ? fb : p.raw_group[gi];
+    }
+    const float scale = min(p.ring_count[i], p.cap) < p.min_scores ? fb_row : p.raw[i];
     p.o_scale[i] = scale;
     const size_t mi = static_cast<size_t>(g) * M + (r < M ? r : r - M);
     const bool dep = p.deploy[mi] != 0;
@@ -388,6 +524,7 @@ __global__ void __launch_bounds__(kThreads) calib_begin_kernel(const BeginArgs p
     p.o_peak[i] = m ? -INFINITY : p.c_peak[i];
     p.o_left[i] = m ? p.horizon : left;
     p.o_due[i] = m ? p.mon_count[mi] + p.horizon : p.c_due[i];
+    if (p.tier.slot_gid) p.o_group[i] = m ? grp : p.c_group[i];
   }
   n_dep = __reduce_add_sync(0xffffffffu, n_dep);
   __syncthreads();                         // deployed zeroed, x staged
@@ -409,17 +546,27 @@ __global__ void __launch_bounds__(kThreads) calib_begin_kernel(const BeginArgs p
 // f32, resolved errors dropped (S,) i32; usage (S, R/2, 2) f32,
 // mon_count (S, R/2) i32, active (S,) bool.  Outputs: new ring,
 // ring_count, pool, pool_count, peak, left, q, resolved, errors,
-// dropped of the same shapes.  R even.
+// dropped of the same shapes.  R even.  The per-tenant tier, G groups of
+// gcap (G = 0 and null pointers without it, G <= 127): group_ring (S, G,
+// gcap) f32, group_count (S, G) i32, group (S, R) i32, group_resolved
+// group_errors (S, G) i32, into the new ring, counts, resolved and
+// errors, and the tick's resolved and missed scores d_res d_err (S, G).
 extern "C" int calib_observe(
     const void* ring, const void* ring_count, const void* pool, const void* pool_count,
     const void* mean, const void* sigma, const void* scale, const void* peak,
     const void* left, const void* due, const void* q, const void* resolved,
     const void* errors, const void* dropped, const void* usage, const void* mon_count,
-    const void* active, void* o_ring, void* o_ring_count, void* o_pool,
-    void* o_pool_count, void* o_peak, void* o_left, void* o_q, void* o_resolved,
-    void* o_errors, void* o_dropped, int S, int R, int cap, int pcap, int pool_on,
-    int adaptive, float gamma, float budget, float q_min, float q_max, void* stream) {
-  if (S <= 0 || R <= 0 || R % 2 || cap <= 0 || pcap <= 0)
+    const void* active, const void* group_ring, const void* group_count, const void* group,
+    const void* group_resolved, const void* group_errors, void* o_ring, void* o_ring_count,
+    void* o_pool, void* o_pool_count, void* o_peak, void* o_left, void* o_q, void* o_resolved,
+    void* o_errors, void* o_dropped, void* o_group_ring, void* o_group_count,
+    void* o_group_resolved, void* o_group_errors, void* o_d_res, void* o_d_err, int S, int R,
+    int cap, int pcap, int pool_on, int adaptive, int G, int gcap, float gamma, float budget,
+    float q_min, float q_max, void* stream) {
+  if (S <= 0 || R <= 0 || R % 2 || cap <= 0 || pcap <= 0 || G < 0 || G > 127 ||
+      (G > 0 && (gcap <= 0 || !group_ring || !group_count || !group || !group_resolved ||
+                 !group_errors || !o_group_ring || !o_group_count || !o_group_resolved ||
+                 !o_group_errors || !o_d_res || !o_d_err)))
     return static_cast<int>(cudaErrorInvalidValue);
   ObserveArgs p{
       static_cast<const float*>(ring), static_cast<const int*>(ring_count),
@@ -436,8 +583,18 @@ extern "C" int calib_observe(
       static_cast<float*>(o_peak), static_cast<int*>(o_left), static_cast<float*>(o_q),
       static_cast<int*>(o_resolved), static_cast<int*>(o_errors),
       static_cast<int*>(o_dropped), R, cap, pcap, pool_on, adaptive, gamma, budget,
-      q_min, q_max};
-  const size_t smem = static_cast<size_t>(R) * (sizeof(float) + 1);
+      q_min, q_max,
+      static_cast<const float*>(group_ring), static_cast<const int*>(group_count),
+      static_cast<const int*>(group), static_cast<const int*>(group_resolved),
+      static_cast<const int*>(group_errors), static_cast<float*>(o_group_ring),
+      static_cast<int*>(o_group_count), static_cast<int*>(o_group_resolved),
+      static_cast<int*>(o_group_errors), static_cast<int*>(o_d_res),
+      static_cast<int*>(o_d_err), G, gcap};
+  // score and ok [R]; with the tier also gsel [R] and the group counters
+  const size_t smem =
+      G ? (static_cast<size_t>(3 * R + 3) / 2 + 1 + static_cast<size_t>(G) * (3 + kWarps)) *
+              sizeof(float)
+        : static_cast<size_t>(R) * (sizeof(float) + 1);
   if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(1 + (R + kWarps - 1) / kWarps, S);
   calib_observe_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
@@ -469,11 +626,23 @@ extern "C" int conformal_scale(const void* scores, const void* counts, int B, in
 // cap) into raw (S, R), where a row holds min_scores scores, and of pool
 // (S, pcap) into raw_pool (S,) where pool_on, each at its member's q
 // (S,), k2 where a ring is empty; the other entries are left unwritten.
+// The per-tenant tier (null group_ring without it): the group rings
+// group_ring (S, T, gcap) with group_count (S, T) into raw_group (S, T)
+// likewise; with a credit (S, T) (or null), each at its tenant's
+// quantile, and each series row of a tenant's slot (slot_gid (S, A) of A
+// slots of C components, tenant (S, N)) at its tenant's.
 extern "C" int calib_quantiles(const void* ring, const void* ring_count, const void* pool,
                                const void* pool_count, const void* q, float k2, void* raw,
                                void* raw_pool, int S, int R, int cap, int pcap,
-                               int min_scores, int pool_on, void* stream) {
+                               int min_scores, int pool_on, const void* group_ring,
+                               const void* group_count, void* raw_group, const void* credit,
+                               const void* slot_gid, const void* tenant, int T, int gcap,
+                               int A, int C, int N, float spread, float q_min, float q_max,
+                               void* stream) {
   if (S <= 0 || R <= 0 || cap <= 0 || pcap <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (group_ring && (T <= 0 || gcap <= 0 || !group_count || !raw_group || !slot_gid ||
+                     !tenant || A <= 0 || C <= 0 || A * C * 2 != R))
+    return static_cast<int>(cudaErrorInvalidValue);
   ScaleArgs p{};
   p.scores[0] = static_cast<const float*>(ring);
   p.counts[0] = static_cast<const int*>(ring_count);
@@ -490,6 +659,18 @@ extern "C" int calib_quantiles(const void* ring, const void* ring_count, const v
   p.out[1] = static_cast<float*>(raw_pool);
   p.min_scores = min_scores;
   p.pool_on = pool_on;
+  if (group_ring) {
+    p.scores[2] = static_cast<const float*>(group_ring);
+    p.counts[2] = static_cast<const int*>(group_count);
+    p.rows[2] = S * T;
+    p.cap[2] = gcap;
+    p.out[2] = static_cast<float*>(raw_group);
+    p.tier = Tier{static_cast<const int*>(slot_gid), static_cast<const int*>(tenant), A, C, N, T};
+    p.credit = static_cast<const float*>(credit);
+    p.spread = spread;
+    p.q_min = q_min;
+    p.q_max = q_max;
+  }
   return scale_launch(p, stream);
 }
 
@@ -499,7 +680,12 @@ extern "C" int calib_quantiles(const void* ring, const void* ring_count, const v
 // holds min_scores, else k2) and calib_begin: deploy (S, R/2) bool, mean
 // var (S, R) f32, mon_count (S, R/2) i32, and the state's mean sigma
 // scale peak (S, R) f32, left due (S, R) i32, scale_sum (S,) f32,
-// scale_n (S,) i32, into the o_ arrays of the same shapes.
+// scale_n (S,) i32, into the o_ arrays of the same shapes.  The
+// per-tenant tier (null slot_gid without it): slot_gid (S, A) of A slots
+// of C components, tenant (S, N), group_count and raw_group (S, T), the
+// rows' groups c_group (S, R) i32 into o_group; a young row of a
+// tenant's slot takes its tenant's quantile where the ring holds
+// min_scores (of gcap) before the pool's.
 extern "C" int calib_begin(
     const void* ring_count, const void* pool_count, const void* raw, const void* raw_pool,
     const void* deploy, const void* mean, const void* var, const void* mon_count,
@@ -507,8 +693,13 @@ extern "C" int calib_begin(
     const void* c_left, const void* c_due, const void* scale_sum, const void* scale_n,
     void* scale, void* o_mean, void* o_sigma, void* o_cscale, void* o_peak, void* o_left,
     void* o_due, void* o_scale_sum, void* o_scale_n, int S, int R, int cap, int pcap,
-    int min_scores, int pool_on, int horizon, float k2, void* stream) {
+    int min_scores, int pool_on, int horizon, float k2, const void* slot_gid,
+    const void* tenant, const void* group_count, const void* raw_group, const void* c_group,
+    void* o_group, int A, int C, int N, int T, int gcap, void* stream) {
   if (S <= 0 || R <= 0 || R % 2 || cap <= 0 || pcap <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (slot_gid && (!tenant || !group_count || !raw_group || !c_group || !o_group || T <= 0 ||
+                   gcap <= 0 || A <= 0 || C <= 0 || A * C * 2 != R))
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = (static_cast<size_t>(R) + 2 * ((R + kWindow - 1) / kWindow + 1)) *
                       sizeof(float);
@@ -525,7 +716,10 @@ extern "C" int calib_begin(
       static_cast<float*>(scale), static_cast<float*>(o_mean), static_cast<float*>(o_sigma),
       static_cast<float*>(o_cscale), static_cast<float*>(o_peak), static_cast<int*>(o_left),
       static_cast<int*>(o_due), static_cast<float*>(o_scale_sum),
-      static_cast<int*>(o_scale_n), R, cap, pcap, min_scores, pool_on, horizon, k2};
+      static_cast<int*>(o_scale_n), R, cap, pcap, min_scores, pool_on, horizon, k2,
+      Tier{static_cast<const int*>(slot_gid), static_cast<const int*>(tenant), A, C, N, T},
+      static_cast<const int*>(group_count), static_cast<const float*>(raw_group),
+      static_cast<const int*>(c_group), static_cast<int*>(o_group), gcap};
   calib_begin_kernel<<<S, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }

@@ -472,6 +472,15 @@ __global__ void __launch_bounds__(kBlock) resolve_oom_kernel(
 //      a core component that does not fit stops FIFO; otherwise the
 //      admission is committed into shared memory, then back to 1;
 //   4. write every output once.
+// With the control plane's gate (tenant, elig and admitted not null) the
+// heads are taken among the apps whose tenant elig marks (each app's
+// tenant, clipped to [0, T), and its flag read from global memory in the
+// head search), and
+// each admission adds one to its tenant's admitted count (copied to the
+// output at entry, then counted there by the committing lane:
+// repro/sim/step.py:614, :872-876).  The gate is a template parameter:
+// without it (null pointers) the launch is an instance that compiles none
+// of it, the kernel as it was before the gate.
 // clock64 stamps per phase are summed over the loop's rounds.
 struct Head {
   float submit;
@@ -498,6 +507,7 @@ __host__ __device__ inline size_t admit_smem(int A, int C, int N, int H) {
          Carve::bytes((3 * kWarps + 2) * 4);                            // reduction, flags
 }
 
+template <bool kGated>
 __global__ void __launch_bounds__(kBlock) admit_queued_kernel(
     const float* __restrict__ submit_all, const int* __restrict__ gid_all,
     const float* __restrict__ cpu_all, const float* __restrict__ mem_all,
@@ -511,8 +521,10 @@ __global__ void __launch_bounds__(kBlock) admit_queued_kernel(
     float* __restrict__ work_all, uint8_t* __restrict__ run_all,
     int* __restrict__ host_all, float* __restrict__ alloc_all,
     float* __restrict__ alive_all, uint8_t* __restrict__ queued_all,
-    uint8_t* __restrict__ saved_all, uint8_t* __restrict__ resets_all, int A,
-    int C, int N, int H, int resume, long long* __restrict__ clocks) {
+    uint8_t* __restrict__ saved_all, uint8_t* __restrict__ resets_all,
+    const int* __restrict__ tenant_all, const uint8_t* __restrict__ elig_all,
+    const int* __restrict__ admitted_in, int* __restrict__ admitted_all, int A, int C, int N,
+    int H, int resume, int T, long long* __restrict__ clocks) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int s = blockIdx.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int AC = A * C;
@@ -561,6 +573,11 @@ __global__ void __launch_bounds__(kBlock) admit_queued_kernel(
   blk::zero(resets, AC);
   blk::zero(part, part_bytes<2>(AC, H));
   if (tid == 0) red_slot[0] = INT_MAX;
+  const int* tenant = kGated ? tenant_all + sn : nullptr;
+  const uint8_t* elig = kGated ? elig_all + size_t(s) * T : nullptr;
+  int* admitted = kGated ? admitted_all + size_t(s) * T : nullptr;
+  if (kGated)
+    for (int t = tid; t < T; t += kBlock) admitted[t] = admitted_in[size_t(s) * T + t];
   blk::stage_wait();
   __syncthreads();
   stamp(0);
@@ -572,7 +589,8 @@ __global__ void __launch_bounds__(kBlock) admit_queued_kernel(
     Head hd{INFINITY, 0, -1};
     for (int n = tid; n < N; n += kBlock) {
       const Head c{submit[n], gid[n], n};
-      if (queued[n] && before(c, hd)) hd = c;
+      if (queued[n] && (!kGated || elig[min(max(tenant[n], 0), T - 1)]) && before(c, hd))
+        hd = c;
     }
     int target = INT_MAX;
     for (int a = tid; a < A; a += kBlock)
@@ -660,6 +678,7 @@ __global__ void __launch_bounds__(kBlock) admit_queued_kernel(
           work[target] = resume && has_saved[head] ? saved_work_all[sn + head] : 0.f;
           queued[head] = has_saved[head] = 0;
           red_slot[0] = INT_MAX;
+          if (kGated && tenant[head] >= 0 && tenant[head] < T) ++admitted[tenant[head]];
         }
       }
       if (lane == 0) red_slot[1] = ok;
@@ -845,8 +864,12 @@ extern "C" int resolve_oom_init() {
 }
 
 extern "C" int admit_queued_init() {
-  return static_cast<int>(cudaFuncSetAttribute(
-      admit_queued_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem));
+  cudaError_t rc = cudaFuncSetAttribute(
+      admit_queued_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (rc == cudaSuccess)
+    rc = cudaFuncSetAttribute(admit_queued_kernel<true>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  return static_cast<int>(rc);
 }
 
 extern "C" int place_missing_elastic_init() {
@@ -887,6 +910,8 @@ extern "C" int resolve_oom(const void* slot_in, const void* work_in,
 
 // clocks: null, or (S, 5) int64 for the cycles of each phase per member
 // (stage, head search, free table, placement, write; summed over rounds).
+// The gate: tenant (S, N) i32, elig (S, T) bool, admitted_in and
+// admitted (S, T) i32, all null without it.
 extern "C" int admit_queued(const void* submit, const void* gid,
                             const void* cpu_req, const void* mem_req,
                             const void* exists, const void* is_core,
@@ -897,11 +922,16 @@ extern "C" int admit_queued(const void* submit, const void* gid,
                             const void* saved_work, const void* t,
                             const void* cap, void* slot, void* work, void* run,
                             void* host, void* alloc, void* alive, void* queued,
-                            void* has_saved, void* resets, int S, int A, int C,
-                            int N, int H, int resume, void* clocks, void* stream) {
+                            void* has_saved, void* resets, const void* tenant,
+                            const void* elig, const void* admitted_in, void* admitted,
+                            int S, int A, int C, int N, int H, int resume, int T,
+                            void* clocks, void* stream) {
+  if (tenant && (!elig || !admitted_in || !admitted || T <= 0))
+    return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = admit_smem(A, C, N, H);
   if (smem > size_t(kMaxSmem)) return static_cast<int>(cudaErrorInvalidValue);
-  admit_queued_kernel<<<S, kBlock, smem, static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = tenant ? admit_queued_kernel<true> : admit_queued_kernel<false>;
+  kernel<<<S, kBlock, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(submit), static_cast<const int*>(gid),
       static_cast<const float*>(cpu_req), static_cast<const float*>(mem_req),
       static_cast<const uint8_t*>(exists), static_cast<const uint8_t*>(is_core),
@@ -914,8 +944,10 @@ extern "C" int admit_queued(const void* submit, const void* gid,
       static_cast<float*>(work), static_cast<uint8_t*>(run),
       static_cast<int*>(host), static_cast<float*>(alloc),
       static_cast<float*>(alive), static_cast<uint8_t*>(queued),
-      static_cast<uint8_t*>(has_saved), static_cast<uint8_t*>(resets), A, C, N,
-      H, resume, static_cast<long long*>(clocks));
+      static_cast<uint8_t*>(has_saved), static_cast<uint8_t*>(resets),
+      static_cast<const int*>(tenant), static_cast<const uint8_t*>(elig),
+      static_cast<const int*>(admitted_in), static_cast<int*>(admitted), A, C, N, H, resume,
+      T, static_cast<long long*>(clocks));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -11,6 +11,7 @@ import torch
 
 from repro_torch.kernels import arima_forecast as _ar
 from repro_torch.kernels import calib as _cb
+from repro_torch.kernels import control as _ct
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import fma as _fm
 from repro_torch.kernels import gp_forecast as _gf
@@ -124,8 +125,9 @@ def resolve_oom(*args):
 
 
 def admit_queued(*args):
-    """FIFO admission per member; arguments and results as
-    ``ref.admit_queued``.  On the card one kernel launch."""
+    """FIFO admission per member, gated per tenant when the control
+    plane's ``tenant``, ``elig`` and ``admitted`` follow; arguments and
+    results as ``ref.admit_queued``.  On the card one kernel launch."""
     return _route("admit_queued", _sc.admit_queued, ref.admit_queued, args[0], args)
 
 
@@ -160,27 +162,40 @@ def _calib_kw(cfg) -> dict:
 
 
 def calib_observe(ring, ring_count, pool, pool_count, mean, sigma, scale, peak, left, due,
-                  q, resolved, errors, dropped, usage, mon_count, active, cfg):
+                  q, resolved, errors, dropped, usage, mon_count, active, cfg, groups=None):
     """One tick of the calibration's outstanding predictions for a
-    ``CalibrationConfig`` ``cfg``; see ``ref.calib_observe``.  On the card
-    one kernel launch."""
+    ``CalibrationConfig`` ``cfg``, with the per-tenant tier ``groups`` or
+    None; see ``ref.calib_observe``.  On the card one kernel launch."""
     kw = _calib_kw(cfg)
+    if groups is not None:
+        groups = tuple(g.contiguous() for g in groups)
     return _route("calib_observe", lambda *a: _cb.calib_observe(*a, **kw),
                   lambda *a: ref.calib_observe(*a, **kw), ring,
                   (ring, ring_count, pool, pool_count, mean, sigma, scale, peak, left, due,
-                   q, resolved, errors, dropped, usage, mon_count, active))
+                   q, resolved, errors, dropped, usage, mon_count, active, groups))
 
 
 def calib_scales(ring, ring_count, pool, pool_count, q, fallback, cfg, deploy, mean, var,
                  mon_count, horizon, c_mean, c_sigma, c_scale, c_peak, c_left, c_due,
-                 scale_sum, scale_n):
+                 scale_sum, scale_n, tenancy=None):
     """The device engine's calibrated shaping step (the fallback
-    hierarchy's scales, then ``calib_begin``); see ``ref.calib_scales``.
-    On the card two launches, ``conformal_scale`` over the warm rings and
-    the pools, then ``calib_begin``."""
+    hierarchy's scales, then ``calib_begin``), with the per-tenant tier
+    ``tenancy`` or None; see ``ref.calib_scales``.  On the card two
+    launches, ``conformal_scale`` over the warm rings, the pools and the
+    group rings, then ``calib_begin``."""
     kw = dict(min_scores=cfg.min_scores, pool_on=cfg.pool, horizon=horizon)
+    if tenancy is not None:
+        tenancy = tuple(x.contiguous() if isinstance(x, torch.Tensor) else x for x in tenancy)
     return _route("calib_scales", lambda *a: _cb.calib_scales(*a, **kw),
                   lambda *a: ref.calib_scales(*a, **kw), ring,
                   (ring, ring_count, pool, pool_count, q, fallback, deploy, mean, var,
                    mon_count, c_mean, c_sigma, c_scale, c_peak, c_left, c_due, scale_sum,
-                   scale_n))
+                   scale_n, tenancy))
+
+
+def control_tick(*args, **kw):
+    """The control plane's step of a tick per member: the credit, the
+    shares, the gate and the counters; arguments and results as
+    ``ref.control_tick``.  On the card one kernel launch."""
+    return _route("control_tick", lambda *a: _ct.control_tick(*a, **kw),
+                  lambda *a: ref.control_tick(*a, **kw), args[0], args)

@@ -494,7 +494,8 @@ def _try_place(free, cpu, mem, exists, is_core):
 
 def admit_queued(submit, gid, cpu_req, mem_req, exists, is_core, slot_gid,
                  work_done, comp_running, comp_host, alloc, alive_since, queued,
-                 has_saved, saved_work, t, host_cap, resume: bool):
+                 has_saved, saved_work, t, host_cap, resume: bool, tenant=None, elig=None,
+                 admitted=None):
     """FIFO admission (``repro/sim/step.py:554``): while an app is queued
     and a slot is empty, place the head (least submit, then least gid)
     into the first empty slot if all its core components fit; stop at the
@@ -503,7 +504,12 @@ def admit_queued(submit, gid, cpu_req, mem_req, exists, is_core, slot_gid,
 
     The trace columns are (S,N[,C]); t (S,) f32; host_cap (H,2).  Returns
     the updated slot_gid, work_done, comp_running, comp_host, alloc,
-    alive_since, queued, has_saved and the monitor rows to reset (S,A*C)."""
+    alive_since, queued, has_saved and the monitor rows to reset (S,A*C).
+
+    With the control plane's gate (``tenant`` (S,N) int32, ``elig`` (S,T)
+    bool and ``admitted`` (S,T) int32, else all None) only the apps of
+    eligible tenants are heads, the others stay queued, and each admitted
+    app adds one to its tenant's ``admitted``, returned last."""
     (submit, gid, cpu_req, mem_req, exists, is_core, slot_gid, work_done, run, host,
      alloc, alive, queued, has_saved, saved_work, t, cap) = _numpy(
         submit, gid, cpu_req, mem_req, exists, is_core, slot_gid, work_done,
@@ -511,9 +517,14 @@ def admit_queued(submit, gid, cpu_req, mem_req, exists, is_core, slot_gid,
         t, host_cap)
     S, A, C = run.shape
     resets = np.zeros((S, A, C), bool)
+    gated = tenant is not None
+    if gated:
+        tenant, elig, admitted = _numpy(tenant, elig, admitted)
     for s in range(S):
-        while queued[s].any() and (slot_gid[s] < 0).any():
-            q = np.flatnonzero(queued[s])
+        ok_app = (elig[s][np.clip(tenant[s], 0, elig.shape[1] - 1)] if gated
+                  else np.ones(queued.shape[1], bool))
+        while (queued[s] & ok_app).any() and (slot_gid[s] < 0).any():
+            q = np.flatnonzero(queued[s] & ok_app)
             tied = q[submit[s, q] == submit[s, q].min()]
             head = tied[np.argmin(gid[s, tied])]
             slot = np.flatnonzero(slot_gid[s] < 0)[0]
@@ -533,8 +544,11 @@ def admit_queued(submit, gid, cpu_req, mem_req, exists, is_core, slot_gid,
             alive[s, slot] = t[s]
             queued[s, head] = has_saved[s, head] = False
             resets[s, slot] = True
-    return _tensors(slot_gid, work_done, run, host, alloc, alive, queued, has_saved,
-                    resets.reshape(S, A * C))
+            if gated and 0 <= tenant[s, head] < admitted.shape[1]:
+                admitted[s, tenant[s, head]] += 1
+    out = _tensors(slot_gid, work_done, run, host, alloc, alive, queued, has_saved,
+                   resets.reshape(S, A * C))
+    return out + _tensors(admitted) if gated else out
 
 
 def place_missing_elastic(cpu_req, mem_req, exists, is_core, slot_gid, comp_running,
@@ -849,7 +863,7 @@ def _tiled(x: np.ndarray) -> np.ndarray:
 
 
 def calib_observe(ring, ring_count, pool, pool_count, mean, sigma, scale, peak, left,
-                  due, q, resolved, errors, dropped, usage, mon_count, active, *,
+                  due, q, resolved, errors, dropped, usage, mon_count, active, groups=None, *,
                   pool_on: bool, adaptive: bool, gamma: float, budget: float,
                   q_min: float, q_max: float):
     """One tick of the outstanding predictions of each member
@@ -866,7 +880,17 @@ def calib_observe(ring, ring_count, pool, pool_count, mean, sigma, scale, peak, 
     resolve.  A score is miscovered when ``peak > fma(scale, sigma,
     mean)``; adaptive, ``q`` becomes ``clip(fma(gamma, err_rate - budget,
     q), q_min, q_max)`` where any resolved.  Returns (ring, ring_count,
-    pool, pool_count, peak, left, q, resolved, errors, dropped)."""
+    pool, pool_count, peak, left, q, resolved, errors, dropped).
+
+    ``groups``, the per-tenant tier (``online.py:375-413``), is None or
+    (group_ring (S, G, gcap) f32, group_count (S, G) int32, group (S, R)
+    int32 each row's group at deploy or -1, group_resolved, group_errors
+    (S, G) int32): each resolved row of a group also scores into its
+    group's ring, the group's scores of the tick in row order at
+    ``group_count + k``, the last ``gcap`` of them when more resolve; the
+    results then add (group_ring, group_count, group_resolved,
+    group_errors, and the tick's resolved and missed scores per group, (S,
+    G) int32 each)."""
     (ring, ring_count, pool, pool_count, mean, sigma, scale, peak, left, due, q, resolved,
      errors, dropped, usage, mon_count, active) = _numpy(
         ring, ring_count, pool, pool_count, mean, sigma, scale, peak, left, due, q,
@@ -901,31 +925,95 @@ def calib_observe(ring, ring_count, pool, pool_count, mean, sigma, scale, peak, 
                        torch.from_numpy(q)).numpy()
         qn = np.minimum(np.maximum(step, np.float32(q_min)), np.float32(q_max))
         q = np.where(n_ok > 0, qn, q).astype(np.float32)
-    return _tensors(ring, ring_count, pool, pool_count, peak, left, q, resolved, errors,
-                    dropped)
+    out = _tensors(ring, ring_count, pool, pool_count, peak, left, q, resolved, errors,
+                   dropped)
+    if groups is None:
+        return out
+    gring, gcount, group, gres, gerr = _numpy(*groups)
+    S, G, gcap = gring.shape
+    d_res = np.zeros((S, G), np.int32)
+    d_err = np.zeros((S, G), np.int32)
+    for m in range(S):
+        for g in range(G):
+            rows = np.nonzero(ok[m] & (group[m] == g))[0]
+            k = np.arange(rows.size)
+            w = k >= rows.size - gcap
+            gring[m, g, (gcount[m, g] + k[w]) % gcap] = s[m, rows[w]]
+            d_res[m, g] = rows.size
+            d_err[m, g] = err[m, rows].sum()
+    return out + _tensors(gring, (gcount + d_res).astype(np.int32),
+                          (gres + d_res).astype(np.int32), (gerr + d_err).astype(np.int32),
+                          d_res, d_err)
 
 
-def calib_quantiles(ring, ring_count, pool, pool_count, q, fallback, *, min_scores: int,
-                    pool_on: bool):
+def row_groups(slot_gid, tenant, C: int):
+    """(S, 2*A*C) int32: the tenant of the app in each series row's slot
+    (rows r and A*C + r are slot ``r // C``'s), -1 for an empty slot."""
+    slot_gid, tenant = _numpy(slot_gid, tenant)
+    ten = np.where(slot_gid >= 0,
+                   np.take_along_axis(tenant, np.maximum(slot_gid, 0), 1), -1)
+    rows = np.repeat(ten, C, axis=1)
+    return np.concatenate([rows, rows], 1).astype(np.int32)
+
+
+def credit_quantiles(credit, q, *, spread: float, q_min: float, q_max: float):
+    """(S, T) f32 per-tenant target quantiles ``clip(fma(spread, 1 - 2 *
+    credit, q), q_min, q_max)`` of the credit (S, T) and the members' q
+    (S,) (``repro/control/credit.py:46``; XLA contracts it, and ``2 *
+    credit`` is exact)."""
+    credit, q = _numpy(credit, q)
+    lin = (np.float32(1.0) - np.float32(2.0) * credit).astype(np.float32)
+    step = fma_f32(torch.from_numpy(lin), spread,
+                   torch.from_numpy(np.broadcast_to(q[:, None], credit.shape).copy())).numpy()
+    return np.minimum(np.maximum(step, np.float32(q_min)), np.float32(q_max))
+
+
+def calib_quantiles(ring, ring_count, pool, pool_count, q, fallback, tenancy=None, *,
+                    min_scores: int, pool_on: bool):
     """The quantiles the engine's shaping step reads (``online.py:447``):
     each series row's of its circular ring and each member's of its pool
     (where ``pool_on``), at the member's q, ``fallback`` (K2) where a ring
     is empty.  The kernel ranks only the rows holding ``min_scores``
     scores, the others unread; here every row is computed.  Returns (raw
-    (S, R), raw_pool (S,))."""
+    (S, R), raw_pool (S,)).
+
+    ``tenancy``, the per-tenant tier, is None or (credit (S, T) f32 or
+    None, tenant (S, N) int32, slot_gid (S, A) int32, group_ring (S, T,
+    gcap), group_count (S, T), spread, q_min, q_max): with a credit, each
+    tenant's q is :func:`credit_quantiles`' and a series row of a
+    tenant's slot (:func:`row_groups`) takes its tenant's; the group
+    rings' quantiles at their tenant's q are returned third, (S, T)."""
     ring, ring_count, pool, pool_count, q = _numpy(ring, ring_count, pool, pool_count, q)
     S, R, cap = ring.shape
     fb = np.full(S, np.float32(fallback))
-    raw = conformal_scale(*_tensors(ring.reshape(S * R, cap), ring_count.reshape(-1), q, fb),
-                          rolled=False).reshape(S, R)
+    q_rows = np.repeat(q, R)
+    if tenancy is not None:
+        credit, tenant, slot_gid, gring, gcount, spread, q_min, q_max = tenancy
+        T = gring.shape[1]
+        qt = (np.repeat(q, T).reshape(S, T) if credit is None
+              else credit_quantiles(credit, torch.from_numpy(q), spread=spread, q_min=q_min,
+                                    q_max=q_max))
+        if credit is not None:
+            grp = row_groups(slot_gid, tenant, ring_count.shape[1] // 2 // slot_gid.shape[1])
+            q_rows = np.where(grp >= 0, np.take_along_axis(qt, np.maximum(grp, 0), 1),
+                              q[:, None]).reshape(-1).astype(np.float32)
+    raw = conformal_scale(*_tensors(ring.reshape(S * R, cap), ring_count.reshape(-1), q_rows,
+                                    np.repeat(fb, R)), rolled=False).reshape(S, R)
     raw_pool = (conformal_scale(*_tensors(pool, pool_count, q, fb), rolled=False) if pool_on
                 else torch.from_numpy(fb))
-    return raw, raw_pool
+    if tenancy is None:
+        return raw, raw_pool
+    gring, gcount = _numpy(gring, gcount)
+    raw_group = conformal_scale(*_tensors(gring.reshape(S * T, -1), gcount.reshape(-1),
+                                          qt.reshape(-1).astype(np.float32),
+                                          np.repeat(fb, T)), rolled=False).reshape(S, T)
+    return raw, raw_pool, raw_group
 
 
 def calib_begin(ring_count, pool_count, raw, raw_pool, deploy, mean, var, mon_count, c_mean,
-                c_sigma, c_scale, c_peak, c_left, c_due, scale_sum, scale_n, *, cap: int,
-                pcap: int, min_scores: int, pool_on: bool, horizon: int, fallback: float):
+                c_sigma, c_scale, c_peak, c_left, c_due, scale_sum, scale_n, tenancy=None, *,
+                cap: int, pcap: int, min_scores: int, pool_on: bool, horizon: int,
+                fallback: float):
     """The rest of the engine's shaping step per member
     (``online.py:447,413``): each series row's scale, its quantile in
     ``raw`` once it holds ``min_scores`` scores (of a ring of ``cap``),
@@ -937,7 +1025,15 @@ def calib_begin(ring_count, pool_count, raw, raw_pool, deploy, mean, var, mon_co
     ``left`` ``horizon``, ``due`` ``mon_count + horizon``; ``scale_sum``
     adds the deployed rows' scales summed in XLA's tree (:func:`xla_sum`),
     ``scale_n`` their count.  Returns (scale (S, R), mean, sigma, scale,
-    peak, left, due, scale_sum, scale_n) of the state."""
+    peak, left, due, scale_sum, scale_n) of the state.
+
+    ``tenancy``, the per-tenant tier, is None or (tenant (S, N) int32,
+    slot_gid (S, A) int32, group_count (S, T) int32, raw_group (S, T) the
+    group rings' quantiles, group (S, R) int32, gcap): a young row of a
+    tenant's slot (:func:`row_groups`) whose group ring holds
+    ``min_scores`` takes the group's quantile (the pool's or K2 where the
+    ring is empty) before the pool's, and a registered row records its
+    tenant in ``group``, returned last."""
     (ring_count, pool_count, raw, raw_pool, deploy, mean, var, mon_count, c_mean, c_sigma,
      c_scale, c_peak, c_left, c_due, scale_sum, scale_n) = _numpy(
         ring_count, pool_count, raw, raw_pool, deploy, mean, var, mon_count, c_mean, c_sigma,
@@ -945,28 +1041,154 @@ def calib_begin(ring_count, pool_count, raw, raw_pool, deploy, mean, var, mon_co
     fb = np.full(raw.shape[0], np.float32(fallback))
     if pool_on:
         fb = np.where(np.minimum(pool_count, pcap) >= min_scores, raw_pool, fb)
-    scale = np.where(np.minimum(ring_count, cap) < min_scores, fb[:, None], raw)
+    fb_rows = np.broadcast_to(fb[:, None], raw.shape)
+    if tenancy is not None:
+        tenant, slot_gid, gcount, raw_group, group, gcap = tenancy
+        gcount, raw_group, group = _numpy(gcount, raw_group, group)
+        grp = row_groups(slot_gid, tenant, raw.shape[1] // 2 // slot_gid.shape[1])
+        gc = np.maximum(grp, 0)
+        gq = np.where(gcount == 0, fb[:, None], raw_group)
+        warm = (grp >= 0) & (np.take_along_axis(np.minimum(gcount, gcap), gc, 1) >= min_scores)
+        fb_rows = np.where(warm, np.take_along_axis(gq, gc, 1), fb_rows)
+    scale = np.where(np.minimum(ring_count, cap) < min_scores, fb_rows, raw)
     dep = _tiled(deploy)
     m = dep & (c_left == 0)
     sigma = np.sqrt(np.maximum(var, np.float32(0.0)))
     tree = xla_sum(np.where(dep, scale, np.float32(0.0)).T)
-    return _tensors(scale, np.where(m, mean, c_mean), np.where(m, sigma, c_sigma),
-                    np.where(m, scale, c_scale), np.where(m, np.float32(-np.inf), c_peak),
-                    np.where(m, np.int32(horizon), c_left).astype(np.int32),
-                    np.where(m, _tiled(mon_count) + np.int32(horizon), c_due).astype(np.int32),
-                    (scale_sum + tree).astype(np.float32),
-                    (scale_n + dep.sum(-1)).astype(np.int32))
+    out = _tensors(scale, np.where(m, mean, c_mean), np.where(m, sigma, c_sigma),
+                   np.where(m, scale, c_scale), np.where(m, np.float32(-np.inf), c_peak),
+                   np.where(m, np.int32(horizon), c_left).astype(np.int32),
+                   np.where(m, _tiled(mon_count) + np.int32(horizon), c_due).astype(np.int32),
+                   (scale_sum + tree).astype(np.float32),
+                   (scale_n + dep.sum(-1)).astype(np.int32))
+    if tenancy is None:
+        return out
+    return out + _tensors(np.where(m, grp, group).astype(np.int32))
 
 
 def calib_scales(ring, ring_count, pool, pool_count, q, fallback, deploy, mean, var,
                  mon_count, c_mean, c_sigma, c_scale, c_peak, c_left, c_due, scale_sum,
-                 scale_n, *, min_scores: int, pool_on: bool, horizon: int):
+                 scale_n, tenancy=None, *, min_scores: int, pool_on: bool, horizon: int):
     """The device engine's calibrated shaping step (``calib_scales``, then
     ``calib_begin``, ``online.py:447,413``): :func:`calib_quantiles`, then
-    :func:`calib_begin`.  Returns what that returns."""
-    raw, raw_pool = calib_quantiles(ring, ring_count, pool, pool_count, q, fallback,
-                                    min_scores=min_scores, pool_on=pool_on)
+    :func:`calib_begin`.  Returns what that returns.  ``tenancy``, the
+    per-tenant tier, is None or (credit (S, T) f32 or None, tenant (S, N),
+    slot_gid (S, A), group_ring (S, T, gcap), group_count (S, T), group
+    (S, R), spread, q_min, q_max)."""
+    if tenancy is None:
+        raw, raw_pool = calib_quantiles(ring, ring_count, pool, pool_count, q, fallback,
+                                        min_scores=min_scores, pool_on=pool_on)
+        return calib_begin(ring_count, pool_count, raw, raw_pool, deploy, mean, var, mon_count,
+                           c_mean, c_sigma, c_scale, c_peak, c_left, c_due, scale_sum, scale_n,
+                           cap=ring.shape[2], pcap=pool.shape[1], min_scores=min_scores,
+                           pool_on=pool_on, horizon=horizon, fallback=fallback)
+    credit, tenant, slot_gid, gring, gcount, group, spread, q_min, q_max = tenancy
+    raw, raw_pool, raw_group = calib_quantiles(
+        ring, ring_count, pool, pool_count, q, fallback,
+        (credit, tenant, slot_gid, gring, gcount, spread, q_min, q_max),
+        min_scores=min_scores, pool_on=pool_on)
     return calib_begin(ring_count, pool_count, raw, raw_pool, deploy, mean, var, mon_count,
                        c_mean, c_sigma, c_scale, c_peak, c_left, c_due, scale_sum, scale_n,
+                       (tenant, slot_gid, gcount, raw_group, group, gring.shape[2]),
                        cap=ring.shape[2], pcap=pool.shape[1], min_scores=min_scores,
                        pool_on=pool_on, horizon=horizon, fallback=fallback)
+
+
+# ----------------------------------------------------------------------
+# the control plane's tick: the work of the CUDA kernel in control.cu
+# ----------------------------------------------------------------------
+
+def _tenant_counts(tenant, mask, T):
+    """(S, T) int32 count of the apps in ``mask`` (S, N) per tenant."""
+    return np.stack([np.bincount(tenant[s][mask[s]], minlength=T)[:T]
+                     for s in range(tenant.shape[0])]).astype(np.int32)
+
+
+def control_tick(credit, throttled, completed, failed, share_sum, active_ticks, done0, done,
+                 queued0, queued, conflict, d_res, d_err, tenant, slot_gid, alloc, host_cap,
+                 weights, *, credit_on: bool, gate_on: bool, gamma: float, floor: float,
+                 slack: float):
+    """The control plane's step of a tick per member (``repro/sim/step.py:
+    778-887``, phase 6's gate with the events of phases 2-5).
+
+    The tenant state ``credit`` and ``share_sum`` (S, T) f32, ``throttled``,
+    ``completed``, ``failed``, ``active_ticks`` (S, T) int32.  The tick's
+    events as masks over the apps (S, N) bool: completions are ``done &
+    ~done0``; failures the optimistic ``conflict`` (or None) and the OOM
+    kills, ``queued & ~queued0``; ``d_res`` and ``d_err`` (S, T) int32 the
+    tick's resolved and missed conformal scores per tenant (or None).
+    ``queued`` is the queue at admission, ``tenant`` (S, N) int32 the
+    trace's column, ``slot_gid`` (S, A) and ``alloc`` (S, A, C, 2) the slot
+    table, ``host_cap`` (H, 2), ``weights`` (T,) f32.
+
+    Good events are completions and covered scores, bad ones failures and
+    missed scores.  ``credit_on``: the credit steps to ``clip(fma(gamma,
+    target - credit, credit), floor, 1)`` (target the good share, the
+    credit itself without events; XLA contracts the step).  Each tenant's
+    allocation is summed over its slots (components in order, slots in
+    XLA's tree), its share ``max_r(alloc_r * (1 / max(cap_r, 1e-9))) *
+    (1 / w)`` (XLA turns a division by a constant into a product by its
+    reciprocal; cap the hosts' capacities summed in order); a tenant is
+    active with a share or a queued app; ``gate_on``: eligible unless
+    active with ``share > fma(slack, credit, mean)`` (contracted; ``mean``
+    the active tenants' shares summed in XLA's tree over their count;
+    ``mean + slack`` with the credit off), else every tenant.  Returns the new credit, throttled (+ the queued apps of
+    ineligible tenants), completed, failed, share_sum (+ the share where
+    active), active_ticks and the eligibility (S, T) bool."""
+    (credit, throttled, completed, failed, share_sum, active_ticks, done0, done, queued0,
+     queued, tenant, slot_gid, alloc, cap, weights) = _numpy(
+        credit, throttled, completed, failed, share_sum, active_ticks, done0, done,
+        queued0, queued, tenant, slot_gid, alloc, host_cap, weights)
+    S, T = credit.shape
+    comp_t = _tenant_counts(tenant, done & ~done0, T)
+    fail_t = _tenant_counts(tenant, queued & ~queued0, T)
+    if conflict is not None:
+        fail_t = fail_t + _tenant_counts(tenant, conflict.numpy(), T)
+    good, bad = comp_t.copy(), fail_t.copy()
+    if d_res is not None:
+        d_res, d_err = _numpy(d_res, d_err)
+        good += d_res - d_err
+        bad += d_err
+    if credit_on:
+        g, b = good.astype(np.float32), bad.astype(np.float32)
+        tot = g + b
+        target = np.where(tot > 0, g / np.maximum(tot, np.float32(1.0)), credit)
+        step = fma_f32(torch.from_numpy((target - credit).astype(np.float32)), gamma,
+                       torch.from_numpy(credit)).numpy()
+        credit = np.minimum(np.maximum(step, np.float32(floor)), np.float32(1.0))
+    cap_sum = np.zeros(2, np.float32)
+    for h in range(cap.shape[0]):
+        cap_sum = (cap_sum + cap[h]).astype(np.float32)
+    rcap = (np.float32(1.0) / np.maximum(cap_sum, np.float32(1e-9))).astype(np.float32)
+    rw = (np.float32(1.0) / weights).astype(np.float32)
+    share = np.zeros((S, T), np.float32)
+    for s in range(S):
+        rowsum = np.zeros((alloc.shape[1], 2), np.float32)
+        for c in range(alloc.shape[2]):
+            rowsum = (rowsum + alloc[s, :, c]).astype(np.float32)
+        ten = np.where(slot_gid[s] >= 0, tenant[s][np.maximum(slot_gid[s], 0)], -1)
+        oh = ten[:, None] == np.arange(T)[None, :]
+        alloc_t = xla_sum(np.where(oh[:, :, None], rowsum[:, None, :], np.float32(0.0)))
+        norm = (alloc_t * rcap[None, :]).astype(np.float32)
+        share[s] = (np.maximum(norm[:, 0], norm[:, 1]) * rw).astype(np.float32)
+    queued_t = _tenant_counts(tenant, queued, T)
+    active = (share > 0) | (queued_t > 0)
+    if gate_on:
+        n = active.sum(-1)
+        tot = xla_sum(np.where(active, share, np.float32(0.0)).T)
+        mean = np.where(n > 0, tot / np.maximum(n, 1).astype(np.float32),
+                        np.float32(0.0)).astype(np.float32)
+        if credit_on:
+            bound = fma_f32(torch.full((S, T), float(np.float32(slack))),
+                            torch.from_numpy(credit), torch.from_numpy(
+                                np.broadcast_to(mean[:, None], (S, T)).copy())).numpy()
+        else:
+            bound = (mean[:, None] + np.float32(slack)).astype(np.float32)
+        elig = ~active | (share <= bound)
+    else:
+        elig = np.ones((S, T), bool)
+    return _tensors(credit.astype(np.float32),
+                    (throttled + np.where(elig, 0, queued_t)).astype(np.int32),
+                    (completed + comp_t).astype(np.int32), (failed + fail_t).astype(np.int32),
+                    (share_sum + np.where(active, share, np.float32(0.0))).astype(np.float32),
+                    (active_ticks + active).astype(np.int32), elig)

@@ -2,9 +2,10 @@
 launch.
 
 Three kernels, one launch each per tick for every member of a batch:
-``resolve_oom`` (``repro/sim/step.py:472``), ``admit_queued`` (``:554``)
-and ``place_missing_elastic`` (``:670``), the counterparts of the
-reference's event-bounded ``lax.while_loop``s.  What each computes is
+``resolve_oom`` (``repro/sim/step.py:472``), ``admit_queued`` (``:554``;
+with the control plane's gate, ``:614``) and ``place_missing_elastic``
+(``:670``), the counterparts of the reference's event-bounded
+``lax.while_loop``s.  What each computes is
 defined by the function of the same name in ``ref.py``; the kernels,
 their bound and their design are described in ``csrc/sched.cu``.
 Nothing is built when this module is imported: the first launch builds
@@ -43,7 +44,7 @@ def _library() -> ctypes.CDLL:
     if _LIB is None:
         lib = ctypes.CDLL(str(nvcc.build(SOURCE).path))
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        for name, n_ptr, n_int in zip(KERNELS, (24, 26, 15), (5, 6, 5)):
+        for name, n_ptr, n_int in zip(KERNELS, (24, 30, 15), (5, 7, 5)):
             fn = getattr(lib, name)
             fn.argtypes = [ptr] * n_ptr + [i32] * n_int + [ptr] * 2   # clocks, stream
             fn.restype = i32
@@ -157,8 +158,16 @@ def _launch_oom(slot_gid, work_done, comp_running, comp_host, alloc, usage, fail
 
 def _launch_admit(submit, gid, cpu_req, mem_req, exists, is_core, slot_gid, work_done,
                   comp_running, comp_host, alloc, alive_since, queued, has_saved,
-                  saved_work, t, host_cap, resume, clocks):
+                  saved_work, t, host_cap, resume, clocks, tenant=None, elig=None,
+                  admitted=None):
     S, A, C, N, H = _dims("admit_queued", comp_running, submit, host_cap)
+    gate = {}
+    if tenant is not None:
+        T = elig.shape[1] if elig.dim() == 2 else 0
+        gate = dict(tenant=(tenant, _I32, (S, N)), elig=(elig, _B, (S, T)),
+                    admitted=(admitted, _I32, (S, T)))
+        if T < 1:
+            raise ValueError(f"elig has shape {tuple(elig.shape)}; the gate takes (S, T)")
     nvcc.check(comp_running.device, submit=(submit, _F32, (S, N)),
                gid=(gid, _I32, (S, N)), cpu_req=(cpu_req, _F32, (S, N, C)),
                mem_req=(mem_req, _F32, (S, N, C)), exists=(exists, _B, (S, N, C)),
@@ -170,17 +179,19 @@ def _launch_admit(submit, gid, cpu_req, mem_req, exists, is_core, slot_gid, work
                alive_since=(alive_since, _F32, (S, A, C)),
                queued=(queued, _B, (S, N)), has_saved=(has_saved, _B, (S, N)),
                saved_work=(saved_work, _F32, (S, N)), t=(t, _F32, (S,)),
-               host_cap=(host_cap, _F32, (H, 2)))
+               host_cap=(host_cap, _F32, (H, 2)), **gate)
     outs = [torch.empty_like(x) for x in (slot_gid, work_done, comp_running,
                                           comp_host, alloc, alive_since, queued,
                                           has_saved)]
     resets = torch.empty((S, A * C), dtype=_B, device=comp_running.device)
+    counted = () if tenant is None else (torch.empty_like(admitted),)
     if S:
         _launch("admit_queued", comp_running.device, submit, gid, cpu_req, mem_req,
                 exists, is_core, slot_gid, work_done, comp_running, comp_host, alloc,
                 alive_since, queued, has_saved, saved_work, t, host_cap, *outs, resets,
-                S, A, C, N, H, int(resume), clocks)
-    return (*outs, resets)
+                tenant, elig, admitted, counted[0] if counted else None,
+                S, A, C, N, H, int(resume), elig.shape[1] if counted else 0, clocks)
+    return (*outs, resets, *counted)
 
 
 def _launch_elastic(cpu_req, mem_req, exists, is_core, slot_gid, comp_running,
@@ -219,12 +230,15 @@ def resolve_oom(slot_gid, work_done, comp_running, comp_host, alloc, usage, fail
 @nvcc.counted
 def admit_queued(submit, gid, cpu_req, mem_req, exists, is_core, slot_gid,
                  work_done, comp_running, comp_host, alloc, alive_since, queued,
-                 has_saved, saved_work, t, host_cap, resume: bool):
-    """Launch the admission kernel (one block per member); returns what
-    ``ref.admit_queued`` returns."""
+                 has_saved, saved_work, t, host_cap, resume: bool, tenant=None, elig=None,
+                 admitted=None):
+    """Launch the admission kernel (one block per member), gated by the
+    control plane when ``tenant``, ``elig`` and ``admitted`` are given;
+    returns what ``ref.admit_queued`` returns."""
     out = _launch_admit(submit, gid, cpu_req, mem_req, exists, is_core, slot_gid,
                         work_done, comp_running, comp_host, alloc, alive_since, queued,
-                        has_saved, saved_work, t, host_cap, resume, None)
+                        has_saved, saved_work, t, host_cap, resume, None, tenant, elig,
+                        admitted)
     if submit.shape[0]:
         admit_queued.launches += 1
     return out
@@ -260,9 +274,10 @@ def admit_phase_cycles(*args) -> torch.Tensor:
     """One uncounted launch of the admission kernel with ``clock64()``
     stamps: ``(S, 5)`` int64 cycles per member of the staging, the head
     searches, the free tables, the placements (each summed over the
-    admissions tried) and the write."""
+    admissions tried) and the write.  The arguments of
+    :func:`admit_queued`, the gate's three included where given."""
     clocks = _clocks(args, 5)
-    _launch_admit(*args, clocks)
+    _launch_admit(*args[:18], clocks, *args[18:])
     return clocks
 
 

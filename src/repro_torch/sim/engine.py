@@ -29,10 +29,16 @@ sigma-normalized residual scores instead of K2
 deployed bounds are scored ``horizon`` ticks later, and the calibrated
 scales are one ``ops.conformal_scale`` launch on the engine's device.
 
-Not ported, and refused by :func:`run_sim`: the multi-tenant control
-plane (``control.enabled``).  ``obs``, ``leap`` and ``forecast_bucket``
-configure the reference's device engine; the host engine ignores them,
-as the reference's does.
+With ``SimConfig.control`` enabled, the multi-tenant control plane
+(:mod:`repro_torch.control`) accounts every completion, failure and
+conformal resolution to its tenant; at admission a weighted
+dominant-resource-fairness gate decides which tenants may admit this
+tick, and the FIFO head is taken among their apps only.  With
+calibration on as well, scores also pool per tenant (the series ->
+tenant -> fleet -> K2 hierarchy) and each tenant's target quantile moves
+with its credit.  ``obs``, ``leap`` and ``forecast_bucket`` configure the
+reference's device engine; the host engine ignores them, as the
+reference's does.
 """
 from __future__ import annotations
 
@@ -43,6 +49,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.control import HostControl, TenancyConfig, tenancy_summary
 from repro_torch.core.forecast import (ARIMAConfig, ARIMAForecaster, GPConfig,
                                       GPForecaster, peak_over_horizon)
 from repro_torch.core.monitor import Monitor
@@ -60,7 +67,8 @@ from repro_torch.sim.workload import Workload, WorkloadConfig
 @dataclasses.dataclass(frozen=True)
 class Switch:
     """A block of the reference's ``SimConfig`` whose feature is not ported
-    yet: only its on/off switch is kept, and ``run_sim`` refuses "on"."""
+    yet: only its on/off switch is kept, and the device engine refuses
+    "on"."""
     enabled: bool = False
 
 
@@ -72,7 +80,7 @@ class SimConfig:
     forecaster: str = "gp"               # oracle | gp | arima | persist
     safeguard: SafeguardConfig = SafeguardConfig()
     calibration: CalibrationConfig = CalibrationConfig()   # conformal safeguard
-    control: Switch = Switch()           # multi-tenant control plane (not ported)
+    control: TenancyConfig = TenancyConfig()   # multi-tenant control plane
     obs: Switch = Switch()               # device telemetry rings (device engine only)
     window: int = 24                     # monitor window (ticks)
     grace: int = 10                      # grace period (paper §5: 10 min)
@@ -86,8 +94,6 @@ class SimConfig:
 
 
 def _check_ported(cfg: SimConfig) -> None:
-    if cfg.control.enabled:
-        raise NotImplementedError("the multi-tenant control plane is not ported yet")
     if cfg.forecaster not in ("gp", "arima", "persist", "oracle"):
         raise ValueError(f"unknown forecaster {cfg.forecaster!r} "
                          "(expected oracle | gp | arima | persist)")
@@ -204,10 +210,12 @@ class _PhaseClock:
 
 def _shape_decisions(cfg: SimConfig, cl: Cluster, wl: Workload, mon: Monitor,
                      fc, policy_fn, submit0: np.ndarray, run: np.ndarray,
-                     t: float, tick: float, device: torch.device, calib=None):
+                     t: float, tick: float, device: torch.device, calib=None,
+                     ctl: HostControl | None = None):
     """Forecast -> safeguard -> Algorithm 1 for one tick; with a calibrator
-    the safeguard takes its scales and registers the deployed bounds.
-    Returns numpy (kill_app, kill_comp, alloc_cpu, alloc_mem)."""
+    the safeguard takes its scales and registers the deployed bounds, per
+    tenant with the control plane ``ctl``.  Returns numpy (kill_app,
+    kill_comp, alloc_cpu, alloc_mem)."""
     A, C = cl.A, cl.C
     gids = cl.slot_gid[run]
     req = np.stack([wl.cpu_req[gids], wl.mem_req[gids]], -1)  # (n,C,2)
@@ -243,7 +251,17 @@ def _shape_decisions(cfg: SimConfig, cl: Cluster, wl: Workload, mon: Monitor,
                 # (the batch layout: CPU rows, then MEM rows) replaces K2
                 M = mon.count.shape[0]
                 rows = np.concatenate([mslots[sel], M + mslots[sel]])
-                scale = calib.scales(rows)
+                groups, q_rows = None, None
+                if ctl is not None:
+                    # rows pool by the tenant owning the slot, at its
+                    # credit's quantile (the previous tick's credit: the
+                    # control update runs at admission)
+                    tg = wl.tenant[cl.slot_gid[run[rc[0][sel]]]]
+                    groups = np.concatenate([tg, tg])
+                    qg = ctl.q_groups(calib.q, cfg.calibration.q_min,
+                                      cfg.calibration.q_max)
+                    q_rows = qg[groups]
+                scale = calib.scales(rows, groups=groups, q=q_rows)
                 for r, off in ((CPU, 0), (MEM, n)):
                     demand[rc[0][sel], rc[1][sel], r] = _shaped_demand_scaled(
                         mean[off:off + n], reqs[:, r], var[off:off + n],
@@ -251,7 +269,7 @@ def _shape_decisions(cfg: SimConfig, cl: Cluster, wl: Workload, mon: Monitor,
                 sigma = sigma_from_var_np(var).astype(np.float32)
                 counts = np.concatenate([mon.count[mslots[sel]]] * 2)
                 calib.begin(rows, mean.astype(np.float32), sigma,
-                            scale.astype(np.float32), counts)
+                            scale.astype(np.float32), counts, groups=groups)
 
     # build the fixed-size ShapeProblem over ALL slots
     dem_full = np.zeros((A, C, 2), np.float32)
@@ -283,6 +301,36 @@ def _shape_decisions(cfg: SimConfig, cl: Cluster, wl: Workload, mon: Monitor,
             dec.alloc_cpu.cpu().numpy(), dec.alloc_mem.cpu().numpy())
 
 
+def check_tenants(cfg: SimConfig, wl: Workload) -> None:
+    """With the control plane on, refuse a trace with more tenants than
+    ``control.max_tenants`` (the width of the tenant counters)."""
+    if cfg.control.enabled and wl.n_tenants > cfg.control.max_tenants:
+        raise ValueError(f"trace has {wl.n_tenants} tenants > control.max_tenants="
+                         f"{cfg.control.max_tenants}")
+
+
+def _host_control(cfg: SimConfig, wl: Workload) -> HostControl | None:
+    """The run's tenant accounting, or None with the control plane off."""
+    check_tenants(cfg, wl)
+    return HostControl(cfg.control) if cfg.control.enabled else None
+
+
+def _gate(cfg: SimConfig, hc: HostControl | None, cl: Cluster, wl: Workload,
+          queue: list) -> np.ndarray | None:
+    """The admission gate's per-tenant eligibility (None with the control
+    plane off), from each tenant's allocation over the running slots and
+    its queued apps."""
+    if hc is None:
+        return None
+    T = cfg.control.max_tenants
+    alloc_t = np.zeros((T, 2), np.float32)
+    run = cl.running_slots()
+    if run.size:
+        np.add.at(alloc_t, wl.tenant[cl.slot_gid[run]], cl.alloc[run].sum(1))
+    queued_t = np.bincount(wl.tenant[[g for _, g in queue]], minlength=T)
+    return hc.gate(alloc_t, cl.host_cap.sum(0), queued_t)
+
+
 def run_sim(cfg: SimConfig, wl: Workload | None = None, *, forecast_fn=None,
             device: str | torch.device = "cuda") -> SimResults:
     """Run one simulation to completion (or ``cfg.max_ticks``).
@@ -310,12 +358,15 @@ def run_sim(cfg: SimConfig, wl: Workload | None = None, *, forecast_fn=None,
     res = SimResults(n_apps=N)
     tick = cfg.cluster.tick
     all_comps = np.arange(C)[None, :]     # broadcast helper for mon resets
+    hc = _host_control(cfg, wl)
     # online conformal calibration (oracle forecasts are exact: there is
-    # no residual distribution to calibrate)
+    # no residual distribution to calibrate); with the control plane on,
+    # scores also pool per tenant
     calib = None
     if cfg.calibration.enabled and cfg.forecaster != "oracle":
         calib = OnlineCalibrator(n_series=2 * A * C, horizon=cfg.horizon,
                                  fallback=cfg.safeguard.k2, cfg=cfg.calibration,
+                                 n_groups=cfg.control.max_tenants if hc is not None else 0,
                                  device=dev)
 
     queue: list[tuple[float, int]] = []   # (original submit, gid) sorted
@@ -354,6 +405,8 @@ def run_sim(cfg: SimConfig, wl: Workload | None = None, *, forecast_fn=None,
             done[fin_gids] = True
             for gid in fin_gids:
                 res.record_completion(int(gid), submit0[gid], t)
+            if hc is not None:
+                hc.note_completed(wl.tenant[fin_gids])
 
         # 3. monitor sampling --------------------------------------------
         usage = cl.usage_now(wl)
@@ -363,8 +416,14 @@ def run_sim(cfg: SimConfig, wl: Workload | None = None, *, forecast_fn=None,
             mslots = run[rc[0]] * C + rc[1]
             mon.record(mslots, usage[run][rc][:, CPU], usage[run][rc][:, MEM])
         if calib is not None:
+            if hc is not None:
+                gr0, ge0 = calib.group_resolved.copy(), calib.group_errors.copy()
             calib.observe(np.concatenate([usage[:, :, CPU].ravel(),
                                           usage[:, :, MEM].ravel()]), mon.count)
+            if hc is not None:
+                # covered and missed resolutions feed the tenant credit
+                derr = calib.group_errors - ge0
+                hc.note_calib(calib.group_resolved - gr0 - derr, derr)
 
         # 4. shaping ------------------------------------------------------
         # two kill channels (paper §4.2): controlled preemptions
@@ -374,7 +433,7 @@ def run_sim(cfg: SimConfig, wl: Workload | None = None, *, forecast_fn=None,
         oom_failed_this_tick: list[int] = []
         if cfg.policy != "baseline" and run.size:
             kill_app, kill_comp, alloc_cpu, alloc_mem = _shape_decisions(
-                cfg, cl, wl, mon, fc, policy_fn, submit0, run, t, tick, dev, calib)
+                cfg, cl, wl, mon, fc, policy_fn, submit0, run, t, tick, dev, calib, hc)
 
             kills = np.nonzero(kill_app & (cl.slot_gid >= 0))[0]
             if kills.size:
@@ -414,16 +473,32 @@ def run_sim(cfg: SimConfig, wl: Workload | None = None, *, forecast_fn=None,
 
         for gid in oom_failed_this_tick:
             res.record_failure(gid)
+        if hc is not None and oom_failed_this_tick:
+            hc.note_failed(wl.tenant[np.asarray(oom_failed_this_tick)])
         for gid in oom_failed_this_tick + preempted_this_tick:
             requeue(gid)
 
         # 6. scheduler: FIFO admission + elastic re-placement --------------
+        # with the control plane on, the tick's events first fold into the
+        # credit, then the gate decides which tenants may admit
+        elig = _gate(cfg, hc, cl, wl, queue)
         while queue:
-            _, gid = queue[0]
+            if elig is None:
+                i0 = 0
+            else:
+                # the FIFO head among eligible tenants' apps (the queue is
+                # sorted by (submit, gid))
+                i0 = next((i for i, (_, g) in enumerate(queue)
+                           if elig[wl.tenant[g]]), -1)
+                if i0 < 0:
+                    break
+            _, gid = queue[i0]
             slot = cl.admit(gid, wl, t)
             if slot < 0:
                 break
-            queue.pop(0)
+            queue.pop(i0)
+            if hc is not None:
+                hc.note_admitted(int(wl.tenant[gid]))
             if not cfg.work_lost_on_kill and gid in saved_work:
                 cl.work_done[slot] = saved_work.pop(gid)  # resume from ckpt
             mon.reset_slot(slot * C + np.arange(C))
@@ -434,6 +509,12 @@ def run_sim(cfg: SimConfig, wl: Workload | None = None, *, forecast_fn=None,
 
     if calib is not None:
         res.calibration = calib.report()
+        groups = calib.group_report()
+        if groups is not None:
+            res.calibration["groups"] = groups
+    if hc is not None:
+        res.tenancy = tenancy_summary(cfg.control, wl, res.turnaround,
+                                      res.failed_apps, hc.arrays())
     res.finalize(t)
     res.timings = dict(clock.seconds, total=time.perf_counter() - t0,
                        ticks=ticks)

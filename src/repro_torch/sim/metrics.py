@@ -1,8 +1,8 @@
 """Simulation metrics (paper §4.1): turnaround, resource slack, failures.
 
 A copy of ``SimResults`` from ``repro/sim/metrics.py`` (numpy only),
-with the calibration block and without the telemetry blocks of features
-not ported yet, plus the engines' wall times.
+with the calibration and tenancy blocks and without the telemetry rings
+(not ported yet), plus the engines' wall times.
 """
 from __future__ import annotations
 
@@ -38,6 +38,9 @@ class SimResults:
     # online conformal-calibration telemetry, filled only when
     # SimConfig.calibration is enabled (and part of summary() then)
     calibration: dict | None = None
+    # per-tenant fairness / SLO / credit block, filled only when
+    # SimConfig.control is enabled (and part of summary() then)
+    tenancy: dict | None = None
 
     def record_completion(self, gid: int, submit: float, t: float) -> None:
         self.turnaround[int(gid)] = float(t - submit)
@@ -86,4 +89,6 @@ class SimResults:
         }
         if self.calibration is not None:
             out["calibration"] = self.calibration
+        if self.tenancy is not None:
+            out["tenancy"] = self.tenancy
         return out

@@ -9,9 +9,11 @@ anything back:
   * :class:`DeviceTrace` — the immutable workload columns, uploaded once
     per run;
   * :class:`SimState`    — everything that evolves per tick: slot table,
-    monitor rings, FIFO-queue membership, per-app telemetry, counters
-    and, with calibration on, the conformal score rings
-    (:class:`~repro_torch.core.uncertainty.CalibState`);
+    monitor rings, FIFO-queue membership, per-app telemetry, counters,
+    with calibration on the conformal score rings
+    (:class:`~repro_torch.core.uncertainty.CalibState`) and with the
+    control plane on the tenant counters
+    (:class:`~repro_torch.control.TenantState`);
   * :class:`TickMetrics` — the per-tick outputs, stacked on the device
     and read at chunk boundaries;
   * :func:`drain_results` — folds one member's final state and metrics
@@ -20,9 +22,10 @@ anything back:
 Every tensor carries a leading member axis S where the reference adds a
 ``vmap`` axis for seed cohorts: a solo run has S = 1, a cohort stacks
 its members, and every phase and kernel treats members independently.
-Integer state is int32 as in the reference.  The reference's tenancy
-and telemetry rings are not ported, so ``tenancy`` and ``obs`` are
-always ``None``; ``calib`` is ``None`` unless calibration is on.
+Integer state is int32 as in the reference.  The reference's telemetry
+rings are not ported, so ``obs`` is always ``None``; ``calib`` is
+``None`` unless calibration is on, ``tenancy`` unless the control plane
+is (and ``calib`` then has the per-tenant tier).
 """
 from __future__ import annotations
 
@@ -31,7 +34,9 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.core.uncertainty import CalibState, calib_init, calib_report
+from repro_torch.control import TenantState, control_init, tenancy_summary
+from repro_torch.core.uncertainty import (CalibState, calib_group_report, calib_init,
+                                          calib_report)
 from repro_torch.sim.metrics import SimResults
 
 CPU, MEM = 0, 1
@@ -114,8 +119,9 @@ class SimState:
     partial_preemptions: torch.Tensor  # (S,) i32
     # conformal calibration rings (None when calibration is off)
     calib: CalibState | None = None
+    # tenant counters (None when the control plane is off)
+    tenancy: TenantState | None = None
     # not ported: always None
-    tenancy: None = None
     obs: None = None
 
 
@@ -129,9 +135,11 @@ def init_state(cfg, n_apps: int, max_components: int, batch: int,
         return torch.zeros((S,) + shape, dtype=dtype, device=device)
 
     i32, f32, b = torch.int32, torch.float32, torch.bool
+    ctl = cfg.control.enabled
     calib = None
     if cfg.calibration.enabled and cfg.forecaster != "oracle":
-        calib = calib_init(2 * A * C, cfg.calibration, S, device)
+        calib = calib_init(2 * A * C, cfg.calibration, S, device,
+                           n_groups=cfg.control.max_tenants if ctl else 0)
     return SimState(
         slot_gid=torch.full((S, A), -1, dtype=i32, device=device),
         work_done=z(A, dtype=f32), comp_running=z(A, C, dtype=b),
@@ -142,7 +150,8 @@ def init_state(cfg, n_apps: int, max_components: int, batch: int,
         failed=z(N, dtype=b), finish_t=z(N, dtype=f32),
         saved_work=z(N, dtype=f32), has_saved=z(N, dtype=b),
         t=z(dtype=f32), failure_events=z(dtype=i32), oom_kills=z(dtype=i32),
-        full_preemptions=z(dtype=i32), partial_preemptions=z(dtype=i32), calib=calib)
+        full_preemptions=z(dtype=i32), partial_preemptions=z(dtype=i32), calib=calib,
+        tenancy=control_init(cfg.control, S, device) if ctl else None)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -169,7 +178,8 @@ def drain_results(cfg, wl, state: dict, metrics: dict) -> SimResults:
     """Fold one member's final state and per-step metrics into
     ``SimResults``.  ``state`` and ``metrics`` map field names to numpy
     arrays of that member (metrics with a leading step axis; the
-    calibration state's fields as ``calib.<name>``).
+    calibration and tenant states' fields as ``calib.<name>`` and
+    ``tenancy.<name>``).
 
     Each step stands for ``lead`` skipped idle ticks (all-zero metrics:
     the cluster and the queue were empty) followed by its own tick when
@@ -223,5 +233,12 @@ def drain_results(cfg, wl, state: dict, metrics: dict) -> SimResults:
     calib = {k[len("calib."):]: v for k, v in state.items() if k.startswith("calib.")}
     if calib:
         res.calibration = calib_report(calib, cfg.calibration)
+        groups = calib_group_report(calib, cfg.calibration)
+        if groups is not None:
+            res.calibration["groups"] = groups
+    tenancy = {k[len("tenancy."):]: v for k, v in state.items() if k.startswith("tenancy.")}
+    if tenancy:
+        res.tenancy = tenancy_summary(cfg.control, wl, res.turnaround, res.failed_apps,
+                                      tenancy)
     res.finalize(float(state["t"]))
     return res

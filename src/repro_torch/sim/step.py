@@ -65,8 +65,19 @@ predictions), all three in ``kernels/csrc/calib.cu``, so a calibrated
 chunk is one captured graph too.  Leap holds its skip while a score is
 pending.
 
-Not ported, and refused: the control plane, the telemetry rings and
-streamed workloads; ``run_fleet_shard``.
+With the control plane on (``control.enabled``) the state carries the
+tenant counters (``SimState.tenancy``) and the calibration's per-tenant
+tier: ``calib_observe`` also scores each resolution into its tenant's
+ring and returns the tick's per-tenant resolutions; the shaping step's
+quantiles take each tenant's credit-modulated level; at phase 6 one
+``control_tick`` launch (``kernels/csrc/control.cu``) folds the tick's
+completions, failures and resolutions into the credit, forms the wDRF
+shares and the admission gate and updates the counters, and
+``admit_queued`` takes its heads among the eligible tenants' apps only.
+Nothing of it reads the device, so the chunk stays one captured graph.
+
+Not ported, and refused: the telemetry rings and streamed workloads;
+``run_fleet_shard``.
 The reference's bucket telemetry (``forecast.bucket_*`` counters of its
 metrics registry) is not ported either.
 """
@@ -84,11 +95,12 @@ from repro_torch.core.forecast.base import persistence_peak
 from repro_torch.core.shaper import (POLICIES, ShapeDecision, ShapeProblem,
                                      shaped_demand, shaped_demand_scaled)
 from repro_torch.core.shaper.pessimistic import gather_rows as _rows
-from repro_torch.core.uncertainty import calib_observe, calib_scales_begin
+from repro_torch.control.device import device_weights
+from repro_torch.core.uncertainty import calib_observe_groups, calib_scales_begin
 from repro_torch.device import resolve_device
 from repro_torch.kernels import nvcc
 from repro_torch.kernels import ops as kops
-from repro_torch.sim.engine import _check_ported, _make_model
+from repro_torch.sim.engine import _check_ported, _make_model, check_tenants
 from repro_torch.sim.metrics import SimResults
 from repro_torch.sim.scenarios.registry import build_trace
 from repro_torch.sim.state import (CPU, MEM, DeviceTrace, SimState, TickMetrics,
@@ -323,8 +335,15 @@ def _shaped_demands(cfg, model, tr: DeviceTrace, st: SimState, tick: float,
     if st.calib is None:
         shaped = shaped_demand(mean, req_rows, var, cfg.safeguard)
     else:
+        tenancy = None
+        if st.tenancy is not None:
+            # rows pool by the tenant of their slot, at the quantile of
+            # its credit before this tick's update
+            tenancy = (st.tenancy.credit if cfg.control.credit else None, tr.tenant,
+                       st.slot_gid, cfg.control)
         scale, calib = calib_scales_begin(st.calib, cfg.calibration, cfg.safeguard.k2,
-                                          ready, mean, var, st.mon_count, cfg.horizon)
+                                          ready, mean, var, st.mon_count, cfg.horizon,
+                                          tenancy)
         shaped = shaped_demand_scaled(mean, req_rows, var, cfg.safeguard.k1, scale,
                                       k1_folded=True)
         st = dataclasses.replace(st, calib=calib)
@@ -424,20 +443,59 @@ def _resolve_oom(tr: DeviceTrace, st: SimState, usage: torch.Tensor,
 
 
 def _admit_queued(cfg, tr: DeviceTrace, st: SimState, t: torch.Tensor,
-                  host_cap: torch.Tensor) -> tuple[SimState, torch.Tensor]:
-    """FIFO admission (``kops.admit_queued``): returns (state, monitor
-    resets)."""
-    (slot_gid, work_done, run, host, alloc, alive, queued, has_saved,
-     resets) = kops.admit_queued(tr.submit, tr.gid, tr.cpu_req, tr.mem_req,
-                                 tr.exists, tr.is_core, st.slot_gid, st.work_done,
-                                 st.comp_running, st.comp_host, st.alloc,
-                                 st.alive_since, st.queued, st.has_saved,
-                                 st.saved_work, t, host_cap,
-                                 not cfg.work_lost_on_kill)
-    return dataclasses.replace(st, slot_gid=slot_gid, work_done=work_done,
-                               comp_running=run, comp_host=host, alloc=alloc,
-                               alive_since=alive, queued=queued,
-                               has_saved=has_saved), resets
+                  host_cap: torch.Tensor, elig: torch.Tensor | None = None
+                  ) -> tuple[SimState, torch.Tensor]:
+    """FIFO admission (``kops.admit_queued``), its heads among the apps of
+    the tenants ``elig`` (S, T) marks when the control plane gates it:
+    returns (state, monitor resets)."""
+    gate = () if elig is None else (tr.tenant, elig, st.tenancy.admitted)
+    out = kops.admit_queued(tr.submit, tr.gid, tr.cpu_req, tr.mem_req, tr.exists,
+                            tr.is_core, st.slot_gid, st.work_done, st.comp_running,
+                            st.comp_host, st.alloc, st.alive_since, st.queued, st.has_saved,
+                            st.saved_work, t, host_cap, not cfg.work_lost_on_kill, *gate)
+    (slot_gid, work_done, run, host, alloc, alive, queued, has_saved, resets) = out[:9]
+    st = dataclasses.replace(st, slot_gid=slot_gid, work_done=work_done, comp_running=run,
+                             comp_host=host, alloc=alloc, alive_since=alive, queued=queued,
+                             has_saved=has_saved)
+    if elig is not None:
+        st = dataclasses.replace(st, tenancy=dataclasses.replace(st.tenancy,
+                                                                 admitted=out[9]))
+    return st, resets
+
+
+# the wDRF weights by (TenancyConfig, device): _run makes them before any
+# chunk runs (their copy to the card waits for the host), and the chunks,
+# captured or not, read them
+_WEIGHTS: dict = {}
+
+
+def _weights(cfg, device) -> torch.Tensor:
+    key = (cfg.control, device)
+    if key not in _WEIGHTS:
+        _WEIGHTS[key] = device_weights(cfg.control, device)
+    return _WEIGHTS[key]
+
+
+def _control(cfg, tr: DeviceTrace, st: SimState, done0: torch.Tensor, queued0: torch.Tensor,
+             conflict: torch.Tensor | None, resolved, host_cap: torch.Tensor):
+    """The control plane's step (``kops.control_tick``): the tick's events
+    (completions since ``done0``, the optimistic ``conflict``s, the OOM
+    kills queued since ``queued0``, the per-tenant conformal
+    ``resolved`` pair or None) fold into the credit, then the shares, the
+    gate and the counters.  Returns (state, the tenants' eligibility (S,
+    T))."""
+    ten, c = st.tenancy, cfg.control
+    d_res, d_err = (None, None) if resolved is None else resolved
+    (credit, throttled, completed, failed, share_sum, active_ticks,
+     elig) = kops.control_tick(ten.credit, ten.throttled, ten.completed, ten.failed,
+                               ten.share_sum, ten.active_ticks, done0, st.done, queued0,
+                               st.queued, conflict, d_res, d_err, tr.tenant, st.slot_gid,
+                               st.alloc, host_cap, _weights(cfg, host_cap.device),
+                               credit_on=c.credit, gate_on=c.gate, gamma=c.credit_gamma,
+                               floor=c.credit_floor, slack=c.slack)
+    return dataclasses.replace(st, tenancy=dataclasses.replace(
+        ten, credit=credit, throttled=throttled, completed=completed, failed=failed,
+        share_sum=share_sum, active_ticks=active_ticks)), elig
 
 
 def _place_missing_elastic(tr: DeviceTrace, st: SimState, t: torch.Tensor,
@@ -479,19 +537,23 @@ def fused_tick(cfg, model, tr: DeviceTrace, st: SimState, host_cap: torch.Tensor
 
     # 2. progress + completions (monitor resets accumulate across phases
     # and apply once at the end of the tick)
+    done0 = st.done
     st, resets = _completions(tr, st, t, tick)
 
     # 3. monitor sampling
     prog = torch.clamp(st.work_done / _rows(tr.runtime, _gid(st)), 0.0, 1.0)
     usage = _usage_at(tr, st, prog)
     st = _record_monitor(st, usage)
+    resolved = None       # the tick's conformal resolutions per tenant
     if st.calib is not None:
         S, AC = st.mon_count.shape
-        st = dataclasses.replace(st, calib=calib_observe(
-            st.calib, usage.reshape(S, AC, 2), st.mon_count, cfg.calibration, active))
+        calib, resolved = calib_observe_groups(st.calib, usage.reshape(S, AC, 2),
+                                               st.mon_count, cfg.calibration, active)
+        st = dataclasses.replace(st, calib=calib)
 
     # 4. shaping (the baseline policy never shapes)
     zero = fc_rows = fc_done = torch.zeros_like(st.oom_kills)
+    conflict = None
     if cfg.policy != "baseline":
         demand, st, fc_rows, fc_done = _shaped_demands(cfg, model, tr, st, tick, bucket)
         dec = _decide(cfg.policy, _shape_problem(tr, st, demand, t, host_cap))
@@ -501,10 +563,17 @@ def fused_tick(cfg, model, tr: DeviceTrace, st: SimState, host_cap: torch.Tensor
         resets = resets | resets4
 
     # 5. OS OOM (uncontrolled failures): failed apps are requeued
+    queued0 = st.queued
     st, usage, resets5 = _resolve_oom(tr, st, usage, host_cap)
 
-    # 6. scheduler: FIFO admission + elastic re-placement
-    st, resets6 = _admit_queued(cfg, tr, st, t, host_cap)
+    # 6. scheduler: the control plane's gate, FIFO admission, elastic
+    # re-placement
+    elig = None
+    if st.tenancy is not None:
+        st, elig = _control(cfg, tr, st, done0, queued0,
+                            conflict if cfg.policy == "optimistic" else None, resolved,
+                            host_cap)
+    st, resets6 = _admit_queued(cfg, tr, st, t, host_cap, elig)
     st = _place_missing_elastic(tr, st, t, host_cap)
     st = _mon_reset(st, resets | resets5 | resets6)
 
@@ -872,11 +941,16 @@ def _run(cfgs, wls, chunk: int, dev: torch.device) -> list[SimResults]:
     if chunk < 1:
         raise ValueError(f"chunk={chunk} must be >= 1")
     cfg = cfgs[0]
+    for c, w in zip(cfgs, wls):
+        check_tenants(c, w)
     t0 = time.perf_counter()
     tr = DeviceTrace.from_traces(wls, dev)
     st = init_state(cfg, wls[0].n_apps, wls[0].max_components, len(wls), dev)
+    host_cap = host_capacity(cfg, dev)
+    if cfg.control.enabled:
+        _weights(cfg, host_cap.device)
     drive = _drive_chunks_leap if cfg.leap else _drive_chunks
-    st, metrics, ticks = drive(cfg, _make_model(cfg), tr, st, chunk, host_capacity(cfg, dev))
+    st, metrics, ticks = drive(cfg, _make_model(cfg), tr, st, chunk, host_cap)
     state = {k: v.cpu().numpy() for k, v in _tensors(st).items()}
     seconds = time.perf_counter() - t0
     out = []

@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro import control as rctl
 from repro.core import uncertainty as runc
 from repro.core.forecast.base import Forecast as RForecast
 from repro.core.shaper.safeguard import shaped_demand_scaled_raw
@@ -29,6 +30,7 @@ from repro.sim import state as rstate
 from repro.sim import step as rstep
 from repro.sim.scenarios.registry import build_trace
 from repro.sim.sweep import quick_base_config
+from repro_torch import control as tctl
 from repro_torch import convert
 from repro_torch.core import uncertainty as tunc
 from repro_torch.core.forecast import Forecast as TForecast
@@ -396,6 +398,95 @@ def test_one_device_step_equals_reference():
     _assert_state(fused, _fields(began), "calib_scales_begin")
 
 
+def _group_tier(st, S, M, G=3, gcap=8, A=10, N=12, seed=15):
+    """The per-tenant tier over a crafted state: group rings (empty, young,
+    wrapped), each row's deploy group (-1 for some), counters, and a slot
+    table of A slots of M / A components with tenants of N apps and their
+    credit: (reference CalibState fields, slot_gid, tenant, credit)."""
+    rng = np.random.default_rng(seed)
+    R = 2 * M
+    gcount = rng.choice([0, 3, gcap, gcap + 5], (S, G)).astype(np.int32)
+    ring = np.full((S, G, gcap), np.inf, np.float32)
+    for s_ in range(S):
+        for g in range(G):
+            c = gcount[s_, g]
+            ring[s_, g, np.arange(c) % gcap] = rng.normal(1, 1, c).astype(np.float32)
+    tier = dict(group_ring=ring, group_count=gcount,
+                group=rng.integers(-1, G, (S, R)).astype(np.int32),
+                group_resolved=rng.integers(0, 30, (S, G)).astype(np.int32),
+                group_errors=rng.integers(0, 5, (S, G)).astype(np.int32))
+    slot_gid = np.where(rng.random((S, A)) < 0.8, rng.integers(0, N, (S, A)), -1).astype(np.int32)
+    tenant = rng.integers(0, G, (S, N)).astype(np.int32)
+    credit = rng.uniform(0.05, 1, (S, G)).astype(np.float32)
+    return {**st, **tier}, slot_gid, tenant, credit
+
+
+def _reference_groups(slot_gid, tenant, C):
+    ten = np.where(slot_gid >= 0, np.take_along_axis(tenant, np.maximum(slot_gid, 0), 1), -1)
+    g1 = np.repeat(ten, C, axis=1)
+    return np.concatenate([g1, g1], 1).astype(np.int32)
+
+
+def test_group_tier_step_equals_reference():
+    """The per-tenant tier: calib_observe from a converted reference state
+    with group rings (a group that resolves more scores than its ring
+    holds), then the engine's calib_scales_begin with tenancy against the
+    reference's calib_scales (series -> group -> pool -> K2, at the
+    credit-modulated quantiles) and calib_begin (the rows' groups), every
+    field bit for bit, with the credit and without."""
+    rcfg = runc.CalibrationConfig(enabled=True, capacity=16, min_scores=4, pool_capacity=8,
+                                  adaptive=True, group_capacity=8)
+    pcfg = _tcfg(rcfg)
+    st, usage, mon = _crafted_state(rcfg)
+    S, M = mon.shape
+    st, slot_gid, tenant, credit = _group_tier(st, S, M)
+    active = np.array([True, True, False])
+    rst = runc.CalibState(**{k: jnp.asarray(v) for k, v in st.items()})
+    rows = np.concatenate([usage[..., 0], usage[..., 1]], 1)
+    tiled = np.concatenate([mon, mon], 1)
+    want = jax.jit(jax.vmap(lambda s, u, m, a: runc.calib_observe(s, u, m, rcfg, active=a)))(
+        rst, rows, tiled, active)
+    pst = convert.calib_state_from_arrays(device="cpu", **st)
+    T = torch.from_numpy
+    got, (d_res, d_err) = tunc.calib_observe_groups(pst, T(usage), T(mon), pcfg, T(active))
+    _assert_state(got, _fields(want), "calib_observe")
+    np.testing.assert_array_equal(d_res.numpy(), np.asarray(want.group_resolved)
+                                  - st["group_resolved"])
+    np.testing.assert_array_equal(d_err.numpy(), np.asarray(want.group_errors)
+                                  - st["group_errors"])
+    assert (d_res.numpy() > rcfg.group_capacity).any() and d_err.numpy().any()
+
+    rng = np.random.default_rng(16)
+    deploy = rng.random((S, M)) < 0.6
+    mean = rng.uniform(0, 2, (S, 2 * M)).astype(np.float32)
+    var = rng.choice([0.0, 0.04, 2.5], (S, 2 * M)).astype(np.float32)
+    sigma = np.sqrt(var).astype(np.float32)
+    d2 = np.concatenate([deploy, deploy], 1)
+    C = M // slot_gid.shape[1]
+    groups = _reference_groups(slot_gid, tenant, C)
+    tcfg = tctl.TenancyConfig(enabled=True)
+    for with_credit in (True, False):
+        if with_credit:
+            qt = jax.jit(jax.vmap(lambda c, q: rctl.credit_quantile(
+                c, q, tcfg.q_spread, rcfg.q_min, rcfg.q_max)))(credit, want.q)
+            q_rows = jnp.where(groups >= 0, jnp.take_along_axis(
+                qt, jnp.maximum(groups, 0), 1), want.q[:, None])
+            rscale = jax.jit(jax.vmap(lambda s, g, qr, qg: runc.calib_scales(
+                s, rcfg, 3.0, groups=g, q_rows=qr, q_groups=qg)))(want, groups, q_rows, qt)
+        else:
+            rscale = jax.jit(jax.vmap(lambda s, g: runc.calib_scales(s, rcfg, 3.0, groups=g)))(
+                want, groups)
+        began = jax.jit(jax.vmap(lambda s, d, mu, sg, sc, m, g: runc.calib_begin(
+            s, d, mu, sg, sc, m, 3, groups=g)))(want, d2, mean, sigma, rscale, tiled, groups)
+        fscale, fused = tunc.calib_scales_begin(
+            got, pcfg, 3.0, T(deploy), T(mean), T(var), T(mon), 3,
+            (T(credit) if with_credit else None, T(tenant), T(slot_gid), tcfg))
+        np.testing.assert_array_equal(_bits(fscale), _bits(rscale))
+        _assert_state(fused, _fields(began), f"calib_scales_begin, credit {with_credit}")
+    warm = np.minimum(np.asarray(want.group_count), rcfg.group_capacity) >= rcfg.min_scores
+    assert warm.any() and (~warm).any()
+
+
 def _fma_splits(rng, n):
     """(mean, scale, sigma, peak) where ``peak > fma(scale, sigma, mean)``
     but not ``peak > round(round(scale * sigma) + mean)``."""
@@ -564,9 +655,13 @@ def test_oracle_keeps_calibration_off():
 
 
 def test_group_tier_is_refused():
-    with pytest.raises(NotImplementedError, match="per-group"):
-        tunc.calib_init(8, tunc.CalibrationConfig(enabled=True), 1, "cpu", n_groups=2)
-    with pytest.raises(NotImplementedError, match="per-group"):
+    """The per-group tier came with the control plane: ``calib_init``
+    allocates it, and a converted state takes it whole; only a partial
+    tier is still refused."""
+    st = tunc.calib_init(8, tunc.CalibrationConfig(enabled=True, group_capacity=4), 1, "cpu",
+                         n_groups=2)
+    assert st.group_ring.shape == (1, 2, 4) and (st.group == -1).all()
+    with pytest.raises(ValueError, match="per-group"):
         convert.calib_state_from_arrays(device="cpu", group_ring=np.zeros((2, 4)))
 
 
@@ -576,7 +671,8 @@ def test_group_tier_is_refused():
 
 def _to(st: tunc.CalibState, device) -> tunc.CalibState:
     return tunc.CalibState(**{f.name: getattr(st, f.name).to(device)
-                              for f in dataclasses.fields(st)})
+                              for f in dataclasses.fields(st)
+                              if getattr(st, f.name) is not None})
 
 
 @pytest.mark.gpu
@@ -631,3 +727,47 @@ def test_calibrated_run_card_equals_cpu():
     cpu = tstep.run_sim_scan(pcfg, ptr, device="cpu")
     gpu = tstep.run_sim_scan(pcfg, ptr, device="cuda")
     assert gpu.summary() == cpu.summary() and gpu.slack_cpu == cpu.slack_cpu
+
+
+@pytest.mark.gpu
+def test_group_tier_kernels_equal_plain_versions():
+    """The three calibration kernels with the per-tenant tier on the card
+    against their plain versions: calib_observe (a group over its ring's
+    capacity in one tick, the deltas), then the shaping step's quantiles
+    at the credit-modulated levels and calib_begin's fallback and
+    registration, with the credit and without; and the engine's group
+    rings at their full capacity (256)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    for gcap in (8, 256):
+        rcfg = runc.CalibrationConfig(enabled=True, capacity=16, min_scores=4,
+                                      pool_capacity=8, adaptive=True, group_capacity=gcap)
+        pcfg = _tcfg(rcfg)
+        st, usage, mon = _crafted_state(rcfg)
+        S, M = mon.shape
+        st, slot_gid, tenant, credit = _group_tier(st, S, M, gcap=gcap)
+        cpu = convert.calib_state_from_arrays(device="cpu", **st)
+        T = torch.from_numpy
+        active = torch.tensor([True, True, False])
+        want, wd = tunc.calib_observe_groups(cpu, T(usage), T(mon), pcfg, active)
+        got, gd = tunc.calib_observe_groups(_to(cpu, "cuda"), T(usage).cuda(), T(mon).cuda(),
+                                            pcfg, active.cuda())
+        _assert_state(got, {k: v.numpy() for k, v in tstep._tensors(want).items()},
+                      "calib_observe on the card")
+        for g, w in zip(gd, wd):
+            torch.testing.assert_close(g.cpu(), w, rtol=0, atol=0)
+        rng = np.random.default_rng(17)
+        deploy = T(rng.random(mon.shape) < 0.6)
+        mean = T(rng.uniform(0, 2, (S, 2 * M)).astype(np.float32))
+        var = T(rng.uniform(-1e-7, 2, (S, 2 * M)).astype(np.float32))
+        tcfg = tctl.TenancyConfig(enabled=True)
+        for cr in (T(credit), None):
+            w_scale, w_st = tunc.calib_scales_begin(want, pcfg, 3.0, deploy, mean, var, T(mon),
+                                                    3, (cr, T(tenant), T(slot_gid), tcfg))
+            g_scale, g_st = tunc.calib_scales_begin(
+                got, pcfg, 3.0, deploy.cuda(), mean.cuda(), var.cuda(), T(mon).cuda(), 3,
+                (None if cr is None else cr.cuda(), T(tenant).cuda(), T(slot_gid).cuda(),
+                 tcfg))
+            np.testing.assert_array_equal(_bits(g_scale.cpu()), _bits(w_scale))
+            _assert_state(g_st, {k: v.numpy() for k, v in tstep._tensors(w_st).items()},
+                          "calib_scales with the tier on the card")

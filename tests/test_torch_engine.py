@@ -96,19 +96,17 @@ def test_gp_end_to_end_close_to_reference():
 
 def test_unported_features_are_refused():
     d = dataclasses.asdict(quick_base_config())
-    bad = dataclasses.replace(quick_base_config(), control=dataclasses.replace(
-        quick_base_config().control, enabled=True))
-    with pytest.raises(NotImplementedError, match="control"):
-        convert.sim_config_from_dict(dataclasses.asdict(bad))
+    tenanted = dataclasses.replace(quick_base_config(), control=dataclasses.replace(
+        quick_base_config().control, enabled=True, weights=(2.0, 1.0)))
+    # the control plane is ported: its config converts, weights as a tuple
+    ctl = convert.sim_config_from_dict(dataclasses.asdict(tenanted)).control
+    assert ctl.enabled and ctl.weights == (2.0, 1.0) and hash(ctl)
     pcfg = convert.sim_config_from_dict(d)
     assert pcfg.gp == tengine.GPConfig(history=10, max_patterns=10, opt_steps=10)
     # calibration is ported: the config converts and the engine takes it
     cal = dataclasses.replace(quick_base_config(), calibration=dataclasses.replace(
         quick_base_config().calibration, enabled=True, q=0.8))
     assert convert.sim_config_from_dict(dataclasses.asdict(cal)).calibration.q == 0.8
-    with pytest.raises(NotImplementedError, match="control plane"):
-        tengine.run_sim(dataclasses.replace(pcfg, control=tengine.Switch(True)),
-                        device="cpu")
     with pytest.raises(TypeError, match="unknown trace columns"):
         convert.trace_from_arrays(bogus=np.zeros(3))
 

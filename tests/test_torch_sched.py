@@ -490,6 +490,66 @@ def test_admission_and_replacement_edge_cases_equal_reference(seed):
     assert 0 < placed < missing.sum()
 
 
+def _gate(adm_args, seed, T=4, p=0.5):
+    """Seeded tenants of a cohort's apps and the control plane's gate over
+    them: (tenant (S, N) int32, elig (S, T) bool, admitted (S, T) int32)."""
+    rng = np.random.default_rng(seed)
+    S, N = adm_args[0].shape
+    return (torch.as_tensor(rng.integers(0, T, (S, N)).astype(np.int32)),
+            torch.as_tensor(rng.random((S, T)) < p),
+            torch.as_tensor(rng.integers(0, 5, (S, T)).astype(np.int32)))
+
+
+def _gated_cases():
+    """(cases, admission arguments with the gate) of seeded cohorts and of
+    the edge members, a gate each: half the tenants eligible, every
+    tenant gated, every tenant eligible."""
+    cohorts = [[_random_case(3 * seed + i) for i in range(3)] for seed in range(4)]
+    cohorts += [[_edge_case(kind, seed) for kind in EDGE_KINDS] for seed in range(2)]
+    for k, cases in enumerate(cohorts):
+        _, adm, _ = _cohort(cases)
+        tenant, elig, admitted = _gate(adm, k)
+        for gate in (elig, torch.zeros_like(elig), torch.ones_like(elig)):
+            yield cases, adm + (tenant, gate, admitted)
+
+
+def test_gated_admission_equals_reference():
+    """The admission's plain version with the control plane's gate against
+    the reference's ``_admit_queued`` with ``elig_app`` (the FIFO head
+    among the eligible tenants' apps, ``repro/sim/step.py:614``), the
+    admitted counts as its fused tick adds them (``:872-876``); every
+    tenant eligible equals the ungated admission, every tenant gated
+    admits nothing."""
+    cfg = dataclasses.replace(quick_base_config(), work_lost_on_kill=False)
+    admit = jax.jit(lambda tr, st, t, cap, e: rstep._admit_queued(cfg, tr, st, t, cap, e))
+    names = ("slot_gid", "work_done", "comp_running", "comp_host", "alloc", "alive_since",
+             "queued", "has_saved", "resets")
+    seen = 0
+    for cases, args in _gated_cases():
+        got = ops.admit_queued(*args)
+        tenant, elig, admitted = args[-3:]
+        cap = jnp.asarray(cases[0][3])
+        for i, (rtr, rst, _, _) in enumerate(cases):
+            ten = tenant[i].numpy()
+            rtr = dataclasses.replace(rtr, tenant=jnp.asarray(ten))
+            want_st, want_resets = admit(rtr, rst, rst.t + jnp.float32(60.0), cap,
+                                         jnp.asarray(elig[i].numpy()[ten]))
+            want = {**_fields(want_st), "resets": want_resets}
+            _assert_same({n: g[i:i + 1] for n, g in zip(names, got)},
+                         {n: want[n] for n in names})
+            placed = np.asarray(rst.queued) & ~want["queued"]
+            np.testing.assert_array_equal(
+                got[9][i].numpy(), admitted[i].numpy() + np.bincount(ten[placed], minlength=4))
+            seen += int(placed.sum())
+        if not elig.any():
+            assert torch.equal(got[6], args[12])
+        if elig.all():
+            plain = ops.admit_queued(*args[:-3])
+            for g, w in zip(got[:9], plain):
+                assert torch.equal(g, w)
+    assert seen > 0
+
+
 def test_plain_versions_take_cpu_tensors_only():
     x = torch.zeros((1, 2), dtype=torch.bool, device="meta")
     with pytest.raises(ValueError, match="no pessimistic_pass implementation"):
@@ -614,3 +674,19 @@ def test_pessimistic_pass_kernel_equals_plain_version(cuda, captured):
             torch.testing.assert_close(g, w, rtol=0, atol=0)
         if args[-1].min() < 0:
             assert torch.equal(want[0][:2], args[0][:2])   # every valid row removed
+
+
+@pytest.mark.gpu
+def test_gated_admission_kernel_equals_plain_version(cuda):
+    """The admission kernel with the control plane's gate against its plain
+    version: seeded cohorts and the edge members, half the tenants
+    eligible, every tenant gated and every tenant eligible; with the gate
+    off (null pointers) the kernel still equals the ungated plain version."""
+    for _, args in _gated_cases():
+        got, want = _both(sched.admit_queued, ref.admit_queued, args)
+        assert len(got) == len(want) == 10
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=0, atol=0)
+        got, want = _both(sched.admit_queued, ref.admit_queued, args[:-3])
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=0, atol=0)

@@ -319,11 +319,11 @@ def test_cohort_equals_solo(forecaster):
 def test_unported_switches_raise():
     pcfg = convert.sim_config_from_dict(dataclasses.asdict(SMALL))
     Switch = type(pcfg.obs)
-    # calibration is ported: the check takes it
+    # calibration and the control plane are ported: the check takes them
     tstep._check_scan(dataclasses.replace(
-        pcfg, calibration=dataclasses.replace(pcfg.calibration, enabled=True)))
-    for bad, match in ((dict(control=Switch(True)), "control plane"),
-                       (dict(obs=Switch(True)), "telemetry")):
+        pcfg, calibration=dataclasses.replace(pcfg.calibration, enabled=True),
+        control=dataclasses.replace(pcfg.control, enabled=True)))
+    for bad, match in ((dict(obs=Switch(True)), "telemetry"),):
         for run in (tstep.run_sim_scan, lambda c, **k: tstep.run_cohort_scan(c, [0], **k)):
             with pytest.raises(NotImplementedError, match=match):
                 run(dataclasses.replace(pcfg, **bad), device="cpu")
