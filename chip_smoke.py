@@ -60,6 +60,15 @@ points:
     tenancy cells (benchmarks/tenancy.py: fairness in its ungated, wdrf
     and credit modes, per-tenant coverage), their Jain indices and
     coverage printed beside the reference's criteria;
+  * the telemetry rings (phase 5i): SimConfig(obs=ObsConfig(enabled=
+    True)) on the device engine to completion through replayed graphs,
+    one obs_tick launch a tick counted against the graphs' kernel nodes,
+    the run equal to the rings off, kernels a tick and ticks/s in turns
+    against it, the histories' event channels against the run's
+    counters; phase 5h's tenanted path with the rings (its tenant and
+    calibration counters equal to the histories' sums); the gap cell's
+    leap histories against uniform ones; 160 tenanted persist ticks card
+    against CPU, histories included (equal, else the phase fails);
   * Whisper-large-v3 serving at full width (random weights from a seeded
     generator on the card): 8 requests of 1,500 frames prefilled with 448
     teacher-forced tokens through the tensor-core flash kernel (bf16,
@@ -96,7 +105,10 @@ gated, zero shares, the credit or the gate off, a 3-member cohort), the
 admission kernel with the gate on every admission case (T = 1, 4, 8;
 every tenant gated, every tenant eligible) and the calibration kernels'
 per-tenant tier (full width, T = 4 and 8, credit on and off, a 3-member
-cohort), each bit for bit.
+cohort), each bit for bit; and the rings' kernel, obs_tick, on seeded
+full-width members with every feature and with none, T = 1, 4 and 8,
+a 3-member cohort with an inactive member and wrapping cursors, and
+slot counts off the 32-slot windows, bit for bit.
 It then times each kernel against its plain version, its bound and,
 where one PyTorch call computes the same function, that call; the
 device engine's kernels also by their device and host time per call
@@ -1537,7 +1549,8 @@ KERNEL_OF = {"pessimistic_pass": "pessimistic_pass_kernel", "resolve_oom": "reso
              "gp_fit_forecast": "gp_forecast_kernel", "fma_f32": "fma_f32_kernel",
              "leap_skip": "leap_skip_kernel", "arima_forecast": "arima_forecast_kernel",
              "calib_observe": "calib_observe_kernel", "conformal_scale": "conformal_scale_kernel",
-             "calib_begin": "calib_begin_kernel", "control_tick": "control_tick_kernel"}
+             "calib_begin": "calib_begin_kernel", "control_tick": "control_tick_kernel",
+             "obs_tick": "obs_tick_kernel"}
 
 
 class KernelNodeParams(ctypes.Structure):
@@ -3463,6 +3476,267 @@ def time_control(control, ref, sched, cases, calib, CalibrationConfig) -> tuple[
     return out, 0.0
 
 
+OBS_CPU_TICKS = 160   # the tenanted calibrated persist run with the rings, card against CPU
+OBS_OFF = dict(lead_ring=None, demand=None, tenancy=None, tenancy0=None, calib=None,
+               calib0=None, lead=None)
+
+
+def obs_case(rng, S=1, *, A=128, C=12, N=500, T=4, R=128, inactive=(), cursors=None):
+    """obs_tick's arguments (CPU tensors, ref.obs_tick's keywords) for S
+    members at the engine's widths: usage and shaped demand of mixed
+    magnitudes over the occupied slots (the orders of their sums
+    matter), the queue before and after admission, the counters now and
+    at the tick's entry, T tenants' state after and before the control
+    step, the calibration's counts, a lead ring and lead; the members in
+    ``inactive`` inactive."""
+    import torch
+
+    def ints(lo, hi, shape):
+        return torch.from_numpy(rng.integers(lo, hi, shape).astype(np.int32))
+
+    def table():
+        occ = rng.random((S, A, 1, 1)) < 0.8
+        x = rng.uniform(0, 1, (S, A, C, 2)) * 10.0 ** rng.integers(-3, 3, (S, A, C, 2))
+        return torch.from_numpy((x * occ).astype(np.float32))
+
+    at0 = ints(0, 500, (S, T))
+    queued = torch.from_numpy(rng.random((S, N)) < 0.2)
+    cursor = (ints(0, 4 * R, (S,)) if cursors is None
+              else torch.tensor(cursors, dtype=torch.int32))
+    return dict(
+        cursor=cursor, f32=torch.from_numpy(rng.normal(size=(S, 5, R)).astype(np.float32)),
+        i32=ints(-9, 9, (S, 8, R)), lead_ring=ints(0, 30, (S, R)),
+        active=torch.tensor([i not in inactive for i in range(S)]),
+        usage=table(), demand=table(), queued=queued,
+        q_admit=queued | torch.from_numpy(rng.random((S, N)) < 0.02),
+        counters=tuple(ints(100, 200, (S,)) for _ in range(4)),
+        counters0=tuple(ints(0, 100, (S,)) for _ in range(4)),
+        tenancy=(torch.from_numpy(rng.uniform(0.05, 1, (S, T)).astype(np.float32)),
+                 ints(50, 90, (S, T)), at0 + ints(0, 2, (S, T))),
+        tenancy0=(ints(0, 50, (S, T)), at0),
+        calib=(ints(900, 999, (S,)), ints(90, 99, (S,))),
+        calib0=(ints(0, 900, (S,)), ints(0, 90, (S,))), lead=ints(0, 30, (S,)))
+
+
+def _obs_cuda(args):
+    return {k: (tuple(x.cuda() for x in v) if isinstance(v, tuple)
+                else None if v is None else v.cuda()) for k, v in args.items()}
+
+
+def obs_cases():
+    """(name, args) of phase 3's obs_tick checks: a full-width member with
+    every feature (demand, T = 4 tenants, calibration, a leap lead) and
+    with none (the baseline policy: no demand); the default path's
+    features (demand only); T = 8 and T = 1; a 3-member cohort with an
+    inactive member and a cursor that wraps; A = 37 slots of 5 (off the
+    32-slot windows) and A = 20 (one window)."""
+    rng = np.random.default_rng(25)
+    default = {k: v for k, v in OBS_OFF.items() if k != "demand"}
+    cases = [("full width, every feature", obs_case(rng)),
+             ("full width, no feature", dict(obs_case(rng), **OBS_OFF)),
+             ("full width, the default path (demand only)", dict(obs_case(rng), **default)),
+             ("T = 8", obs_case(rng, T=8)), ("T = 1", obs_case(rng, T=1)),
+             ("a 3-member cohort, one inactive, cursors 5, 128, 1000",
+              obs_case(rng, 3, inactive=(1,), cursors=[5, 128, 1000])),
+             ("A = 37 of C = 5, N = 61", obs_case(rng, 2, A=37, C=5, N=61, R=16)),
+             ("A = 20 of C = 7", obs_case(rng, 2, A=20, C=7, N=33, R=8))]
+    return cases
+
+
+def check_obs(obs_kernel, ref) -> float:
+    """Phase 3: obs_tick on the card against its plain version, every
+    output bit for bit, one launch a call."""
+    for name, args in obs_cases():
+        want = ref.obs_tick(**args)
+        n = obs_kernel.obs_tick.launches
+        got = obs_kernel.obs_tick(**_obs_cuda(args))
+        assert obs_kernel.obs_tick.launches == n + 1
+        for k, g, w in zip(("cursor", "f32", "i32", "lead_ring"), got, want):
+            assert (g is None) == (w is None), f"obs_tick, {name}: {k}"
+            assert g is None or _same(g, w), f"obs_tick, {name}: {k} differs"
+        log(f"  obs_tick, {name}: kernel == plain, every output bit for bit; cursors "
+            f"{want[0].tolist()}")
+    obs_kernel.reset_launch_counts()
+    return 0.0
+
+
+def obs_bound_bytes(args, outs) -> int:
+    """The bytes obs_tick needs on one case: each input read once (the two
+    (A, C, 2) tables, the queue masks, the rings, the counters and the
+    tenant and calibration state) and each output (the rings) written
+    once."""
+    ins = [v for v in args.values() if v is not None]
+    flat = [x for v in ins for x in (v if isinstance(v, tuple) else (v,))]
+    return _nbytes(*flat) + _nbytes(*(o for o in outs if o is not None))
+
+
+def _histories_equal(a, b) -> bool:
+    return list(a) == list(b) and all(
+        a[k].dtype == b[k].dtype and np.array_equal(a[k].view(np.int32), b[k].view(np.int32))
+        for k in a)
+
+
+def run_obs(step, scenarios, SimConfig, WorkloadConfig, ClusterConfig, TenancyConfig,
+            CalibrationConfig, ObsConfig, obs_kernel) -> int:
+    """Phase 5i: the telemetry rings on the card.  SimConfig(obs=
+    ObsConfig(enabled=True)) on the device engine to completion through
+    replayed graphs (a 64-tick run captures first), every chunk
+    sync-free, its summary and series equal to the rings-off run's; one
+    obs_tick launch a tick, the count (set to 0 just before the run, read
+    just after) equal to replays x its nodes; kernels a tick and ticks/s
+    in turns against the rings off; the history's event channels against
+    the run's counters.  Then phase 5h's tenanted, calibrated path with
+    the rings (every channel live; equal to it without them, its tenant
+    and calibration counters equal to the histories' sums), the gap cell's
+    leap histories against uniform ones, and OBS_CPU_TICKS ticks of the
+    tenanted persist path card against CPU, histories included (any
+    difference fails).  Prints the seconds of each step.  Returns the main
+    run's obs_tick launches."""
+    import torch
+    on, off = SimConfig(obs=ObsConfig(enabled=True)), SimConfig()
+    guard = strict_chunks(step)
+    steps, t_step = {}, [time.perf_counter()]
+
+    def done(what):
+        t = time.perf_counter()
+        steps[what] = round(t - t_step[0], 1)
+        t_step[0] = t
+    try:
+        step.run_sim_scan(dataclasses.replace(on, max_ticks=64), device="cuda")
+        entry = find_entry(step, on)
+        before = {k: g.replays for k, g in entry.graphs.items()}
+        obs_kernel.reset_launch_counts()
+        c0 = guard.chunks
+        t = time.perf_counter()
+        res = step.run_sim_scan(on, device="cuda")
+        torch.cuda.synchronize()
+        t = time.perf_counter() - t
+        launches = obs_kernel.obs_tick.launches
+        in_graphs = graph_census(entry, before, {"obs_tick": launches})["obs_tick"]
+        ticks = res.timings["ticks"]
+        s, h = res.summary(), res.obs
+        log(f"  device engine, rings on: {ticks} ticks in {guard.chunks - c0} chunks "
+            f"(sync-free), {t:.3f} s: {ticks / t:.3f} ticks/s (capture before); obs_tick "
+            f"launches {launches} = replays x kernel nodes {in_graphs}")
+        totals = {k: (float(v.sum()) if v.dtype == np.float32 else int(v.sum()))
+                  for k, v in h.items()}
+        log(f"    history totals over {len(h['queue'])} ticks {json.dumps(totals)}")
+        assert launches == in_graphs == ticks, (launches, in_graphs, ticks)
+        roff = step.run_sim_scan(off, device="cuda")
+        assert run_series(res) == run_series(roff), "the rings changed the run"
+        assert len(h["queue"]) == len(res.n_running) and res.obs is not None
+        assert totals["oom"] == s["oom_kills"] and totals["fail"] == s["failure_events"]
+        assert totals["preempt"] == s["full_preemptions"] + s["partial_preemptions"], totals
+        assert totals["admitted"] >= s["completed"] == 500, (totals, s)
+        assert h["queue"].min() >= 0 and np.all(h["used_mem"] <= 50 * 128.0 * (1 + 1e-6))
+        done("device, rings on")
+        oentry = find_entry(step, off)
+        walls = {"rings on": [], "rings off": []}
+        for mode in ("rings on", "rings off", "rings off", "rings on"):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            r = step.run_sim_scan(on if mode == "rings on" else off, device="cuda")
+            torch.cuda.synchronize()
+            walls[mode].append(r.timings["ticks"] / (time.perf_counter() - t))
+        k_on, k_off = kernels_per_step(entry), kernels_per_step(oentry)
+        log("  device engine ticks/s in turns (on, off, off, on): " + "; ".join(
+            f"{m} " + ", ".join(f"{x:.3f}" for x in xs) for m, xs in walls.items())
+            + f"; kernels a tick {k_on:.3f} with the rings against {k_off:.3f} without "
+            f"(+{k_on - k_off:.3f})")
+        assert k_on - k_off == 1.0, (k_on, k_off)
+        for line in describe_graphs(entry):
+            log(f"  rings graph {line}")
+        done("turns")
+        tcfg = tenancy_config(SimConfig, WorkloadConfig, TenancyConfig, CalibrationConfig,
+                              obs=ObsConfig(enabled=True))
+        toff = dataclasses.replace(tcfg, obs=ObsConfig())
+        step.run_sim_scan(dataclasses.replace(tcfg, max_ticks=64), device="cuda")
+        tentry = find_entry(step, tcfg)
+        before = {k: g.replays for k, g in tentry.graphs.items()}
+        obs_kernel.reset_launch_counts()
+        tres = step.run_sim_scan(tcfg, device="cuda")
+        tl = obs_kernel.obs_tick.launches
+        tin = graph_census(tentry, before, {"obs_tick": tl})["obs_tick"]
+        th, ts = tres.obs, tres.summary()
+        zero = [k for k, v in th.items() if not np.any(v != 0)]
+        log(f"  tenanted calibrated, rings on: {tres.timings['ticks']} ticks, obs_tick "
+            f"launches {tl} = replays x kernel nodes {tin}; channels never nonzero {zero}; "
+            f"admitted {int(th['admitted'].sum())}, throttled {int(th['throttled'].sum())}, "
+            f"resolved {int(th['cov_resolved'].sum())}, credit mean "
+            f"{float(th['credit'].mean()):.6f}; kernels a tick {kernels_per_step(tentry):.3f}")
+        assert tl == tin == tres.timings["ticks"], (tl, tin)
+        assert run_series(tres) == run_series(step.run_sim_scan(toff, device="cuda"))
+        assert int(th["admitted"].sum()) == sum(ts["tenancy"]["admitted"])
+        assert int(th["throttled"].sum()) == sum(ts["tenancy"]["throttled"])
+        assert int(th["cov_resolved"].sum()) == ts["calibration"]["resolved"]
+        assert int(th["cov_errors"].sum()) == ts["calibration"]["miscovered"]
+        done("tenanted")
+        gap = gap_config(SimConfig, ClusterConfig, scenarios, obs=ObsConfig(enabled=True))
+        u, lp = (step.run_sim_scan(c, device="cuda")
+                 for c in (gap, dataclasses.replace(gap, leap=True)))
+        assert _histories_equal(lp.obs, u.obs) and run_series(lp) == run_series(u)
+        log(f"  gap cell: leap histories == uniform on the card over {len(u.obs['queue'])} "
+            f"ticks ({lp.timings['steps']} leap steps)")
+        done("gap cell")
+    finally:
+        guard.stop()
+    pcfg = dataclasses.replace(tcfg, forecaster="persist", max_ticks=OBS_CPU_TICKS)
+    a = step.run_sim_scan(pcfg, device="cuda")
+    b = step.run_sim_scan(pcfg, device="cpu")
+    same = {k: bool(np.array_equal(a.obs[k].view(np.int32), b.obs[k].view(np.int32)))
+            for k in a.obs}
+    assert run_series(a) == run_series(b) and all(same.values()), (
+        "tenanted persist with the rings: card != cpu", same)
+    log(f"  tenanted calibrated persist with the rings, first {OBS_CPU_TICKS} ticks: card == "
+        f"cpu, summaries, series and every history bit for bit")
+    done("card vs cpu")
+    log(f"  phase 5i seconds by step: {json.dumps(steps)}")
+    return launches
+
+
+def time_obs(obs_kernel, ref) -> dict:
+    """Phase 8: obs_tick at the main path's widths (one member, 128 slots
+    of 12, 500 apps, R = 128; the default path's inputs: the shaped
+    demand, no tenancy, calibration or lead), kernel by CUDA events
+    against its plain version (numpy on the host) in turns, its device
+    time per launch (a CUDA graph of 50 launches) and host time per call,
+    beside its bound (obs_bound_bytes over 3.35 TB/s); then the device
+    time with every feature (T = 4, calibration, lead)."""
+    rng = np.random.default_rng(26)
+    full = obs_case(rng)
+    args = dict(full, **{k: v for k, v in OBS_OFF.items() if k != "demand"})   # the default path
+    gpu = _obs_cuda(args)
+    kern = lambda: obs_kernel.obs_tick(**gpu)  # noqa: E731
+    plain = lambda: ref.obs_tick(**args)  # noqa: E731
+    want = plain()
+    assert all(_same(g, w) for g, w in zip(kern()[:3], want[:3]))
+
+    def host_ms(fn):
+        t0 = time.perf_counter()
+        fn()
+        return (time.perf_counter() - t0) * 1e3
+    ms = {"kernel": [], "plain": []}
+    for k in ("kernel", "plain", "plain", "kernel"):
+        ms[k].append(cuda_time_ms(kern, iters=200, warmup=10) if k == "kernel"
+                     else host_ms(plain))
+    dev_us = [graph_us(kern) for _ in range(2)]
+    host_us = host_us_per_call(kern)
+    fgpu = _obs_cuda(full)
+    full_us = [graph_us(lambda: obs_kernel.obs_tick(**fgpu)) for _ in range(2)]
+    nbytes = obs_bound_bytes(args, want)
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"  obs_tick (128 slots of 12, 500 apps, R = 128, the default path's inputs): kernel "
+        f"{'/'.join(f'{x:.5f}' for x in ms['kernel'])} ms a call back to back, plain (numpy "
+        f"on the host) {'/'.join(f'{x:.3f}' for x in ms['plain'])} ms; device "
+        f"{'/'.join(f'{x:.3f}' for x in dev_us)} us a launch (50 launches in a CUDA graph, "
+        f"replayed), host {host_us:.3f} us per call; bound {bound * 1e3:.4f} us ({nbytes} B); "
+        f"every feature (T = 4, calibration, lead) {'/'.join(f'{x:.3f}' for x in full_us)} us "
+        f"device")
+    obs_kernel.reset_launch_counts()
+    return {"obs_tick": dict(ms=min(ms["kernel"]), plain_ms=min(ms["plain"]), bound_ms=bound,
+                             bound_by="bytes", library_ms=None)}
+
+
 def _nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
@@ -3630,6 +3904,8 @@ def main() -> int:
     from repro_torch.core.uncertainty import CalibrationConfig
     from repro_torch.kernels import (arima_forecast, calib, control, flash_attention, fma,
                                      gp_forecast, gp_gram, leap, nvcc, ref, sched, shaper)
+    from repro_torch.kernels import obs as obs_kernel
+    from repro_torch.obs import ObsConfig
     from repro_torch.sim import ClusterConfig, SimConfig, WorkloadConfig, run_sim
     from repro_torch.sim import scenarios, step
     from repro_torch.sim.engine import forecast_peaks
@@ -3652,7 +3928,7 @@ def main() -> int:
     log("== 2. build (one nvcc per source, all at once)")
     sources = (gp_gram.SOURCE, flash_attention.SOURCE, flash_attention.SOURCE_SM90,
                gp_forecast.SOURCE, shaper.SOURCE, sched.SOURCE, fma.SOURCE, leap.SOURCE,
-               arima_forecast.SOURCE, calib.SOURCE, control.SOURCE)
+               arima_forecast.SOURCE, calib.SOURCE, control.SOURCE, obs_kernel.SOURCE)
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         builds = list(pool.map(nvcc.build, sources))
     for b in builds:
@@ -3691,6 +3967,7 @@ def main() -> int:
     err["control_tick"] = check_control(control, ref)
     check_gated_admit(sched, ref, scan_cases)
     check_calib_tier(calib, ref, CalibrationConfig)
+    err["obs_tick"] = check_obs(obs_kernel, ref)
     log(f"  max abs error: {err}")
 
     log("== 4. GP check (card vs CPU)")
@@ -3782,6 +4059,11 @@ def main() -> int:
         "tenancy cells")
     control_main = run_tenancy(step, scenarios, SimConfig, WorkloadConfig, ClusterConfig,
                                TenancyConfig, CalibrationConfig, run_sim, control, calib, sched)
+    log("== 5i. the telemetry rings: run_sim_scan(SimConfig(obs=ObsConfig(enabled=True))) to "
+        "completion against the rings off, phase 5h's tenanted path with the rings, the gap "
+        f"cell's leap histories, {OBS_CPU_TICKS} tenanted persist ticks card vs CPU")
+    obs_main = run_obs(step, scenarios, SimConfig, WorkloadConfig, ClusterConfig, TenancyConfig,
+                       CalibrationConfig, ObsConfig, obs_kernel)
 
     log("== 6. Whisper, smoke widths, fp32: the card against the CPU")
     check_whisper_smoke(flash_attention)
@@ -3812,6 +4094,7 @@ def main() -> int:
                                               CalibrationConfig)
     times.update(control_times)
     err["control_tick"] = max(err["control_tick"], control_err)
+    times.update(time_obs(obs_kernel, ref))
     log(f"  gp_gram library_ms: null - no single PyTorch call computes the Gram "
         f"matrix (torch.cdist gives distances only) or its (ell, sf) gradient")
     end_phase()
@@ -3826,6 +4109,7 @@ def main() -> int:
     launches["arima_forecast"] = arima_launches     # run_sim_scan's ARIMA run (phase 5f)
     launches.update(calib_main)                     # the calibrated run (phase 5g)
     launches.update(control_main)                   # the tenanted run (phase 5h)
+    launches["obs_tick"] = obs_main                 # the rings' run (phase 5i)
     replaces = {"gp_gram_fwd": "src/repro/kernels/gp_gram.py:75",
                 "gp_gram_bwd": "src/repro/kernels/gp_gram.py:75",
                 "gp_fit_forecast": "src/repro/kernels/gp_gram.py:75",
@@ -3838,6 +4122,7 @@ def main() -> int:
                 "conformal_scale": "src/repro/core/uncertainty/conformal.py:113",
                 "calib_begin": "src/repro/core/uncertainty/online.py:413",
                 "control_tick": "src/repro/sim/step.py:778",
+                "obs_tick": "src/repro/sim/step.py:901",
                 **SCAN_REPLACES}
     sources = {"gp_gram_fwd": "src/repro_torch/kernels/csrc/gp_gram.cu",
                "gp_gram_bwd": "src/repro_torch/kernels/csrc/gp_gram.cu",
@@ -3851,6 +4136,7 @@ def main() -> int:
                "conformal_scale": "src/repro_torch/kernels/csrc/calib.cu",
                "calib_begin": "src/repro_torch/kernels/csrc/calib.cu",
                "control_tick": "src/repro_torch/kernels/csrc/control.cu",
+               "obs_tick": "src/repro_torch/kernels/csrc/obs.cu",
                **SCAN_SOURCES}
     log(smi)   # the card's name and power limit, as nvidia-smi prints them
     log(json.dumps({"kernels": [
@@ -3863,7 +4149,7 @@ def main() -> int:
         for name in ("gp_gram_fwd", "gp_gram_bwd", "gp_fit_forecast",
                      "flash_attention", "flash_attention_simt") + SCAN_KERNELS
         + ("fma_f32", "leap_skip", "arima_forecast", "calib_observe", "conformal_scale",
-           "calib_begin", "control_tick")]}))
+           "calib_begin", "control_tick", "obs_tick")]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": count}}))
     return 0

@@ -13,9 +13,10 @@ The device engine starts from a state, which a test can take from a
 reference run:
 
   * :func:`device_trace_from_arrays`, :func:`sim_state_from_arrays`,
-    :func:`calib_state_from_arrays` and :func:`tenant_state_from_arrays`
-    take the fields of the reference's ``DeviceTrace``, ``SimState``,
-    ``CalibState`` and ``TenantState`` as numpy arrays
+    :func:`calib_state_from_arrays`, :func:`tenant_state_from_arrays` and
+    :func:`obs_state_from_arrays` take the fields of the reference's
+    ``DeviceTrace``, ``SimState``, ``CalibState``, ``TenantState`` and
+    ``ObsState`` as numpy arrays
     (``jax.tree.map(np.asarray, ...)``).
 
 A Whisper model's state is its parameters:
@@ -40,7 +41,9 @@ from repro_torch.core.uncertainty import CalibrationConfig, CalibState
 from repro_torch.core.uncertainty.online import GROUP_TIER
 from repro_torch.device import resolve_device
 from repro_torch.sim.cluster import ClusterConfig
-from repro_torch.sim.engine import SimConfig, Switch
+from repro_torch.obs.config import ObsConfig
+from repro_torch.obs.rings import ObsState
+from repro_torch.sim.engine import SimConfig
 from repro_torch.sim import scenarios
 from repro_torch.sim.scenarios.schema import Trace
 from repro_torch.sim.state import DeviceTrace, SimState
@@ -64,7 +67,7 @@ def sim_config_from_dict(d: dict, *, workload: str = "google") -> SimConfig:
         safeguard=SafeguardConfig(**d["safeguard"]),
         calibration=CalibrationConfig(**d["calibration"]),
         control=TenancyConfig(**d["control"]),
-        obs=Switch(enabled=d["obs"]["enabled"]),
+        obs=ObsConfig(**d["obs"]),
         gp=GPConfig(**gp), arima=ARIMAConfig(**d["arima"]),
         **{k: d[k] for k in _SCALARS})
 
@@ -129,13 +132,23 @@ def tenant_state_from_arrays(*, device="cuda", **fields) -> TenantState:
                                   solo=np.ndim(fields.get("credit")) == 1))
 
 
+def obs_state_from_arrays(*, device="cuda", **fields) -> ObsState:
+    """The port's ``ObsState`` for the reference's fields (``cursor``,
+    ``f32``, ``i32`` and ``lead``, None off leap), solo (``cursor`` a
+    scalar) or stacked."""
+    fields = {k: v for k, v in fields.items() if v is not None}
+    return ObsState(**_stacked(ObsState, fields, resolve_device(device),
+                               solo=np.ndim(fields.get("cursor")) == 0, optional=("lead",)))
+
+
 def sim_state_from_arrays(*, device="cuda", **fields) -> SimState:
     """The port's ``SimState`` for the reference's fields, solo (``t`` a
-    scalar) or stacked; ``calib`` and ``tenancy`` are None or dicts of the
-    reference's ``CalibState`` and ``TenantState`` fields.  ``obs`` must be
-    None (not ported)."""
-    if fields.pop("obs", None) is not None:
-        raise NotImplementedError("SimState.obs is not ported yet")
+    scalar) or stacked; ``calib``, ``tenancy`` and ``obs`` are None or
+    dicts of the reference's ``CalibState``, ``TenantState`` and
+    ``ObsState`` fields."""
+    obs = fields.pop("obs", None)
+    if obs is not None:
+        obs = obs_state_from_arrays(device=device, **obs)
     calib = fields.pop("calib", None)
     if calib is not None:
         calib = calib_state_from_arrays(device=device, **calib)
@@ -145,7 +158,7 @@ def sim_state_from_arrays(*, device="cuda", **fields) -> SimState:
     return SimState(**_stacked(SimState, fields, resolve_device(device),
                                solo=np.ndim(fields.get("t")) == 0,
                                skip=("calib", "tenancy", "obs")), calib=calib,
-                    tenancy=tenancy)
+                    tenancy=tenancy, obs=obs)
 
 
 _LN = ("scale", "bias")

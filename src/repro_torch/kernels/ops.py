@@ -17,6 +17,7 @@ from repro_torch.kernels import fma as _fm
 from repro_torch.kernels import gp_forecast as _gf
 from repro_torch.kernels import gp_gram as _gg
 from repro_torch.kernels import leap as _lp
+from repro_torch.kernels import obs as _ob
 from repro_torch.kernels import ref
 from repro_torch.kernels import sched as _sc
 from repro_torch.kernels import shaper as _sh
@@ -199,3 +200,21 @@ def control_tick(*args, **kw):
     ``ref.control_tick``.  On the card one kernel launch."""
     return _route("control_tick", lambda *a: _ct.control_tick(*a, **kw),
                   lambda *a: ref.control_tick(*a, **kw), args[0], args)
+
+
+def obs_tick(cursor, f32, i32, lead_ring, active, usage, demand, queued, q_admit, counters,
+             counters0, tenancy, tenancy0, calib, calib0, lead=None):
+    """The telemetry rings' tick per member: the tick's thirteen channels
+    written at ``cursor % R`` where the member is active; arguments and
+    results as ``ref.obs_tick``.  On the card one kernel launch."""
+    def cont(x):
+        if isinstance(x, tuple):
+            return tuple(cont(y) for y in x)
+        return x.contiguous() if isinstance(x, torch.Tensor) else x
+    args = (cursor, f32, i32, lead_ring, active, usage, demand, queued, q_admit, counters,
+            counters0, tenancy, tenancy0, calib, calib0, lead)
+    if cursor.device.type == "cuda":
+        return _ob.obs_tick(*cont(args))
+    if cursor.device.type == "cpu":
+        return ref.obs_tick(*args)
+    raise ValueError(f"no obs_tick implementation for device {cursor.device}")

@@ -1192,3 +1192,75 @@ def control_tick(credit, throttled, completed, failed, share_sum, active_ticks, 
                     (completed + comp_t).astype(np.int32), (failed + fail_t).astype(np.int32),
                     (share_sum + np.where(active, share, np.float32(0.0))).astype(np.float32),
                     (active_ticks + active).astype(np.int32), elig)
+
+
+# ----------------------------------------------------------------------
+# the telemetry rings' tick: the work of the CUDA kernel in obs.cu
+# ----------------------------------------------------------------------
+
+def obs_tick(cursor, f32, i32, lead_ring, active, usage, demand, queued, q_admit, counters,
+             counters0, tenancy, tenancy0, calib, calib0, lead=None):
+    """One tick of the telemetry rings per member (``repro/sim/step.py:
+    757-770,822,880-881,901-920``): the tick's thirteen channels, written
+    at column ``cursor % R`` where the member is ``active``.
+
+    The rings ``cursor`` (S,) int32, ``f32`` (S, 5, R), ``i32`` (S, 8, R)
+    and ``lead_ring`` (S, R) int32 or None, in ``repro_torch.obs.rings``'s
+    order.  ``active`` (S,) bool.  ``usage`` (S, A, C, 2) f32 the tick's
+    usage after the OOM handler, ``demand`` (S, A, C, 2) the shaped
+    demand table (None under the baseline policy); each summed over (A,
+    C) in XLA:CPU's tree of 32-slot windows (:func:`xla_sum` with
+    ``group=C``), the gap the demand's sum minus the usage's.
+    ``queued`` (S, N) the queue at the end of the tick, ``q_admit`` the
+    queue before admission: ``queue`` counts the one, ``admitted`` the
+    apps of the other that left it.  ``counters`` and ``counters0`` the
+    four (S,) int32 counters ``oom_kills``, ``failure_events``,
+    ``full_preemptions``, ``partial_preemptions`` now and at the tick's
+    entry.  ``tenancy`` the tenant ``(credit, throttled, active_ticks)``
+    after the control step and ``tenancy0`` its ``(throttled,
+    active_ticks)`` before it, (S, T) each, or None: ``throttled`` is the
+    sum of the throttled counts' deltas, ``credit`` the mean credit over
+    the tenants active this tick (``control/device.py::credit_mean``: the
+    sum of ``credit * active`` in XLA's tree, over their count).
+    ``calib`` the calibration's ``(resolved, errors)`` now and ``calib0``
+    at entry, (S,) int32 each, or None.  ``lead`` (S,) int32 (or 0) is
+    written into ``lead_ring``.  Channels whose feature is off are 0.
+    Returns the new ``(cursor, f32, i32, lead_ring)``."""
+    cur, f, i, act, use, q, qa = _numpy(cursor, f32, i32, active, usage, queued, q_admit)
+    S, A, C = use.shape[:3]
+    R = f.shape[-1]
+    cnt = [x.numpy().astype(np.int64) for x in counters]
+    cnt0 = [x.numpy().astype(np.int64) for x in counters0]
+    dem = None if demand is None else demand.numpy()
+    lr = None if lead_ring is None else lead_ring.numpy().copy()
+    lv = np.zeros(S, np.int32) if lead is None else lead.numpy()
+    zero = np.float32(0.0)
+    for s in range(S):
+        if not act[s]:
+            continue
+        used = xla_sum(use[s].reshape(A * C, 2), group=C)
+        gap = np.zeros(2, np.float32)
+        if dem is not None:
+            gap = (xla_sum(dem[s].reshape(A * C, 2), group=C) - used).astype(np.float32)
+        credit = zero
+        throttled = 0
+        if tenancy is not None:
+            cr, th, at = (x.numpy()[s] for x in tenancy)
+            th0, at0 = (x.numpy()[s] for x in tenancy0)
+            throttled = int((th.astype(np.int64) - th0).sum())
+            on = at > at0
+            n = int(on.sum())
+            tot = xla_sum((cr * on).astype(np.float32)[:, None])[0]
+            credit = np.float32(tot / np.float32(max(n, 1))) if n > 0 else zero
+        res = err = 0
+        if calib is not None:
+            res, err = (int(x.numpy()[s]) - int(x0.numpy()[s]) for x, x0 in zip(calib, calib0))
+        col = cur[s] % R
+        f[s, :, col] = [used[0], used[1], gap[0], gap[1], credit]
+        i[s, :, col] = [int(q[s].sum()), cnt[0][s] - cnt0[0][s], cnt[1][s] - cnt0[1][s],
+                        cnt[2][s] + cnt[3][s] - cnt0[2][s] - cnt0[3][s],
+                        int((qa[s] & ~q[s]).sum()), throttled, res, err]
+        if lr is not None:
+            lr[s, col] = lv[s]
+        cur[s] += 1
+    return (*_tensors(cur, f, i), None if lr is None else torch.from_numpy(lr))

@@ -58,18 +58,11 @@ from repro_torch.core.shaper import (POLICIES, SafeguardConfig, ShapeProblem,
 from repro_torch.core.uncertainty import (CalibrationConfig, OnlineCalibrator,
                                           bucket_pow2, sigma_from_var_np)
 from repro_torch.device import resolve_device
+from repro_torch.obs.config import ObsConfig
 from repro_torch.sim.cluster import CPU, MEM, Cluster, ClusterConfig
 from repro_torch.sim.metrics import SimResults
 from repro_torch.sim.scenarios.registry import build_trace
 from repro_torch.sim.workload import Workload, WorkloadConfig
-
-
-@dataclasses.dataclass(frozen=True)
-class Switch:
-    """A block of the reference's ``SimConfig`` whose feature is not ported
-    yet: only its on/off switch is kept, and the device engine refuses
-    "on"."""
-    enabled: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,7 +74,7 @@ class SimConfig:
     safeguard: SafeguardConfig = SafeguardConfig()
     calibration: CalibrationConfig = CalibrationConfig()   # conformal safeguard
     control: TenancyConfig = TenancyConfig()   # multi-tenant control plane
-    obs: Switch = Switch()               # device telemetry rings (device engine only)
+    obs: ObsConfig = ObsConfig()         # device telemetry rings (device engine only)
     window: int = 24                     # monitor window (ticks)
     grace: int = 10                      # grace period (paper §5: 10 min)
     horizon: int = 3                     # forecast look-ahead (ticks)

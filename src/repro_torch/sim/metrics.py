@@ -1,8 +1,8 @@
 """Simulation metrics (paper §4.1): turnaround, resource slack, failures.
 
 A copy of ``SimResults`` from ``repro/sim/metrics.py`` (numpy only),
-with the calibration and tenancy blocks and without the telemetry rings
-(not ported yet), plus the engines' wall times.
+with the calibration, tenancy and telemetry-ring blocks, plus the
+engines' wall times.
 """
 from __future__ import annotations
 
@@ -41,6 +41,10 @@ class SimResults:
     # per-tenant fairness / SLO / credit block, filled only when
     # SimConfig.control is enabled (and part of summary() then)
     tenancy: dict | None = None
+    # drained per-tick telemetry rings (repro_torch.obs.rings): field ->
+    # (T,) arrays, filled by the device engine only when SimConfig.obs is
+    # enabled; NOT part of summary()
+    obs: dict | None = None
 
     def record_completion(self, gid: int, submit: float, t: float) -> None:
         self.turnaround[int(gid)] = float(t - submit)

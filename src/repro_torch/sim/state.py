@@ -22,10 +22,10 @@ anything back:
 Every tensor carries a leading member axis S where the reference adds a
 ``vmap`` axis for seed cohorts: a solo run has S = 1, a cohort stacks
 its members, and every phase and kernel treats members independently.
-Integer state is int32 as in the reference.  The reference's telemetry
-rings are not ported, so ``obs`` is always ``None``; ``calib`` is
-``None`` unless calibration is on, ``tenancy`` unless the control plane
-is (and ``calib`` then has the per-tenant tier).
+Integer state is int32 as in the reference.  ``calib`` is ``None``
+unless calibration is on, ``tenancy`` unless the control plane is (and
+``calib`` then has the per-tenant tier), ``obs`` (the telemetry rings,
+:class:`~repro_torch.obs.rings.ObsState`) unless ``SimConfig.obs`` is.
 """
 from __future__ import annotations
 
@@ -37,6 +37,7 @@ import torch
 from repro_torch.control import TenantState, control_init, tenancy_summary
 from repro_torch.core.uncertainty import (CalibState, calib_group_report, calib_init,
                                           calib_report)
+from repro_torch.obs.rings import ObsState, obs_init
 from repro_torch.sim.metrics import SimResults
 
 CPU, MEM = 0, 1
@@ -121,8 +122,8 @@ class SimState:
     calib: CalibState | None = None
     # tenant counters (None when the control plane is off)
     tenancy: TenantState | None = None
-    # not ported: always None
-    obs: None = None
+    # per-tick telemetry rings (None when SimConfig.obs is off)
+    obs: ObsState | None = None
 
 
 def init_state(cfg, n_apps: int, max_components: int, batch: int,
@@ -151,7 +152,8 @@ def init_state(cfg, n_apps: int, max_components: int, batch: int,
         saved_work=z(N, dtype=f32), has_saved=z(N, dtype=b),
         t=z(dtype=f32), failure_events=z(dtype=i32), oom_kills=z(dtype=i32),
         full_preemptions=z(dtype=i32), partial_preemptions=z(dtype=i32), calib=calib,
-        tenancy=control_init(cfg.control, S, device) if ctl else None)
+        tenancy=control_init(cfg.control, S, device) if ctl else None,
+        obs=obs_init(cfg.obs, S, cfg.leap, device) if cfg.obs.enabled else None)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -174,12 +176,15 @@ class TickMetrics:
     lead: torch.Tensor                # i32
 
 
-def drain_results(cfg, wl, state: dict, metrics: dict) -> SimResults:
+def drain_results(cfg, wl, state: dict, metrics: dict, obs: dict | None = None
+                  ) -> SimResults:
     """Fold one member's final state and per-step metrics into
     ``SimResults``.  ``state`` and ``metrics`` map field names to numpy
     arrays of that member (metrics with a leading step axis; the
     calibration and tenant states' fields as ``calib.<name>`` and
-    ``tenancy.<name>``).
+    ``tenancy.<name>``).  ``obs`` is the member's drained ring history
+    (``field -> (T,)``, :class:`~repro_torch.obs.rings.RingDrain`),
+    attached to ``SimResults.obs`` as it is.
 
     Each step stands for ``lead`` skipped idle ticks (all-zero metrics:
     the cluster and the queue were empty) followed by its own tick when
@@ -240,5 +245,7 @@ def drain_results(cfg, wl, state: dict, metrics: dict) -> SimResults:
     if tenancy:
         res.tenancy = tenancy_summary(cfg.control, wl, res.turnaround, res.failed_apps,
                                       tenancy)
+    if obs is not None:
+        res.obs = obs
     res.finalize(float(state["t"]))
     return res

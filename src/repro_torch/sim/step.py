@@ -76,10 +76,23 @@ shares and the admission gate and updates the counters, and
 ``admit_queued`` takes its heads among the eligible tenants' apps only.
 Nothing of it reads the device, so the chunk stays one captured graph.
 
-Not ported, and refused: the telemetry rings and streamed workloads;
-``run_fleet_shard``.
-The reference's bucket telemetry (``forecast.bucket_*`` counters of its
-metrics registry) is not ported either.
+With the telemetry rings on (``obs.enabled``) the state carries them
+(``SimState.obs``, :mod:`repro_torch.obs.rings`): each tick ends with one
+``obs_tick`` launch (``kernels/csrc/obs.cu``) that writes its thirteen
+channels from the state and the tick's entry values; a leap step cut by
+its budget mid-skip writes the tail column with plain tensor operations.
+The drivers drain the rings at every chunk boundary, after the replay
+and before the next, with one copy to the host (``RingDrain``).  They
+also keep the reference's instrumentation: the ``chunk`` and
+``ring_drain`` spans, the ``forecast.bucket_chunks`` and
+``forecast.bucket_occupancy`` series where the bucket is picked, and
+``scan.compile_s``, observed with each graph's capture and
+instantiation (on the CPU, with the first chunk of each program key).
+The reference's ``scan.bucket_cache_entries`` gauge counts its jitted
+programs, one a bucket; here one graph serves every bucket, so there is
+no such gauge.
+
+Not ported, and refused: streamed workloads; ``run_fleet_shard``.
 """
 from __future__ import annotations
 
@@ -100,6 +113,9 @@ from repro_torch.core.uncertainty import calib_observe_groups, calib_scales_begi
 from repro_torch.device import resolve_device
 from repro_torch.kernels import nvcc
 from repro_torch.kernels import ops as kops
+from repro_torch.obs.metrics import REGISTRY
+from repro_torch.obs.rings import RING_FIELDS, ObsState, RingDrain, obs_record
+from repro_torch.obs.trace import span
 from repro_torch.sim.engine import _check_ported, _make_model, check_tenants
 from repro_torch.sim.metrics import SimResults
 from repro_torch.sim.scenarios.registry import build_trace
@@ -255,7 +271,11 @@ def _pick_bucket(cfg, st: SimState) -> int | None:
     b = _BUCKET_MIN
     while b < n:
         b *= 2
-    return None if b >= AC else b
+    if b >= AC:
+        return None
+    REGISTRY.counter("forecast.bucket_chunks", bucket=str(2 * b)).inc()
+    REGISTRY.histogram("forecast.bucket_occupancy", bucket=str(2 * b)).observe(n / b)
+    return b
 
 
 def _bucketed_forecast(cfg, model, flat_w: torch.Tensor, flat_v: torch.Tensor,
@@ -520,16 +540,24 @@ def host_capacity(cfg, device) -> torch.Tensor:
 
 
 def fused_tick(cfg, model, tr: DeviceTrace, st: SimState, host_cap: torch.Tensor,
-               bucket: torch.Tensor | None = None) -> tuple[SimState, TickMetrics]:
+               bucket: torch.Tensor | None = None, lead: torch.Tensor | None = None
+               ) -> tuple[SimState, TickMetrics]:
     """One simulation tick for every member, in the phase order of the
     host engine's loop body.  A member whose apps are all done only keeps
     its clock (every phase is a no-op on it) and its metrics are marked
     not ``valid``.  ``bucket``: the chunk's forecast bucket, a 0-d int32
     device tensor that the bucketed forecast (:func:`_bucketed`) reads and
-    needs; other configs ignore it."""
+    needs; other configs ignore it.  ``lead`` (S,) int32: the idle ticks a
+    leap step skipped before this tick, which the telemetry rings record
+    beside it (0 when None).
+
+    With the rings on (``st.obs``) the tick keeps its entry values of the
+    counters it turns into deltas (references, not copies: every phase
+    returns new tensors) and ends with one ``ops.obs_tick`` launch."""
     tick = cfg.cluster.tick
     active = ~st.done.all(-1)
     t = st.t + float(np.float32(tick))
+    entry = st           # the telemetry rings' entry-of-tick values
 
     # 1. arrivals
     new = ~st.arrived & (tr.submit <= t[:, None])
@@ -553,7 +581,7 @@ def fused_tick(cfg, model, tr: DeviceTrace, st: SimState, host_cap: torch.Tensor
 
     # 4. shaping (the baseline policy never shapes)
     zero = fc_rows = fc_done = torch.zeros_like(st.oom_kills)
-    conflict = None
+    conflict = demand = None
     if cfg.policy != "baseline":
         demand, st, fc_rows, fc_done = _shaped_demands(cfg, model, tr, st, tick, bucket)
         dec = _decide(cfg.policy, _shape_problem(tr, st, demand, t, host_cap))
@@ -569,10 +597,12 @@ def fused_tick(cfg, model, tr: DeviceTrace, st: SimState, host_cap: torch.Tensor
     # 6. scheduler: the control plane's gate, FIFO admission, elastic
     # re-placement
     elig = None
+    ten0 = st.tenancy
     if st.tenancy is not None:
         st, elig = _control(cfg, tr, st, done0, queued0,
                             conflict if cfg.policy == "optimistic" else None, resolved,
                             host_cap)
+    q_admit = st.queued
     st, resets6 = _admit_queued(cfg, tr, st, t, host_cap, elig)
     st = _place_missing_elastic(tr, st, t, host_cap)
     st = _mon_reset(st, resets | resets5 | resets6)
@@ -589,7 +619,36 @@ def fused_tick(cfg, model, tr: DeviceTrace, st: SimState, host_cap: torch.Tensor
         used_cpu=used[:, CPU], used_mem=used[:, MEM],
         alloc_cpu=alloc[:, CPU], alloc_mem=alloc[:, MEM],
         forecast_rows=fc_rows, forecast_rows_done=fc_done, lead=zero)
+    if st.obs is not None:
+        st = _record_obs(st, entry, ten0, active, usage, demand, q_admit, lead)
     return dataclasses.replace(st, t=torch.where(active, t, st.t)), metrics
+
+
+_COUNTERS = ("oom_kills", "failure_events", "full_preemptions", "partial_preemptions")
+
+
+def _record_obs(st: SimState, entry: SimState, ten0, active: torch.Tensor,
+                usage: torch.Tensor, demand: torch.Tensor | None, q_admit: torch.Tensor,
+                lead: torch.Tensor | None) -> SimState:
+    """The telemetry rings' write of a tick (``ops.obs_tick``), from the
+    end-of-tick state ``st``, the entry-of-tick state ``entry``, the
+    tenant state before the control step ``ten0``, the tick's usage, its
+    shaped demand (None under the baseline policy) and the queue before
+    admission ``q_admit``."""
+    o = st.obs
+    tenancy = tenancy0 = calib = calib0 = None
+    if st.tenancy is not None:
+        tenancy = (st.tenancy.credit, st.tenancy.throttled, st.tenancy.active_ticks)
+        tenancy0 = (ten0.throttled, ten0.active_ticks)
+    if st.calib is not None:
+        calib = (st.calib.resolved, st.calib.errors)
+        calib0 = (entry.calib.resolved, entry.calib.errors)
+    cursor, f32, i32, lead_ring = kops.obs_tick(
+        o.cursor, o.f32, o.i32, o.lead, active, usage, demand, st.queued, q_admit,
+        tuple(getattr(st, n) for n in _COUNTERS), tuple(getattr(entry, n) for n in _COUNTERS),
+        tenancy, tenancy0, calib, calib0, lead)
+    return dataclasses.replace(st, obs=ObsState(cursor=cursor, f32=f32, i32=i32,
+                                                lead=lead_ring))
 
 
 def fused_leap(cfg, model, tr: DeviceTrace, st: SimState, host_cap: torch.Tensor,
@@ -617,13 +676,19 @@ def fused_leap(cfg, model, tr: DeviceTrace, st: SimState, host_cap: torch.Tensor
     st = dataclasses.replace(st, t=t)
     # left - lead > 0 implies left > 0: the reference's `active` gate
     run = ~st.done.all(-1) & (left - lead > 0)
-    st2, m = fused_tick(cfg, model, tr, st, host_cap, bucket)
+    st2, m = fused_tick(cfg, model, tr, st, host_cap, bucket, lead)
     new = _tensors(st2)
     kept = {name: old if new[name] is old else torch.where(
                 run.view(-1, *(1,) * (old.dim() - 1)), new[name], old)
             for name, old in _tensors(st).items()}
     m = dataclasses.replace(m, valid=m.valid & run, lead=lead)
-    return _replace(st, kept), left - lead - run.int(), m
+    st = _replace(st, kept)
+    if st.obs is not None:
+        # out of budget mid-skip: the skipped ticks still happened, one
+        # zero column stands for them
+        st = dataclasses.replace(st, obs=obs_record(
+            st.obs, ~run & (lead > 0), {name: 0 for name, _ in RING_FIELDS}, lead=lead - 1))
+    return st, left - lead - run.int(), m
 
 
 # ----------------------------------------------------------------------
@@ -632,8 +697,6 @@ def fused_leap(cfg, model, tr: DeviceTrace, st: SimState, host_cap: torch.Tensor
 
 def _check_scan(cfg) -> None:
     _check_ported(cfg)
-    if cfg.obs.enabled:
-        raise NotImplementedError("the device engine's telemetry rings are not ported yet")
     if type(cfg.workload).__name__ == "StreamConfig":
         raise NotImplementedError("streamed workloads are not ported yet")
 
@@ -823,6 +886,7 @@ class _ChunkGraphs:
         for fn, n in before.items():
             fn.launches = n
         g = self.graphs[size] = _Graph(graph, metrics, launches, t1 - t0, t2 - t1)
+        REGISTRY.histogram("scan.compile_s").observe(t2 - t0)
         return g
 
     def run(self, size: int) -> dict[str, torch.Tensor]:
@@ -845,14 +909,20 @@ _GRAPHS: dict = {}
 _GRAPHS_MAX = 16
 
 
+def _entry_key(cfg, tr: DeviceTrace, st: SimState, chunk: int, device) -> tuple:
+    """A chunk program's key: the config's, the chunk, the shapes and the
+    device."""
+    S, A, C = st.comp_running.shape
+    shapes = (S, A, C, tr.submit.shape[1], st.mon_buf.shape[2], tr.levels.shape[3])
+    return (_cfg_key(cfg), chunk, shapes, device)
+
+
 def _graph_entry(cfg, model, tr: DeviceTrace, st: SimState, chunk: int,
                  host_cap: torch.Tensor) -> _ChunkGraphs:
     """The cached entry for this run, its static tensors loaded with the
     run's trace, initial state and capacities; made (and warmed up) at
     the first run of its key."""
-    S, A, C = st.comp_running.shape
-    shapes = (S, A, C, tr.submit.shape[1], st.mon_buf.shape[2], tr.levels.shape[3])
-    key = (_cfg_key(cfg), chunk, shapes, host_cap.device)
+    key = _entry_key(cfg, tr, st, chunk, host_cap.device)
     entry = _GRAPHS.pop(key, None)
     if entry is None:
         while len(_GRAPHS) >= _GRAPHS_MAX:
@@ -882,14 +952,61 @@ def _program(cfg, model, tr, st, chunk: int, host_cap):
     return g, g.tr, g.st, g.host_cap, g.bucket
 
 
+def _ring_drain(cfg, chunk: int, st: SimState) -> RingDrain | None:
+    """The run's ring drain (None with the rings off); the rings are
+    drained once a chunk, so a chunk must fit in them."""
+    if st.obs is None:
+        return None
+    if chunk > cfg.obs.ring:
+        raise ValueError(
+            f"chunk={chunk} exceeds the telemetry ring capacity "
+            f"{cfg.obs.ring}: rings are drained once per chunk, so "
+            "undrained ticks would be overwritten (raise "
+            "SimConfig.obs.ring or shrink the chunk)")
+    return RingDrain()
+
+
+# the keys of the eager chunk programs run in this process: on the CPU a
+# key's first chunk stands for the first call the reference compiles
+_EAGER_SEEN: set = set()
+
+
+def _run_chunk(cfg, model, graphs, tr, st, size: int, host_cap, bucket, left=None):
+    """One chunk, enqueued without reading anything back: a replay of its
+    graph, or the eager program, whose first chunk of a key is observed in
+    ``scan.compile_s`` as a graph's capture is.  Wrapped in the
+    ``chunk`` span.  Returns the chunk's metrics."""
+    with span("chunk", cat="execute", args={"ticks": size}):
+        if graphs is not None:
+            return graphs.run(size)
+        key = _entry_key(cfg, tr, st, size, host_cap.device)
+        t0 = time.perf_counter()
+        ms = _chunk_program(cfg, model, tr, st, size, host_cap, bucket, left)
+        if key not in _EAGER_SEEN:
+            _EAGER_SEEN.add(key)
+            REGISTRY.histogram("scan.compile_s").observe(time.perf_counter() - t0)
+        return ms
+
+
+def _drain(drain: RingDrain | None, st: SimState) -> None:
+    """Drain the rings at a chunk boundary (the ``ring_drain`` span): one
+    copy of the state's rings to the host, after the chunk's replay and
+    before the next."""
+    if drain is not None:
+        with span("ring_drain", cat="drain"):
+            drain.drain(st.obs)
+
+
 def _drive_chunks(cfg, model, tr, st, chunk: int, host_cap):
     """Run chunks until every member is done or ``max_ticks`` is spent
     (the last chunk cut to the remaining ticks).  Returns the final
-    state, the per-member metrics as numpy ``(S, ticks)`` arrays and the
-    number of ticks driven.  Bucketed, the bucket is re-chosen at every
-    chunk boundary, as the reference's ``_drive_chunks`` does, and written
-    to the device before the chunk runs."""
+    state, the per-member metrics as numpy ``(S, ticks)`` arrays, the
+    number of ticks driven and the ring drain (None with the rings off).
+    Bucketed, the bucket is re-chosen at every chunk boundary, as the
+    reference's ``_drive_chunks`` does, and written to the device before
+    the chunk runs."""
     graphs, tr, st, host_cap, bucket = _program(cfg, model, tr, st, chunk, host_cap)
+    drain = _ring_drain(cfg, chunk, st)
     bucketing = _bucketed(cfg)
     parts = []
     remaining = cfg.max_ticks
@@ -898,16 +1015,15 @@ def _drive_chunks(cfg, model, tr, st, chunk: int, host_cap):
         if bucketing:
             b = _pick_bucket(cfg, st)
             bucket.fill_(st.mon_count.shape[1] if b is None else b)
-        # one chunk, enqueued without reading anything back
-        ms = (graphs.run(size) if graphs is not None
-              else _chunk_program(cfg, model, tr, st, size, host_cap, bucket))
+        ms = _run_chunk(cfg, model, graphs, tr, st, size, host_cap, bucket)
         # the chunk boundary: the one place the host reads the device
         parts.append({f: ms[f].cpu().numpy() for f in _METRICS})
         remaining -= size
+        _drain(drain, st)
         if bool(st.done.all()):
             break
     metrics = {f: np.concatenate([p[f] for p in parts], -1) for f in _METRICS}
-    return st, metrics, cfg.max_ticks - remaining
+    return st, metrics, cfg.max_ticks - remaining, drain
 
 
 def _drive_chunks_leap(cfg, model, tr, st, chunk: int, host_cap):
@@ -917,9 +1033,11 @@ def _drive_chunks_leap(cfg, model, tr, st, chunk: int, host_cap):
     ``max_ticks``) is part of the chunk's state instead, and every chunk
     runs its full ``chunk`` steps (one graph).  Runs until every member
     is done or out of budget, both read at the chunk boundary only; the
-    bucket is re-chosen there as in :func:`_drive_chunks`.  Returns what
-    that returns, the ticks being the most any member covered."""
+    bucket is re-chosen there and the rings drained as in
+    :func:`_drive_chunks`.  Returns what that returns, the ticks being the
+    most any member covered."""
     graphs, tr, st, host_cap, bucket = _program(cfg, model, tr, st, chunk, host_cap)
+    drain = _ring_drain(cfg, chunk, st)
     left = graphs.left if graphs is not None else torch.empty_like(st.oom_kills)
     left.fill_(cfg.max_ticks)
     bucketing = _bucketed(cfg)
@@ -928,13 +1046,13 @@ def _drive_chunks_leap(cfg, model, tr, st, chunk: int, host_cap):
         if bucketing:
             b = _pick_bucket(cfg, st)
             bucket.fill_(st.mon_count.shape[1] if b is None else b)
-        ms = (graphs.run(chunk) if graphs is not None
-              else _chunk_program(cfg, model, tr, st, chunk, host_cap, bucket, left))
+        ms = _run_chunk(cfg, model, graphs, tr, st, chunk, host_cap, bucket, left)
         parts.append({f: ms[f].cpu().numpy() for f in _METRICS})
+        _drain(drain, st)
         if bool((st.done.all(-1) | (left <= 0)).all()):
             break
     metrics = {f: np.concatenate([p[f] for p in parts], -1) for f in _METRICS}
-    return st, metrics, cfg.max_ticks - int(left.min())
+    return st, metrics, cfg.max_ticks - int(left.min()), drain
 
 
 def _run(cfgs, wls, chunk: int, dev: torch.device) -> list[SimResults]:
@@ -950,13 +1068,15 @@ def _run(cfgs, wls, chunk: int, dev: torch.device) -> list[SimResults]:
     if cfg.control.enabled:
         _weights(cfg, host_cap.device)
     drive = _drive_chunks_leap if cfg.leap else _drive_chunks
-    st, metrics, ticks = drive(cfg, _make_model(cfg), tr, st, chunk, host_cap)
-    state = {k: v.cpu().numpy() for k, v in _tensors(st).items()}
+    st, metrics, ticks, drain = drive(cfg, _make_model(cfg), tr, st, chunk, host_cap)
+    # the rings are drained already
+    state = {k: v.cpu().numpy() for k, v in _tensors(dataclasses.replace(st, obs=None)).items()}
     seconds = time.perf_counter() - t0
     out = []
     for i, (c, w) in enumerate(zip(cfgs, wls)):
         res = drain_results(c, w, {k: v[i] for k, v in state.items()},
-                            {k: v[i] for k, v in metrics.items()})
+                            {k: v[i] for k, v in metrics.items()},
+                            obs=None if drain is None else drain.history(i))
         res.timings = dict(total=seconds, ticks=ticks, members=len(wls),
                            steps=metrics["valid"].shape[-1])
         out.append(res)

@@ -222,6 +222,34 @@ class _TBase:
         return TForecast(mean=torch.from_numpy(mean), var=torch.from_numpy(var))
 
 
+def test_gaussian_quantile_scale_equals_reference_bits():
+    """JAX's float32 ndtri to the bit on a grid of q: both branches of its
+    rational approximations (the centre and the tails), both tails, z >= 8
+    (q below ~1e-15), subnormal q (read as 0), 0, 1, out of range and
+    NaN, as arrays and as eager scalar calls."""
+    from repro.core.uncertainty import scoring as rsc
+    from repro_torch.core.uncertainty import scoring as tsc
+    g = np.random.default_rng(0)
+    q = np.concatenate([
+        np.linspace(0, 1, 4001), g.uniform(0, 1, 4000),
+        10.0 ** g.uniform(-45, -0.1, 4000), 1 - 10.0 ** g.uniform(-7.5, -0.1, 2000),
+        [np.exp(-2.0), 1 - np.exp(-2.0), 1e-15, 1e-30, 2e-39, 0.9, 0.1, 0.5, -0.0, -0.5,
+         1.5, np.nan]]).astype(np.float32)
+    def bits(x):     # NaN as one pattern: the payloads differ
+        x = np.asarray(x, np.float32)
+        return np.where(np.isnan(x), np.float32(np.nan), x).view(np.int32)
+
+    got = tsc.gaussian_quantile_scale(q).numpy()
+    want = np.asarray(rsc.gaussian_quantile_scale(q))
+    np.testing.assert_array_equal(bits(got), bits(want))
+    assert np.isnan(got).sum() == 3
+    z = np.abs(got[np.isfinite(got)])
+    assert z.max() > 8 and (z < 1).any() and (got < 0).any() and (got > 0).any()
+    for x in q[::97]:
+        assert bits(tsc.gaussian_quantile_scale(x)) == bits(rsc.gaussian_quantile_scale(float(x)))
+    assert float(tsc.gaussian_quantile_scale(0.9)) == float(rsc.gaussian_quantile_scale(0.9))
+
+
 def test_conformal_forecaster_equals_reference():
     rng = np.random.default_rng(5)
     cfg = runc.CalibrationConfig(capacity=16, min_scores=4)
@@ -232,10 +260,8 @@ def test_conformal_forecaster_equals_reference():
         for i in range(3):
             rf = r.forecast(y[i, k - 8:k], 3, series=i)
             tf = t.forecast(y[i, k - 8:k], 3, series=i)
-            if r.scores.n(np.asarray([i]))[0] >= cfg.min_scores:
-                assert t.scale(series=i) == r.scale(series=i)
-            else:   # the Gaussian z: torch's and JAX's float32 ndtri differ by an ulp
-                np.testing.assert_allclose(t.scale(series=i), r.scale(series=i), rtol=2e-7)
+            # the calibrated scale, or the Gaussian z before min_scores
+            assert t.scale(series=i) == r.scale(series=i)
             np.testing.assert_allclose(t.upper(tf, series=i).numpy(),
                                        np.asarray(r.upper(rf, series=i)), rtol=1e-6)
             assert t.observe(float(y[i, k]), series=i) == r.observe(float(y[i, k]), series=i)

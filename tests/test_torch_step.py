@@ -20,6 +20,7 @@ import torch
 
 from chip_smoke import SUBNORMAL_ROWS, TINY, tiny_triples
 from repro.core.forecast.base import Forecast as RForecast
+from repro.obs import REGISTRY as RREGISTRY
 from repro.sim import SimConfig
 from repro.sim import state as rstate
 from repro.sim import step as rstep
@@ -30,6 +31,7 @@ from repro_torch import convert
 from repro_torch.core.forecast import Forecast as TForecast
 from repro_torch.core.forecast import GPConfig
 from repro_torch.kernels import ops as kops
+from repro_torch.obs import REGISTRY as TREGISTRY
 from repro_torch.sim import ClusterConfig, WorkloadConfig
 from repro_torch.sim import SimConfig as TSimConfig
 from repro_torch.sim import step as tstep
@@ -225,6 +227,7 @@ def test_gp_path_with_shared_client_equals_reference(monkeypatch, bucket):
     monkeypatch.setattr(rstep, "_CHUNK_CACHE", {})
     monkeypatch.setattr(rstep, "_make_model", lambda c: _JaxClient())
     monkeypatch.setattr(tstep, "_make_model", lambda c: _TorchClient())
+    r0, t0 = _bucket_metrics(RREGISTRY), _bucket_metrics(TREGISTRY)
     want = rstep.run_sim_scan(cfg, wl)
     got = tstep.run_sim_scan(pcfg, ptr, device="cpu")
     _assert_summary(got.summary(), want.summary())
@@ -232,6 +235,32 @@ def test_gp_path_with_shared_client_equals_reference(monkeypatch, bucket):
     assert want.summary()["partial_preemptions"] > 0
     if bucket:      # the queue-3 run: 3,024 rows computed, not the full 36,864
         assert got.forecast_rows["rows_bucketed"] == 3024
+        # the bucket telemetry: the chunks of each bucket and its occupancy
+        rb, tb = (_bucket_delta(_bucket_metrics(reg), before)
+                  for reg, before in ((RREGISTRY, r0), (TREGISTRY, t0)))
+        assert tb == rb and sum(n for n, _ in rb.values()) > 0, (tb, rb)
+
+
+def _bucket_metrics(reg) -> dict:
+    """Each bucket's (chunks, occupancy observations, occupancy sum) in a
+    metrics registry."""
+    snap = reg.snapshot()
+    out = {}
+    for key, m in snap.items():
+        if key.startswith("forecast.bucket_chunks"):
+            out.setdefault(m["labels"]["bucket"], [0.0, 0, 0.0])[0] = m["value"]
+        elif key.startswith("forecast.bucket_occupancy"):
+            out.setdefault(m["labels"]["bucket"], [0.0, 0, 0.0])[1:] = [m["count"], m["sum"]]
+    return out
+
+
+def _bucket_delta(after: dict, before: dict) -> dict:
+    """What a run added to each bucket: chunks and occupancy observations,
+    the occupancies' sum (a sum of float ratios: rounded to 12 digits)."""
+    zero = [0.0, 0, 0.0]
+    out = {b: (a[0] - before.get(b, zero)[0], a[1] - before.get(b, zero)[1],
+               round(a[2] - before.get(b, zero)[2], 12)) for b, a in after.items()}
+    return {b: (int(c), (n, s)) for b, (c, n, s) in out.items() if c or n}
 
 
 # ----------------------------------------------------------------------
@@ -318,15 +347,12 @@ def test_cohort_equals_solo(forecaster):
 
 def test_unported_switches_raise():
     pcfg = convert.sim_config_from_dict(dataclasses.asdict(SMALL))
-    Switch = type(pcfg.obs)
-    # calibration and the control plane are ported: the check takes them
+    # calibration, the control plane and the telemetry rings are ported:
+    # the check takes them
     tstep._check_scan(dataclasses.replace(
         pcfg, calibration=dataclasses.replace(pcfg.calibration, enabled=True),
-        control=dataclasses.replace(pcfg.control, enabled=True)))
-    for bad, match in ((dict(obs=Switch(True)), "telemetry"),):
-        for run in (tstep.run_sim_scan, lambda c, **k: tstep.run_cohort_scan(c, [0], **k)):
-            with pytest.raises(NotImplementedError, match=match):
-                run(dataclasses.replace(pcfg, **bad), device="cpu")
+        control=dataclasses.replace(pcfg.control, enabled=True),
+        obs=dataclasses.replace(pcfg.obs, enabled=True)))
 
     @dataclasses.dataclass(frozen=True)
     class StreamConfig:
