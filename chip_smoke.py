@@ -69,6 +69,16 @@ points:
     calibration counters equal to the histories' sums); the gap cell's
     leap histories against uniform ones; 160 tenanted persist ticks card
     against CPU, histories included (equal, else the phase fails);
+  * the sweep driver (phase 5j): run_grid(SimConfig(), policy x 2 seeds,
+    engine="scan", obs=True), two seed cohorts to completion, each cell
+    equal to its solo run_sim_scan (summaries, series, forecast rows,
+    ring histories), the results' keys the schema-3 set, the manifest
+    and dashboard written; the GP host grid (policy x calibration x 2
+    seeds, MAIN_PATH_TICKS ticks) on the thread pool through the
+    forecast batcher, each cell equal to its solo run_sim, fewer batches
+    than requests and one gp_fit_forecast launch a batch, then without
+    the batcher; the family fitted to the Alibaba fixture at 500 apps;
+    the GP's and ARIMA's forecast diagnostics card against CPU;
   * Whisper-large-v3 serving at full width (random weights from a seeded
     generator on the card): 8 requests of 1,500 frames prefilled with 448
     teacher-forced tokens through the tensor-core flash kernel (bf16,
@@ -3694,6 +3704,265 @@ def run_obs(step, scenarios, SimConfig, WorkloadConfig, ClusterConfig, TenancyCo
     return launches
 
 
+# ----------------------------------------------------------------------
+# the sweep driver (phase 5j)
+# ----------------------------------------------------------------------
+
+# the schema-3 keys of BENCH_sweep.json (repro/sim/sweep.py:387-401)
+SWEEP_KEYS = ("aggregates", "base", "calibration", "cells", "engine", "forecast_batches",
+              "forecast_error", "forecast_requests", "mesh_devices", "scenarios", "schema",
+              "wall_s")
+# the forecast diagnostics, card against CPU: the GP's rows agree to rtol
+# 1e-3 (mean) and 5e-3 (variance), ARIMA's to 1e-4 of the row's scale and
+# 1e-3 (tests/test_torch_sweep.py's DIAG_RTOL, from the forecasters' tests)
+DIAG_RTOL = {"gp": 5e-3, "arima": 1e-3}
+SWEEP_POLICIES = ("baseline", "pessimistic")
+SWEEP_SEEDS = (0, 1)
+
+
+class record_calls(count_calls):
+    """:class:`count_calls` that also keeps each call's arguments and
+    result, ``(args, kwargs, result)``; safe from several threads (a list
+    append)."""
+
+    def __init__(self, owner, name):
+        super().__init__(owner, name)
+        self.calls = []
+        inner = self.orig
+
+        def recorded(*a, **k):
+            self.n += 1
+            out = inner(*a, **k)
+            self.calls.append((a, k, out))
+            return out
+        self._set(recorded)
+
+
+def _report_diff(got, want, rtol, path="") -> float:
+    """Hold two diagnostic records equal but their floats, those within
+    ``rtol``; return the largest relative difference of the floats."""
+    if isinstance(want, dict):
+        assert got.keys() == want.keys(), path
+        return max([_report_diff(got[k], want[k], rtol, f"{path}.{k}") for k in want] or [0.0])
+    if isinstance(want, list):
+        assert len(got) == len(want), path
+        return max([_report_diff(g, w, rtol, f"{path}[{i}]")
+                    for i, (g, w) in enumerate(zip(got, want))] or [0.0])
+    if isinstance(want, float):
+        assert abs(got - want) <= rtol * abs(want), (path, got, want)
+        return abs(got - want) / abs(want) if want else 0.0
+    assert got == want, (path, got, want)
+    return 0.0
+
+
+def run_sweep(step, scenarios, SimConfig, ObsConfig, GPForecaster, gp_forecast, calib,
+              smi) -> dict:
+    """Phase 5j: the sweep driver on the card, at SimConfig()'s full width.
+
+    The scan grid: run_grid(SimConfig(), policy x 2 seeds, engine="scan",
+    obs=True), two seed cohorts to completion, every chunk sync-free;
+    each cell's summary, series, forecast rows and ring histories equal
+    to its solo run_sim_scan on the card, but the rows the bucketed
+    forecast ran (the cohort's bucket covers its largest member); the results, manifest and
+    dashboard written to a temporary directory, the results' keys the
+    schema-3 set.  The host grid: policy x calibration (sigma,
+    conformal) x 2 seeds of the GP at MAIN_PATH_TICKS ticks on the
+    thread pool with the batcher (barrier mode: the grid is homogeneous),
+    each cell equal to its solo run_sim on the card, fewer batches than
+    requests and one gp_fit_forecast
+    launch a batch; then again without the batcher.  The fitted family
+    of the Alibaba fixture at 500 apps on the device engine for
+    FAMILY_TICKS ticks, and the GP's and ARIMA's forecast diagnostics
+    card against CPU within DIAG_RTOL.  Prints the walls, ticks per
+    second and rows per launch beside the card's name and power limit,
+    and returns the launch counts of the new paths."""
+    import tempfile
+
+    import torch
+    from repro_torch.obs import load_manifest
+    from repro_torch.sim import sweep
+    from repro_torch.sim.scenarios import diagnostics
+    steps, t_step = {}, [time.perf_counter()]
+
+    def done(what):
+        t = time.perf_counter()
+        steps[what] = round(t - t_step[0], 1)
+        t_step[0] = t
+
+    on = SimConfig(obs=ObsConfig(enabled=True))
+    launches = {}
+    guard = strict_chunks(step)
+    try:
+        # solo runs first: seed 0 of each policy captures its graph, seed 1 is timed clean
+        solo = {}
+        for p in SWEEP_POLICIES:
+            for s in SWEEP_SEEDS:
+                cfg = dataclasses.replace(on, policy=p,
+                                          workload=dataclasses.replace(on.workload, seed=s))
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                r = step.run_sim_scan(cfg, device="cuda")
+                torch.cuda.synchronize()
+                solo[(p, s)] = (r, time.perf_counter() - t)
+        done("solo scan runs")
+        rec = record_calls(step, "run_cohort_scan")
+        gp_forecast.reset_launch_counts()
+        calib.reset_launch_counts()
+        with tempfile.TemporaryDirectory() as tmp:
+            out = Path(tmp) / "BENCH_sweep.json"
+            t = time.perf_counter()
+            res = sweep.run_grid(SimConfig(), {"policy": list(SWEEP_POLICIES)},
+                                 seeds=list(SWEEP_SEEDS), engine="scan", obs=True,
+                                 out_path=str(out), dashboard_path=str(Path(tmp) / "dash.html"),
+                                 device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            rec.stop()
+            data = json.loads(out.read_text())
+            assert tuple(sorted(data)) == SWEEP_KEYS, sorted(data)
+            assert data["schema"] == 3 and data["engine"] == "scan" and len(data["cells"]) == 4
+            man = load_manifest(str(Path(tmp) / "BENCH_sweep.manifest.json"))
+            assert len(man["cells"]) == 4 and (Path(tmp) / "dash.html").stat().st_size > 0
+            alerts = sum(len(c["obs"]["alerts"]) for c in data["cells"])
+        launches["scan grid"] = {"gp_fit_forecast": gp_forecast.gp_fit_forecast.launches,
+                                 "conformal_scale": calib.conformal_scale.launches}
+        got = {}
+        for (cfg, seeds, *_), _, results in rec.calls:
+            assert list(seeds) == list(SWEEP_SEEDS)       # each combo one cohort
+            got.update({(cfg.policy, s): r for s, r in zip(seeds, results)})
+        ticks, bucketed = {}, {}
+        for key, (r, _) in solo.items():
+            g = got[key]
+            assert run_series(g) == run_series(r), f"scan grid cell {key} != its solo run"
+            # rows_bucketed counts the rows the model ran: a cohort's bucket
+            # covers its members' largest ready count (as the reference's,
+            # repro/sim/step.py:1137-1140), so a member's is at least its solo's
+            fg, fs = dict(g.forecast_rows or {}), dict(r.forecast_rows or {})
+            bucketed[key] = (fg.pop("rows_bucketed", None), fs.pop("rows_bucketed", None))
+            assert fg == fs and (bucketed[key][0] or 0) >= (bucketed[key][1] or 0), (
+                key, g.forecast_rows, r.forecast_rows)
+            assert _histories_equal(g.obs, r.obs), key
+            ticks[key] = len(r.n_running)
+        for c in res.cells:
+            assert c["summary"] == solo[(c["overrides"]["policy"], c["seed"])][0].summary()
+            assert c["summary"]["completed"] == 500, c["summary"]
+        done("scan grid, checked")
+        # the same grid again, its graphs captured: the cohorts' own seconds
+        rec = record_calls(step, "run_cohort_scan")
+        t = time.perf_counter()
+        sweep.run_grid(SimConfig(), {"policy": list(SWEEP_POLICIES)}, seeds=list(SWEEP_SEEDS),
+                       engine="scan", obs=True, forecast_diag=False, device="cuda")
+        torch.cuda.synchronize()
+        wall2 = time.perf_counter() - t
+        rec.stop()
+        done("scan grid, timed")
+        rates = []
+        for (cfg, *_), _, results in rec.calls:
+            sec = results[0].timings["total"]
+            member = [len(r.n_running) / sec for r in results]
+            r1, w1 = solo[(cfg.policy, SWEEP_SEEDS[-1])]
+            rates.append(f"{cfg.policy}: cohort of {len(results)} {sec:.3f} s, "
+                         + ", ".join(f"{x:.3f}" for x in member)
+                         + f" ticks/s a member ({sum(member):.3f} in all) against solo "
+                         f"{len(r1.n_running) / w1:.3f}")
+        log(f"  FINDING scan grid (SimConfig(), policy x 2 seeds, rings on; {smi}): wall "
+            f"{wall:.3f} s with its captures and diagnostics, {wall2:.3f} s captured and "
+            f"without them; " + "; ".join(rates) + f"; {alerts} alerts; launches "
+            f"{json.dumps(launches['scan grid'])}; cells == solo run_sim_scan (summaries, "
+            f"series, forecast rows but rows_bucketed, ring histories); rows_bucketed "
+            f"(cohort member, solo) " + ", ".join(f"{p}/{sd} {b}" for (p, sd), b in
+                                                  bucketed.items()))
+
+        # the fitted family of the Alibaba fixture, at 500 apps
+        data_dir = Path(__file__).resolve().parent / "tests" / "data"
+        fit = scenarios.fit_trace(scenarios.load_trace(str(data_dir / "alibaba_tiny.csv"),
+                                                       preset="alibaba"), n_apps=500)
+        fcfg = SimConfig(workload=fit, max_ticks=FAMILY_TICKS)
+        t = time.perf_counter()
+        fr = step.run_sim_scan(fcfg, device="cuda")
+        torch.cuda.synchronize()
+        t = time.perf_counter() - t
+        assert all(np.isfinite(fr.util_mem)) and max(fr.n_running) > 0
+        log(f"  fitted family (alibaba fixture, 500 apps x {fit.max_components} components, "
+            f"rate {fit.rate:.6g}/s, elastic {fit.elastic_frac:.3f}): {fr.timings['ticks']} "
+            f"ticks in {t:.3f} s with its capture, completed {fr.summary()['completed']}, "
+            f"forecast rows {fr.forecast_rows}")
+        done("fitted family")
+    finally:
+        guard.stop()
+
+    # the host grid on the thread pool, through the batcher
+    hcfg = SimConfig(max_ticks=MAIN_PATH_TICKS)
+    axes = {"policy": list(SWEEP_POLICIES), "calibration": ["sigma", "conformal"]}
+    walls, rows = {}, {}
+    for batched in (True, False):
+        runs = record_calls(sweep, "run_sim")
+        fc = record_calls(GPForecaster, "forecast_batch")
+        gp_forecast.reset_launch_counts()
+        calib.reset_launch_counts()
+        t = time.perf_counter()
+        hres = sweep.run_grid(hcfg, axes, seeds=list(SWEEP_SEEDS), engine="vectorized",
+                              batch_forecasts=batched, batch_mode="barrier",
+                              forecast_diag=False, device="cuda")
+        torch.cuda.synchronize()
+        walls[batched] = time.perf_counter() - t
+        runs.stop()
+        fc.stop()
+        n_gp = gp_forecast.gp_fit_forecast.launches
+        # rows a launch: padded to the power-of-two bucket, and those with a window
+        rows[batched] = (sum(a[1].shape[0] for a, _, _ in fc.calls) / max(n_gp, 1),
+                         sum(int(np.asarray(k["valid"]).any(1).sum()) for _, k, _ in fc.calls)
+                         / max(n_gp, 1))
+        if batched:
+            launches["host grid"] = {"gp_fit_forecast": n_gp,
+                                     "conformal_scale": calib.conformal_scale.launches}
+            assert 0 < hres.forecast_batches < hres.forecast_requests, (
+                hres.forecast_batches, hres.forecast_requests)
+            assert n_gp == hres.forecast_batches == fc.n, (n_gp, hres.forecast_batches, fc.n)
+            batches = (hres.forecast_batches, hres.forecast_requests)
+            cells = {a[0]: out for a, _, out in runs.calls}
+            summaries = [c["summary"] for c in hres.cells]
+        else:
+            assert [c["summary"] for c in hres.cells] == summaries
+            assert hres.forecast_batches == 0 and n_gp == fc.n
+    done("host grid, both")
+    assert len(cells) == 8
+    for cfg, g in cells.items():
+        r = sweep.run_sim(cfg, device="cuda")
+        assert run_series(g) == run_series(r), f"host grid cell {cfg.policy}/" \
+            f"{cfg.calibration.enabled}/{cfg.workload.seed} != its solo run_sim"
+    done("host grid, solo runs")
+    log(f"  FINDING host grid (SimConfig(max_ticks={MAIN_PATH_TICKS}), GP, policy x "
+        f"calibration (sigma, conformal) x 2 seeds, 8 cells on the thread pool; {smi}): wall "
+        f"{walls[True]:.3f} s with the batcher, barrier mode ({batches[1]} requests in "
+        f"{batches[0]} batches; "
+        f"rows a gp_fit_forecast launch {rows[True][1]:.1f}, {rows[True][0]:.1f} padded), "
+        f"{walls[False]:.3f} s with batch_forecasts=False ({rows[False][1]:.1f} rows a launch, "
+        f"{rows[False][0]:.1f} padded); launches "
+        f"{json.dumps(launches['host grid'])}; every cell == its solo run_sim bit for bit")
+
+    # the forecast diagnostics, card against CPU
+    tr = scenarios.build_trace(SimConfig().workload)
+    worst = {}
+    for name in ("gp", "arima"):
+        calib.reset_launch_counts()
+        a = diagnostics.forecast_reports(tr, name, gp=SimConfig().gp, arima=SimConfig().arima,
+                                         device="cuda")
+        n_cs = calib.conformal_scale.launches
+        b = diagnostics.forecast_reports(tr, name, gp=SimConfig().gp, arima=SimConfig().arima,
+                                         device="cpu")
+        worst[name] = _report_diff(list(a), list(b), DIAG_RTOL[name])
+        assert n_cs == 3, n_cs      # one conformal_scale launch a coverage level
+        log(f"  {name} diagnostics card vs CPU: largest relative difference "
+            f"{worst[name]:.3g} (tolerance {DIAG_RTOL[name]}); median |rel err| "
+            f"{a[0]['abs_rel_err_median']:.6f} (cpu {b[0]['abs_rel_err_median']:.6f}), "
+            f"coverage at q=0.9 {a[1]['levels'][1]['conformal_coverage']} conformal, "
+            f"{a[1]['levels'][1]['gaussian_coverage']} gaussian")
+    done("diagnostics")
+    log(f"  phase 5j seconds by step: {json.dumps(steps)}")
+    return launches
+
+
 def time_obs(obs_kernel, ref) -> dict:
     """Phase 8: obs_tick at the main path's widths (one member, 128 slots
     of 12, 500 apps, R = 128; the default path's inputs: the shaped
@@ -4064,6 +4333,13 @@ def main() -> int:
         f"cell's leap histories, {OBS_CPU_TICKS} tenanted persist ticks card vs CPU")
     obs_main = run_obs(step, scenarios, SimConfig, WorkloadConfig, ClusterConfig, TenancyConfig,
                        CalibrationConfig, ObsConfig, obs_kernel)
+    log("== 5j. the sweep driver: run_grid(SimConfig(), policy x 2 seeds, engine='scan', "
+        f"obs=True) against solo runs, the GP host grid (policy x calibration x 2 seeds, "
+        f"{MAIN_PATH_TICKS} ticks) through the forecast batcher and without it, the fitted "
+        "family, the forecast diagnostics card vs CPU")
+    sweep_launches = run_sweep(step, scenarios, SimConfig, ObsConfig, GPForecaster, gp_forecast,
+                               calib, smi)
+    log(f"  launches on the sweep's paths: {json.dumps(sweep_launches)}")
 
     log("== 6. Whisper, smoke widths, fp32: the card against the CPU")
     check_whisper_smoke(flash_attention)

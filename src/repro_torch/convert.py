@@ -59,11 +59,14 @@ def sim_config_from_dict(d: dict, *, workload: str = "google") -> SimConfig:
     ``asdict`` keeps no type, so
     ``workload`` names the scenario family of ``d["workload"]``: any
     registered one (``google``, ``diurnal``, ``flashcrowd``,
-    ``heavytail``, ``colocated``, ``replay``)."""
+    ``heavytail``, ``colocated``, ``replay``, ``fitted``).  A list in it
+    (a ``FittedConfig``'s ``comp_weights`` read back from JSON) becomes
+    the tuple the frozen config hashes by."""
     gp = {k: v for k, v in d["gp"].items() if k != "impl"}
+    wl = {k: tuple(v) if isinstance(v, list) else v for k, v in d["workload"].items()}
     return SimConfig(
         cluster=ClusterConfig(**d["cluster"]),
-        workload=scenarios.get(workload).config_cls(**d["workload"]),
+        workload=scenarios.get(workload).config_cls(**wl),
         safeguard=SafeguardConfig(**d["safeguard"]),
         calibration=CalibrationConfig(**d["calibration"]),
         control=TenancyConfig(**d["control"]),

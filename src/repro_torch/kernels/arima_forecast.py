@@ -87,7 +87,7 @@ def arima_forecast(windows: torch.Tensor, valid: torch.Tensor, horizon: int, cfg
     nvcc.launch(_library().arima_forecast, "arima_forecast", windows.device, windows,
                 valid, ready, mean, var, B, T, horizon, cfg.max_p, cfg.max_q, cfg.max_d,
                 cfg.long_ar)
-    arima_forecast.launches += 1
+    nvcc.count(arima_forecast)
     return mean, var
 
 

@@ -118,7 +118,7 @@ def calib_observe(ring, ring_count, pool, pool_count, mean, sigma, scale, peak, 
                 usage, mon_count, active, *tier, *outs,
                 *(tier_outs or (None,) * 6), S, R, cap, pcap, int(pool_on), int(adaptive), G,
                 gcap, *(float(np.float32(x)) for x in (gamma, budget, q_min, q_max)))
-    calib_observe.launches += 1
+    nvcc.count(calib_observe)
     return outs + tier_outs
 
 
@@ -141,7 +141,7 @@ def conformal_scale(scores: torch.Tensor, counts: torch.Tensor, q: torch.Tensor,
     out = torch.empty(B, dtype=f32, device=dev)
     nvcc.launch(_library().conformal_scale, "conformal_scale", dev, scores, counts, B, cap,
                 q, fallback, G, int(rolled), out)
-    conformal_scale.launches += 1
+    nvcc.count(conformal_scale)
     return out
 
 
@@ -210,7 +210,7 @@ def calib_quantiles(ring, ring_count, pool, pool_count, q, fallback, tenancy=Non
     nvcc.launch(_library().calib_quantiles, "conformal_scale", dev, ring, ring_count, pool,
                 pool_count, q, float(np.float32(fallback)), raw, raw_pool, S, R, cap,
                 pool.shape[1], int(min_scores), int(pool_on), *groups)
-    conformal_scale.launches += 1
+    nvcc.count(conformal_scale)
     return (raw, raw_pool) + raw_group
 
 
@@ -237,7 +237,7 @@ def calib_begin(ring_count, pool_count, raw, raw_pool, deploy, mean, var, mon_co
                 raw, raw_pool, deploy, mean, var, mon_count, c_mean, c_sigma, c_scale, c_peak,
                 c_left, c_due, scale_sum, scale_n, *outs, S, R, cap, pcap, int(min_scores),
                 int(pool_on), int(horizon), float(np.float32(fallback)), *groups)
-    calib_begin.launches += 1
+    nvcc.count(calib_begin)
     return outs + o_group
 
 

@@ -90,7 +90,7 @@ def control_tick(credit, throttled, completed, failed, share_sum, active_ticks, 
                     conflict, d_res, d_err, tenant, slot_gid, alloc, host_cap, weights, *outs,
                     elig, S, T, N, A, C, H, int(credit_on), int(gate_on),
                     *(float(np.float32(x)) for x in (gamma, floor, slack)))
-        control_tick.launches += 1
+        nvcc.count(control_tick)
     return (*outs, elig)
 
 

@@ -145,7 +145,7 @@ def _launch(which, q, k, v, shape, causal, sm_scale, q_offset):
     else:
         nvcc.launch(lib.flash_attention_fwd, "flash_attention (simt)", q.device, *args,
                     _DTYPES[q.dtype])
-    flash_attention.launches += 1
+    nvcc.count(flash_attention)
     flash_attention.route_launches[which] += 1
     return out
 

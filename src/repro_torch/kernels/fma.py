@@ -69,7 +69,7 @@ def fma_f32(a: torch.Tensor, b, c: torch.Tensor) -> torch.Tensor:
     if out.numel():
         nvcc.launch(_library().fma_f32, "fma_f32", a.device, a, b_t,
                     0.0 if tensor_b else float(np.float32(b)), c, out, out.numel())
-        fma_f32.launches += 1
+        nvcc.count(fma_f32)
     return out
 
 

@@ -121,7 +121,7 @@ def gp_fit_forecast(X: torch.Tensor, y: torch.Tensor, row_valid: torch.Tensor,
     nvcc.launch(lib.gp_forecast, "gp_forecast", X.device, X, y, row_valid, hist, mean,
                 var, logp, B, N, D, horizon, T, cfg.opt_steps, code, cfg.opt_lr,
                 cfg.jitter, bc1, bc2, init, ready)
-    gp_fit_forecast.launches += 1
+    nvcc.count(gp_fit_forecast)
     return mean, var, logp
 
 

@@ -78,7 +78,7 @@ def gram_fwd(xa: torch.Tensor, xb: torch.Tensor, ell: torch.Tensor,
     out = torch.empty((B, M, N), dtype=torch.float32, device=xa.device)
     nvcc.launch(lib.gp_gram_fwd, "gp_gram_fwd", xa.device, xa, xb, ell, sf, out,
                 B, M, N, D, code)
-    gram_fwd.launches += 1
+    nvcc.count(gram_fwd)
     return out
 
 
@@ -96,7 +96,7 @@ def gram_bwd(grad: torch.Tensor, xa: torch.Tensor, xb: torch.Tensor,
     d_sf = torch.empty((B,), dtype=torch.float32, device=xa.device)
     nvcc.launch(lib.gp_gram_bwd, "gp_gram_bwd", xa.device, grad, xa, xb, ell, sf,
                 d_ell, d_sf, B, M, N, D, code)
-    gram_bwd.launches += 1
+    nvcc.count(gram_bwd)
     return d_ell, d_sf
 
 

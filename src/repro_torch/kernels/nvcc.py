@@ -10,7 +10,9 @@ every kernel wrapper of the package goes through, after :func:`prepare`
 where a kernel has set-up to do; :func:`check` holds a tensor to an
 exact dtype and shape; :func:`counted` registers a wrapper's launch
 count, so that code which captures launches into a CUDA graph can
-account for them in one place.
+account for them in one place, and :func:`count` adds a launch to it.
+Both :func:`count` and :func:`prepare` hold a lock: the sweep driver
+runs host-engine simulations on a thread pool, each of which launches.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import dataclasses
 import hashlib
 import os
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -109,7 +112,17 @@ def counted(fn):
     return fn
 
 
+_LOCK = threading.Lock()
+
+
+def count(fn) -> None:
+    """Add one launch to the wrapper ``fn``'s count, under a lock."""
+    with _LOCK:
+        fn.launches += 1
+
+
 _PREPARED: set[tuple[str, int]] = set()
+_PREPARE_LOCK = threading.Lock()
 
 
 def prepare(fn, name: str, device) -> None:
@@ -120,11 +133,14 @@ def prepare(fn, name: str, device) -> None:
     index = device.index if device.index is not None else torch.cuda.current_device()
     if (name, index) in _PREPARED:
         return
-    with torch.cuda.device(index):
-        rc = fn()
-    if rc != 0:
-        raise RuntimeError(f"{name} set-up failed: CUDA error {rc}")
-    _PREPARED.add((name, index))
+    with _PREPARE_LOCK:
+        if (name, index) in _PREPARED:
+            return
+        with torch.cuda.device(index):
+            rc = fn()
+        if rc != 0:
+            raise RuntimeError(f"{name} set-up failed: CUDA error {rc}")
+        _PREPARED.add((name, index))
 
 
 def launch(fn, name: str, device, *args) -> None:

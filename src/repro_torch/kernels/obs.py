@@ -95,7 +95,7 @@ def obs_tick(cursor, f32, i32, lead_ring, active, usage, demand, queued, q_admit
         nvcc.launch(_library().obs_tick, "obs_tick", dev, cursor, f32, i32, lead_ring, active,
                     usage, demand, queued, q_admit, *counters, *counters0, *ten, *ten0, *cal,
                     *cal0, lead, *out, S, A, C, N, T, R)
-        obs_tick.launches += 1
+        nvcc.count(obs_tick)
     return out
 
 

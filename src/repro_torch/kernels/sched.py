@@ -223,7 +223,7 @@ def resolve_oom(slot_gid, work_done, comp_running, comp_host, alloc, usage, fail
                       failed, queued, oom_kills, failure_events, partial_preemptions,
                       is_core, host_cap, None)
     if slot_gid.shape[0]:
-        resolve_oom.launches += 1
+        nvcc.count(resolve_oom)
     return out
 
 
@@ -240,7 +240,7 @@ def admit_queued(submit, gid, cpu_req, mem_req, exists, is_core, slot_gid,
                         has_saved, saved_work, t, host_cap, resume, None, tenant, elig,
                         admitted)
     if submit.shape[0]:
-        admit_queued.launches += 1
+        nvcc.count(admit_queued)
     return out
 
 
@@ -252,7 +252,7 @@ def place_missing_elastic(cpu_req, mem_req, exists, is_core, slot_gid, comp_runn
     out = _launch_elastic(cpu_req, mem_req, exists, is_core, slot_gid, comp_running,
                           comp_host, alloc, alive_since, t, host_cap, None)
     if cpu_req.shape[0]:
-        place_missing_elastic.launches += 1
+        nvcc.count(place_missing_elastic)
     return out
 
 

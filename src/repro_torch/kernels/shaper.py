@@ -94,7 +94,7 @@ def pessimistic_pass(valid, dem, core, el, host, order, free0):
     (S,H,2))`` as ``ref.pessimistic_pass`` returns them."""
     out = _launch(valid, dem, core, el, host, order, free0, None)
     if valid.shape[0]:
-        pessimistic_pass.launches += 1
+        nvcc.count(pessimistic_pass)
     return out
 
 

@@ -329,7 +329,9 @@ def run_sim(cfg: SimConfig, wl: Workload | None = None, *, forecast_fn=None,
     """Run one simulation to completion (or ``cfg.max_ticks``).
 
     ``forecast_fn(windows, valid) -> (mean, var)`` overrides the default
-    forecast client (numpy in, numpy out).  ``wl`` overrides the trace
+    forecast client (numpy in, numpy out); the sweep driver passes a
+    cross-sim batching client here, and a client with an ``idle()``
+    method is called once on each tick that requested no forecast.  ``wl`` overrides the trace
     that ``cfg.workload`` would build.  ``device`` is where forecasts,
     the safeguard and the policy run: CUDA unless the caller asks for
     the CPU, and asking for CUDA without a card raises.
@@ -345,8 +347,19 @@ def run_sim(cfg: SimConfig, wl: Workload | None = None, *, forecast_fn=None,
     A = cl.A
     mon = Monitor(slots=A * C, window=cfg.window)
     clock = _PhaseClock(dev)
-    fc = clock.timed("forecast", forecast_fn if forecast_fn is not None
-                     else _BatchedForecaster(cfg, dev))
+    client = forecast_fn if forecast_fn is not None else _BatchedForecaster(cfg, dev)
+    # per-tick "no request" signal for the sweep's batcher: a client with
+    # an ``idle`` method is told of every tick that requested no forecast
+    # (grace period, empty cluster, baseline policy), so a batch round
+    # stops waiting for it.  The calls are counted on the client itself,
+    # apart from the phase clock's timing
+    idle_fn = getattr(client, "idle", None)
+    fc_calls = [0]
+    if idle_fn is not None:
+        def client(windows, valid, _inner=client):
+            fc_calls[0] += 1
+            return _inner(windows, valid)
+    fc = clock.timed("forecast", client)
     policy_fn = clock.timed("policy", POLICIES[cfg.policy])
     res = SimResults(n_apps=N)
     tick = cfg.cluster.tick
@@ -424,6 +437,7 @@ def run_sim(cfg: SimConfig, wl: Workload | None = None, *, forecast_fn=None,
         # failures" of Figs. 3-4)
         preempted_this_tick: list[int] = []
         oom_failed_this_tick: list[int] = []
+        calls_before = fc_calls[0]
         if cfg.policy != "baseline" and run.size:
             kill_app, kill_comp, alloc_cpu, alloc_mem = _shape_decisions(
                 cfg, cl, wl, mon, fc, policy_fn, submit0, run, t, tick, dev, calib, hc)
@@ -453,6 +467,8 @@ def run_sim(cfg: SimConfig, wl: Workload | None = None, *, forecast_fn=None,
             live = cl.comp_running
             cl.alloc[:, :, CPU] = np.where(live, alloc_cpu, 0.0)
             cl.alloc[:, :, MEM] = np.where(live, alloc_mem, 0.0)
+        if idle_fn is not None and fc_calls[0] == calls_before:
+            idle_fn()
 
         # 5. OOM (uncontrolled failures) -----------------------------------
         oom_gids, oom_partial = cl.resolve_oom(wl, usage)

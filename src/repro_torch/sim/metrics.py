@@ -1,8 +1,10 @@
 """Simulation metrics (paper §4.1): turnaround, resource slack, failures.
 
-A copy of ``SimResults`` from ``repro/sim/metrics.py`` (numpy only),
-with the calibration, tenancy and telemetry-ring blocks, plus the
-engines' wall times.
+A copy of ``repro/sim/metrics.py`` (numpy only): the sweep's
+aggregation over seeds (``aggregate_summaries``), the workload-shape
+statistics it attaches per scenario (``trace_stats``) and
+``SimResults``, with the calibration, tenancy and telemetry-ring blocks,
+plus the engines' wall times.
 """
 from __future__ import annotations
 
@@ -11,6 +13,48 @@ import dataclasses
 import numpy as np
 
 CPU, MEM = 0, 1
+
+# summary keys the sweep aggregates across seeds (paper's Fig. 3-4 axes:
+# turnaround, failures, slack / utilization)
+AGGREGATE_KEYS = (
+    "turnaround_mean", "turnaround_median", "turnaround_p95",
+    "slack_cpu_mean", "slack_mem_mean", "util_cpu_mean", "util_mem_mean",
+    "failed_frac", "failure_events", "oom_kills",
+    "full_preemptions", "partial_preemptions", "completed", "sim_hours",
+)
+
+
+def aggregate_summaries(summaries: list[dict],
+                        keys: tuple = AGGREGATE_KEYS) -> dict:
+    """Mean + median of each metric across per-seed ``summary()`` dicts."""
+    out: dict = {"n_seeds": len(summaries)}
+    for k in keys:
+        vals = np.asarray([s[k] for s in summaries], np.float64)
+        out[k] = float(np.mean(vals))
+        out[k + "_median"] = float(np.median(vals))
+    return out
+
+
+def trace_stats(trace) -> dict:
+    """Workload-shape statistics of a Trace — the sweep attaches these
+    per scenario so BENCH artifacts are self-describing (a reader can
+    see WHAT regime produced each metric block)."""
+    exists = trace.cpu_req > 0
+    return {
+        "n_apps": int(trace.n_apps),
+        "max_components": int(trace.max_components),
+        "elastic_frac": float(trace.is_elastic.mean()),
+        "jumpy_frac": float(trace.is_jumpy.mean()),
+        "mean_components": float(exists.sum(1).mean()),
+        "elastic_comp_frac": float((exists & ~trace.is_core).sum()
+                                   / max(exists.sum(), 1)),
+        "runtime_mean_s": float(trace.runtime.mean()),
+        "runtime_p95_s": float(np.percentile(trace.runtime, 95)),
+        "arrival_makespan_h": float(trace.submit[-1] / 3600.0),
+        "mem_req_mean_gb": float(trace.mem_req[exists].mean()),
+        "mem_req_p95_gb": float(np.percentile(trace.mem_req[exists], 95)),
+        "mean_level": float(trace.levels[exists].mean()),
+    }
 
 
 @dataclasses.dataclass

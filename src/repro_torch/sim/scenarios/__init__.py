@@ -2,16 +2,21 @@
 ``repro.sim.scenarios``): the canonical :class:`Trace` schema, the
 scenario registry, the four parametric families beyond the paper's
 Google-shaped workload (``families``: diurnal, flashcrowd, heavytail,
-colocated) and the CSV/Parquet trace-replay adapter (``replay``).  Not
-ported yet: streamed ingestion, trace fitting and the diagnostics.
+colocated), the CSV/Parquet trace-replay adapter (``replay``), the
+family fitted to a replayed trace (``fitting``) and the per-scenario
+forecast diagnostics (``diagnostics``).  Not ported yet: streamed
+ingestion.
 
     from repro_torch.sim.scenarios import build_trace, make_config
     tr = build_trace(make_config("flashcrowd", n_apps=200, seed=1))
 """
 from repro_torch.sim.scenarios import families as _families          # noqa: F401
 from repro_torch.sim.scenarios import replay as _replay              # noqa: F401
+from repro_torch.sim.scenarios.diagnostics import (coverage_report, forecast_error_report,
+                                                   forecast_reports, sample_usage_series)
 from repro_torch.sim.scenarios.families import (ColocatedConfig, DiurnalConfig,
                                                 FlashcrowdConfig, HeavytailConfig)
+from repro_torch.sim.scenarios.fitting import FittedConfig, fit_trace
 from repro_torch.sim.scenarios.registry import (ScenarioSpec, build_trace, get,
                                                 make_config, register,
                                                 scenario_names, scenario_of)
@@ -25,4 +30,7 @@ __all__ = [
     "make_config", "build_trace",
     "DiurnalConfig", "FlashcrowdConfig", "HeavytailConfig",
     "ColocatedConfig", "ReplayConfig", "load_trace", "save_trace",
+    "FittedConfig", "fit_trace",
+    "coverage_report", "forecast_error_report", "forecast_reports",
+    "sample_usage_series",
 ]

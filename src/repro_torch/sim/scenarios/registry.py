@@ -2,8 +2,8 @@
 
 Counterpart of ``repro/sim/scenarios/registry.py``, with the same API.
 Ported families: ``google``, ``diurnal``, ``flashcrowd``, ``heavytail``,
-``colocated`` and ``replay``; ``stream`` and ``fitted`` are not ported
-yet and looking them up raises ``NotImplementedError``.
+``colocated``, ``replay`` and ``fitted``; ``stream`` is not ported yet
+and looking it up raises ``NotImplementedError``.
 
 A *scenario* is a frozen config dataclass plus a build function that turns it
 into a schema-valid :class:`~repro_torch.sim.scenarios.schema.Trace`.  Sources
@@ -54,10 +54,11 @@ _BUILTIN = {
     "heavytail": "repro_torch.sim.scenarios.families",
     "colocated": "repro_torch.sim.scenarios.families",
     "replay": "repro_torch.sim.scenarios.replay",
+    "fitted": "repro_torch.sim.scenarios.fitting",
 }
 
-# the reference's other families, not ported yet
-_NOT_PORTED = ("stream", "fitted")
+# the reference's other family, not ported yet
+_NOT_PORTED = ("stream",)
 
 
 def register(name: str, config_cls: type, doc: str = ""):
@@ -79,7 +80,7 @@ def _load_builtins() -> None:
 def get(name: str) -> ScenarioSpec:
     if name in _NOT_PORTED:
         raise NotImplementedError(f"the {name!r} scenario family is not ported yet "
-                                  "(ROADMAP queue 1 item 11)")
+                                  "(ROADMAP queue 1 item 11.2)")
     if name not in _SCENARIOS and name in _BUILTIN:
         importlib.import_module(_BUILTIN[name])
     try:

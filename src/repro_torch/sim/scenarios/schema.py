@@ -35,8 +35,8 @@ from typing import Any
 
 import numpy as np
 
-#: SLO class names, copied from ``repro/control/config.py:15`` (the
-#: control plane itself is not ported yet)
+#: SLO class names, as ``repro_torch/control/config.py`` has them (a
+#: copy here keeps the schema free of the control plane's imports)
 SLO_CLASSES = ("best-effort", "standard", "premium")
 
 #: number of piecewise-linear utilization knots per component profile

@@ -32,7 +32,6 @@ from repro.core.forecast.base import Forecast as RForecast
 from repro.sim import engine as rengine
 from repro.sim import step as rstep
 from repro.sim.scenarios.registry import build_trace
-from repro.sim.sweep import quick_base_config
 from repro_torch import convert
 from repro_torch.core.forecast import (ARIMAConfig, ARIMAForecaster, Forecast,
                                        OracleForecaster, peak_over_horizon)
@@ -40,6 +39,7 @@ from repro_torch.kernels import arima_forecast as karima
 from repro_torch.kernels import ops, ref
 from repro_torch.sim import engine as tengine
 from repro_torch.sim import step as tstep
+from test_torch_engine import quick_base_config
 from test_torch_flash_route import CudaStandIn
 from test_torch_step import _one_torch_thread, _shared_client  # noqa: F401
 

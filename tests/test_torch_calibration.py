@@ -29,7 +29,6 @@ from repro.sim import engine as reng
 from repro.sim import state as rstate
 from repro.sim import step as rstep
 from repro.sim.scenarios.registry import build_trace
-from repro.sim.sweep import quick_base_config
 from repro_torch import control as tctl
 from repro_torch import convert
 from repro_torch.core import uncertainty as tunc
@@ -38,6 +37,7 @@ from repro_torch.core.shaper import shaped_demand_scaled
 from repro_torch.kernels import ops, ref
 from repro_torch.sim import engine as tengine
 from repro_torch.sim import step as tstep
+from test_torch_engine import quick_base_config
 from test_torch_leap import GAP, _skip_states
 from test_torch_step import (_JaxClient, _one_torch_thread, _shared_client,  # noqa: F401
                              _TorchClient)

@@ -8,12 +8,39 @@ import torch
 
 from repro.sim import ClusterConfig, SimConfig, WorkloadConfig
 from repro.sim import engine as reng
+from repro.sim import sweep as rsweep
 from repro.sim import workload as rworkload
+from repro.sim.scenarios import registry as rregistry
 from repro.sim.scenarios.registry import build_trace
-from repro.sim.sweep import quick_base_config
 from repro_torch import convert
 from repro_torch.sim import engine as tengine
+from repro_torch.sim import sweep as tsweep
 from repro_torch.sim import workload as tworkload
+from repro_torch.sim.scenarios import scenario_of
+
+
+def reference_config(cfg: tengine.SimConfig) -> SimConfig:
+    """The reference's ``SimConfig`` of the same fields as the port's
+    ``cfg`` (``gp.impl`` at its default), its workload of the same
+    family: the inverse of ``convert.sim_config_from_dict``."""
+    d = dataclasses.asdict(cfg)
+    kw = {}
+    for f in dataclasses.fields(SimConfig):
+        default = f.default if f.default is not dataclasses.MISSING else f.default_factory()
+        if f.name == "workload":
+            kw[f.name] = rregistry.get(scenario_of(cfg.workload)).config_cls(**d[f.name])
+        elif dataclasses.is_dataclass(default):
+            kw[f.name] = type(default)(**d[f.name])
+        else:
+            kw[f.name] = d[f.name]
+    return SimConfig(**kw)
+
+
+def quick_base_config(**kw) -> SimConfig:
+    """The reference's ``SimConfig`` of the port's
+    ``repro_torch.sim.sweep.quick_base_config(**kw)``: the port's tests
+    take their small config from the port and run the reference on it."""
+    return reference_config(tsweep.quick_base_config(**kw))
 
 # README.md's quickstart config
 README_CFG = SimConfig(
@@ -92,6 +119,17 @@ def test_gp_end_to_end_close_to_reference():
     np.testing.assert_allclose(got["turnaround_mean"], want["turnaround_mean"],
                                rtol=1e-2)
     assert res.timings["ticks"] > 0 and res.timings["forecast"] > 0
+
+
+@pytest.mark.parametrize("kw", [{}, dict(n_apps=24, n_hosts=3, max_components=5, seed=3)])
+def test_quick_base_config_equals_reference(kw):
+    """The port's ``quick_base_config`` has the reference's fields (the
+    port's GP dispatches on the device and has no ``impl``), and the
+    reference config the tests derive from it is the reference's own."""
+    want = dataclasses.asdict(rsweep.quick_base_config(**kw))
+    assert want["gp"].pop("impl") is not None
+    assert dataclasses.asdict(tsweep.quick_base_config(**kw)) == want
+    assert quick_base_config(**kw) == rsweep.quick_base_config(**kw)
 
 
 def test_unported_features_are_refused():

@@ -14,10 +14,10 @@ from repro.core.forecast import gp as rgp
 from repro.kernels import ref as jref
 from repro.sim import engine as reng
 from repro.sim.scenarios.registry import build_trace
-from repro.sim.sweep import quick_base_config
 from repro_torch.core.forecast import Forecast, GPConfig, GPForecaster, base
 from repro_torch.core.forecast import gp as tgp
 from repro_torch.kernels import ref as kref
+from test_torch_engine import quick_base_config
 
 H = 3          # the engine's horizon
 HIST = 10      # the engine's GP history h: rows with h+1 valid points are

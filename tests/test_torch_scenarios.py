@@ -64,12 +64,13 @@ def test_family_trace_equals_reference(name):
 
 def test_registry_api_follows_the_reference():
     assert treg.scenario_names() == tuple(n for n in rreg.scenario_names()
-                                          if n not in ("stream", "fitted"))
-    for name in ("stream", "fitted"):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            treg.get(name)
-        with pytest.raises(NotImplementedError, match="item 11"):
-            treg.make_config(name)
+                                          if n != "stream")
+    with pytest.raises(NotImplementedError, match="item 11.2"):
+        treg.get("stream")
+    with pytest.raises(NotImplementedError, match="item 11.2"):
+        treg.make_config("stream")
+    # the fitted family is ported (its parity: tests/test_torch_sweep.py)
+    assert treg.get("fitted").config_cls.__name__ == "FittedConfig"
     with pytest.raises(KeyError, match="unknown scenario"):
         treg.get("nope")
     # across families only the scale knobs carry; in one family the base stays

@@ -24,11 +24,11 @@ from repro.core.shaper import pessimistic_shape_raw
 from repro.sim import state as rstate
 from repro.sim import step as rstep
 from repro.sim.scenarios.registry import build_trace
-from repro.sim.sweep import quick_base_config
 from repro_torch import convert
 from repro_torch.core.shaper import ShapeProblem, pessimistic_shape
 from repro_torch.kernels import ops, ref, sched, shaper
 from repro_torch.sim import step as tstep
+from test_torch_engine import quick_base_config
 
 DECISIONS = ("kill_app", "kill_comp", "alloc_cpu", "alloc_mem", "cpu_free", "mem_free")
 

@@ -26,7 +26,6 @@ from repro.sim import state as rstate
 from repro.sim import step as rstep
 from repro.sim.scenarios import families as rfam
 from repro.sim.scenarios.registry import build_trace
-from repro.sim.sweep import quick_base_config
 from repro_torch import convert
 from repro_torch.core.forecast import Forecast as TForecast
 from repro_torch.core.forecast import GPConfig
@@ -35,6 +34,7 @@ from repro_torch.obs import REGISTRY as TREGISTRY
 from repro_torch.sim import ClusterConfig, WorkloadConfig
 from repro_torch.sim import SimConfig as TSimConfig
 from repro_torch.sim import step as tstep
+from test_torch_engine import quick_base_config
 
 COUNTERS = ("completed", "n_apps", "failure_events", "oom_kills", "full_preemptions",
             "partial_preemptions", "failed_frac", "sim_hours")
