@@ -103,7 +103,13 @@ admissions until a head does not fit, submit ties broken by gid,
 missing elastic components that fill the hosts; every output equal),
 the idle-tick skip on seeded and edge members (and members whose
 calibration scores are pending), the ARIMA kernel on 3,072 seeded
-windows, and the calibration's three kernels (calib_observe;
+windows and on the crafted windows of ARIMA_CRAFTED (an order that is
+not fitted winning, the fitted one winning, the fallback's edge, holes,
+constant and signed-zero windows, every and no row ready, other orders,
+40 samples), conformal_scale on crafted rings (crafted_rings: ties, +-0,
+NaN payloads, +-inf, k at 0 and n - 1, capacities 16 to 2,048 on the
+warp's and the block's paths, the engine's launch with the per-tenant
+tier), and the calibration's three kernels (calib_observe;
 conformal_scale, generic and in the engine's shaping step with
 calib_begin) on seeded full-width members, counts from 0 to past the
 capacity, a tick that resolves more scores than the pool holds, ties,
@@ -2159,6 +2165,86 @@ def check_arima(arima_forecast, ref, ARIMAConfig) -> float:
     return err
 
 
+# crafted ARIMA cases (name: config overrides), held kernel against plain
+# on the card (phase 3, tests/test_torch_kernels_hopper.py) and, those at
+# the default orders and T = 24, plain against the reference on the CPU
+# (tests/test_torch_arima.py)
+ARIMA_CRAFTED = {
+    "white noise (an order that is not fitted wins)": {},
+    "near-deterministic sines and AR(2) (the fitted order wins)": {},
+    "valid counts at the fallback's edge (9 to 12 of 24, some with holes)": {},
+    "scattered holes in the valid masks": {},
+    "constant, zero and -0 windows": {},
+    "every row ready": {},
+    "no row ready": {},
+    "no MA lags (max_q = 0: no stage-1 fit)": {"max_q": 0},
+    "small orders (max_p = 1, max_q = 1, max_d = 0, long_ar = 3)": {
+        "max_p": 1, "max_q": 1, "max_d": 0, "long_ar": 3},
+    "MA only (max_p = 0)": {"max_p": 0},
+    "windows of 40 samples (two ballots of samples)": {},
+}
+
+
+def arima_crafted(name, n=256, seed=11):
+    """Crafted case ``name`` of ARIMA_CRAFTED: (windows (n, T) float32,
+    valid (n, T) bool, ready (n,) bool or None)."""
+    rng = np.random.default_rng(seed + list(ARIMA_CRAFTED).index(name))
+    T = 40 if name.startswith("windows of 40") else 24
+    t = np.arange(T)
+    scale = 10.0 ** rng.integers(-2, 4, (n, 1))
+    w = rng.normal(size=(n, T)) * scale + rng.uniform(-5, 5, (n, 1)) * scale
+    v = np.ones((n, T), bool)
+    ready = None
+    sines = (rng.uniform(1, 3, (n, 1)) * np.sin(t / rng.uniform(2, 6, (n, 1))
+                                                + rng.uniform(0, 6, (n, 1))))
+    ar = np.zeros((n, T))
+    ar[:, :2] = rng.normal(size=(n, 2))
+    for k in range(2, T):
+        ar[:, k] = 1.6 * ar[:, k - 1] - 0.8 * ar[:, k - 2]
+    smooth = (np.where(np.arange(n)[:, None] % 2 == 0, sines, ar)
+              + rng.normal(scale=1e-4, size=(n, T))) * scale
+    if name.startswith("near-deterministic"):
+        w = smooth
+    elif ARIMA_CRAFTED[name] or T != 24:       # other orders or widths: half of each
+        w = np.where(np.arange(n)[:, None] % 4 < 2, w, smooth)
+    elif name.startswith("valid counts"):
+        keep = rng.choice([0, 1, 9, 10, 11, 12], n)
+        for i in range(n):
+            cells = (np.arange(T - keep[i], T) if i % 2 == 0
+                     else rng.choice(T, keep[i], replace=False))
+            v[i] = False
+            v[i, cells] = True
+    elif name.startswith("scattered holes"):
+        v = rng.random((n, T)) > rng.choice([0.05, 0.2, 0.4], (n, 1))
+    elif name.startswith("constant"):
+        w = np.repeat(rng.choice([0.0, -0.0, 1.0, -3.5, 1e6], (n, 1)), T, 1)
+        w[::4, ::3] = -0.0
+    elif name == "every row ready":
+        ready = np.ones(n, bool)
+    elif name == "no row ready":
+        ready = np.zeros(n, bool)
+    w = np.where(v, w, 0.0).astype(np.float32)
+    return w, v, ready
+
+
+def check_arima_crafted(arima_forecast, ref, ARIMAConfig) -> None:
+    """Phase 3: the ARIMA kernel against its plain version on the card on
+    every crafted case of ARIMA_CRAFTED, every output bit equal; prints
+    which orders won (candidate index: rows)."""
+    import torch
+    for name, over in ARIMA_CRAFTED.items():
+        w, v, ready = arima_crafted(name)
+        cfg = ARIMAConfig(**over)
+        tw, tv = torch.as_tensor(w).cuda(), torch.as_tensor(v).cuda()
+        mask = None if ready is None else torch.as_tensor(ready).cuda()
+        got = arima_forecast.arima_forecast(tw, tv, 3, cfg, mask)
+        want = ref.arima_forecast(tw, tv, 3, cfg, mask)
+        assert all(_same(g, r) for g, r in zip(got, want)), f"arima_forecast, {name}"
+        best = ref.arima_select(tw, tv, 3, cfg)[2].cpu()
+        log(f"  arima_forecast, {name}: kernel == plain, every bit; orders chosen "
+            f"{dict(sorted(collections.Counter(best.tolist()).items()))}")
+
+
 DECISIONS = ("completed", "failure_events", "oom_kills", "full_preemptions",
              "partial_preemptions")
 SERIES = ("util_cpu", "util_mem", "slack_cpu", "slack_mem")
@@ -2457,9 +2543,7 @@ def time_leap(leap, ref, state) -> dict:
 
 def arima_flops(valid, ready, cfg, H=3) -> int:
     """The operations the ARIMA function needs on these inputs (not those
-    of the kernel's loops, whose lanes of one d repeat its stage-1 fit and
-    whose degenerate candidates solve empty systems), from the valid
-    masks of the ready series.  A series with enough samples: the
+    a kernel's loops make), from the valid masks of the ready series.  A series with enough samples: the
     normalisation and first difference (10 a sample and 4); for each d,
     the stage-1 long AR over its in-sample rows (the upper triangle and
     right-hand side of the 7 x 7 normal equations, a product and a sum
@@ -2704,6 +2788,102 @@ def check_calib(calib, ref, CalibrationConfig) -> dict:
                 f"{cap} (counts 0 to 7 x capacity, half of the rows tie-prone: +-0, equal "
                 f"values, +-inf, NaN): kernel == plain bit for bit")
     return {"calib_observe": 0.0, "conformal_scale": 0.0, "calib_begin": 0.0}
+
+
+# float32 values where the selection's tie rule shows, as bits: -0, +0,
+# 0.25, -1.5, +inf, -inf and quiet NaNs of four payloads (one negative)
+NAN_PAYLOADS = np.array([0x7FC00000, 0x7FC0DEAD, 0xFFC00001, 0x7FFFFFFF], np.uint32)
+SCALE_TIES = np.concatenate([np.array([0x80000000, 0, 0x3E800000, 0xBFC00000, 0x7F800000,
+                                       0xFF800000], np.uint32), NAN_PAYLOADS]).view(np.float32)
+# (capacity, rows) of the crafted generic launches: the warp path's
+# smallest, the engine's series rings and its largest ring, the pool, and
+# a capacity above the warp path
+SCALE_CRAFTED = ((16, 64), (128, 3072), (512, 64), (1024, 16), (2048, 8))
+
+
+def crafted_rings(seed, rows, cap, *, circular, min_scores=16):
+    """(scores (rows, cap) f32, counts (rows,) i32, q (rows,) f32): rows
+    cycling through seeded normal scores, SCALE_TIES drawn cell by cell,
+    one such value in every cell, signed zeros only, and NaN payloads with
+    +inf and two numbers; counts 0, 1, 2, min_scores - 1 and min_scores,
+    cap - 1, cap, cap + 1 and 3 cap + 5; q seeded in [0.05, 1), a fifth of
+    the rows at 0 or 1e-7 (k = 0) or at 0.99999994 or 1 (k = n - 1).  A
+    circular ring holds +inf in its unwritten cells."""
+    rng = np.random.default_rng(seed)
+    kind = (np.arange(rows) % 5)[:, None]
+    mixed = np.concatenate([NAN_PAYLOADS.view(np.float32),
+                            np.array([np.inf, 1.0, -2.0], np.float32)])
+    scores = np.select(
+        [kind == 1, kind == 2, kind == 3, kind == 4],
+        [rng.choice(SCALE_TIES, (rows, cap)),
+         np.repeat(rng.choice(SCALE_TIES, (rows, 1)), cap, 1),
+         rng.choice(SCALE_TIES[:2], (rows, cap)), rng.choice(mixed, (rows, cap))],
+        rng.normal(0.5, 1.5, (rows, cap)).astype(np.float32))
+    counts = rng.choice([0, 1, 2, max(min_scores - 1, 0), min_scores, cap - 1, cap, cap + 1,
+                         3 * cap + 5], rows).astype(np.int32)
+    if circular:
+        scores[np.arange(cap)[None, :] >= counts[:, None]] = np.inf
+    q = rng.uniform(0.05, 1.0, rows).astype(np.float32)
+    edge = rng.random(rows) < 0.2
+    q[edge] = rng.choice(np.array([0.0, 1e-7, 0.99999994, 1.0], np.float32), int(edge.sum()))
+    return scores, counts, q
+
+
+def scale_crafted_quantiles(seed=30, A=128, C=12, T=4, cap=128, pcap=1024, gcap=256,
+                            min_scores=16):
+    """The engine's quantile launch on crafted rings: (arguments of
+    calib_quantiles with the per-tenant tier, as CPU tensors; min_scores):
+    one member's 3,072 series rings of 128, its pool of 1,024 and T group
+    rings of 256 from crafted_rings, the slot table and the credit."""
+    import torch
+    rng = np.random.default_rng(seed)
+    R = 2 * A * C
+    ring, counts, _ = crafted_rings(seed, R, cap, circular=True, min_scores=min_scores)
+    pool, _, _ = crafted_rings(seed + 1, 5, pcap, circular=False)
+    gring, gcount, _ = crafted_rings(seed + 2, T, gcap, circular=True, min_scores=min_scores)
+    gcount[0] = 3 * gcap + 5
+    tenancy = (torch.as_tensor(rng.uniform(0.0, 1.0, (1, T)).astype(np.float32)),
+               torch.as_tensor(rng.integers(0, T, (1, 500)).astype(np.int32)),
+               torch.as_tensor(np.where(rng.random((1, A)) < 0.8, rng.integers(0, 500, (1, A)),
+                                        -1).astype(np.int32)),
+               torch.as_tensor(gring[None]), torch.as_tensor(gcount[None]), 0.05, 0.5, 0.99)
+    args = [torch.as_tensor(x) for x in (ring[None], counts[None], pool[:1],
+                                         np.array([5 * pcap + 3], np.int32),
+                                         np.array([0.9], np.float32))]
+    return args + [3.0, tenancy], min_scores
+
+
+def check_scale_crafted(calib, ref) -> None:
+    """Phase 3: conformal_scale against its plain version on the card on
+    crafted rings (crafted_rings): its generic launch at each capacity of
+    SCALE_CRAFTED, rolled and circular, with a q per row and a q per four
+    rows; and the engine's launch with the per-tenant tier (the series
+    rings, the pool and the group rings at their tenants' credit-moved q),
+    its results where the step reads them.  Every bit equal."""
+    import torch
+    for cap, rows in SCALE_CRAFTED:
+        for circular in (True, False):
+            scores, counts, q = crafted_rings(cap + circular, rows, cap, circular=circular)
+            for qg in (q, q[::4]):
+                args = [torch.as_tensor(x) for x in (scores, counts, qg, -qg)]
+                want = ref.conformal_scale(*args, rolled=not circular)
+                got = calib.conformal_scale(*(a.cuda() for a in args), rolled=not circular)
+                assert _same(got, want), f"conformal_scale, crafted rings of {cap}"
+            log(f"  conformal_scale, {rows} crafted {'circular' if circular else 'rolled'} "
+                f"rings of {cap} (ties, +-0, NaN payloads, +-inf; k at 0 and n - 1; a q per "
+                f"row and per four rows): kernel == plain bit for bit")
+    args, min_scores = scale_crafted_quantiles()
+    kw = dict(min_scores=min_scores, pool_on=True)
+    want = ref.calib_quantiles(*args, **kw)
+    to = lambda a: a.cuda() if isinstance(a, torch.Tensor) else a  # noqa: E731
+    got = calib.calib_quantiles(*(to(a) for a in args[:-1]), tuple(to(a) for a in args[-1]),
+                                **kw)
+    read = (args[1] >= min_scores, torch.ones(1, dtype=torch.bool), args[-1][4] >= min_scores)
+    for name, g, w, r in zip(("series", "pool", "group"), got, want, read):
+        assert _same(g.cpu()[r], w[r]), f"calib_quantiles, crafted {name} rings"
+    log(f"  conformal_scale as the engine launches it, crafted rings (3,072 series of 128, "
+        f"{int(read[0].sum())} read; the pool of 1,024; {int(read[2].sum())} of 4 group rings of "
+        f"256 at their tenants' q): kernel == plain bit for bit")
 
 
 def calib_leap_cases(A=128, N=500, R=3072):
@@ -4232,7 +4412,9 @@ def main() -> int:
     err["leap_skip"] = check_leap(leap, ref)
     check_leap_calib(leap, ref)
     err["arima_forecast"] = check_arima(arima_forecast, ref, ARIMAConfig)
+    check_arima_crafted(arima_forecast, ref, ARIMAConfig)
     err.update(check_calib(calib, ref, CalibrationConfig))
+    check_scale_crafted(calib, ref)
     err["control_tick"] = check_control(control, ref)
     check_gated_admit(sched, ref, scan_cases)
     check_calib_tier(calib, ref, CalibrationConfig)

@@ -47,6 +47,17 @@ the per-tenant tier, for the package under ``--src`` too (one that has
 the control plane), so that two versions are timed on one card in one
 call.
 
+``--path arima`` times the ARIMA kernel alone at the device engine's
+shape (3,072 windows of 24, ARIMA_READY monitor rows ready, both
+resources: 122 series) as ``chip_smoke.py`` phase 8 does, after its
+registers and spills as ptxas reports them and the ``clock64()`` cycles
+of one ready series by phase (normalisation, stage 1, stage 2,
+residuals and AIC, recursion) from a build of the source with stamps
+put before each phase's first line; ``--path calib`` the calibration
+kernels as phase 8 does (``conformal_scale`` as the engine launches it,
+at 3,072 warm rows and the pool, and beside ``torch.kthvalue``), after
+their ptxas lines.  Both take the package under ``--src`` too.
+
 ``--path whisper`` does the same for Whisper-large-v3 serving at full
 width (random weights): one prefill of 8 requests x 1,500 frames with
 ``attn_impl="flash"``, then 4 greedy cached decode steps, each profiled
@@ -54,7 +65,8 @@ on its own, with the device time summed by kind of kernel.
 
 Run from the repository root:
 
-    python3 profile_port.py [--path sim|scan|kernels|gp|control|whisper] [--src DIR]
+    python3 profile_port.py [--path sim|scan|kernels|gp|control|arima|calib|whisper]
+        [--src DIR]
 
 Without a CUDA device it exits with an error and prints nothing else.
 """
@@ -62,6 +74,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import re
 import sys
 import time
 from pathlib import Path
@@ -349,12 +362,136 @@ def profile_control() -> int:
     return 0
 
 
+ARIMA_READY = 61   # monitor rows ready (x2 resources), the main ARIMA run's mean
+
+ARIMA_PHASES = ("normalisation", "stage 1", "stage 2", "residuals and AIC", "recursion")
+# the first line of each phase of csrc/arima_forecast.cu and the stamp it
+# takes: in this design, whose two stages are passes of one loop (the
+# pass, `stage`, picks the stamp), and in the earlier one (a lane a
+# candidate order); a last stamp follows the recursion
+ARIMA_MARKS = ((("// phase: normalisation", "0"), ("// phase: stage 1 or 2", "stage"),
+                ("// phase: residuals", "3"), ("// phase: recursion", "4")),
+               (("// scale normalisation", "0"), ("// stage 1: the long AR", "1"),
+                ("// stage 2: z on", "2"), ("float ssq = 0.f, r_last", "3"),
+                ("// the chosen order's k-step", "4")))
+ARIMA_END = "    vo[j] = at_least(mul(mul(sig2, cs2), sd2), 1e-9f);\n  }\n"
+STAMP = ("if (s == {s}) atomicMax(&stamp_cyc[{i}], "
+         "static_cast<unsigned long long>(clock64()));\n")
+
+
+def stamped_arima(source: str, series: int) -> str:
+    """The ARIMA kernel's source with clock64() stamps of series ``series``
+    (the latest of its threads to reach each phase's first line, and the
+    end of its recursion) and ``arima_stamps(out, reset)`` to read them."""
+    marks = next((m for m in ARIMA_MARKS if m[0][0] in source), None)
+    if marks is None or ARIMA_END not in source:
+        raise ValueError("the ARIMA source has none of the phase marks of ARIMA_MARKS")
+    out, k = [], 0
+    for line in source.splitlines(keepends=True):
+        if k < len(marks) and marks[k][0] in line:
+            out.append(STAMP.format(s=series, i=marks[k][1]))
+            k += 1
+        out.append(line)
+    if k < len(marks):
+        raise ValueError(f"the phase mark {marks[k][0]!r} was not found")
+    n = len(ARIMA_PHASES) + 1
+    text = "".join(out).replace(ARIMA_END, ARIMA_END + STAMP.format(s=series, i=n - 1))
+    text = text.replace("namespace {", f"__device__ unsigned long long stamp_cyc[{n}];\n"
+                        "namespace {", 1)
+    return text + (
+        'extern "C" int arima_stamps(void* out, int reset) {\n'
+        f'  unsigned long long zero[{n}] = {{}};\n'
+        '  return static_cast<int>(reset ? cudaMemcpyToSymbol(stamp_cyc, zero, sizeof zero)\n'
+        '                                : cudaMemcpyFromSymbol(out, stamp_cyc, sizeof zero));\n'
+        '}\n')
+
+
+def _ptxas(log: str, kernel: str) -> list[str]:
+    """ptxas's lines of one kernel from an nvcc -Xptxas -v log."""
+    lines, on = [], False
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            on = kernel in line
+        elif on and re.search(r"registers|spill|smem", line):
+            lines.append(line.strip())
+    return lines
+
+
+def profile_arima() -> int:
+    """The ARIMA kernel alone: ptxas's registers and spills, one ready
+    series' cycles by phase (min over 20 launches), then its times."""
+    import ctypes
+    import tempfile
+    import numpy as np
+    import torch
+    import chip_smoke
+    from repro_torch.core.forecast import ARIMAConfig
+    from repro_torch.kernels import arima_forecast, nvcc, ref
+    print(f"package {Path(arima_forecast.__file__).resolve().parents[2]}; nvidia-smi: "
+          f"{chip_smoke.nvidia_smi()}")
+    for line in _ptxas(nvcc.build(arima_forecast.SOURCE).log, "arima_forecast_kernel"):
+        print(f"  arima_forecast ptxas: {line}")
+    cfg = ARIMAConfig()
+    w, v = chip_smoke.arima_windows(seed=2)
+    ready = np.concatenate([chip_smoke.app_mask(ARIMA_READY, seed=3)] * 2)
+    fit = ready & (v.sum(1) >= cfg.long_ar + cfg.max_p + 2)
+    series = int(np.nonzero(fit)[0][0])
+    with tempfile.TemporaryDirectory() as tmp:
+        src = Path(tmp) / "arima_forecast.cu"
+        src.write_text(stamped_arima(arima_forecast.SOURCE.read_text(), series))
+        lib = ctypes.CDLL(str(nvcc.build(src).path))
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.arima_forecast.argtypes = [ptr] * 5 + [i32] * 7 + [ptr]
+    lib.arima_stamps.argtypes = [ptr, i32]
+    dev = torch.device("cuda")
+    tw, tv, tr = (torch.as_tensor(x).to(dev) for x in (w, v, ready))
+    B, T = w.shape
+    mean, var = (torch.empty((B, 3), device=dev) for _ in range(2))
+    n = len(ARIMA_PHASES) + 1
+    stamps = (ctypes.c_ulonglong * n)()
+    best = [float("inf")] * (n - 1)
+
+    def read_stamps(out, reset):
+        rc = lib.arima_stamps(out, reset)
+        if rc != 0:
+            raise RuntimeError(f"arima_stamps failed: CUDA error {rc}")
+
+    for _ in range(20):
+        read_stamps(None, 1)
+        nvcc.launch(lib.arima_forecast, "arima_forecast", dev, tw, tv, tr, mean, var, B, T, 3,
+                    cfg.max_p, cfg.max_q, cfg.max_d, cfg.long_ar)
+        torch.cuda.synchronize()
+        read_stamps(stamps, 0)
+        best = [min(b, stamps[i + 1] - stamps[i]) for i, b in enumerate(best)]
+    print(f"  clock64 cycles of series {series} by phase (min of 20 launches): " + ", ".join(
+        f"{name} {c}" for name, c in zip(ARIMA_PHASES, best)) + f"; total {sum(best)}")
+    chip_smoke.time_arima(arima_forecast, ref, ARIMAConfig, ready[:len(ready) // 2])
+    return 0
+
+
+def profile_calib() -> int:
+    """The calibration kernels alone, as chip_smoke.py phase 8 times them,
+    after ptxas's lines of each."""
+    import chip_smoke
+    from repro_torch.core.uncertainty import CalibrationConfig
+    from repro_torch.kernels import calib, nvcc, ref
+    print(f"package {Path(calib.__file__).resolve().parents[2]}; nvidia-smi: "
+          f"{chip_smoke.nvidia_smi()}")
+    log = nvcc.build(calib.SOURCE).log
+    for kernel in ("calib_observe_kernel", "conformal_scale_kernel", "calib_begin_kernel"):
+        for line in _ptxas(log, kernel):
+            print(f"  {kernel} ptxas: {line}")
+    chip_smoke.time_calib(calib, ref, CalibrationConfig)
+    return 0
+
+
 def main() -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
     here = Path(__file__).resolve().parent
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--path", choices=("sim", "scan", "kernels", "gp", "control", "whisper"),
+    ap.add_argument("--path", choices=("sim", "scan", "kernels", "gp", "control", "arima",
+                                       "calib", "whisper"),
                     default="sim")
     ap.add_argument("--src", type=Path, default=here / "src",
                     help="the directory that holds the repro_torch package")
@@ -379,6 +516,10 @@ def main() -> int:
         return profile_gp()
     if args.path == "control":
         return profile_control()
+    if args.path == "arima":
+        return profile_arima()
+    if args.path == "calib":
+        return profile_calib()
     run_sim(SimConfig(max_ticks=20), device="cuda")          # build + warm-up
     gp_forecast.reset_launch_counts()
 

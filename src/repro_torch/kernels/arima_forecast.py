@@ -37,7 +37,7 @@ from repro_torch.kernels import nvcc
 SOURCE = Path(__file__).resolve().parent / "csrc" / "arima_forecast.cu"
 # the orders the kernel's registers are laid out for (csrc/arima_forecast.cu)
 MAX_P, MAX_Q, MAX_LONG_AR, MAX_D = 3, 2, 6, 1
-MAX_T = 256         # samples per window: four floats and a flag each per warp in shared memory
+MAX_T = 256         # samples per window: 22 floats and 5 flags each in a block's shared memory
 
 _LIB: ctypes.CDLL | None = None
 

@@ -26,24 +26,27 @@
 // at capacity 128) copied by the row blocks; the member block's one
 // pass over ~30 B a row is its latency.
 //
-// conformal_scale: 128-thread blocks, each the row's keys in shared
-// memory and a share of its cells: a cell's rank (keys below it, plus
-// equal keys before it) is counted by `split` neighbouring lanes over
-// their shares of the keys (the least power of two that leaves each at
-// most 128 keys) and added by shuffles, and the cell of rank k writes its
-// value.  The key orders floats as jnp.sort does (-0 = +0, every NaN
-// equal and last) and ties fall in position order, so the result is the
-// element jnp.sort puts at k, to the bit.  A series row of 128 cells is
-// ranked by one block, a lane a cell, four rows a block in turn (on an
-// H100, a block a row cost 13.1 us a launch at 3,072 rows for the blocks
-// alone, every row young); a pool of 1,024 is 64 blocks of 16 cells,
-// eight lanes a cell (eight blocks of 128 cells, a lane a cell, took
-// 21.8 us a launch on an H100).  The engine's launch (calib_quantiles)
-// takes the series rings and the pools in one grid and skips what its
-// hierarchy does not read (young series, the pool when it is off).  What
-// bounds it:
-// operations, cap^2 key comparisons a row (16,384 at 128; 1,048,576 for
-// the pool), integer work; the rings' bytes (1.5 MB) take ~0.5 us.
+// conformal_scale: the element at sorted position k of each ring, by a
+// sort.  A cell's key orders floats as jnp.sort does (-0 = +0, every NaN
+// equal and last) and the sort is stable, so the element's key is the
+// k-th least key, and where that key is not a zero's or a NaN's the key
+// gives the element's bits.  A ring of up to 512 cells is a warp's: its
+// keys in registers (cap / 32 a lane), a bitonic network within the lane
+// and by shuffles across lanes, eight rows a block at once; a larger one
+// (the 1,024-cell pool, generic capacities up to 8,192) is a block's of
+// 256 threads, the network's stages across warps through shared memory.
+// A zero or a NaN at rank k is a tie whose bits may differ: the element
+// is then the (k - below)-th cell of that key in position order (below,
+// the cells of lesser keys), found a tile of 32 positions a ballot.  The
+// engine's launch (calib_quantiles) takes the series rings, the pools and
+// the group rings in one grid and skips what its hierarchy does not read
+// (young series, the pool when it is off).  What bounds it: instruction
+// issue, ~400 instructions a 128-cell row (28 network stages, 15 of them
+// shuffles), 3,072 rows over 528 schedulers; the rings' bytes (1.6 MB)
+// take 0.48 us.  Measured on an H100 (PERF.md, profile_port.py --path
+// calib): 6.22-6.43 us a launch at 3,072 warm rows and the pool, against
+// 18.97-19.19 for the earlier design (ranks counted, cap^2 key
+// comparisons a row) in the same call; torch.kthvalue 25.1 us.
 //
 // The per-tenant tier (the control plane on; every pointer of it null
 // otherwise, and the kernels then do what they did without it):
@@ -84,8 +87,10 @@ namespace {
 
 constexpr int kThreads = 1024;             // calib_observe's blocks
 constexpr int kWarps = kThreads / 32;      // ring rows per block
-constexpr int kRankThreads = 128;          // conformal_scale's blocks
-constexpr int kRowsPerBlock = 4;           // its rows a block, where a row fits one
+constexpr int kScaleThreads = 256;         // conformal_scale's blocks
+constexpr int kScaleWarps = kScaleThreads / 32;   // rows a block on the warp path
+constexpr int kWarpCap = 512;              // the largest ring a warp selects in
+constexpr int kBlockCap = 32 * kScaleThreads;   // the largest ring a block selects in
 constexpr int kWindow = 32;                // XLA:CPU's tree-reduction window
 
 // max and min as XLA and numpy take them: NaN when either is NaN
@@ -326,9 +331,9 @@ struct ScaleArgs {
   // the group rings of the per-tenant tier
   const float* scores[3];
   const int* counts[3];
-  // split: the lanes that rank one cell; chunks: the blocks of a row;
-  // rpb: the rows of a block (one chunk each); blocks: the set's blocks
-  int rows[3], cap[3], chunks[3], split[3], rpb[3], blocks[3];
+  // rpb: the rows of a block (kScaleWarps, a warp a row, up to kWarpCap
+  // cells; 1 above); blocks: the set's blocks
+  int rows[3], cap[3], rpb[3], blocks[3];
   const float* q;          // (groups,): row r of a set takes entry r / (rows / groups)
   const float* fallback;   // (groups,), or null for k2
   float k2;
@@ -362,74 +367,208 @@ __device__ __forceinline__ unsigned sort_key(float v) {
   return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
 }
 
-// one block per (row, 128 cells of it): the element at sorted position
-// k of the row, written by the thread of this block's cells that holds it
-__global__ void __launch_bounds__(kRankThreads) conformal_scale_kernel(const ScaleArgs p) {
-  extern __shared__ unsigned keys[];   // [cap], then the values [cap]
-  int b = blockIdx.x, set = 0;
-  while (b >= p.blocks[set]) b -= p.blocks[set++];
-  const int cap = p.cap[set], chunk = b % p.chunks[set], per = p.rows[set] / p.groups;
-  const int row0 = b / p.chunks[set] * p.rpb[set];
-  const int row1 = min(row0 + p.rpb[set], p.rows[set]);
-  float* vals = reinterpret_cast<float*>(keys + cap);
-  // `split` neighbouring lanes rank one cell, each over its share of the
-  // keys, and add their counts, so no thread compares more than ~128 keys
-  const int split = p.split[set], part = threadIdx.x % split;
-  const int c = chunk * (kRankThreads / split) + threadIdx.x / split;
-  const int seg = (cap + split - 1) / split, j1 = min((part + 1) * seg, cap);
-  for (int row = row0; row < row1; ++row) {
-    const int g = row / per;
-    const int n = min(p.counts[set][row], cap);
-    if (n < p.min_scores || (set == 1 && !p.pool_on)) continue;
-    if (n <= 0) {
-      if (chunk == 0 && threadIdx.x == 0) p.out[set][row] = p.fallback ? p.fallback[g] : p.k2;
-      continue;
+// the rank k that row `row` of set `set` is read at, with its live count
+// n; -1 where the step does not read it (too young, or the pool off) or
+// where it is empty, which writes the fallback (thread `leader` of it)
+__device__ __forceinline__ int row_rank(const ScaleArgs& p, int set, int row, int cap,
+                                        bool leader, int& n) {
+  n = min(p.counts[set][row], cap);
+  if (n < p.min_scores || (set == 1 && !p.pool_on)) return -1;
+  if (n <= 0) {
+    if (leader) p.out[set][row] = p.fallback ? p.fallback[row / (p.rows[set] / p.groups)] : p.k2;
+    return -1;
+  }
+  const int k = static_cast<int>(ceilf(__fmul_rn(__fadd_rn(static_cast<float>(n), 1.f),
+                                                 row_q(p, set, row)))) - 1;
+  return min(max(k, 0), n - 1);
+}
+
+// a cell's value: a rolled ring's first cap - n cells read as +inf
+__device__ __forceinline__ float cell(const float* src, int i, int cap, int n, int rolled) {
+  return (rolled && i < cap - n) ? INFINITY : src[i];
+}
+
+// the float32 whose sort key is `key`, for a key of neither class that
+// ties (zeros, 0x80000000, and NaNs, 0xffffffff)
+__device__ __forceinline__ float from_key(unsigned key) {
+  return __uint_as_float(key & 0x80000000u ? key & 0x7fffffffu : ~key);
+}
+
+__device__ __forceinline__ bool ties(unsigned key) {
+  return key == 0x80000000u || key == 0xffffffffu;
+}
+
+// A group of W warps (a warp, or the block) sorts N = 32 W J keys, thread
+// t of the group holding elements t J .. t J + J - 1 in key[]: a bitonic
+// network, its stages within a thread in registers, within a warp by
+// shuffles, across warps through xchg (N words of shared memory).
+template <int J, int W>
+__device__ __forceinline__ void group_sort(unsigned (&key)[J], int t, unsigned* xchg) {
+  constexpr int N = 32 * W * J;
+  const int lane = t & 31;
+#pragma unroll
+  for (int size = 2; size <= N; size <<= 1) {
+#pragma unroll
+    for (int stride = size / 2; stride > 0; stride >>= 1) {
+      if (stride < J) {
+#pragma unroll
+        for (int j = 0; j < J; ++j) {
+          const int j2 = j ^ stride;
+          if (j2 > j) {
+            const bool asc = ((t * J + j) & size) == 0;
+            const unsigned lo = min(key[j], key[j2]), hi = max(key[j], key[j2]);
+            key[j] = asc ? lo : hi;
+            key[j2] = asc ? hi : lo;
+          }
+        }
+      } else if (stride < 32 * J) {
+        const int m = stride / J;
+        const bool lower = (lane & m) == 0;
+#pragma unroll
+        for (int j = 0; j < J; ++j) {
+          const unsigned other = __shfl_xor_sync(0xffffffffu, key[j], m);
+          const bool asc = ((t * J + j) & size) == 0;
+          key[j] = lower == asc ? min(key[j], other) : max(key[j], other);
+        }
+      } else {
+        __syncthreads();                     // the last exchange is read
+#pragma unroll
+        for (int j = 0; j < J; ++j) xchg[t * J + j] = key[j];
+        __syncthreads();
+#pragma unroll
+        for (int j = 0; j < J; ++j) {
+          const int e = t * J + j;
+          const unsigned other = xchg[e ^ stride];
+          key[j] = ((e & stride) == 0) == ((e & size) == 0) ? min(key[j], other)
+                                                            : max(key[j], other);
+        }
+      }
     }
-    int k = static_cast<int>(ceilf(__fmul_rn(__fadd_rn(static_cast<float>(n), 1.f),
-                                             row_q(p, set, row)))) - 1;
-    k = min(max(k, 0), n - 1);
-    const float* src = p.scores[set] + static_cast<size_t>(row) * cap;
-    __syncthreads();                       // the last row's ranking is done with the keys
-    for (int i = threadIdx.x; i < cap; i += kRankThreads) {
-      const float v = (p.rolled && i < cap - n) ? INFINITY : src[i];
-      keys[i] = sort_key(v);
-      vals[i] = v;
-    }
-    __syncthreads();
-    const unsigned kc = c < cap ? keys[c] : 0u;
-    int rank = 0;
-#pragma unroll 8
-    for (int j = part * seg; j < j1; ++j) {
-      const unsigned kj = keys[j];
-      rank += (kj < kc) | ((kj == kc) & (j < c));
-    }
-    for (int o = split / 2; o > 0; o /= 2) rank += __shfl_xor_sync(0xffffffffu, rank, o);
-    if (c < cap && part == 0 && rank == k) p.out[set][row] = vals[c];
   }
 }
 
+// The key of rank k among a row's cells and the number of cells of lesser
+// keys (`below`, counted only where the key ties), by a group of W warps,
+// thread t of it reading J cells (cell j 32 W + t; the cells past cap sort
+// last as 0xffffffff, among the NaNs if any)
+template <int J, int W>
+__device__ unsigned group_select(const ScaleArgs& p, int set, const float* src, int cap, int n,
+                                 int k, int t, unsigned* xchg, unsigned& below) {
+  unsigned key[J];
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    const int i = j * 32 * W + t;
+    key[j] = i < cap ? sort_key(cell(src, i, cap, n, p.rolled)) : 0xffffffffu;
+  }
+  group_sort<J, W>(key, t, xchg);
+  unsigned v = key[0];
+#pragma unroll
+  for (int j = 1; j < J; ++j)
+    if (j == k % J) v = key[j];
+  unsigned K;
+  if (W == 1) {
+    K = __shfl_sync(0xffffffffu, v, k / J);
+  } else {
+    __syncthreads();
+    if (t == k / J) xchg[0] = v;
+    __syncthreads();
+    K = xchg[0];
+  }
+  if (!ties(K)) return K;
+  unsigned c = 0;                             // sorted elements below K
+#pragma unroll
+  for (int j = 0; j < J; ++j) c += key[j] < K;
+  c = __reduce_add_sync(0xffffffffu, c);
+  if (W > 1) {
+    __syncthreads();
+    if ((t & 31) == 0) xchg[t >> 5] = c;
+    __syncthreads();
+    c = 0;
+    for (int w = 0; w < W; ++w) c += xchg[w];
+  }
+  below = c;
+  return K;
+}
+
+// The element at sorted position k of row `row` of set `set` (cap cells),
+// by a group of W warps: from its key, or where that key ties (a zero or
+// a NaN) the (k - below)-th cell of that key in position order, found by
+// the group's first warp a tile of 32 positions a ballot.
+template <int J, int W>
+__device__ void select_row(const ScaleArgs& p, int set, int row, int cap, int n, int k, int t,
+                           unsigned* xchg) {
+  const float* src = p.scores[set] + static_cast<size_t>(row) * cap;
+  unsigned below = 0;
+  const unsigned K = group_select<J, W>(p, set, src, cap, n, k, t, xchg, below);
+  if (!ties(K)) {
+    if (t == 0) p.out[set][row] = from_key(K);
+    return;
+  }
+  if (t >= 32) return;
+  unsigned r = k - below;
+  for (int i0 = 0; i0 < cap; i0 += 32) {
+    const int i = i0 + t;
+    const unsigned m = __ballot_sync(0xffffffffu,
+                                     i < cap && sort_key(cell(src, i, cap, n, p.rolled)) == K);
+    const unsigned c = __popc(m);
+    if (r < c) {
+      if (t == 0) p.out[set][row] = cell(src, i0 + __fns(m, 0, r + 1), cap, n, p.rolled);
+      return;
+    }
+    r -= c;
+  }
+}
+
+// A warp a row (up to kWarpCap cells) or a block a row: the element at
+// sorted position k of the row (see the notes at the top), its own bits.
+__global__ void __launch_bounds__(kScaleThreads, 3) conformal_scale_kernel(const ScaleArgs p) {
+  extern __shared__ unsigned xchg[];
+  int b = blockIdx.x, set = 0;
+  while (b >= p.blocks[set]) b -= p.blocks[set++];
+  const int cap = p.cap[set];
+  int n;
+  if (cap <= kWarpCap) {                       // a warp a row, its keys in registers
+    const int lane = threadIdx.x & 31;
+    const int row = b * kScaleWarps + (threadIdx.x >> 5);
+    if (row >= p.rows[set]) return;
+    const int k = row_rank(p, set, row, cap, lane == 0, n);
+    if (k < 0) return;
+    if (cap <= 32) select_row<1, 1>(p, set, row, cap, n, k, lane, nullptr);
+    else if (cap <= 64) select_row<2, 1>(p, set, row, cap, n, k, lane, nullptr);
+    else if (cap <= 128) select_row<4, 1>(p, set, row, cap, n, k, lane, nullptr);
+    else if (cap <= 256) select_row<8, 1>(p, set, row, cap, n, k, lane, nullptr);
+    else select_row<16, 1>(p, set, row, cap, n, k, lane, nullptr);
+    return;
+  }
+  const int k = row_rank(p, set, b, cap, threadIdx.x == 0, n);   // a block a row
+  if (k < 0) return;
+  const int t = threadIdx.x;
+  if (cap <= 1024) select_row<4, kScaleWarps>(p, set, b, cap, n, k, t, xchg);
+  else if (cap <= 2048) select_row<8, kScaleWarps>(p, set, b, cap, n, k, t, xchg);
+  else if (cap <= 4096) select_row<16, kScaleWarps>(p, set, b, cap, n, k, t, xchg);
+  else select_row<32, kScaleWarps>(p, set, b, cap, n, k, t, xchg);
+}
+
 int scale_launch(ScaleArgs& p, void* stream) {
-  int max_cap = 0;
+  size_t smem = 0;
   long long blocks = 0;
   for (int s = 0; s < 3; ++s) {
     p.blocks[s] = 0;
     if (p.rows[s] <= 0) continue;
-    if (p.cap[s] <= 0 || p.rows[s] % p.groups) return static_cast<int>(cudaErrorInvalidValue);
-    p.split[s] = 1;
-    while (p.split[s] < 32 && p.split[s] * kRankThreads < p.cap[s]) p.split[s] *= 2;
-    p.chunks[s] = (p.cap[s] + kRankThreads / p.split[s] - 1) / (kRankThreads / p.split[s]);
-    p.rpb[s] = p.chunks[s] == 1 ? kRowsPerBlock : 1;
-    const long long nb =
-        static_cast<long long>((p.rows[s] + p.rpb[s] - 1) / p.rpb[s]) * p.chunks[s];
+    if (p.cap[s] <= 0 || p.cap[s] > kBlockCap || p.rows[s] % p.groups)
+      return static_cast<int>(cudaErrorInvalidValue);
+    p.rpb[s] = p.cap[s] <= kWarpCap ? kScaleWarps : 1;
+    const long long nb = (p.rows[s] + p.rpb[s] - 1) / p.rpb[s];
     if (nb > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
     p.blocks[s] = static_cast<int>(nb);
     blocks += nb;
-    max_cap = std::max(max_cap, p.cap[s]);
+    size_t words = 1024;                       // the block's network: a power of two
+    while (words < static_cast<size_t>(p.cap[s])) words <<= 1;
+    if (p.rpb[s] == 1) smem = std::max(smem, words * sizeof(unsigned));
   }
   if (blocks == 0) return 0;
-  const size_t smem = 2 * static_cast<size_t>(max_cap) * sizeof(float);
-  if (blocks > INT32_MAX || smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
-  conformal_scale_kernel<<<static_cast<int>(blocks), kRankThreads, smem,
+  if (blocks > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  conformal_scale_kernel<<<static_cast<int>(blocks), kScaleThreads, smem,
                            static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }

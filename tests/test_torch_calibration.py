@@ -37,6 +37,7 @@ from repro_torch.core.shaper import shaped_demand_scaled
 from repro_torch.kernels import ops, ref
 from repro_torch.sim import engine as tengine
 from repro_torch.sim import step as tstep
+from chip_smoke import crafted_rings
 from test_torch_engine import quick_base_config
 from test_torch_leap import GAP, _skip_states
 from test_torch_step import (_JaxClient, _one_torch_thread, _shared_client,  # noqa: F401
@@ -154,6 +155,22 @@ def test_conformal_scale_equals_reference(circular):
             want = np.asarray(jax.jit(rfn)(scores, counts, qq, fb))
             got = tfn(torch.from_numpy(scores), torch.from_numpy(counts), qq, fb)
             np.testing.assert_array_equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("circular", [False, True], ids=["rolled", "circular"])
+@pytest.mark.parametrize("cap,rows", [(16, 64), (128, 64), (1024, 5), (2048, 5)],
+                         ids=["cap16", "cap128", "cap1024", "cap2048"])
+def test_conformal_scale_crafted_rings_equal_reference(cap, rows, circular):
+    """chip_smoke.py's crafted rings (tests/test_torch_kernels_hopper.py holds
+    the kernel to the plain version on them on the card): ties, -0 beside
+    +0, NaNs of four payloads and infinities, counts from 0 past the
+    capacity, a q per row with k at 0 and at n - 1; every result's bits."""
+    scores, counts, q = crafted_rings(cap + circular, rows, cap, circular=circular)
+    rfn = runc.conformal_scale_ring if circular else runc.conformal_scale
+    tfn = tunc.conformal_scale_ring if circular else tunc.conformal_scale
+    want = np.asarray(jax.jit(rfn)(scores, counts, q, -q))
+    got = tfn(torch.from_numpy(scores), torch.from_numpy(counts), q, -q)
+    np.testing.assert_array_equal(_bits(got), _bits(want))
 
 
 def test_conformal_scale_takes_q_per_group_of_rows():

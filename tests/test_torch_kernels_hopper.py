@@ -1,0 +1,78 @@
+"""The redesigned ``arima_forecast`` and ``conformal_scale`` kernels against
+their plain versions on the card, bit for bit, on the crafted cases that
+``chip_smoke.py`` phase 3 also runs: ARIMA windows where an order that is
+not fitted wins the AIC, where the fitted order wins, valid counts at the
+fallback's edge, holes, constant and signed-zero windows, every and no row
+ready, other orders and 40-sample windows; score rings with ties, -0 beside
++0, NaNs of four payloads and infinities, k at 0 and at n - 1, young rows,
+rolled and circular rings at capacities 16 to 2,048 (the warp's and the
+block's selections), and the engine's launch with the per-tenant tier.
+
+Every test needs a CUDA device and skips without one; the file imports
+no JAX.  Run on the card with ``python -m pytest -m gpu
+tests/test_torch_kernels_hopper.py``.
+"""
+import numpy as np
+import pytest
+import torch
+
+from chip_smoke import (ARIMA_CRAFTED, SCALE_CRAFTED, arima_crafted, crafted_rings,
+                        scale_crafted_quantiles)
+from repro_torch.core.forecast import ARIMAConfig
+from repro_torch.kernels import arima_forecast as karima
+from repro_torch.kernels import calib, ref
+
+H = 3
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+
+
+def _bits(x: torch.Tensor) -> np.ndarray:
+    return x.detach().cpu().contiguous().view(torch.int32).numpy()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(ARIMA_CRAFTED))
+def test_arima_kernel_equals_plain_on_crafted_windows(name):
+    _card()
+    w, v, ready = arima_crafted(name)
+    cfg = ARIMAConfig(**ARIMA_CRAFTED[name])
+    tw, tv = torch.as_tensor(w).cuda(), torch.as_tensor(v).cuda()
+    mask = None if ready is None else torch.as_tensor(ready).cuda()
+    got = karima.arima_forecast(tw, tv, H, cfg, mask)
+    want = ref.arima_forecast(tw, tv, H, cfg, mask)
+    for g, r in zip(got, want):
+        np.testing.assert_array_equal(_bits(g), _bits(r))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("circular", [True, False], ids=["circular", "rolled"])
+@pytest.mark.parametrize("cap,rows", SCALE_CRAFTED, ids=[f"cap{c}" for c, _ in SCALE_CRAFTED])
+def test_conformal_scale_equals_plain_on_crafted_rings(cap, rows, circular):
+    _card()
+    scores, counts, q = crafted_rings(cap + circular, rows, cap, circular=circular)
+    for qg in (q, q[::4]):                     # a q per row, and per four rows
+        args = [torch.as_tensor(x) for x in (scores, counts, qg, -qg)]
+        want = ref.conformal_scale(*args, rolled=not circular)
+        got = calib.conformal_scale(*(a.cuda() for a in args), rolled=not circular)
+        np.testing.assert_array_equal(_bits(got), _bits(want))
+
+
+@pytest.mark.gpu
+def test_engine_quantiles_with_tier_equal_plain_on_crafted_rings():
+    """The series rings, the pool and the group rings in one launch, each
+    group ring and each series row of a tenant's slot at the tenant's
+    credit-moved q; compared where the engine's step reads them."""
+    _card()
+    args, min_scores = scale_crafted_quantiles()
+    kw = dict(min_scores=min_scores, pool_on=True)
+    want = ref.calib_quantiles(*args, **kw)
+    to = lambda a: a.cuda() if isinstance(a, torch.Tensor) else a  # noqa: E731
+    got = calib.calib_quantiles(*(to(a) for a in args[:-1]), tuple(to(a) for a in args[-1]),
+                                **kw)
+    read = (args[1] >= min_scores, torch.ones(1, dtype=torch.bool), args[-1][4] >= min_scores)
+    for g, w, r in zip(got, want, read):
+        np.testing.assert_array_equal(_bits(g.cpu()[r]), _bits(w[r]))
