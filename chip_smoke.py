@@ -3403,6 +3403,134 @@ def check_calib_tier(calib, ref, CalibrationConfig) -> float:
     return 0.0
 
 
+# crafted cases of calib_observe and calib_begin (through calib_scales),
+# held kernel against plain on the card (phase 3,
+# tests/test_torch_kernels_hopper.py) and the plain versions against the
+# reference's on the CPU (tests/test_torch_calibration.py): 3 members of
+# 200 rows (XLA's windows then start 12 rows before row 0), or of 3,000
+# (4 rows before; three rows a thread of calib_observe's block)
+CALIB_CRAFTED = ("200 rows", "3,000 rows", "every row resolves", "no row resolves",
+                 "more than pcap and gcap resolve", "NaN, -0 and +-inf", "inactive middle member",
+                 "G = 1", "G = 127", "ids out of range")
+CALIB_CRAFTED_CFG = dict(capacity=16, pool_capacity=8, min_scores=4, group_capacity=8)
+
+
+def calib_crafted(name):
+    """Crafted case ``name`` of CALIB_CRAFTED: (state, tick, tier, slot
+    table) as calib_state and calib_tier give them (S = 3 members of R =
+    2M rows, capacities of CALIB_CRAFTED_CFG, T = 4 groups, A slots of 4
+    or 12 components, 60 apps), then changed: every row due now at the count
+    it is due at, or none (rows age, or come due at another count); most
+    rows of group 0 and 90% of them due; rings, pool and group rings from
+    crafted_rings (ties, +-0, NaN payloads, +-inf, counts 0 to 3 cap + 5;
+    member 0's first window of scales +inf and -inf), peaks, means,
+    sigmas and variances among NaN payloads, -0 and +-inf, usage among -0
+    and +-inf (of two NaNs XLA keeps another than numpy does), deployed
+    rows 90% (in the other cases every score is finite);
+    the middle member inactive;
+    T = 1 or 127; group ids -1, -3 and >= T and tenant ids outside [0, T)."""
+    M, A = (1500, 125) if name == "3,000 rows" else (100, 25)
+    S, R = 3, 2 * M
+    seed = 40 + CALIB_CRAFTED.index(name)
+    rng = np.random.default_rng(seed)
+    T = {"G = 1": 1, "G = 127": 127}.get(name, 4)
+    cap, pcap, gcap = (CALIB_CRAFTED_CFG[k] for k in ("capacity", "pool_capacity",
+                                                       "group_capacity"))
+    st, tick = calib_state(seed, S=S, M=M, cap=cap, pcap=pcap,
+                           due_share=0.9 if name.startswith("more than") else 0.35)
+    tier, table = calib_tier(rng, st, T, gcap=gcap, A=A, N=60)
+    for ring, count in ((st["ring"], st["ring_count"]), (st["pool"], st["pool_count"]),
+                        (tier["group_ring"], tier["group_count"])):
+        # finite scores, so that the deployed scales' sum shows XLA's order
+        odd = (np.arange(ring.shape[-1]) < count[..., None]) & ~np.isfinite(ring)
+        ring[odd] = rng.normal(0.5, 1.5, int(odd.sum())).astype(np.float32)
+    mon2 = np.concatenate([tick["mon_count"]] * 2, 1)
+    if name == "every row resolves":
+        st["left"][:] = 1
+        st["due"][:] = mon2
+        tick["active"][:] = True
+    elif name == "no row resolves":
+        st["left"] = rng.choice([0, 1, 2, 3], (S, R)).astype(np.int32)
+        st["due"] = (mon2 + 1).astype(np.int32)
+    elif name.startswith("more than"):
+        tier["group"] = np.where(rng.random((S, R)) < 0.8, 0, tier["group"]).astype(np.int32)
+    elif name == "NaN, -0 and +-inf":
+        odd = np.concatenate([NAN_PAYLOADS.view(np.float32),
+                              np.array([-0.0, 0.0, np.inf, -np.inf], np.float32)])
+        ring, counts, _ = crafted_rings(seed, S * R, cap, circular=True,
+                                        min_scores=CALIB_CRAFTED_CFG["min_scores"])
+        # member 0's first window (rows 0 .. 19): +inf and -inf scales, so
+        # that its sum is inf - inf, x86's default NaN
+        ring[:20] = np.repeat(np.array([np.inf, -np.inf], np.float32), 10)[:, None]
+        counts[:20] = cap
+        tick["deploy"] = rng.random(tick["deploy"].shape) < 0.9
+        tick["deploy"][0, :20] = True
+        st["ring"], st["ring_count"] = ring.reshape(S, R, cap), counts.reshape(S, R)
+        pool, _, _ = crafted_rings(seed + 1, S, pcap, circular=True)
+        st["pool"] = pool
+        gring, gcount, _ = crafted_rings(seed + 2, S * T, gcap, circular=True, min_scores=4)
+        tier["group_ring"], tier["group_count"] = gring.reshape(S, T, gcap), gcount.reshape(S, T)
+
+        def sprinkle(x, share, values=odd):
+            hit = rng.random(x.shape) < share
+            return np.where(hit, rng.choice(values, x.shape), x).astype(np.float32)
+        for k, share in (("peak", 0.4), ("mean", 0.2), ("sigma", 0.1), ("scale", 0.1)):
+            st[k] = sprinkle(st[k], share)
+        tick["usage"] = sprinkle(tick["usage"], 0.1, odd[len(NAN_PAYLOADS):])
+        tick["var"] = sprinkle(tick["var"], 0.1)
+    elif name == "inactive middle member":
+        tick["active"] = np.array([True, False, True])
+    elif name == "ids out of range":
+        tier["group"] = rng.choice(np.array([-1, -3, 0, 1, 2, 3, T, T + 2, 127], np.int32),
+                                   (S, R))
+        table["tenant"] = rng.choice(np.array([-2, -1, 0, 1, 2, 3, T, T + 5], np.int32),
+                                     table["tenant"].shape)
+    return st, tick, tier, table
+
+
+def calib_crafted_outputs(name, calib, ref, CalibrationConfig):
+    """Crafted case ``name`` through calib_observe and calib_scales (the
+    quantiles, then calib_begin), without the tier and with it (credit on
+    and off), kernels on the card and plain versions: yields (what, got,
+    want) for every output."""
+    import torch
+    cfg = calib_config(CalibrationConfig, **CALIB_CRAFTED_CFG)
+    st, tick, tier, table = calib_crafted(name)
+    okw = dict(pool_on=cfg.pool, adaptive=cfg.adaptive, gamma=cfg.gamma, budget=cfg.budget,
+               q_min=cfg.q_min, q_max=cfg.q_max)
+    skw = dict(min_scores=cfg.min_scores, pool_on=cfg.pool, horizon=3)
+    to = lambda a: a.cuda() if isinstance(a, torch.Tensor) else a  # noqa: E731
+    for mode in ("no tier", "tier, credit on", "tier, credit off"):
+        if mode == "no tier":
+            ocpu, scpu = observe_args(st, tick, "cpu"), scales_args(st, tick, "cpu")
+            ogpu, sgpu = [to(a) for a in ocpu], [to(a) for a in scpu]
+        else:
+            ocpu, scpu = tier_args(st, tick, tier, table, "cpu", credit=mode.endswith("on"),
+                                   cfg=cfg)
+            ogpu = [to(a) for a in ocpu[:-1]] + [tuple(to(a) for a in ocpu[-1])]
+            sgpu = [to(a) for a in scpu[:-1]] + [tuple(to(a) for a in scpu[-1])]
+        want, got = ref.calib_observe(*ocpu, **okw), calib.calib_observe(*ogpu, **okw)
+        for k, (g, w) in enumerate(zip(got, want)):
+            yield f"{name}, {mode}: calib_observe output {k}", g, w
+        want, got = ref.calib_scales(*scpu, **skw), calib.calib_scales(*sgpu, **skw)
+        for k, (g, w) in enumerate(zip(got, want)):
+            yield f"{name}, {mode}: calib_scales output {k}", g, w
+
+
+def check_calib_crafted(calib, ref, CalibrationConfig) -> None:
+    """Phase 3: calib_observe and calib_begin (through calib_scales) against
+    their plain versions on every crafted case of CALIB_CRAFTED, without
+    the per-tenant tier and with it, credit on and off: every output bit
+    for bit."""
+    for name in CALIB_CRAFTED:
+        n = 0
+        for what, got, want in calib_crafted_outputs(name, calib, ref, CalibrationConfig):
+            assert _same(got, want), f"{what} differs"
+            n += 1
+        log(f"  calib_observe and calib_scales, crafted case {name!r}: {n} outputs, "
+            f"kernels == plain bit for bit")
+
+
 def tenancy_config(SimConfig, WorkloadConfig, TenancyConfig, CalibrationConfig, **over):
     """Phase 5h's full-width path: 500 apps of 4 tenants, the control plane
     on, conformal calibration as phase 5g's."""
@@ -3585,6 +3713,78 @@ def control_bound_bytes(args, outs) -> int:
     return reads + _nbytes(*outs)
 
 
+def time_calib_tier(calib, ref, CalibrationConfig, rng) -> dict:
+    """calib_observe, calib_begin and the shaping step's two launches
+    (calib_scales) on the full-width warm state with the per-tenant tier
+    (T = 4, group rings of 256), each beside the same launch without it:
+    device us a call (a CUDA graph of 50, twice each), in turns; and the
+    bounds of calib_observe and calib_begin with the tier, in bytes as
+    time_calib counts them, with the tier's own: the groups of the
+    resolved rows, the group counters and the group ring cells a tick
+    changes (observe); the slot table and tenants of the occupied slots,
+    the group rings' counts and quantiles, the groups registered (begin).
+    Returns the device us by name and the bounds in bytes."""
+    import torch
+    cfg = calib_config(CalibrationConfig)
+    st, tick = calib_state(7, warm=True)
+    tier, table = calib_tier(rng, st, 4)
+    ocpu, scpu = tier_args(st, tick, tier, table, "cpu", cfg=cfg)
+    to = lambda a: a.cuda() if isinstance(a, torch.Tensor) else a  # noqa: E731
+    og = [to(a) for a in ocpu[:-1]] + [tuple(to(a) for a in ocpu[-1])]
+    sg = [to(a) for a in scpu[:-1]] + [tuple(to(a) for a in scpu[-1])]
+    okw = dict(pool_on=cfg.pool, adaptive=cfg.adaptive, gamma=cfg.gamma, budget=cfg.budget,
+               q_min=cfg.q_min, q_max=cfg.q_max)
+    skw = dict(min_scores=cfg.min_scores, pool_on=cfg.pool, horizon=3)
+    R, cap = st["ring"].shape[1:]
+    pcap, gcap = st["pool"].shape[1], tier["group_ring"].shape[2]
+    credit, tenant, slot_gid, gring, gcount, group = sg[-1][:6]
+    qt = (credit, tenant, slot_gid, gring, gcount) + sg[-1][6:]
+    raw = calib.calib_quantiles(*sg[:6], qt, min_scores=cfg.min_scores, pool_on=cfg.pool)
+    bkw = dict(cap=cap, pcap=pcap, horizon=3, fallback=3.0, min_scores=cfg.min_scores,
+               pool_on=cfg.pool)
+    bargs = [sg[1], sg[3], raw[0], raw[1]] + sg[6:-1]
+    btier = (tenant, slot_gid, gcount, raw[2], group, gcap)
+    pairs = {"calib_observe": (lambda: calib.calib_observe(*og, **okw),
+                               lambda: calib.calib_observe(*og[:-1], **okw)),
+             "calib_begin": (lambda: calib.calib_begin(*bargs, btier, **bkw),
+                             lambda: calib.calib_begin(*bargs, **bkw)),
+             "calib_scales (conformal_scale + calib_begin)": (
+                 lambda: calib.calib_scales(*sg, **skw),
+                 lambda: calib.calib_scales(*sg[:-1], **skw))}
+    out = {}
+    for name, (with_tier, without) in pairs.items():
+        us = {"tier": [], "no tier": []}
+        for k in ("tier", "no tier", "no tier", "tier"):
+            us[k].append(graph_us(with_tier if k == "tier" else without))
+        out[name] = us
+        log(f"  {name} at 3,072 warm rows, T = 4 (group rings of 256): device "
+            + "; ".join(f"{k} {'/'.join(f'{x:.3f}' for x in v)} us a call (CUDA graph)"
+                        for k, v in us.items()))
+    # the bytes each needs with the tier on these inputs
+    wo = ref.calib_observe(*ocpu, **okw)
+    bcpu = [a.cpu() if isinstance(a, torch.Tensor) else a for a in bargs]
+    wb = ref.calib_begin(*bcpu, tuple(a.cpu() if isinstance(a, torch.Tensor) else a
+                                      for a in btier), **bkw)
+    ages, fire = st["left"][0] > 0, st["left"][0] == 1
+    res_rows = int((wo[7] - ocpu[11]).sum())
+    warm = np.minimum(st["ring_count"][0], cap) >= cfg.min_scores
+    m_rows = int((np.concatenate([tick["deploy"]] * 2, 1)[0] & (st["left"][0] == 0)).sum())
+    T = tier["group_count"].shape[1]
+    observe = (R * 4 + int(ages.sum()) * 8 + int(fire.sum()) * 8 + res_rows * 20 + 4 * 6
+               + 3 * T * 4 + _nbytes(wo[14], wo[15]) + sum(
+                   _changed_bits(n, o) for n, o in zip(
+                       wo[:14], [ocpu[CALIB_STATE.index(k)] for k in OBSERVE_OUT]
+                       + [ocpu[-1][0], ocpu[-1][1], ocpu[-1][3], ocpu[-1][4]])))
+    occupied = int((table["slot_gid"][0] >= 0).sum())
+    begin = (R * 4 + 8 + int(warm.sum()) * 4 + 4 + R // 2 + R * 4 + m_rows * 8 + R // 2 * 4
+             + 8 + _nbytes(wb[0]) + slot_gid.numel() * 4 + occupied * 4 + 2 * T * 4
+             + sum(_changed_bits(n, o) for n, o in zip(wb[1:], bcpu[8:16] + [btier[4].cpu()])))
+    bounds = {"calib_observe": observe, "calib_begin": begin}
+    log("  bounds with the tier (T = 4): " + ", ".join(
+        f"{k} {v} B, {v / HBM_BYTES_PER_S * 1e6:.4f} us" for k, v in bounds.items()))
+    return {"us": out, "bound_bytes": bounds}
+
+
 def time_control(control, ref, sched, cases, calib, CalibrationConfig) -> tuple[dict, float]:
     """Phase 8: control_tick at the main path's widths (one member of 500
     apps of T = 4 tenants, 128 slots of 12 components, 50 hosts), kernel by
@@ -3641,28 +3841,7 @@ def time_control(control, ref, sched, cases, calib, CalibrationConfig) -> tuple[
     log(f"  admit_queued, full-width captured call with {n} admissions: " + "; ".join(
         f"{k} {'/'.join(f'{x:.5f}' for x in v)} ms" for k, v in t.items())
         + f"; device us a launch (CUDA graph) {json.dumps(dev)}")
-    # the calibration kernels with the per-tenant tier, and without it
-    cfg = calib_config(CalibrationConfig)
-    st, tick = calib_state(7, warm=True)
-    tier, table = calib_tier(rng, st, 4)
-    ocpu, scpu = tier_args(st, tick, tier, table, "cpu", cfg=cfg)
-    to = lambda a: a.cuda() if isinstance(a, torch.Tensor) else a  # noqa: E731
-    og = [to(a) for a in ocpu[:-1]] + [tuple(to(a) for a in ocpu[-1])]
-    sg = [to(a) for a in scpu[:-1]] + [tuple(to(a) for a in scpu[-1])]
-    okw = dict(pool_on=cfg.pool, adaptive=cfg.adaptive, gamma=cfg.gamma, budget=cfg.budget,
-               q_min=cfg.q_min, q_max=cfg.q_max)
-    skw = dict(min_scores=cfg.min_scores, pool_on=cfg.pool, horizon=3)
-    pairs = {"calib_observe": (lambda: calib.calib_observe(*og, **okw),
-                               lambda: calib.calib_observe(*og[:-1], **okw)),
-             "calib_scales (conformal_scale + calib_begin)": (
-                 lambda: calib.calib_scales(*sg, **skw),
-                 lambda: calib.calib_scales(*sg[:-1], **skw))}
-    for name, (with_tier, without) in pairs.items():
-        us = {"tier": [graph_us(with_tier) for _ in range(2)],
-              "no tier": [graph_us(without) for _ in range(2)]}
-        log(f"  {name} at 3,072 warm rows, T = 4 (group rings of 256): device "
-            + "; ".join(f"{k} {'/'.join(f'{x:.3f}' for x in v)} us a call (CUDA graph)"
-                        for k, v in us.items()))
+    time_calib_tier(calib, ref, CalibrationConfig, rng)
     return out, 0.0
 
 
@@ -4418,6 +4597,7 @@ def main() -> int:
     err["control_tick"] = check_control(control, ref)
     check_gated_admit(sched, ref, scan_cases)
     check_calib_tier(calib, ref, CalibrationConfig)
+    check_calib_crafted(calib, ref, CalibrationConfig)
     err["obs_tick"] = check_obs(obs_kernel, ref)
     log(f"  max abs error: {err}")
 

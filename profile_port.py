@@ -56,7 +56,14 @@ residuals and AIC, recursion) from a build of the source with stamps
 put before each phase's first line; ``--path calib`` the calibration
 kernels as phase 8 does (``conformal_scale`` as the engine launches it,
 at 3,072 warm rows and the pool, and beside ``torch.kthvalue``), after
-their ptxas lines.  Both take the package under ``--src`` too.
+their ptxas lines and the member kernels' ``clock64()`` cycles by phase
+(``calib_observe``: staging, scan, writes; ``calib_begin``: staging, tree)
+from a stamped build (``stamped_calib``); then ``calib_observe``,
+``calib_begin`` and the shaping step with the per-tenant tier beside the
+same launches without it, and, where the source can spread a member over
+a thread-block cluster, both kernels built with clusters of 2, 3, 4 and 8
+in turns with the single block.  Both take the package under ``--src``
+too.
 
 ``--path whisper`` does the same for Whisper-large-v3 serving at full
 width (random weights): one prefill of 8 requests x 1,500 frames with
@@ -469,9 +476,117 @@ def profile_arima() -> int:
     return 0
 
 
+CALIB_PHASES = ("observe: staging", "observe: scan", "observe: writes",
+                "begin: staging", "begin: tree")
+# the line each stamp of csrc/calib.cu goes before (in the order of the
+# source; the stamps' indices: observe 0-3, calib_begin 4-6): in this
+# design, and in the earlier one (tiles of 1,024 rows ranked by ballots,
+# whose ranks and writes are one phase, "scan"; its "writes" the counters)
+CALIB_MARKS = ((("// phase: staging", 0), ("// phase: scan", 1), ("// phase: writes", 2),
+                ("// phase: end", 3), ("// phase: begin staging", 4), ("// phase: tree", 5),
+                ("// phase: begin end", 6)),
+               (("  int n_ok = 0, n_err = 0, n_drop = 0;", 0),
+                ("  n_ok = __reduce_add_sync(0xffffffffu, n_ok);", 1),
+                ("  for (int g = tid; g < p.G; g += kThreads) {", 2),
+                ("  if (tid != 0) return;", 3), ("  int n_dep = 0;", 4),
+                ("  const int half = (R + kWindow - 1) / kWindow + 1;", 5),
+                ("    p.o_scale_n[g] = p.scale_n[g] + deployed;", 6)))
+CALIB_STAMP = ("if (blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x % 32 == 0) "
+               "atomicMax(&stamp_cyc[{i}], static_cast<unsigned long long>(clock64()));\n")
+
+
+def stamped_calib(source: str) -> str:
+    """calib.cu with clock64() stamps of the first block of member 0 of
+    calib_observe and calib_begin (the latest of its warps' first lanes to
+    reach each phase's first line, and each kernel's end) and
+    ``calib_stamps(out, reset)`` to read them."""
+    marks = next((m for m in CALIB_MARKS if m[0][0] in source), None)
+    if marks is None:
+        raise ValueError("the calibration source has none of the phase marks of CALIB_MARKS")
+    out, k = [], 0
+    for line in source.splitlines(keepends=True):
+        if k < len(marks) and marks[k][0] in line:
+            out.append(CALIB_STAMP.format(i=marks[k][1]))
+            k += 1
+        out.append(line)
+    if k < len(marks):
+        raise ValueError(f"the phase mark {marks[k][0]!r} was not found")
+    n = len(marks)
+    text = "".join(out).replace("namespace {", f"__device__ unsigned long long stamp_cyc[{n}];\n"
+                                "namespace {", 1)
+    return text + (
+        'extern "C" int calib_stamps(void* out, int reset) {\n'
+        f'  unsigned long long zero[{n}] = {{}};\n'
+        '  return static_cast<int>(reset ? cudaMemcpyToSymbol(stamp_cyc, zero, sizeof zero)\n'
+        '                                : cudaMemcpyFromSymbol(out, stamp_cyc, sizeof zero));\n'
+        '}\n')
+
+
+class calib_variant:
+    """The package's calibration wrappers on a library built from ``text``
+    (a variant of csrc/calib.cu, its headers beside it) inside the
+    ``with``; the package's own library after it."""
+
+    def __init__(self, calib, nvcc, text: str, tmp: Path):
+        self.calib, self.nvcc = calib, nvcc
+        tmp.mkdir(parents=True, exist_ok=True)
+        for h in calib.SOURCE.parent.glob("*.cuh"):
+            (tmp / h.name).write_bytes(h.read_bytes())
+        self.source = tmp / "calib.cu"
+        self.source.write_text(text)
+
+    def _swap(self, source):
+        self.calib._LIB = None
+        self.calib.SOURCE = source
+        self.nvcc._PREPARED.discard(("calib", 0))
+
+    def __enter__(self):
+        self.saved = self.calib.SOURCE
+        self._swap(self.source)
+        return self.calib._library()
+
+    def __exit__(self, *exc):
+        self._swap(self.saved)
+
+
+def calib_phase_cycles(calib, nvcc, tmp: Path, args) -> None:
+    """The member's clock64 cycles by phase, min over 20 launches of each
+    kernel, without the tier and with it (T = 4), from a stamped build of
+    the package's source."""
+    import ctypes
+    import torch
+    with calib_variant(calib, nvcc, stamped_calib(calib.SOURCE.read_text()), tmp) as lib:
+        lib.calib_stamps.argtypes = [ctypes.c_void_p, ctypes.c_int]
+        n = 7
+        stamps = (ctypes.c_ulonglong * n)()
+
+        def stamped(fn):
+            best = [float("inf")] * n
+            for _ in range(20):
+                if lib.calib_stamps(None, 1) != 0:
+                    raise RuntimeError("calib_stamps failed")
+                fn()
+                torch.cuda.synchronize()
+                if lib.calib_stamps(stamps, 0) != 0:
+                    raise RuntimeError("calib_stamps failed")
+                best = [min(b, stamps[i + 1] - stamps[i]) if i not in (3, 6) else b
+                        for i, b in enumerate(best)]
+            return best
+        for tier in ("no tier", "tier"):
+            obs, begin = args[tier]
+            c = [stamped(obs)[i] for i in (0, 1, 2)] + [stamped(begin)[i] for i in (4, 5)]
+            print(f"  clock64 cycles of member 0's first block by phase, {tier} (min of "
+                  f"20 launches): " + ", ".join(f"{p} {x}" for p, x in zip(CALIB_PHASES, c)))
+
+
 def profile_calib() -> int:
     """The calibration kernels alone, as chip_smoke.py phase 8 times them,
-    after ptxas's lines of each."""
+    after ptxas's lines of each and the member kernels' cycles by phase;
+    then calib_observe, calib_begin and calib_scales with the per-tenant
+    tier and without it (chip_smoke.time_calib_tier)."""
+    import tempfile
+    import numpy as np
+    import torch
     import chip_smoke
     from repro_torch.core.uncertainty import CalibrationConfig
     from repro_torch.kernels import calib, nvcc, ref
@@ -481,7 +596,32 @@ def profile_calib() -> int:
     for kernel in ("calib_observe_kernel", "conformal_scale_kernel", "calib_begin_kernel"):
         for line in _ptxas(log, kernel):
             print(f"  {kernel} ptxas: {line}")
-    chip_smoke.time_calib(calib, ref, CalibrationConfig)
+    # the full-width warm state, with the tier and without it
+    cfg = chip_smoke.calib_config(CalibrationConfig)
+    st, tick = chip_smoke.calib_state(7, warm=True)
+    tier, table = chip_smoke.calib_tier(np.random.default_rng(27), st, 4)
+    ocpu, scpu = chip_smoke.tier_args(st, tick, tier, table, "cpu", cfg=cfg)
+    to = lambda a: a.cuda() if isinstance(a, torch.Tensor) else a  # noqa: E731
+    og = [to(a) for a in ocpu[:-1]] + [tuple(to(a) for a in ocpu[-1])]
+    sg = [to(a) for a in scpu[:-1]] + [tuple(to(a) for a in scpu[-1])]
+    okw = dict(pool_on=cfg.pool, adaptive=cfg.adaptive, gamma=cfg.gamma, budget=cfg.budget,
+               q_min=cfg.q_min, q_max=cfg.q_max)
+    cap, pcap = st["ring"].shape[2], st["pool"].shape[1]
+    bkw = dict(cap=cap, pcap=pcap, horizon=3, fallback=3.0, min_scores=cfg.min_scores,
+               pool_on=cfg.pool)
+    credit, tenant, slot_gid, gring, gcount, group = sg[-1][:6]
+    raw = calib.calib_quantiles(*sg[:6], (credit, tenant, slot_gid, gring, gcount)
+                                + sg[-1][6:], min_scores=cfg.min_scores, pool_on=cfg.pool)
+    bargs = [sg[1], sg[3], raw[0], raw[1]] + sg[6:-1]
+    btier = (tenant, slot_gid, gcount, raw[2], group, tier["group_ring"].shape[2])
+    kernels = {"no tier": (lambda: calib.calib_observe(*og[:-1], **okw),
+                           lambda: calib.calib_begin(*bargs, **bkw)),
+               "tier": (lambda: calib.calib_observe(*og, **okw),
+                        lambda: calib.calib_begin(*bargs, btier, **bkw))}
+    with tempfile.TemporaryDirectory() as tmp:
+        calib_phase_cycles(calib, nvcc, Path(tmp) / "stamped", kernels)
+        chip_smoke.time_calib(calib, ref, CalibrationConfig)
+        chip_smoke.time_calib_tier(calib, ref, CalibrationConfig, np.random.default_rng(27))
     return 0
 
 

@@ -33,6 +33,9 @@ from repro_torch.kernels import nvcc
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "calib.cu"
 MAX_GROUPS = 127     # a resolved row's group staged as an int8 (csrc/calib.cu)
+# the largest R calib_observe and calib_begin take (csrc/calib.cu kMaxRows:
+# every count fits a 16-bit field)
+MAX_ROWS = 16384
 
 _LIB: ctypes.CDLL | None = None
 
@@ -47,8 +50,9 @@ def _library() -> ctypes.CDLL:
         lib.calib_quantiles.argtypes = ([ptr] * 5 + [f32] + [ptr] * 2 + [i32] * 6 + [ptr] * 6
                                         + [i32] * 5 + [f32] * 3 + [ptr])
         lib.calib_begin.argtypes = [ptr] * 25 + [i32] * 7 + [f32] + [ptr] * 6 + [i32] * 5 + [ptr]
+        lib.calib_init.argtypes = []
         for fn in (lib.calib_observe, lib.conformal_scale, lib.calib_quantiles,
-                   lib.calib_begin):
+                   lib.calib_begin, lib.calib_init):
             fn.restype = i32
         _LIB = lib
     return _LIB
@@ -58,6 +62,20 @@ def _device(t: torch.Tensor, name: str) -> torch.device:
     if t.device.type != "cuda":
         raise ValueError(f"{name} takes CUDA tensors, got {t.device}")
     return t.device
+
+
+def _member_library(device) -> ctypes.CDLL:
+    """The library, with the member kernels' shared memory set up on
+    ``device`` (``calib_init``, once)."""
+    lib = _library()
+    nvcc.prepare(lib.calib_init, "calib", device)
+    return lib
+
+
+def _check_rows(R: int, name: str) -> None:
+    if R > MAX_ROWS:
+        raise ValueError(f"{name}: R={R} series rows; the kernel takes at most {MAX_ROWS} "
+                         f"(csrc/calib.cu kMaxRows)")
 
 
 def _state_specs(ring, ring_count, pool, pool_count, q):
@@ -86,6 +104,7 @@ def calib_observe(ring, ring_count, pool, pool_count, mean, sigma, scale, peak, 
     ``ref.calib_observe``, with the per-tenant tier ``groups`` or None."""
     dev = _device(ring, "calib_observe")
     (S, R, cap, pcap), specs = _state_specs(ring, ring_count, pool, pool_count, q)
+    _check_rows(R, "calib_observe")
     f32, i32 = torch.float32, torch.int32
     M = R // 2
     nvcc.check(dev, **specs, mean=(mean, f32, (S, R)), sigma=(sigma, f32, (S, R)),
@@ -113,7 +132,7 @@ def calib_observe(ring, ring_count, pool, pool_count, mean, sigma, scale, peak, 
         tier_outs = tuple(torch.empty_like(x) for x in (group_ring, group_count,
                                                         group_resolved, group_errors,
                                                         group_count, group_count))
-    nvcc.launch(_library().calib_observe, "calib_observe", dev, ring, ring_count, pool,
+    nvcc.launch(_member_library(dev).calib_observe, "calib_observe", dev, ring, ring_count, pool,
                 pool_count, mean, sigma, scale, peak, left, due, q, resolved, errors, dropped,
                 usage, mon_count, active, *tier, *outs,
                 *(tier_outs or (None,) * 6), S, R, cap, pcap, int(pool_on), int(adaptive), G,
@@ -153,6 +172,7 @@ def calib_scales(ring, ring_count, pool, pool_count, q, fallback, deploy, mean, 
     ``ref.calib_scales``, with the per-tenant tier ``tenancy`` or None."""
     dev = _device(ring, "calib_scales")
     (S, R, cap, pcap), specs = _state_specs(ring, ring_count, pool, pool_count, q)
+    _check_rows(R, "calib_scales")
     f32, i32 = torch.float32, torch.int32
     M = R // 2
     nvcc.check(dev, **specs, deploy=(deploy, torch.bool, (S, M)), mean=(mean, f32, (S, R)),
@@ -223,17 +243,23 @@ def calib_begin(ring_count, pool_count, raw, raw_pool, deploy, mean, var, mon_co
     and results of ``ref.calib_begin``, with its per-tenant tier
     ``tenancy`` or None."""
     S, R = c_scale.shape
+    _check_rows(R, "calib_begin")
+    if tenancy is not None:
+        tenant, slot_gid, group_count, raw_group, group, gcap = tenancy
+        if not 1 <= group_count.shape[1] <= MAX_GROUPS:
+            raise ValueError(f"calib_begin: {group_count.shape[1]} tenants; the kernel takes "
+                             f"1..{MAX_GROUPS}")
     outs = (torch.empty_like(c_scale),) + tuple(
         torch.empty_like(x) for x in (c_mean, c_sigma, c_scale, c_peak, c_left, c_due,
                                       scale_sum, scale_n))
     groups, o_group = (None,) * 6 + (0,) * 5, ()
     if tenancy is not None:
-        tenant, slot_gid, group_count, raw_group, group, gcap = tenancy
         o_group = (torch.empty_like(group),)
         A = slot_gid.shape[1]
         groups = (slot_gid, tenant, group_count, raw_group, group, o_group[0], A, R // 2 // A,
                   tenant.shape[1], group_count.shape[1], int(gcap))
-    nvcc.launch(_library().calib_begin, "calib_begin", c_scale.device, ring_count, pool_count,
+    dev = c_scale.device
+    nvcc.launch(_member_library(dev).calib_begin, "calib_begin", dev, ring_count, pool_count,
                 raw, raw_pool, deploy, mean, var, mon_count, c_mean, c_sigma, c_scale, c_peak,
                 c_left, c_due, scale_sum, scale_n, *outs, S, R, cap, pcap, int(min_scores),
                 int(pool_on), int(horizon), float(np.float32(fallback)), *groups)

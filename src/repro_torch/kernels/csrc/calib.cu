@@ -12,19 +12,26 @@
 // versions are repro_torch/kernels/ref.py:calib_observe, conformal_scale
 // and calib_scales; each output equals them to the bit.
 //
-// calib_observe: grid (1 + ceil(R / 32), S) of 1,024 threads, S members
-// of R = 2 * A * C series rows (3,072 at the default widths).  Blocks
-// x >= 1 take 32 rows each, a warp a row: age `left`, take the running
-// max `peak`, and copy the row's ring into the output with the resolved
-// score at count % capacity.  Block x = 0 takes the member: one pass
-// stages each row's outcome (resolved, its score) in shared memory and
-// counts, then the resolved scores enter the pool in row order (a
-// block-wide exclusive scan, ballot and popc per warp, of each 1,024-row
-// tile) at pool_count + k, the last pool_capacity of them (so no two
-// writes share a cell), and thread 0 adds the counters and takes the
-// adaptive step of q.  What bounds it: bytes, the ring (1.5 MB a member
-// at capacity 128) copied by the row blocks; the member block's one
-// pass over ~30 B a row is its latency.
+// calib_observe: grid (8 + ceil(R / 32), S) of 1,024 threads (rounded up
+// to a multiple of 8, a cluster of kClusterBlocks), S members of R = 2 * A
+// * C series rows (3,072 at the default widths).  Blocks x >= 8 take 32
+// rows each, a warp a row:
+// age `left`, take the running max `peak`, and copy the row's ring into
+// the output (the engine's state is functional: leap chooses between the
+// old and the new), 16 bytes a lane, with the resolved score at count %
+// capacity.  Blocks 0-7 of a row, a thread-block cluster, take the member:
+// each thread a run of contiguous rows, whose outcomes it stages; then one
+// exclusive scan of the counts packed in 16-bit fields of two 64-bit words
+// (the resolved scores, and each group's with the tier): a warp's shuffle
+// scan, one barrier, each warp's sum of the warps before it (a reduction
+// a 32-bit half), and the cluster's barrier, after which each block adds
+// the totals of the blocks before it, read through distributed shared
+// memory.  That ranks every resolved score in row order, in the pool at
+// pool_count + k (the last pool_capacity of them, so no two writes share a
+// cell) and in its group's ring; block 0's thread 0 adds the counters and
+// takes the adaptive step of q.  What bounds it: bytes, the ring (1.5 MB
+// a member at capacity 128) copied by the row blocks; the member's pass
+// over ~40 B a row, its scan and the cluster's barrier are its latency.
 //
 // conformal_scale: the element at sorted position k of each ring, by a
 // sort.  A cell's key orders floats as jnp.sort does (-0 = +0, every NaN
@@ -51,9 +58,10 @@
 // The per-tenant tier (the control plane on; every pointer of it null
 // otherwise, and the kernels then do what they did without it):
 // calib_observe's member block also scores each resolved row into its
-// deploy group's ring, the group's scores ranked in row order by a
-// ballot per group and warp over each 1,024-row tile, the last
-// group_capacity of them written (online.py:375-413), and counts each
+// deploy group's ring, the group's scores ranked in row order by the same
+// scan (a pack of eight counters at a time: the pool's and seven groups',
+// then eight groups'), the last group_capacity of them written
+// (online.py:375-413), and counts each
 // group's resolved and missed scores, which it also returns as the
 // tick's deltas for the tenant credit; conformal_scale ranks the group
 // rings too, each at its tenant's credit-modulated quantile
@@ -62,19 +70,30 @@
 // calib_begin falls back from a young series to its tenant's warm ring
 // before the pool, and registers the tenant as the row's group.  A row's
 // tenant is read from the slot table (slot_gid, then the trace's tenant
-// column) where it is needed.
+// column): conformal_scale where it is needed, calib_begin from a slot's
+// tenant staged in shared memory.
 //
-// calib_begin: one block of 1,024 threads per member after the
-// quantiles: each row's scale (its series' quantile once warm, else the
-// pool's once warm, else K2) and the predictions it registers, the
-// deployed scales staged in shared memory, then summed in XLA:CPU's tree
-// of 32-wide windows (a thread a window).  It is a launch of its own
-// because it needs the pool's quantile, which other blocks compute: a
-// version that ran it in the quantiles' launch (the last block of each
-// member, or of each window, found by atomic counters) measured 71.7 and
-// 335.9 us a launch at 3,072 warm rows on an H100, against 15 for the
-// quantiles.
-// What bounds it: bytes, ~60 B a row.
+// calib_begin: a cluster of 8 blocks of 1,024 threads a member after the
+// quantiles, each block a run of XLA:CPU's 32-row windows: each row's
+// scale (its series' quantile once warm, else its tenant's group ring's
+// once warm, else the pool's once warm, else K2) and the predictions it
+// registers, the deployed scales staged in shared memory by window, a
+// thread a window summing its 32 terms from registers into block 0's
+// shared memory, and block 0's first warp the levels above.  With the
+// tier each slot's tenant and the group rings' counts and quantiles are
+// staged in shared memory first, so no row reads a chain of global loads.
+// It is a launch of its own because it needs the pool's quantile, which
+// other blocks compute: a version that ran it in the quantiles' launch
+// (the last block of each member, or of each window, found by atomic
+// counters) measured 71.7 and 335.9 us a launch at 3,072 warm rows on an
+// H100, against 15 for the quantiles.  What bounds it: bytes, ~60 B a row;
+// its latency is a row's loads, the window sums' chains of adds and the
+// cluster's barrier.
+//
+// Both member kernels take R <= kMaxRows and spread a member over a
+// cluster of kClusterBlocks blocks (PERF.md: 8 measured fastest of 1, 2,
+// 3, 4 and 8 for both).
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -85,29 +104,82 @@
 
 namespace {
 
-constexpr int kThreads = 1024;             // calib_observe's blocks
+namespace cg = cooperative_groups;
+
+constexpr int kThreads = 1024;             // calib_observe's and calib_begin's blocks
 constexpr int kWarps = kThreads / 32;      // ring rows per block
+// the largest R the two member kernels take: every count then fits the
+// 16-bit fields calib_observe scans (R < 2^16), a thread takes at most 16
+// rows (its bits in a word), and calib_begin's 512 windows one block
+constexpr int kMaxRows = 16384;
+constexpr int kClusterBlocks = 8;          // a member's blocks: a portable cluster
+constexpr int kMaxGroups = 127;            // calib_observe's groups (a row's, an int8)
+constexpr int kPackWords = 2;              // 64-bit words calib_observe scans together
+constexpr int kFields = 4 * kPackWords;    // their 16-bit fields
+constexpr int kMaxSmem = 200 * 1024;       // dynamic shared memory a member block takes
 constexpr int kScaleThreads = 256;         // conformal_scale's blocks
 constexpr int kScaleWarps = kScaleThreads / 32;   // rows a block on the warp path
 constexpr int kWarpCap = 512;              // the largest ring a warp selects in
 constexpr int kBlockCap = 32 * kScaleThreads;   // the largest ring a block selects in
 constexpr int kWindow = 32;                // XLA:CPU's tree-reduction window
 
-// max and min as XLA and numpy take them: NaN when either is NaN
+// max and min as XLA takes them: NaN when either is NaN (the first where
+// both are, as numpy), and the max of two zeros +0 unless both are -0
+// (ref.py:fmax; numpy's maximum keeps its second operand of two zeros)
 __device__ __forceinline__ float max_nan(float a, float b) {
-  return (a >= b || a != a) ? a : b;
+  if (a != a) return a;
+  if (b != b) return b;
+  return a == b ? __int_as_float(__float_as_int(a) & __float_as_int(b)) : fmaxf(a, b);
 }
 __device__ __forceinline__ float min_nan(float a, float b) {
   return (a <= b || a != a) ? a : b;
 }
 
-// a + b rounded once, a NaN operand returned as x86 returns it (the
-// first NaN, quieted; CUDA's add returns its canonical NaN), so a NaN
-// score reaches the sums with the bits the plain version's numpy gives
+// a op b where the plain result r is a NaN, as x86 (the plain version's
+// numpy) gives it: a NaN operand, the first, quieted; else (inf - inf, 0 /
+// 0, ...) x86's default NaN.  CUDA's arithmetic returns its canonical NaN
+// 0x7fffffff instead.
+constexpr unsigned kDefaultNaN = 0xffc00000u;
+__device__ __forceinline__ float quiet(float a) {
+  return __uint_as_float(__float_as_uint(a) | 0x400000u);
+}
+__device__ __forceinline__ float nan_x86(float a, float b) {
+  return a != a ? quiet(a) : b != b ? quiet(b) : __uint_as_float(kDefaultNaN);
+}
 __device__ __forceinline__ float add_x86(float a, float b) {
-  if (a != a) return __uint_as_float(__float_as_uint(a) | 0x400000u);
-  if (b != b) return __uint_as_float(__float_as_uint(b) | 0x400000u);
-  return __fadd_rn(a, b);
+  const float r = __fadd_rn(a, b);
+  return r == r ? r : nan_x86(a, b);
+}
+__device__ __forceinline__ float sub_x86(float a, float b) {
+  const float r = __fsub_rn(a, b);
+  return r == r ? r : nan_x86(a, b);
+}
+__device__ __forceinline__ float div_x86(float a, float b) {
+  const float r = __fdiv_rn(a, b);
+  return r == r ? r : nan_x86(a, b);
+}
+__device__ __forceinline__ float sqrt_x86(float a) {
+  const float r = __fsqrt_rn(a);
+  return r == r ? r : nan_x86(a, a);
+}
+
+// a thread-block cluster's barrier in halves: arrive (what this thread
+// wrote or read of the blocks' shared memory before it done), then wait
+// (every thread of the cluster arrived)
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// the arrival without a release: a thread whose writes others read after
+// the barrier fences them itself (fence_cluster), so that the others'
+// arrivals do not wait on anything
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void fence_cluster() {
+  asm volatile("fence.acq_rel.cluster;\n" ::: "memory");
 }
 
 // the per-tenant tier's view of the slot table: a series row's tenant
@@ -171,155 +243,303 @@ __device__ __forceinline__ Row observe_row(const ObserveArgs& p, int s, int r,
   const int M = p.R / 2;
   const int mr = r < M ? r : r - M;
   const size_t mi = static_cast<size_t>(s) * M + mr;
+  const int l = p.left[i], due = p.due[i], mon = p.mon_count[mi];
+  const float pk = p.peak[i], use = p.usage[mi * 2 + (r < M ? 0 : 1)];
+  const float mean = p.mean[i], sigma = p.sigma[i], scale = p.scale[i];
+  // every load issued before the first use (left to itself the compiler
+  // issues them as they are used, a round trip each)
+  asm volatile("" ::"r"(l), "r"(due), "r"(mon), "f"(pk), "f"(use), "f"(mean), "f"(sigma),
+               "f"(scale));
   Row o;
-  const int l = p.left[i];
   const bool act = active && l > 0;
-  const float pk = p.peak[i];
-  o.peak = act ? max_nan(pk, p.usage[mi * 2 + (r < M ? 0 : 1)]) : pk;
+  o.peak = act ? max_nan(pk, use) : pk;
   o.left = l - (act ? 1 : 0);
   o.fire = act && o.left == 0;
-  o.ok = o.fire && p.mon_count[mi] == p.due[i];
-  const float mean = p.mean[i], sigma = p.sigma[i];
-  o.score = __fdiv_rn(__fsub_rn(o.peak, mean), max_nan(sigma, 1e-6f));
-  o.err = o.ok && o.peak > xla::fma_f32(p.scale[i], sigma, mean);
+  o.ok = o.fire && mon == due;
+  o.score = div_x86(sub_x86(o.peak, mean), max_nan(sigma, 1e-6f));
+  o.err = o.ok && o.peak > xla::fma_f32(scale, sigma, mean);
   return o;
+}
+
+// the sums over the warp's lanes (those where `mine`) of the 16-bit fields
+// of w, a 32-bit half at a time (no field's sum reaches 2^16)
+__device__ __forceinline__ unsigned long long warp_fields(unsigned long long w, bool mine) {
+  const unsigned lo = __reduce_add_sync(0xffffffffu, mine ? static_cast<unsigned>(w) : 0u);
+  const unsigned hi = __reduce_add_sync(0xffffffffu, mine ? static_cast<unsigned>(w >> 32) : 0u);
+  return lo | static_cast<unsigned long long>(hi) << 32;
+}
+
+// field f (16 bits) of a pack of kPackWords words, and one added to it
+__device__ __forceinline__ int field(const unsigned long long (&w)[kPackWords], int f) {
+  const unsigned long long v = f < 4 ? w[0] : w[1];
+  return static_cast<int>(v >> (16 * (f & 3)) & 0xffffu);
+}
+__device__ __forceinline__ void bump(unsigned long long (&w)[kPackWords], int f) {
+  const unsigned long long one = 1ull << (16 * (f & 3));
+  if (f < 4) w[0] += one; else w[1] += one;
+}
+
+// The member's work, by blocks 0 .. kClusterBlocks - 1 of its row of the
+// grid, a cluster: thread t of block b takes the k contiguous rows
+// from r0 + t k, stages their scores (and their groups) in shared memory,
+// only for itself, and keeps which resolve and miss as bits.  Then, a
+// pack of kFields counters at a time (field 0 the resolved scores, 1 + g
+// group g's), one exclusive scan of the counts packed in 16-bit fields
+// gives each thread the rank of its first resolved score in row order, for
+// the pool and for each group, and the totals; the misses (field 0 the
+// member's, 1 + g group g's) and the drops reduce beside it.  A warp with
+// no count skips its shuffles.  The blocks add the totals of the blocks
+// before theirs through distributed shared memory.  Each thread
+// then writes its scores at pool_count + rank and group_count + rank, the
+// last pcap and gcap of them, and block 0 the counters and q.
+__device__ __forceinline__ void observe_member(const ObserveArgs& p, int s, bool active) {
+  extern __shared__ float score[];                       // [k][kThreads]
+  __shared__ unsigned long long s_warp[kWarps][kPackWords], s_werr[kWarps][kPackWords];
+  // the block's totals (resolved, then misses) and drops; a cluster's sums
+  // and the totals of the blocks before this one
+  __shared__ unsigned long long s_tot[2][kPackWords], s_sum[2][kPackWords], s_base[kPackWords];
+  __shared__ unsigned s_wdrop[kWarps], s_drop[2];
+  __shared__ int s_gcount[kMaxGroups], s_gres[kMaxGroups], s_gerr[kMaxGroups];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  constexpr int nb = kClusterBlocks;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int b = static_cast<int>(cluster.block_rank());
+  const int rows = (p.R + nb - 1) / nb, r0 = b * rows, r1 = min(r0 + rows, p.R);
+  const int k = (rows + kThreads - 1) / kThreads, rt = r0 + tid * k;
+  int8_t* sel = reinterpret_cast<int8_t*>(score + k * kThreads);   // [k][kThreads]
+  // what the writes and the counters read, loaded before the rows
+  const int pool_count = p.pool_count[s];
+  if (tid < p.G) {
+    const size_t i = static_cast<size_t>(s) * p.G + tid;
+    s_gcount[tid] = p.group_count[i];
+    s_gres[tid] = p.group_resolved[i];
+    s_gerr[tid] = p.group_errors[i];
+  }
+  int resolved = 0, errors = 0, dropped = 0;
+  float q = 0.f;
+  if (b == 0 && tid == 0) {
+    resolved = p.resolved[s];
+    errors = p.errors[s];
+    dropped = p.dropped[s];
+    q = p.q[s];
+  }
+  // the pool's and the group rings' copies, a cell a thread of the member's
+  // blocks: loaded before the rows, stored after them
+  const float* psrc = p.pool + static_cast<size_t>(s) * p.pcap;
+  float* pdst = p.o_pool + static_cast<size_t>(s) * p.pcap;
+  const size_t gring = static_cast<size_t>(s) * p.G * p.gcap;
+  const int cell = b * kThreads + tid, cells = nb * kThreads;
+  const float pool_cell = cell < p.pcap ? psrc[cell] : 0.f;
+  const float group_cell = cell < p.G * p.gcap ? p.group_ring[gring + cell] : 0.f;
+  // phase: staging
+  unsigned okm = 0, errm = 0, n_drop = 0;    // bit j: row rt + j resolves, misses
+#pragma unroll 4
+  for (int j = 0; j < k; ++j) {
+    const int r = rt + j;
+    if (r < r1) {
+      const int g = p.G ? p.group[static_cast<size_t>(s) * p.R + r] : -1;
+      const Row o = observe_row(p, s, r, active);
+      score[j * kThreads + tid] = o.score;
+      okm |= static_cast<unsigned>(o.ok) << j;
+      errm |= static_cast<unsigned>(o.err) << j;
+      n_drop += o.fire && !o.ok;
+      if (p.G) sel[j * kThreads + tid] = o.ok && g >= 0 && g < p.G ? static_cast<int8_t>(g) : -1;
+    }
+  }
+  if (cell < p.pcap) pdst[cell] = pool_cell;
+  for (int c = cell + cells; c < p.pcap; c += cells) pdst[c] = psrc[c];
+  if (cell < p.G * p.gcap) p.o_group_ring[gring + cell] = group_cell;
+  for (int c = cell + cells; c < p.G * p.gcap; c += cells)
+    p.o_group_ring[gring + c] = p.group_ring[gring + c];
+  // phase: scan
+  int n_ok = 0, n_err = 0;
+  for (int f0 = 0; f0 < 1 + p.G; f0 += kFields) {
+    unsigned long long P[kPackWords] = {}, E[kPackWords] = {};
+    for (int j = 0; j < k; ++j) {
+      if (!(okm >> j & 1u)) continue;
+      const bool err = errm >> j & 1u;
+      if (f0 == 0) {
+        bump(P, 0);
+        if (err) bump(E, 0);
+      }
+      const int g = p.G ? sel[j * kThreads + tid] : -1, f = 1 + g - f0;
+      if (g >= 0 && f >= 0 && f < kFields) {
+        bump(P, f);
+        if (err) bump(E, f);
+      }
+    }
+    // the warp's inclusive scan of its threads' counts, its misses and
+    // drops (a warp with none of them skips it)
+    const bool busy = __any_sync(0xffffffffu, (P[0] | P[1] | E[0] | E[1]) != 0 ||
+                                                  (f0 == 0 && n_drop != 0));
+    unsigned long long inc[kPackWords] = {P[0], P[1]};
+    if (busy) {
+#pragma unroll
+      for (int w = 0; w < kPackWords; ++w) {
+#pragma unroll
+        for (int d = 1; d < 32; d <<= 1) {
+          const unsigned long long v = __shfl_up_sync(0xffffffffu, inc[w], d);
+          if (lane >= d) inc[w] += v;
+        }
+      }
+    }
+    const unsigned long long e0 = busy ? warp_fields(E[0], true) : 0ull;
+    const unsigned long long e1 = busy ? warp_fields(E[1], true) : 0ull;
+    const unsigned drops = busy ? __reduce_add_sync(0xffffffffu, f0 == 0 ? n_drop : 0u) : 0u;
+    if (lane == 31) {
+      s_warp[warp][0] = inc[0];
+      s_warp[warp][1] = inc[1];
+    }
+    if (lane == 0) {
+      s_werr[warp][0] = e0;
+      s_werr[warp][1] = e1;
+      s_wdrop[warp] = drops;
+    }
+    __syncthreads();                       // the warps' words written
+    // the warps before this one, and the block's totals: sums over the 32
+    // warps' words, by the warps that need them
+    unsigned long long before[kPackWords] = {}, tot[kPackWords] = {}, et[kPackWords] = {};
+    unsigned drop = 0;
+    if (busy || warp == 0) {
+#pragma unroll
+      for (int w = 0; w < kPackWords; ++w) {
+        const unsigned long long x = s_warp[lane][w];
+        before[w] = warp_fields(x, lane < warp);
+        if (warp == 0) {
+          tot[w] = warp_fields(x, true);
+          et[w] = warp_fields(s_werr[lane][w], true);
+        }
+      }
+      if (warp == 0) drop = __reduce_add_sync(0xffffffffu, s_wdrop[lane]);
+    }
+    // the cluster's: the blocks before this one, and all
+    if (tid == 0) {
+#pragma unroll
+      for (int w = 0; w < kPackWords; ++w) {
+        s_tot[0][w] = tot[w];
+        s_tot[1][w] = et[w];
+      }
+      s_drop[0] = drop;
+    }
+    // what other blocks read or overwrite after the barrier: these totals,
+    // and the copied cells, which take new scores from any block
+    if (tid == 0 || (f0 == 0 && (cell < p.pcap || cell < p.G * p.gcap))) fence_cluster();
+    cluster_arrive_relaxed();
+    cluster_wait();                        // every block's totals written
+    if (tid <= 2 * kPackWords) {           // a word each: resolved, misses, then drops
+      unsigned long long v[nb];
+#pragma unroll
+      for (int c = 0; c < nb; ++c)
+        v[c] = tid < 2 * kPackWords ? *cluster.map_shared_rank(&s_tot[0][0] + tid, c)
+                                    : *cluster.map_shared_rank(&s_drop[0], c);
+      unsigned long long below = 0, all = 0;
+#pragma unroll
+      for (int c = 0; c < nb; ++c) {
+        all += v[c];
+        if (c < b) below += v[c];
+      }
+      if (tid < kPackWords) s_base[tid] = below;
+      if (tid < 2 * kPackWords) (&s_sum[0][0])[tid] = all;
+      else s_drop[1] = static_cast<unsigned>(all);
+    }
+    cluster_arrive_relaxed();              // this block's reads of the others' totals done
+    __syncthreads();                       // the sums written
+#pragma unroll
+    for (int w = 0; w < kPackWords; ++w) {
+      before[w] += s_base[w];
+      tot[w] = s_sum[0][w];
+      et[w] = s_sum[1][w];
+    }
+    drop = s_drop[1];
+    unsigned long long rank[kPackWords];
+#pragma unroll
+    for (int w = 0; w < kPackWords; ++w) rank[w] = inc[w] - P[w] + before[w];
+    if (f0 == 0) {
+      n_ok = field(tot, 0);
+      n_err = field(et, 0);
+      n_drop = drop;
+    }
+    // phase: writes
+    for (int j = 0; j < k; ++j) {
+      if (!(okm >> j & 1u)) continue;
+      const float sc = score[j * kThreads + tid];
+      if (f0 == 0) {
+        const int kk = field(rank, 0);
+        bump(rank, 0);
+        if (p.pool_on && kk >= n_ok - p.pcap) pdst[(pool_count + kk) % p.pcap] = sc;
+      }
+      const int g = p.G ? sel[j * kThreads + tid] : -1, f = 1 + g - f0;
+      if (g >= 0 && f >= 0 && f < kFields) {
+        const int kk = field(rank, f);
+        bump(rank, f);
+        if (kk >= field(tot, f) - p.gcap)
+          p.o_group_ring[gring + static_cast<size_t>(g) * p.gcap +
+                         (s_gcount[g] + kk) % p.gcap] = sc;
+      }
+    }
+    const int g = f0 + tid - 1;            // this pack's groups' counters
+    if (b == 0 && tid < kFields && g >= 0 && g < p.G) {
+      const int n = field(tot, tid), e = field(et, tid);
+      const size_t i = static_cast<size_t>(s) * p.G + g;
+      p.o_group_count[i] = s_gcount[g] + n;
+      p.o_group_resolved[i] = s_gres[g] + n;
+      p.o_group_errors[i] = s_gerr[g] + e;
+      p.o_d_res[i] = n;
+      p.o_d_err[i] = e;
+    }
+    cluster_wait();                        // every block's totals read by the others
+    if (f0 + kFields < 1 + p.G) __syncthreads();   // this pack's shared words read
+  }
+  // phase: end
+  if (b != 0 || tid != 0) return;
+  p.o_pool_count[s] = pool_count + (p.pool_on ? n_ok : 0);
+  p.o_resolved[s] = resolved + n_ok;
+  p.o_errors[s] = errors + n_err;
+  p.o_dropped[s] = dropped + static_cast<int>(n_drop);
+  if (p.adaptive && n_ok > 0) {
+    const float rate = __fdiv_rn(static_cast<float>(n_err), static_cast<float>(n_ok));
+    q = min_nan(max_nan(xla::fma_f32(p.gamma, __fsub_rn(rate, p.budget), q), p.q_min),
+                p.q_max);
+  }
+  p.o_q[s] = q;
 }
 
 __global__ void __launch_bounds__(kThreads) calib_observe_kernel(const ObserveArgs p) {
   const int s = blockIdx.y;
   const bool active = p.active[s] != 0;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  if (blockIdx.x > 0) {                    // ring rows, a warp each
-    const int r = (blockIdx.x - 1) * kWarps + warp;
-    if (r >= p.R) return;
-    const Row o = observe_row(p, s, r, active);
-    const size_t i = static_cast<size_t>(s) * p.R + r;
-    const int count = p.ring_count[i];
-    if (lane == 0) {
-      p.o_peak[i] = o.peak;
-      p.o_left[i] = o.left;
-      p.o_ring_count[i] = count + (o.ok ? 1 : 0);
-    }
-    const int pos = count % p.cap;
-    const float* src = p.ring + i * p.cap;
-    float* dst = p.o_ring + i * p.cap;
-    for (int c = lane; c < p.cap; c += 32) dst[c] = (o.ok && c == pos) ? o.score : src[c];
+  if (blockIdx.x < kClusterBlocks) {
+    observe_member(p, s, active);
     return;
   }
-
-  // the member: each row's outcome staged in shared memory by one pass
-  // over the rows, then the pool, the group rings, the counters and q
-  extern __shared__ float score[];                       // [R], then ok [R]
-  uint8_t* ok = reinterpret_cast<uint8_t*>(score + p.R);
-  // the tier: each resolved row's group or -1 [R], then per group its
-  // scores and misses this tick, the scores of the tiles before, and the
-  // scores of each warp in the current tile [G * kWarps]
-  int8_t* gsel = reinterpret_cast<int8_t*>(ok + p.R);
-  int* g_n = reinterpret_cast<int*>(score + (3 * p.R + 3) / 2 + 1);
-  int* g_err = g_n + p.G;
-  int* g_base = g_err + p.G;
-  int* g_warp = g_base + p.G;
-  __shared__ int warp_ok[kWarps], totals[3];
-  if (tid < 3) totals[tid] = 0;
-  for (int g = tid; g < 3 * p.G; g += kThreads) g_n[g] = 0;
-  const float* psrc = p.pool + static_cast<size_t>(s) * p.pcap;
-  float* pdst = p.o_pool + static_cast<size_t>(s) * p.pcap;
-  for (int c = tid; c < p.pcap; c += kThreads) pdst[c] = psrc[c];
-  const size_t gring = static_cast<size_t>(s) * p.G * p.gcap;
-  for (int c = tid; c < p.G * p.gcap; c += kThreads)
-    p.o_group_ring[gring + c] = p.group_ring[gring + c];
-  if (p.G) __syncthreads();                // the group counters zeroed
-  int n_ok = 0, n_err = 0, n_drop = 0;
-  for (int r = tid; r < p.R; r += kThreads) {
-    const Row o = observe_row(p, s, r, active);
-    score[r] = o.score;
-    ok[r] = o.ok;
-    n_ok += o.ok;
-    n_err += o.err;
-    n_drop += o.fire && !o.ok;
-    if (p.G) {
-      const int g = p.group[static_cast<size_t>(s) * p.R + r];
-      const bool mine = o.ok && g >= 0 && g < p.G;
-      gsel[r] = mine ? static_cast<int8_t>(g) : -1;
-      if (mine) {
-        atomicAdd(&g_n[g], 1);
-        if (o.err) atomicAdd(&g_err[g], 1);
-      }
-    }
-  }
-  n_ok = __reduce_add_sync(0xffffffffu, n_ok);
-  n_err = __reduce_add_sync(0xffffffffu, n_err);
-  n_drop = __reduce_add_sync(0xffffffffu, n_drop);
-  __syncthreads();                         // totals zeroed, the pool copied, rows staged
+  const int lane = threadIdx.x & 31;       // ring rows, a warp each
+  const int r = (blockIdx.x - kClusterBlocks) * kWarps + (threadIdx.x >> 5);
+  if (r >= p.R) return;
+  const Row o = observe_row(p, s, r, active);
+  const size_t i = static_cast<size_t>(s) * p.R + r;
+  const int count = p.ring_count[i];
   if (lane == 0) {
-    atomicAdd(&totals[0], n_ok);
-    atomicAdd(&totals[1], n_err);
-    atomicAdd(&totals[2], n_drop);
+    p.o_peak[i] = o.peak;
+    p.o_left[i] = o.left;
+    p.o_ring_count[i] = count + (o.ok ? 1 : 0);
   }
-  __syncthreads();
-  n_ok = totals[0];
-  const int pool_count = p.pool_count[s];
-  for (int t0 = 0, base = 0; p.pool_on && t0 < p.R; t0 += kThreads) {
-    const int r = t0 + tid;
-    const bool here = r < p.R && ok[r];
-    const unsigned ballot = __ballot_sync(0xffffffffu, here);
-    if (lane == 0) warp_ok[warp] = __popc(ballot);
-    __syncthreads();
-    int k = base + __popc(ballot & ((1u << lane) - 1u)), tile = 0;
-    for (int w = 0; w < kWarps; ++w) {
-      if (w < warp) k += warp_ok[w];
-      tile += warp_ok[w];
+  const int pos = o.ok ? count % p.cap : -1;
+  const float* src = p.ring + i * p.cap;
+  float* dst = p.o_ring + i * p.cap;
+  if (p.cap % 4) {
+    for (int c = lane; c < p.cap; c += 32) dst[c] = c == pos ? o.score : src[c];
+    return;
+  }
+  for (int c = lane; c < p.cap / 4; c += 32) {    // 16 bytes a lane
+    float4 v = reinterpret_cast<const float4*>(src)[c];
+    if (pos >= 0 && c == pos / 4) {
+      const int e = pos % 4;
+      v.x = e == 0 ? o.score : v.x;
+      v.y = e == 1 ? o.score : v.y;
+      v.z = e == 2 ? o.score : v.z;
+      v.w = e == 3 ? o.score : v.w;
     }
-    if (here && k >= n_ok - p.pcap) pdst[(pool_count + k) % p.pcap] = score[r];
-    base += tile;
-    __syncthreads();                       // this tile's reads of warp_ok are done
+    reinterpret_cast<float4*>(dst)[c] = v;
   }
-  // the group rings: a score's rank among its group's in row order is
-  // the group's scores of the earlier tiles, of the earlier warps of this
-  // tile and of the earlier lanes of its warp
-  const int* gcount = p.group_count + static_cast<size_t>(s) * p.G;
-  for (int t0 = 0; p.G && t0 < p.R; t0 += kThreads) {
-    const int r = t0 + tid;
-    const int mine = r < p.R ? gsel[r] : -1;
-    unsigned own = 0;
-    for (int g = 0; g < p.G; ++g) {
-      const unsigned b = __ballot_sync(0xffffffffu, mine == g);
-      if (lane == 0) g_warp[g * kWarps + warp] = __popc(b);
-      if (mine == g) own = b;
-    }
-    __syncthreads();
-    if (mine >= 0) {
-      int k = g_base[mine] + __popc(own & ((1u << lane) - 1u));
-      for (int w = 0; w < warp; ++w) k += g_warp[mine * kWarps + w];
-      if (k >= g_n[mine] - p.gcap)
-        p.o_group_ring[gring + static_cast<size_t>(mine) * p.gcap +
-                       (gcount[mine] + k) % p.gcap] = score[r];
-    }
-    __syncthreads();                       // this tile's reads of g_base, g_warp are done
-    for (int g = tid; g < p.G; g += kThreads)
-      for (int w = 0; w < kWarps; ++w) g_base[g] += g_warp[g * kWarps + w];
-    __syncthreads();
-  }
-  for (int g = tid; g < p.G; g += kThreads) {
-    const size_t i = static_cast<size_t>(s) * p.G + g;
-    p.o_group_count[i] = gcount[g] + g_n[g];
-    p.o_group_resolved[i] = p.group_resolved[i] + g_n[g];
-    p.o_group_errors[i] = p.group_errors[i] + g_err[g];
-    p.o_d_res[i] = g_n[g];
-    p.o_d_err[i] = g_err[g];
-  }
-  if (tid != 0) return;
-  p.o_pool_count[s] = pool_count + (p.pool_on ? n_ok : 0);
-  p.o_resolved[s] = p.resolved[s] + n_ok;
-  p.o_errors[s] = p.errors[s] + totals[1];
-  p.o_dropped[s] = p.dropped[s] + totals[2];
-  float q = p.q[s];
-  if (p.adaptive && n_ok > 0) {
-    const float rate = __fdiv_rn(static_cast<float>(totals[1]), static_cast<float>(n_ok));
-    q = min_nan(max_nan(xla::fma_f32(p.gamma, __fsub_rn(rate, p.budget), q), p.q_min),
-                p.q_max);
-  }
-  p.o_q[s] = q;
 }
 
 // ---------------------------------------------------------------------
@@ -577,36 +797,64 @@ int scale_launch(ScaleArgs& p, void* stream) {
 // calib_begin: the engine's step after the quantiles
 // ---------------------------------------------------------------------
 
-// float32 sum of x(0), ..., x(n - 1) in XLA:CPU's order (ref.py:xla_sum):
-// over more than 32 terms, the axis padded to a multiple of 32 (the
-// padding split between its ends, the odd one at the end), each window
-// summed in order from its first term, and the window sums the same way.
-// The block's threads sum a window each, through buf (two halves of
-// ``half`` >= ceil(n / 32) + 1 floats); the result is thread 0's.
-template <class F>
-__device__ float xla_tree_sum(int n, F x, float* buf, int half) {
-  float* cur = nullptr;
-  for (int level = 0; n > kWindow; ++level) {
-    const int padded = (n + kWindow - 1) / kWindow * kWindow;
-    const int lo = (padded - n) / 2, nw = padded / kWindow;
-    float* nxt = buf + (level & 1) * half;
-    for (int w = threadIdx.x; w < nw; w += blockDim.x) {
-      const int j0 = max(w * kWindow - lo, 0), j1 = min(w * kWindow + kWindow - lo, n);
-      float a = cur ? cur[j0] : x(j0);
-      for (int j = j0 + 1; j < j1; ++j) a = add_x86(a, cur ? cur[j] : x(j));
-      nxt[w] = a;
-    }
-    __syncthreads();
-    cur = nxt;
-    n = nw;
+// the 32 floats at w (16-byte aligned) in registers
+__device__ __forceinline__ void load32(const float* w, float (&v)[kWindow]) {
+#pragma unroll
+  for (int j = 0; j < kWindow; j += 4) {
+    const float4 q = reinterpret_cast<const float4*>(w)[j / 4];
+    v[j] = q.x;
+    v[j + 1] = q.y;
+    v[j + 2] = q.z;
+    v[j + 3] = q.w;
   }
-  float a = 0.f;
-  if (threadIdx.x == 0 && n > 0) {
-    a = cur ? cur[0] : x(0);
-    for (int j = 1; j < n; ++j) a = add_x86(a, cur ? cur[j] : x(j));
-  }
-  return a;
 }
+
+// The 32 floats at w (16-byte aligned) summed in order from the first,
+// each sum rounded (the plain version's numpy cumsum of a window, whose
+// padding, here -0, it leaves out: -0 + x is x, -0 included): a chain of
+// plain adds over registers.  Where it ends in a NaN, x86's NaN where the
+// chain turned NaN (the NaN term quieted, or the default NaN of inf - inf;
+// a window holds two terms or more, or one window sum, already quiet):
+// found again over the 8 terms after the last of the chain's checkpoints
+// that is not a NaN.
+__device__ __forceinline__ float sum32(const float* w) {
+  float v[kWindow], at[kWindow / 8];
+  load32(w, v);
+  float a = -0.f;
+#pragma unroll
+  for (int j = 0; j < kWindow; ++j) {
+    a = __fadd_rn(a, v[j]);
+    if (j % 8 == 7) at[j / 8] = a;
+  }
+  if (a == a) return a;
+  const int seg = at[0] != at[0] ? 0 : at[1] != at[1] ? 1 : at[2] != at[2] ? 2 : 3;
+  a = seg == 0 ? -0.f : seg == 1 ? at[0] : seg == 2 ? at[1] : at[2];
+  for (int j = 8 * seg; j < 8 * seg + 8; ++j) {
+    const float x = w[j], next = __fadd_rn(a, x);
+    if (next != next) return x != x ? quiet(x) : __uint_as_float(kDefaultNaN);
+    a = next;
+  }
+  return a;                                // not reached: the segment turns NaN
+}
+
+// XLA's windows are kept kSlots floats apart in shared memory: 16-byte
+// aligned, and the float4 reads of the lanes of a warp, each a window, on
+// distinct banks
+constexpr int kSlots = kWindow + 4;
+
+// XLA:CPU's windows over n terms (ref.py:xla_sum): over more than 32
+// terms the axis padded to a multiple of 32, the padding split between its
+// ends (lo of it before the first term), each window summed in order from
+// its first term; 32 or fewer, one window
+struct Windows {
+  int lo, count;
+  __device__ __host__ __forceinline__ explicit Windows(int n)
+      : lo(n <= kWindow ? 0 : ((n + kWindow - 1) / kWindow * kWindow - n) / 2),
+        count(n <= kWindow ? 1 : (n + kWindow - 1) / kWindow) {}
+};
+// calib_begin sums R rows in at most three levels: windows of rows, of
+// their sums, and the last sum of 32 or fewer
+static_assert(kMaxRows / kWindow <= kWindow * kWindow, "more than three levels");
 
 struct BeginArgs {
   const int* ring_count; const int* pool_count;
@@ -628,56 +876,187 @@ struct BeginArgs {
   int gcap;
 };
 
-// one block per member: the fallback hierarchy and calib_begin of each
-// row, the deployed scales staged in shared memory, then their sum in
-// XLA's tree
+// Blocks 0 .. kClusterBlocks - 1 of row m of the grid, a cluster, take
+// member m, each a run of whole windows of XLA's tree over its R rows.
+// With the tier each block first stages each slot's tenant (-1 for an
+// empty slot, or an app or tenant id out of range) and the group rings'
+// counts and quantiles in shared memory, so a row's group is one
+// shared-memory read.  A thread a row: the hierarchy's scale
+// and calib_begin's registration, and the deployed scale written to the
+// block's windows, 32 slots each, the padding -0.  A thread a window then
+// sums its slots into block 0's window sums, which hold the next level's
+// padding too (through distributed shared memory); after the cluster's
+// barrier block 0's first warp sums the windows of those sums and
+// the last sum, and writes scale_sum and scale_n.
 __global__ void __launch_bounds__(kThreads) calib_begin_kernel(const BeginArgs p) {
-  extern __shared__ float x[];           // [R], then the tree's two halves
-  __shared__ int deployed;
-  const int g = blockIdx.x, R = p.R, M = R / 2;
-  if (threadIdx.x == 0) deployed = 0;
-  float fb = p.k2;
-  if (p.pool_on && min(p.pool_count[g], p.pcap) >= p.min_scores) fb = p.raw_pool[g];
+  extern __shared__ float4 smem4[];        // the block's windows [nwb][kSlots], then the tables
+  // block 0's: the window sums, padded into windows of their own, and theirs
+  __shared__ __align__(16) float s_wsum[(kMaxRows / kWindow / kWindow + 1) * kSlots];
+  __shared__ __align__(16) float s_up[kWindow];
+  __shared__ int s_wdep[kWarps], s_bdep[kClusterBlocks];
+  float* xs = reinterpret_cast<float*>(smem4);
+  const int m = blockIdx.y, R = p.R, M = R / 2, tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  constexpr int nb = kClusterBlocks;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int b = static_cast<int>(cluster.block_rank());
+  const Windows win(R), up(win.count);     // the rows' windows; their sums'
+  const int per = (win.count + nb - 1) / nb;
+  const int w0 = min(b * per, win.count), w1 = min(w0 + per, win.count), nwb = w1 - w0;
+  const int rb0 = max(w0 * kWindow - win.lo, 0), rb1 = min(w1 * kWindow - win.lo, R);
+  cluster_arrive();                        // this block started (waited for below)
+  const bool tier = p.tier.slot_gid != nullptr;
+  const int A = p.tier.A, N = p.tier.N, T = p.tier.T;
+  int* t_slot = reinterpret_cast<int*>(xs + kSlots * nwb);       // a slot's tenant [A]
+  int* t_gcount = t_slot + A;                                   // [T]
+  float* t_graw = reinterpret_cast<float*>(t_gcount + T);       // [T]
+  // phase: begin staging
+  if (tier) {
+    for (int i = tid; i < A; i += kThreads) {
+      const int gid = p.tier.slot_gid[static_cast<size_t>(m) * A + i];
+      const int g = gid < 0 || gid >= N ? -1 : p.tier.tenant[static_cast<size_t>(m) * N + gid];
+      t_slot[i] = g >= 0 && g < T ? g : -1;
+    }
+    for (int i = tid; i < T; i += kThreads) {
+      t_gcount[i] = p.group_count[static_cast<size_t>(m) * T + i];
+      t_graw[i] = p.raw_group[static_cast<size_t>(m) * T + i];
+    }
+  }
+  if (tid < kWindow) {                     // the padding: the first and last windows'
+    if (w0 * kWindow + tid < win.lo) xs[tid] = -0.f;
+    const int last = w1 * kWindow - kWindow + tid;
+    if (nwb > 0 && last - win.lo >= R) xs[(nwb - 1) * kSlots + tid] = -0.f;
+    if (b == 0) {                          // and of the window sums' windows
+      const int k = up.count * kWindow - win.count;   // the cells past the sums
+      if (tid < up.lo) s_wsum[tid] = -0.f;
+      if (tid < k - up.lo) {
+        const int c = up.lo + win.count + tid;
+        s_wsum[c / kWindow * kSlots + c % kWindow] = -0.f;
+      }
+      if (tid >= up.count) s_up[tid] = -0.f;
+    }
+  }
+  const int pool_count = p.pool_count[m];  // both loaded, then chosen
+  const float raw_pool = p.raw_pool[m];
+  const float fb = p.pool_on && min(pool_count, p.pcap) >= p.min_scores ? raw_pool : p.k2;
+  float scale_sum = 0.f;                   // what block 0's last lane adds to
+  int scale_n = 0;
+  if (b == 0 && tid == 0) {
+    scale_sum = p.scale_sum[m];
+    scale_n = p.scale_n[m];
+  }
+  if (tier) __syncthreads();               // the tables staged
   int n_dep = 0;
-  for (int r = threadIdx.x; r < R; r += kThreads) {
-    const size_t i = static_cast<size_t>(g) * R + r;
+  for (int r = rb0 + tid; r < rb1; r += kThreads) {
+    const size_t i = static_cast<size_t>(m) * R + r;
+    const int mr = r < M ? r : r - M;
+    const size_t mi = static_cast<size_t>(m) * M + mr;
+    // every input of the row in one round of loads, before any is used
+    const int count = p.ring_count[i], left = p.c_left[i], mon = p.mon_count[mi];
+    const int due = p.c_due[i], c_group = tier ? p.c_group[i] : -1;
+    const bool dep = p.deploy[mi] != 0;
+    const float raw = p.raw[i], mean = p.mean[i], var = p.var[i], c_mean = p.c_mean[i];
+    const float c_sigma = p.c_sigma[i], c_scale = p.c_scale[i], c_peak = p.c_peak[i];
     float fb_row = fb;
     int grp = -1;
-    if (p.tier.slot_gid) {
-      grp = row_group(p.tier, g, r, M);
-      const size_t gi = static_cast<size_t>(g) * p.tier.T + grp;
-      if (grp >= 0 && min(p.group_count[gi], p.gcap) >= p.min_scores)
-        fb_row = p.group_count[gi] == 0 ? fb : p.raw_group[gi];
+    if (tier) {
+      const int g = t_slot[mr / p.tier.C];
+      if (g >= 0) {
+        grp = g;
+        const int gc = t_gcount[g];
+        if (min(gc, p.gcap) >= p.min_scores) fb_row = gc == 0 ? fb : t_graw[g];
+      }
     }
-    const float scale = min(p.ring_count[i], p.cap) < p.min_scores ? fb_row : p.raw[i];
+    const float scale = min(count, p.cap) < p.min_scores ? fb_row : raw;
     p.o_scale[i] = scale;
-    const size_t mi = static_cast<size_t>(g) * M + (r < M ? r : r - M);
-    const bool dep = p.deploy[mi] != 0;
-    x[r] = dep ? scale : 0.f;
+    const int t = r + win.lo - w0 * kWindow;   // its slot among the block's windows
+    xs[t / kWindow * kSlots + t % kWindow] = dep ? scale : 0.f;
     n_dep += dep;
-    const int left = p.c_left[i];
-    const bool m = dep && left == 0;
-    p.o_mean[i] = m ? p.mean[i] : p.c_mean[i];
-    p.o_sigma[i] = m ? __fsqrt_rn(max_nan(p.var[i], 0.f)) : p.c_sigma[i];
-    p.o_cscale[i] = m ? scale : p.c_scale[i];
-    p.o_peak[i] = m ? -INFINITY : p.c_peak[i];
-    p.o_left[i] = m ? p.horizon : left;
-    p.o_due[i] = m ? p.mon_count[mi] + p.horizon : p.c_due[i];
-    if (p.tier.slot_gid) p.o_group[i] = m ? grp : p.c_group[i];
+    const bool reg = dep && left == 0;
+    p.o_mean[i] = reg ? mean : c_mean;
+    p.o_sigma[i] = reg ? sqrt_x86(max_nan(var, 0.f)) : c_sigma;
+    p.o_cscale[i] = reg ? scale : c_scale;
+    p.o_peak[i] = reg ? -INFINITY : c_peak;
+    p.o_left[i] = reg ? p.horizon : left;
+    p.o_due[i] = reg ? mon + p.horizon : due;
+    if (tier) p.o_group[i] = reg ? grp : c_group;
   }
   n_dep = __reduce_add_sync(0xffffffffu, n_dep);
-  __syncthreads();                         // deployed zeroed, x staged
-  if ((threadIdx.x & 31) == 0) atomicAdd(&deployed, n_dep);
-  const int half = (R + kWindow - 1) / kWindow + 1;
-  const float sum = xla_tree_sum(R, [&](int j) { return x[j]; }, x + R, half);
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    p.o_scale_sum[g] = add_x86(p.scale_sum[g], sum);
-    p.o_scale_n[g] = p.scale_n[g] + deployed;
+  if (lane == 0) s_wdep[warp] = n_dep;
+  __syncthreads();                         // the terms staged
+  // phase: tree
+  cluster_wait();                          // block 0's, once every block started
+  float* wsum = cluster.map_shared_rank(s_wsum, 0);
+  int* bdep = cluster.map_shared_rank(s_bdep, 0);
+  if (tid < nwb) {                         // a thread a window
+    const int c = up.lo + w0 + tid;        // its sum's cell among the padded sums
+    wsum[c / kWindow * kSlots + c % kWindow] = sum32(xs + tid * kSlots);
   }
+  if (tid < kWarps) {
+    const int d = __reduce_add_sync(0xffffffffu, s_wdep[tid]);
+    if (tid == 0) bdep[b] = d;
+  }
+  cluster.sync();
+  if (b != 0 || warp != 0) return;
+  const float* last = s_wsum;              // block 0's first warp: the levels above
+  if (win.count > kWindow) {
+    if (lane < up.count) s_up[lane] = sum32(s_wsum + lane * kSlots);
+    __syncwarp();
+    last = s_up;
+  }
+  if (lane != 0) return;
+  const float sum = sum32(last);
+  for (int c = 0; c < nb; ++c) scale_n += s_bdep[c];
+  p.o_scale_sum[m] = add_x86(scale_sum, sum);
+  p.o_scale_n[m] = scale_n;
+  // phase: begin end
+}
+
+
+// The member kernels' dynamic shared memory.  calib_observe: a thread's
+// scores (and groups) [k][kThreads]; calib_begin: its windows' terms
+// [kSlots] each and the tier's tables, A + 2T words (A <= kMaxRows / 2,
+// T <= kMaxGroups).  At most 10 KB and 42 KB.
+size_t observe_smem(int R, int G) {
+  const int rows = (R + kClusterBlocks - 1) / kClusterBlocks;
+  const int k = (rows + kThreads - 1) / kThreads;
+  return static_cast<size_t>(k) * kThreads * (sizeof(float) + (G ? 1 : 0));
+}
+size_t begin_smem(int R, size_t table) {
+  const int per = (Windows(R).count + kClusterBlocks - 1) / kClusterBlocks;
+  return (static_cast<size_t>(kSlots) * per + table) * sizeof(float);
+}
+
+// a member kernel's launch: a cluster of kClusterBlocks blocks a member
+template <class Args>
+int launch_member(void (*kernel)(Args), dim3 grid, size_t smem, void* stream, const Args& p) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = kClusterBlocks;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, p);
+  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
 
 }  // namespace
+
+// One-time set-up on the current device: the member kernels' shared
+// memory above 48 KB.
+extern "C" int calib_init() {
+  const cudaError_t e = cudaFuncSetAttribute(
+      calib_observe_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaFuncSetAttribute(
+      calib_begin_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem));
+}
 
 // The state as CalibState holds it, S members of R series rows: ring
 // (S, R, cap) f32, ring_count (S, R) i32, pool (S, pcap) f32, pool_count
@@ -702,7 +1081,8 @@ extern "C" int calib_observe(
     void* o_group_resolved, void* o_group_errors, void* o_d_res, void* o_d_err, int S, int R,
     int cap, int pcap, int pool_on, int adaptive, int G, int gcap, float gamma, float budget,
     float q_min, float q_max, void* stream) {
-  if (S <= 0 || R <= 0 || R % 2 || cap <= 0 || pcap <= 0 || G < 0 || G > 127 ||
+  if (S <= 0 || R <= 0 || R % 2 || R > kMaxRows || cap <= 0 || pcap <= 0 || G < 0 ||
+      G > kMaxGroups ||
       (G > 0 && (gcap <= 0 || !group_ring || !group_count || !group || !group_resolved ||
                  !group_errors || !o_group_ring || !o_group_count || !o_group_resolved ||
                  !o_group_errors || !o_d_res || !o_d_err)))
@@ -729,15 +1109,10 @@ extern "C" int calib_observe(
       static_cast<int*>(o_group_count), static_cast<int*>(o_group_resolved),
       static_cast<int*>(o_group_errors), static_cast<int*>(o_d_res),
       static_cast<int*>(o_d_err), G, gcap};
-  // score and ok [R]; with the tier also gsel [R] and the group counters
-  const size_t smem =
-      G ? (static_cast<size_t>(3 * R + 3) / 2 + 1 + static_cast<size_t>(G) * (3 + kWarps)) *
-              sizeof(float)
-        : static_cast<size_t>(R) * (sizeof(float) + 1);
-  if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(1 + (R + kWarps - 1) / kWarps, S);
-  calib_observe_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  constexpr int nb = kClusterBlocks;
+  const int blocks = nb + (R + kWarps - 1) / kWarps;
+  const dim3 grid((blocks + nb - 1) / nb * nb, S);
+  return launch_member(calib_observe_kernel, grid, observe_smem(R, G), stream, p);
 }
 
 // scores (B, cap) f32 rings, counts (B,) i32, q and fallback (G,) f32
@@ -835,14 +1210,12 @@ extern "C" int calib_begin(
     int min_scores, int pool_on, int horizon, float k2, const void* slot_gid,
     const void* tenant, const void* group_count, const void* raw_group, const void* c_group,
     void* o_group, int A, int C, int N, int T, int gcap, void* stream) {
-  if (S <= 0 || R <= 0 || R % 2 || cap <= 0 || pcap <= 0)
+  if (S <= 0 || R <= 0 || R % 2 || R > kMaxRows || cap <= 0 || pcap <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (slot_gid && (!tenant || !group_count || !raw_group || !c_group || !o_group || T <= 0 ||
-                   gcap <= 0 || A <= 0 || C <= 0 || A * C * 2 != R))
+                   T > kMaxGroups || gcap <= 0 || A <= 0 || C <= 0 || A * C * 2 != R))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = (static_cast<size_t>(R) + 2 * ((R + kWindow - 1) / kWindow + 1)) *
-                      sizeof(float);
-  if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t table = slot_gid ? static_cast<size_t>(A) + 2 * static_cast<size_t>(T) : 0;
   BeginArgs p{
       static_cast<const int*>(ring_count), static_cast<const int*>(pool_count),
       static_cast<const float*>(raw), static_cast<const float*>(raw_pool),
@@ -859,6 +1232,6 @@ extern "C" int calib_begin(
       Tier{static_cast<const int*>(slot_gid), static_cast<const int*>(tenant), A, C, N, T},
       static_cast<const int*>(group_count), static_cast<const float*>(raw_group),
       static_cast<const int*>(c_group), static_cast<int*>(o_group), gcap};
-  calib_begin_kernel<<<S, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  return launch_member(calib_begin_kernel, dim3(kClusterBlocks, S), begin_smem(R, table),
+                       stream, p);
 }

@@ -822,6 +822,15 @@ def arima_forecast(windows: torch.Tensor, valid: torch.Tensor, horizon: int, cfg
 # conformal calibration: the work of the CUDA kernels in calib.cu
 # ----------------------------------------------------------------------
 
+def fmax(a, b) -> np.ndarray:
+    """Float32 max as XLA takes it: a NaN operand (the first where both
+    are), and +0 above -0 (numpy's maximum of two zeros is its second)."""
+    a, b = np.broadcast_arrays(np.asarray(a, np.float32), np.asarray(b, np.float32))
+    zeros = (a == 0) & (b == 0)
+    signed = np.where(np.signbit(a) & np.signbit(b), np.float32(-0.0), np.float32(0.0))
+    return np.where(zeros, signed, np.maximum(a, b)).astype(np.float32)
+
+
 def sort_keys(x: np.ndarray) -> np.ndarray:
     """uint32 keys that order float32 values as ``jnp.sort`` does: -0 and
     +0 equal, every NaN equal and after +inf (ties then keep their
@@ -898,12 +907,12 @@ def calib_observe(ring, ring_count, pool, pool_count, mean, sigma, scale, peak, 
     cap, pcap = ring.shape[2], pool.shape[1]
     use = np.concatenate([usage[..., 0], usage[..., 1]], -1)
     act = (left > 0) & active[:, None]
-    peak = np.where(act, np.maximum(peak, use), peak)
+    peak = np.where(act, fmax(peak, use), peak)
     left = (left - act).astype(np.int32)
     fire = act & (left == 0)
     ok = fire & (_tiled(mon_count) == due)
     dropped = (dropped + (fire & ~ok).sum(-1)).astype(np.int32)
-    s = ((peak - mean) / np.maximum(sigma, np.float32(1e-6))).astype(np.float32)
+    s = ((peak - mean) / fmax(sigma, np.float32(1e-6))).astype(np.float32)
     n_ok = ok.sum(-1).astype(np.int32)
     for m in range(ring.shape[0]):
         rows = np.nonzero(ok[m])[0]
@@ -946,12 +955,14 @@ def calib_observe(ring, ring_count, pool, pool_count, mean, sigma, scale, peak, 
                           d_res, d_err)
 
 
-def row_groups(slot_gid, tenant, C: int):
+def row_groups(slot_gid, tenant, C: int, T: int):
     """(S, 2*A*C) int32: the tenant of the app in each series row's slot
-    (rows r and A*C + r are slot ``r // C``'s), -1 for an empty slot."""
+    (rows r and A*C + r are slot ``r // C``'s), -1 for an empty slot or a
+    tenant id outside [0, T)."""
     slot_gid, tenant = _numpy(slot_gid, tenant)
     ten = np.where(slot_gid >= 0,
                    np.take_along_axis(tenant, np.maximum(slot_gid, 0), 1), -1)
+    ten = np.where((ten >= 0) & (ten < T), ten, -1)
     rows = np.repeat(ten, C, axis=1)
     return np.concatenate([rows, rows], 1).astype(np.int32)
 
@@ -994,7 +1005,7 @@ def calib_quantiles(ring, ring_count, pool, pool_count, q, fallback, tenancy=Non
               else credit_quantiles(credit, torch.from_numpy(q), spread=spread, q_min=q_min,
                                     q_max=q_max))
         if credit is not None:
-            grp = row_groups(slot_gid, tenant, ring_count.shape[1] // 2 // slot_gid.shape[1])
+            grp = row_groups(slot_gid, tenant, ring_count.shape[1] // 2 // slot_gid.shape[1], T)
             q_rows = np.where(grp >= 0, np.take_along_axis(qt, np.maximum(grp, 0), 1),
                               q[:, None]).reshape(-1).astype(np.float32)
     raw = conformal_scale(*_tensors(ring.reshape(S * R, cap), ring_count.reshape(-1), q_rows,
@@ -1045,7 +1056,8 @@ def calib_begin(ring_count, pool_count, raw, raw_pool, deploy, mean, var, mon_co
     if tenancy is not None:
         tenant, slot_gid, gcount, raw_group, group, gcap = tenancy
         gcount, raw_group, group = _numpy(gcount, raw_group, group)
-        grp = row_groups(slot_gid, tenant, raw.shape[1] // 2 // slot_gid.shape[1])
+        grp = row_groups(slot_gid, tenant, raw.shape[1] // 2 // slot_gid.shape[1],
+                         gcount.shape[1])
         gc = np.maximum(grp, 0)
         gq = np.where(gcount == 0, fb[:, None], raw_group)
         warm = (grp >= 0) & (np.take_along_axis(np.minimum(gcount, gcap), gc, 1) >= min_scores)
@@ -1053,7 +1065,7 @@ def calib_begin(ring_count, pool_count, raw, raw_pool, deploy, mean, var, mon_co
     scale = np.where(np.minimum(ring_count, cap) < min_scores, fb_rows, raw)
     dep = _tiled(deploy)
     m = dep & (c_left == 0)
-    sigma = np.sqrt(np.maximum(var, np.float32(0.0)))
+    sigma = np.sqrt(fmax(var, np.float32(0.0)))
     tree = xla_sum(np.where(dep, scale, np.float32(0.0)).T)
     out = _tensors(scale, np.where(m, mean, c_mean), np.where(m, sigma, c_sigma),
                    np.where(m, scale, c_scale), np.where(m, np.float32(-np.inf), c_peak),

@@ -34,10 +34,11 @@ from repro_torch import convert
 from repro_torch.core import uncertainty as tunc
 from repro_torch.core.forecast import Forecast as TForecast
 from repro_torch.core.shaper import shaped_demand_scaled
+from repro_torch.kernels import calib as kcalib
 from repro_torch.kernels import ops, ref
 from repro_torch.sim import engine as tengine
 from repro_torch.sim import step as tstep
-from chip_smoke import crafted_rings
+from chip_smoke import CALIB_CRAFTED, CALIB_CRAFTED_CFG, calib_crafted, crafted_rings
 from test_torch_engine import quick_base_config
 from test_torch_leap import GAP, _skip_states
 from test_torch_step import (_JaxClient, _one_torch_thread, _shared_client,  # noqa: F401
@@ -530,6 +531,68 @@ def test_group_tier_step_equals_reference():
     assert warm.any() and (~warm).any()
 
 
+# the reference's steps at the crafted cases' configuration, jitted once
+# for the module (a compile per shape: three widths of G, and 3,000 rows)
+CRAFTED_RCFG = runc.CalibrationConfig(enabled=True, q=0.9, adaptive=True, budget=0.1,
+                                      **CALIB_CRAFTED_CFG)
+CRAFTED_TCFG = tctl.TenancyConfig(enabled=True)
+_crafted_observe = jax.jit(jax.vmap(
+    lambda s, u, m, a: runc.calib_observe(s, u, m, CRAFTED_RCFG, active=a)))
+_crafted_quantiles = jax.jit(jax.vmap(lambda c, q: rctl.credit_quantile(
+    c, q, CRAFTED_TCFG.q_spread, CRAFTED_RCFG.q_min, CRAFTED_RCFG.q_max)))
+_crafted_scales = jax.jit(jax.vmap(lambda s, g, qr, qg: runc.calib_scales(
+    s, CRAFTED_RCFG, 3.0, groups=g, q_rows=qr, q_groups=qg)))
+_crafted_begin = jax.jit(jax.vmap(lambda s, d, mu, sg, sc, m, g: runc.calib_begin(
+    s, d, mu, sg, sc, m, 3, groups=g)))
+
+
+@pytest.mark.parametrize("name", CALIB_CRAFTED)
+def test_crafted_step_equals_reference(name):
+    """chip_smoke.py's crafted cases of calib_observe and calib_begin
+    (tests/test_torch_kernels_hopper.py holds the kernels to the plain
+    versions on them): the plain versions, through the port's
+    calib_observe_groups and calib_scales_begin with the per-tenant tier
+    and the credit, against the reference's calib_observe, calib_scales
+    and calib_begin, every field bit for bit.  A row's group is the port's
+    row_groups: a tenant id outside [0, T) is no group (the reference's
+    engine never holds one; its gathers would clamp it to T - 1)."""
+    st, tick, tier, table = calib_crafted(name)
+    S, M = tick["mon_count"].shape
+    T_ = torch.from_numpy
+    full = {**st, **tier}
+    full.pop("scale_sum"), full.pop("scale_n")
+    full.update(scale_sum=st["scale_sum"], scale_n=st["scale_n"])
+    rst = runc.CalibState(**{k: jnp.asarray(v) for k, v in full.items()})
+    usage, mon, active = tick["usage"], tick["mon_count"], tick["active"]
+    tiled = np.concatenate([mon, mon], 1)
+    want = _crafted_observe(rst, np.concatenate([usage[..., 0], usage[..., 1]], 1), tiled,
+                            active)
+    pcfg = _tcfg(CRAFTED_RCFG)
+    pst = convert.calib_state_from_arrays(device="cpu", **full)
+    got, (d_res, d_err) = tunc.calib_observe_groups(pst, T_(usage), T_(mon), pcfg, T_(active))
+    _assert_state(got, _fields(want), f"calib_observe, {name}")
+    np.testing.assert_array_equal(d_res.numpy(), np.asarray(want.group_resolved)
+                                  - tier["group_resolved"])
+    np.testing.assert_array_equal(d_err.numpy(), np.asarray(want.group_errors)
+                                  - tier["group_errors"])
+
+    G = tier["group_ring"].shape[1]
+    groups = ref.row_groups(T_(table["slot_gid"]), T_(table["tenant"]),
+                            M // table["slot_gid"].shape[1], G)
+    qt = _crafted_quantiles(table["credit"], want.q)
+    q_rows = jnp.where(groups >= 0, jnp.take_along_axis(qt, jnp.maximum(groups, 0), 1),
+                       want.q[:, None])
+    rscale = _crafted_scales(want, groups, q_rows, qt)
+    d2 = np.concatenate([tick["deploy"]] * 2, 1)
+    sigma = np.sqrt(np.maximum(tick["var"], np.float32(0))).astype(np.float32)
+    began = _crafted_begin(want, d2, tick["fmean"], sigma, rscale, tiled, groups)
+    fscale, fused = tunc.calib_scales_begin(
+        got, pcfg, 3.0, T_(tick["deploy"]), T_(tick["fmean"]), T_(tick["var"]), T_(mon), 3,
+        (T_(table["credit"]), T_(table["tenant"]), T_(table["slot_gid"]), CRAFTED_TCFG))
+    np.testing.assert_array_equal(_bits(fscale), _bits(rscale))
+    _assert_state(fused, _fields(began), f"calib_scales_begin, {name}")
+
+
 def _fma_splits(rng, n):
     """(mean, scale, sigma, peak) where ``peak > fma(scale, sigma, mean)``
     but not ``peak > round(round(scale * sigma) + mean)``."""
@@ -695,6 +758,31 @@ def test_oracle_keeps_calibration_off():
     assert host.calibration is None and scan.calibration is None
     assert host.summary() == reng.run_sim(cfg, wl).summary()
     assert "calibration" not in scan.summary()
+
+
+def test_member_kernels_refuse_rows_past_their_limit():
+    """calib_observe and calib_begin take at most calib.MAX_ROWS series
+    rows (every count a 16-bit field of the scan) and calib_begin at most
+    calib.MAX_GROUPS tenants; their wrappers raise, naming the limit,
+    before anything is built or launched."""
+    from test_torch_flash_route import CudaStandIn
+    R, f32, i32 = kcalib.MAX_ROWS + 2, torch.float32, torch.int32
+    ring, pool = CudaStandIn((1, R, 16), f32), CudaStandIn((1, 8), f32)
+    with pytest.raises(ValueError, match=f"at most {kcalib.MAX_ROWS}"):
+        kcalib.calib_observe(ring, None, pool, *(None,) * 14, pool_on=True, adaptive=True,
+                             gamma=0.01, budget=0.1, q_min=0.5, q_max=0.99)
+    with pytest.raises(ValueError, match=f"at most {kcalib.MAX_ROWS}"):
+        kcalib.calib_scales(ring, None, pool, *(None,) * 15, min_scores=4, pool_on=True,
+                            horizon=3)
+    kw = dict(cap=16, pcap=8, min_scores=4, pool_on=True, horizon=3, fallback=3.0)
+    with pytest.raises(ValueError, match=f"at most {kcalib.MAX_ROWS}"):
+        kcalib.calib_begin(*(None,) * 10, CudaStandIn((1, R), f32), *(None,) * 5, **kw)
+    R, A, T = 3072, 128, kcalib.MAX_GROUPS + 1
+    tenancy = (CudaStandIn((1, 500), i32), CudaStandIn((1, A), i32), CudaStandIn((1, T), i32),
+               None, None, 8)
+    with pytest.raises(ValueError, match=f"1..{kcalib.MAX_GROUPS}"):
+        kcalib.calib_begin(*(None,) * 10, CudaStandIn((1, R), f32), *(None,) * 5, tenancy,
+                           **kw)
 
 
 def test_group_tier_is_refused():

@@ -1,12 +1,17 @@
-"""The redesigned ``arima_forecast`` and ``conformal_scale`` kernels against
-their plain versions on the card, bit for bit, on the crafted cases that
-``chip_smoke.py`` phase 3 also runs: ARIMA windows where an order that is
-not fitted wins the AIC, where the fitted order wins, valid counts at the
-fallback's edge, holes, constant and signed-zero windows, every and no row
-ready, other orders and 40-sample windows; score rings with ties, -0 beside
-+0, NaNs of four payloads and infinities, k at 0 and at n - 1, young rows,
-rolled and circular rings at capacities 16 to 2,048 (the warp's and the
-block's selections), and the engine's launch with the per-tenant tier.
+"""The redesigned ``arima_forecast``, ``conformal_scale``, ``calib_observe``
+and ``calib_begin`` kernels against their plain versions on the card, bit
+for bit, on the crafted cases that ``chip_smoke.py`` phase 3 also runs:
+ARIMA windows where an order that is not fitted wins the AIC, where the
+fitted order wins, valid counts at the fallback's edge, holes, constant and
+signed-zero windows, every and no row ready, other orders and 40-sample
+windows; score rings with ties, -0 beside +0, NaNs of four payloads and
+infinities, k at 0 and at n - 1, young rows, rolled and circular rings at
+capacities 16 to 2,048 (the warp's and the block's selections), and the
+engine's launch with the per-tenant tier; and calibration steps
+(CALIB_CRAFTED) of 200 and 3,000 rows, every row or none resolving, more
+than the pool and a group ring hold, NaN, -0 and +-inf among the scores
+and the deployed scales, an inactive member, 1 and 127 groups, and group
+and tenant ids out of range, without the tier and with it.
 
 Every test needs a CUDA device and skips without one; the file imports
 no JAX.  Run on the card with ``python -m pytest -m gpu
@@ -16,9 +21,10 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (ARIMA_CRAFTED, SCALE_CRAFTED, arima_crafted, crafted_rings,
-                        scale_crafted_quantiles)
+from chip_smoke import (ARIMA_CRAFTED, CALIB_CRAFTED, SCALE_CRAFTED, arima_crafted,
+                        calib_crafted_outputs, crafted_rings, scale_crafted_quantiles)
 from repro_torch.core.forecast import ARIMAConfig
+from repro_torch.core.uncertainty import CalibrationConfig
 from repro_torch.kernels import arima_forecast as karima
 from repro_torch.kernels import calib, ref
 
@@ -76,3 +82,14 @@ def test_engine_quantiles_with_tier_equal_plain_on_crafted_rings():
     read = (args[1] >= min_scores, torch.ones(1, dtype=torch.bool), args[-1][4] >= min_scores)
     for g, w, r in zip(got, want, read):
         np.testing.assert_array_equal(_bits(g.cpu()[r]), _bits(w[r]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", CALIB_CRAFTED)
+def test_calib_observe_and_begin_equal_plain_on_crafted_cases(name):
+    """calib_observe and calib_scales (the quantiles, then calib_begin)
+    without the per-tenant tier and with it, credit on and off: every
+    output bit for bit."""
+    _card()
+    for what, got, want in calib_crafted_outputs(name, calib, ref, CalibrationConfig):
+        np.testing.assert_array_equal(_bits(got), _bits(want), err_msg=what)
