@@ -2793,6 +2793,9 @@ def check_calib(calib, ref, CalibrationConfig) -> dict:
 # float32 values where the selection's tie rule shows, as bits: -0, +0,
 # 0.25, -1.5, +inf, -inf and quiet NaNs of four payloads (one negative)
 NAN_PAYLOADS = np.array([0x7FC00000, 0x7FC0DEAD, 0xFFC00001, 0x7FFFFFFF], np.uint32)
+# NaN payloads whose pairs XLA:CPU and numpy resolve apart: quiet and
+# signalling, of either sign
+TWO_NANS = np.array([0x7FC0DEAD, 0xFFC00001, 0x7F800BAD, 0xFF80BEEF], np.uint32)
 SCALE_TIES = np.concatenate([np.array([0x80000000, 0, 0x3E800000, 0xBFC00000, 0x7F800000,
                                        0xFF800000], np.uint32), NAN_PAYLOADS]).view(np.float32)
 # (capacity, rows) of the crafted generic launches: the warp path's
@@ -3255,10 +3258,60 @@ def control_cases():
     return cases
 
 
+TINY_VALUES = np.float32([1.5 * TINY, -TINY, TINY / 4, -TINY / 8, TINY, 3 * TINY, 0.75 * TINY])
+TWO_NAN_VALUES = np.concatenate([TWO_NANS.view(np.float32), np.float32([np.inf, -np.inf])])
+CONTROL_CRAFTED = ("signed zeros", "NaN and inf", "near 2^-126", "tenant ids out of range",
+                   "T = 1", "T = 32", "T = 33", "T = 1024, A = 37", "A = 20, C = 7, N = 61",
+                   "A = 37, C = 5", "a cohort with an idle member")
+
+
+def control_crafted(name):
+    """control_tick's arguments (CPU tensors) and keywords of crafted case
+    ``name``: the engine's widths (A = 128 slots of C = 12, N = 500, T = 4)
+    unless the name says otherwise; allocations of signed zeros (a tenant
+    whose slots hold only -0), NaNs of the TWO_NANS payloads and +-inf, or
+    values near 2^-126 (subnormal and tiny normal ones, and a share_sum
+    among them); tenant ids of T, T + 5, -1 and -7 in the trace; T of 1,
+    32 (the warps' votes), 33 and 1,024 (match groups and the block's
+    mean); A of 20 (one window), 37 (two windows, C odd: 8-byte loads) and
+    a cohort whose middle member has no slot and no event."""
+    rng = np.random.default_rng(60 + CONTROL_CRAFTED.index(name))
+    T = {"T = 1": 1, "T = 32": 32, "T = 33": 33, "T = 1024, A = 37": 1024}.get(name, 4)
+    shape = {"T = 1024, A = 37": dict(A=37, C=3), "A = 20, C = 7, N = 61": dict(A=20, C=7, N=61),
+             "A = 37, C = 5": dict(A=37, C=5)}.get(name, {})
+    members = [control_member(rng, T, **shape)]
+    if name == "a cohort with an idle member":
+        members = [control_member(rng, T), control_member(rng, T, events=False, zero=True),
+                   control_member(rng, T)]
+        members[1][14][:] = -1               # no slot occupied
+    for m in members:
+        share_sum, tenant, slot_gid, alloc = m[4], m[13], m[14], m[15]
+        occupied = slot_gid >= 0
+        if name == "signed zeros":
+            own = np.where(occupied, tenant[np.maximum(slot_gid, 0)], -1)
+            neg = own == own[np.argmax(occupied)]
+            signs = np.where(neg[:, None, None] | (rng.random(alloc.shape) < 0.5),
+                             np.float32(-0.0), np.float32(0.0))
+            alloc[...] = np.where(occupied[:, None, None], signs, alloc)
+            share_sum[::2] = -0.0
+        elif name == "NaN and inf":
+            hit = occupied[:, None, None] & (rng.random(alloc.shape) < 0.05)
+            alloc[...] = np.where(hit, rng.choice(TWO_NAN_VALUES, alloc.shape), alloc)
+            share_sum[1] = TWO_NANS.view(np.float32)[2]
+        elif name == "near 2^-126":
+            alloc[...] = np.where(occupied[:, None, None], rng.choice(TINY_VALUES, alloc.shape),
+                                  alloc)
+            share_sum[:] = rng.choice(TINY_VALUES, share_sum.shape)
+        elif name == "tenant ids out of range":
+            tenant[::7], tenant[1::11], tenant[2::13], tenant[3::17] = T, T + 5, -1, -7
+    return control_case(members, T), CONTROL_KW
+
+
 def check_control(control, ref) -> float:
     """Phase 3: control_tick on the card against its plain version, every
-    output bit for bit."""
-    for name, args, kw in control_cases():
+    output bit for bit: the seeded cases and CONTROL_CRAFTED."""
+    crafted = [(f"crafted case {n!r}", *control_crafted(n)) for n in CONTROL_CRAFTED]
+    for name, args, kw in control_cases() + crafted:
         want = ref.control_tick(*args, **kw)
         got = control.control_tick(*(a.cuda() if a is not None else None for a in args), **kw)
         for k, g, w in zip(("credit", "throttled", "completed", "failed", "share_sum",
@@ -3410,8 +3463,8 @@ def check_calib_tier(calib, ref, CalibrationConfig) -> float:
 # 200 rows (XLA's windows then start 12 rows before row 0), or of 3,000
 # (4 rows before; three rows a thread of calib_observe's block)
 CALIB_CRAFTED = ("200 rows", "3,000 rows", "every row resolves", "no row resolves",
-                 "more than pcap and gcap resolve", "NaN, -0 and +-inf", "inactive middle member",
-                 "G = 1", "G = 127", "ids out of range")
+                 "more than pcap and gcap resolve", "NaN, -0 and +-inf", "two NaN payloads",
+                 "inactive middle member", "G = 1", "G = 127", "ids out of range")
 CALIB_CRAFTED_CFG = dict(capacity=16, pool_capacity=8, min_scores=4, group_capacity=8)
 
 
@@ -3425,8 +3478,10 @@ def calib_crafted(name):
     crafted_rings (ties, +-0, NaN payloads, +-inf, counts 0 to 3 cap + 5;
     member 0's first window of scales +inf and -inf), peaks, means,
     sigmas and variances among NaN payloads, -0 and +-inf, usage among -0
-    and +-inf (of two NaNs XLA keeps another than numpy does), deployed
-    rows 90% (in the other cases every score is finite);
+    and +-inf, deployed rows 90% (in the other cases every score is
+    finite); the same with peaks and usage among TWO_NANS' payloads in
+    either order, and each member's scale_sum one of them, where the
+    deployed scales' sum is a NaN too;
     the middle member inactive;
     T = 1 or 127; group ids -1, -3 and >= T and tenant ids outside [0, T)."""
     M, A = (1500, 125) if name == "3,000 rows" else (100, 25)
@@ -3454,7 +3509,7 @@ def calib_crafted(name):
         st["due"] = (mon2 + 1).astype(np.int32)
     elif name.startswith("more than"):
         tier["group"] = np.where(rng.random((S, R)) < 0.8, 0, tier["group"]).astype(np.int32)
-    elif name == "NaN, -0 and +-inf":
+    elif name in ("NaN, -0 and +-inf", "two NaN payloads"):
         odd = np.concatenate([NAN_PAYLOADS.view(np.float32),
                               np.array([-0.0, 0.0, np.inf, -np.inf], np.float32)])
         ring, counts, _ = crafted_rings(seed, S * R, cap, circular=True,
@@ -3478,6 +3533,12 @@ def calib_crafted(name):
             st[k] = sprinkle(st[k], share)
         tick["usage"] = sprinkle(tick["usage"], 0.1, odd[len(NAN_PAYLOADS):])
         tick["var"] = sprinkle(tick["var"], 0.1)
+        if name == "two NaN payloads":
+            nans = TWO_NANS.view(np.float32)
+            st["peak"] = sprinkle(st["peak"], 0.5, nans)
+            tick["usage"] = sprinkle(tick["usage"], 0.5, nans)
+            st["left"] = np.where(rng.random((S, R)) < 0.5, 2, st["left"]).astype(np.int32)
+            st["scale_sum"] = nans[:S].copy()
     elif name == "inactive middle member":
         tick["active"] = np.array([True, False, True])
     elif name == "ids out of range":
@@ -3912,10 +3973,51 @@ def obs_cases():
     return cases
 
 
+OBS_CRAFTED = ("signed zeros", "NaN and inf", "near 2^-126", "T = 1", "T = 32", "T = 33",
+               "T = 1024", "A = 20, C = 7, N = 61", "A = 37, C = 6", "A = 37, C = 5",
+               "a cohort: an inactive member, a cursor that wraps")
+
+
+def obs_crafted(name):
+    """obs_tick's arguments (CPU tensors, keywords) of crafted case
+    ``name``: the engine's widths with every feature (A = 128 slots of C =
+    12, N = 500, T = 4) unless the name says otherwise; tables of signed
+    zeros, with NaNs of the TWO_NANS payloads and +-inf, or of values near
+    2^-126 whose sums pass below it (and credits among them); T of 1, 32,
+    33 and 1,024 (the credit mean's tree of two windows and more); A of 20
+    and 37 with C odd (the tables staged by plain loads) and even (a bulk
+    copy a window of 19 and of 18 slots); a cohort with an inactive
+    member and cursors that wrap."""
+    import torch
+    rng = np.random.default_rng(70 + OBS_CRAFTED.index(name))
+    kw = {"T = 1": dict(T=1), "T = 32": dict(T=32), "T = 33": dict(T=33),
+          "T = 1024": dict(T=1024), "A = 20, C = 7, N = 61": dict(A=20, C=7, N=61, R=8),
+          "A = 37, C = 6": dict(A=37, C=6, R=16), "A = 37, C = 5": dict(A=37, C=5, R=16),
+          "a cohort: an inactive member, a cursor that wraps": dict(
+              S=3, inactive=(1,), cursors=[127, 6, 255])}.get(name, {})
+    args = obs_case(rng, **kw)
+    use, dem = args["usage"].numpy(), args["demand"].numpy()
+    if name == "signed zeros":
+        for x in (use, dem):
+            x[...] = np.where(rng.random(x.shape) < 0.5, np.float32(-0.0), np.float32(0.0))
+    elif name == "NaN and inf":
+        for x in (use, dem):
+            hit = rng.random(x.shape) < 0.01
+            x[...] = np.where(hit, rng.choice(TWO_NAN_VALUES, x.shape), x)
+        args["tenancy"][0][0, 1] = float(TWO_NANS.view(np.float32)[0])
+    elif name == "near 2^-126":
+        for x in (use, dem):
+            x[...] = np.where(x != 0, rng.choice(TINY_VALUES, x.shape), x)
+        args["tenancy"][0][0, :] = torch.from_numpy(rng.choice(TINY_VALUES, args["tenancy"][0].shape[1]))
+    return args
+
+
 def check_obs(obs_kernel, ref) -> float:
     """Phase 3: obs_tick on the card against its plain version, every
-    output bit for bit, one launch a call."""
-    for name, args in obs_cases():
+    output bit for bit, one launch a call: the seeded cases and
+    OBS_CRAFTED."""
+    crafted = [(f"crafted case {n!r}", obs_crafted(n)) for n in OBS_CRAFTED]
+    for name, args in obs_cases() + crafted:
         want = ref.obs_tick(**args)
         n = obs_kernel.obs_tick.launches
         got = obs_kernel.obs_tick(**_obs_cuda(args))
@@ -4363,6 +4465,55 @@ def time_obs(obs_kernel, ref) -> dict:
     obs_kernel.reset_launch_counts()
     return {"obs_tick": dict(ms=min(ms["kernel"]), plain_ms=min(ms["plain"]), bound_ms=bound,
                              bound_by="bytes", library_ms=None)}
+
+
+def _clone(x):
+    import torch
+    if isinstance(x, tuple):
+        return tuple(_clone(v) for v in x)
+    return x.clone() if isinstance(x, torch.Tensor) else x
+
+
+def captured_args(step, cfg, name):
+    """The arguments of ``ops.<name>`` (control_tick or obs_tick) at one tick
+    of ``cfg``'s full-width run on the card, eager tick by tick with
+    persist forecasts: the tick whose occupied slots are nearest the run's
+    mean (control_tick's slot table as the kernel reads it; the slot table
+    at the end of the tick for obs_tick, the tick's last phase).  Returns
+    (args, kwargs, a note of the tick and the occupancy)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.sim.scenarios.registry import build_trace
+    from repro_torch.sim.state import DeviceTrace, init_state
+    cfg = dataclasses.replace(cfg, forecaster="persist")
+    wl = build_trace(cfg.workload)
+    dev = torch.device("cuda")
+    tr = DeviceTrace.from_traces([wl], dev)
+    st = init_state(cfg, wl.n_apps, wl.max_components, 1, dev)
+    cap = step.host_capacity(cfg, dev)
+    plain, seen, occupied = getattr(ops, name), [], []
+
+    def spy(*args, **kw):
+        seen.append((_clone(args), _clone(kw)))
+        if name == "control_tick":
+            occupied.append(int((args[14] >= 0).sum()))
+        return plain(*args, **kw)
+    setattr(ops, name, spy)
+    try:
+        with torch.no_grad():
+            while not bool(st.done.all()):
+                st, _ = step.fused_tick(cfg, None, tr, st, cap)
+                if name != "control_tick":
+                    occupied.append(int((st.slot_gid >= 0).sum()))
+    finally:
+        setattr(ops, name, plain)
+    mean = float(np.mean(occupied))
+    k = int(np.argmin(np.abs(np.asarray(occupied) - mean)))
+    A = st.slot_gid.shape[1]
+    note = (f"tick {k} of the {len(occupied)}-tick run (persist), {occupied[k]} of {A} slots "
+            f"occupied (the run's mean {mean:.1f}, max {max(occupied)}; the synthetic case "
+            f"{0.8 * A:.0f})")
+    return seen[k][0], seen[k][1], note
 
 
 def _nbytes(*ts) -> int:

@@ -39,13 +39,25 @@ DIR`` it takes the package from another checkout's ``src`` (a parent
 commit unpacked with ``git archive``), so that two commits' kernels are
 timed on one card in one call.
 
-``--path control`` times the control plane's kernels alone, as
-``chip_smoke.py`` phase 8 does: ``control_tick`` at the main path's
-widths against its plain version and its bound, the admission kernel
-with and without the gate, and the calibration kernels with and without
-the per-tenant tier, for the package under ``--src`` too (one that has
-the control plane), so that two versions are timed on one card in one
-call.
+``--path control`` prints ``control_tick``'s ptxas lines and the
+``clock64()`` cycles of member 0's block from the kernel's start to each
+phase mark (staging, apps, slots, windows, capacities, mean and final in
+the earlier design, by the lines CONTROL_MARKS names; the
+``// phase:`` comments of a source that has them) and between marks, from
+a stamped build (``stamped_member``); then times the control plane's
+kernels alone, as ``chip_smoke.py`` phase 8 does: ``control_tick`` at the
+main path's widths against its plain version and its bound, the
+admission kernel with and without the gate, and the calibration kernels
+with and without the per-tenant tier; then ``control_tick`` on the
+arguments of the tick of the tenanted run (phase 5h's config, persist
+forecasts, eager on the card: ``chip_smoke.captured_args``) whose
+occupied slots are nearest the run's mean.  ``--path obs`` does the same
+for ``obs_tick``: its cycles by phase (ring copy, staging, apps, windows,
+tail and writes in the earlier design; OBS_MARKS) on the default path's inputs
+and with every feature, its times as phase 8 takes them, and its time on
+the rings run's captured tick (``SimConfig(obs=ObsConfig(enabled=True))``).
+Both take the package under ``--src`` (one that has the kernel), so that
+two versions are timed on one card in one call, in turns.
 
 ``--path arima`` times the ARIMA kernel alone at the device engine's
 shape (3,072 windows of 24, ARIMA_READY monitor rows ready, both
@@ -60,10 +72,7 @@ their ptxas lines and the member kernels' ``clock64()`` cycles by phase
 (``calib_observe``: staging, scan, writes; ``calib_begin``: staging, tree)
 from a stamped build (``stamped_calib``); then ``calib_observe``,
 ``calib_begin`` and the shaping step with the per-tenant tier beside the
-same launches without it, and, where the source can spread a member over
-a thread-block cluster, both kernels built with clusters of 2, 3, 4 and 8
-in turns with the single block.  Both take the package under ``--src``
-too.
+same launches without it.  Both take the package under ``--src`` too.
 
 ``--path whisper`` does the same for Whisper-large-v3 serving at full
 width (random weights): one prefill of 8 requests x 1,500 frames with
@@ -72,7 +81,7 @@ on its own, with the device time summed by kind of kernel.
 
 Run from the repository root:
 
-    python3 profile_port.py [--path sim|scan|kernels|gp|control|arima|calib|whisper]
+    python3 profile_port.py [--path sim|scan|kernels|gp|control|obs|arima|calib|whisper]
         [--src DIR]
 
 Without a CUDA device it exits with an error and prints nothing else.
@@ -358,15 +367,166 @@ def profile_kernels() -> int:
 
 
 def profile_control() -> int:
+    """control_tick's cycles by phase from a stamped build, then the
+    control plane's kernels as chip_smoke.py phase 8 times them, then
+    control_tick on the argument of a tick captured from the tenanted
+    run (member_times)."""
+    import tempfile
+    import numpy as np
     import chip_smoke
+    from repro_torch.control import TenancyConfig
     from repro_torch.core.uncertainty import CalibrationConfig
-    from repro_torch.kernels import calib, control, ref, sched
-    from repro_torch.sim import SimConfig, step
+    from repro_torch.kernels import calib, control, nvcc, ref, sched
+    from repro_torch.sim import SimConfig, WorkloadConfig, step
     print(f"package {Path(control.__file__).resolve().parents[2]}; nvidia-smi: "
           f"{chip_smoke.nvidia_smi()}")
+    for line in _ptxas(nvcc.build(control.SOURCE).log, "control_tick_kernel"):
+        print(f"  control_tick ptxas: {line}")
+    gpu = [a.cuda() if a is not None else None
+           for a in chip_smoke.control_case([chip_smoke.control_member(
+               np.random.default_rng(27), 4)], 4)]
+    with tempfile.TemporaryDirectory() as tmp:
+        member_phase_cycles(control, nvcc, Path(tmp), "control_tick", CONTROL_MARKS,
+                            lambda: control.control_tick(*gpu, **chip_smoke.CONTROL_KW))
     cases = chip_smoke.scan_kernel_cases(step, SimConfig)
     chip_smoke.time_control(control, ref, sched, cases, calib, CalibrationConfig)
+    cfg = chip_smoke.tenancy_config(SimConfig, WorkloadConfig, TenancyConfig, CalibrationConfig)
+    args, kw, note = chip_smoke.captured_args(step, cfg, "control_tick")
+    member_times("control_tick", lambda: control.control_tick(*args, **kw), note)
     return 0
+
+
+def profile_obs() -> int:
+    """obs_tick's cycles by phase from a stamped build (the default path's
+    inputs), then its times as chip_smoke.py phase 8 takes them (the
+    default path's inputs, and every feature), then on the arguments of a
+    tick captured from the rings run (member_times)."""
+    import tempfile
+    import numpy as np
+    import chip_smoke
+    from repro_torch.kernels import nvcc, ref
+    from repro_torch.kernels import obs as obs_kernel
+    from repro_torch.obs import ObsConfig
+    from repro_torch.sim import SimConfig, step
+    print(f"package {Path(obs_kernel.__file__).resolve().parents[2]}; nvidia-smi: "
+          f"{chip_smoke.nvidia_smi()}")
+    for line in _ptxas(nvcc.build(obs_kernel.SOURCE).log, "obs_tick_kernel"):
+        print(f"  obs_tick ptxas: {line}")
+    full = chip_smoke.obs_case(np.random.default_rng(26))
+    default = dict(full, **{k: v for k, v in chip_smoke.OBS_OFF.items() if k != "demand"})
+    gpu = {"default path": chip_smoke._obs_cuda(default),
+           "every feature": chip_smoke._obs_cuda(full)}
+    with tempfile.TemporaryDirectory() as tmp:
+        for what, a in gpu.items():
+            member_phase_cycles(obs_kernel, nvcc, Path(tmp) / what.replace(" ", "_"),
+                                "obs_tick", OBS_MARKS, lambda: obs_kernel.obs_tick(**a),
+                                what)
+    chip_smoke.time_obs(obs_kernel, ref)
+    args, kw, note = chip_smoke.captured_args(step, SimConfig(obs=ObsConfig(enabled=True)),
+                                              "obs_tick")
+    member_times("obs_tick", lambda: obs_kernel.obs_tick(*args, **kw), note)
+    return 0
+
+
+# The marks of the member kernels' clock64() stamps.  A source with
+# "// phase: NAME" comments takes a stamp before each (its last named
+# "end"); the earlier designs, which have none, take one before each of
+# these lines and one after their last statement (the second item).
+CONTROL_MARKS = ((("  for (int t = tid; t < 3 * T; t += kThreads) comp[t] = 0;", "staging"),
+                  ("  // the apps: the tick's events and the queue, per tenant", "apps"),
+                  ("  // the slots: tenant and allocation summed over the components", "slots"),
+                  ("  // each tenant's slots in XLA's tree: a thread per (tenant, resource,",
+                   "windows"),
+                  ("  float cap0 = 0.f, cap1 = 0.f;", "capacities"),
+                  ("  if (tid == 0) {", "mean"),
+                  ("  // a thread per tenant: the credit, the gate and the counters", "final")),
+                 "    p.o_elig[i] = elig;\n  }\n")
+OBS_MARKS = ((("  // the rings, copied to the outputs", "ring copy"),
+              ("  // the tables, staged", "staging"),
+              ("  // the queue and the admissions", "apps"),
+              ("  // a warp a window, a lane per (table, resource): its slots and their",
+               "windows"),
+              ("  // meanwhile the last thread (in a warp without a window while nw < 8)",
+               "tail"),
+              ("  float sums[2][2] = {{0.f, 0.f}, {0.f, 0.f}};", "writes")),
+             "  p.o_cursor[s] = p.cursor[s] + 1;\n")
+# the latest of block 0's warps (their first lanes, and the block's last
+# thread) to reach a mark
+MEMBER_STAMP = ("if (blockIdx.x == 0 && (threadIdx.x % 32 == 0 || threadIdx.x == blockDim.x "
+                "- 1)) atomicMax(&stamp_cyc[{i}], static_cast<unsigned long long>(clock64()));\n")
+
+
+def stamped_member(source: str, name: str, marks) -> tuple[str, list[str]]:
+    """A member kernel's source with clock64() stamps of member 0's block at
+    each mark (MEMBER_STAMP) and ``{name}_stamps(out, reset)`` to read
+    them; and the marks' names."""
+    lines = source.splitlines(keepends=True)
+    out, names = [], []
+    if any("// phase: " in line for line in lines):
+        for line in lines:
+            m = re.search(r"// phase: (.+)$", line)
+            if m:
+                out.append(MEMBER_STAMP.format(i=len(names)))
+                names.append(m.group(1).strip())
+            out.append(line)
+    else:
+        pending = list(marks[0])
+        for line in lines:
+            if pending and pending[0][0] in line:
+                out.append(MEMBER_STAMP.format(i=len(names)))
+                names.append(pending.pop(0)[1])
+            out.append(line)
+        if pending or marks[1] not in source:
+            raise ValueError(f"{name}: a phase mark was not found")
+        out = ["".join(out).replace(marks[1], marks[1] + MEMBER_STAMP.format(i=len(names)))]
+        names.append("end")
+    n = len(names)
+    text = "".join(out).replace("namespace {", f"__device__ unsigned long long stamp_cyc[{n}];\n"
+                                "namespace {", 1)
+    return text + (
+        f'extern "C" int {name}_stamps(void* out, int reset) {{\n'
+        f'  unsigned long long zero[{n}] = {{}};\n'
+        '  return static_cast<int>(reset ? cudaMemcpyToSymbol(stamp_cyc, zero, sizeof zero)\n'
+        '                                : cudaMemcpyFromSymbol(out, stamp_cyc, sizeof zero));\n'
+        '}\n'), names
+
+
+def member_phase_cycles(module, nvcc, tmp: Path, name: str, marks, fn, what="") -> None:
+    """Member 0's clock64 cycles from the earliest mark to each mark, in
+    the order they are reached (min over 20 launches of ``fn``), from a
+    stamped build of ``module``'s source (kernel_variant).  A mark is the
+    latest of the block's warps to reach it, so where warps run apart the
+    marks of each warp's own work tell when it ended."""
+    import ctypes
+    import torch
+    text, names = stamped_member(module.SOURCE.read_text(), name, marks)
+    with kernel_variant(module, nvcc, text, tmp) as lib:
+        read = getattr(lib, f"{name}_stamps")
+        read.argtypes = [ctypes.c_void_p, ctypes.c_int]
+        stamps = (ctypes.c_ulonglong * len(names))()
+        at = [float("inf")] * len(names)
+        for _ in range(20):
+            if read(None, 1) != 0:
+                raise RuntimeError(f"{name}_stamps failed")
+            fn()
+            torch.cuda.synchronize()
+            if read(stamps, 0) != 0:
+                raise RuntimeError(f"{name}_stamps failed")
+            t0 = min(x for x in stamps if x)
+            at = [min(a, stamps[i] - t0) if stamps[i] else a for i, a in enumerate(at)]
+    order = sorted(range(len(names)), key=lambda i: at[i])
+    print(f"  {name} clock64 cycles of member 0's block{', ' + what if what else ''} (min "
+          f"of 20 launches) from the earliest mark to each: " + ", ".join(
+              f"{names[i]} {at[i]}" for i in order))
+
+
+def member_times(name: str, fn, note: str) -> None:
+    """Device us a launch of ``fn`` (a CUDA graph of 50 launches, twice) on
+    a captured tick's arguments."""
+    import chip_smoke
+    us = [chip_smoke.graph_us(fn) for _ in range(2)]
+    print(f"  {name} on {note}: {'/'.join(f'{x:.3f}' for x in us)} us device a launch "
+          f"(50 launches in a CUDA graph, replayed)")
 
 
 ARIMA_READY = 61   # monitor rows ready (x2 resources), the main ARIMA run's mean
@@ -522,28 +682,28 @@ def stamped_calib(source: str) -> str:
         '}\n')
 
 
-class calib_variant:
-    """The package's calibration wrappers on a library built from ``text``
-    (a variant of csrc/calib.cu, its headers beside it) inside the
-    ``with``; the package's own library after it."""
+class kernel_variant:
+    """A kernel module's wrappers on a library built from ``text`` (a
+    variant of its source, its headers beside it) inside the ``with``; the
+    module's own library after it."""
 
-    def __init__(self, calib, nvcc, text: str, tmp: Path):
-        self.calib, self.nvcc = calib, nvcc
+    def __init__(self, module, nvcc, text: str, tmp: Path):
+        self.module, self.nvcc = module, nvcc
         tmp.mkdir(parents=True, exist_ok=True)
-        for h in calib.SOURCE.parent.glob("*.cuh"):
+        for h in module.SOURCE.parent.glob("*.cuh"):
             (tmp / h.name).write_bytes(h.read_bytes())
-        self.source = tmp / "calib.cu"
+        self.source = tmp / module.SOURCE.name
         self.source.write_text(text)
 
     def _swap(self, source):
-        self.calib._LIB = None
-        self.calib.SOURCE = source
-        self.nvcc._PREPARED.discard(("calib", 0))
+        self.module._LIB = None
+        self.module.SOURCE = source
+        self.nvcc._PREPARED.discard((self.module.SOURCE.stem, 0))
 
     def __enter__(self):
-        self.saved = self.calib.SOURCE
+        self.saved = self.module.SOURCE
         self._swap(self.source)
-        return self.calib._library()
+        return self.module._library()
 
     def __exit__(self, *exc):
         self._swap(self.saved)
@@ -555,7 +715,7 @@ def calib_phase_cycles(calib, nvcc, tmp: Path, args) -> None:
     the package's source."""
     import ctypes
     import torch
-    with calib_variant(calib, nvcc, stamped_calib(calib.SOURCE.read_text()), tmp) as lib:
+    with kernel_variant(calib, nvcc, stamped_calib(calib.SOURCE.read_text()), tmp) as lib:
         lib.calib_stamps.argtypes = [ctypes.c_void_p, ctypes.c_int]
         n = 7
         stamps = (ctypes.c_ulonglong * n)()
@@ -630,8 +790,8 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
     here = Path(__file__).resolve().parent
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--path", choices=("sim", "scan", "kernels", "gp", "control", "arima",
-                                       "calib", "whisper"),
+    ap.add_argument("--path", choices=("sim", "scan", "kernels", "gp", "control", "obs",
+                                       "arima", "calib", "whisper"),
                     default="sim")
     ap.add_argument("--src", type=Path, default=here / "src",
                     help="the directory that holds the repro_torch package")
@@ -656,6 +816,8 @@ def main() -> int:
         return profile_gp()
     if args.path == "control":
         return profile_control()
+    if args.path == "obs":
+        return profile_obs()
     if args.path == "arima":
         return profile_arima()
     if args.path == "calib":

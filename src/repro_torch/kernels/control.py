@@ -25,7 +25,8 @@ import torch
 from repro_torch.kernels import nvcc
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "control.cu"
-MAX_TENANTS = 1024   # a block's threads, a tenant each
+MAX_TENANTS = 1024
+MAX_COMPONENTS = 32   # a slot's components, held in one thread's registers
 
 _LIB: ctypes.CDLL | None = None
 
@@ -37,6 +38,8 @@ def _library() -> ctypes.CDLL:
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.control_tick.argtypes = [ptr] * 25 + [i32] * 8 + [f32] * 3 + [ptr]
         lib.control_tick.restype = i32
+        lib.control_tick_smem.argtypes = [i32] * 2
+        lib.control_tick_smem.restype = ctypes.c_size_t
         _LIB = lib
     return _LIB
 
@@ -58,13 +61,13 @@ def control_tick(credit, throttled, completed, failed, share_sum, active_ticks, 
     H = host_cap.shape[0]
     if not 1 <= T <= MAX_TENANTS:
         raise ValueError(f"{T} tenants: the kernel takes 1..{MAX_TENANTS}")
-    windows = -(-A // 32) if A > 32 else 1
-    smem = (2 * A * C + 2 * A + 2 * T * windows + T) * 4 + (3 * T + A) * 4 + T
-    if not (1 <= A <= 1024 and C >= 1) or smem > 48 * 1024:
-        raise ValueError(f"A={A} slots of C={C} components, T={T} tenants: the kernel takes "
-                         f"A <= 1024 (its tree sums' windows in one level) and its tables, the "
-                         f"slot table's allocations among them, in 48 KB of shared memory "
-                         f"({smem} B)")
+    if not (1 <= A <= 1024 and 1 <= C <= MAX_COMPONENTS):
+        raise ValueError(f"A={A} slots of C={C} components: the kernel takes A <= 1024 (its "
+                         f"tree sums' windows in one level) and C <= {MAX_COMPONENTS}")
+    smem = _library().control_tick_smem(T, A)
+    if smem > 48 * 1024:
+        raise ValueError(f"A={A} slots, T={T} tenants: the kernel's tables take {smem} B of "
+                         f"shared memory, more than 48 KB")
     if (d_res is None) != (d_err is None):
         raise ValueError("d_res and d_err come together")
     f32, i32, b = torch.float32, torch.int32, torch.bool

@@ -123,44 +123,30 @@ constexpr int kWarpCap = 512;              // the largest ring a warp selects in
 constexpr int kBlockCap = 32 * kScaleThreads;   // the largest ring a block selects in
 constexpr int kWindow = 32;                // XLA:CPU's tree-reduction window
 
-// max and min as XLA takes them: NaN when either is NaN (the first where
-// both are, as numpy), and the max of two zeros +0 unless both are -0
-// (ref.py:fmax; numpy's maximum keeps its second operand of two zeros)
-__device__ __forceinline__ float max_nan(float a, float b) {
-  if (a != a) return a;
-  if (b != b) return b;
-  return a == b ? __int_as_float(__float_as_int(a) & __float_as_int(b)) : fmaxf(a, b);
-}
+// min as XLA takes it: NaN when either is NaN; the max is xla::fmax
+// (the first of two NaNs where its sign bit is set, else the second; +0
+// above -0: ref.py:fmax)
 __device__ __forceinline__ float min_nan(float a, float b) {
   return (a <= b || a != a) ? a : b;
 }
 
-// a op b where the plain result r is a NaN, as x86 (the plain version's
-// numpy) gives it: a NaN operand, the first, quieted; else (inf - inf, 0 /
-// 0, ...) x86's default NaN.  CUDA's arithmetic returns its canonical NaN
-// 0x7fffffff instead.
-constexpr unsigned kDefaultNaN = 0xffc00000u;
-__device__ __forceinline__ float quiet(float a) {
-  return __uint_as_float(__float_as_uint(a) | 0x400000u);
-}
-__device__ __forceinline__ float nan_x86(float a, float b) {
-  return a != a ? quiet(a) : b != b ? quiet(b) : __uint_as_float(kDefaultNaN);
-}
+// a op b with x86's NaN where the plain result r is a NaN (the plain
+// version's numpy; xla::nan_x86), subnormals kept
 __device__ __forceinline__ float add_x86(float a, float b) {
   const float r = __fadd_rn(a, b);
-  return r == r ? r : nan_x86(a, b);
+  return r == r ? r : xla::nan_x86(a, b);
 }
 __device__ __forceinline__ float sub_x86(float a, float b) {
   const float r = __fsub_rn(a, b);
-  return r == r ? r : nan_x86(a, b);
+  return r == r ? r : xla::nan_x86(a, b);
 }
 __device__ __forceinline__ float div_x86(float a, float b) {
   const float r = __fdiv_rn(a, b);
-  return r == r ? r : nan_x86(a, b);
+  return r == r ? r : xla::nan_x86(a, b);
 }
 __device__ __forceinline__ float sqrt_x86(float a) {
   const float r = __fsqrt_rn(a);
-  return r == r ? r : nan_x86(a, a);
+  return r == r ? r : xla::nan_x86(a, a);
 }
 
 // a thread-block cluster's barrier in halves: arrive (what this thread
@@ -189,14 +175,15 @@ struct Tier {
   int A, C, N, T;
 };
 
-// the tenant of series row r (of R = 2M) of member s: its slot's app's,
-// -1 for an empty slot (or a tenant id outside [0, T))
+// the tenant id of series row r (of R = 2M) of member s: its slot's
+// app's as the trace holds it, -1 for an empty slot (or an app id out of
+// range).  Where a tenant's quantile or group ring is read, an id of T or
+// more reads tenant T - 1's (the reference's gathers clamp it), a
+// negative one none (ref.py:row_groups).
 __device__ __forceinline__ int row_group(const Tier& t, int s, int r, int M) {
   const int mr = r < M ? r : r - M;
   const int gid = t.slot_gid[static_cast<size_t>(s) * t.A + mr / t.C];
-  if (gid < 0) return -1;
-  const int g = t.tenant[static_cast<size_t>(s) * t.N + gid];
-  return (g >= 0 && g < t.T) ? g : -1;
+  return gid < 0 || gid >= t.N ? -1 : t.tenant[static_cast<size_t>(s) * t.N + gid];
 }
 
 // a tenant's target quantile from its credit (repro/control/credit.py:46,
@@ -204,7 +191,7 @@ __device__ __forceinline__ int row_group(const Tier& t, int s, int r, int M) {
 __device__ __forceinline__ float tenant_q(float q, float credit, float spread, float q_min,
                                           float q_max) {
   const float lin = __fsub_rn(1.f, __fmul_rn(2.f, credit));
-  return min_nan(max_nan(xla::fma_f32(spread, lin, q), q_min), q_max);
+  return min_nan(xla::fmax(xla::fma_f32(spread, lin, q), q_min), q_max);
 }
 
 // ---------------------------------------------------------------------
@@ -252,11 +239,11 @@ __device__ __forceinline__ Row observe_row(const ObserveArgs& p, int s, int r,
                "f"(scale));
   Row o;
   const bool act = active && l > 0;
-  o.peak = act ? max_nan(pk, use) : pk;
+  o.peak = act ? xla::fmax(pk, use) : pk;
   o.left = l - (act ? 1 : 0);
   o.fire = act && o.left == 0;
   o.ok = o.fire && mon == due;
-  o.score = div_x86(sub_x86(o.peak, mean), max_nan(sigma, 1e-6f));
+  o.score = div_x86(sub_x86(o.peak, mean), xla::fmax(sigma, 1e-6f));
   o.err = o.ok && o.peak > xla::fma_f32(scale, sigma, mean);
   return o;
 }
@@ -498,7 +485,7 @@ __device__ __forceinline__ void observe_member(const ObserveArgs& p, int s, bool
   p.o_dropped[s] = dropped + static_cast<int>(n_drop);
   if (p.adaptive && n_ok > 0) {
     const float rate = __fdiv_rn(static_cast<float>(n_err), static_cast<float>(n_ok));
-    q = min_nan(max_nan(xla::fma_f32(p.gamma, __fsub_rn(rate, p.budget), q), p.q_min),
+    q = min_nan(xla::fmax(xla::fma_f32(p.gamma, __fsub_rn(rate, p.budget), q), p.q_min),
                 p.q_max);
   }
   p.o_q[s] = q;
@@ -576,8 +563,8 @@ __device__ __forceinline__ float row_q(const ScaleArgs& p, int set, int row) {
   const float q = p.q[m];
   if (!p.credit || set == 1) return q;
   const int g = set == 2 ? row % per : row_group(p.tier, m, row % per, per / 2);
-  return g < 0 ? q : tenant_q(q, p.credit[static_cast<size_t>(m) * p.tier.T + g], p.spread,
-                              p.q_min, p.q_max);
+  return g < 0 ? q : tenant_q(q, p.credit[static_cast<size_t>(m) * p.tier.T + min(g, p.tier.T - 1)],
+                              p.spread, p.q_min, p.q_max);
 }
 
 // a float32's key in jnp.sort's order
@@ -831,7 +818,7 @@ __device__ __forceinline__ float sum32(const float* w) {
   a = seg == 0 ? -0.f : seg == 1 ? at[0] : seg == 2 ? at[1] : at[2];
   for (int j = 8 * seg; j < 8 * seg + 8; ++j) {
     const float x = w[j], next = __fadd_rn(a, x);
-    if (next != next) return x != x ? quiet(x) : __uint_as_float(kDefaultNaN);
+    if (next != next) return x != x ? xla::quiet(x) : __uint_as_float(xla::kDefaultNaN);
     a = next;
   }
   return a;                                // not reached: the segment turns NaN
@@ -842,16 +829,7 @@ __device__ __forceinline__ float sum32(const float* w) {
 // distinct banks
 constexpr int kSlots = kWindow + 4;
 
-// XLA:CPU's windows over n terms (ref.py:xla_sum): over more than 32
-// terms the axis padded to a multiple of 32, the padding split between its
-// ends (lo of it before the first term), each window summed in order from
-// its first term; 32 or fewer, one window
-struct Windows {
-  int lo, count;
-  __device__ __host__ __forceinline__ explicit Windows(int n)
-      : lo(n <= kWindow ? 0 : ((n + kWindow - 1) / kWindow * kWindow - n) / 2),
-        count(n <= kWindow ? 1 : (n + kWindow - 1) / kWindow) {}
-};
+using xla::Windows;   // XLA:CPU's windows over n terms (ref.py:xla_sum)
 // calib_begin sums R rows in at most three levels: windows of rows, of
 // their sums, and the last sum of 32 or fewer
 static_assert(kMaxRows / kWindow <= kWindow * kWindow, "more than three levels");
@@ -878,8 +856,8 @@ struct BeginArgs {
 
 // Blocks 0 .. kClusterBlocks - 1 of row m of the grid, a cluster, take
 // member m, each a run of whole windows of XLA's tree over its R rows.
-// With the tier each block first stages each slot's tenant (-1 for an
-// empty slot, or an app or tenant id out of range) and the group rings'
+// With the tier each block first stages each slot's tenant id (-1 for an
+// empty slot, or an app id out of range; row_group) and the group rings'
 // counts and quantiles in shared memory, so a row's group is one
 // shared-memory read.  A thread a row: the hierarchy's scale
 // and calib_begin's registration, and the deployed scale written to the
@@ -914,8 +892,7 @@ __global__ void __launch_bounds__(kThreads) calib_begin_kernel(const BeginArgs p
   if (tier) {
     for (int i = tid; i < A; i += kThreads) {
       const int gid = p.tier.slot_gid[static_cast<size_t>(m) * A + i];
-      const int g = gid < 0 || gid >= N ? -1 : p.tier.tenant[static_cast<size_t>(m) * N + gid];
-      t_slot[i] = g >= 0 && g < T ? g : -1;
+      t_slot[i] = gid < 0 || gid >= N ? -1 : p.tier.tenant[static_cast<size_t>(m) * N + gid];
     }
     for (int i = tid; i < T; i += kThreads) {
       t_gcount[i] = p.group_count[static_cast<size_t>(m) * T + i];
@@ -960,10 +937,9 @@ __global__ void __launch_bounds__(kThreads) calib_begin_kernel(const BeginArgs p
     float fb_row = fb;
     int grp = -1;
     if (tier) {
-      const int g = t_slot[mr / p.tier.C];
-      if (g >= 0) {
-        grp = g;
-        const int gc = t_gcount[g];
+      grp = t_slot[mr / p.tier.C];
+      if (grp >= 0) {
+        const int g = min(grp, T - 1), gc = t_gcount[g];
         if (min(gc, p.gcap) >= p.min_scores) fb_row = gc == 0 ? fb : t_graw[g];
       }
     }
@@ -974,7 +950,7 @@ __global__ void __launch_bounds__(kThreads) calib_begin_kernel(const BeginArgs p
     n_dep += dep;
     const bool reg = dep && left == 0;
     p.o_mean[i] = reg ? mean : c_mean;
-    p.o_sigma[i] = reg ? sqrt_x86(max_nan(var, 0.f)) : c_sigma;
+    p.o_sigma[i] = reg ? sqrt_x86(xla::fmax(var, 0.f)) : c_sigma;
     p.o_cscale[i] = reg ? scale : c_scale;
     p.o_peak[i] = reg ? -INFINITY : c_peak;
     p.o_left[i] = reg ? p.horizon : left;
@@ -1007,7 +983,7 @@ __global__ void __launch_bounds__(kThreads) calib_begin_kernel(const BeginArgs p
   if (lane != 0) return;
   const float sum = sum32(last);
   for (int c = 0; c < nb; ++c) scale_n += s_bdep[c];
-  p.o_scale_sum[m] = add_x86(scale_sum, sum);
+  p.o_scale_sum[m] = add_x86(sum, scale_sum);   // XLA's operand order (ref.py:_add_nan_x86)
   p.o_scale_n[m] = scale_n;
   // phase: begin end
 }

@@ -9,7 +9,7 @@
 // kernels a tick).  Its plain version is
 // repro_torch/kernels/ref.py:obs_tick; every output equals it to the bit.
 //
-// Arithmetic, as the reference's compiled tick rounds it:
+// Arithmetic, as the reference's compiled tick rounds it on x86:
 //   * the usage and the shaped demand are each summed over the slot
 //     table's (A, C) in XLA:CPU's tree (ref.py:xla_sum with group = C):
 //     windows of 32 slots (the slot axis padded to a multiple of 32, the
@@ -18,56 +18,92 @@
 //     in order; 32 slots or fewer in order.  The gap is the demand's sum
 //     minus the usage's;
 //   * the credit channel is the sum of credit * active over the tenants
-//     in the same tree, divided by the count of active tenants.
+//     in the same tree, divided by the count of active tenants;
+//   * subnormals as x86's denormals-are-zero and flush-to-zero give them,
+//     and a NaN as x86 gives it: the first NaN operand of an add, a
+//     product or a quotient, quieted, or x86's default NaN for inf - inf
+//     (ref.py:add_xla, sub_xla, mul_xla, div_xla).
 // The int channels are counts and counter deltas, exact in any order.
 //
-// Design: one block of kThreads per member.  The block copies the
-// member's rings to the outputs and stages the two (A, C, 2) tables in
-// shared memory (coalesced, several loads in flight a thread), and counts
-// the queue and the admissions over the apps (a shared atomic per warp);
-// a warp per window, four of its lanes per (table, resource), sums the
-// window from shared memory (the tables kPad floats apart, so the four
-// lanes read four banks; with a table start or a window a multiple of 32
-// floats from another, one lane per window in one warp would read one
-// bank); meanwhile the last thread reads the counters and the tenant
-// state and forms the deltas and the credit mean, then adds the windows
-// and writes the member's column.  On an NVIDIA H100 at the widths below
-// it takes 6.8 us a launch; the first version (a thread per (table,
-// resource, window), all in one warp, and thread 0's tail after the sums)
-// took 9.3-9.5 us.  What bounds it: the
-// bytes of one read of the two tables and the rings and one write of the
-// rings (~39 KB a member at the main path's widths, A = 128 slots of C =
-// 12 components, N = 500 apps, R = 128); at these sizes a launch is
-// latency, the longest chain being a window's 384 dependent adds.
+// Design: one block of kThreads a member, its warps each on one task
+// from the start, one block barrier.  Warps 4-7 each take a window of
+// XLA's tree: its first lane sets an mbarrier and has the Tensor Memory
+// Accelerator copy the window's slots of the two (A, C, 2) tables into
+// shared memory (cp.async.bulk, completing on the barrier; plain loads
+// behind a block barrier where a window's rows are not 16-byte aligned,
+// C odd), and as soon as they land two lanes, a table each, run its two
+// resources' chains side by side over float4 reads, in XLA's order (a
+// window's 32 C adds, the floor of the kernel).  Meanwhile warp 0 loads
+// the cursor, the counters and the tenant state, a lane each, counts the
+// queue and the admissions a word of four apps a lane, and forms the
+// deltas and the credit mean (its tree over T by the lanes, a shuffle a
+// term); warps 1-3 copy the member's rings to the outputs, 16 bytes a
+// lane, every load of a thread before its stores.  After the barrier
+// warp 0 adds the windows and writes the column.  The tables are copied
+// and summed before the member's active flag is known (an inactive
+// member's sums go unused), so that no load stands before the copies.
+// What bounds it: the bytes of one read of the two tables and the rings
+// and one write of the rings (~39 KB a member at the main path's widths,
+// A = 128 slots of C = 12 components, N = 500 apps, R = 128); at these
+// sizes a launch is latency, the longest chain being a window's 384
+// dependent adds.  On an NVIDIA H100 at those widths a launch takes
+// 3.8 us, about 6,300 cycles, ~2,600 of them a window's chain.
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
+
+#include "xla_fma.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kWindow = 32;     // XLA:CPU's tree-reduction window
+constexpr int kChainWarp0 = 4;                  // warps 4-7: the windows' chains
+constexpr int kChainWarps = kThreads / 32 - kChainWarp0;
+constexpr int kWindow = xla::kWindow;
+constexpr int kMaxWindows = 32;                 // A <= 1024
 constexpr int kF32 = 5, kI32 = 8;
-constexpr int kPad = 2;         // floats between the staged tables
+constexpr int kBatch = 8;                       // float4s a chain reads ahead
+// floats after each staged window: a chain's batch read ahead, and 4 more
+// so that windows 32 C + kPad floats apart sit 4 banks apart
+constexpr int kPad = 4 * kBatch + 4;
+constexpr int kMaxSmem = 47 * 1024;             // dynamic: 48 KB less the static tables
+constexpr unsigned kFull = 0xffffffffu;
 
-// float32 sum of x(0), ..., x(n - 1) in XLA:CPU's order, by one thread:
-// 32 or fewer in order; more (up to 32 * 32) in windows of 32, each in
-// order, then the window sums in order
-template <class F>
-__device__ float tree_sum(int n, const F& x) {
-  if (n <= kWindow) {
-    float a = 0.f;
-    for (int j = 0; j < n; ++j) a = j ? __fadd_rn(a, x(j)) : x(j);
-    return a;
+using xla::Windows;
+
+// ---- the mbarrier and the bulk copy (PTX) ----
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes) : "memory");
+}
+// Returns once the barrier's first phase completed.  The copies are this
+// block's own, so a wait past 2^26 polls is a fault: trap, and the launch
+// fails instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar) {
+  uint32_t done;
+  for (uint32_t polls = 0;; ++polls) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_u32(bar)) : "memory");
+    if (done) return;
+    if (polls == (1u << 26)) __trap();
   }
-  const int padded = (n + kWindow - 1) / kWindow * kWindow, lo = (padded - n) / 2;
-  float top = 0.f;
-  for (int w = 0; w < padded / kWindow; ++w) {
-    const int j0 = max(w * kWindow - lo, 0), j1 = min(w * kWindow + kWindow - lo, n);
-    float a = x(j0);
-    for (int j = j0 + 1; j < j1; ++j) a = __fadd_rn(a, x(j));
-    top = w ? __fadd_rn(top, a) : a;
-  }
-  return top;
+}
+// bytes (a multiple of 16) from global src to shared dst, both 16-byte
+// aligned, completing on bar
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar)) : "memory");
 }
 
 struct Args {
@@ -83,139 +119,280 @@ struct Args {
   int A, C, N, T, R;
 };
 
+// floats a staged window takes: 32 slots of C components of 2, and kPad
+__device__ __host__ __forceinline__ int window_floats(int C) { return kWindow * C * 2 + kPad; }
+
+// n words from src to dst by threads [0, nt) of the block (tid among them),
+// 16 bytes a load where both are aligned, each thread's loads issued
+// before its stores
+__device__ __forceinline__ void copy_words(int* dst, const int* src, int n, int tid, int nt) {
+  constexpr int kLoads = 8;
+  if (((reinterpret_cast<uintptr_t>(dst) | reinterpret_cast<uintptr_t>(src)) & 15) == 0) {
+    const int n4 = n / 4;
+    for (int i0 = tid; i0 < n4; i0 += kLoads * nt) {
+      int4 v[kLoads];
+#pragma unroll
+      for (int k = 0; k < kLoads; ++k)
+        if (i0 + k * nt < n4) v[k] = reinterpret_cast<const int4*>(src)[i0 + k * nt];
+#pragma unroll
+      for (int k = 0; k < kLoads; ++k)
+        if (i0 + k * nt < n4) reinterpret_cast<int4*>(dst)[i0 + k * nt] = v[k];
+    }
+    for (int i = 4 * n4 + tid; i < n; i += nt) dst[i] = src[i];
+  } else {
+    for (int i = tid; i < n; i += nt) dst[i] = src[i];
+  }
+}
+
+// Warp 0's channels: the cursor, the counters' deltas, the tenants' and
+// the queue's
+struct Tail {
+  int cursor, lead, oom, fail, preempt, throttled, res, err, queue, admitted;
+  float credit;
+};
+
+__device__ __forceinline__ Tail tail(const Args& p, int s, int lane) {
+  // a lane a value: 0 the cursor, 1-4 the counters, 5-8 at entry, 9-12
+  // the calibration's now and at entry, 13 the lead
+  int v = 0;
+  if (lane == 0) v = p.cursor[s];
+  else if (lane <= 4) v = p.cnt[lane - 1][s];
+  else if (lane <= 8) v = p.cnt0[lane - 5][s];
+  else if (lane <= 12 && p.resolved)
+    v = (lane == 9 ? p.resolved : lane == 10 ? p.errors : lane == 11 ? p.resolved0 : p.errors0)[s];
+  else if (lane == 13 && p.lead) v = p.lead[s];
+  // the queue and the admissions (apps that left the queue), a word of four
+  // apps a lane where the rows allow
+  const size_t sn = static_cast<size_t>(s) * p.N;
+  const uint8_t* q = p.queued + sn;
+  const uint8_t* qa = p.q_admit + sn;
+  int nq = 0, na = 0;
+  if (p.N % 4 == 0 && ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(qa)) & 3) == 0) {
+    for (int i = lane; i < p.N / 4; i += 32) {
+      const unsigned wq = reinterpret_cast<const unsigned*>(q)[i];
+      const unsigned wa = reinterpret_cast<const unsigned*>(qa)[i];
+      nq += __popc(wq);
+      na += __popc(wa & ~wq & 0x01010101u);
+    }
+  } else {
+    for (int n = lane; n < p.N; n += 32) {
+      nq += q[n];
+      na += qa[n] && !q[n];
+    }
+  }
+  Tail o;
+  const auto at = [&](int k) { return __shfl_sync(kFull, v, k); };
+  o.cursor = at(0);
+  o.lead = at(13);
+  o.oom = at(1) - at(5);
+  o.fail = at(2) - at(6);
+  o.preempt = at(3) + at(4) - at(7) - at(8);
+  o.res = at(9) - at(11);
+  o.err = at(10) - at(12);
+  o.queue = __reduce_add_sync(kFull, nq);
+  o.admitted = __reduce_add_sync(kFull, na);
+  o.throttled = 0;
+  o.credit = 0.f;
+  if (!p.credit) return o;
+  const int T = p.T;
+  const size_t st = static_cast<size_t>(s) * T;
+  const Windows tw(T);
+  // lane t's tenants t, t + 32, ...: the counts, and where T <= 32 its term
+  // credit * active in a register
+  int n = 0, thr = 0;
+  float x = 0.f;
+  for (int t = lane; t < max(T, 32); t += 32) {
+    const bool in = t < T;
+    const int at1 = in ? p.active_ticks[st + t] : 0, at0 = in ? p.active_ticks0[st + t] : 0;
+    const float c = in ? p.credit[st + t] : 0.f;
+    thr += in ? p.throttled[st + t] - p.throttled0[st + t] : 0;
+    n += at1 > at0;
+    if (T <= kWindow) x = xla::mul(c, at1 > at0 ? 1.f : 0.f);
+  }
+  o.throttled = __reduce_add_sync(kFull, thr);
+  n = __reduce_add_sync(kFull, n);
+  float sum;
+  if (T <= kWindow) {
+    sum = xla::fold([&](auto add) {
+      float a = __shfl_sync(kFull, x, 0);
+      for (int u = 1; u < T; ++u) a = add(a, __shfl_sync(kFull, x, u));
+      return make_float2(a, 0.f);
+    }).x;
+  } else {              // lane w: window w of the tenants, then the windows
+    const auto term = [&](int t) {
+      return xla::mul(p.credit[st + t],
+                      p.active_ticks[st + t] > p.active_ticks0[st + t] ? 1.f : 0.f);
+    };
+    float ws = 0.f;
+    if (lane < tw.count)
+      ws = xla::fold([&](auto add) {
+        const int j0 = tw.first(lane), j1 = tw.end(lane, T);
+        float a = term(j0);
+        for (int j = j0 + 1; j < j1; ++j) a = add(a, term(j));
+        return make_float2(a, 0.f);
+      }).x;
+    sum = xla::fold([&](auto add) {
+      float a = __shfl_sync(kFull, ws, 0);
+      for (int w = 1; w < tw.count; ++w) a = add(a, __shfl_sync(kFull, ws, w));
+      return make_float2(a, 0.f);
+    }).x;
+  }
+  o.credit = n > 0 ? xla::div(sum, static_cast<float>(n)) : 0.f;
+  return o;
+}
+
+// A window's chain over staged floats x: n units of (cpu, mem) pairs, in
+// order from the first.  With n even the fast path reads float4s, a batch
+// of kBatch ahead of the adds, whole batches without a branch (the reads
+// ahead unconditional: a staged window has kBatch float4s of padding after
+// it); a NaN at its end, or n odd, takes the plain chain, with x86's adds
+// where the fast one ended in a NaN.
+__device__ __forceinline__ float2 chain(const float* x, int n) {
+  const auto plain = [&](auto add) {
+    float2 a = make_float2(x[0], x[1]);
+    for (int j = 1; j < n; ++j) a = make_float2(add(a.x, x[2 * j]), add(a.y, x[2 * j + 1]));
+    return a;
+  };
+  if (n % 2 == 1) return xla::fold(plain);
+  const float4* x4 = reinterpret_cast<const float4*>(x);
+  const int n4 = n / 2;
+  const auto add2 = [](float2 a, float4 v) {
+    return make_float2(xla::add_ftz(xla::add_ftz(a.x, v.x), v.z),
+                       xla::add_ftz(xla::add_ftz(a.y, v.y), v.w));
+  };
+  const float4 v0 = x4[0];
+  float2 a = make_float2(xla::add_ftz(v0.x, v0.z), xla::add_ftz(v0.y, v0.w));
+  int i = 1;                // whole batches without a condition, then the rest
+  float4 cur[kBatch];
+#pragma unroll
+  for (int k = 0; k < kBatch; ++k) cur[k] = x4[i + k];
+  for (; i + kBatch <= n4; i += kBatch) {
+    float4 nxt[kBatch];
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) nxt[k] = x4[i + kBatch + k];
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) a = add2(a, cur[k]);
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) cur[k] = nxt[k];
+  }
+  for (; i < n4; ++i) a = add2(a, x4[i]);
+  if (a.x != a.x || a.y != a.y) a = plain(xla::AddX86{});
+  return a;
+}
+
 __global__ void __launch_bounds__(kThreads) obs_tick_kernel(const Args p) {
   extern __shared__ __align__(16) float smem[];
-  const int s = blockIdx.x, tid = threadIdx.x, R = p.R, AC2 = p.A * p.C * 2;
+  __shared__ uint64_t s_bar[kMaxWindows];
+  __shared__ float s_part[2][2][kMaxWindows];    // [table][resource][window]
+  const int s = blockIdx.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int R = p.R, A = p.A, C = p.C;
   const int ntab = p.demand ? 2 : 1;
-  const int padded = (p.A + kWindow - 1) / kWindow * kWindow;
-  const int nw = p.A > kWindow ? padded / kWindow : 1;
-  const int lo = p.A > kWindow ? (padded - p.A) / 2 : 0;
-  // usage at 0, demand kPad floats after it: a warp's four lanes of a
-  // window (table, resource) then read four banks
-  float* tab = smem;                               // [ntab][A * C * 2 (+ kPad)]
-  float* part = tab + ntab * (AC2 + kPad);         // [ntab][2][nw] window sums
-  __shared__ int queue, admitted;
-  if (tid == 0) queue = admitted = 0;
-
-  // the rings, copied to the outputs
-  {
-    const float* f = p.f32 + size_t(s) * kF32 * R;
-    float* of = p.o_f32 + size_t(s) * kF32 * R;
-    for (int j = tid; j < kF32 * R; j += kThreads) of[j] = f[j];
-    const int* i = p.i32 + size_t(s) * kI32 * R;
-    int* oi = p.o_i32 + size_t(s) * kI32 * R;
-    for (int j = tid; j < kI32 * R; j += kThreads) oi[j] = i[j];
-    if (p.lead_ring)
-      for (int j = tid; j < R; j += kThreads)
-        p.o_lead_ring[size_t(s) * R + j] = p.lead_ring[size_t(s) * R + j];
-  }
+  const Windows win(A);
+  const int wf = window_floats(C);
+  // phase: staging
   const bool on = p.active[s];
+  const bool bulk = C % 2 == 0 &&
+      ((reinterpret_cast<uintptr_t>(p.usage) | reinterpret_cast<uintptr_t>(p.demand)) & 15) == 0;
+  const size_t tab0 = static_cast<size_t>(s) * A * C * 2;
+  if (!bulk) {                        // rows not 16-byte aligned: plain loads
+    for (int w = 0; w < win.count; ++w) {
+      const int a0 = win.first(w), n = (win.end(w, A) - a0) * C * 2;
+      for (int t = 0; t < ntab; ++t)
+        for (int j = tid; j < n; j += kThreads)
+          smem[(w * ntab + t) * wf + j] = (t ? p.demand : p.usage)[tab0 + a0 * C * 2 + j];
+    }
+    __syncthreads();
+  }
+  Tail o{};
+  if (warp >= kChainWarp0) {
+    // a warp's windows: its first lane sets their barriers and has the
+    // Tensor Memory Accelerator copy both tables' slots of each
+    const int w0 = warp - kChainWarp0;
+    if (bulk && lane == 0) {
+      for (int w = w0; w < win.count; w += kChainWarps) mbar_init(&s_bar[w]);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      for (int w = w0; w < win.count; w += kChainWarps) {
+        const int a0 = win.first(w), a1 = win.end(w, A);
+        const uint32_t bytes = (a1 - a0) * C * 2 * 4;
+        mbar_expect_tx(&s_bar[w], ntab * bytes);
+        for (int t = 0; t < ntab; ++t)
+          bulk_copy(smem + (w * ntab + t) * wf, (t ? p.demand : p.usage) + tab0 + a0 * C * 2,
+                    bytes, &s_bar[w]);
+      }
+    }
+    __syncwarp();
+    // phase: chains
+    if (lane < ntab)                  // lane t: table t, both resources
+      for (int w = w0; w < win.count; w += kChainWarps) {
+        if (bulk) mbar_wait(&s_bar[w]);
+        // phase: landed
+        const float2 sum = chain(smem + (w * ntab + lane) * wf,
+                                 (win.end(w, A) - win.first(w)) * C);
+        s_part[lane][0][w] = sum.x;
+        s_part[lane][1][w] = sum.y;
+      }
+    // phase: chains done
+  } else if (warp == 0) {
+    // phase: tail
+    o = tail(p, s, lane);
+    // phase: tail done
+  } else {
+    // phase: ring copy
+    const int nt = 32 * (kChainWarp0 - 1), t = tid - 32;
+    copy_words(reinterpret_cast<int*>(p.o_f32) + static_cast<size_t>(s) * kF32 * R,
+               reinterpret_cast<const int*>(p.f32) + static_cast<size_t>(s) * kF32 * R,
+               kF32 * R, t, nt);
+    copy_words(p.o_i32 + static_cast<size_t>(s) * kI32 * R,
+               p.i32 + static_cast<size_t>(s) * kI32 * R, kI32 * R, t, nt);
+    if (p.lead_ring)
+      copy_words(p.o_lead_ring + static_cast<size_t>(s) * R,
+                 p.lead_ring + static_cast<size_t>(s) * R, R, t, nt);
+    // phase: ring copy done
+  }
+  __syncthreads();
+  if (warp != 0) return;
+  // phase: writes
   if (!on) {
-    if (tid == 0) p.o_cursor[s] = p.cursor[s];
+    if (lane == 0) p.o_cursor[s] = o.cursor;
     return;
   }
-  // the tables, staged
-  const float* u = p.usage + size_t(s) * AC2;
-#pragma unroll 4
-  for (int j = tid; j < AC2; j += kThreads) tab[j] = u[j];
-  if (p.demand) {
-    const float* d = p.demand + size_t(s) * AC2;
-#pragma unroll 4
-    for (int j = tid; j < AC2; j += kThreads) tab[AC2 + kPad + j] = d[j];
-  }
-  __syncthreads();
-  // the queue and the admissions
-  int nq = 0, na = 0;
-  const size_t sn = size_t(s) * p.N;
-  for (int n = tid; n < p.N; n += kThreads) {
-    const bool q = p.queued[sn + n];
-    nq += q;
-    na += p.q_admit[sn + n] && !q;
-  }
-  for (int off = 16; off; off >>= 1) {
-    nq += __shfl_down_sync(0xffffffffu, nq, off);
-    na += __shfl_down_sync(0xffffffffu, na, off);
-  }
-  if ((tid & 31) == 0) {
-    atomicAdd(&queue, nq);
-    atomicAdd(&admitted, na);
-  }
-  // a warp a window, a lane per (table, resource): its slots and their
-  // components in order
-  const int warp = tid / 32, lane = tid % 32;
-  if (lane < 2 * ntab) {
-    const int t = lane / 2, r = lane % 2;
-    const float* x = tab + t * (AC2 + kPad) + r;
-    for (int w = warp; w < nw; w += kThreads / 32) {
-      const int a0 = max(w * kWindow - lo, 0);
-      const int a1 = nw > 1 ? min(w * kWindow + kWindow - lo, p.A) : p.A;
-      const int j0 = a0 * p.C, j1 = a1 * p.C;
-      float acc = x[2 * j0];
-#pragma unroll 16
-      for (int j = j0 + 1; j < j1; ++j) acc = __fadd_rn(acc, x[2 * j]);
-      part[(t * 2 + r) * nw + w] = acc;
-    }
-  }
-  // meanwhile the last thread (in a warp without a window while nw < 8)
-  // reads the counters and the tenant state and forms the deltas and the
-  // credit mean
-  const bool last = tid == kThreads - 1;
-  int col = 0, d_oom = 0, d_fail = 0, d_pre = 0, throttled = 0, d_res = 0, d_err = 0;
-  float credit = 0.f;
-  if (last) {
-    col = p.cursor[s] % R;
-    d_oom = p.cnt[0][s] - p.cnt0[0][s];
-    d_fail = p.cnt[1][s] - p.cnt0[1][s];
-    d_pre = p.cnt[2][s] + p.cnt[3][s] - p.cnt0[2][s] - p.cnt0[3][s];
-    if (p.resolved) {
-      d_res = p.resolved[s] - p.resolved0[s];
-      d_err = p.errors[s] - p.errors0[s];
-    }
-    if (p.credit) {
-      const size_t st = size_t(s) * p.T;
-      int n = 0;
-      for (int t = 0; t < p.T; ++t) {
-        n += p.active_ticks[st + t] > p.active_ticks0[st + t];
-        throttled += p.throttled[st + t] - p.throttled0[st + t];
-      }
-      const float sum = tree_sum(p.T, [&](int t) {
-        return __fmul_rn(p.credit[st + t],
-                         p.active_ticks[st + t] > p.active_ticks0[st + t] ? 1.f : 0.f);
-      });
-      if (n > 0) credit = __fdiv_rn(sum, static_cast<float>(n));
-    }
-  }
-  __syncthreads();
-  if (!last) return;
-
-  float sums[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
-  for (int t = 0; t < ntab; ++t)
-    for (int r = 0; r < 2; ++r) {
-      const float* w = part + (t * 2 + r) * nw;
-      float a = w[0];
-      for (int k = 1; k < nw; ++k) a = __fadd_rn(a, w[k]);
-      sums[t][r] = a;
-    }
-  float* of = p.o_f32 + size_t(s) * kF32 * R + col;
-  of[0] = sums[0][0];
-  of[R] = sums[0][1];
-  of[2 * R] = p.demand ? __fsub_rn(sums[1][0], sums[0][0]) : 0.f;
-  of[3 * R] = p.demand ? __fsub_rn(sums[1][1], sums[0][1]) : 0.f;
-  of[4 * R] = credit;
-  int* oi = p.o_i32 + size_t(s) * kI32 * R + col;
-  oi[0] = queue;
-  oi[R] = d_oom;
-  oi[2 * R] = d_fail;
-  oi[3 * R] = d_pre;
-  oi[4 * R] = admitted;
-  oi[5 * R] = throttled;
-  oi[6 * R] = d_res;
-  oi[7 * R] = d_err;
-  if (p.lead_ring) p.o_lead_ring[size_t(s) * R + col] = p.lead ? p.lead[s] : 0;
-  p.o_cursor[s] = p.cursor[s] + 1;
+  // lanes 0-3: (table, resource)'s windows in order
+  float total = 0.f;
+  const int t = lane >> 1, r = lane & 1;
+  if (lane < 2 * ntab)
+    total = xla::fold([&](auto add) {
+      float a = s_part[t][r][0];
+      for (int w = 1; w < win.count; ++w) a = add(a, s_part[t][r][w]);
+      return make_float2(a, 0.f);
+    }).x;
+  const float u0 = __shfl_sync(kFull, total, 0), u1 = __shfl_sync(kFull, total, 1);
+  const float d0 = __shfl_sync(kFull, total, 2), d1 = __shfl_sync(kFull, total, 3);
+  // phase: summed
+  // a lane a channel, each lane one store: lanes 0-4 the float ones, 8-15
+  // the int ones, 16 the lead, 17 the cursor
+  const int col = o.cursor % R;
+  const bool gap = p.demand != nullptr;
+  const float g0 = gap ? xla::sub(d0, u0) : 0.f, g1 = gap ? xla::sub(d1, u1) : 0.f;
+  const float fv = lane == 0 ? u0 : lane == 1 ? u1 : lane == 2 ? g0 : lane == 3 ? g1 : o.credit;
+  const int k = lane - 8;
+  const int iv = k == 0 ? o.queue : k == 1 ? o.oom : k == 2 ? o.fail : k == 3 ? o.preempt
+               : k == 4 ? o.admitted : k == 5 ? o.throttled : k == 6 ? o.res : o.err;
+  float* fd = p.o_f32 + (static_cast<size_t>(s) * kF32 + min(lane, kF32 - 1)) * R + col;
+  int* id = p.o_i32 + (static_cast<size_t>(s) * kI32 + min(max(k, 0), kI32 - 1)) * R + col;
+  if (lane < kF32) *fd = fv;
+  if (k >= 0 && k < kI32) *id = iv;
+  if (lane == 16 && p.lead_ring) p.o_lead_ring[static_cast<size_t>(s) * R + col] = o.lead;
+  if (lane == 17) p.o_cursor[s] = o.cursor + 1;
+  // phase: end
 }
 
 }  // namespace
+
+// The dynamic shared memory obs_tick_kernel takes: each window of XLA's
+// tree of each table staged, window_floats(C) floats apart.
+extern "C" size_t obs_tick_smem(int A, int C, int ntab) {
+  return static_cast<size_t>(Windows(A).count) * ntab * window_floats(C) * sizeof(float);
+}
 
 // The rings: cursor (S,) i32, f32 (S, 5, R), i32 (S, 8, R), lead_ring (S,
 // R) i32 or null; active (S,) bool; usage and demand (S, A, C, 2) f32
@@ -227,7 +404,7 @@ __global__ void __launch_bounds__(kThreads) obs_tick_kernel(const Args p) {
 // control plane); the calibration's resolved and errors (S,) i32 now and
 // at entry (null without calibration); lead (S,) i32 or null.  Outputs:
 // the rings.  A <= 1024 and C <= 32 (the tree has one level of windows
-// that span whole slots), T <= 1024, and the staged tables within 48 KB.
+// that span whole slots), T <= 1024, and obs_tick_smem within 47 KB.
 extern "C" int obs_tick(
     const void* cursor, const void* f32, const void* i32, const void* lead_ring,
     const void* active, const void* usage, const void* demand, const void* queued,
@@ -252,9 +429,8 @@ extern "C" int obs_tick(
          I(resolved0), I(errors0), I(lead), static_cast<int*>(o_cursor),
          static_cast<float*>(o_f32), static_cast<int*>(o_i32), static_cast<int*>(o_lead_ring),
          A, C, N, T, R};
-  const size_t ntab = demand ? 2 : 1, nw = A > kWindow ? (A + kWindow - 1) / kWindow : 1;
-  const size_t smem = (ntab * (2 * size_t(A) * C + kPad) + ntab * 2 * nw) * sizeof(float);
-  if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = obs_tick_smem(A, C, demand ? 2 : 1);
+  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   obs_tick_kernel<<<S, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }

@@ -24,6 +24,7 @@ from repro_torch.kernels import nvcc
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "obs.cu"
 F32_ROWS, I32_ROWS = 5, 8
+SMEM_LIMIT = 47 * 1024   # the staged tables; the kernel's static tables take the rest of 48 KB
 
 _LIB: ctypes.CDLL | None = None
 
@@ -34,6 +35,8 @@ def _library() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(nvcc.build(SOURCE).path))
         lib.obs_tick.argtypes = [ctypes.c_void_p] * 31 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         lib.obs_tick.restype = ctypes.c_int
+        lib.obs_tick_smem.argtypes = [ctypes.c_int] * 3
+        lib.obs_tick_smem.restype = ctypes.c_size_t
         _LIB = lib
     return _LIB
 
@@ -51,13 +54,13 @@ def obs_tick(cursor, f32, i32, lead_ring, active, usage, demand, queued, q_admit
         raise ValueError(f"expected usage (S, A, C, 2) and queued (S, N), got "
                          f"{tuple(usage.shape)} and {tuple(queued.shape)}")
     A, C, N = usage.shape[1], usage.shape[2], queued.shape[1]
-    ntab = 1 if demand is None else 2
-    nw = -(-A // 32) if A > 32 else 1
-    smem = (ntab * (2 * A * C + 2) + ntab * 2 * nw) * 4
-    if not (1 <= A <= 1024 and 1 <= C <= 32) or smem > 48 * 1024:
+    if not (1 <= A <= 1024 and 1 <= C <= 32):
         raise ValueError(f"A={A} slots of C={C} components: the kernel takes A <= 1024 and "
-                         f"C <= 32 (XLA's tree has one level of windows over whole slots) and "
-                         f"its staged tables in 48 KB of shared memory ({smem} B)")
+                         f"C <= 32 (XLA's tree has one level of windows over whole slots)")
+    smem = _library().obs_tick_smem(A, C, 1 if demand is None else 2)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"A={A} slots of C={C} components: the kernel's staged tables take "
+                         f"{smem} B of shared memory, more than {SMEM_LIMIT}")
     if (tenancy is None) != (tenancy0 is None) or (calib is None) != (calib0 is None):
         raise ValueError("tenancy and calib come with their entry values")
     f, i, b = torch.float32, torch.int32, torch.bool

@@ -322,7 +322,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 TREE_WINDOW = 32   # XLA:CPU's tree-reduction window
 
 
-def xla_sum(x: np.ndarray, group: int = 1) -> np.ndarray:
+def xla_sum(x: np.ndarray, group: int = 1, *, ftz: bool = False) -> np.ndarray:
     """Float32 sum over axis 0 in the order XLA:CPU reduces it.
 
     XLA:CPU rewrites a reduction whose reduced dimension exceeds 32 into
@@ -331,17 +331,110 @@ def xla_sum(x: np.ndarray, group: int = 1) -> np.ndarray:
     32 is summed in order, and the window sums are reduced the same way;
     32 or fewer are summed in order.  ``group`` rows make one unit of the
     reduced dimension, for a sum over (A, C) flattened to A*C rows with
-    C <= 32 (the window then spans whole slots)."""
+    C <= 32 (the window then spans whole slots).  ``ftz``: each add as
+    :func:`add_xla` takes it (subnormals as zeros, x86's NaN), else as
+    numpy's float32 add."""
     n = x.shape[0] // group
     if n <= TREE_WINDOW:
-        return (np.cumsum(x, axis=0, dtype=np.float32)[-1] if len(x)
-                else np.zeros(x.shape[1:], np.float32))
+        return _fold(x, ftz)
     padded = -(-n // TREE_WINDOW) * TREE_WINDOW
     lo = (padded - n) // 2
-    parts = [np.cumsum(x[max(j - lo, 0) * group:min(j + TREE_WINDOW - lo, n) * group],
-                       axis=0, dtype=np.float32)[-1]
+    parts = [_fold(x[max(j - lo, 0) * group:min(j + TREE_WINDOW - lo, n) * group], ftz)
              for j in range(0, padded, TREE_WINDOW)]
-    return xla_sum(np.stack(parts))
+    return xla_sum(np.stack(parts), ftz=ftz)
+
+
+def _fold(x: np.ndarray, ftz: bool) -> np.ndarray:
+    """Float32 sum over axis 0 in order, from the first row."""
+    if not len(x):
+        return np.zeros(x.shape[1:], np.float32)
+    if not ftz:
+        return np.cumsum(x, axis=0, dtype=np.float32)[-1]
+    acc = np.asarray(x[0], np.float32)
+    for row in x[1:]:
+        acc = add_xla(acc, row)
+    return acc
+
+
+# XLA:CPU's float32 arithmetic, as x86 gives it to the reference's
+# compiled tick: denormals-are-zero and flush-to-zero (an operand below
+# 2**-126 in magnitude read as a zero of its sign, a result below it
+# flushed to one), and a NaN result of an add, a product or a quotient
+# the first NaN operand, quieted, or x86's default NaN 0xffc00000 (inf -
+# inf, 0 * inf, 0 / 0).  numpy keeps subnormals, and its vectorised
+# loops may keep either NaN operand.
+DEFAULT_NAN = np.uint32(0xFFC00000).view(np.float32)
+
+
+def _as_f32(*xs):
+    return np.broadcast_arrays(*(np.asarray(x, np.float32) for x in xs))
+
+
+def ftz(x) -> np.ndarray:
+    """``x`` with every subnormal a zero of its sign."""
+    x = np.asarray(x, np.float32)
+    return np.where(np.abs(x) < np.float32(F32_TINY), np.copysign(np.float32(0.0), x),
+                    x).astype(np.float32)
+
+
+def nan_x86(a, b) -> np.ndarray:
+    """The NaN x86 gives for ``a op b`` where the result is a NaN: the
+    first NaN operand, quieted, else its default NaN."""
+    a, b = _as_f32(a, b)
+    quiet = lambda x: (x.view(np.uint32) | np.uint32(0x400000)).view(np.float32)  # noqa: E731
+    return np.where(np.isnan(a), quiet(a), np.where(np.isnan(b), quiet(b), DEFAULT_NAN))
+
+
+def _add_nan_x86(a, b) -> np.ndarray:
+    """``a + b`` in float32 with x86's NaN (:func:`nan_x86`), subnormals
+    kept: where the reference's compiled tick adds ``b + a``, as XLA:CPU
+    emits the update ``scale_sum + sum`` (the sum's NaN where both are)."""
+    a, b = _as_f32(a, b)
+    with np.errstate(invalid="ignore"):
+        r = (a + b).astype(np.float32)
+    return np.where(np.isnan(r), nan_x86(a, b), r).astype(np.float32)
+
+
+def add_xla(a, b) -> np.ndarray:
+    """``a + b`` as XLA:CPU adds float32 (a sum below 2**-126 is exact, so
+    flushing after rounding is x86's flush)."""
+    a, b = _as_f32(a, b)
+    with np.errstate(invalid="ignore"):
+        r = ftz(ftz(a) + ftz(b))
+    return np.where(np.isnan(r), nan_x86(a, b), r).astype(np.float32)
+
+
+def sub_xla(a, b) -> np.ndarray:
+    """``a - b`` as XLA:CPU subtracts float32."""
+    a, b = _as_f32(a, b)
+    with np.errstate(invalid="ignore"):
+        r = ftz(ftz(a) - ftz(b))
+    return np.where(np.isnan(r), nan_x86(a, b), r).astype(np.float32)
+
+
+def mul_xla(a, b) -> np.ndarray:
+    """``a * b`` as XLA:CPU multiplies float32: :func:`fma_f32` with an
+    addend of -0, which adds nothing to any product (its flush is x86's
+    after rounding)."""
+    a, b = _as_f32(a, b)
+    r = fma_f32(torch.from_numpy(a.copy()), torch.from_numpy(b.copy()),
+                torch.full(a.shape, -0.0)).numpy()
+    return np.where(np.isnan(r), nan_x86(a, b), r).astype(np.float32)
+
+
+def div_xla(a, b) -> np.ndarray:
+    """``a / b`` as XLA:CPU divides float32: a quotient that rounds below
+    2**-126 at float32's 24 bits (found on the quotient scaled by 2**64,
+    exact) flushed to a zero of its sign."""
+    a, b = _as_f32(a, b)
+    a, b = ftz(a), ftz(b)
+    with np.errstate(invalid="ignore", divide="ignore", over="ignore"):
+        r = (a / b).astype(np.float32)
+        scaled = ((a * np.float32(2.0**64)).astype(np.float32) / b).astype(np.float32)
+    tiny = (r != 0) & (np.abs(r) <= np.float32(F32_TINY)) & (np.abs(scaled) < np.float32(2.0**-62))
+    r = np.where(tiny, np.copysign(np.float32(0.0), scaled), r)
+    return np.where(np.isnan(r), nan_x86(a, b), r).astype(np.float32)
+
 
 def _numpy(*ts):
     return [t.numpy().copy() for t in ts]
@@ -823,12 +916,18 @@ def arima_forecast(windows: torch.Tensor, valid: torch.Tensor, horizon: int, cfg
 # ----------------------------------------------------------------------
 
 def fmax(a, b) -> np.ndarray:
-    """Float32 max as XLA takes it: a NaN operand (the first where both
-    are), and +0 above -0 (numpy's maximum of two zeros is its second)."""
-    a, b = np.broadcast_arrays(np.asarray(a, np.float32), np.asarray(b, np.float32))
+    """Float32 max as the reference's compiled tick takes it (a select, so
+    no NaN is quieted): a NaN operand, the first where both are and its
+    sign bit is set, else the second; +0 above -0 (numpy's maximum keeps
+    its first NaN and its second of two zeros)."""
+    a, b = _as_f32(a, b)
     zeros = (a == 0) & (b == 0)
     signed = np.where(np.signbit(a) & np.signbit(b), np.float32(-0.0), np.float32(0.0))
-    return np.where(zeros, signed, np.maximum(a, b)).astype(np.float32)
+    both = np.isnan(a) & np.isnan(b)
+    with np.errstate(invalid="ignore"):
+        out = np.where(zeros, signed, np.maximum(a, b))
+    out = np.where(np.isnan(b), b, out)
+    return np.where(np.isnan(a) & (~np.isnan(b) | np.signbit(a)), a, out).astype(np.float32)
 
 
 def sort_keys(x: np.ndarray) -> np.ndarray:
@@ -955,14 +1054,16 @@ def calib_observe(ring, ring_count, pool, pool_count, mean, sigma, scale, peak, 
                           d_res, d_err)
 
 
-def row_groups(slot_gid, tenant, C: int, T: int):
-    """(S, 2*A*C) int32: the tenant of the app in each series row's slot
-    (rows r and A*C + r are slot ``r // C``'s), -1 for an empty slot or a
-    tenant id outside [0, T)."""
+def row_groups(slot_gid, tenant, C: int):
+    """(S, 2*A*C) int32: the tenant id of the app in each series row's slot
+    (rows r and A*C + r are slot ``r // C``'s), -1 for an empty slot.  The
+    id is kept as the trace holds it, as the reference's rows record it:
+    where a tenant's quantile or group ring is read, an id of T or more
+    reads tenant T - 1's (the reference's gathers clamp it), a negative
+    one none."""
     slot_gid, tenant = _numpy(slot_gid, tenant)
     ten = np.where(slot_gid >= 0,
                    np.take_along_axis(tenant, np.maximum(slot_gid, 0), 1), -1)
-    ten = np.where((ten >= 0) & (ten < T), ten, -1)
     rows = np.repeat(ten, C, axis=1)
     return np.concatenate([rows, rows], 1).astype(np.int32)
 
@@ -1005,8 +1106,8 @@ def calib_quantiles(ring, ring_count, pool, pool_count, q, fallback, tenancy=Non
               else credit_quantiles(credit, torch.from_numpy(q), spread=spread, q_min=q_min,
                                     q_max=q_max))
         if credit is not None:
-            grp = row_groups(slot_gid, tenant, ring_count.shape[1] // 2 // slot_gid.shape[1], T)
-            q_rows = np.where(grp >= 0, np.take_along_axis(qt, np.maximum(grp, 0), 1),
+            grp = row_groups(slot_gid, tenant, ring_count.shape[1] // 2 // slot_gid.shape[1])
+            q_rows = np.where(grp >= 0, np.take_along_axis(qt, np.clip(grp, 0, T - 1), 1),
                               q[:, None]).reshape(-1).astype(np.float32)
     raw = conformal_scale(*_tensors(ring.reshape(S * R, cap), ring_count.reshape(-1), q_rows,
                                     np.repeat(fb, R)), rolled=False).reshape(S, R)
@@ -1056,9 +1157,8 @@ def calib_begin(ring_count, pool_count, raw, raw_pool, deploy, mean, var, mon_co
     if tenancy is not None:
         tenant, slot_gid, gcount, raw_group, group, gcap = tenancy
         gcount, raw_group, group = _numpy(gcount, raw_group, group)
-        grp = row_groups(slot_gid, tenant, raw.shape[1] // 2 // slot_gid.shape[1],
-                         gcount.shape[1])
-        gc = np.maximum(grp, 0)
+        grp = row_groups(slot_gid, tenant, raw.shape[1] // 2 // slot_gid.shape[1])
+        gc = np.clip(grp, 0, gcount.shape[1] - 1)
         gq = np.where(gcount == 0, fb[:, None], raw_group)
         warm = (grp >= 0) & (np.take_along_axis(np.minimum(gcount, gcap), gc, 1) >= min_scores)
         fb_rows = np.where(warm, np.take_along_axis(gq, gc, 1), fb_rows)
@@ -1071,7 +1171,7 @@ def calib_begin(ring_count, pool_count, raw, raw_pool, deploy, mean, var, mon_co
                    np.where(m, scale, c_scale), np.where(m, np.float32(-np.inf), c_peak),
                    np.where(m, np.int32(horizon), c_left).astype(np.int32),
                    np.where(m, _tiled(mon_count) + np.int32(horizon), c_due).astype(np.int32),
-                   (scale_sum + tree).astype(np.float32),
+                   _add_nan_x86(tree, scale_sum),
                    (scale_n + dep.sum(-1)).astype(np.int32))
     if tenancy is None:
         return out
@@ -1111,7 +1211,9 @@ def calib_scales(ring, ring_count, pool, pool_count, q, fallback, deploy, mean, 
 # ----------------------------------------------------------------------
 
 def _tenant_counts(tenant, mask, T):
-    """(S, T) int32 count of the apps in ``mask`` (S, N) per tenant."""
+    """(S, T) int32 count of the apps in ``mask`` (S, N) per tenant; an id
+    outside [0, T) counts for none (the reference's one-hot sum)."""
+    mask = mask & (tenant >= 0) & (tenant < T)
     return np.stack([np.bincount(tenant[s][mask[s]], minlength=T)[:T]
                      for s in range(tenant.shape[0])]).astype(np.int32)
 
@@ -1175,35 +1277,33 @@ def control_tick(credit, throttled, completed, failed, share_sum, active_ticks, 
     rw = (np.float32(1.0) / weights).astype(np.float32)
     share = np.zeros((S, T), np.float32)
     for s in range(S):
-        rowsum = np.zeros((alloc.shape[1], 2), np.float32)
-        for c in range(alloc.shape[2]):
-            rowsum = (rowsum + alloc[s, :, c]).astype(np.float32)
+        rowsum = xla_sum(np.moveaxis(alloc[s], 1, 0), ftz=True)       # (A, 2)
         ten = np.where(slot_gid[s] >= 0, tenant[s][np.maximum(slot_gid[s], 0)], -1)
         oh = ten[:, None] == np.arange(T)[None, :]
-        alloc_t = xla_sum(np.where(oh[:, :, None], rowsum[:, None, :], np.float32(0.0)))
-        norm = (alloc_t * rcap[None, :]).astype(np.float32)
-        share[s] = (np.maximum(norm[:, 0], norm[:, 1]) * rw).astype(np.float32)
+        alloc_t = xla_sum(np.where(oh[:, :, None], rowsum[:, None, :], np.float32(0.0)),
+                          ftz=True)
+        norm = mul_xla(alloc_t, rcap[None, :])
+        share[s] = mul_xla(fmax(norm[:, 0], norm[:, 1]), rw)
     queued_t = _tenant_counts(tenant, queued, T)
     active = (share > 0) | (queued_t > 0)
+    counted = mul_xla(share, active)
     if gate_on:
         n = active.sum(-1)
-        tot = xla_sum(np.where(active, share, np.float32(0.0)).T)
-        mean = np.where(n > 0, tot / np.maximum(n, 1).astype(np.float32),
-                        np.float32(0.0)).astype(np.float32)
+        tot = xla_sum(counted.T, ftz=True)
+        mean = np.where(n > 0, div_xla(tot, np.maximum(n, 1)), np.float32(0.0))
         if credit_on:
             bound = fma_f32(torch.full((S, T), float(np.float32(slack))),
                             torch.from_numpy(credit), torch.from_numpy(
                                 np.broadcast_to(mean[:, None], (S, T)).copy())).numpy()
         else:
-            bound = (mean[:, None] + np.float32(slack)).astype(np.float32)
+            bound = add_xla(mean[:, None], slack)
         elig = ~active | (share <= bound)
     else:
         elig = np.ones((S, T), bool)
     return _tensors(credit.astype(np.float32),
                     (throttled + np.where(elig, 0, queued_t)).astype(np.int32),
                     (completed + comp_t).astype(np.int32), (failed + fail_t).astype(np.int32),
-                    (share_sum + np.where(active, share, np.float32(0.0))).astype(np.float32),
-                    (active_ticks + active).astype(np.int32), elig)
+                    add_xla(share_sum, counted), (active_ticks + active).astype(np.int32), elig)
 
 
 # ----------------------------------------------------------------------
@@ -1222,7 +1322,8 @@ def obs_tick(cursor, f32, i32, lead_ring, active, usage, demand, queued, q_admit
     usage after the OOM handler, ``demand`` (S, A, C, 2) the shaped
     demand table (None under the baseline policy); each summed over (A,
     C) in XLA:CPU's tree of 32-slot windows (:func:`xla_sum` with
-    ``group=C``), the gap the demand's sum minus the usage's.
+    ``group=C``, each add as :func:`add_xla` takes it), the gap the
+    demand's sum minus the usage's (:func:`sub_xla`).
     ``queued`` (S, N) the queue at the end of the tick, ``q_admit`` the
     queue before admission: ``queue`` counts the one, ``admitted`` the
     apps of the other that left it.  ``counters`` and ``counters0`` the
@@ -1233,7 +1334,8 @@ def obs_tick(cursor, f32, i32, lead_ring, active, usage, demand, queued, q_admit
     active_ticks)`` before it, (S, T) each, or None: ``throttled`` is the
     sum of the throttled counts' deltas, ``credit`` the mean credit over
     the tenants active this tick (``control/device.py::credit_mean``: the
-    sum of ``credit * active`` in XLA's tree, over their count).
+    sum of ``credit * active`` in XLA's tree, over their count, in XLA's
+    arithmetic).
     ``calib`` the calibration's ``(resolved, errors)`` now and ``calib0``
     at entry, (S,) int32 each, or None.  ``lead`` (S,) int32 (or 0) is
     written into ``lead_ring``.  Channels whose feature is off are 0.
@@ -1250,10 +1352,10 @@ def obs_tick(cursor, f32, i32, lead_ring, active, usage, demand, queued, q_admit
     for s in range(S):
         if not act[s]:
             continue
-        used = xla_sum(use[s].reshape(A * C, 2), group=C)
+        used = xla_sum(use[s].reshape(A * C, 2), group=C, ftz=True)
         gap = np.zeros(2, np.float32)
         if dem is not None:
-            gap = (xla_sum(dem[s].reshape(A * C, 2), group=C) - used).astype(np.float32)
+            gap = sub_xla(xla_sum(dem[s].reshape(A * C, 2), group=C, ftz=True), used)
         credit = zero
         throttled = 0
         if tenancy is not None:
@@ -1262,8 +1364,8 @@ def obs_tick(cursor, f32, i32, lead_ring, active, usage, demand, queued, q_admit
             throttled = int((th.astype(np.int64) - th0).sum())
             on = at > at0
             n = int(on.sum())
-            tot = xla_sum((cr * on).astype(np.float32)[:, None])[0]
-            credit = np.float32(tot / np.float32(max(n, 1))) if n > 0 else zero
+            tot = xla_sum(mul_xla(cr, on)[:, None], ftz=True)[0]
+            credit = div_xla(tot, n) if n > 0 else zero
         res = err = 0
         if calib is not None:
             res, err = (int(x.numpy()[s]) - int(x0.numpy()[s]) for x, x0 in zip(calib, calib0))

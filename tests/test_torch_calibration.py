@@ -544,6 +544,9 @@ _crafted_scales = jax.jit(jax.vmap(lambda s, g, qr, qg: runc.calib_scales(
     s, CRAFTED_RCFG, 3.0, groups=g, q_rows=qr, q_groups=qg)))
 _crafted_begin = jax.jit(jax.vmap(lambda s, d, mu, sg, sc, m, g: runc.calib_begin(
     s, d, mu, sg, sc, m, 3, groups=g)))
+# the rows' quantiles as the reference's shaping step gathers them
+# (repro/sim/step.py:376): an id of T or more reads tenant T - 1's
+_crafted_q_rows = jax.jit(jax.vmap(lambda g, qt, q: jnp.where(g >= 0, qt[jnp.maximum(g, 0)], q)))
 
 
 @pytest.mark.parametrize("name", CALIB_CRAFTED)
@@ -553,9 +556,10 @@ def test_crafted_step_equals_reference(name):
     versions on them): the plain versions, through the port's
     calib_observe_groups and calib_scales_begin with the per-tenant tier
     and the credit, against the reference's calib_observe, calib_scales
-    and calib_begin, every field bit for bit.  A row's group is the port's
-    row_groups: a tenant id outside [0, T) is no group (the reference's
-    engine never holds one; its gathers would clamp it to T - 1)."""
+    and calib_begin, every field bit for bit.  The reference takes its own
+    groups (each row's slot's tenant id as the trace holds it) and gathers
+    the rows' quantiles as its shaping step does, so that a tenant id of T
+    or more reads tenant T - 1's."""
     st, tick, tier, table = calib_crafted(name)
     S, M = tick["mon_count"].shape
     T_ = torch.from_numpy
@@ -576,12 +580,10 @@ def test_crafted_step_equals_reference(name):
     np.testing.assert_array_equal(d_err.numpy(), np.asarray(want.group_errors)
                                   - tier["group_errors"])
 
-    G = tier["group_ring"].shape[1]
-    groups = ref.row_groups(T_(table["slot_gid"]), T_(table["tenant"]),
-                            M // table["slot_gid"].shape[1], G)
+    groups = _reference_groups(table["slot_gid"], table["tenant"],
+                               M // table["slot_gid"].shape[1])
     qt = _crafted_quantiles(table["credit"], want.q)
-    q_rows = jnp.where(groups >= 0, jnp.take_along_axis(qt, jnp.maximum(groups, 0), 1),
-                       want.q[:, None])
+    q_rows = _crafted_q_rows(groups, qt, want.q)
     rscale = _crafted_scales(want, groups, q_rows, qt)
     d2 = np.concatenate([tick["deploy"]] * 2, 1)
     sigma = np.sqrt(np.maximum(tick["var"], np.float32(0))).astype(np.float32)

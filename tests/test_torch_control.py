@@ -285,6 +285,31 @@ def test_fused_tick_equals_reference(tick1):
     assert seen > 0 and (want["calib"]["group_count"] > 0).any()
 
 
+def test_tenant_ids_out_of_range_equal_reference(tick1):
+    """A trace whose tenant column holds ids of T and more, and negative
+    ones: the reference's compiled tick builds the calibration's groups
+    from it itself (its gathers clamp an id of T or more to T - 1 where
+    they read a tenant's quantile or its group ring's count and quantile,
+    a row records the id as it is, and the group rings and counters drop
+    it), and from each of its states one port tick leaves the same next
+    state, every field bit for bit: the group rings, their counts,
+    group_resolved and group_errors, the rows' groups and their scales
+    and quantiles."""
+    run = _Run(tick1, seed=8)
+    T = BASE.control.max_tenants
+    ten = np.array(run.tr.tenant)
+    ten[1::4], ten[2::9], ten[3::10] = T, T + 3, -3
+    run.tr = dataclasses.replace(run.tr, tenant=jnp.asarray(ten))
+    run.ptr = convert.device_trace_from_arrays(device="cpu", **_fields(run.tr))
+    for k in range(4, 64, 4):
+        before = run.advance(k)
+        want = run.reference(before)
+        got, _ = run.port(before)
+        _assert_state(got, want, f"tick {k}")
+    group = want["calib"]["group"]
+    assert (group >= T).any() and (group == -3).any() and (want["calib"]["group_count"] > 0).any()
+
+
 def _events(args) -> tuple[np.ndarray, np.ndarray]:
     """(good, bad) per tenant of one member, from control_tick's arguments."""
     (done0, done, queued0, queued, conflict, d_res, d_err, tenant) = (

@@ -11,7 +11,12 @@ engine's launch with the per-tenant tier; and calibration steps
 (CALIB_CRAFTED) of 200 and 3,000 rows, every row or none resolving, more
 than the pool and a group ring hold, NaN, -0 and +-inf among the scores
 and the deployed scales, an inactive member, 1 and 127 groups, and group
-and tenant ids out of range, without the tier and with it.
+and tenant ids out of range, two NaN payloads in a max and in an add,
+without the tier and with it; the control plane's and the rings' ticks
+(CONTROL_CRAFTED, OBS_CRAFTED): signed zeros, NaN and +-inf and values
+near 2^-126 in the tables, tenant ids out of range, 1 to 1,024 tenants,
+slot tables off XLA's 32-slot windows, an idle or inactive member and a
+ring cursor that wraps.
 
 Every test needs a CUDA device and skips without one; the file imports
 no JAX.  Run on the card with ``python -m pytest -m gpu
@@ -21,12 +26,14 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (ARIMA_CRAFTED, CALIB_CRAFTED, SCALE_CRAFTED, arima_crafted,
-                        calib_crafted_outputs, crafted_rings, scale_crafted_quantiles)
+from chip_smoke import (ARIMA_CRAFTED, CALIB_CRAFTED, CONTROL_CRAFTED, OBS_CRAFTED,
+                        SCALE_CRAFTED, arima_crafted, calib_crafted_outputs, control_crafted,
+                        crafted_rings, obs_crafted, scale_crafted_quantiles)
 from repro_torch.core.forecast import ARIMAConfig
 from repro_torch.core.uncertainty import CalibrationConfig
 from repro_torch.kernels import arima_forecast as karima
-from repro_torch.kernels import calib, ref
+from repro_torch.kernels import calib, control, ref
+from repro_torch.kernels import obs as kobs
 
 H = 3
 
@@ -93,3 +100,28 @@ def test_calib_observe_and_begin_equal_plain_on_crafted_cases(name):
     _card()
     for what, got, want in calib_crafted_outputs(name, calib, ref, CalibrationConfig):
         np.testing.assert_array_equal(_bits(got), _bits(want), err_msg=what)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", CONTROL_CRAFTED)
+def test_control_tick_equals_plain_on_crafted_cases(name):
+    _card()
+    args, kw = control_crafted(name)
+    want = ref.control_tick(*args, **kw)
+    got = control.control_tick(*(a.cuda() if a is not None else None for a in args), **kw)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.cpu().numpy().view(np.uint8), w.numpy().view(np.uint8))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", OBS_CRAFTED)
+def test_obs_tick_equals_plain_on_crafted_cases(name):
+    _card()
+    args = obs_crafted(name)
+    want = ref.obs_tick(**args)
+    got = kobs.obs_tick(**{k: (tuple(x.cuda() for x in v) if isinstance(v, tuple)
+                               else None if v is None else v.cuda()) for k, v in args.items()})
+    for g, w in zip(got, want):
+        assert (g is None) == (w is None)
+        if g is not None:
+            np.testing.assert_array_equal(_bits(g), _bits(w))
