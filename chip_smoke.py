@@ -2058,10 +2058,107 @@ def leap_member(A, N, tick, *, gap, left, t0=600.1, busy=False, queued=False,
     return slot, q, arrived, submit, done, np.float32(t0), left
 
 
+LEAP_OPS_PER_PASS = 16   # a pass of the closed-form count: its adds, compares, products, divisions
+
+
+def leap_closed_form(t, tick, next_sub, left) -> tuple[np.float32, int, int]:
+    """leap_skip's count for one idle member, step by step as
+    ``csrc/leap.cu::skip`` takes it (one float32 binade at a time; the
+    argument is in that file's header): the new clock, the ticks skipped
+    and the passes of the loop."""
+    f32 = np.float32
+    t, tick, next_sub = f32(t), f32(tick), f32(next_sub)
+    n = passes = 0
+    jumps = bool(tick > 0) and bool(np.isfinite(tick))
+    with np.errstate(over="ignore", invalid="ignore"):
+        while n < left:
+            passes += 1
+            bits = int(np.array(t).view(np.uint32))
+            e = bits >> 23
+            if jumps and 1 <= e <= 254:             # t > 0 and normal
+                K = (bits & 0x7FFFFF) | 0x800000
+                dr = float(tick) * 2.0 ** (150 - e)    # tick / ulp(t), exact
+                if dr < 2.0**24:
+                    m = np.floor(dr)
+                    if not (dr - m == 0.5 and K & 1):
+                        d = int(np.rint(dr))
+                        if d == 0:                    # the clock never moves
+                            if next_sub > t:
+                                n = left
+                            break
+                        kbin = (0xFFFFFF - K) // d
+                        ns = int(np.array(next_sub).view(np.uint32))
+                        karr = 0
+                        if next_sub > t:
+                            karr = kbin if ns >> 23 > e else (((ns & 0x7FFFFF) | 0x800000)
+                                                              - K - 1) // d
+                        j = min(left - n, kbin, karr)
+                        K += j * d
+                        n += j
+                        t = np.array((e << 23) | (K & 0x7FFFFF), np.uint32).view(f32)[()]
+                        if n >= left:
+                            break
+            nt = f32(t + tick)                        # the reference's own step
+            if not next_sub > nt:
+                break
+            if nt == t:
+                n = left
+                break
+            t = nt
+            n += 1
+    return t, n, passes
+
+
+def leap_clocks():
+    """(name, t, tick, next arrival, budget) of the crafted idle members:
+    clocks across binades and at their edges, ticks of 60, 0.1, 1/3 and
+    1e-3, half-ulp ties from even and odd significands, a clock so large
+    that t + tick rounds back to t, t = 0, subnormal and negative clocks,
+    the next arrival on the tick grid, just past it and at +inf, budgets
+    of 0 to 20,000."""
+    f32, inf = np.float32, float("inf")
+    u20 = 2.0**-3                             # the ulp of [2^20, 2^21)
+    out = [("t = 0, tick 60, 20,000 ticks", 0.0, 60.0, inf, 20_000),
+           ("t = 600.1, tick 60, 20,000 ticks", 600.1, 60.0, inf, 20_000),
+           ("t = 600.1, tick 0.1, 20,000 ticks", 600.1, 0.1, inf, 20_000),
+           ("t = 3, tick 1/3, 20,000 ticks", 3.0, 1 / 3, inf, 20_000),
+           ("t = 1e-3, tick 1e-3, 20,000 ticks", 1e-3, 1e-3, inf, 20_000),
+           ("t = 2^30, tick 60: t + tick == t", 2.0**30, 60.0, inf, 20_000),
+           ("t = 2^30, tick 60, next arrival at t", 2.0**30, 60.0, 2.0**30, 20_000),
+           ("a tie from an even significand", 2.0**20, 1.5 * u20, inf, 5_000),
+           ("a tie from an odd significand", 2.0**20 + u20, 2.5 * u20, inf, 5_000),
+           ("a half-ulp tick from an odd significand: one step", 2.0**20 + u20, 0.5 * u20,
+            inf, 100),
+           ("a half-ulp tick from an even significand: the clock stays", 2.0**20, 0.5 * u20,
+            2.0**21, 100),
+           ("t at a binade's top", 2.0**24 - 1, 1.0, inf, 300),
+           ("subnormal clock and tick", 2.0**-140, 2.0**-142, inf, 600),
+           ("a negative clock", -3600.0, 60.0, 1e9, 500),
+           ("the next arrival on the tick grid", 600.0, 60.0, 600.0 + 225 * 60.0, 20_000),
+           ("the next arrival just past the grid", 600.0, 60.0,
+            float(np.nextafter(f32(600.0 + 225 * 60.0), f32(inf))), 20_000),
+           ("budget 0", 600.0, 60.0, inf, 0), ("budget 1", 600.0, 60.0, inf, 1)]
+    return [(name, f32(t), f32(tick), f32(ns), left) for name, t, tick, ns, left in out]
+
+
+def leap_clock_member(A, N, t, next_sub, left):
+    """An idle member's leap_skip inputs with clock ``t`` and the next
+    arrival at ``next_sub``: empty slots and queue, apps 0..N-2 arrived and
+    done, app N-1 not done (arrived when ``next_sub`` is +inf, else
+    arriving then)."""
+    slot = np.full(A, -1)
+    arrived = np.arange(N) < N - 1
+    arrived[-1] = np.isinf(next_sub)
+    submit = np.linspace(0, 1, N).astype(np.float32)
+    submit[-1] = next_sub
+    return slot, np.zeros(N, bool), arrived, submit, np.arange(N) < N - 1, t, left
+
+
 def leap_cases(A=128, N=500):
     """(name, (slot_gid, queued, arrived, submit, done, t, left), tick, the
     leads expected or None): seeded members at the main path's widths,
-    and edge members."""
+    edge members, and the crafted clocks of ``leap_clocks`` (a case per
+    tick), whose leads are the closed form's."""
     cases = []
     rng = np.random.default_rng(0)
     for tick in (60.0, 0.1):
@@ -2091,6 +2188,14 @@ def leap_cases(A=128, N=500):
             ("a queued app", [dict(gap=12, left=1000, queued=True)], [0])):
         cols = list(zip(*(leap_member(A, N, 60.0, **m) for m in members)))
         cases.append((name, tuple(np.stack(c) for c in cols), 60.0, leads))
+    by_tick: dict = {}
+    for _, t, tick, ns, left in leap_clocks():
+        by_tick.setdefault(float(tick), []).append((t, tick, ns, left))
+    for tick, clocks in by_tick.items():
+        cols = list(zip(*(leap_clock_member(A, N, t, ns, left) for t, _, ns, left in clocks)))
+        leads = [leap_closed_form(*c)[1] for c in clocks]
+        cases.append((f"crafted clocks, tick {tick!r}", tuple(np.stack(c) for c in cols), tick,
+                      leads))
     return cases
 
 
@@ -2506,8 +2611,9 @@ def time_leap(leap, ref, state) -> dict:
     N = 24), kernel by CUDA events against the plain version (numpy on
     the host) in turns, with its device and host time per call.  The
     bound: the inputs read once and the outputs written once over
-    3.35 TB/s, against the loop's operations (an add, a compare and an
-    increment a skipped tick) over fp32's peak; the loop is serial, so
+    3.35 TB/s, against the closed-form count's operations
+    (LEAP_OPS_PER_PASS a pass of its loop, ``leap_closed_form``'s passes
+    on these inputs) over fp32's peak; the count runs on one thread, so
     the card cannot reach either."""
     import torch
     args, tick, gap = state
@@ -2527,15 +2633,17 @@ def time_leap(leap, ref, state) -> dict:
     dev_us = device_us_per_call(kern, "leap_skip_kernel")
     host_us = host_us_per_call(kern)
     nbytes = _nbytes(*cpu) + 8
+    next_sub = np.where(args[2][0], np.float32(np.inf), args[3][0]).min()
+    passes = leap_closed_form(args[5][0], tick, next_sub, int(args[6][0]))[2]
+    ops = LEAP_OPS_PER_PASS * passes
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 3 * lead / FP32_FLOP_PER_S * 1e3
+    t_ops = ops / FP32_FLOP_PER_S * 1e3
     log(f"  leap_skip (the gap cell's longest idle stretch, {lead} ticks skipped of a "
-        f"{gap:.1f}-tick gap): kernel {k1:.5f}/{k2:.5f} ms, plain (numpy on the host) "
-        f"{p1:.5f}/{p2:.5f} ms; device "
+        f"{gap:.1f}-tick gap, {passes} passes of the count): kernel {k1:.5f}/{k2:.5f} ms, "
+        f"plain (numpy on the host) {p1:.5f}/{p2:.5f} ms; device "
         f"{'not measured' if dev_us is None else f'{dev_us:.3f} us'} per launch, "
-        f"{'' if dev_us is None or not lead else f'{dev_us * 1e3 / lead:.1f} ns a skipped tick, '}"
         f"host {host_us:.3f} us per call; bound {max(t_bytes, t_ops) * 1e3:.6f} us "
-        f"({nbytes} B, {3 * lead} operations)")
+        f"({nbytes} B, {ops} operations)")
     return {"leap_skip": dict(ms=min(k1, k2), plain_ms=min(p1, p2),
                               bound_ms=max(t_bytes, t_ops), library_ms=None,
                               bound_by="bytes" if t_bytes >= t_ops else "operations")}
@@ -4012,11 +4120,59 @@ def obs_crafted(name):
     return args
 
 
+# (A, C) of the crafted tables on the card: XLA:CPU's serial windows (C
+# of 1, 5 and 12, A padded off the 32-slot grid) and each of its
+# vectorised loops (ref.xla_table_plan): 8 lanes at A = 17, 64, 128 and
+# 256, 4 lanes at A = 20 and 95, unrolled at A = 8.
+TABLE_SHAPES = ((20, 1), (20, 2), (20, 3), (20, 4), (17, 3), (8, 2), (37, 3), (37, 5),
+                (64, 2), (64, 4), (95, 3), (128, 3), (128, 12), (256, 1), (256, 4))
+
+
+def crafted_tables(A, C, seed=0) -> np.ndarray:
+    """(10, A, C, 2) float32 tables whose sums over (A, C) show XLA:CPU's
+    order: mixed magnitudes; -0 in slot 0; every entry -0; -0 but a +0
+    first; NaNs of the TWO_NANS payloads (two quiet, two signalling) and
+    +-inf in 2%, 20% and 90% of the entries (so that two NaNs meet in a
+    lane, in the tree and in the tail); values near 2^-126, which XLA:CPU
+    reads and flushes as zeros; a signalling NaN first."""
+    rng = np.random.default_rng(seed * 1000 + A * 40 + C)
+    base = (rng.uniform(0, 1, (A, C, 2)) * 10.0 ** rng.integers(-3, 3, (A, C, 2))
+            ).astype(np.float32)
+    out = [base, base.copy(), np.full_like(base, -0.0), np.full_like(base, -0.0)]
+    out[1][0] = -0.0
+    out[3][0, 0] = 0.0
+    for p in (0.02, 0.2, 0.9):
+        x = base.copy()
+        hit = rng.random(x.shape) < p
+        x[hit] = rng.choice(TWO_NAN_VALUES, int(hit.sum()))
+        out.append(x)
+    out.append(np.where(rng.random(base.shape) < 0.7,
+                        rng.choice(TINY_VALUES, base.shape), 0).astype(np.float32))
+    x = base.copy()
+    x[0, 0] = TWO_NANS.view(np.float32)[2]
+    out.append(x)
+    return np.stack(out)
+
+
+def obs_table_case(A, C):
+    """obs_tick's arguments with every feature, one member a crafted table
+    of ``crafted_tables(A, C)`` as its usage and the next as its demand."""
+    import torch
+    tabs = crafted_tables(A, C)
+    S = len(tabs)
+    args = obs_case(np.random.default_rng(A * 40 + C), S, A=A, C=C, N=40, R=8)
+    args["usage"] = torch.from_numpy(tabs)
+    args["demand"] = torch.from_numpy(np.roll(tabs, 1, axis=0).copy())
+    return args
+
+
 def check_obs(obs_kernel, ref) -> float:
     """Phase 3: obs_tick on the card against its plain version, every
-    output bit for bit, one launch a call: the seeded cases and
-    OBS_CRAFTED."""
+    output bit for bit, one launch a call: the seeded cases, OBS_CRAFTED
+    and the crafted tables at TABLE_SHAPES."""
     crafted = [(f"crafted case {n!r}", obs_crafted(n)) for n in OBS_CRAFTED]
+    crafted += [(f"crafted tables, A = {A}, C = {C}", obs_table_case(A, C))
+                for A, C in TABLE_SHAPES]
     for name, args in obs_cases() + crafted:
         want = ref.obs_tick(**args)
         n = obs_kernel.obs_tick.launches

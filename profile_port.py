@@ -59,6 +59,14 @@ the rings run's captured tick (``SimConfig(obs=ObsConfig(enabled=True))``).
 Both take the package under ``--src`` (one that has the kernel), so that
 two versions are timed on one card in one call, in turns.
 
+``--path leap`` prints ``leap_skip``'s ptxas lines and times it on the gap
+cell's longest idle stretch (S = 1, A = 16, N = 24) with the next arrival
+moved so that 1, 225 (as it is) and 20,000 ticks are skipped (LEAP_STRETCHES),
+each launch first checked against the plain version bit for bit: device
+microseconds a launch over a CUDA graph of 50 launches, twice, and
+torch.profiler's.  With ``--src`` it times another package's kernel, so that
+two versions are timed in one call, in turns.
+
 ``--path arima`` times the ARIMA kernel alone at the device engine's
 shape (3,072 windows of 24, ARIMA_READY monitor rows ready, both
 resources: 122 series) as ``chip_smoke.py`` phase 8 does, after its
@@ -81,7 +89,7 @@ on its own, with the device time summed by kind of kernel.
 
 Run from the repository root:
 
-    python3 profile_port.py [--path sim|scan|kernels|gp|control|obs|arima|calib|whisper]
+    python3 profile_port.py [--path sim|scan|kernels|gp|control|obs|leap|arima|calib|whisper]
         [--src DIR]
 
 Without a CUDA device it exits with an error and prints nothing else.
@@ -425,6 +433,61 @@ def profile_obs() -> int:
     args, kw, note = chip_smoke.captured_args(step, SimConfig(obs=ObsConfig(enabled=True)),
                                               "obs_tick")
     member_times("obs_tick", lambda: obs_kernel.obs_tick(*args, **kw), note)
+    return 0
+
+
+LEAP_STRETCHES = (1, 225, 20_000)   # skipped ticks of the timed leap_skip launches
+
+
+def leap_stretch(state, ticks: int):
+    """The gap cell's longest idle stretch (``chip_smoke.gap_idle_state``:
+    S = 1, A = 16, N = 24, 225 ticks skipped) as leap_skip's inputs, with
+    the next arrival moved so that ``ticks`` are skipped: 1.5 ticks ahead
+    for 1, as it is for 225, every app arrived and a budget of 20,000 for
+    20,000."""
+    import numpy as np
+    args, tick, _ = state
+    slot, queued, arrived, submit, done, t, left = (np.array(a) for a in args)
+    if ticks == 20_000:
+        arrived[...] = True
+        left[...] = 20_000
+    elif ticks == 1:
+        k = int(np.argmin(np.where(arrived, np.inf, submit)))
+        submit[0, k] = np.float32(t[0] + 1.5 * tick)
+    return (slot, queued, arrived, submit, done, t, left), tick
+
+
+def profile_leap() -> int:
+    """leap_skip alone: its ptxas lines, then its device time at stretches
+    of LEAP_STRETCHES skipped ticks (each first checked against the plain
+    version bit for bit): CUDA events over a graph of 50 launches, twice,
+    and torch.profiler's device time a launch."""
+    import numpy as np
+    import chip_smoke
+    import torch
+    from repro_torch.kernels import leap, nvcc, ref
+    from repro_torch.sim import ClusterConfig, SimConfig, scenarios
+    print(f"package {Path(leap.__file__).resolve().parents[2]}; nvidia-smi: "
+          f"{chip_smoke.nvidia_smi()}")
+    for line in _ptxas(nvcc.build(leap.SOURCE).log, "leap_skip_kernel"):
+        print(f"  leap_skip ptxas: {line}")
+    state = chip_smoke.gap_idle_state(scenarios, SimConfig, ClusterConfig)
+    for ticks in LEAP_STRETCHES:
+        args, tick = leap_stretch(state, ticks)
+        cpu = [torch.as_tensor(np.ascontiguousarray(a, dt))
+               for a, dt in zip(args, chip_smoke.LEAP_DTYPES)]
+        gpu = [a.cuda() for a in cpu]
+        want = ref.leap_skip(*cpu, tick)
+        got = leap.leap_skip(*gpu, tick)
+        assert int(want[1][0]) == ticks, (ticks, want)
+        assert all(torch.equal(g.cpu().view(torch.int32), w.view(torch.int32))
+                   for g, w in zip(got, want)), ticks
+        us = [chip_smoke.graph_us(lambda: leap.leap_skip(*gpu, tick)) for _ in range(2)]
+        prof = chip_smoke.device_us_per_call(lambda: leap.leap_skip(*gpu, tick),
+                                             "leap_skip_kernel")
+        print(f"  leap_skip, {ticks} ticks skipped: {'/'.join(f'{x:.3f}' for x in us)} us "
+              f"device a launch (50 launches in a CUDA graph, replayed); torch.profiler "
+              f"{'not measured' if prof is None else f'{prof:.3f} us'} a launch")
     return 0
 
 
@@ -791,7 +854,7 @@ def main() -> int:
     here = Path(__file__).resolve().parent
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--path", choices=("sim", "scan", "kernels", "gp", "control", "obs",
-                                       "arima", "calib", "whisper"),
+                                       "leap", "arima", "calib", "whisper"),
                     default="sim")
     ap.add_argument("--src", type=Path, default=here / "src",
                     help="the directory that holds the repro_torch package")
@@ -818,6 +881,8 @@ def main() -> int:
         return profile_control()
     if args.path == "obs":
         return profile_obs()
+    if args.path == "leap":
+        return profile_leap()
     if args.path == "arima":
         return profile_arima()
     if args.path == "calib":

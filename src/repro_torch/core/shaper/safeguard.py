@@ -40,12 +40,18 @@ def beta(request: torch.Tensor, var: torch.Tensor,
     return kops.fma_f32(request, np.float32(cfg.k1), dyn)
 
 
+def clip_request(x: torch.Tensor, request: torch.Tensor) -> torch.Tensor:
+    """``clip(x, 0, request)`` as XLA:CPU's clamp gives it: a NaN ``x`` is
+    kept as it is (ATen's vectorised min and max give a NaN of all ones
+    on the CPU, CUDA its canonical NaN)."""
+    return torch.where(torch.isnan(x), x, torch.minimum(torch.clamp_min(x, 0.0), request))
+
+
 def shaped_demand(pred_peak: torch.Tensor, request: torch.Tensor,
                   var: torch.Tensor, cfg: SafeguardConfig) -> torch.Tensor:
     """Allocation target: forecast peak + beta, clamped into [0, request]
     (the shaper only redeems slack; it never grants more than reserved)."""
-    b = beta(request, var, cfg)
-    return torch.minimum(torch.clamp_min(pred_peak + b, 0.0), request)
+    return clip_request(pred_peak + beta(request, var, cfg), request)
 
 
 def shaped_demand_scaled(pred_peak: torch.Tensor, request: torch.Tensor,
@@ -67,4 +73,4 @@ def shaped_demand_scaled(pred_peak: torch.Tensor, request: torch.Tensor,
         b = kops.fma_f32(scale, sigma, request)
     else:
         b = kops.fma_f32(request, k1, scale * sigma)
-    return torch.minimum(torch.clamp_min(pred_peak + b, 0.0), request)
+    return clip_request(pred_peak + b, request)

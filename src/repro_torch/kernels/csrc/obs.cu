@@ -11,14 +11,25 @@
 //
 // Arithmetic, as the reference's compiled tick rounds it on x86:
 //   * the usage and the shaped demand are each summed over the slot
-//     table's (A, C) in XLA:CPU's tree (ref.py:xla_sum with group = C):
-//     windows of 32 slots (the slot axis padded to a multiple of 32, the
-//     padding split between its ends, the odd one at the end), each
-//     window's slots and their components in order, then the window sums
-//     in order; 32 slots or fewer in order.  The gap is the demand's sum
-//     minus the usage's;
+//     table's (A, C) in the order of XLA:CPU's compiled sum
+//     (ref.py:xla_table_sum, read from the dumped LLVM IR and object
+//     code): windows of 32 slots (the slot axis padded to a multiple of
+//     32, the padding split between its ends, the odd one at the end;
+//     32 slots or fewer one window), each summed by its kernel one of two
+//     ways, then the window sums in order from the first, + 0, + the
+//     next ...  Serial: 0 + the window's slots and their components in
+//     order.  In VF lanes (C of 2 to 4 at the A that LLVM vectorised,
+//     ref.py:xla_table_plan, passed in as `order`): lane l starts at 0
+//     (l = 0) or -0 and adds slots l, l + VF, ... below nv, each slot's
+//     components in order, the data or the lane the first operand by
+//     component; a tree adds lane i + VF/2 to lane i, then i + VF/4, ...,
+//     the higher or the lower lane first; slots nv..n-1 follow serially
+//     (nv = VF floor((n - 1) / VF), or n where the loop is unrolled).
+//     The gap is the demand's sum minus the usage's;
 //   * the credit channel is the sum of credit * active over the tenants
-//     in the same tree, divided by the count of active tenants;
+//     in XLA's tree of 32-tenant windows (ref.py:xla_sum: each window in
+//     order from its first term, then the windows' sums), divided by the
+//     count of active tenants;
 //   * subnormals as x86's denormals-are-zero and flush-to-zero give them,
 //     and a NaN as x86 gives it: the first NaN operand of an add, a
 //     product or a quotient, quieted, or x86's default NaN for inf - inf
@@ -32,9 +43,11 @@
 // shared memory (cp.async.bulk, completing on the barrier; plain loads
 // behind a block barrier where a window's rows are not 16-byte aligned,
 // C odd), and as soon as they land two lanes, a table each, run its two
-// resources' chains side by side over float4 reads, in XLA's order (a
-// window's 32 C adds, the floor of the kernel).  Meanwhile warp 0 loads
-// the cursor, the counters and the tenant state, a lane each, counts the
+// resources' serial chains side by side over float4 reads (a window's
+// 32 C adds, the floor of the kernel), or, where XLA's loop has lanes,
+// lane t*16 + r*8 + l runs table t's resource r's lane l, the warp's
+// shuffles make the tree and lane l = 0 adds the tail.  Meanwhile warp 0
+// loads the cursor, the counters and the tenant state, a lane each, counts the
 // queue and the admissions a word of four apps a lane, and forms the
 // deltas and the credit mean (its tree over T by the lanes, a shuffle a
 // term); warps 1-3 copy the member's rings to the outputs, 16 bytes a
@@ -117,6 +130,7 @@ struct Args {
   const int* lead;                                                            // or null
   int* o_cursor; float* o_f32; int* o_i32; int* o_lead_ring;
   int A, C, N, T, R;
+  int order;   // XLA's loop over a window (xla_table_plan): see window_lanes
 };
 
 // floats a staged window takes: 32 slots of C components of 2, and kPad
@@ -241,16 +255,17 @@ __device__ __forceinline__ Tail tail(const Args& p, int s, int lane) {
   return o;
 }
 
-// A window's chain over staged floats x: n units of (cpu, mem) pairs, in
-// order from the first.  With n even the fast path reads float4s, a batch
-// of kBatch ahead of the adds, whole batches without a branch (the reads
-// ahead unconditional: a staged window has kBatch float4s of padding after
-// it); a NaN at its end, or n odd, takes the plain chain, with x86's adds
-// where the fast one ended in a NaN.
+// A window's serial chain over staged floats x: 0 + n units of (cpu, mem)
+// pairs in order (one unit, at A = C = 1, as it is).  With n even the fast
+// path reads float4s, a batch of kBatch ahead of the adds, whole batches
+// without a branch (the reads ahead unconditional: a staged window has
+// kBatch float4s of padding after it); a NaN at its end, or n odd, takes
+// the plain chain, with x86's adds where the fast one ended in a NaN.
 __device__ __forceinline__ float2 chain(const float* x, int n) {
+  if (n == 1) return make_float2(x[0], x[1]);   // A = C = 1: XLA drops the reduce
   const auto plain = [&](auto add) {
-    float2 a = make_float2(x[0], x[1]);
-    for (int j = 1; j < n; ++j) a = make_float2(add(a.x, x[2 * j]), add(a.y, x[2 * j + 1]));
+    float2 a = make_float2(0.f, 0.f);
+    for (int j = 0; j < n; ++j) a = make_float2(add(a.x, x[2 * j]), add(a.y, x[2 * j + 1]));
     return a;
   };
   if (n % 2 == 1) return xla::fold(plain);
@@ -260,8 +275,7 @@ __device__ __forceinline__ float2 chain(const float* x, int n) {
     return make_float2(xla::add_ftz(xla::add_ftz(a.x, v.x), v.z),
                        xla::add_ftz(xla::add_ftz(a.y, v.y), v.w));
   };
-  const float4 v0 = x4[0];
-  float2 a = make_float2(xla::add_ftz(v0.x, v0.z), xla::add_ftz(v0.y, v0.w));
+  float2 a = add2(make_float2(0.f, 0.f), x4[0]);
   int i = 1;                // whole batches without a condition, then the rest
   float4 cur[kBatch];
 #pragma unroll
@@ -277,6 +291,35 @@ __device__ __forceinline__ float2 chain(const float* x, int n) {
   }
   for (; i < n4; ++i) a = add2(a, x4[i]);
   if (a.x != a.x || a.y != a.y) a = plain(xla::AddX86{});
+  return a;
+}
+
+// A window of n slots summed in XLA's VF lanes (order = VF | unrolled << 4
+// | the tree's higher lane first << 5 | data first by component << 8,
+// ref.py:xla_table_plan and XLA_LANE_ORDER): lane t*16 + r*8 + l of the
+// warp runs lane l of table t's resource r over the staged windows x0
+// and x1 (slot j's component c of resource r at (j C + c) 2 + r), the
+// shuffles reduce each group of lanes in the tree, and lane l = 0 adds
+// the slots past nv; it returns the window's sum there.
+__device__ __forceinline__ float window_lanes(const float* x0, const float* x1, int ntab,
+                                             int n, int C, int order, int lane) {
+  const int vf = order & 15, t = lane >> 4, r = (lane >> 3) & 1, l = lane & 7;
+  const bool on = t < ntab && l < vf;
+  const float* x = t ? x1 : x0;
+  const int nv = order & 16 ? n : (n - 1) / vf * vf;
+  float a = l == 0 ? 0.f : -0.f;
+  if (on)
+    for (int j = l; j < nv; j += vf)
+      for (int c = 0; c < C; ++c) {
+        const float v = x[(j * C + c) * 2 + r];
+        a = order >> (8 + c) & 1 ? xla::add(v, a) : xla::add(a, v);
+      }
+  for (int h = vf >> 1; h > 0; h >>= 1) {          // lane l takes lane l + h
+    const float hi = __shfl_down_sync(kFull, a, h);
+    if (l < h) a = order & 32 ? xla::add(hi, a) : xla::add(a, hi);
+  }
+  if (on && l == 0)
+    for (int k = nv * C; k < n * C; ++k) a = xla::add(a, x[2 * k + r]);
   return a;
 }
 
@@ -322,7 +365,15 @@ __global__ void __launch_bounds__(kThreads) obs_tick_kernel(const Args p) {
     }
     __syncwarp();
     // phase: chains
-    if (lane < ntab)                  // lane t: table t, both resources
+    if (p.order & 15) {               // XLA's lanes: the whole warp a window
+      for (int w = w0; w < win.count; w += kChainWarps) {
+        if (bulk) mbar_wait(&s_bar[w]);
+        const float* x0 = smem + w * ntab * wf;
+        const float sum = window_lanes(x0, x0 + wf, ntab, win.end(w, A) - win.first(w), C,
+                                       p.order, lane);
+        if ((lane & 7) == 0 && lane >> 4 < ntab) s_part[lane >> 4][(lane >> 3) & 1][w] = sum;
+      }
+    } else if (lane < ntab) {         // lane t: table t, both resources
       for (int w = w0; w < win.count; w += kChainWarps) {
         if (bulk) mbar_wait(&s_bar[w]);
         // phase: landed
@@ -331,6 +382,7 @@ __global__ void __launch_bounds__(kThreads) obs_tick_kernel(const Args p) {
         s_part[lane][0][w] = sum.x;
         s_part[lane][1][w] = sum.y;
       }
+    }
     // phase: chains done
   } else if (warp == 0) {
     // phase: tail
@@ -356,12 +408,13 @@ __global__ void __launch_bounds__(kThreads) obs_tick_kernel(const Args p) {
     if (lane == 0) p.o_cursor[s] = o.cursor;
     return;
   }
-  // lanes 0-3: (table, resource)'s windows in order
+  // lanes 0-3: (table, resource)'s windows in order, w0 + 0 + w1 + ...
+  // (one window: its sum)
   float total = 0.f;
   const int t = lane >> 1, r = lane & 1;
   if (lane < 2 * ntab)
-    total = xla::fold([&](auto add) {
-      float a = s_part[t][r][0];
+    total = win.count == 1 ? s_part[t][r][0] : xla::fold([&](auto add) {
+      float a = add(s_part[t][r][0], 0.f);
       for (int w = 1; w < win.count; ++w) a = add(a, s_part[t][r][w]);
       return make_float2(a, 0.f);
     }).x;
@@ -402,9 +455,12 @@ extern "C" size_t obs_tick_smem(int A, int C, int ntab) {
 // (cnt0*); the tenancy's credit (S, T) f32, throttled and active_ticks
 // (S, T) i32 after the control step and before it (all null without the
 // control plane); the calibration's resolved and errors (S,) i32 now and
-// at entry (null without calibration); lead (S,) i32 or null.  Outputs:
-// the rings.  A <= 1024 and C <= 32 (the tree has one level of windows
-// that span whole slots), T <= 1024, and obs_tick_smem within 47 KB.
+// at entry (null without calibration); lead (S,) i32 or null; order,
+// XLA's loop over a window of the tables' sums (0 serial, else VF | the
+// loop unrolled << 4 | the tree's higher lane first << 5 | data first by
+// component << 8; ref.py:xla_table_plan).  Outputs: the rings.  A <= 1024
+// and C <= 32 (the tree has one level of windows that span whole slots),
+// lanes only at C <= 4, T <= 1024, and obs_tick_smem within 47 KB.
 extern "C" int obs_tick(
     const void* cursor, const void* f32, const void* i32, const void* lead_ring,
     const void* active, const void* usage, const void* demand, const void* queued,
@@ -414,10 +470,11 @@ extern "C" int obs_tick(
     const void* throttled0, const void* active_ticks0, const void* resolved,
     const void* errors, const void* resolved0, const void* errors0, const void* lead,
     void* o_cursor, void* o_f32, void* o_i32, void* o_lead_ring, int S, int A, int C, int N,
-    int T, int R, void* stream) {
+    int T, int R, int order, void* stream) {
   if (S <= 0 || A <= 0 || A > 1024 || C <= 0 || C > 32 || N < 0 || R <= 0 || T < 0 ||
       T > 1024 || (credit == nullptr) != (T == 0) || (resolved == nullptr) != (errors == nullptr) ||
-      (lead_ring == nullptr) != (o_lead_ring == nullptr))
+      (lead_ring == nullptr) != (o_lead_ring == nullptr) ||
+      ((order & 15) && ((order & 15) > 8 || C > 4)))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto I = [](const void* x) { return static_cast<const int*>(x); };
   Args p{I(cursor), static_cast<const float*>(f32), I(i32), I(lead_ring),
@@ -428,7 +485,7 @@ extern "C" int obs_tick(
          I(throttled), I(active_ticks), I(throttled0), I(active_ticks0), I(resolved), I(errors),
          I(resolved0), I(errors0), I(lead), static_cast<int*>(o_cursor),
          static_cast<float*>(o_f32), static_cast<int*>(o_i32), static_cast<int*>(o_lead_ring),
-         A, C, N, T, R};
+         A, C, N, T, R, order};
   const size_t smem = obs_tick_smem(A, C, demand ? 2 : 1);
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   obs_tick_kernel<<<S, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);

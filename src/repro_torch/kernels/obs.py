@@ -20,7 +20,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import nvcc
+from repro_torch.kernels import nvcc, ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "obs.cu"
 F32_ROWS, I32_ROWS = 5, 8
@@ -33,12 +33,26 @@ def _library() -> ctypes.CDLL:
     global _LIB
     if _LIB is None:
         lib = ctypes.CDLL(str(nvcc.build(SOURCE).path))
-        lib.obs_tick.argtypes = [ctypes.c_void_p] * 31 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        lib.obs_tick.argtypes = [ctypes.c_void_p] * 31 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         lib.obs_tick.restype = ctypes.c_int
         lib.obs_tick_smem.argtypes = [ctypes.c_int] * 3
         lib.obs_tick_smem.restype = ctypes.c_size_t
         _LIB = lib
     return _LIB
+
+
+def table_order(A: int, C: int) -> int:
+    """XLA:CPU's loop over a window of the (A, C, 2) tables' sums as the
+    kernel's ``order`` argument (``csrc/obs.cu``): 0 for a serial sum,
+    else the lanes VF | unrolled << 4 | the tree's higher lane first << 5
+    | the data first, by component, << 8 (``ref.xla_table_plan`` and
+    ``ref.XLA_LANE_ORDER``)."""
+    vf, unrolled = ref.xla_table_plan(A, C)
+    if not vf:
+        return 0
+    data_first, hi_first = ref.XLA_LANE_ORDER[(vf, C)]
+    return (vf | unrolled << 4 | hi_first << 5
+            | sum(int(d) << (8 + c) for c, d in enumerate(data_first)))
 
 
 @nvcc.counted
@@ -97,7 +111,7 @@ def obs_tick(cursor, f32, i32, lead_ring, active, usage, demand, queued, q_admit
         cal0 = (None,) * 2 if calib0 is None else calib0
         nvcc.launch(_library().obs_tick, "obs_tick", dev, cursor, f32, i32, lead_ring, active,
                     usage, demand, queued, q_admit, *counters, *counters0, *ten, *ten0, *cal,
-                    *cal0, lead, *out, S, A, C, N, T, R)
+                    *cal0, lead, *out, S, A, C, N, T, R, table_order(A, C))
         nvcc.count(obs_tick)
     return out
 

@@ -333,7 +333,9 @@ def xla_sum(x: np.ndarray, group: int = 1, *, ftz: bool = False) -> np.ndarray:
     reduced dimension, for a sum over (A, C) flattened to A*C rows with
     C <= 32 (the window then spans whole slots).  ``ftz``: each add as
     :func:`add_xla` takes it (subnormals as zeros, x86's NaN), else as
-    numpy's float32 add."""
+    numpy's float32 add.  Where LLVM vectorised a window's loop across
+    the reduced dimension the order differs: the (A, C, 2) tables' sums
+    take :func:`xla_table_sum`."""
     n = x.shape[0] // group
     if n <= TREE_WINDOW:
         return _fold(x, ftz)
@@ -342,6 +344,106 @@ def xla_sum(x: np.ndarray, group: int = 1, *, ftz: bool = False) -> np.ndarray:
     parts = [_fold(x[max(j - lo, 0) * group:min(j + TREE_WINDOW - lo, n) * group], ftz)
              for j in range(0, padded, TREE_WINDOW)]
     return xla_sum(np.stack(parts), ftz=ftz)
+
+
+# The reference's sums of an (A, C, 2) slot table over its slots and
+# components (``usage.sum((0, 1))``: the rings' usage and shaped-demand
+# sums), as XLA:CPU compiles them on x86-64 with AVX-512 (read from the
+# dumped program, ``XLA_FLAGS=--xla_dump_to=DIR``: the HLO, each kernel's
+# LLVM IR after optimisation and its object file's disassembly; jax
+# 0.9.0).  Over A > 32 slots the HLO is a reduce-window of 32 whole slots
+# (the slot axis padded to a multiple of 32, the padding split between its
+# ends, the odd one at the end) and a reduce of the window sums in order,
+# w0 + 0 + w1 + ...; over A <= 32 one reduce.  Each window's kernel sums
+# its n slots one of two ways, as LLVM's vectoriser chose for the shape:
+#   * serial: 0 + each slot's components in order, the running sum the
+#     first operand (a padded window checks each slot's bounds, so its
+#     loop is never vectorised);
+#   * VF lanes (C of 2, 3 or 4): lane l starts at 0 (l = 0) or -0 and
+#     adds slots l, l + VF, ... below nv, each slot's components in order;
+#     the lanes are reduced in a tree (lane i with i + VF/2, then i + VF/4,
+#     ..., the first operand the higher lane or the lower as the register
+#     allocation put it); then slots nv..n-1 are added to the tree's sum
+#     serially.  A vectorised loop keeps a scalar epilogue (its
+#     interleaved loads have gaps, the other resource), so nv = VF *
+#     floor((n - 1) / VF); the fully unrolled n of 2, 4, 8 at C = 2 has
+#     none (nv = n).
+# Which, by (A, C) (XLA_TABLE_VF):
+#     A = C = 1                       no add: the entry itself
+#     C = 1 or C >= 5                 serial
+#     C in 2..4, A <= 32:  A = 16..19, 24..27, 32: VF 8;  A = 20..23,
+#                          28..31: VF 4;  A = 2, 4, 8 at C = 2: VF A,
+#                          unrolled;  other A: serial
+#     C in 2..4, A > 32:   A % 32 == 0: VF 8;  A % 32 == 31 (windows of 32
+#                          and a last of 31): VF 4;  other A: serial
+# and the first operand of each lane add, the data (True) or the lane,
+# component by component, and of the tree's adds (XLA_LANE_ORDER).  On
+# x86 a NaN result is the first operand's NaN where both are NaN
+# (:func:`nan_x86`), so these orders decide the payload.
+# (first A, last A, VF) of the vectorised A <= 32 at C of 2, 3 and 4
+XLA_TABLE_VF = ((16, 19, 8), (20, 23, 4), (24, 27, 8), (28, 31, 4), (32, 32, 8))
+# (VF, C): (data first, per component; the tree's higher lane first)
+XLA_LANE_ORDER = {(2, 2): ((False, False), False),
+                  (8, 2): ((False, False), False), (8, 3): ((True, True, True), True),
+                  (8, 4): ((False,) * 4, False), (4, 2): ((False, False), False),
+                  (4, 3): ((False, True, False), False),
+                  (4, 4): ((True, True, True, False), False)}
+
+
+def xla_table_plan(A: int, C: int) -> tuple[int, bool]:
+    """(VF, unrolled) of XLA:CPU's kernel for an (A, C, 2) table's sum over
+    its windows (see above): VF 0 for a serial sum, else the lanes, and
+    whether the loop is fully unrolled (no scalar epilogue)."""
+    if not 2 <= C <= 4:
+        return 0, False
+    if A <= TREE_WINDOW:
+        if C == 2 and A in (2, 4, 8):
+            return A, True
+        return next((vf for lo, hi, vf in XLA_TABLE_VF if lo <= A <= hi), 0), False
+    return {0: 8, TREE_WINDOW - 1: 4}.get(A % TREE_WINDOW, 0), False
+
+
+def _window_sum(x: np.ndarray, vf: int, unrolled: bool) -> np.ndarray:
+    """One window's (n, C, 2) sum over its slots and components, as its
+    kernel takes it (:func:`xla_table_plan`), each add as :func:`add_xla`."""
+    n, C = x.shape[:2]
+    acc, nv = np.zeros(2, np.float32), 0
+    if vf:
+        data_first, hi_first = XLA_LANE_ORDER[(vf, C)]
+        nv = n if unrolled else (n - 1) // vf * vf
+        lanes = np.full((vf, 2), -0.0, np.float32)
+        lanes[0] = 0.0
+        for j in range(0, nv, vf):
+            for c in range(C):
+                d = x[j:j + vf, c]
+                lanes = add_xla(d, lanes) if data_first[c] else add_xla(lanes, d)
+        while len(lanes) > 1:
+            lo, hi = np.split(lanes, 2)
+            lanes = add_xla(hi, lo) if hi_first else add_xla(lo, hi)
+        acc = lanes[0]
+    for row in x[nv:].reshape(-1, 2):
+        acc = add_xla(acc, row)
+    return acc
+
+
+def xla_table_sum(x: np.ndarray) -> np.ndarray:
+    """(2,) float32 sum of an (A, C, 2) table over (A, C) in the order of
+    XLA:CPU's compiled ``x.sum((0, 1))`` (see above), with x86's
+    denormals-are-zero, flush-to-zero and NaN operands."""
+    A, C = x.shape[:2]
+    if A * C == 1:                     # XLA drops the reduce: a copy
+        return x[0, 0].copy()
+    vf, unrolled = xla_table_plan(A, C)
+    if A <= TREE_WINDOW:
+        return _window_sum(x, vf, unrolled)
+    padded = -(-A // TREE_WINDOW) * TREE_WINDOW
+    lo = (padded - A) // 2
+    sums = [_window_sum(x[max(j - lo, 0):min(j + TREE_WINDOW - lo, A)], vf, unrolled)
+            for j in range(0, padded, TREE_WINDOW)]
+    acc = add_xla(sums[0], np.float32(0.0))
+    for w in sums[1:]:
+        acc = add_xla(acc, w)
+    return acc
 
 
 def _fold(x: np.ndarray, ftz: bool) -> np.ndarray:
@@ -1321,8 +1423,9 @@ def obs_tick(cursor, f32, i32, lead_ring, active, usage, demand, queued, q_admit
     order.  ``active`` (S,) bool.  ``usage`` (S, A, C, 2) f32 the tick's
     usage after the OOM handler, ``demand`` (S, A, C, 2) the shaped
     demand table (None under the baseline policy); each summed over (A,
-    C) in XLA:CPU's tree of 32-slot windows (:func:`xla_sum` with
-    ``group=C``, each add as :func:`add_xla` takes it), the gap the
+    C) in the order of XLA:CPU's compiled sum (:func:`xla_table_sum`:
+    32-slot windows, each serial from 0 or in vector lanes, a tree and a
+    scalar tail, as LLVM vectorised it for the shape), the gap the
     demand's sum minus the usage's (:func:`sub_xla`).
     ``queued`` (S, N) the queue at the end of the tick, ``q_admit`` the
     queue before admission: ``queue`` counts the one, ``admitted`` the
@@ -1352,10 +1455,10 @@ def obs_tick(cursor, f32, i32, lead_ring, active, usage, demand, queued, q_admit
     for s in range(S):
         if not act[s]:
             continue
-        used = xla_sum(use[s].reshape(A * C, 2), group=C, ftz=True)
+        used = xla_table_sum(use[s])
         gap = np.zeros(2, np.float32)
         if dem is not None:
-            gap = sub_xla(xla_sum(dem[s].reshape(A * C, 2), group=C, ftz=True), used)
+            gap = sub_xla(xla_table_sum(dem[s]), used)
         credit = zero
         throttled = 0
         if tenancy is not None:

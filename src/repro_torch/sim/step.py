@@ -108,6 +108,7 @@ from repro_torch.core.forecast.base import persistence_peak
 from repro_torch.core.shaper import (POLICIES, ShapeDecision, ShapeProblem,
                                      shaped_demand, shaped_demand_scaled)
 from repro_torch.core.shaper.pessimistic import gather_rows as _rows
+from repro_torch.core.shaper.safeguard import clip_request
 from repro_torch.control.device import device_weights
 from repro_torch.core.uncertainty import calib_observe_groups, calib_scales_begin
 from repro_torch.device import resolve_device
@@ -331,7 +332,7 @@ def _shaped_demands(cfg, model, tr: DeviceTrace, st: SimState, tick: float,
         # contracts peak + k1 * request into one fused multiply-add
         peaks = _oracle_peaks(tr, st, cfg.horizon, tick)
         shaped = _fma(req, np.float32(cfg.safeguard.k1), peaks)
-        shaped = torch.minimum(torch.clamp_min(shaped, 0.0), req)
+        shaped = clip_request(shaped, req)
         return torch.where(run[..., None], shaped, demand), st, zero, zero
 
     W = st.mon_buf.shape[2]

@@ -16,7 +16,13 @@ without the tier and with it; the control plane's and the rings' ticks
 (CONTROL_CRAFTED, OBS_CRAFTED): signed zeros, NaN and +-inf and values
 near 2^-126 in the tables, tenant ids out of range, 1 to 1,024 tenants,
 slot tables off XLA's 32-slot windows, an idle or inactive member and a
-ring cursor that wraps.
+ring cursor that wraps; the rings' usage and demand tables of
+``chip_smoke.crafted_tables`` at TABLE_SHAPES, whose sums take each of
+XLA:CPU's orders (serial windows, 8 and 4 vector lanes, the unrolled
+loop) with NaNs of four payloads, signed zeros and values near 2^-126;
+and ``leap_skip`` on the crafted clocks of ``chip_smoke.leap_clocks``
+(binade edges, half-ulp ties, t + tick == t, t = 0, subnormal and
+negative clocks, budgets to 20,000) and the seeded members.
 
 Every test needs a CUDA device and skips without one; the file imports
 no JAX.  Run on the card with ``python -m pytest -m gpu
@@ -26,13 +32,15 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (ARIMA_CRAFTED, CALIB_CRAFTED, CONTROL_CRAFTED, OBS_CRAFTED,
-                        SCALE_CRAFTED, arima_crafted, calib_crafted_outputs, control_crafted,
-                        crafted_rings, obs_crafted, scale_crafted_quantiles)
+from chip_smoke import (ARIMA_CRAFTED, CALIB_CRAFTED, CONTROL_CRAFTED, LEAP_DTYPES,
+                        OBS_CRAFTED, SCALE_CRAFTED, TABLE_SHAPES, arima_crafted,
+                        calib_crafted_outputs, control_crafted, crafted_rings, leap_cases,
+                        obs_crafted, obs_table_case, scale_crafted_quantiles)
 from repro_torch.core.forecast import ARIMAConfig
 from repro_torch.core.uncertainty import CalibrationConfig
 from repro_torch.kernels import arima_forecast as karima
 from repro_torch.kernels import calib, control, ref
+from repro_torch.kernels import leap as kleap
 from repro_torch.kernels import obs as kobs
 
 H = 3
@@ -125,3 +133,32 @@ def test_obs_tick_equals_plain_on_crafted_cases(name):
         assert (g is None) == (w is None)
         if g is not None:
             np.testing.assert_array_equal(_bits(g), _bits(w))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("A,C", TABLE_SHAPES, ids=[f"A{a}-C{c}" for a, c in TABLE_SHAPES])
+def test_obs_tick_equals_plain_on_crafted_tables(A, C):
+    _card()
+    args = obs_table_case(A, C)
+    want = ref.obs_tick(**args)
+    got = kobs.obs_tick(**{k: (tuple(x.cuda() for x in v) if isinstance(v, tuple)
+                               else None if v is None else v.cuda()) for k, v in args.items()})
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(_bits(g), _bits(w))
+
+
+_LEAP = leap_cases()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", range(len(_LEAP)), ids=[c[0] for c in _LEAP])
+def test_leap_skip_equals_plain_on_crafted_clocks(case):
+    _card()
+    name, cols, tick, leads = _LEAP[case]
+    cpu = [torch.as_tensor(np.ascontiguousarray(a, dt)) for a, dt in zip(cols, LEAP_DTYPES)]
+    want = ref.leap_skip(*cpu, tick)
+    got = kleap.leap_skip(*(a.cuda() for a in cpu), tick)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(_bits(g), _bits(w))
+    if leads is not None:
+        assert got[1].tolist() == leads

@@ -20,6 +20,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from chip_smoke import LEAP_DTYPES, leap_clock_member, leap_clocks, leap_closed_form
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from repro.sim import ClusterConfig, SimConfig
 from repro.sim import step as rstep
@@ -145,6 +148,73 @@ def test_leap_skip_equals_reference_loop(tick):
     assert ((lead == left) & (left > 0)).sum() > 3
     assert ((lead == left) & args[2].all(1) & (left > 0)).any()
     assert (lead == 0).sum() > 10
+
+
+def _one_idle_member(t, tick, next_sub, left):
+    """``ref.leap_skip`` (the serial loop) on one idle member: (t, n)."""
+    args = leap_clock_member(4, 6, np.float32(t), np.float32(next_sub), left)
+    cols = [torch.as_tensor(np.ascontiguousarray(np.asarray(a)[None], dt))
+            for a, dt in zip(args, LEAP_DTYPES)]
+    t_out, lead = ref.leap_skip(*cols, float(np.float32(tick)))
+    return t_out.numpy()[0], int(lead[0])
+
+
+def _assert_closed_form_is_the_loop(t, tick, next_sub, left):
+    want_t, want_n = _one_idle_member(t, tick, next_sub, left)
+    got_t, got_n, _ = leap_closed_form(t, tick, next_sub, left)
+    assert got_n == want_n, (t, tick, next_sub, left)
+    assert np.float32(got_t).view(np.int32) == np.float32(want_t).view(np.int32), (
+        t, tick, next_sub, left, got_t, want_t)
+
+
+@pytest.mark.parametrize("name,t,tick,next_sub,left", leap_clocks(),
+                         ids=[c[0] for c in leap_clocks()])
+def test_leap_closed_form_equals_serial_loop_on_crafted_clocks(name, t, tick, next_sub, left):
+    """The kernel's count, transcribed step by step (``chip_smoke.
+    leap_closed_form``, as ``csrc/leap.cu::skip`` takes it), against the
+    plain version's serial loop on the crafted clocks that ``chip_smoke.py``
+    phase 3 runs on the card: the skipped ticks and the clock's bits."""
+    _assert_closed_form_is_the_loop(t, tick, next_sub, left)
+
+
+_F32 = st.floats(width=32, allow_nan=False, allow_infinity=False)
+
+
+@st.composite
+def _clocks(draw):
+    """(t, tick, next arrival, budget): t across the binades (0, subnormal,
+    up to 2^40, binade edges), ticks of 60, 0.1, 1/3, 1e-3, any positive
+    float32 and half-ulp ties of t's binade, the next arrival +inf, on the
+    tick grid, just off it or anywhere, budgets 0 to 20,000."""
+    e = draw(st.integers(-149, 40))
+    t = np.float32(draw(st.sampled_from([0.0, 2.0**e, 2.0**(e + 1) * (1 - 2.0**-24),
+                                         draw(st.floats(2.0**e, 2.0**(e + 1)))])))
+    kind = draw(st.sampled_from(["fixed", "any", "tie"]))
+    if kind == "fixed":
+        tick = np.float32(draw(st.sampled_from([60.0, 0.1, 1 / 3, 1e-3])))
+    elif kind == "any":
+        tick = np.float32(draw(_F32.filter(lambda x: x > 0)))
+    else:                        # (m + 1/2) ulps of t's binade
+        ulp = 2.0 ** (max(int(np.float32(t).view(np.uint32)) >> 23, 1) - 150)
+        tick = np.float32((draw(st.integers(0, 40)) + 0.5) * ulp)
+    if not np.isfinite(tick) or tick <= 0:
+        tick = np.float32(60.0)
+    left = draw(st.sampled_from([0, 1, 2, 225, 20_000]) | st.integers(0, 20_000))
+    k = draw(st.integers(0, 25_000))
+    next_sub = draw(st.sampled_from([
+        np.inf, np.float32(t + np.float64(k) * tick),
+        np.nextafter(np.float32(t + np.float64(k) * tick), np.float32(np.inf)),
+        np.nextafter(np.float32(t + np.float64(k) * tick), np.float32(-np.inf))]) | _F32)
+    return t, tick, np.float32(next_sub), left
+
+
+@settings(max_examples=300, deadline=None)
+@given(_clocks())
+def test_leap_closed_form_equals_serial_loop(clock):
+    """The kernel's closed-form count against ``ref.leap_skip``'s serial
+    loop, bit for bit on the clock and exactly on the ticks skipped, over
+    drawn clocks, ticks, arrivals and budgets."""
+    _assert_closed_form_is_the_loop(*clock)
 
 
 def _stand_ins(S=3, A=5, N=9, **over):

@@ -8,8 +8,8 @@ the persist config of the reference's own ring tests
 (``tests/test_obs.py``) and a calibrated, tenanted config of
 ``tests/test_torch_control.py``'s size.  Held: whole-run histories,
 int channels exactly and float channels bit for bit (the usage and
-demand sums in XLA's tree, ``ref.xla_sum`` with ``group=C``, shown
-against the float64 order on crafted values); one fused tick from every
+demand sums in the order of XLA:CPU's compiled sum, ``ref.xla_table_sum``,
+shown against the float64 order on crafted values); one fused tick from every
 converted reference state of a run, and from crafted states where the
 tick has OOM kills, preemptions, admissions and gate throttling, every
 field of the next state; the reference's contracts (rings off change
@@ -292,9 +292,9 @@ def test_ref_obs_tick_equals_obs_record():
     """``ref.obs_tick`` against ``rings.obs_record`` fed the values the
     reference computes (the usage and demand sums by a jitted XLA:CPU
     reduction, the credit by ``repro.control.device.credit_mean``), and
-    the port's ``obs_record`` against the reference's.  The sums are the
-    tree of ``ref.xla_sum(..., group=C)``, not the float64 order: on these
-    values the two differ."""
+    the port's ``obs_record`` against the reference's.  The sums are
+    ``ref.xla_table_sum``'s order, not the float64 order: on these values
+    the two differ."""
     a = _seeded_tick(3)
     S, A, C = a["usage"].shape[:3]
     got = ref.obs_tick(**a)
@@ -304,8 +304,7 @@ def test_ref_obs_tick_equals_obs_record():
     for s in range(S):
         used = np.asarray(xsum(a["usage"][s].numpy()))
         dem = np.asarray(xsum(a["demand"][s].numpy()))
-        np.testing.assert_array_equal(
-            used, ref.xla_sum(a["usage"][s].numpy().reshape(A * C, 2), group=C))
+        np.testing.assert_array_equal(used, ref.xla_table_sum(a["usage"][s].numpy()))
         differs += int((a["usage"][s].double().sum((0, 1)).float().numpy() != used).any())
         cr, th, at = (x[s].numpy() for x in a["tenancy"])
         th0, at0 = (x[s].numpy() for x in a["tenancy0"])

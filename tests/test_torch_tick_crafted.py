@@ -3,26 +3,30 @@ tick (``ref.control_tick`` and ``ref.obs_tick``, the plain versions of
 the ``control_tick`` and ``obs_tick`` kernels) against the reference's
 compiled fused tick (``repro.sim.step``) on crafted states, on the CPU.
 
-Each cell is a small config with the control plane on: T tenants of 1,
-4, 32, 33 and 1,024, slot tables of A = 20, 37 and 128 (one of XLA's
-32-slot windows, two off the windows' grid, four).  Under the baseline
-policy a crafted allocation table reaches the control step as it
-stands; the rings are on in two cells of the pessimistic policy (one
-of them calibrated), whose shaped demand, gate and conformal counts
-reach them.  (The rings stay off in the other cells: there the
-reference's compiled tick sums the usage table in an order of its own,
-not the windows of whole slots that ``ref.xla_sum`` copies, an ulp
-apart on some tables; ROADMAP queue 3.)  From a reference state a few ticks into its run, each case
-crafts the state or the trace, then one tick of the reference's program
-and of the port (``tstep.fused_tick``) leave the same next state, every
-field bit for bit.  The cases: signed zeros in the allocations, the
+Each cell is a small config with the control plane and the telemetry
+rings on: T tenants of 1, 4, 32, 33 and 1,024, slot tables of A = 20,
+37 and 128 (one of XLA's 32-slot windows, two off the windows' grid,
+four) of C = 3, 5 and 12 components.  Under the baseline policy a
+crafted allocation table reaches the control step as it stands; under
+the pessimistic policy (two cells, one of them calibrated, and one at
+the main path's widths, A = 128 slots of C = 12 for T = 4 tenants and
+300 apps on 50 hosts) the shaped demand, the gate and the conformal
+counts reach the rings.  The rings' usage and demand sums follow the
+order of XLA:CPU's compiled sum (``ref.xla_table_sum``: serial windows
+at C = 5 and 12 and off the windows' grid, 8 vector lanes at A = 128 of
+C = 3), which is the host's (``tests/test_torch_table_sum.py``).  From
+a reference state a few ticks into its run, each case crafts the state
+or the trace, then one tick of the reference's program and of the port
+(``tstep.fused_tick``) leave the same next state, every field bit for
+bit.  The cases: signed zeros in the allocations, the
 usage and the tenants' share sums (a tenant whose slots hold only -0, a
 window whose first slot is another tenant's); NaN of two payloads and
 +-inf in the tables; values near 2^-126, where XLA:CPU reads and
 flushes subnormals as zeros; tenant ids of T and more, and -1, in the
 trace; an inactive member; and a ring cursor that wraps.  The
 reference's programs are compiled once a cell (about 3 s each, 8 s for
-the calibrated one), and the port runs on one torch thread.
+the calibrated one and the main widths' cell), and the port runs on one
+torch thread.
 """
 import dataclasses
 
@@ -48,18 +52,22 @@ NAN_A, NAN_B = np.uint32([0x7FC0DEAD, 0xFFC00001]).view(np.float32)
 
 # name: (tenants T, slots A, components C, apps N, hosts, policy, calibration,
 # rings)
-CELLS = {"T=4, A=20": (4, 20, 5, 40, 3, "baseline", False, False),
-         "T=1, A=37": (1, 37, 3, 60, 4, "baseline", False, False),
-         "T=32, A=128": (32, 128, 3, 200, 16, "baseline", False, False),
-         "T=1024, A=37": (1024, 37, 3, 60, 4, "baseline", False, False),
+CELLS = {"T=4, A=20": (4, 20, 5, 40, 3, "baseline", False, True),
+         "T=1, A=37": (1, 37, 3, 60, 4, "baseline", False, True),
+         "T=32, A=128": (32, 128, 3, 200, 16, "baseline", False, True),
+         "T=1024, A=37": (1024, 37, 3, 60, 4, "baseline", False, True),
          "shaped, T=33, A=37": (33, 37, 3, 60, 4, "pessimistic", False, True),
-         "every feature": (4, 20, 5, 40, 3, "pessimistic", True, True)}
+         "every feature": (4, 20, 5, 40, 3, "pessimistic", True, True),
+         "main widths, T=4, A=128, C=12": (4, 128, 12, 300, 50, "pessimistic", False, True)}
 CONTROL_CASES = ("seeded", "signed zeros", "nan and inf", "near 2^-126",
                  "tenant ids out of range", "inactive member")
 CASES = [(cell, c) for cell in ("T=4, A=20", "T=1, A=37", "T=32, A=128", "T=1024, A=37")
          for c in CONTROL_CASES]
 CASES += [(cell, c) for cell in ("shaped, T=33, A=37", "every feature")
           for c in CONTROL_CASES + ("cursor wraps",)]
+CASES += [(cell, "cursor wraps") for cell in ("T=4, A=20", "T=1, A=37", "T=32, A=128",
+                                               "T=1024, A=37")]
+CASES += [("main widths, T=4, A=128, C=12", c) for c in CONTROL_CASES + ("cursor wraps",)]
 
 
 class _Cell:
