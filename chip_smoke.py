@@ -79,6 +79,19 @@ points:
     than requests and one gp_fit_forecast launch a batch, then without
     the batcher; the family fitted to the Alibaba fixture at 500 apps;
     the GP's and ARIMA's forecast diagnostics card against CPU;
+  * streamed ingestion and fleets (phase 5k): SimConfig() with its
+    workload streamed (StreamConfig, the default window of 256 rows)
+    to completion through replayed graphs, bit for bit the materialized
+    run, its captures by window width and a second run counted against
+    the graphs' kernel nodes, ticks/s of both in turns; a window of 16
+    that grows (a new graph at each width); the gap cell's leap streamed
+    in a window of 8; 20,000 tasks of the reference replay bench's
+    Alibaba-shaped trace through a window of at most 256 rows, every task
+    done, ticks/s and tasks/s (its materialized run of 100,000 tasks
+    cannot launch: the admission kernel's shared memory), its 1,500-task
+    slice streamed against materialized, uniform and leap; a google +
+    flashcrowd fleet through run_fleet_shard(mesh=1), each member its
+    solo run;
   * Whisper-large-v3 serving at full width (random weights from a seeded
     generator on the card): 8 requests of 1,500 frames prefilled with 448
     teacher-forced tokens through the tensor-core flash kernel (bf16,
@@ -101,8 +114,11 @@ seeded tie-prone tables and edge cases (three members, A * C and N off
 the 16-byte vectors, a host below 0 before the pass, tied OOM victims,
 admissions until a head does not fit, submit ties broken by gid,
 missing elastic components that fill the hosts; every output equal),
-the idle-tick skip on seeded and edge members (and members whose
-calibration scores are pending), the ARIMA kernel on 3,072 seeded
+the OOM handler on host totals crafted onto capacity + 1e-6 at the
+shapes whose total XLA:CPU sums in vector lanes, the idle-tick skip on
+seeded and edge members (and members whose calibration scores are
+pending), the scheduler kernels, the skip, control_tick and obs_tick on
+a streamed window's re-keyed and free rows, the ARIMA kernel on 3,072 seeded
 windows and on the crafted windows of ARIMA_CRAFTED (an order that is
 not fitted winning, the fitted one winning, the fallback's edge, holes,
 constant and signed-zero windows, every and no row ready, other orders,
@@ -1355,15 +1371,19 @@ def scan_kernel_cases(step, SimConfig):
     # tied; admissions until a head does not fit, gid ties, missing elastic
     # components that fill the hosts; a host short of cpu (member 0) or
     # memory (member 1) before the pass, which removes every valid row;
-    # core components sharing hosts
+    # core components sharing hosts; a streamed window's re-keyed rows
+    # and free rows
     for seed in range(4):
         add_sched_cases(cases, random_tables(seed, A=13, C=7, N=37, H=5))
         add_sched_cases(cases, tied_oom_table(seed))
         add_sched_cases(cases, edge_tables(seed))
+        add_sched_cases(cases, window_tables(seed))
         cases["pessimistic_pass"] += [pass_table(seed, A=7, C=5, H=3),
                                       pass_table(seed, A=13, C=3, H=4),
                                       pass_table(seed, negative=True),
                                       pass_table(seed, A=32, H=2, core_p=0.6)]
+    # host totals on capacity + 1e-6 in XLA:CPU's order of each shape
+    cases["resolve_oom"] += [oom_total_table(C, A=A) for A, C in OOM_TOTAL_SHAPES]
     # no captured call re-places anything (no policy kill or OOM victim
     # leaves an elastic component missing at these widths): the
     # pessimistic tick-200 state with the running elastic components of
@@ -1420,6 +1440,114 @@ def tied_oom_table(seed):
         d[k] = d[k].clone()
         d[k][..., 1] = torch.where(run, v, 0.0)
     return d
+
+
+def _parent_slot_sum(x):
+    """An (A, C) table's sum in whole-slot windows of 32, each in order
+    (the serial order every (A, C) shape took before the plan of
+    ``ref.xla_slot_plan``): the crafted OOM totals are held against it."""
+    from repro_torch.kernels import ref
+    A = x.shape[0]
+    if A <= ref.TREE_WINDOW:
+        return np.cumsum(x.reshape(-1), dtype=np.float32)[-1]
+    padded = -(-A // ref.TREE_WINDOW) * ref.TREE_WINDOW
+    lo = (padded - A) // 2
+    parts = [np.cumsum(x[max(j - lo, 0):min(j + ref.TREE_WINDOW - lo, A)].reshape(-1),
+                       dtype=np.float32)[-1] for j in range(0, padded, ref.TREE_WINDOW)]
+    return np.cumsum(np.float32(parts), dtype=np.float32)[-1]
+
+
+OOM_TOTAL_CAP = 24.0   # GB of memory per host in the crafted OOM totals
+
+
+def oom_total_table(C, A=128, N=160, H=4, seed=0):
+    """resolve_oom's arguments (CPU tensors, one member) whose host 0 has
+    every running component and a memory total within an ulp or two of
+    its capacity + 1e-6, at the reference's (A, C): the entry's column
+    sums (``ref.xla_sum``) put the host over, and where XLA:CPU sums the
+    loop's total in vector lanes (``ref.xla_slot_plan``: C = 3 at A =
+    128), the lanes and the serial order decide the first kill
+    differently; at C = 12 both orders are the serial one.  Searched over
+    seeded draws, the largest component nudged a quarter of the total's
+    ulp at a time."""
+    import torch
+    from repro_torch.kernels import ref
+    rng = np.random.default_rng(seed)
+    lim = np.float32(OOM_TOTAL_CAP) + np.float32(1e-6)
+    run = np.ones((A, C), bool)
+    vectorised = ref.xla_slot_plan(A, C)[0] > 0
+    quarter = np.float32(np.spacing(lim) / 4)
+    for _ in range(400):
+        mem = rng.uniform(0.5, 1.5, (A, C)) * 2.0 ** rng.integers(-8, 1, (A, C))
+        mem = (mem / mem.sum() * OOM_TOTAL_CAP).astype(np.float32)
+        big = int(np.argmax(mem))
+        mem.flat[big] += np.float32(float(lim) - mem.sum(dtype=np.float64))
+        for _ in range(64):
+            over0 = ref.xla_sum(mem.reshape(-1, 1))[0] > lim
+            xla, serial = ref.xla_slot_sum(mem) > lim, _parent_slot_sum(mem) > lim
+            if over0 and (xla != serial if vectorised else xla):
+                break
+            up = not over0 or not (xla or serial) or not vectorised
+            mem.flat[big] += quarter if up else -quarter
+        else:
+            continue
+        break
+    else:
+        raise AssertionError(f"no crafted OOM total at A = {A}, C = {C}")
+    usage = np.stack([mem, mem], -1).astype(np.float32)
+    alloc = (usage * np.float32(0.5)).astype(np.float32)
+    slot_gid = np.arange(A, dtype=np.int32)
+    is_core = np.zeros((N, C), bool)
+    is_core[:, 0] = rng.random(N) < 0.5
+    t = lambda x: torch.as_tensor(np.ascontiguousarray(x))[None]  # noqa: E731
+    return (t(slot_gid), t(np.full(A, 60.0, np.float32)), t(run),
+            t(np.zeros((A, C), np.int32)), t(alloc), t(usage), t(np.zeros(N, bool)),
+            t(np.zeros(N, bool)), *(torch.zeros(1, dtype=torch.int32) for _ in range(3)),
+            t(is_core),
+            torch.as_tensor(np.tile(np.float32([[64.0, OOM_TOTAL_CAP]]), (H, 1))))
+
+
+# (A, C) of the crafted OOM totals: the main path's serial shape, and
+# shapes whose loop total XLA:CPU sums in 8 or 4 lanes, with and without
+# a scalar slot (ref.xla_slot_plan)
+OOM_TOTAL_SHAPES = ((128, 3), (128, 12), (127, 3), (20, 4), (16, 2), (128, 8), (95, 5))
+
+
+def window_tables(seed, S=3, A=16, C=4, N=24, H=3):
+    """random_tables as a streamed window holds them: the apps' rows in a
+    seeded order (submit times no longer sorted), each row's gid a global
+    id far from its row, and about a third of the rows that no slot
+    holds free, with the window's inert sentinel (submit +inf, no demand,
+    gid 0, not queued, failed or saved)."""
+    import torch
+    d = random_tables(seed, S, A, C, N, H)
+    rng = np.random.default_rng(1000 + seed)
+    out = dict(d)
+    app_cols = ("submit", "cpu_req", "mem_req", "exists", "is_core", "queued", "failed",
+                "has_saved", "saved_work")
+    slot_gid = d["slot_gid"].numpy().copy()
+    gid = np.zeros((S, N), np.int32)
+    cols = {k: d[k].numpy().copy() for k in app_cols}
+    for s in range(S):
+        perm = rng.permutation(N)                     # row r holds app perm[r]
+        inv = np.argsort(perm)
+        for k in app_cols:
+            cols[k][s] = cols[k][s][perm]
+        # global ids in the apps' order, so ties on submit go as materialized
+        gid[s] = np.sort(rng.choice(10 * N, N, replace=False))[perm]
+        held = slot_gid[s] >= 0
+        slot_gid[s, held] = inv[slot_gid[s, held]]
+        free = ~np.isin(np.arange(N), slot_gid[s]) & (rng.random(N) < 0.35)
+        cols["submit"][s, free] = np.inf
+        for k in ("cpu_req", "mem_req", "saved_work"):
+            cols[k][s, free] = 0
+        for k in ("exists", "is_core", "queued", "failed", "has_saved"):
+            cols[k][s, free] = False
+        gid[s, free] = 0
+    t = lambda x: torch.as_tensor(np.ascontiguousarray(x))  # noqa: E731
+    out.update({k: t(v) for k, v in cols.items()})
+    out.update(gid=t(gid), slot_gid=t(slot_gid))
+    return out
 
 
 def add_sched_cases(cases, d):
@@ -2154,6 +2282,29 @@ def leap_clock_member(A, N, t, next_sub, left):
     return slot, np.zeros(N, bool), arrived, submit, np.arange(N) < N - 1, t, left
 
 
+def window_leap_members(rng, A, W=256, S=16, tick=60.0):
+    """leap_skip's inputs as a streamed window of W rows holds them: the
+    loaded apps in rows of a seeded order (submit times unsorted), the
+    free rows' sentinel (submit +inf, arrived and done, not queued); half
+    the members idle with their next arrival a few ticks on, a quarter
+    with every loaded app arrived."""
+    slot = np.full((S, A), -1)
+    slot[S // 2:, :3] = rng.integers(0, W, (S - S // 2, 3))
+    t = (rng.integers(10, 400, S) + np.where(rng.random(S) < 0.3, 0.37, 0.0)) * tick
+    submit = t[:, None] + rng.uniform(-300, 40, (S, W)) * tick
+    arrived = submit <= t[:, None]
+    done = arrived & (rng.random((S, W)) < 0.9)
+    done[:S // 4] |= arrived[:S // 4]
+    arrived[:S // 4] = True
+    free = rng.random((S, W)) < 0.4
+    free &= ~np.any(np.arange(W)[None, :, None] == slot[:, None, :], -1)
+    submit = np.where(free, np.inf, submit).astype(np.float32)
+    arrived, done = arrived | free, done | free
+    queued = np.zeros((S, W), bool)
+    left = rng.choice([1, 5, 40, 1000], S)
+    return slot, queued, arrived, submit, done, t, left
+
+
 def leap_cases(A=128, N=500):
     """(name, (slot_gid, queued, arrived, submit, done, t, left), tick, the
     leads expected or None): seeded members at the main path's widths,
@@ -2176,6 +2327,8 @@ def leap_cases(A=128, N=500):
         left = rng.choice([0, 1, 2, 5, 40, 1000], S)
         cases.append((f"64 seeded members, tick {tick:g}",
                       (slot, queued, arrived, submit, done, t, left), tick, None))
+    cases.append(("a streamed window: rows re-keyed, free rows",
+                  window_leap_members(rng, A), 60.0, None))
     for name, members, leads in (
             ("every app arrived (next arrival +inf), budgets 7 and 1000",
              [dict(gap=20, left=7, all_arrived=True), dict(gap=20, left=1000, all_arrived=True)],
@@ -3340,7 +3493,7 @@ def control_cases():
     members with T = 1, 4 and 8, a tenant with no event in each; the
     optimistic policy's conflicts; non-unit weights; every active tenant
     gated (a negative slack); zero shares; the credit off; the gate off;
-    a 3-member cohort."""
+    a 3-member cohort; a streamed window's free rows."""
     rng = np.random.default_rng(24)
     cases = [(f"full width, T = {T}", control_case([control_member(rng, T)], T), CONTROL_KW)
              for T in (1, 4, 8)]
@@ -3362,8 +3515,21 @@ def control_cases():
          dict(CONTROL_KW, gate_on=False)),
         ("a 3-member cohort, T = 4",
          control_case([control_member(rng, 4, zero=i == 1) for i in range(3)], 4),
-         CONTROL_KW)]
+         CONTROL_KW),
+        ("T = 4, a streamed window's free rows",
+         control_case([window_control_member(rng, 4)], 4), CONTROL_KW)]
     return cases
+
+
+def window_control_member(rng, T, W=256):
+    """control_member over a streamed window of W rows, two in five that no
+    slot holds free with the window's sentinel: done before and after the
+    tick, never queued, tenant 0."""
+    m = control_member(rng, T, N=W)
+    done0, done, queued0, queued, conflict, d_res, d_err, tenant, slot_gid, alloc = m[6:]
+    free = (rng.random(W) < 0.4) & ~np.isin(np.arange(W), slot_gid)
+    return m[:6] + [done0 | free, done | free, queued0 & ~free, queued & ~free, conflict,
+                    d_res, d_err, np.where(free, 0, tenant).astype(np.int32), slot_gid, alloc]
 
 
 TINY_VALUES = np.float32([1.5 * TINY, -TINY, TINY / 4, -TINY / 8, TINY, 3 * TINY, 0.75 * TINY])
@@ -4067,7 +4233,9 @@ def obs_cases():
     with none (the baseline policy: no demand); the default path's
     features (demand only); T = 8 and T = 1; a 3-member cohort with an
     inactive member and a cursor that wraps; A = 37 slots of 5 (off the
-    32-slot windows) and A = 20 (one window)."""
+    32-slot windows) and A = 20 (one window); a streamed window's free
+    rows."""
+    import torch
     rng = np.random.default_rng(25)
     default = {k: v for k, v in OBS_OFF.items() if k != "demand"}
     cases = [("full width, every feature", obs_case(rng)),
@@ -4078,6 +4246,11 @@ def obs_cases():
               obs_case(rng, 3, inactive=(1,), cursors=[5, 128, 1000])),
              ("A = 37 of C = 5, N = 61", obs_case(rng, 2, A=37, C=5, N=61, R=16)),
              ("A = 20 of C = 7", obs_case(rng, 2, A=20, C=7, N=33, R=8))]
+    # a streamed window of 256 rows, two in five free (never queued)
+    window = obs_case(rng, 2, N=256)
+    free = torch.from_numpy(rng.random((2, 256)) < 0.4)
+    window.update(queued=window["queued"] & ~free, q_admit=window["q_admit"] & ~free)
+    cases.append(("a streamed window's free rows", window))
     return cases
 
 
@@ -4580,6 +4753,266 @@ def run_sweep(step, scenarios, SimConfig, ObsConfig, GPForecaster, gp_forecast, 
     return launches
 
 
+# ----------------------------------------------------------------------
+# streamed ingestion and fleets (phase 5k)
+# ----------------------------------------------------------------------
+
+STREAM_TASKS = 20_000      # the reference replay bench's quick size (benchmarks/replay.py:107)
+STREAM_SLICE = 1_500       # its identity slice (SLICE_APPS)
+FLEET_TICKS = 320          # each fleet member's ticks (as phase 5d's families)
+GROW_WINDOW = 16           # phase 5k(b)'s first window, below SimConfig()'s peak rows
+SIM_KERNELS = ("pessimistic_pass", "resolve_oom", "admit_queued", "place_missing_elastic",
+               "gp_fit_forecast")
+
+
+def synthetic_alibaba(FittedConfig, n_apps: int, seed: int = 0):
+    """The reference replay bench's Alibaba-container-shaped trace
+    (benchmarks/replay.py:46-69, copied): rigid single-component
+    containers, lognormal sizes and lifetimes, ~55%-utilized CPU
+    reservations, arriving at 24 concurrent containers by Little's law
+    against 32 slots."""
+    import math
+    mean_life = 480.0 * math.exp(0.4 ** 2 / 2)     # lognormal mean, s
+    return FittedConfig(
+        n_apps=n_apps, max_components=1, seed=seed, rate=24.0 / mean_life,
+        runtime_mu=math.log(480.0), runtime_sigma=0.4, cpu_mu=math.log(2.0), cpu_sigma=0.5,
+        mem_mu=math.log(4.0), mem_sigma=0.7, comp_weights=(1.0,),
+        cpu_level_mu=0.55, cpu_level_sigma=0.22, mem_level_mu=0.60, mem_level_sigma=0.10)
+
+
+def replay_bench_config(SimConfig, ClusterConfig, workload, **over):
+    """The reference replay bench's cluster (benchmarks/replay.py:72-78):
+    8 hosts, 32 slots, persist, pessimistic."""
+    return SimConfig(cluster=ClusterConfig(n_hosts=8, max_running_apps=32), workload=workload,
+                     policy="pessimistic", forecaster="persist", max_ticks=200_000, **over)
+
+
+class capture_log:
+    """Record, until ``stop()``, each graph the device engine captures: its
+    entry's trace rows (a streamed window's W), members and chunk size."""
+
+    def __init__(self, step):
+        self.step, self.caps = step, []
+        self.capture = step._ChunkGraphs._capture
+
+        def capture(entry, size):
+            self.caps.append((entry.tr.submit.shape[1], entry.tr.submit.shape[0], size))
+            return self.capture(entry, size)
+        step._ChunkGraphs._capture = capture
+
+    def take(self) -> list:
+        out, self.caps = self.caps, []
+        return out
+
+    def stop(self):
+        self.step._ChunkGraphs._capture = self.capture
+
+
+def by_width(caps) -> str:
+    """Captures by the window's rows, as 'W: n'."""
+    return ", ".join(f"W {w}: {n}" for w, n in sorted(collections.Counter(c[0] for c in caps)
+                                                        .items()))
+
+
+def stream_entries(step, cfg, A, C):
+    """The graph entries of ``cfg``'s key at the 32-tick chunk for one
+    member of A slots of C components, any trace rows."""
+    return {k: e for k, e in step._GRAPHS.items()
+            if k[0] == step._cfg_key(cfg) and k[1] == 32 and k[2][:3] == (1, A, C)}
+
+
+def census_run(step, run, cfg, A, C, mods, launches_of):
+    """``run()`` with every kernel count set to 0 just before and read just
+    after, held to the replays of the graph entries of ``cfg`` (A, C) x
+    each wrapper's kernel nodes: no entry may be made inside (a new entry's
+    warm-up tick would launch outside its graph).  Returns the result,
+    its wall seconds, the counts and the census."""
+    import torch
+    entries = stream_entries(step, cfg, A, C)
+    before = {k: {n: g.replays for n, g in e.graphs.items()} for k, e in entries.items()}
+    keys = set(step._GRAPHS)
+    for m in mods:
+        m.reset_launch_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    res = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = launches_of()
+    assert set(step._GRAPHS) == keys, "a graph entry was made inside the census run"
+    census = dict.fromkeys(launches, 0)
+    for k, e in entries.items():
+        for w, n in graph_census(e, before[k], launches).items():
+            census[w] += n
+    return res, wall, launches, census
+
+
+def run_stream(step, scenarios, SimConfig, ClusterConfig, sched, leap, mods,
+               launches_of) -> None:
+    """Phase 5k: streamed ingestion and fleets on the card.
+
+    (a) ``SimConfig()`` with its workload streamed (``StreamConfig``, the
+    default window: 256 rows against 500 apps) to completion through
+    replayed graphs, equal to the materialized run bit for bit (summaries,
+    per-tick series, turnaround, failed apps, forecast rows); its captures
+    by window width; a second streamed run with every count set to 0 just
+    before, one launch a tick of each sim kernel, counted against the
+    graphs' kernel nodes; ticks/s of both in turns.  (b) A window of
+    GROW_WINDOW rows that grows, equal to the materialized run; the leap
+    gap cell streamed in a window of 8 against materialized, bit for bit,
+    leap_skip's launches = replays x its nodes = the leap steps.  (c) The reference
+    replay bench's Alibaba-shaped trace of STREAM_TASKS tasks (A = 32, 8
+    hosts, persist, window 64, chunk 32): every task loaded and done,
+    ticks/s and tasks/s, peak rows, grows and captures; why the
+    materialized run of 100,000 cannot launch; its STREAM_SLICE-task
+    slice streamed against materialized, uniform and leap, bit for bit.
+    (d) ``run_fleet_shard(mesh=1)`` over google and flashcrowd at 500 apps
+    for FLEET_TICKS ticks: each member equal to its solo run (the
+    cohort's rows_bucketed aside)."""
+    import torch
+    from repro_torch.sim.scenarios.stream import StreamConfig, run_sim_stream
+    guard = strict_chunks(step)
+    caps = capture_log(step)
+    steps = {}
+    try:
+        # (a) the default simulation, streamed
+        t0 = time.perf_counter()
+        base = SimConfig()
+        scfg = SimConfig(workload=StreamConfig(inner=base.workload))
+        caps.take()
+        stats = {}
+        first = run_sim_stream(scfg, stats=stats, device="cuda")
+        first_caps = caps.take()
+        mat = step.run_sim_scan(base, device="cuda")
+        assert run_series(first) == run_series(mat), "streamed != materialized (default)"
+        assert first.forecast_rows == mat.forecast_rows, (first.forecast_rows, mat.forecast_rows)
+        res, t_s, launches, census = census_run(
+            step, lambda: step.run_sim_scan(scfg, device="cuda"), base, 128, 12, mods,
+            launches_of)
+        ticks = res.timings["ticks"]
+        assert run_series(res) == run_series(mat), "streamed != materialized (census run)"
+        assert launches == census, (launches, census)
+        assert all(launches[k] == ticks for k in SIM_KERNELS), (launches, ticks)
+        walls = {"materialized": [], "streamed": [t_s]}
+        for mode in ("materialized", "streamed", "materialized"):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            r = step.run_sim_scan(base if mode == "materialized" else scfg, device="cuda")
+            torch.cuda.synchronize()
+            walls[mode].append(time.perf_counter() - t)
+            assert run_series(r) == run_series(mat), mode
+        by_rows = {k[2][3]: e for k, e in stream_entries(step, base, 128, 12).items()}
+        w256, w500 = by_rows[stats["window_rows"]], by_rows[500]
+        log(f"  (a) SimConfig() streamed (window {stats}) == materialized on the card: "
+            f"{ticks} ticks, {res.summary()['completed']} apps completed; summaries, per-tick "
+            f"series, turnaround, failed apps and forecast rows bit for bit")
+        log(f"  (a) captures of the first streamed run: {len(first_caps)} ({by_width(first_caps)})"
+            f"; the census run made none")
+        log("  (a) ticks/s in turns (streamed, materialized, streamed, materialized): "
+            + "; ".join(f"{m} " + ", ".join(f"{ticks / w:.3f}" for w in ws)
+                        for m, ws in walls.items()))
+        log(f"  (a) kernels a tick in the W = {stats['window_rows']} graph "
+            f"{kernels_per_step(w256):.3f} (materialized, N = 500: "
+            f"{kernels_per_step(w500):.3f}); launches {launches} = replays x kernel nodes "
+            f"{census}; one a tick of each sim kernel")
+        steps["a"] = round(time.perf_counter() - t0, 1)
+
+        # (b) a window that grows (the default run's peak is ~52 rows, so it
+        # starts at 16); leap on the gap cell
+        t0 = time.perf_counter()
+        caps.take()
+        sg = {}
+        rg = run_sim_stream(SimConfig(workload=StreamConfig(inner=base.workload,
+                                                            window=GROW_WINDOW)),
+                            stats=sg, device="cuda")
+        capsg = caps.take()
+        assert run_series(rg) == run_series(mat), f"window {GROW_WINDOW} != materialized"
+        assert rg.forecast_rows == mat.forecast_rows
+        assert sg["grows"] >= 1, sg
+        log(f"  (b) window {GROW_WINDOW} grown to {sg['window_rows']} ({sg['grows']} grows, "
+            f"peak {sg['peak_rows']} rows) == materialized; captures {len(capsg)} "
+            f"({by_width(capsg)})")
+        gap = gap_config(SimConfig, ClusterConfig, scenarios)
+        lgap = dataclasses.replace(gap, leap=True)
+        slgap = dataclasses.replace(lgap, workload=StreamConfig(inner=gap.workload, window=8))
+        lm = step.run_sim_scan(lgap, device="cuda")
+        caps.take()
+        gstats = {}
+        ls = run_sim_stream(slgap, stats=gstats, device="cuda")
+        assert run_series(ls) == run_series(lm), "gap cell: streamed leap != materialized"
+        res, _, gl, gcensus = census_run(
+            step, lambda: step.run_sim_scan(slgap, device="cuda"), lgap, 16, 4, [leap],
+            lambda: {"leap_skip": leap.leap_skip.launches})
+        assert run_series(res) == run_series(lm)
+        assert gl == gcensus and gl["leap_skip"] == res.timings["steps"], (gl, gcensus,
+                                                                           res.timings)
+        log(f"  (b) gap cell, leap, streamed in a window of 8 ({gstats}) == materialized "
+            f"over {len(lm.n_running)} ticks; leap steps {res.timings['steps']} (materialized "
+            f"{lm.timings['steps']}); leap_skip launches {gl['leap_skip']} = replays x kernel "
+            f"nodes {gcensus['leap_skip']} = steps; captures {by_width(caps.take())}")
+        steps["b"] = round(time.perf_counter() - t0, 1)
+
+        # (c) a trace the card cannot hold whole
+        t0 = time.perf_counter()
+        fit = synthetic_alibaba(scenarios.FittedConfig, STREAM_TASKS)
+        wl = scenarios.build_trace(fit)
+        cfg = replay_bench_config(SimConfig, ClusterConfig, fit)
+        caps.take()
+        cs = {}
+        run_sim_stream(cfg, wl, chunk=32, window=64, stats=cs, device="cuda")
+        ccaps = caps.take()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        cs = {}
+        big = run_sim_stream(cfg, wl, chunk=32, window=64, stats=cs, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        n = big.timings["ticks"]
+        assert cs["loaded"] == STREAM_TASKS and big.summary()["completed"] == STREAM_TASKS, \
+            (cs, big.summary())
+        assert cs["window_rows"] <= 256, cs
+        need = sched.SMEM_BYTES["admit_queued"](32, 1, 100_000, 8)
+        log(f"  (c) {STREAM_TASKS} Alibaba-shaped tasks (A = 32, 8 hosts, persist, window 64, "
+            f"chunk 32): {n} ticks in {wall:.3f} s, {n / wall:.3f} ticks/s, "
+            f"{STREAM_TASKS / wall:.1f} tasks/s; every task loaded and done; window {cs}; "
+            f"captures {len(ccaps)} ({by_width(ccaps)})")
+        log(f"  (c) the materialized run of 100,000 such tasks: admit_queued would take {need} B "
+            f"of shared memory a block against MAX_SMEM {sched.MAX_SMEM} B: it cannot launch")
+        assert need > sched.MAX_SMEM, need
+        sl = synthetic_alibaba(scenarios.FittedConfig, STREAM_SLICE)
+        swl = scenarios.build_trace(sl)
+        scfg = replay_bench_config(SimConfig, ClusterConfig, sl)
+        for mode, c in (("uniform", scfg), ("leap", dataclasses.replace(scfg, leap=True))):
+            m = step.run_sim_scan(c, swl, chunk=32, device="cuda")
+            st = {}
+            r = run_sim_stream(c, swl, chunk=32, window=64, stats=st, device="cuda")
+            assert run_series(r) == run_series(m), f"{STREAM_SLICE}-task slice, {mode}"
+            log(f"  (c) the {STREAM_SLICE}-task slice, {mode}: streamed ({st}) == materialized "
+                f"over {len(m.n_running)} ticks")
+        steps["c"] = round(time.perf_counter() - t0, 1)
+
+        # (d) a cross-scenario fleet on one card
+        t0 = time.perf_counter()
+        g = SimConfig(max_ticks=FLEET_TICKS)
+        f = SimConfig(workload=scenarios.make_config("flashcrowd"), max_ticks=FLEET_TICKS)
+        fleet = step.run_fleet_shard(g, cfgs=[g, f], mesh=1, device="cuda")
+        for name, c, got in (("google", g, fleet[0]), ("flashcrowd", f, fleet[1])):
+            solo = step.run_sim_scan(c, device="cuda")
+            assert run_series(got) == run_series(solo), f"fleet member {name} != its solo run"
+            fr, sr = got.forecast_rows, solo.forecast_rows
+            assert {k: v for k, v in fr.items() if k != "rows_bucketed"} == \
+                {k: v for k, v in sr.items() if k != "rows_bucketed"}, (fr, sr)
+            assert fr["rows_bucketed"] >= sr["rows_bucketed"], (fr, sr)
+            log(f"  (d) fleet member {name} == its solo run over {len(solo.n_running)} ticks "
+                f"(rows_bucketed {fr['rows_bucketed']}, the cohort's bucket; solo "
+                f"{sr['rows_bucketed']})")
+        steps["d"] = round(time.perf_counter() - t0, 1)
+    finally:
+        caps.stop()
+        chunks = guard.stop()
+    log(f"  {chunks} chunks sync-free; phase 5k seconds by step: {json.dumps(steps)}")
+
+
 def time_obs(obs_kernel, ref) -> dict:
     """Phase 8: obs_tick at the main path's widths (one member, 128 slots
     of 12, 500 apps, R = 128; the default path's inputs: the shaped
@@ -5009,6 +5442,14 @@ def main() -> int:
     sweep_launches = run_sweep(step, scenarios, SimConfig, ObsConfig, GPForecaster, gp_forecast,
                                calib, smi)
     log(f"  launches on the sweep's paths: {json.dumps(sweep_launches)}")
+    log("== 5k. streamed ingestion and fleets: SimConfig() streamed in its default window "
+        f"and in one of {GROW_WINDOW} that grows, against materialized; the gap cell's leap "
+        "streamed; "
+        f"{STREAM_TASKS} Alibaba-shaped tasks through a bounded window; run_fleet_shard over "
+        "google and flashcrowd")
+    run_stream(step, scenarios, SimConfig, ClusterConfig, sched, leap,
+               (gp_forecast, shaper, sched, fma),
+               lambda: scan_launch_counts(gp_forecast, shaper, sched, fma))
 
     log("== 6. Whisper, smoke widths, fp32: the card against the CPU")
     check_whisper_smoke(flash_attention)

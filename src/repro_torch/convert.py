@@ -52,21 +52,33 @@ _SCALARS = ("policy", "forecaster", "window", "grace", "horizon", "max_ticks",
             "work_lost_on_kill", "leap", "forecast_bucket")
 
 
-def sim_config_from_dict(d: dict, *, workload: str = "google") -> SimConfig:
+def _workload_from_dict(d: dict, name: str, inner: str | None):
+    if name == "stream":
+        if inner is None:
+            raise ValueError("workload='stream' needs inner=<the streamed config's family>")
+        return scenarios.get(name).config_cls(
+            inner=_workload_from_dict(d["inner"], inner, None), window=d["window"],
+            seed=d["seed"])
+    wl = {k: tuple(v) if isinstance(v, list) else v for k, v in d.items()}
+    return scenarios.get(name).config_cls(**wl)
+
+
+def sim_config_from_dict(d: dict, *, workload: str = "google",
+                         inner: str | None = None) -> SimConfig:
     """The port's ``SimConfig`` for ``dataclasses.asdict(reference_cfg)``.
 
     Drops ``gp.impl`` (the port dispatches on the device).
     ``asdict`` keeps no type, so
     ``workload`` names the scenario family of ``d["workload"]``: any
     registered one (``google``, ``diurnal``, ``flashcrowd``,
-    ``heavytail``, ``colocated``, ``replay``, ``fitted``).  A list in it
-    (a ``FittedConfig``'s ``comp_weights`` read back from JSON) becomes
-    the tuple the frozen config hashes by."""
+    ``heavytail``, ``colocated``, ``replay``, ``fitted``, ``stream``);
+    for ``stream``, ``inner`` names the family of the streamed config.  A
+    list in it (a ``FittedConfig``'s ``comp_weights`` read back from
+    JSON) becomes the tuple the frozen config hashes by."""
     gp = {k: v for k, v in d["gp"].items() if k != "impl"}
-    wl = {k: tuple(v) if isinstance(v, list) else v for k, v in d["workload"].items()}
     return SimConfig(
         cluster=ClusterConfig(**d["cluster"]),
-        workload=scenarios.get(workload).config_cls(**wl),
+        workload=_workload_from_dict(d["workload"], workload, inner),
         safeguard=SafeguardConfig(**d["safeguard"]),
         calibration=CalibrationConfig(**d["calibration"]),
         control=TenancyConfig(**d["control"]),

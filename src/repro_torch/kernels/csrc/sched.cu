@@ -39,11 +39,16 @@
 // units, windows of 32 (the padding to a multiple of 32 split between
 // the ends), each window summed in order, the window sums reduced the
 // same way; 32 or fewer summed in order (struct Tree; block_host_sums
-// takes every window of a level in parallel, each in order from 0).
+// takes every window of a level in parallel, each in order from 0).  The
+// OOM loop's per-host total over (A, C) windows of whole slots, where
+// LLVM vectorised the reference's kernel, sums each window in its lanes,
+// their tree, then the window's tail in order (ref.py:xla_slot_plan).
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "block_copy.cuh"
 
@@ -283,6 +288,31 @@ __host__ __device__ inline size_t oom_smem(int A, int C, int N, int H) {
          sums_smem<1>(int(AC), H) + Carve::bytes(size_t(H) * 4);        // sums, over
 }
 
+// The lanes of a window that XLA:CPU's kernel sums vectorised
+// (ref.py:xla_slot_plan), on warp 0: lane l of the first vf adds slots l,
+// l + vf, ... below nv of the window from slot a0, each slot's components
+// in order, from 0 (l = 0) or -0; then the lanes' tree.  Every lane gets
+// the tree's sum.  Kept out of line, and the windows' loop instantiated
+// apart for serial windows (resolve_oom_kernel's scan), so that a serial
+// sum keeps its registers.
+__device__ __noinline__ float lane_total(const int* live_host, const float* mem, int h,
+                                         int a0, int nv, int C, int vf, int lane) {
+  float ls = lane == 0 ? 0.f : -0.f;
+  if (lane < vf) {
+    for (int k = lane; k < nv; k += vf) {
+      for (int c = 0; c < C; ++c) {
+        const int e = (a0 + k) * C + c;
+        ls += live_host[prow(e)] == h ? mem[prow(e)] : 0.f;
+      }
+    }
+  }
+  for (int o = vf / 2; o > 0; o >>= 1) {
+    const float other = __shfl_down_sync(FULL, ls, o);
+    if (lane < o) ls += other;
+  }
+  return __shfl_sync(FULL, ls, 0);
+}
+
 __global__ void __launch_bounds__(kBlock) resolve_oom_kernel(
     const int* __restrict__ slot_in, const float* __restrict__ work_in,
     const uint8_t* __restrict__ run_in, const int* __restrict__ host_all,
@@ -295,7 +325,7 @@ __global__ void __launch_bounds__(kBlock) resolve_oom_kernel(
     float* __restrict__ alloc_all, float* __restrict__ usage_all,
     uint8_t* __restrict__ failed_all, uint8_t* __restrict__ queued_all,
     int* __restrict__ oom, int* __restrict__ fail, int* __restrict__ part,
-    uint8_t* __restrict__ monreset_all, int A, int C, int N, int H,
+    uint8_t* __restrict__ monreset_all, int A, int C, int N, int H, int vf, int tail,
     long long* __restrict__ clocks) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int s = blockIdx.x, tid = threadIdx.x, lane = tid & 31, AC = A * C;
@@ -356,9 +386,10 @@ __global__ void __launch_bounds__(kBlock) resolve_oom_kernel(
       if (!over[h]) continue;
       const float lim = __fadd_rn(cap[2 * h + 1], 1e-6f);
       for (;;) {
-        // the host's total (a sum over (A, C): windows of whole slots)
-        // and the victim: the largest usage - alloc overage, the largest
-        // flat index on ties
+        // the host's total (a sum over (A, C): windows of whole slots, each
+        // in the lanes of XLA:CPU's kernel, then its tail in order; see
+        // ref.py:xla_slot_plan) and the victim: the largest usage - alloc
+        // overage, the largest flat index on ties
         float acc[MAX_LEVELS] = {};
         float bv = 0.f;
         int bi = -1;
@@ -366,21 +397,35 @@ __global__ void __launch_bounds__(kBlock) resolve_oom_kernel(
         for (int j = 0, nws = n_windows(ts, A); j < nws; ++j) {
           int a0, a1;
           window(ts, j, A, &a0, &a1);
-          for (int base = a0 * C; base < a1 * C; base += 32) {
-            const int e = base + lane;
-            const bool on = e < a1 * C && live_host[prow(e)] == h;
-            const float u = on ? mem[prow(e)] : 0.f;
-            const unsigned mask = __ballot_sync(FULL, on);
-            on_any |= mask != 0;
-            for (unsigned m = mask; m; m &= m - 1) acc[0] += __shfl_sync(FULL, u, __ffs(m) - 1);
-            if (on) {
-              const float ov = u - alloc[2 * e + 1];
-              if (bi < 0 || ov >= bv) {
-                bv = ov;
-                bi = e;
+          const int nv = vf ? (a1 - a0 - tail) / vf * vf : 0;
+          // the window's elements: the victim over every one, the total
+          // over those past the lanes, in order (a serial window: all)
+          auto scan = [&](auto lanes) {
+            constexpr bool kLanes = decltype(lanes)::value;
+            if constexpr (kLanes) acc[0] += lane_total(live_host, mem, h, a0, nv, C, vf, lane);
+            const int tail0 = (a0 + nv) * C;
+            for (int base = a0 * C; base < a1 * C; base += 32) {
+              const int e = base + lane;
+              const bool on = e < a1 * C && live_host[prow(e)] == h;
+              const float u = on ? mem[prow(e)] : 0.f;
+              const unsigned mask = __ballot_sync(FULL, on);
+              on_any |= mask != 0;
+              unsigned serial = mask;
+              if constexpr (kLanes) serial = __ballot_sync(FULL, on && e >= tail0);
+              for (unsigned m = serial; m; m &= m - 1) acc[0] += __shfl_sync(FULL, u, __ffs(m) - 1);
+              if (on) {
+                const float ov = u - alloc[2 * e + 1];
+                if (bi < 0 || ov >= bv) {
+                  bv = ov;
+                  bi = e;
+                }
               }
             }
-          }
+          };
+          if (nv > 0)
+            scan(std::true_type{});
+          else
+            scan(std::false_type{});
           if (ts.levels) tree_push<1>(acc, ts, j);
         }
         const float tot = acc[ts.levels];
@@ -877,6 +922,8 @@ extern "C" int place_missing_elastic_init() {
       place_missing_elastic_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem));
 }
 
+// vf, tail: the plan of XLA:CPU's kernel for the loop's per-host total
+// over (A, C) (ref.py:xla_slot_plan; vf 0 for a serial sum, else 4 or 8).
 // clocks: null, or (S, 4) int64 for the cycles of each phase per member
 // (stage, per-host sums, victim loop, write).
 extern "C" int resolve_oom(const void* slot_in, const void* work_in,
@@ -888,8 +935,8 @@ extern "C" int resolve_oom(const void* slot_in, const void* work_in,
                            const void* cap, void* slot, void* work, void* run,
                            void* alloc, void* usage, void* failed, void* queued,
                            void* oom, void* fail, void* part, void* monreset,
-                           int S, int A, int C, int N, int H, void* clocks,
-                           void* stream) {
+                           int S, int A, int C, int N, int H, int vf, int tail,
+                           void* clocks, void* stream) {
   const size_t smem = oom_smem(A, C, N, H);
   if (smem > size_t(kMaxSmem)) return static_cast<int>(cudaErrorInvalidValue);
   resolve_oom_kernel<<<S, kBlock, smem, static_cast<cudaStream_t>(stream)>>>(
@@ -904,7 +951,8 @@ extern "C" int resolve_oom(const void* slot_in, const void* work_in,
       static_cast<float*>(alloc), static_cast<float*>(usage),
       static_cast<uint8_t*>(failed), static_cast<uint8_t*>(queued),
       static_cast<int*>(oom), static_cast<int*>(fail), static_cast<int*>(part),
-      static_cast<uint8_t*>(monreset), A, C, N, H, static_cast<long long*>(clocks));
+      static_cast<uint8_t*>(monreset), A, C, N, H, vf, tail,
+      static_cast<long long*>(clocks));
   return static_cast<int>(cudaGetLastError());
 }
 

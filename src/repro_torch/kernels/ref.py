@@ -322,28 +322,121 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 TREE_WINDOW = 32   # XLA:CPU's tree-reduction window
 
 
-def xla_sum(x: np.ndarray, group: int = 1, *, ftz: bool = False) -> np.ndarray:
+def xla_sum(x: np.ndarray, *, ftz: bool = False) -> np.ndarray:
     """Float32 sum over axis 0 in the order XLA:CPU reduces it.
 
     XLA:CPU rewrites a reduction whose reduced dimension exceeds 32 into
     a tree: the dimension is padded to a multiple of 32 (the padding
     split between its two ends, the odd one at the end), each window of
     32 is summed in order, and the window sums are reduced the same way;
-    32 or fewer are summed in order.  ``group`` rows make one unit of the
-    reduced dimension, for a sum over (A, C) flattened to A*C rows with
-    C <= 32 (the window then spans whole slots).  ``ftz``: each add as
+    32 or fewer are summed in order.  ``ftz``: each add as
     :func:`add_xla` takes it (subnormals as zeros, x86's NaN), else as
     numpy's float32 add.  Where LLVM vectorised a window's loop across
     the reduced dimension the order differs: the (A, C, 2) tables' sums
-    take :func:`xla_table_sum`."""
-    n = x.shape[0] // group
+    take :func:`xla_table_sum`, the (A, C) tables' :func:`xla_slot_sum`."""
+    n = x.shape[0]
     if n <= TREE_WINDOW:
         return _fold(x, ftz)
     padded = -(-n // TREE_WINDOW) * TREE_WINDOW
     lo = (padded - n) // 2
-    parts = [_fold(x[max(j - lo, 0) * group:min(j + TREE_WINDOW - lo, n) * group], ftz)
+    parts = [_fold(x[max(j - lo, 0):min(j + TREE_WINDOW - lo, n)], ftz)
              for j in range(0, padded, TREE_WINDOW)]
     return xla_sum(np.stack(parts), ftz=ftz)
+
+
+# The reference's sum of an (A, C) table over both axes
+# (``jnp.where(on_h, mem, 0.0).sum()``: the OOM handler's per-host total,
+# ``repro/sim/step.py:502``), as XLA:CPU compiles it on x86-64 with
+# AVX-512 (read as the (A, C, 2) tables' below, jax 0.9.0; a standalone
+# ``jax.jit(lambda u, run, host, h: jnp.where(run & (host == h), u[:, :,
+# 1], 0.0).sum())`` compiles to the handler's own kernel).  Over A > 32
+# slots the select is a kernel of its own and the sum a reduce-window of
+# 32 whole slots over its (A, C) output (padded as xla_sum pads), then a
+# reduce of the window sums in order, 0 + w0 + w1 + ...; over A <= 32 one
+# reduce, fused with the select, reads the (A, C, 2) usage itself.  A
+# window of n slots is summed either serially (0 + each slot's components
+# in order) or in VF lanes: lane l starts at 0 (l = 0) or -0 and adds
+# slots l, l + VF, ... below nv, each slot's components in order; the
+# lanes are reduced in a tree (lane i with i + VF/2, then i + VF/4, ...),
+# and slots nv..n-1 are added to it serially.  nv = VF * floor((n - tail)
+# / VF): the reduce-window's loads have no gaps (tail 0), except where
+# its windows are bounded at run time (A % 32 == 31: windows of 32 and
+# one of 31); the fused reduce's loads of the usage's memory half do, at
+# C <= 4, unless the loop is unrolled whole (A = VF).  Which, by (A, C)
+# (:func:`xla_slot_plan`):
+#     C = 1 or C >= 9            serial
+#     C in 2..8, A <= 32:  A = 4, 8: VF A;  A = 16..19, 24..27, 32: VF 8;
+#                          A = 20..23: VF 4;  A = 28..31: VF 4 (C = 4)
+#                          or 8;  other A: serial;  tail 1 at C <= 4
+#                          and A > VF
+#     C in 2..8, A > 32:   A % 32 == 0: VF 8 (C <= 6) or 4;
+#                          A % 32 == 31: VF 8 (C = 2) or 4, tail 1;
+#                          other A (a padded window): serial
+# The values summed are memory usages, never NaN, so the operand order
+# of each add does not show.
+
+
+def xla_slot_plan(A: int, C: int) -> tuple[int, int]:
+    """(VF, tail) of XLA:CPU's kernel for an (A, C) table's sum (see
+    above): VF 0 for a serial sum, else the lanes; a window of n slots
+    sums ``VF * ((n - tail) // VF)`` of them in the lanes."""
+    if not 2 <= C <= 8:
+        return 0, 0
+    if A > TREE_WINDOW:
+        r = A % TREE_WINDOW
+        if r == 0:
+            return (8 if C <= 6 else 4), 0
+        if r == TREE_WINDOW - 1:
+            return (8 if C == 2 else 4), 1
+        return 0, 0
+    if A in (4, 8):
+        vf = A
+    elif 16 <= A <= 19 or 24 <= A <= 27 or A == TREE_WINDOW:
+        vf = 8
+    elif 20 <= A <= 23:
+        vf = 4
+    elif 28 <= A <= 31:
+        vf = 4 if C == 4 else 8
+    else:
+        return 0, 0
+    return vf, int(C <= 4 and A > vf)
+
+
+def _slot_window_sum(x: np.ndarray, vf: int, tail: int) -> np.float32:
+    """One window's (n, C) sum as its kernel takes it (:func:`xla_slot_plan`)."""
+    n = x.shape[0]
+    nv = vf * ((n - tail) // vf) if vf else 0
+    acc = np.float32(0.0)
+    if nv:
+        lanes = np.full(vf, -0.0, np.float32)
+        lanes[0] = 0.0
+        for j in range(0, nv, vf):
+            for c in range(x.shape[1]):
+                lanes = lanes + x[j:j + vf, c]
+        while len(lanes) > 1:
+            lo, hi = np.split(lanes, 2)
+            lanes = lo + hi
+        acc = lanes[0]
+    for v in x[nv:].reshape(-1):
+        acc = np.float32(acc + v)
+    return acc
+
+
+def xla_slot_sum(x: np.ndarray) -> np.float32:
+    """Float32 sum of an (A, C) table over both axes in the order of
+    XLA:CPU's compiled ``x.sum()`` (see above)."""
+    x = np.asarray(x, np.float32)
+    A = x.shape[0]
+    vf, tail = xla_slot_plan(*x.shape)
+    if A <= TREE_WINDOW:
+        return _slot_window_sum(x, vf, tail)
+    padded = -(-A // TREE_WINDOW) * TREE_WINDOW
+    lo = (padded - A) // 2
+    acc = np.float32(0.0)
+    for j in range(0, padded, TREE_WINDOW):
+        acc = np.float32(acc + _slot_window_sum(x[max(j - lo, 0):min(j + TREE_WINDOW - lo, A)],
+                                                vf, tail))
+    return acc
 
 
 # The reference's sums of an (A, C, 2) slot table over its slots and
@@ -618,7 +711,9 @@ def resolve_oom(slot_gid, work_done, comp_running, comp_host, alloc, usage,
     entry, kill the component of largest ``usage - alloc`` overage (the
     largest flat (slot, comp) index on ties) until the host fits.  A core
     victim fails its whole app (evicted, marked failed and requeued); an
-    elastic victim is a partial preemption.
+    elastic victim is a partial preemption.  The entry totals are column
+    sums in XLA's tree of 32-row windows (:func:`xla_sum`), the loop's
+    total the (A, C) table's compiled order (:func:`xla_slot_sum`).
 
     Slot-table tensors are (S,A[,C[,2]]); failed and queued (S,N) bool;
     the three counters (S,) int32; is_core the trace's (S,N,C); host_cap
@@ -641,8 +736,7 @@ def resolve_oom(slot_gid, work_done, comp_running, comp_host, alloc, usage,
                 on_h = run[s] & (host[s] == h)
                 if not on_h.any():
                     break
-                tot = xla_sum(np.where(on_h, mem, 0.0).astype(np.float32).reshape(-1),
-                              group=C)
+                tot = xla_slot_sum(np.where(on_h, mem, 0.0))
                 if not tot > lim[h]:
                     break
                 over = np.where(on_h, mem - alloc[s, :, :, 1], -np.inf).reshape(-1)

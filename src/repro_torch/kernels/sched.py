@@ -22,7 +22,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import nvcc
+from repro_torch.kernels import nvcc, ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "sched.cu"
 MAX_HOSTS = 1024    # the placement loops' worst fit: one warp, 32 hosts a lane
@@ -44,7 +44,7 @@ def _library() -> ctypes.CDLL:
     if _LIB is None:
         lib = ctypes.CDLL(str(nvcc.build(SOURCE).path))
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        for name, n_ptr, n_int in zip(KERNELS, (24, 30, 15), (5, 7, 5)):
+        for name, n_ptr, n_int in zip(KERNELS, (24, 30, 15), (7, 7, 5)):
             fn = getattr(lib, name)
             fn.argtypes = [ptr] * n_ptr + [i32] * n_int + [ptr] * 2   # clocks, stream
             fn.restype = i32
@@ -152,7 +152,7 @@ def _launch_oom(slot_gid, work_done, comp_running, comp_host, alloc, usage, fail
         _launch("resolve_oom", comp_running.device, slot_gid, work_done, comp_running,
                 comp_host, alloc, usage, failed, queued, oom_kills, failure_events,
                 partial_preemptions, is_core, host_cap, *outs, monreset, S, A, C, N, H,
-                clocks)
+                *ref.xla_slot_plan(A, C), clocks)
     return (*outs, monreset)
 
 

@@ -3,9 +3,9 @@
 scenario registry, the four parametric families beyond the paper's
 Google-shaped workload (``families``: diurnal, flashcrowd, heavytail,
 colocated), the CSV/Parquet trace-replay adapter (``replay``), the
-family fitted to a replayed trace (``fitting``) and the per-scenario
-forecast diagnostics (``diagnostics``).  Not ported yet: streamed
-ingestion.
+family fitted to a replayed trace (``fitting``), streamed ingestion in a
+bounded device window (``stream``) and the per-scenario forecast
+diagnostics (``diagnostics``).
 
     from repro_torch.sim.scenarios import build_trace, make_config
     tr = build_trace(make_config("flashcrowd", n_apps=200, seed=1))
@@ -23,6 +23,7 @@ from repro_torch.sim.scenarios.registry import (ScenarioSpec, build_trace, get,
 from repro_torch.sim.scenarios.replay import ReplayConfig, load_trace, save_trace
 from repro_torch.sim.scenarios.schema import (SEGMENTS, SLO_CLASSES, Trace,
                                               TraceValidationError, sort_by_submit)
+from repro_torch.sim.scenarios.stream import StreamConfig, run_sim_stream
 
 __all__ = [
     "SEGMENTS", "SLO_CLASSES", "Trace", "TraceValidationError", "sort_by_submit",
@@ -30,7 +31,7 @@ __all__ = [
     "make_config", "build_trace",
     "DiurnalConfig", "FlashcrowdConfig", "HeavytailConfig",
     "ColocatedConfig", "ReplayConfig", "load_trace", "save_trace",
-    "FittedConfig", "fit_trace",
+    "FittedConfig", "fit_trace", "StreamConfig", "run_sim_stream",
     "coverage_report", "forecast_error_report", "forecast_reports",
     "sample_usage_series",
 ]

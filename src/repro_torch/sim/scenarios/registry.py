@@ -1,9 +1,9 @@
 """Named scenario registry: config class + builder per workload family.
 
 Counterpart of ``repro/sim/scenarios/registry.py``, with the same API.
-Ported families: ``google``, ``diurnal``, ``flashcrowd``, ``heavytail``,
-``colocated``, ``replay`` and ``fitted``; ``stream`` is not ported yet
-and looking it up raises ``NotImplementedError``.
+Families: ``google``, ``diurnal``, ``flashcrowd``, ``heavytail``,
+``colocated``, ``replay``, ``fitted`` and ``stream`` (any of the others
+in a bounded device window).
 
 A *scenario* is a frozen config dataclass plus a build function that turns it
 into a schema-valid :class:`~repro_torch.sim.scenarios.schema.Trace`.  Sources
@@ -55,10 +55,8 @@ _BUILTIN = {
     "colocated": "repro_torch.sim.scenarios.families",
     "replay": "repro_torch.sim.scenarios.replay",
     "fitted": "repro_torch.sim.scenarios.fitting",
+    "stream": "repro_torch.sim.scenarios.stream",
 }
-
-# the reference's other family, not ported yet
-_NOT_PORTED = ("stream",)
 
 
 def register(name: str, config_cls: type, doc: str = ""):
@@ -78,9 +76,6 @@ def _load_builtins() -> None:
 
 
 def get(name: str) -> ScenarioSpec:
-    if name in _NOT_PORTED:
-        raise NotImplementedError(f"the {name!r} scenario family is not ported yet "
-                                  "(ROADMAP queue 1 item 11.2)")
     if name not in _SCENARIOS and name in _BUILTIN:
         importlib.import_module(_BUILTIN[name])
     try:

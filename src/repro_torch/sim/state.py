@@ -64,7 +64,22 @@ class DeviceTrace:
     levels: torch.Tensor     # (S, N, C, SEGMENTS, 2) f32 utilization knots
     exists: torch.Tensor     # (S, N, C) bool == cpu_req > 0
     tenant: torch.Tensor     # (S, N) i32
-    gid: torch.Tensor        # (S, N) i32 global app id (the row index)
+    gid: torch.Tensor        # (S, N) i32 global app id (the row index of a
+    #                          materialized trace; a streamed window's rows
+    #                          hold apps of any id, free rows 0)
+
+    @classmethod
+    def from_columns(cls, device, **cols) -> "DeviceTrace":
+        """One member's trace from its numpy columns, ``gid`` among them
+        (``sim/scenarios/stream.py``'s window); ``exists`` is derived."""
+        dt = dict(submit=np.float32, runtime=np.float32, cpu_req=np.float32,
+                  mem_req=np.float32, is_core=bool, is_jumpy=bool, levels=np.float32,
+                  tenant=np.int32, gid=np.int32)
+
+        def col(x, t):
+            return torch.from_numpy(np.ascontiguousarray(x, t)[None]).to(device)
+        return cls(exists=col(cols["cpu_req"] > 0, bool),
+                   **{k: col(cols[k], t) for k, t in dt.items()})
 
     @classmethod
     def from_traces(cls, wls, device) -> "DeviceTrace":

@@ -92,7 +92,16 @@ The reference's ``scan.bucket_cache_entries`` gauge counts its jitted
 programs, one a bucket; here one graph serves every bucket, so there is
 no such gauge.
 
-Not ported, and refused: streamed workloads; ``run_fleet_shard``.
+A streamed workload (``sim/scenarios/stream.py``: a ``StreamConfig``)
+runs in a bounded window of the trace (:func:`_run_stream`): the window's
+columns and the lifecycle of its rows live in the chunk program's static
+tensors, and at each chunk boundary where the window changes the host
+copies the new columns and the re-keyed lifecycle into them (``copy_``,
+nothing re-pointed: a graph reads those very addresses).  A window that
+grows is a program of the new W, on the card a new graph entry, and the
+run's state moves into it.  :func:`run_fleet_shard` runs a fleet of
+members that differ in their workload only as one cohort batch on one
+device.
 """
 from __future__ import annotations
 
@@ -120,10 +129,12 @@ from repro_torch.obs.trace import span
 from repro_torch.sim.engine import _check_ported, _make_model, check_tenants
 from repro_torch.sim.metrics import SimResults
 from repro_torch.sim.scenarios.registry import build_trace
+from repro_torch.sim.scenarios.stream import _LIFE, StreamConfig, run_sim_stream
 from repro_torch.sim.state import (CPU, MEM, DeviceTrace, SimState, TickMetrics,
                                    drain_results, init_state)
 
-__all__ = ["fused_tick", "fused_leap", "run_sim_scan", "run_cohort_scan"]
+__all__ = ["fused_tick", "fused_leap", "run_sim_scan", "run_cohort_scan",
+           "run_fleet_shard"]
 
 
 # ----------------------------------------------------------------------
@@ -696,12 +707,6 @@ def fused_leap(cfg, model, tr: DeviceTrace, st: SimState, host_cap: torch.Tensor
 # chunk drivers
 # ----------------------------------------------------------------------
 
-def _check_scan(cfg) -> None:
-    _check_ported(cfg)
-    if type(cfg.workload).__name__ == "StreamConfig":
-        raise NotImplementedError("streamed workloads are not ported yet")
-
-
 _METRICS = [f.name for f in dataclasses.fields(TickMetrics)]
 
 
@@ -989,6 +994,14 @@ def _run_chunk(cfg, model, graphs, tr, st, size: int, host_cap, bucket, left=Non
         return ms
 
 
+def _write_bucket(cfg, st: SimState, bucket: torch.Tensor) -> None:
+    """At a chunk boundary, bucketed configs only: write the bucket
+    ``_pick_bucket`` chooses to the device scalar the chunk reads."""
+    if _bucketed(cfg):
+        b = _pick_bucket(cfg, st)
+        bucket.fill_(st.mon_count.shape[1] if b is None else b)
+
+
 def _drain(drain: RingDrain | None, st: SimState) -> None:
     """Drain the rings at a chunk boundary (the ``ring_drain`` span): one
     copy of the state's rings to the host, after the chunk's replay and
@@ -1008,14 +1021,11 @@ def _drive_chunks(cfg, model, tr, st, chunk: int, host_cap):
     the chunk runs."""
     graphs, tr, st, host_cap, bucket = _program(cfg, model, tr, st, chunk, host_cap)
     drain = _ring_drain(cfg, chunk, st)
-    bucketing = _bucketed(cfg)
     parts = []
     remaining = cfg.max_ticks
     while remaining > 0:
         size = min(chunk, remaining)
-        if bucketing:
-            b = _pick_bucket(cfg, st)
-            bucket.fill_(st.mon_count.shape[1] if b is None else b)
+        _write_bucket(cfg, st, bucket)
         ms = _run_chunk(cfg, model, graphs, tr, st, size, host_cap, bucket)
         # the chunk boundary: the one place the host reads the device
         parts.append({f: ms[f].cpu().numpy() for f in _METRICS})
@@ -1041,12 +1051,9 @@ def _drive_chunks_leap(cfg, model, tr, st, chunk: int, host_cap):
     drain = _ring_drain(cfg, chunk, st)
     left = graphs.left if graphs is not None else torch.empty_like(st.oom_kills)
     left.fill_(cfg.max_ticks)
-    bucketing = _bucketed(cfg)
     parts = []
     while True:
-        if bucketing:
-            b = _pick_bucket(cfg, st)
-            bucket.fill_(st.mon_count.shape[1] if b is None else b)
+        _write_bucket(cfg, st, bucket)
         ms = _run_chunk(cfg, model, graphs, tr, st, chunk, host_cap, bucket, left)
         parts.append({f: ms[f].cpu().numpy() for f in _METRICS})
         _drain(drain, st)
@@ -1070,18 +1077,125 @@ def _run(cfgs, wls, chunk: int, dev: torch.device) -> list[SimResults]:
         _weights(cfg, host_cap.device)
     drive = _drive_chunks_leap if cfg.leap else _drive_chunks
     st, metrics, ticks, drain = drive(cfg, _make_model(cfg), tr, st, chunk, host_cap)
+    return _drain_members(cfgs, wls, st, metrics, ticks, drain, t0)
+
+
+def _drain_members(cfgs, wls, st: SimState, metrics: dict, ticks: int,
+                   drain: RingDrain | None, t0: float, finalize=None) -> list[SimResults]:
+    """Each member's results from the run's final state and metrics, with
+    ``SimResults.timings`` (wall seconds since ``t0``, ticks, members,
+    steps).  ``finalize`` maps a member's numpy state before the drain (a
+    streamed run's global lifecycle)."""
     # the rings are drained already
     state = {k: v.cpu().numpy() for k, v in _tensors(dataclasses.replace(st, obs=None)).items()}
     seconds = time.perf_counter() - t0
     out = []
     for i, (c, w) in enumerate(zip(cfgs, wls)):
-        res = drain_results(c, w, {k: v[i] for k, v in state.items()},
+        member = {k: v[i] for k, v in state.items()}
+        res = drain_results(c, w, member if finalize is None else finalize(member),
                             {k: v[i] for k, v in metrics.items()},
                             obs=None if drain is None else drain.history(i))
         res.timings = dict(total=seconds, ticks=ticks, members=len(wls),
                            steps=metrics["valid"].shape[-1])
         out.append(res)
     return out
+
+
+# ----------------------------------------------------------------------
+# streamed workloads: a bounded window of the trace (sim/scenarios/stream.py)
+# ----------------------------------------------------------------------
+
+def _refill(cfg, model, win, prog, chunk: int, size: int):
+    """A streamed run's chunk boundary: ``win.refill`` harvests, loads and
+    re-keys the window on the host; where that changed it, the window's
+    columns and the re-keyed lifecycle go into the program's own tensors
+    (``copy_``); where the window grew, the run moves to a program of the
+    new W (``_program``: on the card a graph entry, made and warmed up at
+    its first use, whose static tensors take a copy of the state).
+    ``prog`` is ``_program``'s tuple; returns it (the same or the new one)
+    and the leap budget cap."""
+    graphs, tr, st, host_cap, bucket = prog
+    new, changed, cap = win.refill(st, t0=float(st.t[0]), tick=cfg.cluster.tick, size=size,
+                                   leap=cfg.leap, chunk=chunk)
+    if not changed:
+        return prog, cap
+    window = win.device_trace(st.t.device)
+    if win.W != tr.submit.shape[1]:
+        return _program(cfg, model, window, new, chunk, host_cap), cap
+    got = _tensors(window)
+    for name, x in _tensors(tr).items():
+        x.copy_(got[name])
+    for name in _LIFE:
+        getattr(st, name).copy_(getattr(new, name))
+    return prog, cap
+
+
+def _stream_chunks(cfg, model, win, prog, chunk: int):
+    """:func:`_drive_chunks` over a streamed window: the window refilled
+    at every boundary before the bucket is chosen, and the run ended when
+    the stream is exhausted and every loaded app is done (or at
+    ``max_ticks``).  Returns (program, metrics, ticks driven, ring drain)."""
+    drain = _ring_drain(cfg, chunk, prog[2])
+    parts = []
+    remaining = cfg.max_ticks
+    while remaining > 0:
+        size = min(chunk, remaining)
+        prog, _ = _refill(cfg, model, win, prog, chunk, size)
+        graphs, tr, st, host_cap, bucket = prog
+        _write_bucket(cfg, st, bucket)
+        ms = _run_chunk(cfg, model, graphs, tr, st, size, host_cap, bucket)
+        parts.append({f: ms[f].cpu().numpy() for f in _METRICS})
+        remaining -= size
+        _drain(drain, st)
+        if win.exhausted and bool(st.done.all()):
+            break
+    metrics = {f: np.concatenate([p[f] for p in parts], -1) for f in _METRICS}
+    return prog, metrics, cfg.max_ticks - remaining, drain
+
+
+def _stream_chunks_leap(cfg, model, win, prog, chunk: int):
+    """:func:`_drive_chunks_leap` over a streamed window: before every
+    chunk the budget ``left`` is filled with the run's remaining ticks,
+    capped at the float32 tick count to the first unloaded arrival, and
+    what the chunk spent is read back after it (the reference's stream
+    loop).  Returns what :func:`_stream_chunks` returns."""
+    drain = _ring_drain(cfg, chunk, prog[2])
+    parts = []
+    budget = cfg.max_ticks
+    eager_left = torch.empty_like(prog[2].oom_kills)    # where no graph holds the budget
+    while budget > 0:
+        prog, cap = _refill(cfg, model, win, prog, chunk, chunk)
+        graphs, tr, st, host_cap, bucket = prog
+        _write_bucket(cfg, st, bucket)
+        left = eager_left if graphs is None else graphs.left
+        n = budget if cap is None else min(budget, cap)
+        left.fill_(n)
+        ms = _run_chunk(cfg, model, graphs, tr, st, chunk, host_cap, bucket, left)
+        parts.append({f: ms[f].cpu().numpy() for f in _METRICS})
+        budget -= n - int(left[0])
+        _drain(drain, st)
+        if win.exhausted and bool(st.done.all()):
+            break
+    metrics = {f: np.concatenate([p[f] for p in parts], -1) for f in _METRICS}
+    return prog, metrics, cfg.max_ticks - budget, drain
+
+
+def _run_stream(cfg, wl, win, chunk: int, dev: torch.device) -> SimResults:
+    """One streamed run (``stream.run_sim_stream``): the window's program,
+    its chunks, and the drain over the global lifecycle."""
+    if chunk < 1:
+        raise ValueError(f"chunk={chunk} must be >= 1")
+    check_tenants(cfg, wl)
+    t0 = time.perf_counter()
+    host_cap = host_capacity(cfg, dev)
+    if cfg.control.enabled:
+        _weights(cfg, host_cap.device)
+    model = _make_model(cfg)
+    st = win.seal_free(init_state(cfg, win.W, win.C, 1, dev))
+    prog = _program(cfg, model, win.device_trace(dev), st, chunk, host_cap)
+    drive = _stream_chunks_leap if cfg.leap else _stream_chunks
+    prog, metrics, ticks, drain = drive(cfg, model, win, prog, chunk)
+    return _drain_members([cfg], [wl], prog[2], metrics, ticks, drain, t0, win.finalize)[0]
 
 
 def run_sim_scan(cfg, wl=None, *, chunk: int = 32,
@@ -1101,7 +1215,11 @@ def run_sim_scan(cfg, wl=None, *, chunk: int = 32,
     ticks driven (under leap the most any member covered) and the steps
     driven (chunks x chunk; the ticks on uniform runs)."""
     dev = resolve_device(device)
-    _check_scan(cfg)
+    _check_ported(cfg)
+    if isinstance(cfg.workload, StreamConfig):
+        # streamed ingestion: a bounded window, rows re-keyed at chunk
+        # boundaries (equal to the materialized run, bit for bit)
+        return run_sim_stream(cfg, wl, chunk=chunk, device=dev)
     wl = wl if wl is not None else build_trace(cfg.workload)
     return _run([cfg], [wl], chunk, dev)[0]
 
@@ -1113,7 +1231,7 @@ def run_cohort_scan(cfg, seeds, *, chunk: int = 32,
     the whole cohort.  Each member's results equal its
     :func:`run_sim_scan` solo run.  The traces must agree in shape."""
     dev = resolve_device(device)
-    _check_scan(cfg)
+    _check_ported(cfg)
     seeds = list(seeds)
     if not seeds:
         return []
@@ -1122,7 +1240,66 @@ def run_cohort_scan(cfg, seeds, *, chunk: int = 32,
             for s in seeds]
     if wls is None:
         wls = [build_trace(c.workload) for c in cfgs]
+    if isinstance(cfg.workload, StreamConfig):
+        # each streamed member keeps its own window: solo streamed runs,
+        # each equal to its solo run
+        return [run_sim_stream(c, w, chunk=chunk, device=dev) for c, w in zip(cfgs, wls)]
     shapes = {(int(w.n_apps), int(w.max_components)) for w in wls}
     if len(shapes) != 1:
         raise ValueError(f"cohort traces disagree on shape: {shapes}")
+    return _run(cfgs, list(wls), chunk, dev)
+
+
+def device_count(device: torch.device) -> int:
+    """Devices a fleet's mesh could span: the visible CUDA cards for a
+    CUDA ``device``, 1 on the CPU."""
+    return max(1, torch.cuda.device_count()) if device.type == "cuda" else 1
+
+
+def run_fleet_shard(cfg, seeds=None, *, chunk: int = 32, wls=None, cfgs=None, mesh=None,
+                    device: str | torch.device = "cuda") -> list[SimResults]:
+    """Run a fleet of simulations that differ in their workload only
+    (seed or scenario: trace data) as one cohort batch on one device.
+
+    The counterpart of the reference's ``run_fleet_shard``, which lays the
+    cohort axis across a device mesh.  Members are ``seeds`` (expanded
+    against ``cfg`` as :func:`run_cohort_scan` does) or explicit ``cfgs``
+    that agree with ``cfg`` on everything but ``workload``.  ``mesh`` is
+    None (every visible device) or a device count; a mesh wider than the
+    visible devices raises ``ValueError``, and one of two or more devices
+    ``NotImplementedError``: the port runs a fleet on one device.  Each
+    member's results equal its solo run, except ``forecast_rows
+    ["rows_bucketed"]``, which counts the cohort's bucket (its largest
+    member's, as the reference's cohort).  Streamed members run solo,
+    each in its own window."""
+    dev = resolve_device(device)
+    _check_ported(cfg)
+    if cfgs is None:
+        if seeds is None:
+            raise ValueError("pass seeds or cfgs")
+        cfgs = [dataclasses.replace(cfg, workload=dataclasses.replace(cfg.workload,
+                                                                      seed=int(s)))
+                for s in seeds]
+    cfgs = list(cfgs)
+    if not cfgs:
+        return []
+    for i, c in enumerate(cfgs):
+        if dataclasses.replace(c, workload=cfg.workload) != cfg:
+            raise ValueError(
+                f"fleet member {i} differs from the base config beyond its workload "
+                "(policy/forecaster/safeguard/... are static in the fleet's program)")
+    visible = device_count(dev)
+    m = visible if mesh is None else int(mesh)
+    if not 1 <= m <= visible:
+        raise ValueError(f"mesh of {m} devices: {visible} visible")
+    if m > 1:
+        raise NotImplementedError(
+            f"a fleet over {m} devices: the port runs a fleet on one device (mesh=1)")
+    if wls is None:
+        wls = [build_trace(c.workload) for c in cfgs]
+    if any(isinstance(c.workload, StreamConfig) for c in cfgs):
+        return [run_sim_scan(c, w, chunk=chunk, device=dev) for c, w in zip(cfgs, wls)]
+    shapes = {(int(w.n_apps), int(w.max_components)) for w in wls}
+    if len(shapes) != 1:
+        raise ValueError(f"fleet traces disagree on shape: {shapes}")
     return _run(cfgs, list(wls), chunk, dev)

@@ -35,9 +35,11 @@ the host engine ``run_sim`` on a thread pool, the cells sharing the
 batcher; ``"scan"`` the device engine, each combo's seed cohort one
 ``run_cohort_scan`` batch, the combos in sequence (a captured graph
 serves one run at a time, so the device engine never runs on threads);
-``"shard"`` falls back to ``"scan"`` on one visible device, and is not
-ported for two or more (ROADMAP queue 1 item 11.3); ``"reference"`` is
-refused (the JAX package's frozen seed loop is its own anchor).
+``"shard"`` falls back to ``"scan"`` on one visible device, as the
+reference's does, and raises ``NotImplementedError`` on two or more (the
+port runs a fleet on one device: ``repro_torch.sim.shard``);
+``"reference"`` is refused (the JAX package's frozen seed loop is its own
+anchor).
 
 CLI::
 
@@ -72,6 +74,7 @@ from repro_torch.sim.engine import (SimConfig, _BatchedForecaster, _make_model,
 from repro_torch.sim.metrics import aggregate_summaries, trace_stats
 from repro_torch.sim.scenarios import build_trace, make_config, scenario_of
 from repro_torch.sim.scenarios.diagnostics import forecast_reports
+from repro_torch.sim.shard import device_count
 from repro_torch.sim.workload import WorkloadConfig
 
 __all__ = ["SweepCell", "SweepResult", "ForecastBatcher", "expand_grid",
@@ -393,8 +396,8 @@ class SweepResult:
     # diagnostics (attached when the grid sweeps calibration)
     calibration: list = dataclasses.field(default_factory=list)
     # which engine actually ran the grid; mesh_devices is the mesh width
-    # offered to fleets (always 0 here: the shard engine is not ported,
-    # and on one device it runs as scan)
+    # offered to fleets (always 0 here: on one device the shard engine
+    # runs as scan, and the port takes no wider mesh)
     engine: str = "vectorized"
     mesh_devices: int = 0
 
@@ -450,12 +453,6 @@ def _aggregate(cells: list[dict]) -> list[dict]:
     return aggs
 
 
-def device_count(device: torch.device) -> int:
-    """Devices a shard mesh could span: the visible CUDA cards for a CUDA
-    ``device``, 1 on the CPU."""
-    return max(1, torch.cuda.device_count()) if device.type == "cuda" else 1
-
-
 def _pinned(device: str | torch.device) -> torch.device:
     """``device`` resolved, a CUDA device with its index made explicit:
     the current CUDA device is per thread, so pool workers are set to it."""
@@ -503,8 +500,10 @@ def _run_grid(base: SimConfig,
     host read.
 
     ``engine="shard"`` with one visible device (``mesh`` None = all
-    visible, clamped to them) falls back to ``scan``; with two or more
-    it raises ``NotImplementedError`` (ROADMAP queue 1 item 11.3).
+    visible, clamped to them) falls back to ``scan``, as the reference's
+    does; with two or more it raises ``NotImplementedError``: the port
+    runs a fleet on one device (``repro_torch.sim.shard``, whose
+    ``run_fleet_shard`` takes ``mesh=1``).
     ``engine="reference"`` raises ``ValueError``.
 
     ``forecast_diag`` attaches one rolling forecast-error record per
@@ -535,8 +534,8 @@ def _run_grid(base: SimConfig,
         want = max(1, min(want, device_count(dev)))
         if want >= 2:
             raise NotImplementedError(
-                f"engine='shard' over {want} devices is not ported yet "
-                "(ROADMAP queue 1 item 11.3); use engine='scan'")
+                f"engine='shard' over {want} devices: the port runs a fleet on "
+                "one device; use engine='scan'")
         print("# engine=shard: single device visible — falling back "
               "to engine=scan")
         engine = "scan"
@@ -888,7 +887,8 @@ def main(argv: Sequence[str] | None = None) -> SweepResult:
                     default="vectorized",
                     help="vectorized = host engine on a thread pool; scan = "
                          "the device engine, seed cohorts as one batch; "
-                         "shard = scan on one device (more is not ported)")
+                         "shard = scan on one device (the port takes no wider "
+                         "mesh)")
     ap.add_argument("--device", default="cuda",
                     help="where the engines run: cuda (default) or cpu")
     ap.add_argument("--chunk", type=int, default=32,

@@ -63,12 +63,23 @@ def test_family_trace_equals_reference(name):
 
 
 def test_registry_api_follows_the_reference():
-    assert treg.scenario_names() == tuple(n for n in rreg.scenario_names()
-                                          if n != "stream")
-    with pytest.raises(NotImplementedError, match="item 11.2"):
-        treg.get("stream")
-    with pytest.raises(NotImplementedError, match="item 11.2"):
-        treg.make_config("stream")
+    assert treg.scenario_names() == rreg.scenario_names()
+    # the streamed wrapper: its fields, and its trace (the inner trace, the
+    # seed overridden) column by column; its runs: tests/test_torch_stream.py
+    assert ([f.name for f in dataclasses.fields(treg.get("stream").config_cls)]
+            == [f.name for f in dataclasses.fields(rreg.get("stream").config_cls)])
+    for seed in (None, 7):
+        ref_cfg = rreg.get("stream").config_cls(
+            inner=rreg.make_config("flashcrowd", n_apps=40, seed=2), window=8, seed=seed)
+        ref_sim = dataclasses.replace(SimConfig(), workload=ref_cfg)
+        port = convert.sim_config_from_dict(dataclasses.asdict(ref_sim), workload="stream",
+                                            inner="flashcrowd").workload
+        assert port == treg.make_config("stream", inner=port.inner, window=8, seed=seed)
+        got = treg.build_trace(port)
+        _assert_same_trace(got, rreg.build_trace(ref_cfg))
+        assert treg.scenario_of(got.cfg) == "stream" and got.cfg == port
+    with pytest.raises(ValueError, match="inner"):
+        convert.sim_config_from_dict(dataclasses.asdict(ref_sim), workload="stream")
     # the fitted family is ported (its parity: tests/test_torch_sweep.py)
     assert treg.get("fitted").config_cls.__name__ == "FittedConfig"
     with pytest.raises(KeyError, match="unknown scenario"):

@@ -347,18 +347,21 @@ def test_cohort_equals_solo(forecaster):
 
 def test_unported_switches_raise():
     pcfg = convert.sim_config_from_dict(dataclasses.asdict(SMALL))
-    # calibration, the control plane and the telemetry rings are ported:
-    # the check takes them
-    tstep._check_scan(dataclasses.replace(
+    # calibration, the control plane, the telemetry rings and streamed
+    # workloads are ported: the check takes them (the streamed runs:
+    # tests/test_torch_stream.py)
+    tstep._check_ported(dataclasses.replace(
         pcfg, calibration=dataclasses.replace(pcfg.calibration, enabled=True),
         control=dataclasses.replace(pcfg.control, enabled=True),
         obs=dataclasses.replace(pcfg.obs, enabled=True)))
+    with pytest.raises(ValueError, match="unknown forecaster"):
+        tstep.run_sim_scan(dataclasses.replace(pcfg, forecaster="lstm"), device="cpu")
 
     @dataclasses.dataclass(frozen=True)
-    class StreamConfig:
+    class StreamConfig:      # a look-alike of no registered family
         seed: int = 0
 
-    with pytest.raises(NotImplementedError, match="streamed"):
+    with pytest.raises(TypeError, match="not a registered"):
         tstep.run_sim_scan(dataclasses.replace(pcfg, workload=StreamConfig()), device="cpu")
 
 

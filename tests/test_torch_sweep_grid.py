@@ -164,9 +164,9 @@ def test_refused_engines_and_devices(monkeypatch):
         tsweep.run_grid(base, engine="bogus", **kw)
     with pytest.raises(ValueError, match="empty sweep grid"):
         tsweep._run_grid(base, cells=[], axes=None, seeds=[], device="cpu")
-    # two visible cards: the shard engine is not ported (ROADMAP 11.3)
+    # two visible cards: the port runs a fleet on one device
     monkeypatch.setattr(tsweep, "device_count", lambda dev: 2)
-    with pytest.raises(NotImplementedError, match="11.3"):
+    with pytest.raises(NotImplementedError, match="one device"):
         tsweep.run_grid(base, engine="shard", **kw)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
