@@ -92,6 +92,15 @@ points:
     slice streamed against materialized, uniform and leap; a google +
     flashcrowd fleet through run_fleet_shard(mesh=1), each member its
     solo run;
+  * the GP past the fused program's 64 patterns (phase 5l): LONG_GP (h =
+    40, N = 128 patterns, windows of 168) takes the Gram route, 14 Gram
+    forward and 10 gradient launches a forecast: forecast_batch on 512
+    seeded windows card against CPU, both kinds, a ready mask, a row
+    alone, a failed factor; the host engine capped at 240 ticks (its
+    first 48 card against CPU); the device engine capped at 240 ticks
+    through graphs, the Gram launches counted against the graphs' nodes,
+    ticks/s, peak memory and the device time split into the Gram pair,
+    cuSOLVER/cuBLAS and the rest;
   * Whisper-large-v3 serving at full width (random weights from a seeded
     generator on the card): 8 requests of 1,500 frames prefilled with 448
     teacher-forced tokens through the tensor-core flash kernel (bf16,
@@ -101,7 +110,9 @@ points:
     takes the CUDA-core flash kernel (route "simt").
 
 Before the paths it checks every kernel against its plain version on the
-card: the Gram pair, the fused GP program (on 512 seeded windows with a
+card: the Gram pair (GRAM_SHAPES: also K(X, X) at the Gram route's width
+as one tensor, whose diagonal must be one float, sf^2 under rbf, and the
+gradient twice, bit for bit), the fused GP program (on 512 seeded windows with a
 row whose factor fails and padded all-invalid rows, "exp" and "rbf";
 with a ready mask in device memory, none, some and all per member, and
 at the device engine's 3,072 rows),
@@ -278,7 +289,9 @@ def graph_us(fn, n=50, replays=5) -> float:
 
 def inputs(b, m, n, d, dev, *, same, seed):
     """Seeded (xa, xb, ell, sf, grad).  ``same`` makes xa the first m rows
-    of xb, as the GP's fit (X against X) and horizon steps do."""
+    of xb, as the GP's fit (X against X) and horizon steps do; with m ==
+    n, xa is xb itself, the one tensor the Gram route passes for K(X, X)
+    (the kernels' symmetric path)."""
     import torch
     rng = np.random.default_rng(seed)
     xb = rng.standard_normal((b, n, d)).astype(np.float32)
@@ -286,24 +299,42 @@ def inputs(b, m, n, d, dev, *, same, seed):
     ell = rng.uniform(0.3, 3.0, b).astype(np.float32)
     sf = rng.uniform(0.3, 3.0, b).astype(np.float32)
     g = rng.standard_normal((b, m, n)).astype(np.float32)
-    return [torch.as_tensor(np.ascontiguousarray(a), device=dev)
-            for a in (xa, xb, ell, sf, g)]
+    out = [torch.as_tensor(np.ascontiguousarray(a), device=dev)
+           for a in (xa, xb, ell, sf, g)]
+    if same and m == n:
+        out[0] = out[1]
+    return out
+
+
+# (b, m, n, d, same) of the Gram pair's checks: the fused program's old
+# main path (B series of 10 x 11 patterns against themselves and one
+# query against them), the reference's test shapes, then the Gram route's:
+# K(X, X) and a horizon step's cross-Gram at LONG_GP's width (128 patterns
+# of 41), tiles with ragged edges on both paths, D past one staged chunk
+# of 44 features, a single entry; and K(X, X) too large for a block a
+# series (the symmetric tile path)
+GRAM_SHAPES = ([(b, m, 10, 11, True) for b in (128, 256, 512) for m in (10, 1)]
+               + [(3, m, n, d, False) for m, n, d in
+                  [(1, 1, 1), (7, 5, 3), (10, 10, 11), (40, 40, 41), (128, 128, 128),
+                   (130, 60, 17)]]
+               + [(256, 128, 128, 41, True), (256, 1, 128, 41, False),
+                  (3, 130, 129, 17, False), (3, 130, 130, 17, True), (3, 72, 200, 200, False),
+                  (1, 1, 1, 1, False), (2, 200, 200, 100, True)])
 
 
 def check_kernels(gp_gram, ref, dev) -> dict:
-    """Forward and backward kernels against the plain versions; returns
-    the largest absolute error of each."""
+    """Forward and backward kernels against the plain versions on
+    GRAM_SHAPES, both kinds; every diagonal entry of K(X, X) the same
+    float, sf^2 exactly under rbf; two runs of the gradient equal bit for
+    bit.  Returns the largest absolute error of each kernel."""
     import torch
-    shapes = [(b, m, 10, 11, True) for b in (128, 256, 512) for m in (10, 1)]
-    shapes += [(3, m, n, d, False) for m, n, d in
-               [(1, 1, 1), (7, 5, 3), (10, 10, 11), (40, 40, 41),
-                (128, 128, 128), (130, 60, 17)]]
     err = {"gp_gram_fwd": 0.0, "gp_gram_bwd": 0.0}
     for kind in ("exp", "rbf"):
-        for i, (b, m, n, d, same) in enumerate(shapes):
+        for i, (b, m, n, d, same) in enumerate(GRAM_SHAPES):
             xa, xb, ell, sf, g = inputs(b, m, n, d, dev, same=same, seed=i)
             K = gp_gram.gram_fwd(xa, xb, ell, sf, kind)
             d_ell, d_sf = gp_gram.gram_bwd(g, xa, xb, ell, sf, kind)
+            again = gp_gram.gram_bwd(g, xa, xb, ell, sf, kind)
             torch.cuda.synchronize()
             K_ref = ref.gram(xa, xb, ell, sf, kind)
             torch.testing.assert_close(K, K_ref, rtol=RTOL, atol=ATOL)
@@ -311,12 +342,23 @@ def check_kernels(gp_gram, ref, dev) -> dict:
             w_ell, w_sf = ref.gram_bwd(g, xa, xb, ell, sf, kind)
             for got, want in ((d_ell, w_ell), (d_sf, w_sf)):
                 torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL * m * n)
+            for got, rerun in zip((d_ell, d_sf), again):
+                assert torch.equal(got.view(torch.int32), rerun.view(torch.int32)), \
+                    (kind, b, m, n, d)
+            note = ""
+            if same and m == n:
+                diag = torch.diagonal(K, dim1=1, dim2=2)
+                assert torch.equal(diag, diag[:, :1].expand_as(diag)), (kind, b, m, n, d)
+                if kind == "rbf":
+                    assert torch.equal(diag[:, 0], sf * sf), (b, m, n, d)
+                note = (", K(X, X) one tensor: each series' diagonal one float"
+                        + (" = sf^2" if kind == "rbf" else ""))
             err["gp_gram_fwd"] = max(err["gp_gram_fwd"],
                                      (K - K_ref).abs().max().item())
             err["gp_gram_bwd"] = max(err["gp_gram_bwd"],
                                      (d_ell - w_ell).abs().max().item(),
                                      (d_sf - w_sf).abs().max().item())
-            log(f"  {kind} B={b} ({m}x{d})·({n}x{d}) ok")
+            log(f"  {kind} B={b} ({m}x{d})·({n}x{d}) ok, gradient twice bit for bit{note}")
     return err
 
 
@@ -335,19 +377,24 @@ def seeded_windows(n=512, width=24, seed=0):
     return np.where(valid, w, 0).astype(np.float32), valid
 
 
-def assert_gp_close(mg, vg, mc, vc, w, cnt, what) -> None:
+def assert_gp_close(mg, vg, mc, vc, w, cnt, what, h=10, mean_sd=0.0) -> int:
     """The GP tolerances of tests/test_torch_forecast.py by a row's valid
-    count: >= 12 valid rtol 1e-3 on the mean and 5e-3 on the variance,
-    11 valid 5e-2, <= 10 valid (persistence) equal; a variance below the
-    square of one float32 ulp of the row's level is rounding noise.  A
-    NaN must be NaN in both."""
+    count, for history h: >= h+2 valid rtol 1e-3 on the mean and 5e-3 on
+    the variance, h+1 valid 5e-2, <= h valid (persistence) equal; a
+    variance below the square of one float32 ulp of the row's level is
+    rounding noise.  A NaN must be NaN in both.  With ``mean_sd`` a mean
+    beyond its rtol passes within mean_sd of the row's predictive standard
+    deviation (the CPU's): returns how many such rows there were."""
     nan_g, nan_c = np.isnan(mg) | np.isnan(vg), np.isnan(mc) | np.isnan(vc)
     if (nan_g != nan_c).any():
         raise AssertionError(f"{what}: NaN in {np.flatnonzero((nan_g != nan_c).any(1))}")
     atol_var = (np.finfo(np.float32).eps * np.abs(w).max(1, keepdims=True)) ** 2
-    for sel, rt_m, rt_v in ((cnt >= 12, 1e-3, 5e-3), (cnt == 11, 5e-2, 5e-2),
-                            (cnt <= 10, 0.0, 0.0)):
-        bad_m = np.abs(mg - mc) > rt_m * np.abs(mc)
+    by_sd = 0
+    for sel, rt_m, rt_v in ((cnt >= h + 2, 1e-3, 5e-3), (cnt == h + 1, 5e-2, 5e-2),
+                            (cnt <= h, 0.0, 0.0)):
+        beyond = np.abs(mg - mc) > rt_m * np.abs(mc)
+        bad_m = beyond & ((np.abs(mg - mc) > mean_sd * np.sqrt(np.abs(vc))) | (rt_m == 0))
+        by_sd += int((sel & beyond.any(1) & ~bad_m.any(1)).sum())
         bad_v = np.abs(vg - vc) > atol_var + rt_v * np.abs(vc)
         bad = sel & (bad_m | bad_v).any(1)
         if bad.any():
@@ -355,6 +402,17 @@ def assert_gp_close(mg, vg, mc, vc, w, cnt, what) -> None:
                 log(f"  {what} row {i} ({cnt[i]} valid): mean {mg[i]} vs {mc[i]}, "
                     f"var {vg[i]} vs {vc[i]}")
             raise AssertionError(f"{what} disagrees on {bad.sum()} of {sel.sum()} rows")
+    return by_sd
+
+
+def mean_sd_reading(mg, mc, vc, cnt, h) -> float:
+    """The largest |card - CPU| over the CPU's predictive sd among the
+    means beyond assert_gp_close's rtol (rows of h + 1 or more valid): what
+    its ``mean_sd`` limit is held against; 0 where none is beyond."""
+    rt = np.where(cnt >= h + 2, 1e-3, 5e-2)[:, None]
+    beyond = (np.abs(mg - mc) > rt * np.abs(mc)) & (cnt >= h + 1)[:, None]
+    ratio = np.abs(mg - mc) / np.sqrt(np.abs(vc))
+    return float(ratio[beyond].max()) if beyond.any() else 0.0
 
 
 def check_gp(GPForecaster, GPConfig) -> None:
@@ -550,38 +608,333 @@ def check_small_runs(run_sim, SimConfig, ClusterConfig, WorkloadConfig) -> None:
             f"vs {b['turnaround_mean']:.6g})")
 
 
-def time_kernels(gp_gram, ref, dev) -> dict:
-    """Kernel and plain-version times at the main path's largest batch,
-    B = 512 series of (10 x 11) patterns against themselves, with the
-    least time the card could take: inputs read once, outputs written
-    once, over 3.35 TB/s, against the operations over fp32's peak."""
-    B, M, N, D = 512, 10, 10, 11
-    xa, xb, ell, sf, g = inputs(B, M, N, D, dev, same=True, seed=99)
+# (B, M, N, D) of the Gram pair's timings: the device engine's K(X, X) at
+# LONG_GP's width, a horizon step's cross-Gram there, a host-engine bucket,
+# and the fused program's old main-path shape
+GRAM_TIMED = ((3072, 128, 128, 41), (3072, 1, 128, 41), (256, 128, 128, 41), (512, 10, 10, 11))
+
+
+def gram_bound(B, M, N, D, same=False) -> dict:
+    """The least time the card could take for the Gram pair at (B, M, N,
+    D): inputs read once, outputs written once, over 3.35 TB/s, against
+    the operations over fp32's peak.  ``same``: xa is xb (K(X, X), M ==
+    N), so X is read once and only the entries on and above the diagonal
+    need computing (the rest are their mirror images).  Returns each
+    kernel's bound, what bounds it, its bytes and its operations."""
     pairs = B * M * N
+    work = B * N * (N + 1) // 2 if same else pairs    # entries computed
+    rows = B * N if same else B * (M + N)             # rows read, norms summed
     # |a|^2, |b|^2, a.b: 2 flops per term; then d2, sqrt, divide, exp, scale
-    fwd_flops = 2 * D * (pairs + B * (M + N)) + 8 * pairs
-    fwd_bytes = 4 * (B * M * D + B * N * D + 2 * B + pairs)
-    bwd_flops = fwd_flops + 6 * pairs
-    bwd_bytes = 4 * (pairs + B * M * D + B * N * D + 2 * B + 2 * B)
+    fwd_flops = 2 * D * (work + rows) + 8 * work
+    fwd_bytes = 4 * (rows * D + 2 * B + pairs)
+    bwd_flops = fwd_flops + 6 * work
+    bwd_bytes = 4 * (pairs + rows * D + 2 * B + 2 * B)
     out = {}
-    for name, kern, plain, flops, nbytes in (
-            ("gp_gram_fwd",
-             lambda: gp_gram.gram_fwd(xa, xb, ell, sf, "exp"),
-             lambda: ref.gram(xa, xb, ell, sf, "exp"), fwd_flops, fwd_bytes),
-            ("gp_gram_bwd",
-             lambda: gp_gram.gram_bwd(g, xa, xb, ell, sf, "exp"),
-             lambda: ref.gram_bwd(g, xa, xb, ell, sf, "exp"), bwd_flops, bwd_bytes)):
+    for name, flops, nbytes in (("gp_gram_fwd", fwd_flops, fwd_bytes),
+                                ("gp_gram_bwd", bwd_flops, bwd_bytes)):
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / FP32_FLOP_PER_S * 1e3
-        # plain, kernel, kernel, plain: the pair's order cannot favour one
-        p1, k1, k2, p2 = (cuda_time_ms(f) for f in (plain, kern, kern, plain))
-        out[name] = dict(ms=min(k1, k2), plain_ms=min(p1, p2),
-                         bound_ms=max(t_bytes, t_ops),
+        out[name] = dict(bound_ms=max(t_bytes, t_ops),
                          bound_by="bytes" if t_bytes >= t_ops else "operations",
                          bytes=nbytes, flops=flops)
-        log(f"  {name}: kernel {k1:.5f}/{k2:.5f} ms, plain {p1:.5f}/{p2:.5f} ms, "
-            f"bound {max(t_bytes, t_ops) * 1e3:.3f} us ({nbytes} B, {flops} flop)")
     return out
+
+
+def time_kernels(gp_gram, ref, dev, others=()) -> dict:
+    """Kernel and plain-version times at each shape of GRAM_TIMED (K(X, X)
+    as the Gram route passes it: xa the same tensor as xb), each beside its
+    bound (gram_bound: for K(X, X), X read once and the upper triangle).
+    ``others`` are (label, module) pairs of other packages' Gram modules,
+    timed in turns with this one on the same inputs: plain, kernel, the
+    others, the others, kernel, plain.  A
+    kernel's time is device time a launch (graph_us: 50 launches in a CUDA
+    graph, replayed); the plain version's CUDA events over a few calls.
+    Returns the device engine's shape's numbers by kernel name (ms), the
+    others' under "label:name", and every shape's under "name@B,M,N,D"."""
+    out = {}
+    for B, M, N, D in GRAM_TIMED:
+        xa, xb, ell, sf, g = inputs(B, M, N, D, dev, same=M == N, seed=99)
+        bound = gram_bound(B, M, N, D, same=M == N)
+        for name in ("gp_gram_fwd", "gp_gram_bwd"):
+            def call(mod, name=name):
+                if name == "gp_gram_fwd":
+                    return lambda: mod.gram_fwd(xa, xb, ell, sf, "exp")
+                return lambda: mod.gram_bwd(g, xa, xb, ell, sf, "exp")
+            plain = (lambda: ref.gram(xa, xb, ell, sf, "exp")) if name == "gp_gram_fwd" \
+                else (lambda: ref.gram_bwd(g, xa, xb, ell, sf, "exp"))
+            p1 = cuda_time_ms(plain, iters=3, warmup=1)
+            k1 = graph_us(call(gp_gram)) / 1e3
+            o1 = [graph_us(call(m)) / 1e3 for _, m in others]
+            o2 = [graph_us(call(m)) / 1e3 for _, m in others]
+            k2 = graph_us(call(gp_gram)) / 1e3
+            p2 = cuda_time_ms(plain, iters=3, warmup=1)
+            b = bound[name]
+            shape = (B, M, N, D)
+            row = dict(ms=min(k1, k2), plain_ms=min(p1, p2), **b)
+            out[f"{name}@{','.join(map(str, shape))}"] = row
+            if shape == GRAM_TIMED[0]:
+                out[name] = row
+            for (label, _), a, c in zip(others, o1, o2):
+                out[f"{label}:{name}@{','.join(map(str, shape))}"] = dict(ms=min(a, c), **b)
+            log(f"  {name} {shape}: kernel {k1 * 1e3:.3f}/{k2 * 1e3:.3f} us device"
+                + "".join(f", {label} {a * 1e3:.3f}/{c * 1e3:.3f} us"
+                          for (label, _), a, c in zip(others, o1, o2))
+                + f", plain {p1:.5f}/{p2:.5f} ms, bound {b['bound_ms'] * 1e3:.3f} us "
+                f"({b['bound_by']}: {b['bytes']} B, {b['flops']} flop; kernel at "
+                f"{b['bound_ms'] / min(k1, k2):.1%} of it)")
+    return out
+
+
+# LONG_GP: the GP past the fused program's 64 patterns (the paper's largest
+# h = 40, N = 128 patterns, windows of 168 = h + N samples), which takes the
+# Gram route; everything else SimConfig()'s
+LONG_GP = dict(history=40, max_patterns=128, opt_steps=10)
+LONG_WINDOW = 168
+LONG_TICKS = 240          # cap on phase 5l's runs
+
+
+def long_gp(SimConfig, GPConfig, **over):
+    return SimConfig(window=LONG_WINDOW, gp=GPConfig(**LONG_GP), **over)
+
+
+# device kernels of the cuSOLVER and cuBLAS calls (Cholesky, triangular
+# solves, products), by name
+LIBRARY_KERNELS = re.compile(r"potrf|trsm|gemm|gemv|xmma|syrk|cublas|cusolver|"
+                             r"offsetPointerArray|trsv")
+
+
+def gram_route_split(step, ticks, warm=True) -> dict:
+    """``ticks`` ticks of the device engine at LONG_GP under torch.profiler
+    (after a warm-up run of as many, which captures the chunk's graph):
+    device ms a tick split into the Gram forward, the Gram gradient, the
+    cuSOLVER and cuBLAS kernels and the rest, with each group's share and the device's busy share of the
+    wall."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.forecast import GPConfig
+    from repro_torch.sim import SimConfig
+    cfg = long_gp(SimConfig, GPConfig, max_ticks=ticks)
+    if warm:
+        step.run_sim_scan(cfg, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        step.run_sim_scan(cfg, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    groups = dict.fromkeys(("gram forward", "gram gradient", "cuSOLVER/cuBLAS", "rest"), 0.0)
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or e.self_device_time_total <= 0:
+            continue
+        name = ("gram forward" if "gram_fwd_" in e.key else
+                "gram gradient" if "gram_bwd_" in e.key or "gram_tile_sums" in e.key else
+                "cuSOLVER/cuBLAS" if LIBRARY_KERNELS.search(e.key) else "rest")
+        groups[name] += e.self_device_time_total
+    busy = sum(groups.values())
+    return {"ms_per_tick": {k: round(v / 1e3 / ticks, 4) for k, v in groups.items()},
+            "share": {k: round(v / max(busy, 1e-9), 4) for k, v in groups.items()},
+            "busy": round(busy / 1e6 / wall, 4), "wall_ms_per_tick": round(wall / ticks * 1e3, 3)}
+
+
+LONG_MEAN_SD = 1e-3   # phase 5l: a mean beyond rtol 1e-3 passes within 1e-3 of its sd
+LONG_TILED_ROWS = (1024, 2048, 3072)   # 5l (a): batches a row's bits must not depend on
+LONG_CPU_TICKS = 48   # the host engine's run at LONG_GP held card against CPU
+
+
+def long_windows(n=512, seed=0):
+    """Monitor windows of LONG_WINDOW samples as seeded_windows makes them
+    (random walks around a level, some flat, clipped at 0), with 41 (h + 1,
+    the GP's first counting forecast) to LONG_WINDOW valid."""
+    rng = np.random.default_rng(seed)
+    level = rng.uniform(0.1, 8.0, (n, 1))
+    walk = level * (1 + 0.08 * np.cumsum(rng.standard_normal((n, LONG_WINDOW)), 1))
+    flat = rng.random(n) < 0.1
+    walk[flat] = level[flat]
+    w = np.clip(walk, 0.0, None).astype(np.float32)
+    count = rng.integers(LONG_GP["history"] + 1, LONG_WINDOW + 1, n)
+    valid = np.arange(LONG_WINDOW)[None, :] >= (LONG_WINDOW - count)[:, None]
+    return np.where(valid, w, 0).astype(np.float32), valid
+
+
+def gram_launches(gp_gram, gp_forecast) -> dict:
+    return {"gram_fwd": gp_gram.gram_fwd.launches, "gram_bwd": gp_gram.gram_bwd.launches,
+            "gp_fit_forecast": gp_forecast.gp_fit_forecast.launches}
+
+
+def check_long_forecast(GPForecaster, GPConfig, gp_gram, gp_forecast) -> None:
+    """Phase 5l (a): forecast_batch at LONG_GP on the card, both kinds: 14
+    Gram forward and 10 gradient launches a call (opt_steps + 1 + horizon,
+    opt_steps), no fused-program launch; against the CPU by check_gp's
+    tolerances at h = 40 (a mean beyond its rtol passes within
+    LONG_MEAN_SD of the row's predictive sd: how many, printed); a ready
+    mask (the route's unmarked rows zeros, its marked rows and the
+    forecasts of the marked rows bit for bit the unmasked batch's); row 0
+    alone bit for bit row 0 of the batch, and every row of the batch
+    tiled to LONG_TILED_ROWS (up to the device engine's 3,072) bit for bit
+    its row of the 512; a window whose factor is not positive definite NaN
+    in its row alone."""
+    import torch
+    from repro_torch.core.forecast import gp as G
+    w, v = long_windows()
+    wt, vt = torch.as_tensor(w, device="cuda"), torch.as_tensor(v, device="cuda")
+    steps, H = LONG_GP["opt_steps"], 3
+    for kind in ("exp", "rbf"):
+        cfg = GPConfig(kernel=kind, **LONG_GP)
+        gp = GPForecaster(cfg)
+        for m in (gp_gram, gp_forecast):
+            m.reset_launch_counts()
+        fc = gp.forecast_batch(wt, H, valid=vt, device="cuda")
+        torch.cuda.synchronize()
+        got = gram_launches(gp_gram, gp_forecast)
+        assert got == {"gram_fwd": steps + 1 + H, "gram_bwd": steps, "gp_fit_forecast": 0}, got
+        t = time.perf_counter()
+        fcpu = gp.forecast_batch(w, H, valid=v, device="cpu")
+        t_cpu = time.perf_counter() - t
+        mg, vg = fc.mean.cpu().numpy(), fc.var.cpu().numpy()
+        mc, vc = fcpu.mean.numpy(), fcpu.var.numpy()
+        assert mg.shape == (512, H) and np.isfinite(mg).all() and np.isfinite(vg).all()
+        by_sd = assert_gp_close(mg, vg, mc, vc, w, v.sum(1), f"LONG_GP {kind} card vs CPU",
+                                h=LONG_GP["history"], mean_sd=LONG_MEAN_SD)
+        rel = np.abs(mg - mc) / np.maximum(np.abs(mc), 1e-30)
+        by = mean_sd_reading(mg, mc, vc, v.sum(1), LONG_GP["history"])
+        log(f"  (a) {kind}: launches a call {got}; 512 rows card vs CPU within check_gp's "
+            f"tolerances at h = 40 (max rel mean err {rel.max():.3g}; {by_sd} rows beyond "
+            f"rtol 1e-3 on the mean and within {LONG_MEAN_SD} of their sd, the largest "
+            f"{by:.3g} sd); cpu {t_cpu:.2f} s")
+        if by_sd:
+            log(f"  FINDING LONG_GP {kind}: {by_sd} of 512 means beyond check_gp's rtol 1e-3 "
+                f"card vs CPU, each within {LONG_MEAN_SD} of its predictive sd")
+    # the ready mask, row independence, a failed factor (exp)
+    cfg = GPConfig(**LONG_GP)
+    gp = GPForecaster(cfg)
+    full = gp.forecast_batch(wt, H, valid=vt, device="cuda")
+    ready = torch.as_tensor(np.random.default_rng(8).random(512) < 0.4, device="cuda")
+    marked = gp.forecast_batch(wt, H, valid=vt, ready=ready, device="cuda")
+    X, y, rv, hist, _, _ = G.fit_inputs(wt, vt, cfg)
+    route = G.gram_fit_forecast(X, y, rv, hist, LONG_WINDOW, H, cfg)
+    masked = G.gram_fit_forecast(X, y, rv, hist, LONG_WINDOW, H, cfg, ready)
+    for a, b in zip(masked, route):
+        assert torch.equal(a[ready].view(torch.int32), b[ready].view(torch.int32))
+        assert not a[~ready].any()
+    for a, b in ((marked.mean, full.mean), (marked.var, full.var)):
+        assert torch.equal(a[ready].view(torch.int32), b[ready].view(torch.int32))
+    one = gp.forecast_batch(wt[:1], H, valid=vt[:1], device="cuda")
+    assert torch.equal(one.mean[0].view(torch.int32), full.mean[0].view(torch.int32))
+    assert torch.equal(one.var[0].view(torch.int32), full.var[0].view(torch.int32))
+    # the host engine's larger buckets and the device engine's batch: the
+    # 512 windows tiled, each row bit for bit its row of the 512
+    for rows in LONG_TILED_ROWS:
+        tiled = gp.forecast_batch(wt.repeat(rows // 512, 1), H, valid=vt.repeat(rows // 512, 1),
+                                  device="cuda")
+        for a, b in ((tiled.mean, full.mean), (tiled.var, full.var)):
+            assert torch.equal(a.view(-1, 512, H).view(torch.int32),
+                               b.expand(rows // 512, 512, H).view(torch.int32)), rows
+    bad = X.clone()
+    bad[7, 20, 3] = float("nan")
+    failed = G.gram_fit_forecast(bad, y, rv, hist, LONG_WINDOW, H, cfg)
+    keep = torch.arange(512, device="cuda") != 7
+    assert torch.isnan(failed[0][7]).all() and torch.isnan(failed[1][7]).all()
+    for a, b in zip(failed, route):
+        assert torch.equal(a[keep].view(torch.int32), b[keep].view(torch.int32))
+    log(f"  (a) ready mask ({int(ready.sum())} of 512 marked): the route's unmarked rows "
+        f"zeros, marked rows and forecasts bit for bit the unmasked batch's; row 0 alone == "
+        f"row 0 of the batch bit for bit; the 512 tiled to {LONG_TILED_ROWS} rows: every row "
+        f"bit for bit its row of the 512; a NaN pattern's row NaN, the other 511 unchanged")
+
+
+def run_long_gp(step, SimConfig, GPConfig, GPForecaster, run_sim, gp_gram, gp_forecast,
+                shaper, sched, fma) -> dict:
+    """Phase 5l: the GP past the fused program's 64 patterns (LONG_GP: h =
+    40, N = 128, windows of 168; SimConfig()'s cluster and workload), which
+    takes the Gram route.  (a) check_long_forecast.  (b) The host engine
+    capped at LONG_TICKS: ticks/s, the forecast's share of a tick, Gram
+    launches against forecasting ticks x (14, 10); its first LONG_CPU_TICKS
+    ticks card against CPU (equal, or the first difference printed as a
+    FINDING, as phase 4c's GP run).  (c) The device engine capped at
+    LONG_TICKS through graphs (every chunk sync-free), after a run that
+    captures them: the census of the Gram launches against replays x the
+    graphs' kernel nodes, ticks/s, peak memory, and the device time of
+    GRAM_SPLIT_TICKS ticks split into the Gram pair, cuSOLVER/cuBLAS and the
+    rest.  Counts are set to 0 just before each run and read just after.
+    Returns the device engine's launches of the Gram pair."""
+    import torch
+    steps = {}
+    t0 = time.perf_counter()
+    check_long_forecast(GPForecaster, GPConfig, gp_gram, gp_forecast)
+    steps["a"] = round(time.perf_counter() - t0, 1)
+
+    # (b) the host engine
+    t0 = time.perf_counter()
+    cfg = long_gp(SimConfig, GPConfig, max_ticks=LONG_TICKS)
+    calls = count_calls(GPForecaster, "forecast_batch")
+    for m in (gp_gram, gp_forecast, shaper, sched, fma):
+        m.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    res = run_sim(cfg, device="cuda")
+    torch.cuda.synchronize()
+    launches = gram_launches(gp_gram, gp_forecast)
+    fc_ticks = calls.stop()
+    tm = res.timings
+    ticks = tm["ticks"]
+    per = LONG_GP["opt_steps"] + 1 + 3, LONG_GP["opt_steps"]
+    log(f"  (b) run_sim(LONG_GP) capped at {LONG_TICKS} ticks: {ticks} ticks in "
+        f"{tm['total']:.3f} s, {ticks / tm['total']:.3f} ticks/s; per tick forecast "
+        f"{tm['forecast'] / ticks * 1e3:.3f} ms ({tm['forecast'] / tm['total']:.1%} of the "
+        f"tick), policy {tm['policy'] / ticks * 1e3:.3f} ms; launches {launches} in {fc_ticks} "
+        f"forecasting ticks; max memory allocated {torch.cuda.max_memory_allocated()} B; "
+        f"summary {json.dumps(res.summary())}")
+    assert ticks == LONG_TICKS and fc_ticks > 0, (ticks, fc_ticks)
+    assert launches == {"gram_fwd": fc_ticks * per[0], "gram_bwd": fc_ticks * per[1],
+                        "gp_fit_forecast": 0}, (launches, fc_ticks)
+    card_vs_cpu(step, long_gp(SimConfig, GPConfig, max_ticks=LONG_CPU_TICKS),
+                f"host engine, LONG_GP, first {LONG_CPU_TICKS} ticks", strict=False,
+                engine=run_sim)
+    steps["b"] = round(time.perf_counter() - t0, 1)
+
+    # (c) the device engine
+    t0 = time.perf_counter()
+    guard = strict_chunks(step)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        step.run_sim_scan(cfg, device="cuda")            # captures the chunk's graphs
+        torch.cuda.synchronize()
+        t_warm = time.perf_counter() - t
+        peak_warm = torch.cuda.max_memory_allocated()
+        entry = find_entry(step, cfg)
+        torch.cuda.reset_peak_memory_stats()
+        res, wall, scan, census = census_run(
+            step, lambda: step.run_sim_scan(cfg, device="cuda"), cfg,
+            cfg.cluster.max_running_apps, cfg.workload.max_components,
+            (gp_gram, gp_forecast, shaper, sched, fma),
+            lambda: gram_launches(gp_gram, gp_forecast))
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        guard.stop()
+    ticks = res.timings["ticks"]
+    for line in describe_graphs(entry):
+        log(f"  (c) graph {line}")
+    log(f"  (c) run_sim_scan(LONG_GP) capped at {LONG_TICKS} ticks through graphs (the "
+        f"warm-up run that captured them {t_warm:.3f} s, max memory allocated {peak_warm} B with "
+        f"the graphs' pools; every chunk sync-free): {ticks} ticks in {wall:.3f} s, "
+        f"{ticks / wall:.3f} ticks/s; launches {scan} = replays x kernel nodes {census}; max "
+        f"memory allocated in the replayed run {peak} B; forecast rows {res.forecast_rows}; "
+        f"summary {json.dumps(res.summary())}")
+    assert ticks == LONG_TICKS, ticks
+    assert scan == census and scan["gp_fit_forecast"] == 0, (scan, census)
+    assert scan["gram_fwd"] == ticks * per[0] and scan["gram_bwd"] == ticks * per[1], scan
+    split = gram_route_split(step, GRAM_SPLIT_TICKS, warm=False)
+    log(f"  (c) device time of {GRAM_SPLIT_TICKS} ticks under torch.profiler: "
+        f"{json.dumps(split)}")
+    steps["c"] = round(time.perf_counter() - t0, 1)
+    log(f"  phase 5l seconds by step: {json.dumps(steps)}")
+    return {"gp_gram_fwd": scan["gram_fwd"], "gp_gram_bwd": scan["gram_bwd"]}
+
+
+GRAM_SPLIT_TICKS = 32   # device-engine ticks of the Gram route's device-time split
 
 
 def gp_flops(B, N, D, steps, H) -> int:
@@ -1687,7 +2040,8 @@ NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host", 4: "child graph"
 
 # the kernel each counted wrapper of the device engine (nvcc.COUNTED)
 # launches, by the name of its function in the CUDA source
-KERNEL_OF = {"pessimistic_pass": "pessimistic_pass_kernel", "resolve_oom": "resolve_oom_kernel",
+KERNEL_OF = {"gram_fwd": "gram_fwd_", "gram_bwd": "gram_bwd_",
+             "pessimistic_pass": "pessimistic_pass_kernel", "resolve_oom": "resolve_oom_kernel",
              "admit_queued": "admit_queued_kernel",
              "place_missing_elastic": "place_missing_elastic_kernel",
              "gp_fit_forecast": "gp_forecast_kernel", "fma_f32": "fma_f32_kernel",
@@ -2508,8 +2862,9 @@ DECISIONS = ("completed", "failure_events", "oom_kills", "full_preemptions",
 SERIES = ("util_cpu", "util_mem", "slack_cpu", "slack_mem")
 
 
-def card_vs_cpu(step, cfg, what, *, strict: bool):
-    """One device-engine run on the card (graphs) and on the CPU (eager):
+def card_vs_cpu(step, cfg, what, *, strict: bool, engine=None):
+    """One device-engine run (``engine(cfg, device=...)`` where given: the
+    host engine's run_sim) on the card (graphs) and on the CPU (eager):
     equal summaries and per-tick series, or what differs: whether the
     decisions are equal (occupancy every tick, turnarounds, failed apps,
     the event counters), and the first tick where they or a float series
@@ -2520,11 +2875,12 @@ def card_vs_cpu(step, cfg, what, *, strict: bool):
     the phase; otherwise it is printed as a finding (the GP's forecasts
     come from the card's kernel and from the plain version, whose float
     sums may differ in the last bits).  Returns the card's run."""
+    engine = step.run_sim_scan if engine is None else engine
     t = time.perf_counter()
-    a = step.run_sim_scan(cfg, device="cuda")
+    a = engine(cfg, device="cuda")
     t_gpu = time.perf_counter() - t
     t = time.perf_counter()
-    b = step.run_sim_scan(cfg, device="cpu")
+    b = engine(cfg, device="cpu")
     t_cpu = time.perf_counter() - t
     sa, sb = a.summary(), b.summary()
     if run_series(a) == run_series(b):
@@ -5451,6 +5807,13 @@ def main() -> int:
                (gp_forecast, shaper, sched, fma),
                lambda: scan_launch_counts(gp_forecast, shaper, sched, fma))
 
+    log("== 5l. the GP past the fused program's 64 patterns (LONG_GP: h = 40, N = 128, windows "
+        f"of {LONG_WINDOW}), the Gram route: forecast_batch card vs CPU, run_sim capped at "
+        f"{LONG_TICKS} ticks (its first {LONG_CPU_TICKS} card vs CPU), run_sim_scan capped at "
+        f"{LONG_TICKS} ticks through graphs")
+    long_launches = run_long_gp(step, SimConfig, GPConfig, GPForecaster, run_sim, gp_gram,
+                                gp_forecast, shaper, sched, fma)
+
     log("== 6. Whisper, smoke widths, fp32: the card against the CPU")
     check_whisper_smoke(flash_attention)
 
@@ -5459,8 +5822,8 @@ def main() -> int:
     log(f"== 7b. {WHISPER} prefill at full width in fp32 (the simt route's path)")
     simt_launches = run_whisper_fp32(flash_attention)
 
-    log("== 8. kernel timings (CUDA events; Gram at B=512, exp; flash at the "
-        "Whisper decoder's shape)")
+    log("== 8. kernel timings (CUDA events; Gram at GRAM_TIMED's four shapes, exp, device time "
+        "in graphs; flash at the Whisper decoder's shape)")
     times = time_kernels(gp_gram, ref, dev)
     gp_times, gp_err = time_gp_kernel(gp_forecast, ref, GPConfig, dev, gp_ready)
     times.update(gp_times)
@@ -5496,6 +5859,7 @@ def main() -> int:
     launches.update(calib_main)                     # the calibrated run (phase 5g)
     launches.update(control_main)                   # the tenanted run (phase 5h)
     launches["obs_tick"] = obs_main                 # the rings' run (phase 5i)
+    launches.update(long_launches)                  # the Gram route's device engine (5l)
     replaces = {"gp_gram_fwd": "src/repro/kernels/gp_gram.py:75",
                 "gp_gram_bwd": "src/repro/kernels/gp_gram.py:75",
                 "gp_fit_forecast": "src/repro/kernels/gp_gram.py:75",

@@ -39,6 +39,21 @@ DIR`` it takes the package from another checkout's ``src`` (a parent
 commit unpacked with ``git archive``), so that two commits' kernels are
 timed on one card in one call.
 
+``--path gram`` is the Gram pair that the GP's Gram route launches: its
+ptxas lines; with ``--src DIR`` the Gram module of the package under DIR
+(a parent unpacked with ``git archive``, loaded from its file beside this
+checkout's package) held beside this one, the forward bit for bit to it
+and the gradient within the plain version's tolerance at every shape of
+``chip_smoke.GRAM_SHAPES``, both kinds; both timed in turns at
+``chip_smoke.GRAM_TIMED``'s four shapes (device time in graphs, beside the
+bound); both at K(X, X) of 3,072 x 128 patterns against the features D
+(``gram_by_features``); the forward with and without its stores
+(``gram_without_stores``); what phase 5l's card-vs-CPU check reads with the
+pair as it is and with deliberately wrong ones (``gram_margin``); then
+GRAM_TICKS device-engine ticks at ``chip_smoke.LONG_GP`` under the
+profiler, split into the Gram forward, the Gram gradient,
+cuSOLVER/cuBLAS and the rest.
+
 ``--path control`` prints ``control_tick``'s ptxas lines and the
 ``clock64()`` cycles of member 0's block from the kernel's start to each
 phase mark (staging, apps, slots, windows, capacities, mean and final in
@@ -89,7 +104,7 @@ on its own, with the device time summed by kind of kernel.
 
 Run from the repository root:
 
-    python3 profile_port.py [--path sim|scan|kernels|gp|control|obs|leap|arima|calib|whisper]
+    python3 profile_port.py [--path sim|scan|kernels|gp|gram|control|obs|leap|arima|calib|whisper]
         [--src DIR]
 
 Without a CUDA device it exits with an error and prints nothing else.
@@ -98,6 +113,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import re
 import sys
 import time
@@ -358,6 +374,184 @@ def profile_gp() -> int:
     chip_smoke.time_gp_kernel(gp_forecast, ref, GPConfig, torch.device("cuda"),
                               chip_smoke.app_mask(GP_SERIES // 2, seed=3) if masked else None)
     return 0
+
+
+def profile_gram(src: Path) -> int:
+    """The Gram pair: its ptxas lines; where ``src`` holds another
+    package, that package's Gram module (loaded from its file) beside this
+    checkout's: the forward bit for bit to it and the gradient within the
+    plain version's tolerance at every shape of chip_smoke.GRAM_SHAPES,
+    both kinds; the timings of chip_smoke.time_kernels in turns;
+    gram_by_features; gram_without_stores; gram_margin; then the
+    device-time split of GRAM_TICKS device-engine ticks at LONG_GP
+    (chip_smoke.gram_route_split)."""
+    import importlib.util
+    import torch
+    import chip_smoke
+    from repro_torch.kernels import gp_gram, nvcc, ref
+    from repro_torch.sim import step
+    dev = torch.device("cuda")
+    print(f"package {Path(gp_gram.__file__).resolve().parents[2]}; nvidia-smi: "
+          f"{chip_smoke.nvidia_smi()}")
+    others = []
+    theirs = src.resolve() / "repro_torch" / "kernels" / "gp_gram.py"
+    if theirs != Path(gp_gram.__file__).resolve():
+        spec = importlib.util.spec_from_file_location("gp_gram_of_src", theirs)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        # nvcc.prepare keys a set-up by name, so this package's would stand
+        # in for the other library's opt-in shared memory: call it here
+        lib = mod._library()
+        if hasattr(lib, "gp_gram_init") and lib.gp_gram_init() != 0:
+            raise RuntimeError("--src gp_gram_init failed")
+        others.append(("--src", mod))
+    for label, mod in [("this", gp_gram)] + others:
+        for line in nvcc.build(mod.SOURCE).log.splitlines():
+            if re.search(r"registers|spill|Compiling entry", line):
+                print(f"  {label} ptxas: {line.strip()}")
+    for label, mod in others:
+        worst = 0.0
+        for kind in ("exp", "rbf"):
+            for i, (b, m, n, d, same) in enumerate(chip_smoke.GRAM_SHAPES):
+                xa, xb, ell, sf, g = chip_smoke.inputs(b, m, n, d, dev, same=same, seed=i)
+                K, K_o = (x.gram_fwd(xa, xb, ell, sf, kind) for x in (gp_gram, mod))
+                assert torch.equal(K.view(torch.int32), K_o.view(torch.int32)), \
+                    (label, kind, b, m, n, d)
+                got, want = (x.gram_bwd(g, xa, xb, ell, sf, kind) for x in (gp_gram, mod))
+                for a, c in zip(got, want):
+                    torch.testing.assert_close(a, c, rtol=chip_smoke.RTOL,
+                                               atol=chip_smoke.ATOL * m * n)
+                    worst = max(worst, (a - c).abs().max().item())
+        print(f"  forward == {label}'s bit for bit at all {len(chip_smoke.GRAM_SHAPES)} "
+              f"shapes, both kinds; gradient within the plain version's tolerance of "
+              f"{label}'s (max abs diff {worst:.3g})")
+    chip_smoke.time_kernels(gp_gram, ref, dev, others)
+    gram_by_features(gp_gram, dev)
+    gram_without_stores(gp_gram, nvcc, dev)
+    gram_margin()
+    split = chip_smoke.gram_route_split(step, GRAM_TICKS)
+    print(f"  device engine at LONG_GP, {GRAM_TICKS} ticks under torch.profiler: "
+          f"{json.dumps(split)}")
+    return 0
+
+
+GRAM_TICKS = 32    # device-engine ticks of the Gram route's split
+
+
+GRAM_FEATURES = (1, 11, 21, 31, 41)   # D of gram_by_features (4 blocks an SM at each)
+
+
+def gram_by_features(gp_gram, dev) -> None:
+    """Device µs of both kernels at K(X, X) of the device engine's 3,072
+    series of 128 patterns against the features D (GRAM_FEATURES): the
+    slope is what a feature's dot-product terms cost, the intercept what
+    an entry costs whatever D is (its sqrt, divide, exp and store, and each
+    block's staging, transpose and norms)."""
+    import numpy as np
+    import chip_smoke
+    rows = []
+    for D in GRAM_FEATURES:
+        xa, xb, ell, sf, g = chip_smoke.inputs(3072, 128, 128, D, dev, same=True, seed=7)
+        fwd = min(chip_smoke.graph_us(lambda: gp_gram.gram_fwd(xa, xb, ell, sf, "exp"))
+                  for _ in range(2))
+        bwd = min(chip_smoke.graph_us(lambda: gp_gram.gram_bwd(g, xa, xb, ell, sf, "exp"))
+                  for _ in range(2))
+        rows.append((D, fwd, bwd))
+        print(f"  K(X, X) of (3072, 128, 128, {D}): forward {fwd:.3f} us, gradient {bwd:.3f} us "
+              f"device (exp)")
+    d, f, b = (np.array(c, float) for c in zip(*rows))
+    for name, t in (("forward", f), ("gradient", b)):
+        slope, icpt = np.polyfit(d, t, 1)
+        print(f"  {name}: {slope:.3f} us a feature + {icpt:.3f} us (least squares over D = "
+              f"{GRAM_FEATURES})")
+
+
+# the forward's stores on its block-a-series path, in its source
+GRAM_STORES = ("      store4x4(K, N, r0, c0, mi, nj, v, vec);\n"
+               "      if (mirror) store4x4_t(K, N, r0, c0, mi, nj, v, vec);\n")
+
+
+def gram_without_stores(gp_gram, nvcc, dev) -> None:
+    """The forward at K(X, X) of 3,072 x 128 patterns (D = 41 and 1) in
+    turns with a build of its source whose block-a-series path stores
+    nothing (GRAM_STORES behind a test that no entry passes, so that the
+    arithmetic stays): what the arithmetic, the staging and the norms cost
+    alone, and what the stores add to them."""
+    import tempfile
+    import chip_smoke
+    text = gp_gram.SOURCE.read_text()
+    if GRAM_STORES not in text:
+        raise RuntimeError("the series path's stores moved: update GRAM_STORES")
+    text = text.replace(GRAM_STORES, "      if (v[0][0] == 12345.f && v[3][3] == 54321.f) {\n"
+                        + GRAM_STORES + "      }\n")
+    cases = {D: chip_smoke.inputs(3072, 128, 128, D, dev, same=True, seed=3) for D in (41, 1)}
+
+    def fwd(D):
+        xa, xb, ell, sf, _ = cases[D]
+        return chip_smoke.graph_us(lambda: gp_gram.gram_fwd(xa, xb, ell, sf, "exp"))
+
+    real = {D: [fwd(D)] for D in cases}
+    with tempfile.TemporaryDirectory() as tmp, kernel_variant(gp_gram, nvcc, text, Path(tmp)):
+        bare = {D: [fwd(D), fwd(D)] for D in cases}
+    for D in cases:
+        real[D].append(fwd(D))
+        print(f"  forward at K(X, X) of (3072, 128, 128, {D}): "
+              f"{'/'.join(f'{t:.3f}' for t in real[D])} us device with its stores, "
+              f"{'/'.join(f'{t:.3f}' for t in bare[D])} without (in turns)")
+
+
+def gram_margin(dev="cuda") -> None:
+    """What phase 5l's card-vs-CPU check reads at LONG_GP (exp, the 512
+    windows of chip_smoke.long_windows) with the Gram pair as it is and
+    with deliberately wrong ones: K rounded to bfloat16, and K at a
+    lengthscale 2^-10 and 2^-7 too large (a forward kernel off by ~0.1% and
+    ~0.8% in its divide).  For each: the rows beyond rtol 1e-3 on the mean, the largest
+    |card - CPU| over the CPU's predictive sd among them
+    (chip_smoke.mean_sd_reading) against chip_smoke.LONG_MEAN_SD, NaN rows,
+    and whether chip_smoke.assert_gp_close passes.  ``dev``: where the
+    route runs against the CPU."""
+    import numpy as np
+    import torch
+    import chip_smoke
+    from repro_torch.core.forecast import GPConfig, GPForecaster
+    from repro_torch.kernels import ops
+    w, v = chip_smoke.long_windows()
+    gp = GPForecaster(GPConfig(**chip_smoke.LONG_GP))
+    h, H = chip_smoke.LONG_GP["history"], 3
+    cpu = gp.forecast_batch(w, H, valid=v, device="cpu")
+    mc, vc = cpu.mean.numpy(), cpu.var.numpy()
+    sound = ops.gram
+
+    def bf16(xa, xb, ell, sf, kind="exp"):
+        return sound(xa, xb, ell, sf, kind=kind).bfloat16().float()
+
+    def long_ell(e):
+        return lambda xa, xb, ell, sf, kind="exp": sound(xa, xb, ell * (1 + 2.0 ** -e), sf,
+                                                        kind=kind)
+
+    wt, vt = torch.as_tensor(w, device=dev), torch.as_tensor(v, device=dev)
+    for label, gram in (("as it is", sound), ("K in bfloat16", bf16),
+                        ("lengthscale x (1 + 2^-10)", long_ell(10)),
+                        ("lengthscale x (1 + 2^-7)", long_ell(7))):
+        ops.gram = gram
+        try:
+            fc = gp.forecast_batch(wt, H, valid=vt, device=dev)
+        finally:
+            ops.gram = sound
+        mg, vg = fc.mean.cpu().numpy(), fc.var.cpu().numpy()
+        cnt = v.sum(1)
+        beyond = int(((np.abs(mg - mc) > 1e-3 * np.abs(mc)) & (cnt >= h + 2)[:, None])
+                     .any(1).sum())
+        try:
+            chip_smoke.assert_gp_close(mg, vg, mc, vc, w, cnt, label, h=h,
+                                       mean_sd=chip_smoke.LONG_MEAN_SD)
+            verdict = "passes"
+        except AssertionError as e:
+            verdict = f"fails ({e})"
+        print(f"  margin of 5l's check, {label}: {beyond} of {len(w)} rows beyond rtol 1e-3 on "
+              f"the mean, the largest {chip_smoke.mean_sd_reading(mg, mc, vc, cnt, h):.3g} "
+              f"sd against the limit {chip_smoke.LONG_MEAN_SD}; "
+              f"{int(np.isnan(mg).any(1).sum())} NaN rows; the check {verdict}")
 
 
 def profile_kernels() -> int:
@@ -853,8 +1047,8 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
     here = Path(__file__).resolve().parent
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--path", choices=("sim", "scan", "kernels", "gp", "control", "obs",
-                                       "leap", "arima", "calib", "whisper"),
+    ap.add_argument("--path", choices=("sim", "scan", "kernels", "gp", "gram", "control",
+                                       "obs", "leap", "arima", "calib", "whisper"),
                     default="sim")
     ap.add_argument("--src", type=Path, default=here / "src",
                     help="the directory that holds the repro_torch package")
@@ -862,7 +1056,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_port: torch sees no CUDA device", file=sys.stderr)
         return 2
-    sys.path[:0] = [str(args.src.resolve()), str(here)]
+    # --path gram runs this checkout's package and loads only the Gram
+    # module of the one under --src beside it
+    sys.path[:0] = [str((here / "src" if args.path == "gram" else args.src).resolve()),
+                    str(here)]
     from repro_torch.kernels import gp_forecast, gp_gram
     from repro_torch.sim import SimConfig, run_sim
 
@@ -877,6 +1074,8 @@ def main() -> int:
         return profile_kernels()
     if args.path == "gp":
         return profile_gp()
+    if args.path == "gram":
+        return profile_gram(args.src)
     if args.path == "control":
         return profile_control()
     if args.path == "obs":

@@ -12,10 +12,21 @@ and ``f`` is learned by GP regression over pattern inputs
 Hyper-parameters ``(ell, sf, sn)`` are fitted by a fixed number of Adam
 steps on the log marginal likelihood, and the forecast iterates the
 posterior mean (Eqs. 7-8) over the horizon.  That work, after the
-patterns are built, is ``repro_torch.kernels.ops.gp_fit_forecast``: one
-CUDA kernel launch per batch on the card (``kernels/csrc/gp_forecast.cu``),
-the plain version (``kernels/ref.py``, autograd through the Gram matrix)
-on the CPU.
+patterns are built, takes one of two routes, chosen from the config and
+the shapes before anything is launched, the same on every device:
+
+* the fused GP program, ``repro_torch.kernels.ops.gp_fit_forecast``,
+  where it takes the shapes (N <= ``gp_forecast.MAX_N`` patterns, D <=
+  ``MAX_D`` features, ``opt_steps`` <= ``MAX_STEPS``): one CUDA kernel
+  launch per batch on the card (``kernels/csrc/gp_forecast.cu``), the
+  plain version (``kernels/ref.py``, autograd through the Gram matrix) on
+  the CPU;
+* otherwise the Gram route (:func:`gram_fit_forecast`), the reference's
+  own structure: each Adam step a Gram matrix (``ops.gram``), its
+  Cholesky factor and solves (``torch.linalg``), the closed-form gradient
+  with respect to K and its ``(ell, sf)`` part (``ops.gram_bwd``); then
+  the fit and one cross-Gram a horizon step.  On the card the Gram pair
+  is ``kernels/csrc/gp_gram.cu``.
 """
 from __future__ import annotations
 
@@ -25,8 +36,9 @@ import torch
 
 from repro_torch.core.forecast.base import Forecast
 from repro_torch.device import resolve_device
+from repro_torch.kernels import gp_forecast
 from repro_torch.kernels import ops as kops
-
+from repro_torch.kernels import ref as kref
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,6 +110,60 @@ def finish(mean_z: torch.Tensor, var_z: torch.Tensor, w: torch.Tensor,
     return Forecast(mean=mean, var=var)
 
 
+def fused_takes(cfg: GPConfig, n: int, d: int) -> bool:
+    """Whether the fused GP program takes ``n`` patterns of ``d`` features
+    under ``cfg``; otherwise the forecast takes the Gram route."""
+    return (n <= gp_forecast.MAX_N and d <= gp_forecast.MAX_D
+            and cfg.opt_steps <= gp_forecast.MAX_STEPS)
+
+
+# The Gram route's least batch: below it cuSOLVER factors one matrix by
+# another routine (potrf, not potrfBatched) and cuBLAS solves a batch of at
+# most 8 by a loop of single solves, and each gives other bits, so a row's
+# forecast would depend on its batch.
+ROUTE_MIN_ROWS = 16
+
+
+def _optimize_evidence(X: torch.Tensor, y: torch.Tensor, row_valid: torch.Tensor,
+                       cfg: GPConfig) -> torch.Tensor:
+    """The reference's fixed Adam loop on the log marginal likelihood,
+    ``(B, 3)`` log ``(ell, sf, sn)``: each step one Gram matrix, its factor
+    and the closed-form gradient (``ref.gp_evidence_grad`` with the
+    dispatching Gram pair)."""
+    def grad(p):
+        return kref.gp_evidence_grad(p, X, y, row_valid, cfg, kops.gram, kops.gram_bwd)
+
+    return kref.gp_adam(grad, X.shape[0], X.device, cfg)
+
+
+def gram_fit_forecast(X: torch.Tensor, y: torch.Tensor, row_valid: torch.Tensor,
+                      hist: torch.Tensor, T: int, horizon: int, cfg: GPConfig,
+                      ready: torch.Tensor | None = None):
+    """The Gram route: what ``ops.gp_fit_forecast`` returns, ``(mean, var,
+    log_params)`` in standardized units, for any number of patterns.
+    Every row is computed (a batch of fewer than ROUTE_MIN_ROWS padded
+    with all-invalid rows); with ``ready`` (B,) bool on X's device the
+    unmarked rows are zeroed by ``torch.where``, so nothing is read back
+    to the host and a CUDA graph can hold the route.  The factor's solves
+    go through ``L^-1`` (``ref.inverse_solver``), whose rows, unlike a
+    batched triangular solve's with one right-hand side, do not depend on
+    the batch.  The forward Gram kernel runs ``opt_steps + 1 + horizon``
+    times, its gradient ``opt_steps`` times."""
+    B = X.shape[0]
+    if B < ROUTE_MIN_ROWS:
+        # all-invalid rows, as the engines pad a batch
+        pad = ROUTE_MIN_ROWS - B
+        X, y, row_valid, hist = (torch.cat([t, t.new_zeros((pad,) + t.shape[1:])])
+                                 for t in (X, y, row_valid, hist))
+    log_params = _optimize_evidence(X, y, row_valid, cfg)
+    mean, var = kref.gp_fit_horizon(log_params, X, y, row_valid, hist, T, horizon, cfg,
+                                    kops.gram, kref.inverse_solver)
+    out = (mean[:B], var[:B], log_params[:B])
+    if ready is None:
+        return out
+    return tuple(torch.where(ready[:, None], o, 0.0) for o in out)
+
+
 @dataclasses.dataclass(frozen=True)
 class GPForecaster:
     """History-kernel GP forecaster (paper's non-parametric model)."""
@@ -112,7 +178,8 @@ class GPForecaster:
         ``ready`` (B,) bool on ``device`` forecasts only the rows it marks
         (the device engine's forecast-ready rows): each of those is
         bit-identical to the row forecast without a mask, and the other
-        rows carry no forecast (the GP program skips them).
+        rows carry no forecast (the GP program skips them; the Gram route
+        computes them and zeroes them).
         Returns a Forecast of ``(B, horizon)`` tensors on ``device``."""
         cfg = self.cfg
         dev = resolve_device(device)
@@ -121,7 +188,7 @@ class GPForecaster:
         v = (torch.ones((B, T), dtype=torch.bool, device=dev) if valid is None
              else torch.as_tensor(valid, dtype=torch.bool, device=dev))
         X, y, row_valid, hist, mu, sd = fit_inputs(w, v, cfg)
-        # evidence loop, fit and horizon: one CUDA kernel on the card
-        mean_z, var_z, _ = kops.gp_fit_forecast(X, y, row_valid, hist, T,
-                                                horizon, cfg, ready)
+        fit = (kops.gp_fit_forecast if fused_takes(cfg, *X.shape[1:])
+               else gram_fit_forecast)
+        mean_z, var_z, _ = fit(X, y, row_valid, hist, T, horizon, cfg, ready)
         return finish(mean_z, var_z, w, v, mu, sd, cfg)

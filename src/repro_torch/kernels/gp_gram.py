@@ -1,18 +1,25 @@
-"""CUDA Gram kernel for the GP forecaster: build, bind and launch.
+"""CUDA Gram kernels for the GP forecaster: build, bind and launch.
 
 Counterpart of ``repro/kernels/gp_gram.py:gp_gram``, the Pallas TPU
 kernel.  The kernels themselves, their bound on the card and their
-design are described in ``csrc/gp_gram.cu``.
+design are described in ``csrc/gp_gram.cu``.  Their caller is the GP's
+Gram route (``core/forecast/gp.py``), which takes the configurations the
+fused GP program cannot.
 
 The source is compiled by :func:`repro_torch.kernels.nvcc.build` into a
 shared library with a plain C interface and loaded with ``ctypes``.
 Nothing is built when this module is imported: the first launch builds
 (or reuses) the library.
 
-Each wrapper checks its tensors, allocates its outputs with
-``torch.empty``, launches on the current CUDA stream, raises if the
-launch returned an error, and counts its launches in a plain integer
-attribute (``gram_fwd.launches``, ``gram_bwd.launches``).
+Each wrapper checks its tensors, allocates its outputs (and the
+gradient's per-tile scratch) with ``torch.empty``, allows the kernels
+their shared memory once per device (``gp_gram_init``, through
+:func:`nvcc.prepare`, so that a launch captured in a CUDA graph is a
+launch only), launches on the current CUDA stream, raises if the launch
+returned an error, and counts its launches in ``gram_fwd.launches`` and
+``gram_bwd.launches`` (both registered with :func:`nvcc.counted`).
+With ``xa`` and ``xb`` the same tensor (the fit's K(X, X)) the kernels
+compute the tiles on and above the diagonal only.
 """
 from __future__ import annotations
 
@@ -36,8 +43,12 @@ def _library() -> ctypes.CDLL:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.gp_gram_fwd.argtypes = [ptr] * 5 + [i32] * 5 + [ptr]
         lib.gp_gram_fwd.restype = i32
-        lib.gp_gram_bwd.argtypes = [ptr] * 7 + [i32] * 5 + [ptr]
+        lib.gp_gram_bwd.argtypes = [ptr] * 8 + [i32] * 5 + [ptr]
         lib.gp_gram_bwd.restype = i32
+        lib.gp_gram_parts.argtypes = [ptr, ptr] + [i32] * 3
+        lib.gp_gram_parts.restype = i32
+        lib.gp_gram_init.argtypes = []
+        lib.gp_gram_init.restype = i32
         _LIB = lib
     return _LIB
 
@@ -70,11 +81,29 @@ def _check(xa, xb, ell, sf, kind):
     return B, M, N, D, KINDS.index(kind)
 
 
+def _parts(lib, xa, xb, B, M, N, D) -> int:
+    """The gradient's partial sums a series (the kernels' own plan: one
+    where a block computes a whole series, else one a tile and block); B
+    of them must fit one grid."""
+    parts = lib.gp_gram_parts(xa.data_ptr(), xb.data_ptr(), M, N, D)
+    if B * parts >= 2**31:
+        raise ValueError(f"B={B} series of {parts} tiles: too many blocks for one grid")
+    return parts
+
+
+def _prepared(device) -> ctypes.CDLL:
+    lib = _library()
+    nvcc.prepare(lib.gp_gram_init, "gp_gram", device)
+    return lib
+
+
+@nvcc.counted
 def gram_fwd(xa: torch.Tensor, xb: torch.Tensor, ell: torch.Tensor,
              sf: torch.Tensor, kind: str = "exp") -> torch.Tensor:
     """Launch the forward kernel: ``(B,M,D) x (B,N,D) -> (B,M,N)``."""
     B, M, N, D, code = _check(xa, xb, ell, sf, kind)
-    lib = _library()
+    lib = _prepared(xa.device)
+    _parts(lib, xa, xb, B, M, N, D)
     out = torch.empty((B, M, N), dtype=torch.float32, device=xa.device)
     nvcc.launch(lib.gp_gram_fwd, "gp_gram_fwd", xa.device, xa, xb, ell, sf, out,
                 B, M, N, D, code)
@@ -82,26 +111,28 @@ def gram_fwd(xa: torch.Tensor, xb: torch.Tensor, ell: torch.Tensor,
     return out
 
 
+@nvcc.counted
 def gram_bwd(grad: torch.Tensor, xa: torch.Tensor, xb: torch.Tensor,
              ell: torch.Tensor, sf: torch.Tensor,
              kind: str = "exp") -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch the backward kernel: ``(d_ell, d_sf)``, each ``(B,)``."""
+    """Launch the backward kernel (and, where a series is computed tile by
+    tile, the pass that adds its tiles' sums): ``(d_ell, d_sf)``, each
+    ``(B,)``."""
     B, M, N, D, code = _check(xa, xb, ell, sf, kind)
     if (grad.device != xa.device or grad.dtype != torch.float32
             or not grad.is_contiguous() or tuple(grad.shape) != (B, M, N)):
         raise ValueError(f"grad must be a contiguous float32 ({B}, {M}, {N}) "
                          f"tensor on {xa.device}")
-    lib = _library()
+    lib = _prepared(xa.device)
+    parts = _parts(lib, xa, xb, B, M, N, D)
     d_ell = torch.empty((B,), dtype=torch.float32, device=xa.device)
     d_sf = torch.empty((B,), dtype=torch.float32, device=xa.device)
+    part = torch.empty((B * parts * 2 if parts > 1 else 1,), dtype=torch.float32,
+                       device=xa.device)
     nvcc.launch(lib.gp_gram_bwd, "gp_gram_bwd", xa.device, grad, xa, xb, ell, sf,
-                d_ell, d_sf, B, M, N, D, code)
+                d_ell, d_sf, part, B, M, N, D, code)
     nvcc.count(gram_bwd)
     return d_ell, d_sf
-
-
-gram_fwd.launches = 0
-gram_bwd.launches = 0
 
 
 def reset_launch_counts() -> None:

@@ -38,6 +38,17 @@ def gram(xa: torch.Tensor, xb: torch.Tensor, lengthscale: torch.Tensor,
     raise ValueError(f"no gram implementation for device {xa.device}")
 
 
+def gram_bwd(grad: torch.Tensor, xa: torch.Tensor, xb: torch.Tensor,
+             lengthscale: torch.Tensor, sigma_f: torch.Tensor, *,
+             kind: str = "exp") -> tuple[torch.Tensor, torch.Tensor]:
+    """The gradient of ``sum(grad * gram(xa, xb, ...))`` with respect to
+    the per-series ``(lengthscale, sigma_f)``: ``(d_ell, d_sf)``, each
+    ``(B,)``, for ``grad (B,M,N)``.  On the card one launch of the Gram
+    gradient kernel."""
+    return _route("gram_bwd", _gg.gram_bwd, ref.gram_bwd, xa,
+                  (grad, xa, xb, lengthscale, sigma_f, kind))
+
+
 def gp_fit_forecast(X: torch.Tensor, y: torch.Tensor, row_valid: torch.Tensor,
                     hist: torch.Tensor, T: int, horizon: int, cfg,
                     ready: torch.Tensor | None = None):

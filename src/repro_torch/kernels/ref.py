@@ -149,12 +149,38 @@ def cholesky_nan(K: torch.Tensor) -> torch.Tensor:
     return L.masked_fill((info > 0)[:, None, None], float("nan"))
 
 
-def gp_noisy_cholesky(X, row_valid, ell, sf, sn, cfg) -> torch.Tensor:
-    """Cholesky factor of ``K(X, X) + diag(noise)``; invalid pattern rows
-    are decoupled with noise 1e6 so they carry no information."""
-    K = gram(X, X, ell, sf, kind=cfg.kernel)
+def gp_noisy_factor(K, row_valid, sn, cfg) -> torch.Tensor:
+    """Cholesky factor of ``K + diag(noise)``; invalid pattern rows are
+    decoupled with noise 1e6 so they carry no information."""
     noise = torch.where(row_valid, sn[:, None] ** 2 + cfg.jitter, 1e6)
     return cholesky_nan(K + torch.diag_embed(noise))
+
+
+def cholesky_solver(L: torch.Tensor):
+    """``b (B, N) -> (L L^T)^-1 b`` by ``torch.cholesky_solve``."""
+    return lambda b: torch.cholesky_solve(b[:, :, None], L)[:, :, 0]
+
+
+def triangular_inverse(L: torch.Tensor) -> torch.Tensor:
+    """``L^-1`` of a batch of lower factors, by one triangular solve with
+    the identity."""
+    eye = torch.eye(L.shape[1], dtype=L.dtype, device=L.device).expand_as(L)
+    return torch.linalg.solve_triangular(L, eye, upper=False)
+
+
+def inverse_solve(b: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
+    """``W^T W b`` for ``b (B, N)`` and ``W = L^-1``: ``(L L^T)^-1 b`` by
+    two products, each summed along a row.  On the card a row's result
+    does not depend on the batch it rides in, which cuBLAS's batched
+    triangular solve with one right-hand side does not give."""
+    u = (W * b[:, None, :]).sum(2)
+    return (W * u[:, :, None]).sum(1)
+
+
+def inverse_solver(L: torch.Tensor):
+    """``b (B, N) -> (L L^T)^-1 b`` by :func:`inverse_solve`."""
+    W = triangular_inverse(L)
+    return lambda b: inverse_solve(b, W)
 
 
 def gp_neg_log_marginal(log_params: torch.Tensor, X: torch.Tensor,
@@ -162,7 +188,7 @@ def gp_neg_log_marginal(log_params: torch.Tensor, X: torch.Tensor,
                         cfg) -> torch.Tensor:
     """Per-series negative log marginal likelihood, ``(B,)``."""
     ell, sf, sn = log_params.exp().unbind(1)
-    L = gp_noisy_cholesky(X, row_valid, ell, sf, sn, cfg)
+    L = gp_noisy_factor(gram(X, X, ell, sf, kind=cfg.kernel), row_valid, sn, cfg)
     alpha = torch.cholesky_solve(y[:, :, None], L)[:, :, 0]
     n_eff = row_valid.sum(1).to(y.dtype)
     logdet = torch.where(row_valid,
@@ -174,22 +200,33 @@ def gp_neg_log_marginal(log_params: torch.Tensor, X: torch.Tensor,
 def gp_optimize_evidence(X: torch.Tensor, y: torch.Tensor,
                          row_valid: torch.Tensor, cfg) -> torch.Tensor:
     """A fixed Adam loop on the log marginal likelihood, per series:
-    log-params ``(B, 3)`` for ``(ell, sf, sn)``, the gradient by autograd.
+    log-params ``(B, 3)`` for ``(ell, sf, sn)``, the gradient by autograd
+    (``gp_adam``)."""
+    def grad(lp):
+        lp = lp.detach().requires_grad_(True)
+        with torch.enable_grad():
+            loss = gp_neg_log_marginal(lp, X, y, row_valid, cfg).sum()
+            return torch.autograd.grad(loss, lp)[0]
 
-    As in the reference, a non-finite gradient entry (a non-PD step) is
-    zeroed and the log-params are clipped to [-6, 6] after each step."""
-    B = X.shape[0]
+    return gp_adam(grad, X.shape[0], X.device, cfg)
+
+
+def gp_adam(grad, B: int, device, cfg) -> torch.Tensor:
+    """The reference's fixed Adam loop over ``(B, 3)`` log-params from
+    ``GP_INIT``, ``grad(p)`` giving each step's gradient: a non-finite
+    entry (a non-PD step) is zeroed and the log-params are clipped to
+    [-6, 6] after each step."""
     b1, b2, eps = ADAM_B1, ADAM_B2, ADAM_EPS
     bc1, bc2 = adam_bias_corrections(cfg.opt_steps)
-    init = torch.log(torch.tensor(GP_INIT, dtype=torch.float32))
-    p = init.to(X.device).expand(B, 3).clone()
+    # filled on the device from float32 values: no copy from the host,
+    # which a CUDA graph cannot capture
+    p = torch.empty((B, 3), dtype=torch.float32, device=device)
+    for j, x in enumerate(torch.log(torch.tensor(GP_INIT, dtype=torch.float32)).tolist()):
+        p[:, j] = x
     m = torch.zeros_like(p)
     v = torch.zeros_like(p)
     for i in range(cfg.opt_steps):
-        lp = p.detach().requires_grad_(True)
-        with torch.enable_grad():
-            loss = gp_neg_log_marginal(lp, X, y, row_valid, cfg).sum()
-            (g,) = torch.autograd.grad(loss, lp)
+        g = grad(p)
         g = torch.where(torch.isfinite(g), g, 0.0)
         m = b1 * m + (1 - b1) * g
         v = b2 * v + (1 - b2) * g * g
@@ -220,33 +257,46 @@ def gp_fit_forecast(X: torch.Tensor, y: torch.Tensor, row_valid: torch.Tensor,
                                                  hist[ready], T, horizon, cfg)):
                 o[ready] = r
         return tuple(out)
-    B = X.shape[0]
     log_params = gp_optimize_evidence(X, y, row_valid, cfg)
-    ell, sf, sn = log_params.exp().unbind(1)
-    L = gp_noisy_cholesky(X, row_valid, ell, sf, sn, cfg)
-    alpha = torch.cholesky_solve(y[:, :, None], L)[:, :, 0]
+    mean, var = gp_fit_horizon(log_params, X, y, row_valid, hist, T, horizon, cfg,
+                               gram, cholesky_solver)
+    return mean, var, log_params
 
-    # iterated k-step-ahead: the predictive mean is fed back into the
-    # history; the predictive variance at each step is Eq. 8's
+
+def gp_fit_horizon(log_params, X, y, row_valid, hist, T: int, horizon: int, cfg,
+                   gram_fn, solver):
+    """The fit at the fitted ``(B, 3)`` log-params and the iterated
+    k-step-ahead forecast: the predictive mean is fed back into the
+    history; the predictive variance at each step is Eq. 8's.  ``gram_fn``
+    computes the Gram matrices (``gram`` or the dispatching ``ops.gram``),
+    ``solver(L)`` gives the solves with the factor L (``cholesky_solver``
+    or ``inverse_solver``).  Returns ``(mean, var)``, ``(B, horizon)``
+    each."""
+    B = X.shape[0]
+    ell, sf, sn = log_params.exp().unbind(1)
+    solve = solver(gp_noisy_factor(gram_fn(X, X, ell, sf, kind=cfg.kernel), row_valid, sn,
+                                   cfg))
+    alpha = solve(y)
     means, variances = [], []
     for k in range(horizon):
         t_next = torch.full((B, 1), (T + k) / max(T - 1, 1),
                             dtype=torch.float32, device=X.device)
         xs = torch.cat([t_next, hist], dim=1)[:, None, :]
-        ks = gram(xs, X, ell, sf, kind=cfg.kernel)[:, 0]
+        ks = gram_fn(xs, X, ell, sf, kind=cfg.kernel)[:, 0]
         mean_k = (ks * alpha).sum(1)
-        kv = torch.cholesky_solve(ks[:, :, None], L)[:, :, 0]
+        kv = solve(ks)
         var_k = torch.clamp_min(sf ** 2 + sn ** 2 - (ks * kv).sum(1), 1e-9)
         means.append(mean_k)
         variances.append(var_k)
         hist = torch.cat([hist[:, 1:], mean_k[:, None]], dim=1)
-    return torch.stack(means, 1), torch.stack(variances, 1), log_params
+    return torch.stack(means, 1), torch.stack(variances, 1)
 
 
 def gp_evidence_grad(log_params: torch.Tensor, X: torch.Tensor, y: torch.Tensor,
-                     row_valid: torch.Tensor, cfg) -> torch.Tensor:
+                     row_valid: torch.Tensor, cfg, gram_fn=None, gram_bwd_fn=None
+                     ) -> torch.Tensor:
     """The gradient of ``gp_neg_log_marginal`` with respect to the
-    log-params in the closed form the CUDA kernel computes, ``(B, 3)``.
+    log-params in the closed form the CUDA kernels compute, ``(B, 3)``.
 
     With K = L L^T the noisy Gram matrix, alpha = K^-1 y and M the
     diagonal of row_valid, the loss's gradient with respect to K is
@@ -255,27 +305,28 @@ def gp_evidence_grad(log_params: torch.Tensor, X: torch.Tensor, y: torch.Tensor,
 
     for any mask: the logdet term sums log L_ii over valid rows only, and
     reverse mode through the factor turns d/dL_ii = m_i / L_ii into
-    L^-T diag(m / 2) L^-1.  Then, as in ``gram_bwd``, d/d log ell =
-    ell sum G sf^2 k t / ell^2 (exp) or / ell^3 (rbf), d/d log sf =
-    sf 2 sf sum G k, and d/d log sn = sn 2 sn sum_valid G_ii.  A factor
-    that is not positive definite gives NaN, as autograd's does."""
+    L^-T diag(m / 2) L^-1.  Then ``gram_bwd`` gives d/d ell = sum G sf^2
+    k t / ell^2 (exp) or / ell^3 (rbf) and d/d sf = 2 sf sum G k, and
+    d/d sn = 2 sn sum_valid G_ii; each is multiplied by its parameter for
+    the log.  A factor that is not positive definite gives NaN, as
+    autograd's does.
+
+    ``gram_fn`` and ``gram_bwd_fn`` (default: this module's plain
+    versions) compute the Gram matrix and its ``(ell, sf)`` gradient: the
+    GP's Gram route passes the dispatching ``ops.gram`` and
+    ``ops.gram_bwd``.  K, the factor, L^-1 and G each live only as long as
+    the step needs them."""
+    gram_fn = gram if gram_fn is None else gram_fn
+    gram_bwd_fn = gram_bwd if gram_bwd_fn is None else gram_bwd_fn
     ell, sf, sn = log_params.exp().unbind(1)
-    d2 = sq_dists(X.float(), X.float())
-    k, t = _unit_kernel(d2, ell[:, None, None], cfg.kernel)
-    s2 = (sf * sf)[:, None, None]
-    noise = torch.where(row_valid, sn[:, None] ** 2 + cfg.jitter, 1e6)
-    L = cholesky_nan(s2 * k + torch.diag_embed(noise))
-    alpha = torch.cholesky_solve(y[:, :, None], L)[:, :, 0]
-    eye = torch.eye(X.shape[1], dtype=X.dtype, device=X.device).expand_as(L)
-    W = torch.linalg.solve_triangular(L, eye, upper=False)          # L^-1
+    W = triangular_inverse(gp_noisy_factor(gram_fn(X, X, ell, sf, kind=cfg.kernel),
+                                           row_valid, sn, cfg))     # L^-1
+    alpha = inverse_solve(y, W)
     m = row_valid.to(X.dtype)
     G = 0.5 * (W.transpose(1, 2) @ (m[:, :, None] * W)
                - alpha[:, :, None] * alpha[:, None, :])
-    gk = G * k
-    l2 = ell * ell
-    denom = l2 if cfg.kernel == "exp" else l2 * ell
-    d_ell = (gk * s2 * t).sum((1, 2)) / denom
-    d_sf = 2.0 * sf * gk.sum((1, 2))
+    del W
+    d_ell, d_sf = gram_bwd_fn(G, X, X, ell, sf, kind=cfg.kernel)
     d_sn = 2.0 * sn * (torch.diagonal(G, dim1=1, dim2=2) * m).sum(1)
     return torch.stack([d_ell * ell, d_sf * sf, d_sn * sn], 1)
 

@@ -15,9 +15,17 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import flash_attention, gp_gram, ops, ref
 
-# the shapes of tests/test_kernels.py::test_gram_matches_ref
+# the shapes of tests/test_kernels.py::test_gram_matches_ref, then the GP's
+# Gram route at h = 40, N = 128: K(X, X) and a horizon step's cross-Gram
 SHAPES = [(1, 1, 1), (7, 5, 3), (10, 10, 11), (40, 40, 41), (128, 128, 128),
-          (130, 60, 17)]
+          (130, 60, 17), (128, 128, 41), (1, 128, 41)]
+# (b, m, n, d, same) of the Gram route on the card (chip_smoke.py phase 3):
+# K(X, X) (one tensor: the kernels' symmetric path) and a cross-Gram at
+# LONG_GP's width, ragged tiles, D past one staged chunk, one entry, and a
+# K(X, X) too large for a block a series
+ROUTE_SHAPES = [(256, 128, 128, 41, True), (256, 1, 128, 41, False), (3, 130, 129, 17, False),
+                (3, 130, 130, 17, True), (3, 72, 200, 200, False), (1, 1, 1, 1, False),
+                (2, 200, 200, 100, True)]
 # the main path's shapes: B series of (10 x 11) patterns against
 # themselves (fit) and one (1 x 11) query against them (horizon steps)
 MAIN_PATH = [(b, m) for b in (128, 256, 512) for m in (10, 1)]
@@ -87,7 +95,8 @@ def test_gram_batched_equals_per_series(kind):
 
 
 @pytest.mark.parametrize("kind", ["exp", "rbf"])
-@pytest.mark.parametrize("m,n,d", [(10, 10, 11), (1, 10, 11), (7, 5, 3)])
+@pytest.mark.parametrize("m,n,d", [(10, 10, 11), (1, 10, 11), (7, 5, 3), (128, 128, 41),
+                                   (1, 128, 41)])
 def test_gram_grad_matches_jax(kind, m, n, d):
     """Autograd (d_ell, d_sf) of the CPU path, and the analytic form the
     backward kernel computes, against jax.grad of the reference."""
@@ -126,14 +135,19 @@ def test_wrappers_refuse_cpu_tensors_and_bad_kinds():
 # on the card
 # ----------------------------------------------------------------------
 
-def _cuda_inputs(b, m, n, d, dev, same=False, seed=0):
+def _cuda_inputs(b, m, n, d, dev, same=False, seed=0, one=False):
+    """Seeded (xa, xb, ell, sf, G); ``one`` (with same and m == n) passes
+    xb itself as xa, as the Gram route does for K(X, X)."""
     rng = np.random.default_rng(seed)
     xb = rng.standard_normal((b, n, d)).astype(np.float32)
     xa = xb[:, :m] if same else rng.standard_normal((b, m, d)).astype(np.float32)
     ell, sf = _hyper(b, seed + 1)
     G = rng.standard_normal((b, m, n)).astype(np.float32)
-    return [torch.as_tensor(np.ascontiguousarray(a), device=dev)
-            for a in (xa, xb, ell, sf, G)]
+    out = [torch.as_tensor(np.ascontiguousarray(a), device=dev)
+           for a in (xa, xb, ell, sf, G)]
+    if one and same and m == n:
+        out[0] = out[1]
+    return out
 
 
 def _check_on_card(xa, xb, ell, sf, G, kind):
@@ -162,6 +176,26 @@ def test_cuda_kernels_match_plain_on_main_path_shapes(cuda, kind, b, m):
 @pytest.mark.parametrize("m,n,d", SHAPES)
 def test_cuda_kernels_match_plain_on_reference_shapes(cuda, kind, m, n, d):
     _check_on_card(*_cuda_inputs(3, m, n, d, cuda), kind)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["exp", "rbf"])
+@pytest.mark.parametrize("b,m,n,d,same", ROUTE_SHAPES)
+def test_cuda_kernels_match_plain_on_route_shapes(cuda, kind, b, m, n, d, same):
+    """The Gram route's shapes: the kernels against their plain versions;
+    each series' diagonal of K(X, X) one float (sf^2 exactly under rbf);
+    two runs of the gradient equal bit for bit."""
+    xa, xb, ell, sf, G = _cuda_inputs(b, m, n, d, cuda, same=same, one=True)
+    _check_on_card(xa, xb, ell, sf, G, kind)
+    first = gp_gram.gram_bwd(G, xa, xb, ell, sf, kind)
+    again = gp_gram.gram_bwd(G, xa, xb, ell, sf, kind)
+    for a, c in zip(first, again):
+        assert torch.equal(a.view(torch.int32), c.view(torch.int32))
+    if same and m == n:
+        diag = torch.diagonal(gp_gram.gram_fwd(xa, xb, ell, sf, kind), dim1=1, dim2=2)
+        assert torch.equal(diag, diag[:, :1].expand_as(diag))
+        if kind == "rbf":
+            assert torch.equal(diag[:, 0], sf * sf)
 
 
 @pytest.mark.gpu
